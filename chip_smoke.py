@@ -1,0 +1,375 @@
+#!/usr/bin/env python3
+"""Smoke test of nero_tpu_torch on one NVIDIA GPU: builds the CUDA kernels,
+holds each against its plain PyTorch version, then trains Stage I on
+`configs/shape/proc/sphere.yaml` at full width through the kernels.
+
+    python3 chip_smoke.py
+
+Phases (each raises on failure, so the run exits non-zero and prints no
+result line):
+  1. card name and power limit; build every kernel (one nvcc per source,
+     all at once) and print the build seconds;
+  2. each kernel function (SDF-with-gradient fwd/bwd, shader fwd/bwd) at
+     N = 65,536 rows with full-width weights from a seed, against its plain
+     version, with the tolerances of the JAX kernel tests; kernel and plain
+     times from CUDA events;
+  3. `Trainer` on the sphere config with only total_step, val_interval,
+     save_interval and the output dirs overridden, then one step past
+     occ_loss_step; losses finite, loss_rgb falling, validation run, and
+     every kernel's launch count as expected for the steps taken.
+The line before the result is a JSON object with every kernel's numbers;
+the last line is {"ok": true, "device": {...}}.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+PEAK_BF16 = 989e12     # H100 SXM dense bf16, FLOP/s (NVIDIA data sheet)
+PEAK_BYTES = 3.35e12   # H100 SXM HBM3, bytes/s
+N_ROWS = 65536         # the training lattice: 512 rays x 128 inner samples
+TRAIN_STEPS = 30
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def cuda_ms_split(setup, timed, iters: int = 5, warmup: int = 1) -> float:
+    """Mean time of `timed(setup())`, excluding `setup` (e.g. a backward
+    after its untimed forward)."""
+    total = 0.0
+    for i in range(warmup + iters):
+        arg = setup()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        timed(arg)
+        end.record()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            total += start.elapsed_time(end)
+    return total / iters
+
+
+def bound(flops: float, nbytes: float):
+    t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def check(ok: bool, msg: str):
+    if not ok:
+        raise AssertionError(msg)
+
+
+def leaves(tree):
+    from nero_tpu_torch.core.convert import tree_leaves
+    return tree_leaves(tree)
+
+
+def grad_err_normalised(ga, gb) -> float:
+    worst = 0.0
+    for a, b in zip(ga, gb):
+        scale = a.abs().max().item() + 1e-8
+        worst = max(worst, ((a - b).abs().max() / scale).item())
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def check_sdf(n: int, dev) -> list:
+    from nero_tpu_torch.fields.sdf import SDFConfig, init_sdf
+    from nero_tpu_torch.ops import sdf_grad as K
+    from nero_tpu_torch.ops.mlp import resolve_weight_norm
+
+    cfg = SDFConfig()
+    params = init_sdf(torch.Generator().manual_seed(3), cfg, device=dev)
+    rng = np.random.default_rng(1)
+    pts = torch.as_tensor(rng.uniform(-0.7, 0.7, (n, 3)).astype(np.float32), device=dev)
+    cot = torch.as_tensor(rng.standard_normal((n, 256)).astype(np.float32) * 0.1, device=dev)
+
+    with torch.no_grad():
+        sdf_k, feats_k, grad_k = K.sdf_with_grad(params, pts, cfg)
+        sdf_p, feats_p, grad_p = K.sdf_with_grad_plain(params, pts, cfg)
+    e_sdf = (sdf_k - sdf_p).abs()
+    e_grad = (grad_k - grad_p).abs()
+    check(bool((e_sdf <= 5e-3 + 1e-2 * sdf_p.abs()).all()), f"sdf: max err {e_sdf.max()}")
+    check(bool((e_grad <= 2e-2 + 5e-2 * grad_p.abs()).all()), f"grad: max err {e_grad.max()}")
+    feats_mean = (feats_k - feats_p).abs().mean().item()
+    check(feats_mean < 5e-3, f"feats: mean err {feats_mean}")
+    fwd_err = max(e_sdf.max().item(), e_grad.max().item())
+    print(f"sdf_grad_fwd  max|d sdf| {e_sdf.max().item():.3e} (atol 5e-3 rtol 1e-2)  "
+          f"max|d grad| {e_grad.max().item():.3e} (atol 2e-2 rtol 5e-2)  "
+          f"mean|d feats| {feats_mean:.3e} (< 5e-3)")
+
+    def loss(fn):
+        sdf, feats, grad = fn(params, pts, cfg)
+        eik = ((torch.linalg.norm(grad, dim=-1) - 1.0) ** 2).mean()
+        return (sdf ** 2).mean() + 0.1 * eik + (feats * cot).mean()
+
+    p_leaves = leaves(params)
+    g_k = torch.autograd.grad(loss(K.sdf_with_grad), p_leaves)
+    g_p = torch.autograd.grad(loss(K.sdf_with_grad_plain), p_leaves)
+    bwd_err = grad_err_normalised(g_p, g_k)
+    check(bwd_err <= 2e-2, f"sdf param grads: normalised max err {bwd_err}")
+    print(f"sdf_grad_bwd  param grads max|d|/max|g| {bwd_err:.3e} (atol 2e-2)")
+
+    # times: the kernel launches alone, and the plain version's same work
+    layers = resolve_weight_norm(params)
+    with torch.no_grad():
+        W, bias = K.pack_weights([l["w"] for l in layers], [l["b"] for l in layers])
+    beta, scale = float(cfg.beta), float(cfg.scale)
+    g_sdf, g_grad = torch.ones(n, device=dev) / n, grad_k.contiguous() / n
+    ms_fwd = cuda_ms(lambda: K._fwd(pts, W, bias, beta, scale))
+    ms_bwd = cuda_ms(lambda: K._bwd(pts, W, bias, beta, scale, g_sdf, g_grad, cot), iters=5)
+    with torch.no_grad():
+        plain_fwd = cuda_ms(lambda: K.sdf_with_grad_plain(params, pts, cfg))
+    plain_bwd = cuda_ms_split(lambda: loss(K.sdf_with_grad_plain),
+                              lambda l: torch.autograd.grad(l, p_leaves))
+    out = []
+    for name, err, ms, pms, bwd, line in (("sdf_grad_fwd", fwd_err, ms_fwd, plain_fwd, False, 363),
+                                          ("sdf_grad_bwd", bwd_err, ms_bwd, plain_bwd, True, 387)):
+        b_ms, b_by = bound(K.flops(n, bwd), K.min_bytes(n, bwd))
+        out.append({"name": name, "route": "cuda", "source": "nero_tpu_torch/csrc/sdf_grad.cu",
+                    "replaces": f"nero_tpu/ops/pallas/sdf_grad_kernel.py:{line}",
+                    "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": None})
+    return out
+
+
+def check_shader(n: int, dev) -> list:
+    from nero_tpu_torch.fields.app_shading import (AppShadingConfig, init_app_shading,
+                                                   shade_from_raw)
+    from nero_tpu_torch.ops import shader as K
+    from nero_tpu_torch.ops.fg_lut import get_fg_lut
+
+    cfg = AppShadingConfig()
+    params = init_app_shading(torch.Generator().manual_seed(0), cfg, device=dev)
+    fg_lut = torch.as_tensor(get_fg_lut(), device=dev)
+    rng = np.random.default_rng(1)
+    t = lambda a: torch.as_tensor(a.astype(np.float32), device=dev)
+    pts = t(rng.uniform(-0.6, 0.6, (n, 3))).requires_grad_(True)
+    normals = t(rng.standard_normal((n, 3))).requires_grad_(True)
+    view = t(rng.standard_normal((n, 3))).requires_grad_(True)
+    feats = t(rng.standard_normal((n, 256)) * 0.3).requires_grad_(True)
+    cot = t(rng.standard_normal((n, 3)))
+    cot2 = t(rng.standard_normal((n, 1)))
+
+    def shade(fn):
+        return shade_from_raw(fn(params, cfg, pts, normals, view, feats), cfg, fg_lut)
+
+    with torch.no_grad():
+        color_k, occ_k = shade(K.shader_raw)
+        color_p, occ_p = shade(K.shader_raw_plain)
+    e_col = (color_k - color_p).abs().max().item()
+    e_occ = (occ_k["occ_prob"] - occ_p["occ_prob"]).abs().max().item()
+    e_ref = (occ_k["reflective"] - occ_p["reflective"]).abs().max().item()
+    check(e_col <= 2e-3 and e_occ <= 2e-3, f"shader color {e_col} occ_prob {e_occ}")
+    check(e_ref <= 1e-5, f"shader reflective {e_ref}")
+    print(f"shader_fwd    max|d color| {e_col:.3e}  max|d occ_prob| {e_occ:.3e} (atol 2e-3)  "
+          f"max|d reflective| {e_ref:.3e} (atol 1e-5)")
+
+    def loss(fn, bf16: bool = False):
+        with torch.autocast("cuda", dtype=torch.bfloat16, enabled=bf16):
+            c, o = shade(fn)
+        return (c.float() * cot).sum() + (o["occ_prob"].float() * cot2).sum()
+
+    def worst_mean_rel(ga, gb) -> float:
+        return max(((a - b).abs().mean() / (a.abs().max() + 1e-8)).item()
+                   for a, b in zip(ga, gb))
+
+    wrt = leaves(params) + [pts, normals, view, feats]
+    g_p = torch.autograd.grad(loss(K.shader_raw_plain), wrt)
+    g_k = torch.autograd.grad(loss(K.shader_raw), wrt)
+    g_b = torch.autograd.grad(loss(K.shader_raw_plain, bf16=True), wrt)
+    worst_cos = min((a.flatten() @ b.flatten() / (a.norm() * b.norm() + 1e-12)).item()
+                    for a, b in zip(g_p, g_k))
+    noise_ker, noise_bf16 = worst_mean_rel(g_p, g_k), worst_mean_rel(g_p, g_b)
+    # test_shader_kernel.py's bars against the f32 reference: every leaf
+    # within 0.99 cosine, and a worst mean error (normalised by the leaf's
+    # max) under 4x that of the plain version run in bf16 (autocast) + 1e-3
+    check(worst_cos > 0.99, f"shader grads: worst cosine {worst_cos}")
+    check(noise_ker < 4.0 * noise_bf16 + 1e-3, f"shader grads: {noise_ker} vs bf16 {noise_bf16}")
+    # reported in the same unit as the SDF's param grads: the worst leaf's
+    # max|d| / max|g|
+    bwd_err = grad_err_normalised(g_p, g_k)
+    print(f"shader_bwd    grads worst cosine {worst_cos:.5f} (> 0.99)  worst mean|d|/max|g| "
+          f"{noise_ker:.3e} (< 4 x bf16 {noise_bf16:.3e} + 1e-3)  worst max|d|/max|g| "
+          f"{bwd_err:.3e} (bf16 plain: {grad_err_normalised(g_p, g_b):.3e})")
+
+    with torch.no_grad():
+        ms_fwd = cuda_ms(lambda: K.shader_raw(params, cfg, pts, normals, view, feats))
+        plain_fwd = cuda_ms(lambda: K.shader_raw_plain(params, cfg, pts, normals, view, feats))
+    gout = t(rng.standard_normal((n, K.OUT)))
+    ms_bwd = cuda_ms_split(lambda: K.shader_raw(params, cfg, pts, normals, view, feats),
+                           lambda o: torch.autograd.grad(o, wrt, gout))
+    plain_bwd = cuda_ms_split(lambda: K.shader_raw_plain(params, cfg, pts, normals, view, feats),
+                              lambda o: torch.autograd.grad(o, wrt, gout, allow_unused=True))
+    out = []
+    for name, err, ms, pms, bwd, line in (("shader_fwd", max(e_col, e_occ), ms_fwd, plain_fwd,
+                                           False, 467),
+                                          ("shader_bwd", bwd_err, ms_bwd, plain_bwd, True, 494)):
+        b_ms, b_by = bound(K.flops(n, cfg, bwd), K.min_bytes(n, bwd))
+        out.append({"name": name, "route": "cuda", "source": "nero_tpu_torch/csrc/shader.cu",
+                    "replaces": f"nero_tpu/ops/pallas/shader_kernel.py:{line}",
+                    "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": None})
+    out[1]["mean_rel_err"] = noise_ker
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the main path
+# ---------------------------------------------------------------------------
+
+
+def reset_launches():
+    from nero_tpu_torch.ops import sdf_grad, shader
+    for d in (sdf_grad.launches, shader.launches):
+        for k in d:
+            d[k] = 0
+
+
+def read_launches() -> dict:
+    from nero_tpu_torch.ops import sdf_grad, shader
+    return {**sdf_grad.launches, **shader.launches}
+
+
+def train(steps: int, dev) -> dict:
+    from nero_tpu_torch.core.config import load_cfg
+    from nero_tpu_torch.train.trainer import Trainer
+
+    cfg = load_cfg(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "configs", "shape", "proc", "sphere.yaml"))
+    root = tempfile.mkdtemp(prefix="nero_smoke_")
+    cfg.update(total_step=steps, val_interval=steps, save_interval=10 * steps,
+               train_log_step=1, model_root=root, vis_dir=root)
+    trainer = Trainer(cfg, device=dev)
+    trainer.setup()
+    model = trainer.model
+    # a held-out batch, the same before and after training (no perturbation)
+    d = model.train_data
+    from nero_tpu_torch.render.rays import sample_ray_batch
+    fixed = sample_ray_batch(torch.Generator(device=dev).manual_seed(7), d["imgs_u8"],
+                             d["K_inv"], d["poses"], model.cfg["train_ray_num"])
+
+    def fixed_loss_rgb() -> float:
+        with torch.no_grad():
+            _, log = model.loss_fn(model.params, fixed, 0, gen=None)
+        return float(log["loss_rgb"].mean())
+
+    before = fixed_loss_rgb()
+    reset_launches()
+    trainer.run()
+    torch.cuda.synchronize()
+    launches = read_launches()
+
+    hist = trainer.train_history
+    for h in hist:
+        for k, v in h.items():
+            check(math.isfinite(v), f"step {h['step']}: {k} = {v}")
+    rgb = [h["loss_rgb"] for h in hist]
+    after = fixed_loss_rgb()
+    check(after < before, f"loss_rgb on a held-out batch did not fall: {before} -> {after}")
+    val = trainer.val_results
+    check(all(math.isfinite(v) for v in val.values()), f"validation: {val}")
+
+    # one validation view: render_core and compute_validation_info each run
+    # the SDF and shader forwards once per chunk of test_ray_num rays
+    h, w = model.test_imgs_info["imgs"].shape[1:3]
+    ratio = model.cfg["downsample_ratio"]
+    rays = int(ratio * h) * int(ratio * w) * len(model.test_ids)
+    chunks = -(-rays // model.cfg["test_ray_num"])
+    expect = {"sdf_grad_fwd": steps + 2 * chunks, "sdf_grad_bwd": steps,
+              "shader_fwd": steps + 2 * chunks, "shader_bwd": steps}
+    check(launches == expect, f"launches {launches}, expected {expect}")
+
+    # the occlusion-loss branch, one step at occ_loss_step
+    reset_launches()
+    occ_step = model.scfg.occ_loss_step
+    log = trainer.train_step(occ_step)
+    occ = {k: float(v) for k, v in log.items()}
+    check(all(math.isfinite(v) for v in occ.values()), f"occ step: {occ}")
+    check(read_launches() == {k: 1 for k in expect}, f"occ step launches {read_launches()}")
+
+    step_s = float(np.median([x["step_seconds"] for x in hist[2:]]))
+    print(f"train: {steps} steps, held-out loss_rgb {before:.5f} -> {after:.5f}, "
+          f"per-step loss_rgb {rgb[0]:.4f} -> {rgb[-1]:.4f}, "
+          f"val psnr {val.get('val-psnr', float('nan')):.3f}, occ-step loss_occ "
+          f"{occ.get('loss_occ', float('nan')):.5f}")
+    print(f"train: step {step_s * 1e3:.2f} ms (median, host clock after synchronize), "
+          f"{model.num_train_rays_per_step() / step_s:.1f} rays/s")
+    print(f"launches over the run: {launches} (per step 1 each, plus {2 * chunks} fwd "
+          f"of each for validation)")
+    return {k: v for k, v in launches.items()}
+
+
+def main(argv=None) -> int:
+    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    from nero_tpu_torch.ops import cuda_build
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(f"device: {torch.cuda.get_device_name(0)}; torch {torch.__version__} "
+          f"cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    cuda_build.build_all()
+    print(f"build: {time.perf_counter() - t0:.1f} s")
+    for name in cuda_build.SOURCES:
+        log = cuda_build.load(name)._name + ".log"
+        if os.path.exists(log):
+            for line in open(log):
+                if "registers" in line or "spill" in line:
+                    print(f"  {name}: {line.strip()}")
+
+    kernels = check_sdf(N_ROWS, dev) + check_shader(N_ROWS, dev)
+    launches = train(TRAIN_STEPS, dev)
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    for k in kernels:
+        print(f"kernel {k['name']}: {k['ms']:.3f} ms (plain {k['plain_ms']:.3f} ms, bound "
+              f"{k['bound_ms']:.3f} ms by {k['bound_by']}), max err {k['max_abs_err']:.3e}, "
+              f"launches {k['launches']}")
+    print("kernels: " + ", ".join(k["name"] for k in kernels))
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

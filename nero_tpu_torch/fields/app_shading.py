@@ -1,0 +1,112 @@
+"""Stage-I appearance shader (split-sum light approximation), default variant.
+
+Counterpart of nero_tpu/fields/app_shading.py. The six heads and their
+encodings run as one function (`ops/shader.py::shader_raw`: the CUDA kernel
+for CUDA tensors, its plain torch version for CPU tensors); the final
+activations, the FG-LUT lookup and the linear->sRGB combine run here, as in
+`_app_shading_apply_fused` (app_shading.py:256-319), whose math equals the
+XLA path's (:322-371). The `sphere_direction` and `human_light` variants
+are a later slice: `init_app_shading` builds them, `app_shading_apply`
+raises for them.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from nero_tpu_torch.ops.fg_lut import fg_lookup
+from nero_tpu_torch.ops.mlp import exp_activation, init_predictor
+from nero_tpu_torch.ops.shader import shader_raw, unpack_raw
+from nero_tpu_torch.utils.color import linear_to_srgb
+from nero_tpu_torch.utils.encodings import ide_dim, positional_encode_dim
+
+
+class AppShadingConfig(NamedTuple):
+    human_light: bool = False
+    sphere_direction: bool = False
+    light_pos_freq: int = 8
+    inner_init: float = -0.95
+    roughness_init: float = 0.0
+    metallic_init: float = 0.0
+    light_exp_max: float = 0.0
+    feats_dim: int = 256
+    ide_deg: int = 5
+
+
+def shading_config_from_dict(cfg: dict) -> AppShadingConfig:
+    fields = AppShadingConfig._fields
+    return AppShadingConfig(**{k: v for k, v in cfg.items() if k in fields})
+
+
+def init_app_shading(gen: torch.Generator, cfg: AppShadingConfig = AppShadingConfig(),
+                     device="cpu"):
+    sph = ide_dim(cfg.ide_deg)
+    pos = positional_encode_dim(3, cfg.light_pos_freq)
+    ref = positional_encode_dim(3, 6)
+    f = cfg.feats_dim
+    pred = lambda di, do, fb=None: init_predictor(gen, di, do, final_bias=fb, device=device)
+    params = {
+        "metallic": pred(f + 3, 1, cfg.metallic_init if cfg.metallic_init != 0 else None),
+        "roughness": pred(f + 3, 1, cfg.roughness_init if cfg.roughness_init != 0 else None),
+        "albedo": pred(f + 3, 3),
+        "outer_light": pred(sph * (2 if cfg.sphere_direction else 1), 3, math.log(0.5)),
+        "inner_light": pred(pos + sph, 3, math.log(0.5)),
+        "inner_weight": pred(pos + ref, 1, cfg.inner_init),
+    }
+    if cfg.human_light:
+        params["human_light"] = pred(2 * 2 * 6, 4, math.log(0.01))
+    return params
+
+
+def app_shading_apply(params, cfg: AppShadingConfig, fg_lut, points, normals, view_dirs,
+                      feature_vectors, inter_results: bool = False):
+    """Shade surface samples; returns (color_srgb, occ_info[, intermediates])."""
+    if cfg.human_light or cfg.sphere_direction:
+        raise NotImplementedError("human_light / sphere_direction shading is a later slice")
+    packed = shader_raw(params, cfg, points, normals, view_dirs, feature_vectors)
+    return shade_from_raw(packed, cfg, fg_lut, inter_results)
+
+
+def shade_from_raw(packed: torch.Tensor, cfg: AppShadingConfig, fg_lut,
+                   inter_results: bool = False):
+    """Final activations + split-sum combine of the packed raw outputs."""
+    raw = unpack_raw(packed)
+    metallic = torch.sigmoid(raw["metallic_z"])
+    roughness = torch.sigmoid(raw["roughness_z"])
+    albedo = torch.sigmoid(raw["albedo_z"])
+    diffuse_light = exp_activation(raw["diffuse_light_z"], cfg.light_exp_max)
+    direct_light = exp_activation(raw["direct_light_z"], cfg.light_exp_max)
+    indirect_raw = exp_activation(raw["inner_light_z"], cfg.light_exp_max)
+    occ_prob = raw["occ_z"] * 0.5 + 0.5
+    occ_prob_c = torch.clamp(occ_prob, 0.0, 1.0)
+
+    specular_light = indirect_raw * occ_prob_c + direct_light * (1 - occ_prob_c)
+    indirect_light = indirect_raw * occ_prob_c
+    diffuse_albedo = (1 - metallic) * albedo
+    diffuse_color = diffuse_albedo * diffuse_light
+    specular_albedo = 0.04 * (1 - metallic) + metallic * albedo
+    fg = fg_lookup(fg_lut, torch.clamp(raw["NoV"], 0.0, 1.0), torch.clamp(roughness, 0.0, 1.0))
+    specular_ref = specular_albedo * fg[..., 0:1] + fg[..., 1:2]
+    specular_color = specular_ref * specular_light
+    color = torch.clamp(linear_to_srgb(diffuse_color + specular_color), 0.0, 1.0)
+
+    occ_info = {"reflective": raw["reflective"], "occ_prob": occ_prob}
+    if not inter_results:
+        return color, occ_info
+    srgb = lambda x: torch.clamp(linear_to_srgb(x), 0.0, 1.0)
+    inter = {
+        "specular_albedo": specular_albedo,
+        "specular_ref": torch.clamp(specular_ref, 0.0, 1.0),
+        "specular_light": srgb(specular_light),
+        "specular_color": srgb(specular_color),
+        "diffuse_albedo": diffuse_albedo,
+        "diffuse_light": srgb(diffuse_light),
+        "diffuse_color": srgb(diffuse_color),
+        "metallic": metallic,
+        "roughness": roughness,
+        "occ_prob": torch.clamp(occ_prob, 0.0, 1.0),
+        "indirect_light": indirect_light,
+    }
+    return color, occ_info, inter

@@ -1,0 +1,90 @@
+"""Builds the port's CUDA sources with nvcc and loads them with ctypes.
+
+Each `csrc/<name>.cu` becomes `build/nero_tpu_torch/<name>-<hash>.so`, a
+shared library with a plain C interface, compiled for `sm_90a`. The hash
+covers the source and the shared header, so an edited source rebuilds and an
+unchanged one is reused. Nothing is compiled when a module is imported: the
+first call that launches a kernel builds it (or `build_all` builds every
+source at once, one nvcc process each, in parallel).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+BUILD_DIR = os.path.join(REPO_ROOT, "build", "nero_tpu_torch")
+SOURCES = ("sdf_grad", "shader")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
+
+
+def _lib_path(name: str) -> str:
+    h = hashlib.sha256()
+    for fn in (f"{name}.cu", "common.cuh"):
+        with open(os.path.join(CSRC, fn), "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+
+
+def _start(name: str):
+    """Start nvcc for one source; returns (path, process or None if built)."""
+    path = _lib_path(name)
+    if os.path.exists(path):
+        return path, None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    log = open(path + ".log", "w")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", path + ".tmp", os.path.join(CSRC, f"{name}.cu")]
+    return path, (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), log)
+
+
+def _finish(name: str, path: str, job) -> None:
+    if job is None:
+        return
+    proc, log = job
+    rc = proc.wait()
+    log.close()
+    if rc != 0:
+        with open(path + ".log") as f:
+            raise RuntimeError(f"nvcc failed for {name}.cu (rc {rc}):\n{f.read()}")
+    os.replace(path + ".tmp", path)
+
+
+def build_all(names=SOURCES) -> None:
+    """Compile every source that is not built yet, all nvcc runs at once."""
+    with _lock:
+        jobs = {n: _start(n) for n in names}
+        for n, (path, job) in jobs.items():
+            _finish(n, path, job)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu, building it on first use."""
+    with _lock:
+        if name not in _libs:
+            path, job = _start(name)
+            _finish(name, path, job)
+            _libs[name] = ctypes.CDLL(path)
+        return _libs[name]
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a C entry point."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc}")

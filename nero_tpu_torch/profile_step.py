@@ -1,0 +1,107 @@
+"""Where a Stage-I training step's time goes on the GPU.
+
+    python -m nero_tpu_torch.profile_step [--cfg configs/shape/proc/sphere.yaml] [--steps 5]
+
+Builds the model, optimizer and schedule through `Trainer.setup()` and times
+`Trainer.train_step`, the step that `run_training` takes. After a few
+warm-up steps it profiles `--steps` steps with torch.profiler (CPU + CUDA
+activities). Prints the device time per step of the port's kernels and of
+the largest other device kernels, the host step time (clock around
+synchronised steps), the device busy time per step (kernels and memory
+copies; user annotations such as `Optimizer.step#...` span other kernels
+and are left out) and the device's idle share, then one JSON line with
+those numbers.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import shutil
+import subprocess
+import tempfile
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from nero_tpu_torch.core.config import load_cfg
+from nero_tpu_torch.train.trainer import Trainer
+
+PORT_KERNELS = ("sdf_rows_kernel", "shader_rows_kernel", "dw_partial_kernel",
+                "colsum_partial_kernel", "reduce_kernel")
+
+
+def is_device_work(evt) -> bool:
+    """A kernel or memory copy on the card, not a user annotation (whose
+    span would count the kernels inside it a second time)."""
+    return (evt.device_type == torch.autograd.DeviceType.CUDA and evt.self_device_time_total > 0
+            and not getattr(evt, "is_user_annotation", False) and "#" not in evt.key)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--cfg", default="configs/shape/proc/sphere.yaml")
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--warmup", type=int, default=3)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step needs a CUDA device")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    root = tempfile.mkdtemp(prefix="nero_profile_")
+    try:
+        cfg = load_cfg(args.cfg)
+        cfg.update(model_root=root, vis_dir=root)
+        trainer = Trainer(cfg, device="cuda")
+        trainer.setup()
+        step = 0
+        for _ in range(args.warmup):
+            trainer.train_step(step)
+            step += 1
+        torch.cuda.synchronize()
+
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            trainer.train_step(step)
+            step += 1
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / args.steps * 1e3
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(args.steps):
+                trainer.train_step(step)
+                step += 1
+            torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    kernels, port_names = {}, set()
+    for evt in prof.key_averages():
+        if not is_device_work(evt):
+            continue
+        name = evt.key
+        for short in PORT_KERNELS:
+            # PyTorch's own reductions are at::native::reduce_kernel<...>
+            if short in name and "at::native" not in name:
+                name = short + ("<true>" if "<true>" in evt.key else
+                                "<false>" if "<false>" in evt.key else "")
+                port_names.add(name)
+                break
+        kernels[name] = kernels.get(name, 0.0) + evt.self_device_time_total / 1e3 / args.steps
+    busy = sum(kernels.values())
+    print(f"card: {card}")
+    print(f"host step (synchronised): {host_ms:.2f} ms; device busy per step: {busy:.2f} ms; "
+          f"device idle share: {max(0.0, 1.0 - busy / host_ms):.3f}")
+    port = {k: kernels[k] for k in port_names}
+    for k, v in sorted(port.items(), key=lambda kv: -kv[1]):
+        print(f"  {v:8.3f} ms  {k}")
+    print(f"  {busy - sum(port.values()):8.3f} ms  all other device kernels, of which the largest:")
+    others = sorted(((v, k) for k, v in kernels.items() if k not in port), reverse=True)[:8]
+    for v, k in others:
+        print(f"  {v:8.3f} ms    {k[:90]}")
+    print(json.dumps({"card": card, "host_step_ms": host_ms, "device_busy_ms": busy,
+                      "idle_share": max(0.0, 1.0 - busy / host_ms),
+                      "port_kernels_ms": port}))
+
+
+if __name__ == "__main__":
+    main()

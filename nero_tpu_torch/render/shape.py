@@ -1,0 +1,334 @@
+"""Stage-I shape renderer: NeuS SDF volume rendering with split-sum shading.
+
+Counterpart of nero_tpu/render/shape.py: hierarchical sampling (64 uniform +
+up-sample rounds), NeuS alpha with cosine annealing, the NeRF++ background
+on the outer samples, the appearance shader on the inner lattice, alpha
+compositing, the eikonal / occlusion / init-sdf regulariser inputs.
+
+The two hot functions go through the port's CUDA kernels on the card:
+`ops/sdf_grad.py::sdf_with_grad` in `compute_sdf_alpha` and
+`ops/shader.py::shader_raw` inside `app_shading_apply`. The TPU tuning
+knobs `shade_top_k`, `remat_shader`, `bf16_hidden`, `bg_on_inner=True` and
+`use_fused_sdf` are not ported; this renderer is nero_tpu's default path
+(full-lattice shading, background on the outer samples only).
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from nero_tpu_torch.fields.app_shading import (AppShadingConfig, app_shading_apply,
+                                               init_app_shading, shading_config_from_dict)
+from nero_tpu_torch.fields.bg_nerf import BgNeRFConfig, bg_nerf_apply, init_bg_nerf
+from nero_tpu_torch.fields.intersection import get_intersection
+from nero_tpu_torch.fields.sdf import SDFConfig, init_sdf, sdf_value
+from nero_tpu_torch.fields.variance import init_variance, inv_s as variance_inv_s
+from nero_tpu_torch.ops.mlp import resolve_weight_norm
+from nero_tpu_torch.ops.sample_pdf import sample_pdf
+from nero_tpu_torch.ops.sdf_grad import sdf_with_grad
+from nero_tpu_torch.utils.color import linear_to_srgb
+
+
+class ShapeConfig(NamedTuple):
+    n_samples: int = 64
+    n_bg_samples: int = 32
+    n_importance: int = 64
+    up_sample_steps: int = 4
+    perturb: float = 1.0
+    anneal_end: int = 50000
+    train_ray_num: int = 512
+    test_ray_num: int = 1024
+    clip_sample_variance: bool = True
+    std_act: str = "exp"
+    inv_s_init: float = 0.3
+    freeze_inv_s_step: int | None = None
+    sdf_n_layers: int = 8
+    sdf_freq: int = 6
+    sdf_d_out: int = 257
+    sdf_bias: float = 0.5
+    geometry_init: bool = True
+    rgb_loss: str = "charbonier"
+    apply_occ_loss: bool = True
+    occ_loss_step: int = 20000
+    occ_loss_max_pn: int = 2048
+    occ_sdf_thresh: float = 0.01
+    shader: AppShadingConfig = AppShadingConfig()
+    fixed_camera: bool = False
+
+    @property
+    def n_inner(self) -> int:
+        return self.n_samples + self.n_importance
+
+    @property
+    def n_total(self) -> int:
+        return self.n_inner + self.n_bg_samples
+
+    @property
+    def sdf_cfg(self) -> SDFConfig:
+        return SDFConfig(d_out=self.sdf_d_out, n_layers=self.sdf_n_layers,
+                         skip=self.sdf_n_layers // 2, multires=self.sdf_freq,
+                         bias=self.sdf_bias, geometric_init=self.geometry_init)
+
+
+def shape_config_from_dict(cfg: dict) -> ShapeConfig:
+    fields = {k: v for k, v in cfg.items() if k in ShapeConfig._fields}
+    fields["shader"] = shading_config_from_dict(cfg.get("shader_config", {}))
+    return ShapeConfig(**fields)
+
+
+def init_shape_params(gen: torch.Generator, scfg: ShapeConfig, device="cpu"):
+    return {
+        "sdf": init_sdf(gen, scfg.sdf_cfg, device=device),
+        "variance": init_variance(scfg.inv_s_init, device=device),
+        "bg": init_bg_nerf(gen, BgNeRFConfig(rgb_bias_init=math.log(0.5)), device=device),
+        "shader": init_app_shading(gen, scfg.shader, device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# hierarchical sampling (no gradient)
+# ---------------------------------------------------------------------------
+
+
+def _upsample_z(rays_o, rays_d, z_vals, sdf, n_new, inv_s):
+    """One NeuS up-sample round, deterministic."""
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+    radius = torch.linalg.norm(pts, dim=-1)
+    inside = (radius[:, :-1] < 1.0) | (radius[:, 1:] < 1.0)
+    prev_sdf, next_sdf = sdf[:, :-1], sdf[:, 1:]
+    prev_z, next_z = z_vals[:, :-1], z_vals[:, 1:]
+    mid_sdf = (prev_sdf + next_sdf) * 0.5
+    cos_val = (next_sdf - prev_sdf) / (next_z - prev_z + 1e-5)
+    prev_cos = torch.cat([torch.zeros_like(cos_val[:, :1]), cos_val[:, :-1]], dim=-1)
+    cos_val = torch.minimum(prev_cos, cos_val)
+    cos_val = torch.clamp(cos_val, -1e3, 0.0) * inside.to(sdf.dtype)
+    dist = next_z - prev_z
+    prev_cdf = torch.sigmoid((mid_sdf - cos_val * dist * 0.5) * inv_s)
+    next_cdf = torch.sigmoid((mid_sdf + cos_val * dist * 0.5) * inv_s)
+    alpha = (prev_cdf - next_cdf + 1e-5) / (prev_cdf + 1e-5)
+    trans = torch.cumprod(torch.cat([torch.ones_like(alpha[:, :1]), 1.0 - alpha + 1e-7],
+                                    dim=-1), dim=-1)[:, :-1]
+    return sample_pdf(z_vals, alpha * trans, n_new)
+
+
+@torch.no_grad()
+def sample_z_vals(params, scfg: ShapeConfig, rays_o, rays_d, near, far,
+                  gen: torch.Generator | None = None, perturb: float = 1.0):
+    """Inner z values [R, n_inner] and background z values [R, n_bg]."""
+    r = rays_o.shape[0]
+    sn = scfg.n_samples
+    dev, dt = rays_o.device, rays_o.dtype
+    z = torch.linspace(0.0, 1.0, sn, dtype=dt, device=dev)
+    z_vals = near + (far - near) * z[None, :]
+    z_out_lin = torch.linspace(1e-3, 1.0 - 1.0 / (scfg.n_bg_samples + 1.0),
+                               scfg.n_bg_samples, dtype=dt, device=dev)
+    if perturb > 0 and gen is not None:
+        t_rand = torch.rand((r, 1), generator=gen, device=dev, dtype=dt) - 0.5
+        z_vals = z_vals + t_rand * 2.0 / sn
+        mids = 0.5 * (z_out_lin[1:] + z_out_lin[:-1])
+        upper = torch.cat([mids, z_out_lin[-1:]])
+        lower = torch.cat([z_out_lin[:1], mids])
+        t2 = torch.rand((r, scfg.n_bg_samples), generator=gen, device=dev, dtype=dt)
+        z_out = lower[None, :] + (upper - lower)[None, :] * t2
+    else:
+        z_out = z_out_lin[None, :].expand(r, scfg.n_bg_samples)
+    z_vals_outside = far / torch.flip(z_out, dims=[-1]) + 1.0 / scfg.n_bg_samples
+
+    n_new = scfg.n_importance // scfg.up_sample_steps
+    base_inv_s = variance_inv_s(params["variance"], scfg.std_act)
+    sdf_fn = lambda x: sdf_value(params["sdf"], x, scfg.sdf_cfg)
+    sdf = sdf_fn(rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None])[..., 0]
+    for i in range(scfg.up_sample_steps):
+        if scfg.clip_sample_variance:
+            inv_s_i = torch.clamp(base_inv_s, max=64.0 * 2 ** i)
+        else:
+            inv_s_i = torch.tensor(64.0 * 2 ** i, dtype=dt, device=dev)
+        new_z = _upsample_z(rays_o, rays_d, z_vals, sdf, n_new, inv_s_i)
+        z_cat = torch.cat([z_vals, new_z], dim=-1)
+        if i + 1 < scfg.up_sample_steps:
+            new_sdf = sdf_fn(rays_o[:, None, :] + rays_d[:, None, :] * new_z[..., None])[..., 0]
+            # sort z and carry sdf along (the two-key lax.sort of nero_tpu)
+            z_vals, order = torch.sort(z_cat, dim=-1, stable=True)
+            sdf = torch.gather(torch.cat([sdf, new_sdf], dim=-1), -1, order)
+        else:
+            z_vals = torch.sort(z_cat, dim=-1, stable=True).values
+    return z_vals, z_vals_outside
+
+
+# ---------------------------------------------------------------------------
+# core rendering
+# ---------------------------------------------------------------------------
+
+
+def compute_sdf_alpha(params, scfg: ShapeConfig, points, dists, dirs, cos_anneal_ratio,
+                      step: int):
+    """NeuS alpha on the inner lattice. points [R,S,3] -> alpha, grads, feats, inv_s, sdf."""
+    sdf, feats, grads = sdf_with_grad(params["sdf"], points, scfg.sdf_cfg)
+    sdf = sdf[..., 0]
+    inv_s = torch.clamp(variance_inv_s(params["variance"], scfg.std_act), 1e-6, 1e6)
+    if scfg.freeze_inv_s_step is not None and step < scfg.freeze_inv_s_step:
+        inv_s = inv_s.detach()
+    true_cos = torch.sum(dirs * grads, dim=-1)
+    iter_cos = -(torch.relu(-true_cos * 0.5 + 0.5) * (1.0 - cos_anneal_ratio)
+                 + torch.relu(-true_cos) * cos_anneal_ratio)
+    est_next = sdf + iter_cos * dists * 0.5
+    est_prev = sdf - iter_cos * dists * 0.5
+    prev_cdf = torch.sigmoid(est_prev * inv_s)
+    next_cdf = torch.sigmoid(est_next * inv_s)
+    alpha = torch.clamp((prev_cdf - next_cdf + 1e-5) / (prev_cdf + 1e-5), 0.0, 1.0)
+    return alpha, grads, feats, inv_s, sdf
+
+
+def compute_density_alpha(params, points, dists, dirs):
+    """Background NeRF++ alpha/color on arbitrary points."""
+    norm = torch.clamp(torch.linalg.norm(points, dim=-1, keepdim=True), min=1e-3)
+    pts4 = torch.cat([points / norm, 1.0 / norm], dim=-1)
+    density, color = bg_nerf_apply(params["bg"], pts4, dirs)
+    alpha = 1.0 - torch.exp(-torch.nn.functional.softplus(density[..., 0]) * dists)
+    color = linear_to_srgb(torch.exp(torch.clamp(color, max=5.0)))
+    return alpha, color
+
+
+def _composite(alpha):
+    trans = torch.cumprod(torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-7],
+                                    dim=-1), dim=-1)[..., :-1]
+    return alpha * trans
+
+
+def compute_occ_loss(params, scfg: ShapeConfig, gen, points, reflective, occ_prob, sdf,
+                     grads, dirs):
+    """Occlusion-probability supervision: per ray the top k' = max_pn // R of
+    the masked candidates by random score (nero_tpu/render/shape.py:379-415)."""
+    r, s = points.shape[:2]
+    with torch.no_grad():
+        mask = ((torch.linalg.norm(points, dim=-1) < 0.999)
+                & (torch.abs(sdf) < scfg.occ_sdf_thresh)
+                & (torch.sum(grads * dirs, dim=-1) < 0.0))
+        rand = torch.rand((r, s), generator=gen, device=points.device, dtype=points.dtype)
+        score = torch.where(mask, rand, torch.full_like(rand, -1.0))
+        kpr = max(1, min(scfg.occ_loss_max_pn // r, s))
+        top_vals, top_idx = torch.topk(score, kpr, dim=-1)
+        valid = (top_vals > 0.0).reshape(-1).to(points.dtype)
+        idx3 = top_idx[..., None].expand(r, kpr, 3)
+        pts_k = torch.gather(points, 1, idx3).reshape(r * kpr, 3)
+        refl_k = torch.gather(reflective.detach(), 1, idx3).reshape(r * kpr, 3)
+        inv_s = variance_inv_s(params["variance"], scfg.std_act)
+        sdf_fun = lambda x: sdf_value(params["sdf"], x, scfg.sdf_cfg)
+        _, inter_prob, _ = get_intersection(sdf_fun, inv_s, pts_k, refl_k, sn0=64, sn1=16)
+        occ_gt = torch.sum(inter_prob, dim=-1)
+    occ_k = torch.gather(occ_prob, 1, top_idx).reshape(r * kpr)
+    l1 = torch.abs(occ_k - occ_gt)
+    return torch.sum(l1 * valid) / torch.clamp(torch.sum(valid), min=1.0)
+
+
+def render_core(params, scfg: ShapeConfig, fg_lut, rays_o, rays_d, z_full, cos_anneal_ratio,
+                step: int, is_train: bool, gen: torch.Generator | None = None) -> dict:
+    """z_full [R, n_total] (inner z then background z). `params` resolved."""
+    r, s_total = z_full.shape
+    s_inner = scfg.n_inner
+    dists = z_full[..., 1:] - z_full[..., :-1]
+    dists = torch.cat([dists, dists[..., -1:]], dim=-1)
+    mid_z = z_full + dists * 0.5
+    points = rays_o[:, None, :] + rays_d[:, None, :] * mid_z[..., None]
+    inner_mask = torch.linalg.norm(points, dim=-1) <= 1.0
+    dirs = rays_d[:, None, :].expand(points.shape)
+    dirs = dirs / torch.clamp(torch.linalg.norm(dirs, dim=-1, keepdim=True), min=1e-12)
+
+    # background only on the outer samples (nero_tpu's bg_on_inner=False)
+    alpha_out, color_out = compute_density_alpha(
+        params, points[:, s_inner:], dists[:, s_inner:], -dirs[:, s_inner:])
+    alpha_bg = torch.cat([alpha_out.new_zeros((r, s_inner)), alpha_out], dim=1)
+    color_bg = torch.cat([color_out.new_zeros((r, s_inner, 3)), color_out], dim=1)
+
+    pts_in = points[:, :s_inner]
+    dists_in = dists[:, :s_inner]
+    dirs_in = dirs[:, :s_inner]
+    alpha_sdf, grads, feats, inv_s, sdf = compute_sdf_alpha(
+        params, scfg, pts_in, dists_in, dirs_in, cos_anneal_ratio, step)
+    inner_in = inner_mask[:, :s_inner]
+    alpha = torch.cat([torch.where(inner_in, alpha_sdf, alpha_bg[:, :s_inner]),
+                       alpha_bg[:, s_inner:]], dim=1)
+    weights = _composite(alpha)
+    mask_sdf = torch.cat([inner_in, inner_in.new_zeros((r, s_total - s_inner))], dim=1)
+    rgb_bg_part = torch.sum(color_bg * (weights * ~mask_sdf)[..., None], dim=1)
+
+    color_sdf, occ_info = app_shading_apply(params["shader"], scfg.shader, fg_lut, pts_in,
+                                            grads, -dirs_in, feats)
+    w_sdf = weights[:, :s_inner] * inner_in
+    ray_rgb = rgb_bg_part + torch.sum(color_sdf * w_sdf[..., None], dim=1)
+
+    grad_err = (torch.linalg.norm(grads, dim=-1) - 1.0) ** 2
+    n_inside = torch.clamp(torch.sum(inner_in), min=1.0)
+    outputs = {
+        "ray_rgb": ray_rgb,
+        "gradient_error": (torch.sum(grad_err * inner_in) / n_inside).reshape(1),
+        "std": torch.mean(1.0 / inv_s).reshape(1),
+        "sdf_pts_norm": torch.linalg.norm(pts_in, dim=-1).reshape(-1),
+        "sdf_vals": sdf.reshape(-1),
+    }
+    if scfg.apply_occ_loss and is_train:
+        if step >= scfg.occ_loss_step:
+            loss_occ = compute_occ_loss(params, scfg, gen, pts_in, occ_info["reflective"],
+                                        occ_info["occ_prob"][..., 0], sdf, grads, dirs_in)
+        else:
+            loss_occ = ray_rgb.new_zeros(())
+        outputs["loss_occ"] = loss_occ.reshape(1)
+    if not is_train:
+        outputs.update(compute_validation_info(params, scfg, fg_lut, z_full, rays_o, rays_d,
+                                               weights))
+    return outputs
+
+
+def compute_validation_info(params, scfg: ShapeConfig, fg_lut, z_vals, rays_o, rays_d,
+                            weights) -> dict:
+    """Depth/normal/material maps + traced occ-prob ground truth."""
+    depth = torch.sum(weights * z_vals, dim=-1, keepdim=True)
+    points = depth * rays_d + rays_o
+    _, feats, grads = sdf_with_grad(params["sdf"], points, scfg.sdf_cfg)
+    inner = (torch.linalg.norm(points, dim=-1, keepdim=True) <= 1.0).to(points.dtype)
+    normal = (grads / torch.clamp(torch.linalg.norm(grads, dim=-1, keepdim=True), min=1e-12)
+              + 1.0) * 0.5 * inner
+    view = -rays_d / torch.clamp(torch.linalg.norm(rays_d, dim=-1, keepdim=True), min=1e-12)
+    _, occ_info, inter = app_shading_apply(params["shader"], scfg.shader, fg_lut, points,
+                                           grads, view, feats, inter_results=True)
+    inv_s = variance_inv_s(params["variance"], scfg.std_act)
+    sdf_fun = lambda x: sdf_value(params["sdf"], x, scfg.sdf_cfg)
+    _, occ_prob, _ = get_intersection(sdf_fun, inv_s, points, occ_info["reflective"],
+                                      sn0=128, sn1=9)
+    outputs = {"depth": depth, "normal": normal,
+               "occ_prob_gt": torch.sum(occ_prob, dim=-1, keepdim=True)}
+    for k, v in inter.items():
+        outputs[k] = v * inner
+    return outputs
+
+
+def render(params, scfg: ShapeConfig, fg_lut, rays_o, rays_d, near, far, step: int,
+           gen: torch.Generator | None = None, is_train: bool = True,
+           perturb_overwrite: float = -1.0, cos_anneal_ratio=None) -> dict:
+    """Full Stage-I render of a ray batch. Weight norm is resolved once here
+    and autograd chains back to {v, g} through it."""
+    params = resolve_weight_norm(params)
+    perturb = scfg.perturb if perturb_overwrite < 0 else perturb_overwrite
+    if cos_anneal_ratio is None:
+        cos_anneal_ratio = 1.0 if scfg.anneal_end < 0 else min(1.0, step / scfg.anneal_end)
+    z_inner, z_out = sample_z_vals(params, scfg, rays_o, rays_d, near, far,
+                                   gen=gen if perturb > 0 else None, perturb=perturb)
+    z_full = torch.cat([z_inner, z_out], dim=-1)
+    return render_core(params, scfg, fg_lut, rays_o, rays_d, z_full, cos_anneal_ratio, step,
+                       is_train, gen=gen)
+
+
+def compute_rgb_loss(rgb_pr, rgb_gt, kind: str = "charbonier"):
+    if kind == "l2":
+        return torch.sum((rgb_pr - rgb_gt) ** 2, dim=-1)
+    if kind == "l1":
+        return torch.sum(torch.abs(rgb_pr - rgb_gt), dim=-1)
+    if kind == "smooth_l1":
+        beta = 0.25
+        d = torch.abs(rgb_pr - rgb_gt)
+        return torch.sum(torch.where(d < beta, 0.5 * d ** 2 / beta, d - 0.5 * beta), dim=-1)
+    if kind == "charbonier":
+        return torch.sqrt(torch.sum((rgb_gt - rgb_pr) ** 2, dim=-1) + 0.001)
+    raise NotImplementedError(kind)

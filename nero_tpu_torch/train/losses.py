@@ -1,0 +1,84 @@
+"""Loss registry (counterpart of nero_tpu/train/losses.py). Every loss is
+`fn(data_pr, data_gt, step, cfg) -> dict`; the total is the sum of the means
+of every key starting with 'loss'. `step` is a Python int here."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+_PASSTHROUGH_RGB_KEYS = ("loss_rgb", "loss_rgb_fine", "loss_global_rgb",
+                         "loss_rgb_inner", "loss_rgb0", "loss_rgb1", "loss_masks")
+
+
+def nerf_render_loss(data_pr, data_gt, step, cfg):
+    return {k: data_pr[k] for k in _PASSTHROUGH_RGB_KEYS if k in data_pr}
+
+
+def eikonal_loss(data_pr, data_gt, step, cfg):
+    weight = cfg.get("eikonal_weight", 0.1)
+    begin = cfg.get("eikonal_weight_anneal_begin", 0)
+    end = cfg.get("eikonal_weight_anneal_end", 0)
+    if end > begin:
+        w = 0.0 if step < begin else weight * min(max((step - begin) / (end - begin), 0.0), 1.0)
+    else:
+        w = weight
+    return {"loss_eikonal": data_pr["gradient_error"] * w}
+
+
+def std_recorder(data_pr, data_gt, step, cfg):
+    out = {}
+    if "std" in data_pr:
+        out["std"] = data_pr["std"]
+        if cfg.get("apply_std_loss", False):
+            out["loss_std"] = data_pr["std"] * cfg.get("std_loss_weight", 0.05)
+    return out
+
+
+def occ_loss(data_pr, data_gt, step, cfg):
+    if "loss_occ" in data_pr:
+        return {"loss_occ": data_pr["loss_occ"].mean().reshape(1)}
+    return {}
+
+
+def init_sdf_reg_loss(data_pr, data_gt, step, cfg):
+    """Sphere prior on the early SDF, cosine-annealed to zero over the first
+    1000 steps (fixed-shape masked means)."""
+    if "sdf_vals" not in data_pr or "sdf_pts_norm" not in data_pr:
+        return {}
+    reg_step = 1000
+    norm = torch.as_tensor(data_pr["sdf_pts_norm"])
+    sdf = torch.as_tensor(data_pr["sdf_vals"])
+    small_mask = (norm < 0.1).to(sdf.dtype)
+    small_vec = torch.clamp(sdf - (norm - 0.1), min=0.0) * small_mask
+    small_mean = small_vec.sum() / torch.clamp(small_mask.sum(), min=1.0)
+    small_loss = small_mean / ((small_mean > 1e-5).to(sdf.dtype) + 1e-3)
+    large_mask = (norm > 1.05).to(sdf.dtype)
+    large_vec = torch.clamp((norm - 1.05) - sdf, min=0.0) * large_mask
+    active = (large_vec > 1e-5).to(sdf.dtype).sum()
+    large_loss = large_vec.sum() / (active + 1e-3)
+    anneal = (math.cos(min(max(step / reg_step, 0.0), 1.0) * math.pi) + 1.0) / 2.0
+    gate = float(step < reg_step)
+    return {"loss_sdf_large": (large_loss * anneal * gate).reshape(1),
+            "loss_sdf_small": (small_loss * anneal * gate).reshape(1)}
+
+
+name2loss = {
+    "nerf_render": nerf_render_loss,
+    "eikonal": eikonal_loss,
+    "std": std_recorder,
+    "init_sdf_reg": init_sdf_reg_loss,
+    "occ": occ_loss,
+}
+
+
+def compute_losses(loss_names, data_pr, data_gt, step, cfg) -> dict:
+    log = {}
+    for name in loss_names:
+        log.update(name2loss[name](data_pr, data_gt, step, cfg))
+    return log
+
+
+def total_loss(log: dict):
+    """Sum of the means of every 'loss*' key."""
+    return sum(v.mean() for k, v in log.items() if k.startswith("loss"))

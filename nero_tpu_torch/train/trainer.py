@@ -1,0 +1,148 @@
+"""Training orchestration: step loop, optimizer, checkpoints, validation.
+
+Counterpart of nero_tpu/train/trainer.py: loss = sum of every 'loss*'
+output, warm-up-cosine learning rate, validation every val_interval with
+best-model selection on the key metric, a checkpoint every save_interval
+with auto-resume, scalar logs in the model dir and a rays/sec meter.
+
+The optimizer is `torch.optim.Adam` over the {v, g, b} leaves, stepped
+with lr(step) from `train/lr.py` through LambdaLR: this reproduces
+`optax.adam(learning_rate=schedule)` (defaults b1 0.9, b2 0.999, eps 1e-8,
+bias correction, eps outside the square root in both). nero_tpu's MFU
+logging (core/mfu.py) reads XLA cost analysis and is not ported.
+"""
+from __future__ import annotations
+
+import os
+import random
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from nero_tpu_torch.core.checkpoint import load_checkpoint, save_checkpoint
+from nero_tpu_torch.core.device import resolve_device
+from nero_tpu_torch.core.logger import Logger, RaysPerSecMeter
+from nero_tpu_torch.models import get_model
+from nero_tpu_torch.train.losses import name2loss
+from nero_tpu_torch.train.lr import name2lr_schedule
+from nero_tpu_torch.train.metrics import name2metrics
+from nero_tpu_torch.train.valid import ValidationEvaluator
+
+
+class Trainer:
+    default_cfg = {
+        "optimizer_type": "adam",
+        "lr_type": "warm_up_cos",
+        "lr_cfg": {},
+        "total_step": 300000,
+        "train_log_step": 20,
+        "val_interval": 10000,
+        "save_interval": 500,
+        "random_seed": 6033,
+        "model_root": "data/model",
+        "vis_dir": "data/train_vis",
+    }
+
+    def __init__(self, cfg: dict, device=None):
+        self.cfg = {**self.default_cfg, **cfg}
+        self.device = resolve_device(device)
+        random.seed(self.cfg["random_seed"])
+        np.random.seed(self.cfg["random_seed"])
+        self.model_name = self.cfg["name"]
+        self.model_dir = os.path.join(self.cfg["model_root"], self.model_name)
+        Path(self.model_dir).mkdir(exist_ok=True, parents=True)
+        self.ckpt_fn = os.path.join(self.model_dir, "model.npz")
+        self.best_ckpt_fn = os.path.join(self.model_dir, "model_best.npz")
+        self.train_history: list[dict] = []
+        self.model = None
+
+    def setup(self):
+        """Build the model, optimizer and schedule (`run` calls it if needed)."""
+        self.model = get_model(self.cfg["network"])(self.cfg, training=True, device=self.device)
+        self.val_losses = [name2loss[n] for n in self.cfg["loss"]]
+        self.val_metrics = [name2metrics[n] if n in name2metrics else name2loss[n]
+                            for n in self.cfg["val_metric"]]
+        lr_cfg = dict(self.cfg.get("lr_cfg") or {})
+        lr_cfg.setdefault("end_iter", self.cfg["total_step"])
+        self.lr_schedule = name2lr_schedule[self.cfg["lr_type"]](lr_cfg)
+        if self.cfg["optimizer_type"] == "adam":
+            opt_cls = torch.optim.Adam
+        elif self.cfg["optimizer_type"] == "sgd":
+            opt_cls = torch.optim.SGD
+        else:
+            raise NotImplementedError(self.cfg["optimizer_type"])
+        base = self.lr_schedule.base_lr
+        # on the card, one fused multi-tensor update instead of one launch
+        # group per parameter tensor (the same Adam arithmetic)
+        kw = {"fused": True} if opt_cls is torch.optim.Adam and self.device.type == "cuda" else {}
+        self.optimizer = opt_cls(self.model.parameters(), lr=base, **kw)
+        self.scheduler = torch.optim.lr_scheduler.LambdaLR(
+            self.optimizer, lambda s: self.lr_schedule(s) / base)
+        self.val_evaluator = ValidationEvaluator(self.cfg)
+
+    def train_step(self, step: int) -> dict:
+        """One optimizer step at `step`, then the schedule's step; returns
+        the step's (device) log."""
+        log = self.model.train_step(self.optimizer, step)
+        self.scheduler.step()
+        return log
+
+    def _load_model(self):
+        if os.path.exists(self.ckpt_fn):
+            step, best_para = load_checkpoint(self.ckpt_fn, self.model.params, self.optimizer)
+            print(f"==> resuming from step {step} best para {best_para}")
+            return best_para, step
+        return 0.0, 0
+
+    def run(self):
+        if self.model is None:
+            self.setup()
+        logger = Logger(self.model_dir)
+        meter = RaysPerSecMeter(self.device)
+        best_para, start_step = self._load_model()
+        self.scheduler.last_epoch = start_step
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.lr_schedule(start_step)
+        rays_per_step = self.model.num_train_rays_per_step()
+        total = self.cfg["total_step"]
+        params = self.model.params
+        meter.sync(start_step, rays_per_step)
+        for step in range(start_step, total):
+            log = self.train_step(step)
+
+            if (step + 1) % self.cfg["train_log_step"] == 0:
+                host_log = {k: float(v) for k, v in log.items()}
+                meter.sync(step + 1, rays_per_step)
+                host_log["lr"] = self.lr_schedule(step)
+                host_log["rays_per_sec"] = meter.rays_per_sec
+                host_log["step_seconds"] = meter.step_seconds
+                logger.log(host_log, "train", step + 1)
+                self.train_history.append({"step": step, **host_log})
+
+            if (step + 1) % self.cfg["val_interval"] == 0 or (step + 1) == total:
+                val_names = [vs.get("name", "val")
+                             for vs in self.cfg.get("val_set_list", [{"name": "val"}])]
+                all_results, val_para = {}, 0.0
+                for vn in val_names:
+                    val_results, val_para = self.val_evaluator(
+                        self.model, params, self.val_losses, self.val_metrics,
+                        list(range(len(self.model.test_ids))), step, self.model_name,
+                        val_set_name=vn, vis_dir=self.cfg["vis_dir"])
+                    for k, v in val_results.items():
+                        all_results[f"{vn}-{k}"] = v
+                if val_para > best_para:
+                    print(f"New best model {self.cfg['key_metric_name']}: "
+                          f"{val_para:.5f} previous {best_para:.5f}")
+                    best_para = val_para
+                    save_checkpoint(self.best_ckpt_fn, step + 1, best_para, params,
+                                    self.optimizer)
+                self.val_results = {k: float(np.mean(v)) for k, v in all_results.items()}
+                logger.log(self.val_results, "val", step + 1)
+                meter.reset()
+
+            if (step + 1) % self.cfg["save_interval"] == 0:
+                save_checkpoint(self.ckpt_fn, step + 1, best_para, params, self.optimizer)
+                meter.reset()
+        save_checkpoint(self.ckpt_fn, total, best_para, params, self.optimizer)
+        return params

@@ -1,0 +1,99 @@
+"""Positional encoding and Ref-NeRF integrated directional encoding (IDE).
+
+Counterpart of nero_tpu/utils/encodings.py:26-145: PE with identity channels
+first, then [sin(2^i x), cos(2^i x)] per octave; IDE with the z-Vandermonde
+coefficient table and the de-Moivre recurrence for (x + iy)^m. The mip-NeRF
+IPE is not needed by the default Stage-I shader and waits for a later slice.
+"""
+from __future__ import annotations
+
+import math
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+
+def positional_encode(x: torch.Tensor, num_freqs: int,
+                      include_input: bool = True) -> torch.Tensor:
+    outs = [x] if include_input else []
+    for i in range(num_freqs):
+        freq = 2.0 ** i
+        outs.append(torch.sin(x * freq))
+        outs.append(torch.cos(x * freq))
+    return torch.cat(outs, dim=-1)
+
+
+def positional_encode_dim(d: int, num_freqs: int, include_input: bool = True) -> int:
+    return (d if include_input else 0) + 2 * d * num_freqs
+
+
+def _generalized_binomial(a: float, k: int) -> float:
+    out = 1.0
+    for i in range(k):
+        out *= a - i
+    return out / math.factorial(k)
+
+
+def _assoc_legendre_coeff(l: int, m: int, k: int) -> float:
+    return ((-1) ** m * 2 ** l * math.factorial(l) / math.factorial(k)
+            / math.factorial(l - k - m)
+            * _generalized_binomial(0.5 * (l + k + m - 1.0), l))
+
+
+def _sph_harm_coeff(l: int, m: int, k: int) -> float:
+    return (math.sqrt((2.0 * l + 1.0) * math.factorial(l - m)
+                      / (4.0 * math.pi * math.factorial(l + m)))
+            * _assoc_legendre_coeff(l, m, k))
+
+
+@lru_cache(maxsize=None)
+def ide_tables(deg_view: int):
+    """(m per entry [n_ml] int32, sigma [n_ml], coefficient matrix
+    [l_max+1, n_ml] float32, l_max) — the tables of `_ide_tables`."""
+    if deg_view > 5:
+        raise ValueError("IDE deg_view > 5 is numerically unstable")
+    ml_list = []
+    for i in range(deg_view):
+        l = 2 ** i
+        for m in range(l + 1):
+            ml_list.append((m, l))
+    l_max = 2 ** (deg_view - 1)
+    mat = np.zeros((l_max + 1, len(ml_list)), dtype=np.float64)
+    for i, (m, l) in enumerate(ml_list):
+        for k in range(l - m + 1):
+            mat[k, i] = _sph_harm_coeff(l, m, k)
+    m_arr = np.array([m for m, _ in ml_list], dtype=np.int32)
+    l_arr = np.array([l for _, l in ml_list], dtype=np.float32)
+    sigma = 0.5 * l_arr * (l_arr + 1.0)
+    return m_arr, sigma, mat.astype(np.float32), l_max
+
+
+def ide_dim(deg_view: int) -> int:
+    return 2 * len(ide_tables(deg_view)[0])
+
+
+def integrated_dir_encode(xyz: torch.Tensor, kappa_inv, deg_view: int = 5) -> torch.Tensor:
+    """xyz [..., 3] unit directions, kappa_inv [..., 1] or scalar ->
+    [..., 2 * n_ml] = [Re(ide), Im(ide)]."""
+    m_arr, sigma_np, mat_np, l_max = ide_tables(deg_view)
+    mat = torch.as_tensor(mat_np, dtype=xyz.dtype, device=xyz.device)
+    sigma = torch.as_tensor(sigma_np, dtype=xyz.dtype, device=xyz.device)
+    x, y, z = xyz[..., 0:1], xyz[..., 1:2], xyz[..., 2:3]
+
+    vmz = torch.cat([z ** i for i in range(l_max + 1)], dim=-1)
+    pz = vmz @ mat
+
+    res, ims = [torch.ones_like(x)], [torch.zeros_like(x)]
+    for _ in range(int(m_arr.max())):
+        re_p, im_p = res[-1], ims[-1]
+        res.append(re_p * x - im_p * y)
+        ims.append(re_p * y + im_p * x)
+    idx = torch.as_tensor(m_arr.astype(np.int64), device=xyz.device)
+    re_m = torch.cat(res, dim=-1)[..., idx]
+    im_m = torch.cat(ims, dim=-1)[..., idx]
+
+    if not torch.is_tensor(kappa_inv):
+        kappa_inv = torch.tensor(kappa_inv, dtype=xyz.dtype, device=xyz.device)
+    atten = torch.exp(-sigma * kappa_inv)
+    return torch.cat([re_m * pz * atten, im_m * pz * atten], dim=-1)

@@ -1,0 +1,36 @@
+"""The PyTorch port stands alone: no module of nero_tpu_torch, and not
+chip_smoke.py, imports JAX or the JAX package."""
+import ast
+import os
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "optax", "nero_tpu")
+
+
+def _port_files():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(os.path.join(ROOT, "nero_tpu_torch")):
+        files += [os.path.join(dirpath, n) for n in sorted(names) if n.endswith(".py")]
+    return sorted(files)
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_port_has_modules():
+    assert len(_port_files()) > 30
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_or_reference_imports(path):
+    bad = sorted({m for m in _imported_roots(path) if m in FORBIDDEN})
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"

@@ -1,0 +1,123 @@
+"""SDF with spatial gradient: the port's plain version (the CPU side of
+ops/sdf_grad.py) against nero_tpu's XLA `sdf_with_grad` in f32, and against
+the TPU kernel `sdf_with_grad_fused` in interpret mode at the bars of
+tests/test_sdf_grad_kernel.py. The CUDA kernel itself is held against the
+plain version on the card by chip_smoke.py and by the `gpu`-marked test."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nero_tpu.fields.sdf import SDFConfig as JSDFConfig, init_sdf, sdf_with_grad as jax_swg
+from nero_tpu.ops.pallas.sdf_grad_kernel import sdf_with_grad_fused
+from nero_tpu_torch.core.convert import from_numpy_tree, tree_items
+from nero_tpu_torch.fields.sdf import SDFConfig
+from nero_tpu_torch.ops import sdf_grad
+
+
+@pytest.fixture(scope="module")
+def setup():
+    params_j = init_sdf(jax.random.PRNGKey(3), JSDFConfig())
+    rng = np.random.default_rng(0)
+    pts = rng.uniform(-0.7, 0.7, (256, 3)).astype(np.float32)
+    cot = (rng.standard_normal((256, 256)) * 0.1).astype(np.float32)
+    return params_j, pts, cot
+
+
+def _jax_loss(fn, pts, cot, **kw):
+    def loss(p):
+        sdf, feats, grad = fn(p, jnp.asarray(pts), JSDFConfig(), **kw)
+        eik = jnp.mean((jnp.linalg.norm(grad, axis=-1) - 1.0) ** 2)
+        return jnp.mean(sdf ** 2) + 0.1 * eik + jnp.mean(feats * jnp.asarray(cot))
+    return loss
+
+
+def _port_grads(params_j, pts, cot):
+    p = from_numpy_tree(jax.tree_util.tree_map(np.asarray, params_j))
+    sdf, feats, grad = sdf_grad.sdf_with_grad(p, torch.from_numpy(pts), SDFConfig())
+    eik = ((torch.linalg.norm(grad, dim=-1) - 1.0) ** 2).mean()
+    loss = (sdf ** 2).mean() + 0.1 * eik + (feats * torch.from_numpy(cot)).mean()
+    loss.backward()
+    return loss.item(), {k: v.grad.numpy() for k, v in tree_items(p)}
+
+
+def test_cpu_wrapper_runs_plain_version(setup):
+    params_j, pts, _ = setup
+    p = from_numpy_tree(jax.tree_util.tree_map(np.asarray, params_j))
+    x = torch.from_numpy(pts)
+    with torch.no_grad():
+        a = sdf_grad.sdf_with_grad(p, x, SDFConfig())
+        b = sdf_grad.sdf_with_grad_plain(p, x, SDFConfig())
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("reference", ["xla", "pallas_interpret"])
+def test_forward(setup, reference):
+    params_j, pts, _ = setup
+    if reference == "xla":
+        ref = jax_swg(params_j, jnp.asarray(pts), JSDFConfig())
+        tol = dict(sdf=(1e-5, 1e-4), grad=(1e-5, 1e-4), feats_mean=1e-6)
+    else:
+        ref = sdf_with_grad_fused(params_j, jnp.asarray(pts), JSDFConfig(), interpret=True)
+        tol = dict(sdf=(5e-3, 1e-2), grad=(2e-2, 5e-2), feats_mean=5e-3)
+    p = from_numpy_tree(jax.tree_util.tree_map(np.asarray, params_j))
+    with torch.no_grad():
+        sdf, feats, grad = sdf_grad.sdf_with_grad(p, torch.from_numpy(pts), SDFConfig())
+    np.testing.assert_allclose(sdf.numpy(), np.asarray(ref[0]), atol=tol["sdf"][0],
+                               rtol=tol["sdf"][1])
+    np.testing.assert_allclose(grad.numpy(), np.asarray(ref[2]), atol=tol["grad"][0],
+                               rtol=tol["grad"][1])
+    assert np.abs(feats.numpy() - np.asarray(ref[1])).mean() < tol["feats_mean"]
+
+
+@pytest.mark.parametrize("reference", ["xla", "pallas_interpret"])
+def test_param_grads(setup, reference):
+    """mean(sdf^2) + 0.1 eikonal + mean(feats . cot): every {v,g,b} grad,
+    normalised by the leaf's max — 1e-4 against f32 XLA, 2e-2 (the kernel
+    test's bar) against the bf16 Pallas kernel."""
+    params_j, pts, cot = setup
+    if reference == "xla":
+        fn, kw, atol = jax_swg, {}, 1e-4
+    else:
+        fn, kw, atol = sdf_with_grad_fused, {"interpret": True}, 2e-2
+    loss_j, g_j = jax.jit(jax.value_and_grad(_jax_loss(fn, pts, cot, **kw)))(params_j)
+    loss_t, g_t = _port_grads(params_j, pts, cot)
+    np.testing.assert_allclose(loss_t, float(loss_j), rtol=1e-4 if reference == "xla" else 1e-2)
+    for k, a in tree_items(jax.tree_util.tree_map(np.asarray, g_j)):
+        scale = np.abs(a).max() + 1e-8
+        np.testing.assert_allclose(g_t[k] / scale, a / scale, atol=atol, err_msg=k)
+
+
+def test_pack_unpack_round_trip(setup):
+    params_j, _, _ = setup
+    from nero_tpu_torch.ops.mlp import resolve_weight_norm
+    layers = resolve_weight_norm(from_numpy_tree(jax.tree_util.tree_map(np.asarray, params_j),
+                                                 requires_grad=False))
+    ws, bs = [l["w"] for l in layers], [l["b"] for l in layers]
+    W, b = sdf_grad.pack_weights(ws, bs)
+    dws, dbs = sdf_grad.unpack_grads(W.float(), b)
+    # unpack applies the skip layer's 1/sqrt(2) a second time, as the chain rule does
+    for l, (w, d) in enumerate(zip(ws, dws)):
+        want = w / 2.0 if l == 4 else w
+        np.testing.assert_allclose(d.numpy(), want.numpy(), atol=8e-3 * float(w.abs().max()))
+    for b0, d in zip(bs, dbs):
+        np.testing.assert_array_equal(d.numpy(), b0.numpy())
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_matches_plain_version():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    p = from_numpy_tree(jax.tree_util.tree_map(
+        np.asarray, init_sdf(jax.random.PRNGKey(3), JSDFConfig())), device=dev)
+    x = torch.as_tensor(np.random.default_rng(0).uniform(-0.7, 0.7, (4096, 3)),
+                        dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        sdf_k, feats_k, grad_k = sdf_grad.sdf_with_grad(p, x, SDFConfig())
+        sdf_p, feats_p, grad_p = sdf_grad.sdf_with_grad_plain(p, x, SDFConfig())
+    torch.testing.assert_close(sdf_k, sdf_p, atol=5e-3, rtol=1e-2)
+    torch.testing.assert_close(grad_k, grad_p, atol=2e-2, rtol=5e-2)
+    assert (feats_k - feats_p).abs().mean() < 5e-3
