@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of nero_tpu_torch on one NVIDIA GPU: builds the CUDA kernels,
 holds each against its plain PyTorch version, then trains Stage I on
-`configs/shape/proc/sphere.yaml` at full width through the kernels.
+`configs/shape/proc/sphere.yaml` and Stage II on
+`configs/material/proc/bowl.yaml` at full width through the kernels.
 
     python3 chip_smoke.py
 
@@ -13,10 +14,20 @@ result line):
      N = 65,536 rows with full-width weights from a seed, against its plain
      version, with the tolerances of the JAX kernel tests; kernel and plain
      times from CUDA events;
-  3. `Trainer` on the sphere config with only total_step, val_interval,
+  3. the mesh of the bowl scene from its analytic SDF (host iso-surfacer);
+     a field distilled from it on the card; the sphere-march kernel against
+     its plain version on 393,216 surface rays (found agreement >= 0.99,
+     median |dt| < 1e-3, both refine modes); the whole tracer against the
+     exact host BVH (clearing-ray hit agreement >= 0.98);
+  4. `Trainer` on the sphere config with only total_step, val_interval,
      save_interval and the output dirs overridden, then one step past
      occ_loss_step; losses finite, loss_rgb falling, validation run, and
-     every kernel's launch count as expected for the steps taken.
+     every kernel's launch count as expected for the steps taken;
+  5. `Trainer` on the bowl material config (mesh, steps, intervals and
+     output dirs overridden): losses finite, held-out loss_rgb falling, one
+     validation view, one sphere-march launch per step and validation chunk;
+  6. five Stage-II steps on the convex sphere scene with the human light and
+     the sphere_direction outer light.
 The line before the result is a JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.
 """
@@ -37,6 +48,7 @@ import torch
 PEAK_BF16 = 989e12     # H100 SXM dense bf16, FLOP/s (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3, bytes/s
 N_ROWS = 65536         # the training lattice: 512 rays x 128 inner samples
+N_MARCH_RAYS = 393216  # Stage II: 512 points x (512 diffuse + 256 specular) directions
 TRAIN_STEPS = 30
 
 
@@ -245,21 +257,110 @@ def check_shader(n: int, dev) -> list:
     return out
 
 
+def surface_rays(mesh: dict, n: int, seed: int = 0):
+    """Area-weighted surface points with random directions, o = p + 1e-3 d:
+    the visibility rays of Stage II."""
+    rng = np.random.RandomState(seed)
+    verts, tris = mesh["vertices"], mesh["triangles"]
+    v0, v1, v2 = verts[tris[:, 0]], verts[tris[:, 1]], verts[tris[:, 2]]
+    areas = np.linalg.norm(np.cross(v1 - v0, v2 - v0), axis=-1)
+    ti = rng.choice(len(tris), n, p=areas / areas.sum())
+    u, v = rng.rand(n, 1), rng.rand(n, 1)
+    flip = (u + v) > 1
+    u, v = np.where(flip, 1 - u, u), np.where(flip, 1 - v, v)
+    p = v0[ti] + u * (v1[ti] - v0[ti]) + v * (v2[ti] - v0[ti])
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return (p + d * 1e-3).astype(np.float32), d.astype(np.float32)
+
+
+def check_march(mesh: dict, n: int, dev) -> list:
+    """The sphere-march kernel against its plain version on a field distilled
+    from the bowl mesh, and the tracer against the exact host BVH."""
+    from nero_tpu_torch.geometry.neural_tracer import NeuralTracer, sphere_segment
+    from nero_tpu_torch.ops import sphere_march as K
+
+    t0 = time.perf_counter()
+    tracer = NeuralTracer(mesh["vertices"], mesh["triangles"], cache=False, verbose=False,
+                          device=dev)
+    torch.cuda.synchronize()
+    print(f"distill: 3000 steps on 1.5 M samples in {time.perf_counter() - t0:.1f} s "
+          f"(host signed distances included), near-band RMS {tracer.distill_rms:.5f}")
+    check(tracer.distill_rms < 0.004, f"distill RMS {tracer.distill_rms}")
+
+    o_np, d_np = surface_rays(mesh, n)
+    o, d = torch.as_tensor(o_np, device=dev), torch.as_tensor(d_np, device=dev)
+    t_enter, t_exit, _ = sphere_segment(o, d, tracer.bound)
+    kw = dict(n_sphere=tracer.n_sphere, margin=tracer.margin,
+              dt_frac=1.0 / (tracer.n_coarse - 1))
+    res, worst = {}, {"agree": 1.0, "median": 0.0, "max": 0.0}
+    for refine, n_refine in (("illinois", 2), ("bisect", 8)):
+        t_k, f_k = K.sphere_march(tracer.packed, o, d, t_enter, t_exit, n_refine=n_refine,
+                                  refine=refine, **kw)
+        t_p, f_p = K.sphere_march_plain(tracer.packed, o, d, t_enter, t_exit,
+                                        n_refine=n_refine, refine=refine, **kw)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(t_k).all()), f"sphere_march {refine}: non-finite t")
+        agree = (f_k == f_p).float().mean().item()
+        dt = (t_k - t_p).abs()[f_k & f_p]
+        med, p99, mx = dt.median().item(), dt.quantile(0.99).item(), dt.max().item()
+        check(agree >= 0.99, f"sphere_march {refine}: found agreement {agree}")
+        check(med < 1e-3, f"sphere_march {refine}: median |dt| {med}")
+        print(f"sphere_march  {refine}-{n_refine}: found agreement {agree:.5f} (>= 0.99)  "
+              f"median|dt| {med:.3e} (< 1e-3)  p99 {p99:.3e}  max {mx:.3e} (grazing rays "
+              f"that bracket another crossing)  found rate {f_k.float().mean().item():.3f}")
+        res[refine] = f_k
+        worst = {"agree": min(worst["agree"], agree), "median": max(worst["median"], med),
+                 "max": max(worst["max"], mx)}
+    check(bool((res["illinois"] == res["bisect"]).all()), "refine mode changed `found`")
+
+    W, Fv = K.kernel_buffers(tracer.packed)
+    args = (o, d, t_enter, t_exit, tracer.n_sphere, 2, True, 0.012 + 1e-6, tracer.margin, 0.9,
+            kw["dt_frac"], 0.25)
+    ms = cuda_ms(lambda: K._launch(W, Fv, *args), iters=10)
+    plain_ms = cuda_ms(lambda: K.sphere_march_plain(tracer.packed, o, d, t_enter, t_exit,
+                                                    n_refine=2, refine="illinois", **kw),
+                       iters=3, warmup=1)
+    b_ms, b_by = bound(K.flops(n, tracer.n_sphere, 2), K.min_bytes(n))
+
+    # the tracer (kernel + validity + gradient normal) against the exact BVH
+    _, n_c, d_c, h_c = tracer.trace_cpu(o_np, d_np)
+    _, n_g, d_g, h_g = (x.cpu().numpy() for x in tracer.trace(o, d))
+    clear = (~h_c) | (d_c > 0.05)
+    agree = float((h_g == h_c)[clear].mean())
+    both = clear & h_c & h_g & (d_g[:, 0] > 0.05)
+    depth_err = float(np.abs(d_g[:, 0][both] - d_c[both]).mean())
+    cos = float(np.sum(n_g[both] * n_c[both], -1).mean())
+    print(f"tracer vs exact host BVH on {n} surface rays: self-hit rate {h_c.mean():.3f}, "
+          f"clearing-ray hit agreement {agree:.5f} (>= 0.98), mean depth error "
+          f"{depth_err:.5f}, mean normal cosine {cos:.4f}")
+    check(agree >= 0.98, f"clearing-ray agreement {agree}")
+    check(depth_err < 0.01 and cos > 0.95, f"depth error {depth_err}, normal cosine {cos}")
+    return [{"name": "sphere_march", "route": "cuda",
+             "source": "nero_tpu_torch/csrc/sphere_march.cu",
+             "replaces": "nero_tpu/ops/pallas/march_kernel.py:338", "max_abs_err": worst["max"],
+             "median_abs_err": worst["median"], "found_agreement": worst["agree"], "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}]
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
 
+def _launch_counters():
+    from nero_tpu_torch.ops import sdf_grad, shader, sphere_march
+    return (sdf_grad.launches, shader.launches, sphere_march.launches)
+
+
 def reset_launches():
-    from nero_tpu_torch.ops import sdf_grad, shader
-    for d in (sdf_grad.launches, shader.launches):
+    for d in _launch_counters():
         for k in d:
             d[k] = 0
 
 
 def read_launches() -> dict:
-    from nero_tpu_torch.ops import sdf_grad, shader
-    return {**sdf_grad.launches, **shader.launches}
+    return {k: v for d in _launch_counters() for k, v in d.items()}
 
 
 def train(steps: int, dev) -> dict:
@@ -308,7 +409,7 @@ def train(steps: int, dev) -> dict:
     rays = int(ratio * h) * int(ratio * w) * len(model.test_ids)
     chunks = -(-rays // model.cfg["test_ray_num"])
     expect = {"sdf_grad_fwd": steps + 2 * chunks, "sdf_grad_bwd": steps,
-              "shader_fwd": steps + 2 * chunks, "shader_bwd": steps}
+              "shader_fwd": steps + 2 * chunks, "shader_bwd": steps, "sphere_march": 0}
     check(launches == expect, f"launches {launches}, expected {expect}")
 
     # the occlusion-loss branch, one step at occ_loss_step
@@ -317,7 +418,8 @@ def train(steps: int, dev) -> dict:
     log = trainer.train_step(occ_step)
     occ = {k: float(v) for k, v in log.items()}
     check(all(math.isfinite(v) for v in occ.values()), f"occ step: {occ}")
-    check(read_launches() == {k: 1 for k in expect}, f"occ step launches {read_launches()}")
+    check(read_launches() == {k: int(k != "sphere_march") for k in expect},
+          f"occ step launches {read_launches()}")
 
     step_s = float(np.median([x["step_seconds"] for x in hist[2:]]))
     print(f"train: {steps} steps, held-out loss_rgb {before:.5f} -> {after:.5f}, "
@@ -328,7 +430,111 @@ def train(steps: int, dev) -> dict:
           f"{model.num_train_rays_per_step() / step_s:.1f} rays/s")
     print(f"launches over the run: {launches} (per step 1 each, plus {2 * chunks} fwd "
           f"of each for validation)")
-    return {k: v for k, v in launches.items()}
+    return {k: v for k, v in launches.items() if k != "sphere_march"}
+
+
+def material_cfg(mesh: dict, root: str, **over) -> dict:
+    """configs/material/proc/bowl.yaml with the mesh written to `root` and
+    the output dirs there; `over` replaces further keys."""
+    from nero_tpu_torch.core.config import load_cfg
+    from nero_tpu_torch.geometry.mesh_io import write_ply
+
+    cfg = load_cfg(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "configs", "material", "proc", "bowl.yaml"))
+    mesh_fn = os.path.join(root, f"mesh_{len(mesh['vertices'])}.ply")
+    write_ply(mesh_fn, mesh["vertices"], mesh["triangles"])
+    cfg.update(mesh=mesh_fn, model_root=root, vis_dir=root, **over)
+    return cfg
+
+
+def train_material(mesh: dict, steps: int, dev) -> dict:
+    """Stage II on the bowl scene at the published width, through Trainer."""
+    from nero_tpu_torch.render.shape import compute_rgb_loss
+    from nero_tpu_torch.train.trainer import Trainer
+
+    root = tempfile.mkdtemp(prefix="nero_smoke_mat_")
+    cfg = material_cfg(mesh, root, total_step=steps, val_interval=steps,
+                       save_interval=10 * steps, train_log_step=1)
+    trainer = Trainer(cfg, device=dev)
+    trainer.setup()
+    model = trainer.model
+    print(f"material: {model.tbn} hit pixels in the store, distill RMS "
+          f"{model.ray_tracer.distill_rms:.5f}, inner_compact_frac "
+          f"{model.mcfg.inner_compact_frac:.3f}, outer_compact_frac "
+          f"{model.mcfg.outer_compact_frac:.3f}")
+    # a held-out batch, shaded on the fixed direction lattice (no azimuth
+    # rotation), the same before and after training
+    fixed = model.sample_batch(torch.Generator(device=dev).manual_seed(7))
+
+    def fixed_loss_rgb() -> float:
+        with torch.no_grad():
+            colors, _ = model.shade(model.params, fixed, gen=None)
+        return float(compute_rgb_loss(colors, fixed["rgb"], model.cfg["rgb_loss"]).mean())
+
+    before = fixed_loss_rgb()
+    reset_launches()
+    trainer.run()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    after = fixed_loss_rgb()
+
+    hist = trainer.train_history
+    check(len(hist) == steps, f"{len(hist)} logged steps")
+    for h in hist:
+        for k in ("loss_rgb", "loss_mat_reg", "loss_diffuse_light", "loss_total"):
+            check(math.isfinite(h[k]), f"material step {h['step']}: {k} = {h[k]}")
+    check(after < before, f"material loss_rgb on a held-out batch did not fall: "
+                          f"{before} -> {after}")
+    val = trainer.val_results
+    check(all(math.isfinite(v) for v in val.values()), f"material validation: {val}")
+
+    # one validation view: its hit pixels in chunks of test_ray_num, one
+    # march launch per chunk
+    info = model.test_imgs_info
+    h, w = info["imgs"].shape[1:3]
+    chunks = 0
+    for i in range(len(model.test_ids)):
+        hit = model.ray_tracer.trace_cpu(*model._image_rays_np(info["Ks"][i], info["poses"][i],
+                                                               h, w))[3]
+        chunks += -(-int(hit.sum()) // model.cfg["test_ray_num"])
+    expect = {k: 0 for k in launches}
+    expect["sphere_march"] = steps + chunks
+    check(launches == expect, f"material launches {launches}, expected {expect}")
+
+    step_s = float(np.median([x["step_seconds"] for x in hist[2:]]))
+    print(f"material: {steps} steps, held-out loss_rgb {before:.6f} -> {after:.6f}, per-step "
+          f"loss_rgb {hist[0]['loss_rgb']:.4f} -> {hist[-1]['loss_rgb']:.4f}, val psnr "
+          f"{val.get('val-psnr', float('nan')):.3f}")
+    print(f"material: step {step_s * 1e3:.2f} ms (median, host clock after synchronize), "
+          f"{model.num_train_rays_per_step() / step_s:.1f} points/s; sphere_march launches "
+          f"{launches['sphere_march']} = {steps} steps + {chunks} validation chunks")
+    return {"sphere_march": launches["sphere_march"]}
+
+
+def train_material_convex(steps: int, dev) -> None:
+    """A short Stage-II run on the convex sphere scene with the human light
+    and the sphere_direction outer light: inner compaction on, outer off,
+    IPE and the camera-plane light on the card once."""
+    from nero_tpu_torch.geometry.proc_mesh import proc_mesh
+    from nero_tpu_torch.train.trainer import Trainer
+
+    root = tempfile.mkdtemp(prefix="nero_smoke_mat2_")
+    cfg = material_cfg(proc_mesh("sphere"), root, total_step=steps,
+                       database_name="proc/sphere/100_12", name="proc_sphere_material")
+    cfg["shader_cfg"] = {**cfg["shader_cfg"], "human_lights": True,
+                         "outer_light_version": "sphere_direction"}
+    trainer = Trainer(cfg, device=dev)
+    trainer.setup()
+    model = trainer.model
+    check(model.mcfg.inner_compact_frac > 0.0 and model.mcfg.outer_compact_frac == 0.0,
+          f"convex regime: compaction {model.mcfg}")
+    reset_launches()
+    for step in range(steps):
+        log = {k: float(v) for k, v in trainer.train_step(step).items()}
+        check(all(math.isfinite(v) for v in log.values()), f"convex step {step}: {log}")
+    check(read_launches()["sphere_march"] == steps, f"convex launches {read_launches()}")
+    print(f"material (convex, human light, sphere_direction): {steps} steps, inner_compact_frac "
+          f"{model.mcfg.inner_compact_frac:.3f}, last loss_rgb {log['loss_rgb']:.4f}")
 
 
 def main(argv=None) -> int:
@@ -336,6 +542,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    from nero_tpu_torch.geometry.proc_mesh import proc_mesh
     from nero_tpu_torch.ops import cuda_build
 
     dev = torch.device("cuda")
@@ -354,8 +561,12 @@ def main(argv=None) -> int:
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}")
 
+    bowl = proc_mesh("bowl")
     kernels = check_sdf(N_ROWS, dev) + check_shader(N_ROWS, dev)
+    kernels += check_march(bowl, N_MARCH_RAYS, dev)
     launches = train(TRAIN_STEPS, dev)
+    launches.update(train_material(bowl, TRAIN_STEPS, dev))
+    train_material_convex(5, dev)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     for k in kernels:

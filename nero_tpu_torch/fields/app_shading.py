@@ -110,3 +110,20 @@ def shade_from_raw(packed: torch.Tensor, cfg: AppShadingConfig, fg_lut,
         "indirect_light": indirect_light,
     }
     return color, occ_info, inter
+
+
+def get_camera_plane_intersection(pts: torch.Tensor, dirs: torch.Tensor, poses: torch.Tensor):
+    """Intersect rays with the camera XoY plane in 'human' coordinates
+    (nero_tpu/fields/app_shading.py:90-103; used by the Stage-II human light).
+
+    pts, dirs [...,3]; poses [...,3,4]. Returns (inter [...,3], dist [...], hits [...]).
+    """
+    R = poses[..., :, :3]
+    t = poses[..., :, 3]
+    pts_h = torch.einsum("...ij,...j->...i", R, pts) + t
+    dirs_h = torch.einsum("...ij,...j->...i", R, dirs)
+    hits = torch.abs(dirs_h[..., 2]) > 1e-4
+    dirs_z = torch.where(hits, dirs_h[..., 2], torch.full_like(dirs_h[..., 2], 1e-4))
+    dist = -pts_h[..., 2] / dirs_z
+    inter = pts_h + dist[..., None] * dirs_h
+    return inter, dist, hits

@@ -1,0 +1,45 @@
+"""Mesh of a procedural scene, made on the host from its analytic SDF: the
+stand-in for a Stage-I mesh where Stage II runs on a `proc/*` scene.
+
+    python -m nero_tpu_torch.geometry.proc_mesh bowl data/meshes/proc_bowl.ply
+
+samples the scene's SDF on a 128^3 grid over [-1.01, 1.01]^3, extracts the
+iso-surface with the host library and writes a PLY (what nero_tpu's bench
+does for its Stage-II cells).
+"""
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+
+from nero_tpu_torch.dataset.synthetic import scene_sdf
+from nero_tpu_torch.geometry import native
+from nero_tpu_torch.geometry.mesh_io import write_ply
+
+
+def proc_mesh(scene: str, grid: int = 128, lo: float = -1.01, hi: float = 1.01) -> dict:
+    """{'vertices' [V,3] f32, 'triangles' [T,3] i32} of scene 'sphere' | 'bowl' | ..."""
+    xs = np.linspace(lo, hi, grid).astype(np.float32)
+    X, Y, Z = np.meshgrid(xs, xs, xs, indexing="ij")
+    vals = np.asarray(scene_sdf(scene)(np.stack([X, Y, Z], -1).reshape(-1, 3)),
+                      np.float32).reshape(grid, grid, grid)
+    verts, tris = native.isosurface(vals, 0.0)
+    return {"vertices": (verts / (grid - 1.0) * (hi - lo) + lo).astype(np.float32),
+            "triangles": tris}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("scene")
+    ap.add_argument("out")
+    args = ap.parse_args(argv)
+    mesh = proc_mesh(args.scene)
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    write_ply(args.out, mesh["vertices"], mesh["triangles"])
+    print(f"{args.out}: {len(mesh['vertices'])} vertices, {len(mesh['triangles'])} triangles")
+
+
+if __name__ == "__main__":
+    main()

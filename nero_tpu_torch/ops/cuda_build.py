@@ -19,7 +19,7 @@ import threading
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "nero_tpu_torch")
-SOURCES = ("sdf_grad", "shader")
+SOURCES = ("sdf_grad", "shader", "sphere_march")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 

@@ -101,3 +101,17 @@ def predictor_raw(layers, x: torch.Tensor) -> torch.Tensor:
     for layer in layers[:-1]:
         h = torch.relu(apply_dense(layer, h))
     return apply_dense(layers[-1], h)
+
+
+def apply_predictor(layers, x: torch.Tensor, activation: str = "sigmoid",
+                    exp_max: float = 0.0) -> torch.Tensor:
+    """The 4-layer head with its final activation: 'sigmoid', 'exp' (clamped
+    at exp_max) or 'none'."""
+    h = predictor_raw(layers, x)
+    if activation == "exp":
+        return exp_activation(h, exp_max)
+    if activation == "sigmoid":
+        return torch.sigmoid(h)
+    if activation == "none":
+        return h
+    raise NotImplementedError(activation)

@@ -1,6 +1,10 @@
-"""Where a Stage-I training step's time goes on the GPU.
+"""Where a training step's time goes on the GPU (Stage I or Stage II).
 
     python -m nero_tpu_torch.profile_step [--cfg configs/shape/proc/sphere.yaml] [--steps 5]
+    python -m nero_tpu_torch.profile_step --cfg configs/material/proc/bowl.yaml
+
+(the material config reads `data/meshes/proc_bowl.ply`, which
+`python -m nero_tpu_torch.geometry.proc_mesh bowl data/meshes/proc_bowl.ply` writes).
 
 Builds the model, optimizer and schedule through `Trainer.setup()` and times
 `Trainer.train_step`, the step that `run_training` takes. After a few
@@ -10,7 +14,10 @@ the largest other device kernels, the host step time (clock around
 synchronised steps), the device busy time per step (kernels and memory
 copies; user annotations such as `Optimizer.step#...` span other kernels
 and are left out) and the device's idle share, then one JSON line with
-those numbers.
+those numbers. For a material config it also times, with CUDA events, the
+forward passes of the step's parts (tracer = march kernel + gradient normal,
+inner / outer / human light MLPs with their encodings); what is left of the
+busy time is the backward pass, the BRDF arithmetic and the optimizer.
 """
 from __future__ import annotations
 
@@ -28,7 +35,52 @@ from nero_tpu_torch.core.config import load_cfg
 from nero_tpu_torch.train.trainer import Trainer
 
 PORT_KERNELS = ("sdf_rows_kernel", "shader_rows_kernel", "dw_partial_kernel",
-                "colsum_partial_kernel", "reduce_kernel")
+                "colsum_partial_kernel", "reduce_kernel", "sphere_march_kernel")
+GEMM_MARKS = ("gemm", "cutlass", "nvjet", "cublas", "gemv")
+
+
+class ForwardTimer:
+    """Wraps functions with CUDA-event timers; `ms()` gives each one's
+    summed device time after a synchronise."""
+
+    def __init__(self):
+        self.events: dict[str, list] = {}
+
+    def wrap(self, name: str, fn):
+        def timed(*args, **kwargs):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            self.events.setdefault(name, []).append((start, end))
+            return out
+        return timed
+
+    def ms(self) -> dict:
+        torch.cuda.synchronize()
+        return {k: sum(s.elapsed_time(e) for s, e in v) for k, v in self.events.items()}
+
+
+def material_forward_parts(trainer, step: int, steps: int) -> dict:
+    """Forward device ms per step of the Stage-II step's parts."""
+    from nero_tpu_torch.fields import mc_shading
+
+    timer = ForwardTimer()
+    model = trainer.model
+    names = ("get_inner_lights", "predict_outer_lights", "get_human_light")
+    saved = {n: getattr(mc_shading, n) for n in names}
+    saved_trace = model.trace_fn
+    try:
+        for n in names:
+            setattr(mc_shading, n, timer.wrap(n, saved[n]))
+        model.trace_fn = timer.wrap("trace_fn (march + normal)", saved_trace)
+        for i in range(steps):
+            trainer.train_step(step + i)
+    finally:
+        for n in names:
+            setattr(mc_shading, n, saved[n])
+        model.trace_fn = saved_trace
+    return {k: v / steps for k, v in timer.ms().items()}
 
 
 def is_device_work(evt) -> bool:
@@ -72,6 +124,9 @@ def main(argv=None):
                 trainer.train_step(step)
                 step += 1
             torch.cuda.synchronize()
+        parts = {}
+        if cfg["network"] == "material":
+            parts = material_forward_parts(trainer, step, args.steps)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     kernels, port_names = {}, set()
@@ -80,8 +135,11 @@ def main(argv=None):
             continue
         name = evt.key
         for short in PORT_KERNELS:
-            # PyTorch's own reductions are at::native::reduce_kernel<...>
-            if short in name and "at::native" not in name:
+            # the port's kernels live in namespace nero or in a source's
+            # anonymous namespace (PyTorch has reduce_kernels of its own,
+            # under at::)
+            if "nero::" + short in name or ("(anonymous namespace)::" + short in name
+                                            and "at::" not in name):
                 name = short + ("<true>" if "<true>" in evt.key else
                                 "<false>" if "<false>" in evt.key else "")
                 port_names.add(name)
@@ -98,9 +156,16 @@ def main(argv=None):
     others = sorted(((v, k) for k, v in kernels.items() if k not in port), reverse=True)[:8]
     for v, k in others:
         print(f"  {v:8.3f} ms    {k[:90]}")
-    print(json.dumps({"card": card, "host_step_ms": host_ms, "device_busy_ms": busy,
-                      "idle_share": max(0.0, 1.0 - busy / host_ms),
-                      "port_kernels_ms": port}))
+    gemm = sum(v for k, v in kernels.items()
+               if k not in port and any(m in k.lower() for m in GEMM_MARKS))
+    print(f"  {gemm:8.3f} ms  of the others are library matrix products (name holds one of "
+          f"{GEMM_MARKS})")
+    for k, v in parts.items():
+        print(f"  {v:8.3f} ms  forward of {k} (CUDA events)")
+    print(json.dumps({"card": card, "cfg": args.cfg, "host_step_ms": host_ms,
+                      "device_busy_ms": busy, "idle_share": max(0.0, 1.0 - busy / host_ms),
+                      "port_kernels_ms": port, "library_gemm_ms": gemm,
+                      "forward_parts_ms": parts}))
 
 
 if __name__ == "__main__":

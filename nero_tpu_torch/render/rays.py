@@ -38,3 +38,20 @@ def sample_ray_batch(gen: torch.Generator, imgs_u8: torch.Tensor, K_inv: torch.T
     rgb = imgs_u8[img_i, py, px].float() / 255.0
     rays_o, rays_d, near, far = rays_from_pixels(coords, K_inv[img_i], poses[img_i])
     return {"rays_o": rays_o, "rays_d": rays_d, "near": near, "far": far, "rgb": rgb}
+
+
+def human_coordinate_poses(poses: torch.Tensor, fixed_camera: bool = False) -> torch.Tensor:
+    """Per-camera 'human' frame: z-flattened camera frame used by the human
+    light. [N,3,4] -> [N,3,4]. Y = world -z, Z = flattened camera z-axis."""
+    R_w2c = poses[..., :3, :3]
+    cam_cen = -torch.einsum("...ji,...j->...i", R_w2c, poses[..., :3, 3])
+    if not fixed_camera:
+        cam_cen = torch.cat([cam_cen[..., :2], torch.zeros_like(cam_cen[..., 2:])], dim=-1)
+    n = poses.shape[0]
+    Y = torch.tensor([0.0, 0.0, -1.0], dtype=poses.dtype, device=poses.device).expand(n, 3)
+    Z = torch.cat([poses[:, 2, :2], torch.zeros_like(poses[:, 2, 2:3])], dim=-1)
+    Z = Z / torch.clamp(torch.linalg.norm(Z, dim=-1, keepdim=True), min=1e-12)
+    X = torch.linalg.cross(Y, Z)
+    R = torch.stack([X, Y, Z], dim=1)
+    t = -torch.einsum("nij,nj->ni", R, cam_cen)
+    return torch.cat([R, t[:, :, None]], dim=-1)

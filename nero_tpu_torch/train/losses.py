@@ -63,12 +63,17 @@ def init_sdf_reg_loss(data_pr, data_gt, step, cfg):
             "loss_sdf_small": (small_loss * anneal * gate).reshape(1)}
 
 
+def mat_reg_loss(data_pr, data_gt, step, cfg):
+    return {k: data_pr[k] for k in ("loss_mat_reg", "loss_diffuse_light") if k in data_pr}
+
+
 name2loss = {
     "nerf_render": nerf_render_loss,
     "eikonal": eikonal_loss,
     "std": std_recorder,
     "init_sdf_reg": init_sdf_reg_loss,
     "occ": occ_loss,
+    "mat_reg": mat_reg_loss,
 }
 
 

@@ -1,9 +1,9 @@
 """Positional encoding and Ref-NeRF integrated directional encoding (IDE).
 
-Counterpart of nero_tpu/utils/encodings.py:26-145: PE with identity channels
+Counterpart of nero_tpu/utils/encodings.py:26-162: PE with identity channels
 first, then [sin(2^i x), cos(2^i x)] per octave; IDE with the z-Vandermonde
-coefficient table and the de-Moivre recurrence for (x + iy)^m. The mip-NeRF
-IPE is not needed by the default Stage-I shader and waits for a later slice.
+coefficient table and the de-Moivre recurrence for (x + iy)^m; and the
+mip-NeRF integrated positional encoding (IPE) of the Stage-II human light.
 """
 from __future__ import annotations
 
@@ -69,6 +69,15 @@ def ide_tables(deg_view: int):
     return m_arr, sigma, mat.astype(np.float32), l_max
 
 
+@lru_cache(maxsize=None)
+def _ide_device_tables(deg_view: int, device: torch.device, dtype: torch.dtype):
+    """(coefficient matrix, sigma) on `device`: made once, so that no call
+    pays a host-to-device copy."""
+    _, sigma_np, mat_np, _ = ide_tables(deg_view)
+    return (torch.as_tensor(mat_np, dtype=dtype, device=device),
+            torch.as_tensor(sigma_np, dtype=dtype, device=device))
+
+
 def ide_dim(deg_view: int) -> int:
     return 2 * len(ide_tables(deg_view)[0])
 
@@ -76,9 +85,8 @@ def ide_dim(deg_view: int) -> int:
 def integrated_dir_encode(xyz: torch.Tensor, kappa_inv, deg_view: int = 5) -> torch.Tensor:
     """xyz [..., 3] unit directions, kappa_inv [..., 1] or scalar ->
     [..., 2 * n_ml] = [Re(ide), Im(ide)]."""
-    m_arr, sigma_np, mat_np, l_max = ide_tables(deg_view)
-    mat = torch.as_tensor(mat_np, dtype=xyz.dtype, device=xyz.device)
-    sigma = torch.as_tensor(sigma_np, dtype=xyz.dtype, device=xyz.device)
+    m_arr, _, _, l_max = ide_tables(deg_view)
+    mat, sigma = _ide_device_tables(deg_view, xyz.device, xyz.dtype)
     x, y, z = xyz[..., 0:1], xyz[..., 1:2], xyz[..., 2:3]
 
     vmz = torch.cat([z ** i for i in range(l_max + 1)], dim=-1)
@@ -89,11 +97,27 @@ def integrated_dir_encode(xyz: torch.Tensor, kappa_inv, deg_view: int = 5) -> to
         re_p, im_p = res[-1], ims[-1]
         res.append(re_p * x - im_p * y)
         ims.append(re_p * y + im_p * x)
-    idx = torch.as_tensor(m_arr.astype(np.int64), device=xyz.device)
-    re_m = torch.cat(res, dim=-1)[..., idx]
-    im_m = torch.cat(ims, dim=-1)[..., idx]
+    # one column per (m, l) entry, picked by concatenation: its backward is
+    # plain slicing, where a tensor index would sort and scatter
+    re_m = torch.cat([res[m] for m in m_arr], dim=-1)
+    im_m = torch.cat([ims[m] for m in m_arr], dim=-1)
 
-    if not torch.is_tensor(kappa_inv):
-        kappa_inv = torch.tensor(kappa_inv, dtype=xyz.dtype, device=xyz.device)
-    atten = torch.exp(-sigma * kappa_inv)
+    atten = torch.exp(-sigma * kappa_inv)   # a Python scalar makes no device tensor
     return torch.cat([re_m * pz * atten, im_m * pz * atten], dim=-1)
+
+
+def expected_sin(mean: torch.Tensor, var: torch.Tensor) -> torch.Tensor:
+    """E[sin(x)] for x ~ N(mean, var)."""
+    return torch.exp(-0.5 * var) * torch.sin(mean)
+
+
+def integrated_pos_encode(mean: torch.Tensor, var: torch.Tensor, min_deg: int,
+                          max_deg: int) -> torch.Tensor:
+    """mip-NeRF IPE over a diagonal Gaussian; output dim = 2*d*(max_deg-min_deg)."""
+    scales = torch.tensor([2.0 ** i for i in range(min_deg, max_deg)], dtype=mean.dtype,
+                          device=mean.device)
+    shape = mean.shape[:-1] + (-1,)
+    scaled_mean = (mean[..., None, :] * scales[:, None]).reshape(shape)
+    scaled_var = (var[..., None, :] * scales[:, None] ** 2).reshape(shape)
+    return expected_sin(torch.cat([scaled_mean, scaled_mean + 0.5 * math.pi], dim=-1),
+                        torch.cat([scaled_var, scaled_var], dim=-1))

@@ -17,6 +17,9 @@ from nero_tpu_torch.ops.fg_lut import get_fg_lut
 from nero_tpu_torch.ops.mlp import resolve_weight_norm
 from nero_tpu_torch.render import shape as T
 
+# one intra-op thread: the suite runs several worker processes side by side
+torch.set_num_threads(1)
+
 TINY_CFG = {
     "name": "test_tiny", "network": "shape", "database_name": "proc/sphere/32_6",
     "n_samples": 16, "n_importance": 8, "up_sample_steps": 2, "n_bg_samples": 4,

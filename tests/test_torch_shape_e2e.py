@@ -7,6 +7,9 @@ import torch
 from nero_tpu_torch.models.shape import NeROShapeModel
 from nero_tpu_torch.train.trainer import Trainer
 
+# one intra-op thread: the suite runs several worker processes side by side
+torch.set_num_threads(1)
+
 TINY_CFG = {
     "name": "test_tiny", "network": "shape", "database_name": "proc/sphere/32_6",
     "n_samples": 16, "n_importance": 8, "up_sample_steps": 2, "n_bg_samples": 4,

@@ -12,6 +12,9 @@ from nero_tpu.train.lr import warm_up_cos_schedule as jax_schedule
 from nero_tpu_torch.train.losses import compute_losses, total_loss
 from nero_tpu_torch.train.lr import warm_up_cos_schedule
 
+# one intra-op thread: the suite runs several worker processes side by side
+torch.set_num_threads(1)
+
 LR_CFG = {"end_warm": 3, "end_iter": 12, "lr": 1e-2}
 
 
