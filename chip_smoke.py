@@ -2,7 +2,8 @@
 """Smoke test of nero_tpu_torch on one NVIDIA GPU: builds the CUDA kernels,
 holds each against its plain PyTorch version, then trains Stage I on
 `configs/shape/proc/sphere.yaml` and Stage II on
-`configs/material/proc/bowl.yaml` at full width through the kernels.
+`configs/material/proc/bowl.yaml` and `bowl_fused.yaml` at full width through
+the kernels, and takes a few steps through every other Stage-II switch.
 
     python3 chip_smoke.py
 
@@ -10,26 +11,37 @@ Phases (each raises on failure, so the run exits non-zero and prints no
 result line):
   1. card name and power limit; build every kernel (one nvcc per source,
      all at once) and print the build seconds;
-  2. each kernel function (SDF-with-gradient fwd/bwd, shader fwd/bwd) at
-     N = 65,536 rows with full-width weights from a seed, against its plain
-     version, with the tolerances of the JAX kernel tests; kernel and plain
-     times from CUDA events;
-  3. the mesh of the bowl scene from its analytic SDF (host iso-surfacer);
-     a field distilled from it on the card; the sphere-march kernel against
-     its plain version on 393,216 surface rays (found agreement >= 0.99,
-     median |dt| < 1e-3, both refine modes); the whole tracer against the
-     exact host BVH (clearing-ray hit agreement >= 0.98);
+  2. the Stage-I kernel functions (SDF-with-gradient fwd/bwd, shader fwd/bwd)
+     at N = 65,536 rows and the light kernel (fwd/bwd; both heads, and the
+     outer head alone with `sphere_direction`) at N = 393,216 rows, with
+     full-width weights from a seed, against their plain versions, with the
+     tolerances of the JAX kernel tests; kernel and plain times from CUDA
+     events;
+  3. the mesh of the bowl scene from its analytic SDF (host iso-surfacer); a
+     `std` and a `wide` field distilled from it on the card; for each, the
+     sphere-march and uniform-march kernels against their plain versions on
+     393,216 surface rays (found agreement >= 0.99, median |dt| < 1e-3) and
+     the one-evaluation kernel on 393,216 points (atol 1e-3 to its plain
+     version, 2e-2 to the f32 field); the neural tracer (sphere march,
+     uniform march, wide field) against the exact host BVH (clearing-ray hit
+     agreement >= 0.98) and the device BVH traversal against the host's;
   4. `Trainer` on the sphere config with only total_step, val_interval,
      save_interval and the output dirs overridden, then one step past
      occ_loss_step; losses finite, loss_rgb falling, validation run, and
      every kernel's launch count as expected for the steps taken;
   5. `Trainer` on the bowl material config (mesh, steps, intervals and
-     output dirs overridden): losses finite, held-out loss_rgb falling, one
-     validation view, one sphere-march launch per step and validation chunk;
-  6. five Stage-II steps on the convex sphere scene with the human light and
-     the sphere_direction outer light.
+     output dirs overridden), unfused and then fused (`bowl_fused.yaml`):
+     losses finite, held-out loss_rgb falling, one validation view, one
+     march launch per step and validation chunk and, fused, one forward of
+     the light kernel per step and chunk and one backward per step;
+  6. a few Stage-II steps each, every launch count asserted: the convex
+     sphere scene with the human light and the sphere_direction outer light
+     (inner compaction on), unfused and fused (the light kernel runs the
+     outer head only); the uniform march; the wide field under both marches;
+     `tracer: grid`, whose grid tracer is held against the exact host BVH.
 The line before the result is a JSON object with every kernel's numbers;
-the last line is {"ok": true, "device": {...}}.
+the last line is {"ok": true, "device": {...}}. `--only kernels` stops after
+phase 3 (for work on a kernel; no result line).
 """
 from __future__ import annotations
 
@@ -49,7 +61,9 @@ PEAK_BF16 = 989e12     # H100 SXM dense bf16, FLOP/s (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3, bytes/s
 N_ROWS = 65536         # the training lattice: 512 rays x 128 inner samples
 N_MARCH_RAYS = 393216  # Stage II: 512 points x (512 diffuse + 256 specular) directions
-TRAIN_STEPS = 30
+STAGE1_STEPS = 30      # Stage I, sphere config
+UNFUSED_STEPS = 30     # Stage II, bowl.yaml (separate light ops)
+FUSED_STEPS = 30       # Stage II, bowl_fused.yaml (the light kernel)
 
 
 def card_line() -> str:
@@ -274,73 +288,288 @@ def surface_rays(mesh: dict, n: int, seed: int = 0):
     return (p + d * 1e-3).astype(np.float32), d.astype(np.float32)
 
 
-def check_march(mesh: dict, n: int, dev) -> list:
-    """The sphere-march kernel against its plain version on a field distilled
-    from the bowl mesh, and the tracer against the exact host BVH."""
-    from nero_tpu_torch.geometry.neural_tracer import NeuralTracer, sphere_segment
-    from nero_tpu_torch.ops import sphere_march as K
+def field_tracer(mesh: dict, topology: str, dev):
+    """A NeuralTracer of the bowl mesh with the material model's seed, so that
+    the training runs below find its field in the distill cache."""
+    from nero_tpu_torch.geometry.neural_tracer import NeuralTracer
+    from nero_tpu_torch.models.material import DEFAULT_MATERIAL_CFG
 
     t0 = time.perf_counter()
-    tracer = NeuralTracer(mesh["vertices"], mesh["triangles"], cache=False, verbose=False,
-                          device=dev)
+    tracer = NeuralTracer(mesh["vertices"], mesh["triangles"], verbose=False, device=dev,
+                          seed=DEFAULT_MATERIAL_CFG["random_seed"], field_topology=topology)
     torch.cuda.synchronize()
-    print(f"distill: 3000 steps on 1.5 M samples in {time.perf_counter() - t0:.1f} s "
-          f"(host signed distances included), near-band RMS {tracer.distill_rms:.5f}")
-    check(tracer.distill_rms < 0.004, f"distill RMS {tracer.distill_rms}")
+    print(f"distill ({topology}): 3000 steps on 1.5 M samples (or the cached field of an "
+          f"earlier run in this checkout) in {time.perf_counter() - t0:.1f} s, host signed "
+          f"distances included; near-band RMS {tracer.distill_rms:.5f}")
+    check(tracer.distill_rms < 0.004, f"distill RMS ({topology}) {tracer.distill_rms}")
+    return tracer
+
+
+def march_agreement(name: str, kernel_fn, plain_fn):
+    """Kernel against plain version on the same rays: `found` agreement
+    >= 0.99 and median |dt| < 1e-3 on rays both found."""
+    t_k, f_k = kernel_fn()
+    t_p, f_p = plain_fn()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(t_k).all()), f"{name}: non-finite t")
+    agree = (f_k == f_p).float().mean().item()
+    dt = (t_k - t_p).abs()[f_k & f_p]
+    med, p99, mx = dt.median().item(), dt.quantile(0.99).item(), dt.max().item()
+    check(agree >= 0.99, f"{name}: found agreement {agree}")
+    check(med < 1e-3, f"{name}: median |dt| {med}")
+    print(f"{name}: found agreement {agree:.5f} (>= 0.99)  median|dt| {med:.3e} (< 1e-3)  "
+          f"p99 {p99:.3e}  max {mx:.3e} (grazing rays that bracket another crossing)  "
+          f"found rate {f_k.float().mean().item():.3f}")
+    return f_k, {"agree": agree, "median": med, "max": mx}
+
+
+def tracer_vs_bvh(name: str, tracer, o_np, d_np, o, d, min_agree: float, max_depth_err: float,
+                  min_cos: float, clear_depth: float = 0.05):
+    """A device tracer against the exact host BVH on clearing rays (rays
+    that miss or hit beyond `clear_depth`)."""
+    _, n_c, d_c, h_c = tracer.trace_cpu(o_np, d_np)
+    _, n_g, d_g, h_g = (x.cpu().numpy() for x in tracer.trace(o, d))
+    clear = (~h_c) | (d_c > clear_depth)
+    agree = float((h_g == h_c)[clear].mean())
+    both = clear & h_c & h_g & (d_g[:, 0] > clear_depth)
+    depth_err = float(np.abs(d_g[:, 0][both] - d_c[both]).mean())
+    cos = float(np.sum(n_g[both] * n_c[both], -1).mean())
+    print(f"{name} vs exact host BVH on {len(o_np)} surface rays: self-hit rate "
+          f"{h_c.mean():.3f}, clearing-ray hit agreement {agree:.5f} (>= {min_agree}), mean "
+          f"depth error {depth_err:.5f} (< {max_depth_err}), mean normal cosine {cos:.4f} "
+          f"(> {min_cos})")
+    check(agree >= min_agree, f"{name}: clearing-ray agreement {agree}")
+    check(depth_err < max_depth_err and cos > min_cos,
+          f"{name}: depth error {depth_err}, normal cosine {cos}")
+
+
+def check_field_kernels(mesh: dict, n: int, dev) -> list:
+    """The three kernels of the distilled field (sphere march, uniform march,
+    one evaluation) in both topologies against their plain versions, on
+    fields distilled from the bowl mesh; then every tracer against the exact
+    host BVH (the grid tracer is held against it where a model builds one,
+    in `material_variants`)."""
+    import copy
+
+    from nero_tpu_torch.geometry.bvh import RayTracer
+    from nero_tpu_torch.geometry.neural_tracer import field_apply, sphere_segment
+    from nero_tpu_torch.ops import field_fwd as KF
+    from nero_tpu_torch.ops import march as KM
+    from nero_tpu_torch.ops import sphere_march as K
 
     o_np, d_np = surface_rays(mesh, n)
     o, d = torch.as_tensor(o_np, device=dev), torch.as_tensor(d_np, device=dev)
-    t_enter, t_exit, _ = sphere_segment(o, d, tracer.bound)
-    kw = dict(n_sphere=tracer.n_sphere, margin=tracer.margin,
-              dt_frac=1.0 / (tracer.n_coarse - 1))
-    res, worst = {}, {"agree": 1.0, "median": 0.0, "max": 0.0}
-    for refine, n_refine in (("illinois", 2), ("bisect", 8)):
-        t_k, f_k = K.sphere_march(tracer.packed, o, d, t_enter, t_exit, n_refine=n_refine,
-                                  refine=refine, **kw)
-        t_p, f_p = K.sphere_march_plain(tracer.packed, o, d, t_enter, t_exit,
-                                        n_refine=n_refine, refine=refine, **kw)
+    out, tracers = [], {}
+    for topology in ("std", "wide"):
+        tracer = tracers[topology] = field_tracer(mesh, topology, dev)
+        sfx = "" if topology == "std" else "_wide"
+        t_enter, t_exit, _ = sphere_segment(o, d, tracer.bound)
+        packed = tracer.packed
+        rays = (o, d, t_enter, t_exit)
+        W, Fv = K.kernel_buffers(packed)
+        wide = topology == "wide"
+
+        # sphere march, both refine modes
+        kw = dict(n_sphere=tracer.n_sphere, margin=tracer.margin,
+                  dt_frac=1.0 / (tracer.n_coarse - 1))
+        res, worst = {}, {"agree": 1.0, "median": 0.0, "max": 0.0}
+        for refine, n_refine in (("illinois", 2), ("bisect", 8)):
+            f_k, st = march_agreement(
+                f"sphere_march{sfx}  {refine}-{n_refine}",
+                lambda: K.sphere_march(packed, *rays, n_refine=n_refine, refine=refine,
+                                       topology=topology, **kw),
+                lambda: K.sphere_march_plain(packed, *rays, n_refine=n_refine, refine=refine,
+                                             **kw))
+            res[refine] = f_k
+            worst = {"agree": min(worst["agree"], st["agree"]),
+                     "median": max(worst["median"], st["median"]),
+                     "max": max(worst["max"], st["max"])}
+        check(bool((res["illinois"] == res["bisect"]).all()), "refine mode changed `found`")
+        args = (*rays, tracer.n_sphere, 2, True, 0.012 + 1e-6, tracer.margin, 0.9,
+                kw["dt_frac"], 0.25)
+        ms = cuda_ms(lambda: K._launch(W, Fv, wide, *args), iters=10)
+        plain_ms = cuda_ms(lambda: K.sphere_march_plain(packed, *rays, n_refine=2,
+                                                        refine="illinois", **kw),
+                           iters=3, warmup=1)
+        b_ms, b_by = bound(K.flops(n, tracer.n_sphere, 2, topology), K.min_bytes(n, topology))
+        out.append({"name": f"sphere_march{sfx}", "route": "cuda",
+                    "source": "nero_tpu_torch/csrc/sphere_march.cu",
+                    "replaces": "nero_tpu/ops/pallas/march_kernel.py:338",
+                    "max_abs_err": worst["max"], "median_abs_err": worst["median"],
+                    "found_agreement": worst["agree"], "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+
+        # uniform march: n_coarse samples, 8 bisections
+        nc, nr = tracer.n_coarse, 8
+        _, st = march_agreement(
+            f"march{sfx}  c{nc}-r{nr}",
+            lambda: KM.march(packed, *rays, n_coarse=nc, n_refine=nr, topology=topology),
+            lambda: KM.march_plain(packed, *rays, n_coarse=nc, n_refine=nr))
+        ms = cuda_ms(lambda: KM._launch(W, Fv, wide, *rays, nc, nr, 0.012 + 1e-6), iters=5)
+        plain_ms = cuda_ms(lambda: KM.march_plain(packed, *rays, n_coarse=nc, n_refine=nr),
+                           iters=2, warmup=1)
+        b_ms, b_by = bound(KM.flops(n, nc, nr, topology), K.min_bytes(n, topology))
+        out.append({"name": f"march{sfx}", "route": "cuda",
+                    "source": "nero_tpu_torch/csrc/march.cu",
+                    "replaces": "nero_tpu/ops/pallas/march_kernel.py:190",
+                    "max_abs_err": st["max"], "median_abs_err": st["median"],
+                    "found_agreement": st["agree"], "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+
+        # one evaluation per point: the points where the rays leave the surface
+        pts = (o + d * 0.02).contiguous()
+        v_k = KF.field_fwd(packed, pts, topology=topology)
+        v_p = KF.field_fwd_plain(packed, pts)
+        with torch.no_grad():
+            v_f = field_apply(tracer.field_params, pts, topology=topology)
         torch.cuda.synchronize()
-        check(bool(torch.isfinite(t_k).all()), f"sphere_march {refine}: non-finite t")
-        agree = (f_k == f_p).float().mean().item()
-        dt = (t_k - t_p).abs()[f_k & f_p]
-        med, p99, mx = dt.median().item(), dt.quantile(0.99).item(), dt.max().item()
-        check(agree >= 0.99, f"sphere_march {refine}: found agreement {agree}")
-        check(med < 1e-3, f"sphere_march {refine}: median |dt| {med}")
-        print(f"sphere_march  {refine}-{n_refine}: found agreement {agree:.5f} (>= 0.99)  "
-              f"median|dt| {med:.3e} (< 1e-3)  p99 {p99:.3e}  max {mx:.3e} (grazing rays "
-              f"that bracket another crossing)  found rate {f_k.float().mean().item():.3f}")
-        res[refine] = f_k
-        worst = {"agree": min(worst["agree"], agree), "median": max(worst["median"], med),
-                 "max": max(worst["max"], mx)}
-    check(bool((res["illinois"] == res["bisect"]).all()), "refine mode changed `found`")
+        e_plain = (v_k - v_p).abs().max().item()
+        e_f32 = (v_k - v_f).abs().max().item()
+        # the plain version rounds where the kernel does: they differ in the
+        # order of the f32 sums (atol 1e-3); against the f32 field the bar is
+        # tests/test_pallas_kernels.py's atol 2e-2
+        check(e_plain <= 1e-3, f"field_fwd{sfx}: max |d| to the plain version {e_plain}")
+        check(e_f32 <= 2e-2, f"field_fwd{sfx}: max |d| to the f32 field {e_f32}")
+        print(f"field_fwd{sfx}: max|d| to plain {e_plain:.3e} (atol 1e-3), to the f32 field "
+              f"{e_f32:.3e} (atol 2e-2)")
+        ms = cuda_ms(lambda: KF._launch(W, Fv, wide, pts), iters=10)
+        plain_ms = cuda_ms(lambda: KF.field_fwd_plain(packed, pts), iters=5)
+        b_ms, b_by = bound(KF.flops(n, topology), KF.min_bytes(n, topology))
+        out.append({"name": f"field_fwd{sfx}", "route": "cuda",
+                    "source": "nero_tpu_torch/csrc/field_fwd.cu",
+                    "replaces": "nero_tpu/ops/pallas/field_kernel.py:90",
+                    "max_abs_err": e_plain, "max_abs_err_f32_field": e_f32, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": None})
 
-    W, Fv = K.kernel_buffers(tracer.packed)
-    args = (o, d, t_enter, t_exit, tracer.n_sphere, 2, True, 0.012 + 1e-6, tracer.margin, 0.9,
-            kw["dt_frac"], 0.25)
-    ms = cuda_ms(lambda: K._launch(W, Fv, *args), iters=10)
-    plain_ms = cuda_ms(lambda: K.sphere_march_plain(tracer.packed, o, d, t_enter, t_exit,
-                                                    n_refine=2, refine="illinois", **kw),
-                       iters=3, warmup=1)
-    b_ms, b_by = bound(K.flops(n, tracer.n_sphere, 2), K.min_bytes(n))
+    # every tracer (march + validity + normal) against the exact host BVH
+    std = tracers["std"]
+    tracer_vs_bvh("neural tracer (std, sphere march)", std, o_np, d_np, o, d, 0.98, 0.01, 0.95)
+    uniform = copy.copy(std)
+    uniform.march_mode, uniform.n_refine = "uniform", 8
+    tracer_vs_bvh("neural tracer (std, uniform march c32-r8)", uniform, o_np, d_np, o, d,
+                  0.98, 0.01, 0.95)
+    tracer_vs_bvh("neural tracer (wide, sphere march)", tracers["wide"], o_np, d_np, o, d,
+                  0.98, 0.01, 0.95)
+    # the device BVH walks one node per step for all rays: a subset
+    m = 16384
+    bvh = RayTracer(mesh["vertices"], mesh["triangles"], device=dev)
+    _, n_c, d_c, h_c = bvh.trace_cpu(o_np[:m], d_np[:m])
+    _, n_g, d_g, h_g = (x.cpu().numpy() for x in bvh.trace(o[:m], d[:m]))
+    same = float((h_g == h_c).mean())
+    both = h_g & h_c
+    depth_err = float(np.abs(d_g[:, 0] - d_c)[both].max())
+    dots = float(np.sum(n_g * n_c, -1)[both].min())
+    # tests/test_geometry.py:135: same hits, depth to 1e-3, normals to 0.99
+    # (a ray through an edge may take either triangle: hits to 0.9999)
+    print(f"device BVH vs host BVH on {m} rays: same hit {same:.6f} (>= 0.9999), max depth "
+          f"error {depth_err:.2e} (< 1e-3), min normal cosine {dots:.5f}")
+    check(same >= 0.9999 and depth_err < 1e-3, f"device BVH: hits {same}, depth {depth_err}")
+    check(float((np.sum(n_g * n_c, -1)[both] > 0.99).mean()) >= 0.999,
+          f"device BVH: normals, min cosine {dots}")
+    return out
 
-    # the tracer (kernel + validity + gradient normal) against the exact BVH
-    _, n_c, d_c, h_c = tracer.trace_cpu(o_np, d_np)
-    _, n_g, d_g, h_g = (x.cpu().numpy() for x in tracer.trace(o, d))
-    clear = (~h_c) | (d_c > 0.05)
-    agree = float((h_g == h_c)[clear].mean())
-    both = clear & h_c & h_g & (d_g[:, 0] > 0.05)
-    depth_err = float(np.abs(d_g[:, 0][both] - d_c[both]).mean())
-    cos = float(np.sum(n_g[both] * n_c[both], -1).mean())
-    print(f"tracer vs exact host BVH on {n} surface rays: self-hit rate {h_c.mean():.3f}, "
-          f"clearing-ray hit agreement {agree:.5f} (>= 0.98), mean depth error "
-          f"{depth_err:.5f}, mean normal cosine {cos:.4f}")
-    check(agree >= 0.98, f"clearing-ray agreement {agree}")
-    check(depth_err < 0.01 and cos > 0.95, f"depth error {depth_err}, normal cosine {cos}")
-    return [{"name": "sphere_march", "route": "cuda",
-             "source": "nero_tpu_torch/csrc/sphere_march.cu",
-             "replaces": "nero_tpu/ops/pallas/march_kernel.py:338", "max_abs_err": worst["max"],
-             "median_abs_err": worst["median"], "found_agreement": worst["agree"], "ms": ms,
-             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}]
+
+def check_lights(n: int, dev) -> list:
+    """The light kernel, forward and backward, against its plain version at
+    the full lattice, with tests/test_light_kernel.py's bars: values after
+    exp to 3e-3; the gradients' worst mean error (normalised by each leaf's
+    max) under 4x that of the plain version with bf16 head products + 1e-3;
+    cosine > 0.99 per parameter leaf and > 0.98 for d directions (and d
+    points). Mode `both` with the `direction` outer light, and mode `outer`
+    with `sphere_direction`."""
+    from nero_tpu_torch.fields.mc_shading import MCShadingConfig, init_mc_shading
+    from nero_tpu_torch.ops import lights as K
+    from nero_tpu_torch.ops.mlp import exp_activation, predictor_raw
+
+    rng = np.random.default_rng(1)
+    t = lambda a: torch.as_tensor(a.astype(np.float32), device=dev)
+    unit = lambda a: a / np.linalg.norm(a, axis=-1, keepdims=True)
+    pts = t(rng.uniform(-0.6, 0.6, (n, 3))).requires_grad_(True)
+    dirs = t(unit(rng.standard_normal((n, 3)))).requires_grad_(True)
+    inters = t(rng.uniform(-0.6, 0.6, (n, 3)))
+    normals = t(rng.standard_normal((n, 3)))
+    cot_i, cot_o = t(rng.standard_normal((n, 3))), t(rng.standard_normal((n, 3)))
+    cos = lambda a, b: (a.flatten() @ b.flatten() / (a.norm() * b.norm() + 1e-12)).item()
+    out = []
+    for mode, version, sfx in (("both", "direction", ""), ("outer", "sphere_direction", "_outer")):
+        cfg = MCShadingConfig(human_lights=False, outer_light_version=version)
+        params = init_mc_shading(torch.Generator().manual_seed(0), cfg, device=dev)
+        heads = {k: params[k] for k in ("inner_light", "outer_light")[mode == "outer":]}
+
+        def lights(fn):
+            inner_z, outer_z = fn(params, cfg, pts, dirs, inters, normals, mode)
+            return (exp_activation(inner_z, cfg.inner_light_exp_max),
+                    exp_activation(outer_z, cfg.light_exp_max))
+
+        def plain_bf16(params, cfg, pts, dirs, inters, normals, mode):
+            """The plain version with the head products under bf16 autocast
+            (the encodings stay f32, as in the kernel): the yardstick of
+            bf16 noise."""
+            x_outer = K.outer_light_input(cfg, pts, dirs)
+            x_inner = K.inner_light_input(cfg, inters, -dirs, normals) if mode == "both" else None
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                outer_z = predictor_raw(params["outer_light"], x_outer).float()
+                inner_z = (predictor_raw(params["inner_light"], x_inner).float()
+                           if mode == "both" else torch.zeros_like(outer_z))
+            return inner_z, outer_z
+
+        with torch.no_grad():
+            (i_k, o_k), (i_p, o_p) = lights(K.lights_raw), lights(K.lights_raw_plain)
+        e_in, e_out = (i_k - i_p).abs().max().item(), (o_k - o_p).abs().max().item()
+        check(e_in <= 3e-3 and e_out <= 3e-3, f"lights{sfx}: inner {e_in} outer {e_out}")
+        if mode == "outer":
+            check(float(i_k.max()) == 1.0 and float(i_k.min()) == 1.0, "outer mode: inner_z != 0")
+        print(f"lights_fwd{sfx}    max|d inner| {e_in:.3e}  max|d outer| {e_out:.3e} "
+              f"(after exp, atol 3e-3)")
+
+        def loss(fn):
+            inner, outer = lights(fn)
+            return (inner * cot_i).sum() + (outer * cot_o).sum()
+
+        wrt = leaves(heads) + [dirs] + ([pts] if version == "sphere_direction" else [])
+        n_par = len(leaves(heads))
+        g_p = torch.autograd.grad(loss(K.lights_raw_plain), wrt)
+        g_k = torch.autograd.grad(loss(K.lights_raw), wrt)
+        g_b = torch.autograd.grad(loss(plain_bf16), wrt)
+        mean_rel = lambda ga, gb: max(((a - b).abs().mean() / (a.abs().max() + 1e-8)).item()
+                                      for a, b in zip(ga, gb))
+        noise_ker, noise_bf16 = mean_rel(g_p, g_k), mean_rel(g_p, g_b)
+        cos_par = min(cos(a, b) for a, b in zip(g_p[:n_par], g_k[:n_par]))
+        cos_geo = min(cos(a, b) for a, b in zip(g_p[n_par:], g_k[n_par:]))
+        check(noise_ker < 4.0 * noise_bf16 + 1e-3,
+              f"lights{sfx} grads: {noise_ker} vs bf16 {noise_bf16}")
+        check(cos_par > 0.99, f"lights{sfx} grads: worst parameter cosine {cos_par}")
+        check(cos_geo > 0.98, f"lights{sfx} grads: d dirs / d points cosine {cos_geo}")
+        bwd_err = grad_err_normalised(g_p, g_k)
+        print(f"lights_bwd{sfx}    worst parameter cosine {cos_par:.5f} (> 0.99)  d dirs"
+              f"{' / d points' if len(wrt) > n_par + 1 else ''} cosine {cos_geo:.5f} (> 0.98)  "
+              f"worst mean|d|/max|g| {noise_ker:.3e} (< 4 x bf16 {noise_bf16:.3e} + 1e-3)  "
+              f"worst max|d|/max|g| {bwd_err:.3e} (bf16 plain: "
+              f"{grad_err_normalised(g_p, g_b):.3e})")
+
+        call = lambda fn: torch.cat(fn(params, cfg, pts, dirs, inters, normals, mode), -1)
+        gout = t(rng.standard_normal((n, 6)))
+        with torch.no_grad():
+            ms_fwd = cuda_ms(lambda: call(K.lights_raw))
+            plain_fwd = cuda_ms(lambda: call(K.lights_raw_plain), iters=5)
+        ms_bwd = cuda_ms_split(lambda: call(K.lights_raw),
+                               lambda o: torch.autograd.grad(o, wrt, gout))
+        plain_bwd = cuda_ms_split(lambda: call(K.lights_raw_plain),
+                                  lambda o: torch.autograd.grad(o, wrt, gout))
+        for name, err, ms, pms, bwd, line in (
+                (f"lights_fwd{sfx}", max(e_in, e_out), ms_fwd, plain_fwd, False, 231),
+                (f"lights_bwd{sfx}", bwd_err, ms_bwd, plain_bwd, True, 259)):
+            b_ms, b_by = bound(K.flops(n, cfg, mode, bwd), K.min_bytes(n, cfg, mode, bwd))
+            out.append({"name": name, "route": "cuda",
+                        "source": "nero_tpu_torch/csrc/lights.cu",
+                        "replaces": f"nero_tpu/ops/pallas/light_kernel.py:{line}",
+                        "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
+                        "bound_by": b_by, "library_ms": None})
+        out[-1]["mean_rel_err"] = noise_ker
+        del g_p, g_k, g_b
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -349,8 +578,8 @@ def check_march(mesh: dict, n: int, dev) -> list:
 
 
 def _launch_counters():
-    from nero_tpu_torch.ops import sdf_grad, shader, sphere_march
-    return (sdf_grad.launches, shader.launches, sphere_march.launches)
+    from nero_tpu_torch.ops import field_fwd, lights, march, sdf_grad, shader, sphere_march
+    return tuple(m.launches for m in (sdf_grad, shader, sphere_march, march, field_fwd, lights))
 
 
 def reset_launches():
@@ -361,6 +590,11 @@ def reset_launches():
 
 def read_launches() -> dict:
     return {k: v for d in _launch_counters() for k, v in d.items()}
+
+
+def expect_launches(**counts) -> dict:
+    """Every counter at 0 but the named ones."""
+    return {**{k: 0 for k in read_launches()}, **counts}
 
 
 def train(steps: int, dev) -> dict:
@@ -408,8 +642,8 @@ def train(steps: int, dev) -> dict:
     ratio = model.cfg["downsample_ratio"]
     rays = int(ratio * h) * int(ratio * w) * len(model.test_ids)
     chunks = -(-rays // model.cfg["test_ray_num"])
-    expect = {"sdf_grad_fwd": steps + 2 * chunks, "sdf_grad_bwd": steps,
-              "shader_fwd": steps + 2 * chunks, "shader_bwd": steps, "sphere_march": 0}
+    expect = expect_launches(sdf_grad_fwd=steps + 2 * chunks, sdf_grad_bwd=steps,
+                             shader_fwd=steps + 2 * chunks, shader_bwd=steps)
     check(launches == expect, f"launches {launches}, expected {expect}")
 
     # the occlusion-loss branch, one step at occ_loss_step
@@ -418,7 +652,8 @@ def train(steps: int, dev) -> dict:
     log = trainer.train_step(occ_step)
     occ = {k: float(v) for k, v in log.items()}
     check(all(math.isfinite(v) for v in occ.values()), f"occ step: {occ}")
-    check(read_launches() == {k: int(k != "sphere_march") for k in expect},
+    check(read_launches() == expect_launches(sdf_grad_fwd=1, sdf_grad_bwd=1, shader_fwd=1,
+                                             shader_bwd=1),
           f"occ step launches {read_launches()}")
 
     step_s = float(np.median([x["step_seconds"] for x in hist[2:]]))
@@ -428,40 +663,50 @@ def train(steps: int, dev) -> dict:
           f"{occ.get('loss_occ', float('nan')):.5f}")
     print(f"train: step {step_s * 1e3:.2f} ms (median, host clock after synchronize), "
           f"{model.num_train_rays_per_step() / step_s:.1f} rays/s")
-    print(f"launches over the run: {launches} (per step 1 each, plus {2 * chunks} fwd "
+    print(f"launches over the run: {nonzero(launches)} (per step 1 each, plus {2 * chunks} fwd "
           f"of each for validation)")
-    return {k: v for k, v in launches.items() if k != "sphere_march"}
+    return launches
 
 
-def material_cfg(mesh: dict, root: str, **over) -> dict:
-    """configs/material/proc/bowl.yaml with the mesh written to `root` and
-    the output dirs there; `over` replaces further keys."""
+def nonzero(launches: dict) -> dict:
+    return {k: v for k, v in launches.items() if v}
+
+
+def material_cfg(mesh: dict, root: str, cfg_file: str = "bowl.yaml", shader_over=None,
+                 **over) -> dict:
+    """configs/material/proc/<cfg_file> with the mesh written to `root` and
+    the output dirs there; `over` replaces further keys, `shader_over` keys
+    of shader_cfg."""
     from nero_tpu_torch.core.config import load_cfg
     from nero_tpu_torch.geometry.mesh_io import write_ply
 
     cfg = load_cfg(os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                "configs", "material", "proc", "bowl.yaml"))
+                                "configs", "material", "proc", cfg_file))
     mesh_fn = os.path.join(root, f"mesh_{len(mesh['vertices'])}.ply")
     write_ply(mesh_fn, mesh["vertices"], mesh["triangles"])
     cfg.update(mesh=mesh_fn, model_root=root, vis_dir=root, **over)
+    cfg["shader_cfg"] = {**cfg["shader_cfg"], **(shader_over or {})}
     return cfg
 
 
-def train_material(mesh: dict, steps: int, dev) -> dict:
-    """Stage II on the bowl scene at the published width, through Trainer."""
+def train_material(mesh: dict, steps: int, dev, cfg_file: str, fused: bool) -> dict:
+    """Stage II on the bowl scene at the published width, through Trainer:
+    `steps` steps and one validation view."""
     from nero_tpu_torch.render.shape import compute_rgb_loss
     from nero_tpu_torch.train.trainer import Trainer
 
     root = tempfile.mkdtemp(prefix="nero_smoke_mat_")
-    cfg = material_cfg(mesh, root, total_step=steps, val_interval=steps,
+    cfg = material_cfg(mesh, root, cfg_file, total_step=steps, val_interval=steps,
                        save_interval=10 * steps, train_log_step=1)
     trainer = Trainer(cfg, device=dev)
     trainer.setup()
     model = trainer.model
-    print(f"material: {model.tbn} hit pixels in the store, distill RMS "
+    tag = f"material ({cfg_file})"
+    print(f"{tag}: {model.tbn} hit pixels in the store, distill RMS "
           f"{model.ray_tracer.distill_rms:.5f}, inner_compact_frac "
           f"{model.mcfg.inner_compact_frac:.3f}, outer_compact_frac "
-          f"{model.mcfg.outer_compact_frac:.3f}")
+          f"{model.mcfg.outer_compact_frac:.3f}, fused_lights {model.mcfg.fused_lights}")
+    check(bool(model.mcfg.fused_lights) == fused, f"{tag}: fused_lights {model.mcfg}")
     # a held-out batch, shaded on the fixed direction lattice (no azimuth
     # rotation), the same before and after training
     fixed = model.sample_batch(torch.Generator(device=dev).manual_seed(7))
@@ -482,14 +727,14 @@ def train_material(mesh: dict, steps: int, dev) -> dict:
     check(len(hist) == steps, f"{len(hist)} logged steps")
     for h in hist:
         for k in ("loss_rgb", "loss_mat_reg", "loss_diffuse_light", "loss_total"):
-            check(math.isfinite(h[k]), f"material step {h['step']}: {k} = {h[k]}")
-    check(after < before, f"material loss_rgb on a held-out batch did not fall: "
+            check(math.isfinite(h[k]), f"{tag} step {h['step']}: {k} = {h[k]}")
+    check(after < before, f"{tag}: loss_rgb on a held-out batch did not fall: "
                           f"{before} -> {after}")
     val = trainer.val_results
-    check(all(math.isfinite(v) for v in val.values()), f"material validation: {val}")
+    check(all(math.isfinite(v) for v in val.values()), f"{tag} validation: {val}")
 
-    # one validation view: its hit pixels in chunks of test_ray_num, one
-    # march launch per chunk
+    # one validation view: its hit pixels in chunks of test_ray_num; per
+    # chunk one march launch and, fused, one forward of the light kernel
     info = model.test_imgs_info
     h, w = info["imgs"].shape[1:3]
     chunks = 0
@@ -497,48 +742,97 @@ def train_material(mesh: dict, steps: int, dev) -> dict:
         hit = model.ray_tracer.trace_cpu(*model._image_rays_np(info["Ks"][i], info["poses"][i],
                                                                h, w))[3]
         chunks += -(-int(hit.sum()) // model.cfg["test_ray_num"])
-    expect = {k: 0 for k in launches}
-    expect["sphere_march"] = steps + chunks
-    check(launches == expect, f"material launches {launches}, expected {expect}")
+    expect = expect_launches(sphere_march=steps + chunks)
+    if fused:
+        expect.update(lights_fwd=steps + chunks, lights_bwd=steps)
+    check(launches == expect, f"{tag} launches {nonzero(launches)}, expected {nonzero(expect)}")
 
     step_s = float(np.median([x["step_seconds"] for x in hist[2:]]))
-    print(f"material: {steps} steps, held-out loss_rgb {before:.6f} -> {after:.6f}, per-step "
+    print(f"{tag}: {steps} steps, held-out loss_rgb {before:.6f} -> {after:.6f}, per-step "
           f"loss_rgb {hist[0]['loss_rgb']:.4f} -> {hist[-1]['loss_rgb']:.4f}, val psnr "
           f"{val.get('val-psnr', float('nan')):.3f}")
-    print(f"material: step {step_s * 1e3:.2f} ms (median, host clock after synchronize), "
-          f"{model.num_train_rays_per_step() / step_s:.1f} points/s; sphere_march launches "
-          f"{launches['sphere_march']} = {steps} steps + {chunks} validation chunks")
-    return {"sphere_march": launches["sphere_march"]}
+    print(f"{tag}: step {step_s * 1e3:.2f} ms (median, host clock after synchronize), "
+          f"{model.num_train_rays_per_step() / step_s:.1f} points/s; launches "
+          f"{nonzero(launches)} = {steps} steps + {chunks} validation chunks")
+    return launches
 
 
-def train_material_convex(steps: int, dev) -> None:
-    """A short Stage-II run on the convex sphere scene with the human light
-    and the sphere_direction outer light: inner compaction on, outer off,
-    IPE and the camera-plane light on the card once."""
-    from nero_tpu_torch.geometry.proc_mesh import proc_mesh
+def short_material_run(label: str, mesh: dict, steps: int, dev, expect: dict, regime=None,
+                       **cfg_over) -> dict:
+    """A few Stage-II steps of a variant of the bowl config through
+    Trainer.train_step: finite losses and exactly the expected launches."""
     from nero_tpu_torch.train.trainer import Trainer
 
     root = tempfile.mkdtemp(prefix="nero_smoke_mat2_")
-    cfg = material_cfg(proc_mesh("sphere"), root, total_step=steps,
-                       database_name="proc/sphere/100_12", name="proc_sphere_material")
-    cfg["shader_cfg"] = {**cfg["shader_cfg"], "human_lights": True,
-                         "outer_light_version": "sphere_direction"}
-    trainer = Trainer(cfg, device=dev)
+    trainer = Trainer(material_cfg(mesh, root, total_step=steps, **cfg_over), device=dev)
     trainer.setup()
     model = trainer.model
-    check(model.mcfg.inner_compact_frac > 0.0 and model.mcfg.outer_compact_frac == 0.0,
-          f"convex regime: compaction {model.mcfg}")
+    if regime is not None:
+        regime(model)
     reset_launches()
     for step in range(steps):
         log = {k: float(v) for k, v in trainer.train_step(step).items()}
-        check(all(math.isfinite(v) for v in log.values()), f"convex step {step}: {log}")
-    check(read_launches()["sphere_march"] == steps, f"convex launches {read_launches()}")
-    print(f"material (convex, human light, sphere_direction): {steps} steps, inner_compact_frac "
-          f"{model.mcfg.inner_compact_frac:.3f}, last loss_rgb {log['loss_rgb']:.4f}")
+        check(all(math.isfinite(v) for v in log.values()), f"{label} step {step}: {log}")
+    launches = read_launches()
+    want = expect_launches(**expect)
+    check(launches == want, f"{label} launches {nonzero(launches)}, expected {nonzero(want)}")
+    print(f"material ({label}): {steps} steps, tracer {type(model.ray_tracer).__name__}, "
+          f"inner_compact_frac {model.mcfg.inner_compact_frac:.3f}, last loss_rgb "
+          f"{log['loss_rgb']:.4f}, launches {nonzero(launches)}")
+    return launches
+
+
+def material_variants(bowl: dict, dev) -> list:
+    """Short runs of every Stage-II switch, each with its launches asserted:
+    the convex regime (human light, sphere_direction, inner compaction on)
+    unfused and fused, the uniform march, the wide field under both marches,
+    and the grid tracer."""
+    from nero_tpu_torch.geometry.grid_tracer import GridTracer
+    from nero_tpu_torch.geometry.proc_mesh import proc_mesh
+
+    sphere = proc_mesh("sphere")
+    convex = dict(database_name="proc/sphere/100_12", name="proc_sphere_material")
+    convex_shader = {"human_lights": True, "outer_light_version": "sphere_direction"}
+
+    def convex_regime(model):
+        check(model.mcfg.inner_compact_frac > 0.0 and model.mcfg.outer_compact_frac == 0.0,
+              f"convex regime: compaction {model.mcfg}")
+
+    def grid_tracer(model):
+        # the model's own grid tracer (256^3, baked on the host at set-up)
+        # against the exact host BVH, with tests/test_grid_tracer.py's bars:
+        # hits > 0.9, depth of non-grazing hits (beyond 0.1) to 0.03,
+        # normals to 0.85
+        check(isinstance(model.ray_tracer, GridTracer), f"tracer {type(model.ray_tracer)}")
+        o_np, d_np = surface_rays(bowl, N_MARCH_RAYS)
+        o, d = torch.as_tensor(o_np, device=dev), torch.as_tensor(d_np, device=dev)
+        tracer_vs_bvh("grid tracer", model.ray_tracer, o_np, d_np, o, d, 0.9, 0.03, 0.85,
+                      clear_depth=0.1)
+
+    return [
+        short_material_run("convex, human light, sphere_direction", sphere, 5, dev,
+                           dict(sphere_march=5), convex_regime, shader_over=convex_shader,
+                           **convex),
+        short_material_run("convex, fused lights: outer head only", sphere, 5, dev,
+                           dict(sphere_march=5, lights_fwd_outer=5, lights_bwd_outer=5),
+                           convex_regime,
+                           shader_over={**convex_shader, "fused_lights": True}, **convex),
+        short_material_run("uniform march", bowl, 5, dev, dict(march=5),
+                           tracer_march_mode="uniform", tracer_n_refine=8),
+        short_material_run("wide field", bowl, 5, dev, dict(sphere_march_wide=5),
+                           tracer_field_topology="wide"),
+        short_material_run("wide field, uniform march", bowl, 3, dev, dict(march_wide=3),
+                           tracer_field_topology="wide", tracer_march_mode="uniform",
+                           tracer_n_refine=8),
+        short_material_run("grid tracer", bowl, 3, dev, {}, grid_tracer, tracer="grid"),
+    ]
 
 
 def main(argv=None) -> int:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", choices=["kernels"], default=None,
+                    help="stop after the kernel and tracer checks (no training, no result line)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -563,12 +857,24 @@ def main(argv=None) -> int:
 
     bowl = proc_mesh("bowl")
     kernels = check_sdf(N_ROWS, dev) + check_shader(N_ROWS, dev)
-    kernels += check_march(bowl, N_MARCH_RAYS, dev)
-    launches = train(TRAIN_STEPS, dev)
-    launches.update(train_material(bowl, TRAIN_STEPS, dev))
-    train_material_convex(5, dev)
+    kernels += check_lights(N_MARCH_RAYS, dev)
+    kernels += check_field_kernels(bowl, N_MARCH_RAYS, dev)
+    if args.only == "kernels":
+        print(json.dumps({"kernels": kernels}))
+        return 0
+    runs = [train(STAGE1_STEPS, dev),
+            train_material(bowl, UNFUSED_STEPS, dev, "bowl.yaml", fused=False),
+            train_material(bowl, FUSED_STEPS, dev, "bowl_fused.yaml", fused=True)]
+    runs += material_variants(bowl, dev)
+    launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        # the one-evaluation kernel has no caller on a training path, here as
+        # in the JAX package: it is launched and checked above only
+        if k["name"].startswith("field_fwd"):
+            k["note"] = "no training path calls it, here as in the JAX package"
+        else:
+            check(k["launches"] > 0, f"{k['name']} was not launched by any training run")
     for k in kernels:
         print(f"kernel {k['name']}: {k['ms']:.3f} ms (plain {k['plain_ms']:.3f} ms, bound "
               f"{k['bound_ms']:.3f} ms by {k['bound_by']}), max err {k['max_abs_err']:.3e}, "

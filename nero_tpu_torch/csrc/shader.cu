@@ -30,7 +30,7 @@
 // (shader_kernel.py::_flops_per_row) and 3x that backward. This first
 // version runs the per-row encodings one thread per row and round-trips the
 // backward's activations (about 1.5 GB at N = 65,536) through device memory.
-#include "common.cuh"
+#include "encode.cuh"
 
 using namespace nero;
 
@@ -42,9 +42,6 @@ constexpr int HID = 256;
 constexpr int DO = 16;       // head outputs padded
 constexpr int OUT = 24;      // packed raw outputs
 constexpr int GEO = 9;       // pts, normal, view
-constexpr int NML = 36;      // IDE entries (deg 5)
-constexpr int LMAX = 16;
-constexpr int NIDE = 2 * NML;
 constexpr int NPE8 = 51, NPE6 = 39;
 constexpr int LDX = 272 + 8, LDH = HID + 8, LDC = 272 + 4;
 constexpr int NHEADS = 6;
@@ -117,7 +114,6 @@ struct Smem {
   float* rg;     // [P][RG_W]
   float* tab;    // IDE table: mat [(LMAX+1)][NML], sigma [NML], m [NML]
 };
-constexpr int TAB = (LMAX + 1) * NML + 2 * NML;
 constexpr size_t SMEM_BYTES = (size_t)P * LDX * 2 + (size_t)P * LDH * 2 + (size_t)P * LDC * 4 +
                               (size_t)P * RS_W * 4 + (size_t)P * OUT * 4 +
                               2 * (size_t)P * NIDE * 4 + (size_t)P * RG_W * 4 + TAB * 4;
@@ -134,82 +130,6 @@ __device__ Smem carve(unsigned char* base) {
   s.rg = s.dIn + P * NIDE;
   s.tab = s.rg + P * RG_W;
   return s;
-}
-
-// (x + iy)^m for m = 0..LMAX, and z^k for k = 0..LMAX
-__device__ void ide_powers(float x, float y, float z, float* re, float* im, float* zp) {
-  re[0] = 1.0f; im[0] = 0.0f; zp[0] = 1.0f;
-  for (int m = 1; m <= LMAX; ++m) {
-    re[m] = re[m - 1] * x - im[m - 1] * y;
-    im[m] = re[m - 1] * y + im[m - 1] * x;
-    zp[m] = zp[m - 1] * z;
-  }
-}
-
-// IDE of one unit direction: out[i] = Re, out[NML+i] = Im
-__device__ void ide_row(const float* tab, float x, float y, float z, float kappa, float* out,
-                        int stride) {
-  float re[LMAX + 1], im[LMAX + 1], zp[LMAX + 1];
-  ide_powers(x, y, z, re, im, zp);
-  const float* sigma = tab + (LMAX + 1) * NML;
-  const float* mm = sigma + NML;
-  for (int i = 0; i < NML; ++i) {
-    float pz = 0.0f;
-    for (int k = 0; k <= LMAX; ++k) pz += zp[k] * tab[k * NML + i];
-    const int m = (int)mm[i];
-    const float att = expf(-sigma[i] * kappa);
-    out[i * stride] = re[m] * pz * att;
-    out[(NML + i) * stride] = im[m] * pz * att;
-  }
-}
-
-// backward of ide_row: g[0:72] cotangent -> d(x,y,z) (added) and d kappa
-__device__ float ide_row_bwd(const float* tab, float x, float y, float z, float kappa,
-                             const float* g, float* dxyz) {
-  float re[LMAX + 1], im[LMAX + 1], zp[LMAX + 1];
-  ide_powers(x, y, z, re, im, zp);
-  const float* sigma = tab + (LMAX + 1) * NML;
-  const float* mm = sigma + NML;
-  float gx = 0.0f, gy = 0.0f, gz = 0.0f, gk = 0.0f;
-  for (int i = 0; i < NML; ++i) {
-    float pz = 0.0f, dpz = 0.0f;
-    for (int k = 0; k <= LMAX; ++k) {
-      const float c = tab[k * NML + i];
-      pz += zp[k] * c;
-      if (k > 0) dpz += k * zp[k - 1] * c;
-    }
-    const int m = (int)mm[i];
-    const float att = expf(-sigma[i] * kappa);
-    const float gr = g[i] * att, gi = g[NML + i] * att;
-    const float proj = gr * re[m] + gi * im[m];  // d out / d (pz * att) direction
-    gz += proj * dpz;
-    gk += -sigma[i] * proj * pz;
-    if (m > 0) {
-      // d(x+iy)^m/dx = m (x+iy)^(m-1), d/dy = i m (x+iy)^(m-1)
-      const float a = m * re[m - 1], b = m * im[m - 1];
-      gx += pz * (gr * a + gi * b);
-      gy += pz * (-gr * b + gi * a);
-    }
-  }
-  dxyz[0] += gx; dxyz[1] += gy; dxyz[2] += gz;
-  return gk;
-}
-
-__device__ __forceinline__ float pe_val(const float* x, int c) {
-  if (c < 3) return x[c];
-  const int i = (c - 3) / 6, q = (c - 3) % 6, k = q % 3;
-  const float a = x[k] * (float)(1 << i);
-  return q >= 3 ? cosf(a) : sinf(a);
-}
-
-// d PE / d x added to dx, given the cotangent g of nfreq octaves
-__device__ void pe_bwd(const float* x, const float* g, int stride, int nfreq, float* dx) {
-  for (int k = 0; k < 3; ++k) dx[k] += g[k * stride];
-  for (int i = 0; i < nfreq; ++i)
-    for (int k = 0; k < 3; ++k) {
-      const float f = (float)(1 << i), a = x[k] * f;
-      dx[k] += f * (g[(3 + 6 * i + k) * stride] * cosf(a) - g[(6 + 6 * i + k) * stride] * sinf(a));
-    }
 }
 
 // build head input slot s into X (and, for the backward, into the scratch)
@@ -325,24 +245,6 @@ __device__ void head_bwd(const Smem& s, int e, bool want_dx, const bf16* Wall, S
     if (l > 0) block_mm<true>(s.Hb, LDH, Wl[l], HID, s.C, LDC, P, HID, HID, false);
     else if (want_dx) block_mm<true>(s.Hb, LDH, Wl[0], HID, s.C, LDC, P, di, HID, false);
     __syncthreads();
-  }
-}
-
-__device__ __forceinline__ void normalize3(const float* v, float* out, float* len) {
-  const float n = sqrtf(v[0] * v[0] + v[1] * v[1] + v[2] * v[2]);
-  const float d = fmaxf(n, 1e-12f);
-  for (int k = 0; k < 3; ++k) out[k] = v[k] / d;
-  *len = n;
-}
-
-// d raw from d unit for u = raw / max(|raw|, 1e-12)
-__device__ __forceinline__ void normalize3_bwd(const float* u, float len, const float* du,
-                                               float* draw) {
-  if (len > 1e-12f) {
-    const float p = u[0] * du[0] + u[1] * du[1] + u[2] * du[2];
-    for (int k = 0; k < 3; ++k) draw[k] = (du[k] - u[k] * p) / len;
-  } else {
-    for (int k = 0; k < 3; ++k) draw[k] = du[k] / 1e-12f;
   }
 }
 

@@ -1,7 +1,6 @@
 """Stage-II Monte-Carlo BRDF shader (Cook-Torrance GGX with traced visibility).
 
-Counterpart of nero_tpu/fields/mc_shading.py (all but its fused light
-kernel): per-point material features -> metallic / roughness / albedo heads;
+Counterpart of nero_tpu/fields/mc_shading.py: per-point material features -> metallic / roughness / albedo heads;
 cosine-sampled diffuse + GGX-importance-sampled specular directions from a
 Fibonacci-sphere stratification with a random azimuth rotation in training;
 every sample direction is traced against the fixed mesh -- hits query the
@@ -19,19 +18,21 @@ boolean-mask indexing, so no host synchronisation in the step.
 from __future__ import annotations
 
 import math
+import warnings
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from nero_tpu_torch.fields.app_shading import get_camera_plane_intersection
-from nero_tpu_torch.ops.mlp import (apply_dense, apply_predictor, init_dense, init_predictor,
-                                    resolve_weight_norm)
+from nero_tpu_torch.ops.lights import inner_light_input, lights_raw, outer_light_input
+from nero_tpu_torch.ops.mlp import (apply_dense, apply_predictor, exp_activation, init_dense,
+                                    init_predictor, resolve_weight_norm)
 from nero_tpu_torch.utils.color import linear_to_srgb
 from nero_tpu_torch.utils.encodings import (ide_dim, integrated_dir_encode,
                                             integrated_pos_encode, positional_encode,
                                             positional_encode_dim)
-from nero_tpu_torch.utils.sphere import az_el_to_points, get_sphere_intersection, sample_sphere
+from nero_tpu_torch.utils.sphere import az_el_to_points, sample_sphere
 
 TWO_PI = 2.0 * math.pi
 
@@ -64,14 +65,34 @@ class MCShadingConfig(NamedTuple):
     # outer (+ human) light runs only on K compacted MISS slots; misses
     # beyond capacity keep zero light. Train-only. 0.0 = off.
     outer_compact_frac: float = 0.0
-    # the fused light kernel (nero_tpu/ops/pallas/light_kernel.py) is not
-    # ported: True raises
+    # run the light heads with their IDE / PE encodings through the fused
+    # kernel (ops/lights.py, forward and backward) instead of separate tensor
+    # ops. None = off; True opts in where outer compaction is off and
+    # ide_deg <= 5 (with inner compaction on, the kernel runs the outer head
+    # only). Head weights and their cotangents are bf16 inside the kernel.
     fused_lights: bool | None = None
 
 
 def mc_config_from_dict(cfg: dict) -> MCShadingConfig:
     fields = {k: v for k, v in cfg.items() if k in MCShadingConfig._fields}
     return MCShadingConfig(**fields)
+
+
+def fused_lights_active(cfg: MCShadingConfig) -> bool:
+    """Resolve cfg.fused_lights at apply time: None = off; True opts in where
+    the configuration is one the kernel takes (outer compaction off,
+    ide_deg <= 5), else warns (once, by the warnings module's default filter)
+    and takes the unfused light path. This is a rule about the
+    configuration, never about the device."""
+    if not cfg.fused_lights:
+        return False
+    if cfg.outer_compact_frac == 0.0 and cfg.ide_deg <= 5:
+        return True
+    warnings.warn("fused_lights=True was requested but the light kernel does not take "
+                  f"this configuration (outer_compact_frac={cfg.outer_compact_frac}, "
+                  f"ide_deg={cfg.ide_deg}); taking the unfused light path.",
+                  RuntimeWarning, stacklevel=3)
+    return False
 
 
 def _norm(x: torch.Tensor) -> torch.Tensor:
@@ -264,12 +285,8 @@ def predict_materials_mc(params, pts):
 
 
 def get_inner_lights(params, cfg, points, view_dirs, normals):
-    pos_enc = positional_encode(points, 8)
-    normals = normals / _norm(normals)
-    view_dirs = view_dirs / _norm(view_dirs)
-    reflections = torch.sum(view_dirs * normals, -1, keepdim=True) * normals * 2 - view_dirs
-    dir_enc = integrated_dir_encode(reflections, 0.0, cfg.ide_deg)
-    return apply_predictor(params["inner_light"], torch.cat([pos_enc, dir_enc], -1),
+    return apply_predictor(params["inner_light"],
+                           inner_light_input(cfg, points, view_dirs, normals),
                            activation="exp", exp_max=cfg.inner_light_exp_max)
 
 
@@ -288,19 +305,8 @@ def get_human_light(params, points, directions, human_poses):
 
 
 def predict_outer_lights(params, cfg: MCShadingConfig, points, directions):
-    outer_enc = integrated_dir_encode(directions, 0.0, cfg.ide_deg)
-    if cfg.outer_light_version == "direction":
-        return apply_predictor(params["outer_light"], outer_enc, activation="exp",
-                               exp_max=cfg.light_exp_max)
-    if cfg.outer_light_version == "sphere_direction":
-        norm = torch.linalg.norm(points, dim=-1, keepdim=True)
-        pts = torch.where(norm > 0.999, points * 0.999 / torch.clamp(norm, min=1e-12), points)
-        dists = get_sphere_intersection(pts, directions)
-        sphere_pts = pts + directions * dists
-        sphere_enc = integrated_dir_encode(sphere_pts, 0.0, cfg.ide_deg)
-        return apply_predictor(params["outer_light"], torch.cat([outer_enc, sphere_enc], -1),
-                               activation="exp", exp_max=cfg.light_exp_max)
-    raise NotImplementedError(cfg.outer_light_version)
+    return apply_predictor(params["outer_light"], outer_light_input(cfg, points, directions),
+                           activation="exp", exp_max=cfg.light_exp_max)
 
 
 def get_lights(params, cfg: MCShadingConfig, trace_fn, points, directions, human_poses):
@@ -308,8 +314,6 @@ def get_lights(params, cfg: MCShadingConfig, trace_fn, points, directions, human
 
     points/directions [pn,sn,3], human_poses [pn,sn,3,4] or None.
     Returns (lights [pn,sn,3], human_contrib, inters, normals, hit_mask)."""
-    if cfg.fused_lights:
-        raise NotImplementedError("fused_lights: the light kernel is not ported (ROADMAP B5)")
     shape = points.shape[:-1]
     eps = 1e-5
     # the tracer is non-differentiable: everything it takes and returns is
@@ -322,11 +326,25 @@ def get_lights(params, cfg: MCShadingConfig, trace_fn, points, directions, human
     depth = depth.reshape(*shape, 1)
     hit = hit.reshape(*shape)
 
+    # the fused light kernel (ops/lights.py): both heads when nothing is
+    # compacted (the concave regime), the outer head only when inner
+    # compaction is on; the final exp, the hit select and the human mixing
+    # stay here
+    inner_raw = None
+    if fused_lights_active(cfg):
+        mode = "outer" if cfg.inner_compact_frac > 0.0 else "both"
+        inner_z, outer_z = lights_raw(params, cfg, points, directions, inters, normals,
+                                      mode=mode)
+        outer = exp_activation(outer_z, cfg.light_exp_max)
+        if mode == "both":
+            inner_raw = exp_activation(inner_z, cfg.inner_light_exp_max)
+    elif cfg.outer_compact_frac == 0.0:
+        outer = predict_outer_lights(params, cfg, points, directions)
+
     if cfg.outer_compact_frac > 0.0:
         miss_light, human_part = _compacted_miss_lights(params, cfg, points, directions,
                                                         human_poses, hit)
     else:
-        outer = predict_outer_lights(params, cfg, points, directions)
         if cfg.human_lights:
             human_lights, human_weights = get_human_light(params, points, directions,
                                                           human_poses)
@@ -340,7 +358,8 @@ def get_lights(params, cfg: MCShadingConfig, trace_fn, points, directions, human
         lights = _compacted_inner_lights(params, cfg, inters, directions, normals, hit,
                                          miss_light)
     else:
-        inner = get_inner_lights(params, cfg, inters, -directions, normals)
+        inner = (inner_raw if inner_raw is not None
+                 else get_inner_lights(params, cfg, inters, -directions, normals))
         lights = torch.where(hit[..., None], inner, miss_light)
     near_mask = (depth > eps).to(lights.dtype)
     lights = lights * near_mask  # a surface immediately in front emits nothing

@@ -1,22 +1,26 @@
 """Neural visibility: distill the mesh SDF into a small MLP and trace it by
-sphere marching, all dense linear algebra on the device.
+marching, all dense linear algebra on the device.
 
 Counterpart of nero_tpu/geometry/neural_tracer.py. Stage-II shading traces
 512 x 768 rays per step against the fixed Stage-I mesh:
 
   1. at init, signed distances of the mesh (exact: the host library's BVH
      closest point + parity sign) are sampled and distilled into a compact
-     PE6 -> 4 x 128 MLP with Adam on the device;
-  2. per query, `ops/sphere_march.py::sphere_march` brackets the first
-     crossing of the field along each ray and refines it (the CUDA kernel
-     for CUDA tensors, its plain version for CPU tensors); the normal is
-     the field's gradient at the hit, taken by autograd on the f32 field.
+     MLP with Adam on the device: `std` is PE6 -> 4 x 128, `wide` a
+     quarter-octave encoding of 123 channels -> 3 dense layers;
+  2. per query, `ops/sphere_march.py::sphere_march` (march mode `sphere`) or
+     `ops/march.py::march` (`uniform`: a fixed scan of n_coarse samples, then
+     bisection) brackets the first crossing of the field along each ray and
+     refines it (the CUDA kernel for CUDA tensors, its plain version for CPU
+     tensors); the normal is the field's gradient at the hit, taken by
+     autograd on the f32 field.
 
-The port marches by sphere tracing on every device (the JAX package's
-non-fused CPU path scans uniformly and bisects; that march comes with the
-uniform-march kernel). Only the `std` topology is ported. The distilled
-fields are cached in the port's own directory: the cache key does not name
-the framework, and the two packages draw different random numbers.
+Both march modes go through their kernel's wrapper on every device (the JAX
+package's non-fused CPU path is a third, all-f32 uniform scan; the port's
+`uniform` mode is its fused one). With `uniform`, set `n_refine` to 8: the
+default of 2 was tuned for the Illinois refinement of the sphere march. The
+distilled fields are cached in the port's own directory: the cache key does
+not name the framework, and the two packages draw different random numbers.
 """
 from __future__ import annotations
 
@@ -29,18 +33,14 @@ import torch
 
 from nero_tpu_torch.geometry.bvh import RayTracer
 from nero_tpu_torch.geometry.native import mesh_sdf_points
+from nero_tpu_torch.ops.march import march
 from nero_tpu_torch.ops.mlp import apply_dense, init_dense
-from nero_tpu_torch.ops.sphere_march import pack_field_params, sphere_march
+from nero_tpu_torch.ops.sphere_march import (TOPOLOGIES, WIDE_CHAINS, WIDE_DIM,
+                                             pack_field_params, sphere_march)
 from nero_tpu_torch.utils.encodings import positional_encode, positional_encode_dim
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-
-def _check_topology(topology: str) -> None:
-    if topology != "std":
-        raise NotImplementedError(
-            f"field topology {topology!r} is not ported (only 'std'; the 'wide' "
-            "topology comes with the uniform-march kernel, ROADMAP B4)")
+MARCH_MODES = ("sphere", "uniform")
 
 
 # ---------------------------------------------------------------------------
@@ -48,18 +48,34 @@ def _check_topology(topology: str) -> None:
 # ---------------------------------------------------------------------------
 
 
+def wide_encode(x: torch.Tensor) -> torch.Tensor:
+    """The `wide` topology's encoding [..., 3] -> [..., WIDE_DIM]: a finer
+    frequency ladder (quarter-octave spacing up to 2^4.75) folded into one
+    123-channel first layer, so that the field needs one hidden layer fewer.
+    Channel order of ops/sphere_march.py::pe_rows_wide."""
+    feats = [x]
+    for base, n_oct in WIDE_CHAINS:
+        a = x * base
+        for _ in range(n_oct):
+            feats += [torch.sin(a), torch.cos(a)]
+            a = a * 2.0
+    return torch.cat(feats, dim=-1)
+
+
 def init_field(gen: torch.Generator, width: int = 128, depth: int = 4, pe: int = 6,
                topology: str = "std", device="cpu"):
-    _check_topology(topology)
-    in_dim = positional_encode_dim(3, pe)
-    dims = [in_dim] + [width] * (depth - 1) + [1]
+    if topology == "wide":
+        dims = [WIDE_DIM, width, width, 1]
+    elif topology == "std":
+        dims = [positional_encode_dim(3, pe)] + [width] * (depth - 1) + [1]
+    else:
+        raise NotImplementedError(f"field topology {topology!r}")
     return {"layers": [init_dense(gen, dims[i], dims[i + 1], weight_norm=False, device=device)
                        for i in range(len(dims) - 1)]}
 
 
 def field_apply(params, x: torch.Tensor, pe: int = 6, topology: str = "std") -> torch.Tensor:
-    _check_topology(topology)
-    h = positional_encode(x, pe)
+    h = wide_encode(x) if topology == "wide" else positional_encode(x, pe)
     layers = params["layers"]
     for layer in layers[:-1]:
         h = torch.relu(apply_dense(layer, h))
@@ -155,24 +171,32 @@ def sphere_segment(rays_o, rays_d, bound: float, t0: float = 0.012):
 
 
 def neural_trace(params, packed, rays_o, rays_d, bound: float, far=10.0, n_coarse: int = 32,
-                 n_refine: int = 8, t0: float = 0.012, n_sphere: int = 16,
-                 margin: float = 0.003, topology: str = "std", refine: str = "bisect"):
-    """Sphere-march the field to the first +->- crossing, refine, and take
-    the normal from the field's gradient. Returns (t [R], normal [R,3]
-    inward (-grad), hit [R]), all detached."""
-    _check_topology(topology)
+                 n_refine: int = 8, t0: float = 0.012, march_mode: str = "sphere",
+                 n_sphere: int = 16, margin: float = 0.003, topology: str = "std",
+                 refine: str = "bisect"):
+    """March the field to the first +->- crossing (`sphere`: sphere trace,
+    `uniform`: n_coarse-sample scan), refine, and take the normal from the
+    field's gradient. Returns (t [R], normal [R,3] inward (-grad), hit [R]),
+    all detached."""
     with torch.no_grad():
         rays_o, rays_d = rays_o.detach(), rays_d.detach()
         t_enter, t_exit, valid = sphere_segment(rays_o, rays_d, bound, t0)
-        t_mid, found = sphere_march(packed, rays_o, rays_d, t_enter, t_exit, n_sphere=n_sphere,
-                                    n_refine=n_refine, t0=t0, margin=margin,
-                                    dt_frac=1.0 / (n_coarse - 1), refine=refine)
+        if march_mode == "sphere":
+            t_mid, found = sphere_march(packed, rays_o, rays_d, t_enter, t_exit,
+                                        n_sphere=n_sphere, n_refine=n_refine, t0=t0,
+                                        margin=margin, dt_frac=1.0 / (n_coarse - 1),
+                                        refine=refine, topology=topology)
+        elif march_mode == "uniform":
+            t_mid, found = march(packed, rays_o, rays_d, t_enter, t_exit, n_coarse=n_coarse,
+                                 n_refine=n_refine, t0=t0, topology=topology)
+        else:
+            raise NotImplementedError(f"march mode {march_mode!r}")
         hit = found & valid
         t_hit = torch.where(hit, t_mid, torch.full_like(t_mid, far))
         hit_pts = rays_o + rays_d * t_hit[:, None]
     with torch.enable_grad():
         p = hit_pts.requires_grad_(True)
-        (grad,) = torch.autograd.grad(field_apply(params, p).sum(), p)
+        (grad,) = torch.autograd.grad(field_apply(params, p, topology=topology).sum(), p)
     gn = torch.linalg.norm(grad, dim=-1, keepdim=True)
     normal = torch.where(hit[:, None], -grad / torch.clamp(gn, min=1e-9),
                          torch.zeros_like(grad))
@@ -180,7 +204,7 @@ def neural_trace(params, packed, rays_o, rays_d, bound: float, far=10.0, n_coars
 
 
 class NeuralTracer:
-    """Tracer of a fixed mesh: distilled SDF field + sphere marching.
+    """Tracer of a fixed mesh: distilled SDF field + marching.
 
     trace(rays_o, rays_d) -> (inters, normals (inward), depth [R,1], hit);
     a miss has depth == far. The exact host BVH is kept for precompute
@@ -195,12 +219,12 @@ class NeuralTracer:
                  cache: bool = True, distill_samples: int = 1_500_000,
                  distill_batch: int = 65536, march_mode: str = "sphere", n_sphere: int = 18,
                  field_topology: str = "std", refine_mode: str = "illinois", device="cpu"):
-        _check_topology(field_topology)
-        if march_mode != "sphere":
-            raise NotImplementedError(
-                f"march mode {march_mode!r} is not ported (only 'sphere'; the uniform "
-                "march comes with its kernel, ROADMAP B4)")
+        if field_topology not in TOPOLOGIES or march_mode not in MARCH_MODES:
+            raise NotImplementedError(f"field topology {field_topology!r}, march mode "
+                                      f"{march_mode!r}")
         self.far = far
+        self.march_mode = march_mode
+        self.field_topology = field_topology
         self.n_coarse = n_coarse
         self.n_refine = n_refine
         self.n_sphere = n_sphere
@@ -222,7 +246,7 @@ class NeuralTracer:
                 batch=distill_batch, topology=field_topology, device=self.device)
             if cache:
                 self._save_cache()
-        self.packed = pack_field_params(self.field_params, pe)
+        self.packed = pack_field_params(self.field_params, pe, topology=field_topology)
         if verbose:
             print(f"[NeuralTracer] distilled {width}x{depth} {field_topology} field; "
                   f"near-band RMS {self.distill_rms:.4f}")
@@ -273,7 +297,8 @@ class NeuralTracer:
         def fn(rays_o, rays_d):
             t, normal, hit = neural_trace(self.field_params, self.packed, rays_o, rays_d,
                                           self.bound, self.far, self.n_coarse, self.n_refine,
-                                          n_sphere=self.n_sphere, margin=self.margin,
+                                          march_mode=self.march_mode, n_sphere=self.n_sphere,
+                                          margin=self.margin, topology=self.field_topology,
                                           refine=self.refine_mode)
             inters = rays_o + rays_d * t[:, None]
             return inters, normal, t[:, None], hit

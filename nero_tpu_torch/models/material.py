@@ -12,12 +12,12 @@ view, scattered back into the image.
   * the hit store lives on the device and each step draws its batch there
     with the model's `torch.Generator`: no per-step host-to-device copy;
   * the per-step hot path (512 points x 768 directions: visibility + light
-    MLPs + BRDF) traces through `geometry/neural_tracer.py`, whose march is
-    the sphere-march kernel on the card.
-
-Only `tracer: neural` is ported. Where the distilled field's near-band RMS
-exceeds `tracer_rms_fallback` the JAX package switches to its grid tracer;
-the port has none yet and raises instead of substituting anything.
+    MLPs + BRDF) traces through the configured backend: `neural`
+    (`geometry/neural_tracer.py`, whose march is a kernel on the card),
+    `grid` (`geometry/grid_tracer.py`) or `bvh` (the device traversal of
+    `geometry/bvh.py`). Where the distilled field's near-band RMS exceeds
+    `tracer_rms_fallback`, the mesh is too hard for the neural tracer and
+    the model switches to the grid tracer, and says so.
 """
 from __future__ import annotations
 
@@ -50,22 +50,28 @@ DEFAULT_MATERIAL_CFG = {
     "fixed_camera": False,
     "random_seed": 6033,
     "loss": ["nerf_render", "mat_reg"],
-    # visibility backend: only 'neural' (distilled SDF field, sphere-marched
-    # on the tensor cores) is ported; 'grid' and 'bvh' raise
+    # visibility backend: 'neural' (distilled SDF field, marched on the
+    # tensor cores: the default), 'grid' (baked SDF grid, sphere-traced),
+    # 'bvh' (exact device wavefront; slow, for small meshes and debugging)
     "tracer": "neural",
     "tracer_distill_steps": 3000,
     "tracer_n_coarse": 32,
     # 'sphere' = fixed n_sphere-iteration sphere trace of the distilled SDF
-    # (ops/sphere_march.py); 'uniform' is not ported
+    # (ops/sphere_march.py); 'uniform' = fixed n_coarse-sample scan
+    # (ops/march.py; set tracer_n_refine to 8 with it)
     "tracer_march_mode": "sphere",
     "tracer_n_sphere": 18,
     # bracket refinement after the march: 'illinois' (bracketed regula
-    # falsi: 2 evaluations + a free final secant) or 'bisect'
+    # falsi: 2 evaluations + a free final secant) or 'bisect'; sphere march
+    # only, the uniform march always bisects
     "tracer_refine_mode": "illinois",
     "tracer_n_refine": 2,
-    "tracer_field_topology": "std",   # 'wide' is not ported
+    # distilled-field topology: 'std' (PE6 -> 4 x 128) or 'wide' (a finer
+    # 123-channel encoding, one hidden layer fewer)
+    "tracer_field_topology": "std",
     # if the distilled field's near-band RMS exceeds this, the mesh is too
-    # hard for the neural tracer (visibility errors silently poison Stage II)
+    # hard for the neural tracer: fall back to the grid tracer and say so
+    # loudly (visibility errors silently poison Stage II otherwise)
     "tracer_rms_fallback": 0.004,
     # hit-compacted inner-light evaluation: 'auto' measures the scene's
     # hemisphere hit rate at init and sizes the static hit capacity with
@@ -88,9 +94,6 @@ class NeROMaterialModel:
         shader_cfg = dict(self.cfg.get("shader_cfg") or {})
         shader_cfg["is_real"] = self.cfg["database_name"].startswith("real")
         self.mcfg: MCShadingConfig = mc_config_from_dict(shader_cfg)
-        if self.mcfg.fused_lights:
-            raise NotImplementedError("fused_lights: the light kernel is not ported "
-                                      "(ROADMAP B5)")
         seed = self.cfg["random_seed"]
         self.params = init_mc_shading(torch.Generator().manual_seed(seed), self.mcfg,
                                       device=self.device)
@@ -110,30 +113,32 @@ class NeROMaterialModel:
         self.vertices = np.asarray(mesh_data["vertices"], np.float32)
         self.triangles = np.asarray(mesh_data["triangles"], np.int32)
         backend = self.cfg["tracer"]
-        if backend in ("grid", "bvh"):
-            raise NotImplementedError(
-                f"tracer backend {backend!r} is not ported (ROADMAP A9: the grid tracer and "
-                "the device BVH traversal); use tracer: neural")
-        if backend != "neural":
+        if backend == "neural":
+            from nero_tpu_torch.geometry.neural_tracer import NeuralTracer
+            self.ray_tracer = NeuralTracer(
+                self.vertices, self.triangles,
+                distill_steps=self.cfg["tracer_distill_steps"],
+                n_coarse=self.cfg["tracer_n_coarse"],
+                march_mode=self.cfg["tracer_march_mode"],
+                n_sphere=self.cfg["tracer_n_sphere"],
+                n_refine=self.cfg["tracer_n_refine"],
+                refine_mode=self.cfg["tracer_refine_mode"],
+                field_topology=self.cfg["tracer_field_topology"],
+                seed=self.cfg["random_seed"], device=self.device)
+            threshold = self.cfg["tracer_rms_fallback"]
+            if self.ray_tracer.distill_rms > threshold:
+                print(f"[NeROMaterialModel] WARNING: neural tracer distill RMS "
+                      f"{self.ray_tracer.distill_rms:.4f} > {threshold}: falling back to "
+                      f"the grid tracer for this mesh")
+                backend = "grid"
+        if backend == "grid":
+            from nero_tpu_torch.geometry.grid_tracer import GridTracer
+            self.ray_tracer = GridTracer(self.vertices, self.triangles, device=self.device)
+        elif backend == "bvh":
+            from nero_tpu_torch.geometry.bvh import RayTracer
+            self.ray_tracer = RayTracer(self.vertices, self.triangles, device=self.device)
+        elif backend != "neural":
             raise NotImplementedError(f"tracer backend {backend}")
-        from nero_tpu_torch.geometry.neural_tracer import NeuralTracer
-        self.ray_tracer = NeuralTracer(
-            self.vertices, self.triangles,
-            distill_steps=self.cfg["tracer_distill_steps"],
-            n_coarse=self.cfg["tracer_n_coarse"],
-            march_mode=self.cfg["tracer_march_mode"],
-            n_sphere=self.cfg["tracer_n_sphere"],
-            n_refine=self.cfg["tracer_n_refine"],
-            refine_mode=self.cfg["tracer_refine_mode"],
-            field_topology=self.cfg["tracer_field_topology"],
-            seed=self.cfg["random_seed"], device=self.device)
-        threshold = self.cfg["tracer_rms_fallback"]
-        if self.ray_tracer.distill_rms > threshold:
-            raise RuntimeError(
-                f"[NeROMaterialModel] neural tracer distill RMS "
-                f"{self.ray_tracer.distill_rms:.4f} > {threshold}: the mesh is too hard for "
-                f"the neural tracer, and the exact grid tracer it would fall back to is not "
-                f"ported (ROADMAP A9)")
         self.trace_fn = self.ray_tracer.trace_fn()
 
     # ---------------------------------------------------------------- dataset

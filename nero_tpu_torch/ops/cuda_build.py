@@ -2,7 +2,7 @@
 
 Each `csrc/<name>.cu` becomes `build/nero_tpu_torch/<name>-<hash>.so`, a
 shared library with a plain C interface, compiled for `sm_90a`. The hash
-covers the source and the shared header, so an edited source rebuilds and an
+covers the source and the shared headers, so an edited source rebuilds and an
 unchanged one is reused. Nothing is compiled when a module is imported: the
 first call that launches a kernel builds it (or `build_all` builds every
 source at once, one nvcc process each, in parallel).
@@ -19,7 +19,7 @@ import threading
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "nero_tpu_torch")
-SOURCES = ("sdf_grad", "shader", "sphere_march")
+SOURCES = ("sdf_grad", "shader", "sphere_march", "march", "field_fwd", "lights")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 
@@ -36,7 +36,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> str:
     h = hashlib.sha256()
-    for fn in (f"{name}.cu", "common.cuh"):
+    headers = sorted(fn for fn in os.listdir(CSRC) if fn.endswith(".cuh"))
+    for fn in (f"{name}.cu", *headers):
         with open(os.path.join(CSRC, fn), "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())

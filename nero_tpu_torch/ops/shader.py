@@ -165,7 +165,7 @@ def unpack_grads(dW: torch.Tensor, dB: torch.Tensor, dims: dict):
 _IDE_TABLES: dict = {}
 
 
-def _ide_table(device) -> torch.Tensor:
+def ide_table_on(device) -> torch.Tensor:
     """IDE coefficient table (mat, sigma, m) on `device`, copied there once:
     a host-to-device copy per call would stall the host on the stream."""
     key = str(device)
@@ -181,7 +181,7 @@ class _ShaderFn(torch.autograd.Function):
     def forward(ctx, geo, feats, dims, *wb):
         n = geo.shape[0]
         W, B = pack_weights(wb[:24], wb[24:])
-        tab = _ide_table(geo.device)
+        tab = ide_table_on(geo.device)
         out = torch.empty(n, OUT, device=geo.device)
         rc = _lib().shader_fwd(geo.data_ptr(), feats.data_ptr(), n, W.data_ptr(),
                                B.data_ptr(), tab.data_ptr(), out.data_ptr(),

@@ -1,17 +1,19 @@
 """Sphere-march visibility tracing of the distilled field: the CUDA kernel
-and its plain version.
+and its plain version, and the packed field they share with ops/march.py and
+ops/field_fwd.py.
 
 Replaces nero_tpu/ops/pallas/march_kernel.py::sphere_march_fused (:358, its
 pallas_call at :338) and keeps nero_tpu/ops/pallas/field_kernel.py's
-`pack_field_params` layout (:45-52). The kernel source is
-csrc/sphere_march.cu; its header comment gives the design. `sphere_march`
-launches the kernel for CUDA tensors and runs `sphere_march_plain` for CPU
-tensors, and only then. Both compute, per ray, `n_sphere` sphere-trace
-evaluations of the PE6 -> 3 x 128 ReLU -> 1 field that bracket the first
-crossing, then `n_refine` Illinois (or bisection) evaluations; operands of
-the products are rounded to bf16 and summed in f32, so the two differ in
-summation order only. `found` does not include bounding-sphere validity: the
-caller masks. There is no gradient.
+`pack_field_params` layout (:26-52) for both field topologies. The kernel
+source is csrc/sphere_march.cu (the field itself is csrc/field.cuh); its
+header comment gives the design. `sphere_march` launches the kernel for CUDA
+tensors and runs `sphere_march_plain` for CPU tensors, and only then. Both
+compute, per ray, `n_sphere` sphere-trace evaluations of the field (`std`:
+PE6 -> 3 x 128 ReLU -> 1; `wide`: a quarter-octave PE of 123 channels ->
+2 x 128 ReLU -> 1) that bracket the first crossing, then `n_refine` Illinois
+(or bisection) evaluations; operands of the products are rounded to bf16 and
+summed in f32, so the two differ in summation order only. `found` does not
+include bounding-sphere validity: the caller masks. There is no gradient.
 
 What bounds it on the card: tensor-core operations (`flops`), 0.603 ms for
 the 393,216 rays x 20 evaluations of a training step at 989 TFLOP/s; the
@@ -29,17 +31,34 @@ from nero_tpu_torch.ops import cuda_build
 FIELD_W = 128
 FEAT_PAD = 48    # 3 + 6*pe channels padded (pe = 6 -> 39 -> 48)
 PE = 6
-TILE = 128       # rays per block (csrc/sphere_march.cu SM_RAYS)
+TILE = 128       # rays per block (csrc/field.cuh FD_RAYS)
+# the `wide` topology's encoding: (base frequency, octaves) per double-angle
+# chain, quarter-octave spacing up to 2^4.75
+WIDE_CHAINS = ((1.0, 5), (2.0 ** 0.25, 5), (2.0 ** 0.5, 5), (2.0 ** 0.75, 5))
+WIDE_DIM = 3 + sum(6 * n for _, n in WIDE_CHAINS)  # 123
+WIDE_PAD = 128
+TOPOLOGIES = ("std", "wide")
 
-launches = {"sphere_march": 0}
+launches = {"sphere_march": 0, "sphere_march_wide": 0}
 
 
-def pack_field_params(params, pe: int = PE) -> dict:
-    """Pad the 4-layer field MLP into the kernel layout: w0 [FEAT_PAD,128],
-    b0 [1,128], w1/w2 [128,128], b1/b2 [1,128], w3t [128,8] (col 0 = output),
-    b3 [1,8]; detached f32 tensors."""
+def pack_field_params(params, pe: int = PE, topology: str = "std") -> dict:
+    """Pad the field MLP into the kernel layout, detached f32 tensors.
+    std: w0 [FEAT_PAD,128], b0 [1,128], w1/w2 [128,128], b1/b2 [1,128],
+    w3t [128,8] (col 0 = output), b3 [1,8]. wide (3 dense layers): w0
+    [128,128] (123 rows used), b0, w1 [128,128], b1, w2t [128,8], b2 [1,8]."""
     layers = [{k: v.detach() for k, v in l.items()} for l in params["layers"]]
     width = layers[0]["w"].shape[1]
+    if topology == "wide":
+        if width != FIELD_W or len(layers) != 3 or layers[0]["w"].shape[0] != WIDE_DIM:
+            raise NotImplementedError("the wide field is 3 dense layers, 123 -> 128 -> 128 -> 1")
+        w0 = F.pad(layers[0]["w"], (0, 0, 0, WIDE_PAD - WIDE_DIM))
+        w2t = F.pad(layers[2]["w"][:, :1], (0, 7))
+        b2 = F.pad(layers[2]["b"][None, :1], (0, 7))
+        return {"w0": w0, "b0": layers[0]["b"][None], "w1": layers[1]["w"],
+                "b1": layers[1]["b"][None], "w2t": w2t, "b2": b2}
+    if topology != "std":
+        raise NotImplementedError(f"field topology {topology!r}")
     if width != FIELD_W or len(layers) != 4:
         raise NotImplementedError("the march kernel takes the 4-layer, 128-wide field")
     in_dim = 3 + 6 * pe
@@ -73,9 +92,33 @@ def _bf(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 
 
+def pe_rows_wide(x: torch.Tensor) -> torch.Tensor:
+    """[..., 3] -> [..., WIDE_DIM]: per chain, sin/cos of x * base and four
+    double-angle steps (march_kernel.py::_pe_rows_wide); channel order of
+    geometry/neural_tracer.py::wide_encode."""
+    rows = [x]
+    for base, n_oct in WIDE_CHAINS:
+        s, c = torch.sin(x * base), torch.cos(x * base)
+        for i in range(n_oct):
+            rows += [s, c]
+            if i + 1 < n_oct:
+                s, c = 2.0 * s * c, 1.0 - 2.0 * s * s
+    return torch.cat(rows, dim=-1)
+
+
+def topology_of(packed: dict) -> str:
+    return "wide" if "w2t" in packed else "std"
+
+
 def field_eval_plain(packed: dict, pts: torch.Tensor, pe: int = PE) -> torch.Tensor:
-    """The packed field at [N,3] points -> [N]; bf16-rounded operands, f32
-    accumulation, f32 biases (march_kernel.py::_field_eval_t)."""
+    """The packed field (either topology) at [N,3] points -> [N]; bf16-rounded
+    operands, f32 accumulation, f32 biases (march_kernel.py::_field_eval_t,
+    ::_field_eval_t_wide)."""
+    if topology_of(packed) == "wide":
+        feats = F.pad(pe_rows_wide(pts), (0, WIDE_PAD - WIDE_DIM))
+        h = torch.relu(_bf(feats) @ _bf(packed["w0"]) + packed["b0"])
+        h = torch.relu(_bf(h) @ _bf(packed["w1"]) + packed["b1"])
+        return _bf(h) @ _bf(packed["w2t"][:, 0]) + packed["b2"][0, 0]
     feats = F.pad(pe_rows(pts, pe), (0, FEAT_PAD - (3 + 6 * pe)))
     h = torch.relu(_bf(feats) @ _bf(packed["w0"]) + packed["b0"])
     h = torch.relu(_bf(h) @ _bf(packed["w1"]) + packed["b1"])
@@ -96,8 +139,8 @@ def sphere_march_plain(packed, rays_o, rays_d, t_enter, t_exit, *, pe: int = PE,
                        margin: float = 0.003, lip: float = 0.9, dt_frac: float = 1.0 / 31.0,
                        cap_frac: float = 0.25, refine: str = "bisect"):
     """Step-by-step transcription of _sphere_march_kernel + _illinois_refine
-    (march_kernel.py:208-321), one batched field evaluation per trip.
-    Returns (t_hit [R] f32, found [R] bool)."""
+    (march_kernel.py:208-321), one batched field evaluation per trip; the
+    topology is the packed field's. Returns (t_hit [R] f32, found [R] bool)."""
     def field(t):
         return field_eval_plain(packed, rays_o + rays_d * t[:, None], pe)
 
@@ -149,49 +192,83 @@ def sphere_march_plain(packed, rays_o, rays_d, t_enter, t_exit, *, pe: int = PE,
 # ---------------------------------------------------------------------------
 
 
-def _lib():
-    lib = cuda_build.load("sphere_march")
+def buffer_elems(wide: bool) -> tuple:
+    """(bf16 weight elements, f32 elements) of the kernels' field buffers
+    (csrc/field.cuh FieldDims)."""
+    if wide:
+        return (WIDE_PAD + FIELD_W) * FIELD_W, 3 * FIELD_W + 4
+    return (FEAT_PAD + 2 * FIELD_W) * FIELD_W, 4 * FIELD_W + 4
+
+
+def field_lib(name: str, fn_argtypes: list):
+    """The library of a kernel that evaluates csrc/field.cuh (`name` is both
+    the source and its entry point), typed and checked against this module's
+    layout on first use."""
+    lib = cuda_build.load(name)
     if not getattr(lib, "_nero_typed", False):
-        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.sphere_march_tile.restype = i
-        lib.sphere_march_tile.argtypes = []
-        lib.sphere_march_weight_elems.restype = ctypes.c_size_t
-        lib.sphere_march_weight_elems.argtypes = []
-        lib.sphere_march_float_elems.restype = ctypes.c_size_t
-        lib.sphere_march_float_elems.argtypes = []
-        lib.sphere_march.restype = i
-        lib.sphere_march.argtypes = [vp, vp, vp, vp, i, vp, vp, i, i, i, f, f, f, f, f,
-                                     vp, vp, vp]
-        if (lib.sphere_march_tile() != TILE
-                or lib.sphere_march_weight_elems() != (FEAT_PAD + 2 * FIELD_W) * FIELD_W
-                or lib.sphere_march_float_elems() != 4 * FIELD_W + 4):
-            raise RuntimeError("csrc/sphere_march.cu layout differs from ops/sphere_march.py")
+        i = ctypes.c_int
+        tile, w_elems, f_elems = (getattr(lib, f"{name}_{k}")
+                                  for k in ("tile", "weight_elems", "float_elems"))
+        tile.restype, tile.argtypes = i, []
+        for fn in (w_elems, f_elems):
+            fn.restype, fn.argtypes = ctypes.c_size_t, [i]
+        entry = getattr(lib, name)
+        entry.restype, entry.argtypes = i, fn_argtypes
+        if tile() != TILE or any((w_elems(w), f_elems(w)) != buffer_elems(bool(w))
+                                 for w in (0, 1)):
+            raise RuntimeError(f"csrc/{name}.cu layout differs from ops/sphere_march.py")
         lib._nero_typed = True
     return lib
 
 
+def _lib():
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return field_lib("sphere_march", [vp, vp, vp, vp, i, vp, vp, i, i, i, i, f, f, f, f, f,
+                                      vp, vp, vp])
+
+
 def kernel_buffers(packed: dict):
-    """`pack_field_params` layout -> (bf16 [w0; w1; w2] flat, f32 [b0 b1 b2
-    w3 b3 pad]) as the kernel reads them."""
-    W = torch.cat([packed["w0"], packed["w1"], packed["w2"]]).to(torch.bfloat16).contiguous()
-    Fv = torch.cat([packed["b0"][0], packed["b1"][0], packed["b2"][0], packed["w3t"][:, 0],
-                    packed["b3"][0, :4]]).float().contiguous()
+    """`pack_field_params` layout -> (bf16 stacked 128-column weights, f32
+    [biases, output weights, output bias, pad]) as the kernels read them."""
+    if topology_of(packed) == "wide":
+        ws, fs = ("w0", "w1"), ("b0", "b1")
+        w_out, b_out = packed["w2t"][:, 0], packed["b2"][0, :4]
+    else:
+        ws, fs = ("w0", "w1", "w2"), ("b0", "b1", "b2")
+        w_out, b_out = packed["w3t"][:, 0], packed["b3"][0, :4]
+    W = torch.cat([packed[k] for k in ws]).to(torch.bfloat16).contiguous()
+    Fv = torch.cat([packed[k][0] for k in fs] + [w_out, b_out]).float().contiguous()
+    if (W.numel(), Fv.numel()) != buffer_elems("w2t" in packed):
+        raise ValueError(f"packed field has {W.numel()} weights and {Fv.numel()} floats")
     return W, Fv
 
 
-def _launch(W, Fv, rays_o, rays_d, t_enter, t_exit, n_sphere, n_refine, illinois, t0_eps,
-            margin, lip, dt_frac, cap_frac):
+def check_packed(packed: dict, topology: str, pe: int, kernel: bool) -> None:
+    """Raise where `topology` is not the packed field's, or (for a kernel
+    launch) on an encoding that the kernels do not take."""
+    if topology not in TOPOLOGIES or topology_of(packed) != topology:
+        raise ValueError(f"topology {topology!r} with a {topology_of(packed)!r} packed field")
+    if kernel and topology == "std" and pe != PE:
+        raise NotImplementedError(f"the field kernels take pe = {PE}, got {pe}")
+
+
+def prep(a: torch.Tensor) -> torch.Tensor:
+    return a.detach().float().contiguous()
+
+
+def _launch(W, Fv, wide, rays_o, rays_d, t_enter, t_exit, n_sphere, n_refine, illinois,
+            t0_eps, margin, lip, dt_frac, cap_frac):
     r = rays_o.shape[0]
     dev = rays_o.device
     t_out = torch.empty(r, device=dev)
     found = torch.empty(r, dtype=torch.bool, device=dev)
     rc = _lib().sphere_march(rays_o.data_ptr(), rays_d.data_ptr(), t_enter.data_ptr(),
-                             t_exit.data_ptr(), r, W.data_ptr(), Fv.data_ptr(), n_sphere,
-                             n_refine, int(illinois), t0_eps, margin, lip, dt_frac, cap_frac,
+                             t_exit.data_ptr(), r, W.data_ptr(), Fv.data_ptr(), int(wide),
+                             n_sphere, n_refine, int(illinois), t0_eps, margin, lip, dt_frac, cap_frac,
                              t_out.data_ptr(), found.data_ptr(),
                              torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, "sphere_march")
-    launches["sphere_march"] += 1
+    launches["sphere_march_wide" if wide else "sphere_march"] += 1
     return t_out, found
 
 
@@ -199,41 +276,44 @@ def _launch(W, Fv, rays_o, rays_d, t_enter, t_exit, n_sphere, n_refine, illinois
 def sphere_march(packed, rays_o, rays_d, t_enter, t_exit, *, pe: int = PE, n_sphere: int = 16,
                  n_refine: int = 8, t0: float = 0.012, margin: float = 0.003,
                  lip: float = 0.9, dt_frac: float = 1.0 / 31.0, cap_frac: float = 0.25,
-                 refine: str = "bisect"):
+                 refine: str = "bisect", topology: str = "std"):
     """Sphere-traced march of [R] rays -> (t_hit [R], found [R] bool), both
     detached: the CUDA kernel for CUDA tensors, the plain version for CPU
     tensors."""
+    check_packed(packed, topology, pe, kernel=rays_o.device.type != "cpu")
     if rays_o.device.type == "cpu":
         return sphere_march_plain(packed, rays_o, rays_d, t_enter, t_exit, pe=pe,
                                   n_sphere=n_sphere, n_refine=n_refine, t0=t0, margin=margin,
                                   lip=lip, dt_frac=dt_frac, cap_frac=cap_frac, refine=refine)
-    if pe != PE or refine not in ("illinois", "bisect") or n_sphere < 1:
-        raise NotImplementedError(f"sphere_march kernel: pe={pe} refine={refine!r} "
-                                  f"n_sphere={n_sphere}")
-    if tuple(packed["w0"].shape) != (FEAT_PAD, FIELD_W):
-        raise ValueError(f"packed field has w0 {tuple(packed['w0'].shape)}")
+    if refine not in ("illinois", "bisect") or n_sphere < 1:
+        raise NotImplementedError(f"sphere_march kernel: refine={refine!r} n_sphere={n_sphere}")
     W, Fv = kernel_buffers(packed)
-    prep = lambda a: a.detach().float().contiguous()
-    return _launch(W, Fv, prep(rays_o), prep(rays_d), prep(t_enter), prep(t_exit), n_sphere,
-                   n_refine, refine == "illinois", float(t0 + 1e-6), float(margin), float(lip),
-                   float(dt_frac), float(cap_frac))
+    return _launch(W, Fv, topology == "wide", prep(rays_o), prep(rays_d), prep(t_enter),
+                   prep(t_exit), n_sphere, n_refine, refine == "illinois", float(t0 + 1e-6),
+                   float(margin), float(lip), float(dt_frac), float(cap_frac))
 
 
 # ---------------------------------------------------------------------------
 # the least work the function needs (for the bound beside the kernel time)
 # ---------------------------------------------------------------------------
 
-# per evaluation, at the true widths: 39 x 128, two 128 x 128 and 128 x 1
+# per evaluation, at the true widths: std 39 x 128, two 128 x 128 and 128 x 1;
+# wide 123 x 128, one 128 x 128 and 128 x 1
 EVAL_FLOPS = 2 * ((3 + 6 * PE) * FIELD_W + 2 * FIELD_W * FIELD_W + FIELD_W)
+EVAL_FLOPS_WIDE = 2 * (WIDE_DIM * FIELD_W + FIELD_W * FIELD_W + FIELD_W)
 
 
-def flops(r: int, n_sphere: int, n_refine: int) -> float:
+def eval_flops(topology: str) -> int:
+    return EVAL_FLOPS_WIDE if topology == "wide" else EVAL_FLOPS
+
+
+def flops(r: int, n_sphere: int, n_refine: int, topology: str = "std") -> float:
     """Every ray runs every trip: r x (n_sphere + n_refine) evaluations."""
-    return float(r) * (n_sphere + n_refine) * EVAL_FLOPS
+    return float(r) * (n_sphere + n_refine) * eval_flops(topology)
 
 
-def min_bytes(r: int) -> float:
+def min_bytes(r: int, topology: str = "std") -> float:
     """Origins, directions and the t range read once (8 f32 per ray), t and
     found written once (counted as 2 f32, as the TPU kernel's rows), and the
     bf16 weights."""
-    return r * (8 + 2) * 4 + (FEAT_PAD + 2 * FIELD_W) * FIELD_W * 2
+    return r * (8 + 2) * 4 + buffer_elems(topology == "wide")[0] * 2

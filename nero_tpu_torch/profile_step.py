@@ -2,8 +2,9 @@
 
     python -m nero_tpu_torch.profile_step [--cfg configs/shape/proc/sphere.yaml] [--steps 5]
     python -m nero_tpu_torch.profile_step --cfg configs/material/proc/bowl.yaml
+    python -m nero_tpu_torch.profile_step --cfg configs/material/proc/bowl_fused.yaml
 
-(the material config reads `data/meshes/proc_bowl.ply`, which
+(the material configs read `data/meshes/proc_bowl.ply`, which
 `python -m nero_tpu_torch.geometry.proc_mesh bowl data/meshes/proc_bowl.ply` writes).
 
 Builds the model, optimizer and schedule through `Trainer.setup()` and times
@@ -16,8 +17,9 @@ copies; user annotations such as `Optimizer.step#...` span other kernels
 and are left out) and the device's idle share, then one JSON line with
 those numbers. For a material config it also times, with CUDA events, the
 forward passes of the step's parts (tracer = march kernel + gradient normal,
-inner / outer / human light MLPs with their encodings); what is left of the
-busy time is the backward pass, the BRDF arithmetic and the optimizer.
+inner / outer / human light MLPs with their encodings, or the fused light
+kernel's wrapper); what is left of the busy time is the backward pass, the
+BRDF arithmetic and the optimizer.
 """
 from __future__ import annotations
 
@@ -34,8 +36,9 @@ from torch.profiler import ProfilerActivity, profile
 from nero_tpu_torch.core.config import load_cfg
 from nero_tpu_torch.train.trainer import Trainer
 
-PORT_KERNELS = ("sdf_rows_kernel", "shader_rows_kernel", "dw_partial_kernel",
-                "colsum_partial_kernel", "reduce_kernel", "sphere_march_kernel")
+PORT_KERNELS = ("sdf_rows_kernel", "shader_rows_kernel", "lights_rows_kernel",
+                "dw_partial_kernel", "colsum_partial_kernel", "reduce_kernel",
+                "sphere_march_kernel", "field_fwd_kernel", "march_kernel")
 GEMM_MARKS = ("gemm", "cutlass", "nvjet", "cublas", "gemv")
 
 
@@ -67,7 +70,7 @@ def material_forward_parts(trainer, step: int, steps: int) -> dict:
 
     timer = ForwardTimer()
     model = trainer.model
-    names = ("get_inner_lights", "predict_outer_lights", "get_human_light")
+    names = ("get_inner_lights", "predict_outer_lights", "get_human_light", "lights_raw")
     saved = {n: getattr(mc_shading, n) for n in names}
     saved_trace = model.trace_fn
     try:

@@ -1,5 +1,7 @@
 """The PyTorch port stands alone: no module of nero_tpu_torch, and not
-chip_smoke.py, imports JAX or the JAX package."""
+chip_smoke.py, imports JAX or the JAX package; and its CUDA sources hold their
+own products: none includes a library of finished kernels or PyTorch's
+headers."""
 import ast
 import os
 
@@ -34,3 +36,23 @@ def test_port_has_modules():
 def test_no_jax_or_reference_imports(path):
     bad = sorted({m for m in _imported_roots(path) if m in FORBIDDEN})
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+CSRC = os.path.join(ROOT, "nero_tpu_torch", "csrc")
+KERNEL_SOURCES = ("sdf_grad.cu", "shader.cu", "sphere_march.cu", "march.cu", "field_fwd.cu",
+                  "lights.cu")
+
+
+def test_every_kernel_source_is_registered():
+    from nero_tpu_torch.ops import cuda_build
+    assert tuple(f"{n}.cu" for n in cuda_build.SOURCES) == KERNEL_SOURCES
+    assert sorted(n for n in os.listdir(CSRC) if n.endswith(".cu")) == sorted(KERNEL_SOURCES)
+
+
+@pytest.mark.parametrize("name", KERNEL_SOURCES + ("common.cuh", "encode.cuh", "field.cuh"))
+def test_kernel_sources_call_no_library(name):
+    text = open(os.path.join(CSRC, name)).read().lower()
+    includes = [l for l in text.splitlines() if l.strip().startswith("#include")]
+    for word in ("cublas", "cudnn", "cutlass", "torch", "aten", "c10", "thrust", "cub/"):
+        assert not any(word in l for l in includes), f"{name} includes {word}"
+    assert "cublas" not in text and "cudnn" not in text

@@ -1,7 +1,7 @@
 """End-to-end Stage II of the port on the CPU: the mirror of
 tests/test_material_e2e.py on the procedural sphere scene, with the neural
 tracer at a small distillation (the march runs its plain version here), plus
-the host precompute against nero_tpu's and the options that must raise."""
+the host precompute against nero_tpu's and every tracer / shader switch."""
 import math
 
 import numpy as np
@@ -52,6 +52,22 @@ def small_tracer(tmp_path_factory):
     mp = pytest.MonkeyPatch()
     SmallTracer.CACHE_DIR = str(tmp_path_factory.mktemp("tracer_cache"))
     mp.setattr(neural_tracer, "NeuralTracer", SmallTracer)
+    yield
+    mp.undo()
+
+
+@pytest.fixture(scope="module")
+def small_grid():
+    """The grid tracer at a CPU-sized grid (64^3 instead of 256^3)."""
+    from nero_tpu_torch.geometry import grid_tracer
+
+    class SmallGrid(grid_tracer.GridTracer):
+        def __init__(self, vertices, triangles, **kw):
+            super().__init__(vertices, triangles, res=64, **kw)
+
+    SmallGrid.__name__ = "GridTracer"
+    mp = pytest.MonkeyPatch()
+    mp.setattr(grid_tracer, "GridTracer", SmallGrid)
     yield
     mp.undo()
 
@@ -176,18 +192,35 @@ def test_trainer_runs_stage_two(sphere_mesh, small_tracer, tmp_path):
 
 
 @pytest.mark.parametrize("override,exc", [
-    ({"tracer": "grid"}, NotImplementedError),
-    ({"tracer": "bvh"}, NotImplementedError),
-    ({"tracer_field_topology": "wide"}, NotImplementedError),
-    ({"tracer_march_mode": "uniform"}, NotImplementedError),
-    ({"shader_cfg": {"fused_lights": True}}, NotImplementedError),
-    ({"tracer_rms_fallback": 1e-9}, RuntimeError),
+    ({"tracer": "grid"}, "GridTracer"),
+    ({"tracer": "bvh"}, "RayTracer"),
+    ({"tracer_field_topology": "wide"}, "SmallTracer"),
+    ({"tracer_march_mode": "uniform"}, "SmallTracer"),
+    ({"shader_cfg": {"fused_lights": True}}, "SmallTracer"),
+    ({"tracer_rms_fallback": 1e-9}, "GridTracer"),
 ], ids=["grid", "bvh", "wide", "uniform", "fused_lights", "rms_fallback"])
-def test_unported_options_raise(sphere_mesh, small_tracer, override, exc):
-    """No silent substitute: each raises with a message."""
-    with pytest.raises(exc, match="ported|ROADMAP"):
-        NeROMaterialModel({**MAT_CFG, "mesh": sphere_mesh, **override}, training=False,
-                          device="cpu")
+def test_unported_options_raise(sphere_mesh, small_tracer, small_grid, override, exc, capsys):
+    """Every one of these options is ported now: the model builds with the
+    tracer the option names (`exc` is its class), traces through it, and a
+    distill RMS above `tracer_rms_fallback` falls back to the grid tracer
+    and says so."""
+    cfg = {**MAT_CFG, "mesh": sphere_mesh, **override}
+    cfg["shader_cfg"] = {**MAT_CFG["shader_cfg"], **override.get("shader_cfg", {})}
+    m = NeROMaterialModel(cfg, training=False, device="cpu")
+    assert type(m.ray_tracer).__name__ == exc
+    said = "falling back to the grid tracer" in capsys.readouterr().out
+    assert said == ("tracer_rms_fallback" in override)
+    if exc == "SmallTracer":
+        assert m.ray_tracer.field_topology == cfg.get("tracer_field_topology", "std")
+        assert m.ray_tracer.march_mode == cfg.get("tracer_march_mode", "sphere")
+    assert bool(m.mcfg.fused_lights) == ("shader_cfg" in override)
+    # rays aimed at the centre from radius 0.9 hit the sphere at depth 0.4
+    p = np.random.RandomState(1).normal(size=(64, 3))
+    p /= np.linalg.norm(p, axis=-1, keepdims=True)
+    o, d = torch.as_tensor(p * 0.9, dtype=torch.float32), torch.as_tensor(-p, dtype=torch.float32)
+    inters, normals, depth, hit = m.trace_fn(o, d)
+    assert hit.all() and (depth[:, 0] - 0.4).abs().max() < 0.03
+    assert torch.sum(normals * d, -1).mean() > 0.9     # inward normals
 
 
 def test_cuda_is_the_default_device(sphere_mesh):

@@ -528,11 +528,26 @@ def test_regularization_draws_from_generator():
 
 
 def test_fused_lights_raise():
-    cfg_j, cfg_t = _cfgs(fused_lights=True)
-    _, pt = _params(cfg_j)
-    z = torch.zeros(2, 4, 3)
-    with pytest.raises(NotImplementedError):
-        T.get_lights(pt, cfg_t, trace_t, z, z, None)
+    """`fused_lights=True` no longer raises: get_lights goes through
+    ops/lights.py (its plain version for these CPU tensors) and gives the
+    lights of the unfused path; a configuration the kernel does not take
+    (outer compaction on) raises a RuntimeWarning, once, and takes the
+    unfused path."""
+    from nero_tpu_torch.ops import lights as L
+    cfg_j, cfg_t = _cfgs()
+    hit = np.random.RandomState(5).rand(8 * 64) < 0.4
+    out_j, out_ref, _ = _lights_both(cfg_j, cfg_t, hit, 8, 64, seed=2)
+    before = dict(L.launches)
+    _, out_fused, _ = _lights_both(cfg_j, cfg_t._replace(fused_lights=True), hit, 8, 64, seed=2)
+    assert L.launches == before          # CPU tensors: the plain version, no launch
+    for a, b, c in zip(out_fused[:2], out_ref[:2], out_j[:2]):
+        _close(a, b.detach())
+        _close(a, c)
+    cfg_bad = cfg_t._replace(fused_lights=True, outer_compact_frac=0.6)
+    with pytest.warns(RuntimeWarning, match="unfused light path"):
+        assert not T.fused_lights_active(cfg_bad)
+    assert T.fused_lights_active(cfg_t._replace(fused_lights=True))
+    assert not T.fused_lights_active(cfg_t)
 
 
 def test_config_from_dict_ignores_unknown_keys():
