@@ -5,6 +5,8 @@ from it and nothing of JAX. Its layout mirrors `nero_tpu` so each module's
 counterpart is easy to find. Entry points run on CUDA unless the caller
 passes `device="cpu"` (the tests do).
 
-Slice 1 covers Stage-I shape training:
-`python -m nero_tpu_torch.run_training --cfg configs/shape/proc/sphere.yaml`.
+It covers Stage-I shape training in all its configurations and Stage-II
+material training, on the procedural scenes:
+`python -m nero_tpu_torch.run_training --cfg configs/shape/proc/sphere.yaml`
+(also `sphere_real.yaml`, `sphere_heads.yaml`, `configs/material/proc/*.yaml`).
 """

@@ -30,19 +30,15 @@
 // one 227 KB block per SM, layer 8 run at all 272 columns for the tangent
 // rows too, and the backward's scratch round trip through device memory
 // (about 3.4 GB at N = 65,536).
-#include "common.cuh"
+#include "sdf_net.cuh"
 
 using namespace nero;
+using namespace nero::sdfnet;
 
 namespace {
 
 constexpr int P = 32;           // points per tile
 constexpr int ROWS = 4 * P;     // primal + 3 tangent rows
-constexpr int HID = 256;
-constexpr int PEW = 48;         // 39 PE channels padded to a tile multiple
-constexpr int OUTW = 272;       // 257 outputs padded
-constexpr int NPE = 39;
-constexpr int MASK_W = 217;     // layer-3 width (256 - 39)
 constexpr int LDA = OUTW + 8;   // shared-memory leading dims (bank skew)
 constexpr int LDP = PEW + 8;
 constexpr int LDC = OUTW + 4;
@@ -50,30 +46,6 @@ constexpr int NTHREADS = 512;
 constexpr int DW_CHUNK_MIN_ROWS = 4096;  // stacked rows per weight-gradient chunk, at least
 constexpr size_t SMEM_BYTES =
     (size_t)ROWS * LDA * 2 + (size_t)ROWS * LDP * 2 + (size_t)ROWS * LDC * 4;
-
-// packed bf16 weights, [in, out] row-major each, in this order
-constexpr size_t SZ_PE = (size_t)PEW * HID, SZ_H = (size_t)HID * HID;
-constexpr size_t OFF_W0 = 0;
-constexpr size_t OFF_W1 = OFF_W0 + SZ_PE;
-constexpr size_t OFF_W2 = OFF_W1 + SZ_H;
-constexpr size_t OFF_W3 = OFF_W2 + SZ_H;
-constexpr size_t OFF_W4A = OFF_W3 + SZ_H;
-constexpr size_t OFF_W4B = OFF_W4A + SZ_H;
-constexpr size_t OFF_W5 = OFF_W4B + SZ_PE;
-constexpr size_t OFF_W6 = OFF_W5 + SZ_H;
-constexpr size_t OFF_W7 = OFF_W6 + SZ_H;
-constexpr size_t OFF_W8 = OFF_W7 + SZ_H;
-constexpr size_t W_TOTAL = OFF_W8 + (size_t)HID * OUTW;
-
-__host__ __device__ constexpr size_t layer_off(int l) {
-  return l == 0 ? OFF_W0 : l == 1 ? OFF_W1 : l == 2 ? OFF_W2 : l == 3 ? OFF_W3
-       : l == 4 ? OFF_W4A : l == 5 ? OFF_W5 : l == 6 ? OFF_W6 : l == 7 ? OFF_W7 : OFF_W8;
-}
-
-__device__ __forceinline__ float softplus_b(float z, float beta) {
-  const float x = beta * z;
-  return (fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)))) / beta;
-}
 
 // scratch (bf16) per M = 4 * n_pad stacked rows: Z[8][M][256], H[8][M][256],
 // GZ[8][M][256], GZ8[M][272], PE[M][48]

@@ -1,13 +1,21 @@
-"""Stage-I appearance shader (split-sum light approximation), default variant.
+"""Stage-I appearance shader (split-sum light approximation), every variant.
 
-Counterpart of nero_tpu/fields/app_shading.py. The six heads and their
-encodings run as one function (`ops/shader.py::shader_raw`: the CUDA kernel
-for CUDA tensors, its plain torch version for CPU tensors); the final
-activations, the FG-LUT lookup and the linear->sRGB combine run here, as in
-`_app_shading_apply_fused` (app_shading.py:256-319), whose math equals the
-XLA path's (:322-371). The `sphere_direction` and `human_light` variants
-are a later slice: `init_app_shading` builds them, `app_shading_apply`
-raises for them.
+Counterpart of nero_tpu/fields/app_shading.py. Two paths compute the same
+function:
+
+* the whole-shader path (`fused_shader` unset or true): the heads and their
+  encodings run as one function (`ops/shader.py::shader_raw`: the CUDA kernel
+  for CUDA tensors, its plain torch version for CPU tensors) and the final
+  activations, the human mixing, the FG-LUT lookup and the linear->sRGB
+  combine run in `shade_from_raw`, as in `_app_shading_apply_fused`
+  (app_shading.py:256-319);
+* the per-head path (`fused_shader: false`, app_shading.py:329-371): the
+  encodings are tensor ops and every head goes through
+  `ops/mlp.py::apply_predictor(fused=cfg.fused_heads)`, which with
+  `fused_heads` is the predictor kernel on the card.
+
+Both handle `sphere_direction` and `human_light` (the camera-plane light of
+the real captures), which needs the per-ray `human_poses`.
 """
 from __future__ import annotations
 
@@ -17,8 +25,8 @@ from typing import NamedTuple
 import torch
 
 from nero_tpu_torch.ops.fg_lut import fg_lookup
-from nero_tpu_torch.ops.mlp import exp_activation, init_predictor
-from nero_tpu_torch.ops.shader import shader_raw, unpack_raw
+from nero_tpu_torch.ops.mlp import apply_predictor, exp_activation, init_predictor
+from nero_tpu_torch.ops.shader import shader_raw, shader_raw_plain, unpack_raw
 from nero_tpu_torch.utils.color import linear_to_srgb
 from nero_tpu_torch.utils.encodings import ide_dim, positional_encode_dim
 
@@ -33,6 +41,17 @@ class AppShadingConfig(NamedTuple):
     light_exp_max: float = 0.0
     feats_dim: int = 256
     ide_deg: int = 5
+    # per-head path only: each 4-layer head through the predictor kernel
+    fused_heads: bool = False
+    # None or True: the whole-shader kernel, for every variant; False: the
+    # per-head path. (The JAX package sends human_light to its per-head path
+    # when this is unset, on a timing taken on its TPU; PERF.md has both
+    # paths' times on the card.)
+    fused_shader: bool | None = None
+
+
+def fused_shader_active(cfg: AppShadingConfig) -> bool:
+    return cfg.fused_shader is None or bool(cfg.fused_shader)
 
 
 def shading_config_from_dict(cfg: dict) -> AppShadingConfig:
@@ -61,18 +80,35 @@ def init_app_shading(gen: torch.Generator, cfg: AppShadingConfig = AppShadingCon
 
 
 def app_shading_apply(params, cfg: AppShadingConfig, fg_lut, points, normals, view_dirs,
-                      feature_vectors, inter_results: bool = False):
-    """Shade surface samples; returns (color_srgb, occ_info[, intermediates])."""
-    if cfg.human_light or cfg.sphere_direction:
-        raise NotImplementedError("human_light / sphere_direction shading is a later slice")
-    packed = shader_raw(params, cfg, points, normals, view_dirs, feature_vectors)
+                      feature_vectors, human_poses=None, inter_results: bool = False):
+    """Shade surface samples; returns (color_srgb, occ_info[, intermediates]).
+    human_poses [..., 3, 4] per sample when cfg.human_light."""
+    if cfg.human_light and human_poses is None:
+        raise ValueError("human_light shading needs human_poses")
+    if fused_shader_active(cfg):
+        packed = shader_raw(params, cfg, points, normals, view_dirs, feature_vectors,
+                            human_poses)
+    else:
+        packed = heads_raw(params, cfg, points, normals, view_dirs, feature_vectors,
+                           human_poses)
     return shade_from_raw(packed, cfg, fg_lut, inter_results)
+
+
+def heads_raw(params, cfg: AppShadingConfig, points, normals, view_dirs, feature_vectors,
+              human_poses=None) -> torch.Tensor:
+    """The per-head path (nero_tpu/fields/app_shading.py:106-186, 329-343):
+    the packed raw outputs [..., 24] of `ops/shader.py::shader_raw`, with the
+    encodings as tensor ops and every head through `apply_predictor`."""
+    head = lambda layers, x: apply_predictor(layers, x, activation="none",
+                                             fused=cfg.fused_heads)
+    return shader_raw_plain(params, cfg, points, normals, view_dirs, feature_vectors,
+                            human_poses, head=head)
 
 
 def shade_from_raw(packed: torch.Tensor, cfg: AppShadingConfig, fg_lut,
                    inter_results: bool = False):
     """Final activations + split-sum combine of the packed raw outputs."""
-    raw = unpack_raw(packed)
+    raw = unpack_raw(packed, cfg.human_light)
     metallic = torch.sigmoid(raw["metallic_z"])
     roughness = torch.sigmoid(raw["roughness_z"])
     albedo = torch.sigmoid(raw["albedo_z"])
@@ -82,7 +118,16 @@ def shade_from_raw(packed: torch.Tensor, cfg: AppShadingConfig, fg_lut,
     occ_prob = raw["occ_z"] * 0.5 + 0.5
     occ_prob_c = torch.clamp(occ_prob, 0.0, 1.0)
 
-    specular_light = indirect_raw * occ_prob_c + direct_light * (1 - occ_prob_c)
+    if cfg.human_light:
+        # exp clamped at 0, hit mask on the activated output
+        human = exp_activation(raw["human_z"], 0.0) * raw["human_hits"]
+        human_light = human[..., :3]
+        human_weight = torch.clamp(human[..., 3:], 0.0, 1.0)
+        direct_mix = human_light * human_weight + direct_light * (1 - human_weight)
+    else:
+        direct_mix = direct_light
+
+    specular_light = indirect_raw * occ_prob_c + direct_mix * (1 - occ_prob_c)
     indirect_light = indirect_raw * occ_prob_c
     diffuse_albedo = (1 - metallic) * albedo
     diffuse_color = diffuse_albedo * diffuse_light
@@ -109,6 +154,8 @@ def shade_from_raw(packed: torch.Tensor, cfg: AppShadingConfig, fg_lut,
         "occ_prob": torch.clamp(occ_prob, 0.0, 1.0),
         "indirect_light": indirect_light,
     }
+    if cfg.human_light:
+        inter["human_light"] = linear_to_srgb(human_light * human_weight)
     return color, occ_info, inter
 
 

@@ -4,6 +4,9 @@ Counterpart of nero_tpu/models/shape.py. The training images live on the
 device as uint8; each step samples a ray batch there with the model's
 `torch.Generator`, renders it, sums the losses (same names as
 nero_tpu/models/shape.py:107-128), back-propagates and takes an Adam step.
+Every ray carries the 'human' pose of its camera (render/rays.py::
+human_coordinate_poses; `fixed_camera` keeps the camera centre's height),
+which the shader's human light reads.
 Multi-device training (nero_tpu's mesh / constrain_rays) is a later slice.
 """
 from __future__ import annotations
@@ -16,7 +19,8 @@ from nero_tpu_torch.core.device import resolve_device
 from nero_tpu_torch.dataset.database import (BaseDatabase, get_database_split,
                                              parse_database_name)
 from nero_tpu_torch.ops.fg_lut import get_fg_lut
-from nero_tpu_torch.render.rays import rays_from_pixels, sample_ray_batch
+from nero_tpu_torch.render.rays import (human_coordinate_poses, rays_from_pixels,
+                                        sample_ray_batch)
 from nero_tpu_torch.render.shape import (ShapeConfig, compute_rgb_loss, init_shape_params,
                                          render, shape_config_from_dict)
 from nero_tpu_torch.train.losses import compute_losses, total_loss
@@ -29,6 +33,7 @@ DEFAULT_SHAPE_CFG = {
     "test_downsample_ratio": True,
     "downsample_ratio": 0.25,
     "rgb_loss": "charbonier",
+    "fixed_camera": False,
     "random_seed": 6033,
     "loss": ["nerf_render", "eikonal", "std", "init_sdf_reg", "occ"],
 }
@@ -74,10 +79,12 @@ class NeROShapeModel:
         self.train_ids, self.test_ids = get_database_split(self.database)
         info = build_imgs_info(self.database, self.train_ids)
         dev = self.device
+        poses = torch.as_tensor(info["poses"], device=dev)
         self.train_data = {
             "imgs_u8": torch.as_tensor(info["imgs"], device=dev),
             "K_inv": torch.linalg.inv(torch.as_tensor(info["Ks"], device=dev)),
-            "poses": torch.as_tensor(info["poses"], device=dev),
+            "poses": poses,
+            "human_poses": human_coordinate_poses(poses, self.cfg["fixed_camera"]),
         }
         self.test_imgs_info = build_imgs_info(self.database, self.test_ids)
 
@@ -89,7 +96,8 @@ class NeROShapeModel:
         """(total loss, log dict) of one rendered batch."""
         cfg = self.cfg
         out = render(params, self.scfg, self.fg_lut, batch["rays_o"], batch["rays_d"],
-                     batch["near"], batch["far"], step, gen=gen, is_train=True)
+                     batch["near"], batch["far"], step, gen=gen, is_train=True,
+                     human_poses=batch.get("human_poses"))
         out["loss_rgb"] = compute_rgb_loss(out["ray_rgb"], batch["rgb"], cfg["rgb_loss"])
         log = compute_losses(cfg["loss"], out, None, step, cfg)
         return total_loss(log), log
@@ -99,7 +107,7 @@ class NeROShapeModel:
         (device tensors; reading them synchronises)."""
         d = self.train_data
         batch = sample_ray_batch(self.gen, d["imgs_u8"], d["K_inv"], d["poses"],
-                                 self.cfg["train_ray_num"])
+                                 self.cfg["train_ray_num"], d["human_poses"])
         loss, log = self.loss_fn(self.params, batch, step, self.gen)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -118,7 +126,7 @@ class NeROShapeModel:
             cur = {k: v[ri:ri + trn] for k, v in rays.items()}
             out = render(params, self.scfg, self.fg_lut, cur["rays_o"], cur["rays_d"],
                          cur["near"], cur["far"], step, gen=None, is_train=False,
-                         perturb_overwrite=0.0)
+                         perturb_overwrite=0.0, human_poses=cur["human_poses"])
             outs.append({k: v.cpu().numpy() for k, v in out.items()})
         return {k: np.concatenate([np.atleast_1d(o[k]) for o in outs], 0) for k in outs[0]}
 
@@ -129,7 +137,9 @@ class NeROShapeModel:
         K_inv = torch.as_tensor(np.linalg.inv(K).astype(np.float32), device=self.device)
         pose_t = torch.as_tensor(pose.astype(np.float32), device=self.device)
         rays_o, rays_d, near, far = rays_from_pixels(coords, K_inv[None], pose_t[None])
-        return {"rays_o": rays_o.contiguous(), "rays_d": rays_d, "near": near, "far": far}
+        human = human_coordinate_poses(pose_t[None], self.cfg["fixed_camera"])
+        return {"rays_o": rays_o.contiguous(), "rays_d": rays_d, "near": near, "far": far,
+                "human_poses": human.expand(coords.shape[0], 3, 4)}
 
     def test_step(self, params, index: int, step: int) -> dict:
         """Render one downsampled validation view + its ground truth."""

@@ -19,7 +19,8 @@ import threading
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "nero_tpu_torch")
-SOURCES = ("sdf_grad", "shader", "sphere_march", "march", "field_fwd", "lights")
+SOURCES = ("sdf_grad", "shader", "sphere_march", "march", "field_fwd", "lights", "sdf_fwd",
+           "predictor")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 

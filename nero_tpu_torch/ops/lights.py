@@ -208,48 +208,74 @@ def unpack_grads(dW: torch.Tensor, dB: torch.Tensor, shapes, sphere: bool, both:
     return dws, dbs
 
 
+def _fwd(geo, W, B, sphere: bool, both: bool) -> torch.Tensor:
+    """One forward launch on packed weights: geo [n, 12] -> raw [n, 6]."""
+    n = geo.shape[0]
+    out = torch.empty(n, OUT, device=geo.device)
+    rc = _lib().lights_fwd(geo.data_ptr(), n, W.data_ptr(), B.data_ptr(),
+                           ide_table_on(geo.device).data_ptr(), int(sphere), int(both),
+                           out.data_ptr(), torch.cuda.current_stream(geo.device).cuda_stream)
+    cuda_build.check(rc, "lights_fwd")
+    launches["lights_fwd" if both else "lights_fwd_outer"] += 1
+    return out
+
+
+def _bwd(geo, W, B, sphere: bool, both: bool, gout):
+    """One backward launch (rows kernel + the gradient reductions): gout
+    [n, 6] -> (d points and d directions [n, 6], dW packed f32, dB)."""
+    n = geo.shape[0]
+    dev = geo.device
+    lib = _lib()
+    m_rows = -(-n // TILE) * TILE
+    scratch = torch.empty(lib.lights_scratch_elems(m_rows, int(sphere), int(both)),
+                          dtype=torch.bfloat16, device=dev)
+    part = torch.empty(lib.lights_part_elems(m_rows), device=dev)
+    dgeo6 = torch.empty(n, 6, device=dev)
+    # no rows, no launch: the kernel would leave dW unwritten
+    dW = torch.empty(W.numel(), device=dev) if n else torch.zeros(W.numel(), device=dev)
+    dB = torch.zeros_like(B)
+    rc = lib.lights_bwd(geo.data_ptr(), n, W.data_ptr(), B.data_ptr(),
+                        ide_table_on(dev).data_ptr(), int(sphere), int(both), gout.data_ptr(),
+                        dgeo6.data_ptr(), scratch.data_ptr(), part.data_ptr(), dW.data_ptr(),
+                        dB.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(rc, "lights_bwd")
+    launches["lights_bwd" if both else "lights_bwd_outer"] += 1
+    return dgeo6, dW, dB
+
+
 class _LightsFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, geo, sphere, both, *wb):
-        n = geo.shape[0]
         k = len(wb) // 2
         W, B = pack_buffers(wb[:k], wb[k:], sphere, both)
-        tab = ide_table_on(geo.device)
-        out = torch.empty(n, OUT, device=geo.device)
-        rc = _lib().lights_fwd(geo.data_ptr(), n, W.data_ptr(), B.data_ptr(), tab.data_ptr(),
-                               int(sphere), int(both), out.data_ptr(),
-                               torch.cuda.current_stream(geo.device).cuda_stream)
-        cuda_build.check(rc, "lights_fwd")
-        launches["lights_fwd" if both else "lights_fwd_outer"] += 1
-        ctx.save_for_backward(geo, W, B, tab)
+        out = _fwd(geo, W, B, sphere, both)
+        ctx.save_for_backward(geo, W, B)
         ctx.meta = (sphere, both, [tuple(w.shape) for w in wb[:k]])
         return out
 
     @staticmethod
     def backward(ctx, gout):
-        geo, W, B, tab = ctx.saved_tensors
+        geo, W, B = ctx.saved_tensors
         sphere, both, shapes = ctx.meta
-        n = geo.shape[0]
-        dev = geo.device
-        lib = _lib()
-        m_rows = -(-n // TILE) * TILE
-        scratch = torch.empty(lib.lights_scratch_elems(m_rows, int(sphere), int(both)),
-                              dtype=torch.bfloat16, device=dev)
-        part = torch.empty(lib.lights_part_elems(m_rows), device=dev)
-        dgeo6 = torch.empty(n, 6, device=dev)
-        dW = torch.empty(W.numel(), device=dev)
-        dB = torch.zeros_like(B)
-        gout = gout.float().contiguous()
-        rc = lib.lights_bwd(geo.data_ptr(), n, W.data_ptr(), B.data_ptr(), tab.data_ptr(),
-                            int(sphere), int(both), gout.data_ptr(), dgeo6.data_ptr(),
-                            scratch.data_ptr(), part.data_ptr(), dW.data_ptr(), dB.data_ptr(),
-                            torch.cuda.current_stream(dev).cuda_stream)
-        cuda_build.check(rc, "lights_bwd")
-        launches["lights_bwd" if both else "lights_bwd_outer"] += 1
+        dgeo6, dW, dB = _bwd(geo, W, B, sphere, both, gout.float().contiguous())
         # the traced hit points and normals (columns 6:12) get no gradient
         dgeo = F.pad(dgeo6, (0, GEO - 6))
         dws, dbs = unpack_grads(dW, dB, shapes, sphere, both)
         return (dgeo, None, None, *dws, *dbs)
+
+
+def kernel_inputs(params, cfg, points, directions, inters, normals, mode: str = "both"):
+    """What the kernel reads, from the light heads' arguments: (geo [n, 12],
+    sphere, both, resolved weights, biases)."""
+    n = int(np.prod(points.shape[:-1]))
+    both = mode == "both"
+    sphere = cfg.outer_light_version == "sphere_direction"
+    rs = lambda a: a.reshape(n, 3)
+    hit_geo = ((rs(inters).detach(), rs(normals).detach()) if both
+               else (points.new_zeros(n, 6),))
+    geo = torch.cat([rs(points), rs(directions), *hit_geo], -1).float().contiguous()
+    ws, bs = pack_light_params(params, cfg, mode)
+    return geo, sphere, both, ws, bs
 
 
 def lights_raw(params, cfg, points, directions, inters, normals, mode: str = "both"):
@@ -263,14 +289,8 @@ def lights_raw(params, cfg, points, directions, inters, normals, mode: str = "bo
         raise NotImplementedError(f"the light kernel takes ide_deg = {IDE_DEG}, got "
                                   f"{cfg.ide_deg}")
     shape = points.shape[:-1]
-    n = int(np.prod(shape))
-    both = mode == "both"
-    sphere = cfg.outer_light_version == "sphere_direction"
-    rs = lambda a: a.reshape(n, 3)
-    hit_geo = ((rs(inters).detach(), rs(normals).detach()) if both
-               else (points.new_zeros(n, 6),))
-    geo = torch.cat([rs(points), rs(directions), *hit_geo], -1).float().contiguous()
-    ws, bs = pack_light_params(params, cfg, mode)
+    geo, sphere, both, ws, bs = kernel_inputs(params, cfg, points, directions, inters, normals,
+                                              mode)
     out = _LightsFn.apply(geo, sphere, both, *ws, *bs)
     return out[:, 0:3].reshape(*shape, 3), out[:, 3:6].reshape(*shape, 3)
 

@@ -104,10 +104,16 @@ def predictor_raw(layers, x: torch.Tensor) -> torch.Tensor:
 
 
 def apply_predictor(layers, x: torch.Tensor, activation: str = "sigmoid",
-                    exp_max: float = 0.0) -> torch.Tensor:
+                    exp_max: float = 0.0, fused: bool = False) -> torch.Tensor:
     """The 4-layer head with its final activation: 'sigmoid', 'exp' (clamped
-    at exp_max) or 'none'."""
-    h = predictor_raw(layers, x)
+    at exp_max) or 'none'. `fused` sends the linear/ReLU body through the
+    predictor kernel (ops/predictor.py: on a CUDA tensor the kernel, on a CPU
+    tensor its plain version); the activation stays here either way."""
+    if fused:
+        from nero_tpu_torch.ops.predictor import predictor
+        h = predictor(layers, x)
+    else:
+        h = predictor_raw(layers, x)
     if activation == "exp":
         return exp_activation(h, exp_max)
     if activation == "sigmoid":

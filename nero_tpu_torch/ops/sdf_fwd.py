@@ -1,0 +1,114 @@
+"""SDF value without gradient: the CUDA kernel and its plain version.
+
+Replaces nero_tpu/ops/pallas/sdf_kernel.py::sdf_fwd_fused (:148, pallas_call
+nero_sdf_fwd :122). The kernel source is csrc/sdf_fwd.cu; its header comment
+gives the design. It serves Stage I's no-gradient callers (proposal sampler,
+occlusion march, validation march) when `use_fused_sdf` is set. `sdf_fwd`
+launches the kernel for a CUDA tensor and runs `sdf_fwd_plain` (the f32
+`sdf_value`) for a CPU tensor, and only then. Weight norm is folded when the
+weights are packed; nothing here is differentiable.
+
+What bounds it on the card: tensor-core operations (`flops`), 0.92 MFLOP a
+point against 16 bytes a point; the kernel uses bf16 operands with f32 sums,
+so its values carry ~1e-2 of noise against the f32 network (the JAX
+kernel's test bar is atol 2e-2).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from nero_tpu_torch.fields.sdf import SDFConfig, sdf_value
+from nero_tpu_torch.ops import cuda_build
+from nero_tpu_torch.ops.mlp import resolve_weight_norm
+from nero_tpu_torch.ops.sdf_grad import N_PE, PACK_SHAPES, SKIP_W, pack_weights, supported
+
+launches = {"sdf_fwd": 0}
+
+
+@torch.no_grad()
+def sdf_fwd_plain(params, x: torch.Tensor, cfg: SDFConfig = SDFConfig()) -> torch.Tensor:
+    """[..., 3] -> [..., 1] signed distance in plain f32 torch, detached."""
+    return sdf_value(params, x.detach(), cfg)
+
+
+def _lib():
+    lib = cuda_build.load("sdf_fwd")
+    if not getattr(lib, "_nero_typed", False):
+        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.sdf_fwd_weight_elems.restype = ctypes.c_size_t
+        lib.sdf_fwd_weight_elems.argtypes = []
+        lib.sdf_fwd.restype = i
+        lib.sdf_fwd.argtypes = [vp, i, vp, vp, f, f, vp, vp]
+        if lib.sdf_fwd_weight_elems() != sum(r * c for r, c in PACK_SHAPES):
+            raise RuntimeError("csrc/sdf_fwd.cu layout differs from ops/sdf_grad.py")
+        lib._nero_typed = True
+    return lib
+
+
+@torch.no_grad()
+def pack_params(params, cfg: SDFConfig = SDFConfig()):
+    """{v,g,b} or resolved layers -> (packed bf16 weights, bias f32 [9, 272]):
+    the layout of the SDF-with-gradient kernel, weight norm folded."""
+    if not supported(cfg):
+        raise NotImplementedError(f"sdf_fwd kernel needs the default topology, got {cfg}")
+    layers = resolve_weight_norm(params)
+    return pack_weights([l["w"].detach() for l in layers], [l["b"].detach() for l in layers])
+
+
+@torch.no_grad()
+def sdf_fwd_packed(packed, x: torch.Tensor, cfg: SDFConfig = SDFConfig()) -> torch.Tensor:
+    """The kernel on packed weights: x [..., 3] (CUDA) -> [..., 1]."""
+    W, bias = packed
+    shape = x.shape[:-1]
+    pts = x.detach().reshape(-1, 3).float().contiguous()
+    n = pts.shape[0]
+    out = torch.empty(n, device=pts.device)
+    rc = _lib().sdf_fwd(pts.data_ptr(), n, W.data_ptr(), bias.data_ptr(), float(cfg.beta),
+                        float(cfg.scale), out.data_ptr(),
+                        torch.cuda.current_stream(pts.device).cuda_stream)
+    cuda_build.check(rc, "sdf_fwd")
+    launches["sdf_fwd"] += 1
+    return out.reshape(*shape, 1)
+
+
+def make_sdf_fwd_fn(params, cfg: SDFConfig = SDFConfig()):
+    """x [..., 3] -> sdf [..., 1], no gradient: the CUDA kernel for a CUDA
+    tensor, the plain version for a CPU tensor. The weights are packed once,
+    at the first call on a CUDA tensor (the sampler and the marches call the
+    function 2-4 times with the same weights)."""
+    packed = []
+
+    def fn(x: torch.Tensor) -> torch.Tensor:
+        if x.device.type == "cpu":
+            return sdf_fwd_plain(params, x, cfg)
+        if not packed:
+            packed.append(pack_params(params, cfg))
+        return sdf_fwd_packed(packed[0], x, cfg)
+
+    return fn
+
+
+def sdf_fwd(params, x: torch.Tensor, cfg: SDFConfig = SDFConfig()) -> torch.Tensor:
+    """One call of `make_sdf_fwd_fn(params, cfg)`."""
+    return make_sdf_fwd_fn(params, cfg)(x)
+
+
+# ---------------------------------------------------------------------------
+# the least work the function needs (for the bound beside the kernel time)
+# ---------------------------------------------------------------------------
+
+# in x out of the nine products at their true widths (w4 as w4a on h3 and
+# w4b on the PE; of the last layer the sdf column alone)
+_KN = (N_PE * 256 + 2 * 256 * 256 + 256 * SKIP_W + SKIP_W * 256 + N_PE * 256
+       + 3 * 256 * 256 + 256)
+
+
+def flops(n: int) -> float:
+    return 2.0 * n * _KN
+
+
+def min_bytes(n: int) -> float:
+    """Points read once, one float a point written, bf16 weights read once."""
+    return n * 3 * 4 + n * 4 + sum(r * c for r, c in PACK_SHAPES) * 2

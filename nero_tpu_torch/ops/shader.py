@@ -1,14 +1,16 @@
-"""Whole Stage-I shader (six heads + IDE/PE encodings): CUDA kernel and
-its plain version.
+"""Whole Stage-I shader (six heads, seven with the human light, and their
+IDE/PE/IPE encodings): CUDA kernel and its plain version.
 
 Replaces nero_tpu/ops/pallas/shader_kernel.py::shader_fused_raw (:552),
 whose pallas_calls are nero_shader_fwd_f* (:467) and nero_shader_bwd_f*
-(:494), in the default variant. The kernel source is csrc/shader.cu; its
-header comment gives the design, including the hand-derived backward that
-replaces the in-kernel jax.vjp. `shader_raw` launches the kernel for CUDA
-tensors and runs `shader_raw_plain` (plain torch, autograd) for CPU tensors,
-and only then. The activations, the FG-LUT lookup and sRGB stay outside the
-kernel (fields/app_shading.py), as on the TPU.
+(:494), in all four variants: default, `sphere_direction` (:289-314),
+`human_light` (`_human_block`, :219-255) and both. The kernel source is
+csrc/shader.cu; its header comment gives the design, including the
+hand-derived backward that replaces the in-kernel jax.vjp. `shader_raw`
+launches the kernel for CUDA tensors and runs `shader_raw_plain` (plain
+torch, autograd) for CPU tensors, and only then. The activations, the human
+mixing, the FG-LUT lookup and sRGB stay outside the kernel
+(fields/app_shading.py), as on the TPU.
 
 What bounds it on the card: tensor-core operations (`flops`), about 0.17 ms
 forward and 0.5 ms backward at N = 65,536 and 989 TFLOP/s; the bytes it
@@ -25,25 +27,44 @@ import torch.nn.functional as F
 from nero_tpu_torch.ops import cuda_build
 from nero_tpu_torch.ops.mlp import predictor_raw, resolve_weight_norm
 from nero_tpu_torch.utils.encodings import (ide_dim, ide_tables, integrated_dir_encode,
-                                            positional_encode, positional_encode_dim)
+                                            integrated_pos_encode, positional_encode,
+                                            positional_encode_dim)
+from nero_tpu_torch.utils.sphere import get_sphere_intersection, offset_points_to_sphere
 
 TILE = 64
 HID = 256
 OUT = 24
-GEO = 9
+DGEO = 9         # gradient rows: d pts, d normal, d view
 HEAD_ORDER = ("metallic", "roughness", "albedo", "outer_light", "inner_light",
               "inner_weight")
-# padded input width and output count per head (csrc/shader.cu head_di)
-HEAD_PAD = {"metallic": (272, 1), "roughness": (272, 1), "albedo": (272, 3),
-            "outer_light": (80, 3), "inner_light": (128, 3), "inner_weight": (96, 1)}
+HUMAN_HEAD = "human_light"
 DO = 16
 
-launches = {"shader_fwd": 0, "shader_bwd": 0}
+def _suffix(sphere, human) -> str:
+    return ("_sphere" if sphere else "") + ("_human" if human else "")
+
+
+launches = {f"shader_{d}{_suffix(s, h)}": 0 for h in (0, 1) for s in (0, 1)
+            for d in ("fwd", "bwd")}
+
+
+def variant(cfg) -> str:
+    """Suffix of the launch counters of cfg's kernel variant."""
+    return _suffix(cfg.sphere_direction, cfg.human_light)
 
 
 def supported(cfg) -> bool:
-    return (not cfg.sphere_direction and not cfg.human_light and cfg.feats_dim == HID
-            and cfg.ide_deg == 5 and cfg.light_pos_freq == 8)
+    return cfg.feats_dim == HID and cfg.ide_deg == 5 and cfg.light_pos_freq == 8
+
+
+def head_order(cfg) -> tuple:
+    return HEAD_ORDER + ((HUMAN_HEAD,) if cfg.human_light else ())
+
+
+def geo_width(cfg) -> int:
+    """Geometry floats per row: pts, normal, view and, with the human light,
+    the camera pose (R row-major, t)."""
+    return 21 if cfg.human_light else 9
 
 
 def head_dims(cfg) -> dict:
@@ -52,21 +73,33 @@ def head_dims(cfg) -> dict:
     pos = positional_encode_dim(3, cfg.light_pos_freq)
     ref = positional_encode_dim(3, 6)
     f = cfg.feats_dim
-    return {"metallic": (f + 3, 1), "roughness": (f + 3, 1), "albedo": (f + 3, 3),
+    dims = {"metallic": (f + 3, 1), "roughness": (f + 3, 1), "albedo": (f + 3, 3),
             "outer_light": (sph * (2 if cfg.sphere_direction else 1), 3),
             "inner_light": (pos + sph, 3), "inner_weight": (pos + ref, 1)}
+    if cfg.human_light:
+        dims[HUMAN_HEAD] = (2 * 2 * 6, 4)
+    return dims
+
+
+def head_pad(cfg) -> dict:
+    """Padded input width per head (csrc/shader.cu Var::head_di)."""
+    return {name: -(-d_in // 16) * 16 for name, (d_in, _) in head_dims(cfg).items()}
 
 
 def _normalize(v: torch.Tensor) -> torch.Tensor:
     return v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True), min=1e-12)
 
 
-def unpack_raw(out: torch.Tensor) -> dict:
+def unpack_raw(out: torch.Tensor, human: bool = False) -> dict:
     """Packed [..., 24] -> named raw outputs (shader_kernel.py:262-265)."""
-    return {"metallic_z": out[..., 0:1], "roughness_z": out[..., 1:2],
-            "albedo_z": out[..., 2:5], "diffuse_light_z": out[..., 5:8],
-            "direct_light_z": out[..., 8:11], "inner_light_z": out[..., 11:14],
-            "occ_z": out[..., 14:15], "reflective": out[..., 15:18], "NoV": out[..., 18:19]}
+    raw = {"metallic_z": out[..., 0:1], "roughness_z": out[..., 1:2],
+           "albedo_z": out[..., 2:5], "diffuse_light_z": out[..., 5:8],
+           "direct_light_z": out[..., 8:11], "inner_light_z": out[..., 11:14],
+           "occ_z": out[..., 14:15], "reflective": out[..., 15:18], "NoV": out[..., 18:19]}
+    if human:
+        raw["human_z"] = out[..., 19:23]
+        raw["human_hits"] = out[..., 23:24].detach()
+    return raw
 
 
 # ---------------------------------------------------------------------------
@@ -74,28 +107,68 @@ def unpack_raw(out: torch.Tensor) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def shader_raw_plain(params, cfg, points, normals, view_dirs, feats) -> torch.Tensor:
-    """Packed raw outputs [..., 24] in plain torch (default variant)."""
+def sphere_dir_enc(cfg, points, directions, roughness) -> torch.Tensor:
+    """IDE of the normalised point where the ray from `points` (pulled inside
+    radius 0.999) along `directions` leaves the unit sphere
+    (nero_tpu/fields/app_shading.py:127-131)."""
+    sph = offset_points_to_sphere(points)
+    hit = _normalize(sph + directions * get_sphere_intersection(sph, directions))
+    return integrated_dir_encode(hit, roughness, cfg.ide_deg)
+
+
+def human_light_input(points, reflective, human_poses, roughness):
+    """(IPE [..., 24] of the camera-plane hit, hit mask [..., 1] as float) of
+    nero_tpu/fields/app_shading.py:106-115."""
+    R, t = human_poses[..., :, :3], human_poses[..., :, 3]
+    pts_h = torch.einsum("...ij,...j->...i", R, points) + t
+    dirs_h = torch.einsum("...ij,...j->...i", R, reflective)
+    hits = torch.abs(dirs_h[..., 2:3]) > 1e-4
+    dirs_z = torch.where(hits, dirs_h[..., 2:3], torch.full_like(dirs_h[..., 2:3], 1e-4))
+    dist = -pts_h[..., 2:3] / dirs_z
+    mean = (pts_h[..., :2] + dist * dirs_h[..., :2]) * 0.3
+    var = roughness * (dist * 0.3) ** 2
+    hits = hits & (torch.linalg.norm(mean, dim=-1, keepdim=True) < 1.5) & (dist > 0)
+    hitsf = hits.to(mean.dtype)
+    mean = mean * hitsf
+    var = (var * hitsf).expand(mean.shape)
+    return integrated_pos_encode(mean, var, 0, 6), hitsf
+
+
+def shader_raw_plain(params, cfg, points, normals, view_dirs, feats,
+                     human_poses=None, head=predictor_raw) -> torch.Tensor:
+    """Packed raw outputs [..., 24] in plain torch, every variant. `head`
+    (layers, x) -> pre-activation output evaluates one 4-layer head: the
+    per-head shader path (fields/app_shading.py::heads_raw) passes its own."""
     normals = _normalize(normals)
     view_dirs = _normalize(view_dirs)
     nov = torch.sum(view_dirs * normals, -1, keepdim=True)
     reflective = nov * normals * 2 - view_dirs
     x_mat = torch.cat([feats, points], -1)
-    metallic_z = predictor_raw(params["metallic"], x_mat)
-    roughness_z = predictor_raw(params["roughness"], x_mat)
-    albedo_z = predictor_raw(params["albedo"], x_mat)
-    ide_n = integrated_dir_encode(normals, torch.ones_like(points[..., :1]), cfg.ide_deg)
-    diffuse_z = predictor_raw(params["outer_light"], ide_n)
-    ide_r = integrated_dir_encode(reflective, torch.sigmoid(roughness_z), cfg.ide_deg)
-    direct_z = predictor_raw(params["outer_light"], ide_r)
+    metallic_z = head(params["metallic"], x_mat)
+    roughness_z = head(params["roughness"], x_mat)
+    albedo_z = head(params["albedo"], x_mat)
+    roughness = torch.sigmoid(roughness_z)
+    ones = torch.ones_like(points[..., :1])
+    ide_n = integrated_dir_encode(normals, ones, cfg.ide_deg)
+    ide_r = integrated_dir_encode(reflective, roughness, cfg.ide_deg)
+    outer_n, outer_r = ide_n, ide_r
+    if cfg.sphere_direction:
+        outer_n = torch.cat([ide_n, sphere_dir_enc(cfg, points, normals, ones)], -1)
+        outer_r = torch.cat([ide_r, sphere_dir_enc(cfg, points, reflective, roughness)], -1)
+    diffuse_z = head(params["outer_light"], outer_n)
+    direct_z = head(params["outer_light"], outer_r)
     pe_pts = positional_encode(points, cfg.light_pos_freq)
-    inner_z = predictor_raw(params["inner_light"], torch.cat([pe_pts, ide_r], -1))
+    inner_z = head(params["inner_light"], torch.cat([pe_pts, ide_r], -1))
     occ_in = torch.cat([pe_pts, positional_encode(reflective, 6)], -1).detach()
-    occ_z = predictor_raw(params["inner_weight"], occ_in)
-    pad = torch.zeros(points.shape[:-1] + (OUT - 19,), dtype=points.dtype,
-                      device=points.device)
+    occ_z = head(params["inner_weight"], occ_in)
+    if cfg.human_light:
+        ipe, hitsf = human_light_input(points, reflective, human_poses, roughness)
+        tail = torch.cat([head(params[HUMAN_HEAD], ipe), hitsf], -1)
+    else:
+        tail = torch.zeros(points.shape[:-1] + (OUT - 19,), dtype=points.dtype,
+                           device=points.device)
     return torch.cat([metallic_z, roughness_z, albedo_z, diffuse_z, direct_z, inner_z,
-                      occ_z, reflective, nov, pad], -1)
+                      occ_z, reflective, nov, tail], -1)
 
 
 # ---------------------------------------------------------------------------
@@ -108,38 +181,39 @@ def _lib():
     if not getattr(lib, "_nero_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.shader_weight_elems.restype = ctypes.c_size_t
-        lib.shader_weight_elems.argtypes = []
+        lib.shader_weight_elems.argtypes = [i, i]
         lib.shader_tile.restype = i
         lib.shader_tile.argtypes = []
         lib.shader_scratch_elems.restype = ctypes.c_size_t
-        lib.shader_scratch_elems.argtypes = [i]
+        lib.shader_scratch_elems.argtypes = [i, i, i]
         lib.shader_part_elems.restype = ctypes.c_size_t
         lib.shader_part_elems.argtypes = [i]
         lib.shader_fwd.restype = i
-        lib.shader_fwd.argtypes = [vp, vp, i, vp, vp, vp, vp, vp]
+        lib.shader_fwd.argtypes = [vp, vp, i, vp, vp, vp, i, i, vp, vp]
         lib.shader_bwd.restype = i
-        lib.shader_bwd.argtypes = [vp, vp, i, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp]
-        if lib.shader_tile() != TILE or lib.shader_weight_elems() != _W_TOTAL:
-            raise RuntimeError("csrc/shader.cu layout differs from ops/shader.py")
+        lib.shader_bwd.argtypes = [vp, vp, i, vp, vp, vp, i, i, vp, vp, vp, vp, vp, vp, vp, vp]
+        if lib.shader_tile() != TILE:
+            raise RuntimeError("csrc/shader.cu tile differs from ops/shader.py")
         lib._nero_typed = True
     return lib
 
 
-def _head_shapes(name):
-    di, _ = HEAD_PAD[name]
+def _head_shapes(di: int):
     return ((di, HID), (HID, HID), (HID, HID), (HID, DO))
 
 
-_W_TOTAL = sum(r * c for n in HEAD_ORDER for r, c in _head_shapes(n))
+def weight_elems(pads) -> int:
+    """Packed weight count for the padded input widths `pads` (one per head)."""
+    return sum(r * c for di in pads for r, c in _head_shapes(di))
 
 
-def pack_weights(ws, bs):
-    """24 resolved weights / biases (4 per head, HEAD_ORDER) -> (packed bf16,
-    bias f32 [6, 4, 256]) in the kernel layout."""
+def pack_weights(ws, bs, pads):
+    """Resolved weights / biases (4 per head, in head order) -> (packed bf16,
+    bias f32 [heads, 4, 256]) in the kernel layout."""
     parts = []
-    bias = torch.zeros(6, 4, HID, dtype=torch.float32, device=ws[0].device)
-    for h, name in enumerate(HEAD_ORDER):
-        for l, (r, c) in enumerate(_head_shapes(name)):
+    bias = torch.zeros(len(pads), 4, HID, dtype=torch.float32, device=ws[0].device)
+    for h, di in enumerate(pads):
+        for l, (r, c) in enumerate(_head_shapes(di)):
             w = ws[4 * h + l]
             parts.append(F.pad(w, (0, c - w.shape[1], 0, r - w.shape[0])).reshape(-1))
             b = bs[4 * h + l]
@@ -147,13 +221,14 @@ def pack_weights(ws, bs):
     return torch.cat(parts).to(torch.bfloat16).contiguous(), bias
 
 
-def unpack_grads(dW: torch.Tensor, dB: torch.Tensor, dims: dict):
+def unpack_grads(dW: torch.Tensor, dB: torch.Tensor, pads, dims):
+    """Kernel-layout gradients -> per-layer (dw [in,out], db [out]); `dims`
+    holds the unpadded (d_in, d_out) per head."""
     dws, dbs = [], []
-    sizes = [r * c for n in HEAD_ORDER for r, c in _head_shapes(n)]
+    sizes = [r * c for di in pads for r, c in _head_shapes(di)]
     chunks = torch.split(dW, sizes)
-    for h, name in enumerate(HEAD_ORDER):
-        d_in, d_out = dims[name]
-        for l, (r, c) in enumerate(_head_shapes(name)):
+    for h, (di, (d_in, d_out)) in enumerate(zip(pads, dims)):
+        for l, (r, c) in enumerate(_head_shapes(di)):
             g = chunks[4 * h + l].view(r, c)
             rows = d_in if l == 0 else HID
             cols = d_out if l == 3 else HID
@@ -176,67 +251,106 @@ def ide_table_on(device) -> torch.Tensor:
     return _IDE_TABLES[key]
 
 
+def _fwd(geo, feats, W, B, sphere: int, human: int) -> torch.Tensor:
+    """One forward launch on packed weights: geo [n, 9 or 21], feats [n, 256]
+    -> raw [n, 24]."""
+    n = geo.shape[0]
+    lib = _lib()
+    if lib.shader_weight_elems(sphere, human) != W.numel():
+        raise RuntimeError("csrc/shader.cu layout differs from ops/shader.py")
+    out = torch.empty(n, OUT, device=geo.device)
+    rc = lib.shader_fwd(geo.data_ptr(), feats.data_ptr(), n, W.data_ptr(), B.data_ptr(),
+                        ide_table_on(geo.device).data_ptr(), sphere, human, out.data_ptr(),
+                        torch.cuda.current_stream(geo.device).cuda_stream)
+    cuda_build.check(rc, "shader_fwd")
+    launches["shader_fwd" + _suffix(sphere, human)] += 1
+    return out
+
+
+def _bwd(geo, feats, W, B, sphere: int, human: int, gout):
+    """One backward launch (rows kernel + the gradient reductions): gout
+    [n, 24] -> (dgeo [n, 9], dfeats [n, 256], dW packed f32, dB)."""
+    n = geo.shape[0]
+    dev = geo.device
+    lib = _lib()
+    m_rows = -(-n // TILE) * TILE
+    scratch = torch.empty(lib.shader_scratch_elems(m_rows, sphere, human),
+                          dtype=torch.bfloat16, device=dev)
+    part = torch.empty(lib.shader_part_elems(m_rows), device=dev)
+    dgeo = torch.empty(n, DGEO, device=dev)
+    dfeats = torch.empty(n, HID, device=dev)
+    # no rows, no launch: the kernel would leave dW unwritten
+    dW = torch.empty(W.numel(), device=dev) if n else torch.zeros(W.numel(), device=dev)
+    dB = torch.zeros_like(B)
+    rc = lib.shader_bwd(geo.data_ptr(), feats.data_ptr(), n, W.data_ptr(), B.data_ptr(),
+                        ide_table_on(dev).data_ptr(), sphere, human, gout.data_ptr(),
+                        dgeo.data_ptr(), dfeats.data_ptr(), scratch.data_ptr(), part.data_ptr(),
+                        dW.data_ptr(), dB.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(rc, "shader_bwd")
+    launches["shader_bwd" + _suffix(sphere, human)] += 1
+    return dgeo, dfeats, dW, dB
+
+
 class _ShaderFn(torch.autograd.Function):
+    """spec = (sphere, human, padded widths, unpadded dims) of the variant."""
+
     @staticmethod
-    def forward(ctx, geo, feats, dims, *wb):
-        n = geo.shape[0]
-        W, B = pack_weights(wb[:24], wb[24:])
-        tab = ide_table_on(geo.device)
-        out = torch.empty(n, OUT, device=geo.device)
-        rc = _lib().shader_fwd(geo.data_ptr(), feats.data_ptr(), n, W.data_ptr(),
-                               B.data_ptr(), tab.data_ptr(), out.data_ptr(),
-                               torch.cuda.current_stream(geo.device).cuda_stream)
-        cuda_build.check(rc, "shader_fwd")
-        launches["shader_fwd"] += 1
-        ctx.save_for_backward(geo, feats, W, B, tab)
-        ctx.dims = dims
+    def forward(ctx, geo, feats, spec, *wb):
+        sphere, human, pads, _ = spec
+        nw = 4 * len(pads)
+        W, B = pack_weights(wb[:nw], wb[nw:], pads)
+        out = _fwd(geo, feats, W, B, sphere, human)
+        ctx.save_for_backward(geo, feats, W, B)
+        ctx.spec = spec
         return out
 
     @staticmethod
     def backward(ctx, gout):
-        geo, feats, W, B, tab = ctx.saved_tensors
-        n = geo.shape[0]
-        dev = geo.device
-        lib = _lib()
-        m_rows = -(-n // TILE) * TILE
-        scratch = torch.empty(lib.shader_scratch_elems(m_rows), dtype=torch.bfloat16,
-                              device=dev)
-        part = torch.empty(lib.shader_part_elems(m_rows), device=dev)
-        dgeo = torch.empty(n, GEO, device=dev)
-        dfeats = torch.empty(n, HID, device=dev)
-        dW = torch.empty(W.numel(), device=dev)
-        dB = torch.zeros(6, 4, HID, device=dev)
-        gout = gout.float().contiguous()
-        rc = lib.shader_bwd(geo.data_ptr(), feats.data_ptr(), n, W.data_ptr(), B.data_ptr(),
-                            tab.data_ptr(), gout.data_ptr(), dgeo.data_ptr(),
-                            dfeats.data_ptr(), scratch.data_ptr(), part.data_ptr(),
-                            dW.data_ptr(), dB.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-        cuda_build.check(rc, "shader_bwd")
-        launches["shader_bwd"] += 1
-        dws, dbs = unpack_grads(dW, dB, ctx.dims)
+        geo, feats, W, B = ctx.saved_tensors
+        sphere, human, pads, dims = ctx.spec
+        dgeo, dfeats, dW, dB = _bwd(geo, feats, W, B, sphere, human, gout.float().contiguous())
+        dws, dbs = unpack_grads(dW, dB, pads, dims)
+        if human:  # the poses are data: no gradient
+            dgeo = torch.cat([dgeo, dgeo.new_zeros(geo.shape[0], geo.shape[1] - DGEO)], -1)
         return (dgeo, dfeats, None, *dws, *dbs)
 
 
-def shader_raw(params, cfg, points, normals, view_dirs, feats) -> torch.Tensor:
-    """Packed raw outputs [..., 24]: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors. Gradients flow to every head's
-    parameters, the points, normals, view directions and feats."""
-    if points.device.type == "cpu":
-        return shader_raw_plain(params, cfg, points, normals, view_dirs, feats)
-    if not supported(cfg):
-        raise NotImplementedError(
-            "the shader kernel implements the default variant only (no sphere_direction, "
-            f"no human_light, 256 feats, IDE deg 5, light PE 8); got {cfg}")
+def kernel_inputs(params, cfg, points, normals, view_dirs, feats, human_poses=None):
+    """What the kernel reads, from the shader's arguments: (geo [n, 9 or 21],
+    feats [n, 256], spec, resolved weights, biases) in head order."""
     shape = points.shape[:-1]
     n = int(np.prod(shape))
-    geo = torch.cat([points.reshape(n, 3), normals.reshape(n, 3),
-                     view_dirs.reshape(n, 3)], -1).float().contiguous()
+    cols = [points.reshape(n, 3), normals.reshape(n, 3), view_dirs.reshape(n, 3)]
+    if cfg.human_light:
+        poses = human_poses.detach().expand(*shape, 3, 4).reshape(n, 3, 4)
+        cols += [poses[:, :, :3].reshape(n, 9), poses[:, :, 3]]
+    geo = torch.cat(cols, -1).float().contiguous()
+    heads = head_order(cfg)
     layers = resolve_weight_norm(params)
-    ws = [l["w"] for name in HEAD_ORDER for l in layers[name]]
-    bs = [l["b"] for name in HEAD_ORDER for l in layers[name]]
-    out = _ShaderFn.apply(geo, feats.reshape(n, HID).float().contiguous(), head_dims(cfg),
-                          *ws, *bs)
-    return out.reshape(*shape, OUT)
+    ws = [l["w"] for name in heads for l in layers[name]]
+    bs = [l["b"] for name in heads for l in layers[name]]
+    pads, dims = head_pad(cfg), head_dims(cfg)
+    spec = (int(cfg.sphere_direction), int(cfg.human_light),
+            tuple(pads[h] for h in heads), tuple(dims[h] for h in heads))
+    return geo, feats.reshape(n, HID).float().contiguous(), spec, ws, bs
+
+
+def shader_raw(params, cfg, points, normals, view_dirs, feats, human_poses=None) -> torch.Tensor:
+    """Packed raw outputs [..., 24]: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors. Gradients flow to every head's
+    parameters, the points, normals, view directions and feats; the human
+    poses [..., 3, 4] (needed when cfg.human_light) are data."""
+    if cfg.human_light and human_poses is None:
+        raise ValueError("human_light shading needs human_poses")
+    if points.device.type == "cpu":
+        return shader_raw_plain(params, cfg, points, normals, view_dirs, feats, human_poses)
+    if not supported(cfg):
+        raise NotImplementedError(
+            f"the shader kernel needs 256 feats, IDE deg 5 and light PE 8; got {cfg}")
+    geo, feats2d, spec, ws, bs = kernel_inputs(params, cfg, points, normals, view_dirs, feats,
+                                               human_poses)
+    out = _ShaderFn.apply(geo, feats2d, spec, *ws, *bs)
+    return out.reshape(*points.shape[:-1], OUT)
 
 
 # ---------------------------------------------------------------------------
@@ -248,7 +362,7 @@ def flops_per_row(cfg) -> float:
     """Head products at their true widths (the outer-light head runs twice)."""
     dims = head_dims(cfg)
     total = 0
-    for name in HEAD_ORDER:
+    for name in head_order(cfg):
         d_in, d_out = dims[name]
         kn = d_in * HID + 2 * HID * HID + HID * d_out
         total += kn * (2 if name == "outer_light" else 1)
@@ -261,8 +375,12 @@ def flops(n: int, cfg, backward: bool = False) -> float:
     return n * flops_per_row(cfg) * (3 if backward else 1)
 
 
-def min_bytes(n: int, backward: bool = False) -> float:
-    w = _W_TOTAL
+def min_bytes(n: int, cfg, backward: bool = False) -> float:
+    """Each input read once, each output written once (f32 rows, bf16
+    weights, f32 weight gradients)."""
+    heads = head_order(cfg)
+    w = weight_elems([head_pad(cfg)[h] for h in heads])
+    geo = geo_width(cfg)
     if backward:
-        return n * (GEO + HID + OUT) * 4 + n * (GEO + HID) * 4 + w * 2 + w * 4
-    return n * (GEO + HID) * 4 + w * 2 + n * OUT * 4
+        return n * (geo + HID + OUT) * 4 + n * (DGEO + HID) * 4 + w * 2 + w * 4
+    return n * (geo + HID) * 4 + w * 2 + n * OUT * 4

@@ -1,6 +1,8 @@
 """Where a training step's time goes on the GPU (Stage I or Stage II).
 
     python -m nero_tpu_torch.profile_step [--cfg configs/shape/proc/sphere.yaml] [--steps 5]
+    python -m nero_tpu_torch.profile_step --cfg configs/shape/proc/sphere_real.yaml
+    python -m nero_tpu_torch.profile_step --cfg configs/shape/proc/sphere_heads.yaml
     python -m nero_tpu_torch.profile_step --cfg configs/material/proc/bowl.yaml
     python -m nero_tpu_torch.profile_step --cfg configs/material/proc/bowl_fused.yaml
 
@@ -25,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import shutil
 import subprocess
 import tempfile
@@ -37,6 +40,7 @@ from nero_tpu_torch.core.config import load_cfg
 from nero_tpu_torch.train.trainer import Trainer
 
 PORT_KERNELS = ("sdf_rows_kernel", "shader_rows_kernel", "lights_rows_kernel",
+                "predictor_rows_kernel", "sdf_fwd_kernel",
                 "dw_partial_kernel", "colsum_partial_kernel", "reduce_kernel",
                 "sphere_march_kernel", "field_fwd_kernel", "march_kernel")
 GEMM_MARKS = ("gemm", "cutlass", "nvjet", "cublas", "gemv")
@@ -143,8 +147,9 @@ def main(argv=None):
             # under at::)
             if "nero::" + short in name or ("(anonymous namespace)::" + short in name
                                             and "at::" not in name):
-                name = short + ("<true>" if "<true>" in evt.key else
-                                "<false>" if "<false>" in evt.key else "")
+                # the first template argument tells backward from forward
+                m = re.search(re.escape(short) + r"<(true|false)", evt.key)
+                name = short + (f"<{m.group(1)}>" if m else "")
                 port_names.add(name)
                 break
         kernels[name] = kernels.get(name, 0.0) + evt.self_device_time_total / 1e3 / args.steps

@@ -27,8 +27,10 @@ def rays_from_pixels(coords_xy: torch.Tensor, K_inv: torch.Tensor, poses: torch.
 
 
 def sample_ray_batch(gen: torch.Generator, imgs_u8: torch.Tensor, K_inv: torch.Tensor,
-                     poses: torch.Tensor, batch: int) -> dict:
-    """Uniform random rays across all images. imgs_u8 [N,H,W,3] uint8."""
+                     poses: torch.Tensor, batch: int,
+                     human_poses: torch.Tensor | None = None) -> dict:
+    """Uniform random rays across all images. imgs_u8 [N,H,W,3] uint8. With
+    `human_poses` [N,3,4] (one per image) each ray also gets its image's."""
     n, h, w, _ = imgs_u8.shape
     idx = torch.randint(0, n * h * w, (batch,), generator=gen, device=imgs_u8.device)
     img_i = idx // (h * w)
@@ -37,7 +39,10 @@ def sample_ray_batch(gen: torch.Generator, imgs_u8: torch.Tensor, K_inv: torch.T
     coords = torch.stack([px.float() + 0.5, py.float() + 0.5], dim=-1)
     rgb = imgs_u8[img_i, py, px].float() / 255.0
     rays_o, rays_d, near, far = rays_from_pixels(coords, K_inv[img_i], poses[img_i])
-    return {"rays_o": rays_o, "rays_d": rays_d, "near": near, "far": far, "rgb": rgb}
+    out = {"rays_o": rays_o, "rays_d": rays_d, "near": near, "far": far, "rgb": rgb}
+    if human_poses is not None:
+        out["human_poses"] = human_poses[img_i]
+    return out
 
 
 def human_coordinate_poses(poses: torch.Tensor, fixed_camera: bool = False) -> torch.Tensor:

@@ -5,12 +5,14 @@ up-sample rounds), NeuS alpha with cosine annealing, the NeRF++ background
 on the outer samples, the appearance shader on the inner lattice, alpha
 compositing, the eikonal / occlusion / init-sdf regulariser inputs.
 
-The two hot functions go through the port's CUDA kernels on the card:
-`ops/sdf_grad.py::sdf_with_grad` in `compute_sdf_alpha` and
-`ops/shader.py::shader_raw` inside `app_shading_apply`. The TPU tuning
-knobs `shade_top_k`, `remat_shader`, `bf16_hidden`, `bg_on_inner=True` and
-`use_fused_sdf` are not ported; this renderer is nero_tpu's default path
-(full-lattice shading, background on the outer samples only).
+The hot functions go through the port's CUDA kernels on the card:
+`ops/sdf_grad.py::sdf_with_grad` in `compute_sdf_alpha`, the shader inside
+`app_shading_apply` (`ops/shader.py::shader_raw`, or head by head through
+`ops/predictor.py`), and, with `use_fused_sdf`, `ops/sdf_fwd.py` for the
+no-gradient SDF values of the sampler and the occlusion marches
+(`make_nograd_sdf_fn`). The switches `bg_on_inner`, `shade_top_k` and
+`remat_shader` are plain torch here as they are plain JAX there;
+`bf16_hidden` is not ported.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.utils.checkpoint
 
 from nero_tpu_torch.fields.app_shading import (AppShadingConfig, app_shading_apply,
                                                init_app_shading, shading_config_from_dict)
@@ -27,6 +30,7 @@ from nero_tpu_torch.fields.sdf import SDFConfig, init_sdf, sdf_value
 from nero_tpu_torch.fields.variance import init_variance, inv_s as variance_inv_s
 from nero_tpu_torch.ops.mlp import resolve_weight_norm
 from nero_tpu_torch.ops.sample_pdf import sample_pdf
+from nero_tpu_torch.ops.sdf_fwd import make_sdf_fwd_fn
 from nero_tpu_torch.ops.sdf_grad import sdf_with_grad
 from nero_tpu_torch.utils.color import linear_to_srgb
 
@@ -56,6 +60,18 @@ class ShapeConfig(NamedTuple):
     occ_sdf_thresh: float = 0.01
     shader: AppShadingConfig = AppShadingConfig()
     fixed_camera: bool = False
+    # the background NeRF on the inner lattice too (inner samples outside
+    # the unit sphere then take its alpha and colour); off: outer samples only
+    bg_on_inner: bool = False
+    # recompute the shader in the backward pass instead of keeping its
+    # activations (torch.utils.checkpoint); None = off
+    remat_shader: bool | None = None
+    # the no-gradient SDF values (sampler, occlusion marches) through the
+    # value-only kernel of ops/sdf_fwd.py
+    use_fused_sdf: bool = False
+    # from occ_loss_step on, shade only the k inner samples of each ray that
+    # carry the most composited weight (0 = all); training only
+    shade_top_k: int = 0
 
     @property
     def n_inner(self) -> int:
@@ -76,6 +92,14 @@ def shape_config_from_dict(cfg: dict) -> ShapeConfig:
     fields = {k: v for k, v in cfg.items() if k in ShapeConfig._fields}
     fields["shader"] = shading_config_from_dict(cfg.get("shader_config", {}))
     return ShapeConfig(**fields)
+
+
+def make_nograd_sdf_fn(params, scfg: ShapeConfig):
+    """SDF value function of the no-gradient paths: the value-only kernel
+    when `use_fused_sdf` (its plain version on CPU tensors), else `sdf_value`."""
+    if scfg.use_fused_sdf:
+        return make_sdf_fwd_fn(params["sdf"], scfg.sdf_cfg)
+    return lambda x: sdf_value(params["sdf"], x, scfg.sdf_cfg)
 
 
 def init_shape_params(gen: torch.Generator, scfg: ShapeConfig, device="cpu"):
@@ -138,7 +162,7 @@ def sample_z_vals(params, scfg: ShapeConfig, rays_o, rays_d, near, far,
 
     n_new = scfg.n_importance // scfg.up_sample_steps
     base_inv_s = variance_inv_s(params["variance"], scfg.std_act)
-    sdf_fn = lambda x: sdf_value(params["sdf"], x, scfg.sdf_cfg)
+    sdf_fn = make_nograd_sdf_fn(params, scfg)
     sdf = sdf_fn(rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None])[..., 0]
     for i in range(scfg.up_sample_steps):
         if scfg.clip_sample_variance:
@@ -215,7 +239,7 @@ def compute_occ_loss(params, scfg: ShapeConfig, gen, points, reflective, occ_pro
         pts_k = torch.gather(points, 1, idx3).reshape(r * kpr, 3)
         refl_k = torch.gather(reflective.detach(), 1, idx3).reshape(r * kpr, 3)
         inv_s = variance_inv_s(params["variance"], scfg.std_act)
-        sdf_fun = lambda x: sdf_value(params["sdf"], x, scfg.sdf_cfg)
+        sdf_fun = make_nograd_sdf_fn(params, scfg)
         _, inter_prob, _ = get_intersection(sdf_fun, inv_s, pts_k, refl_k, sn0=64, sn1=16)
         occ_gt = torch.sum(inter_prob, dim=-1)
     occ_k = torch.gather(occ_prob, 1, top_idx).reshape(r * kpr)
@@ -223,9 +247,20 @@ def compute_occ_loss(params, scfg: ShapeConfig, gen, points, reflective, occ_pro
     return torch.sum(l1 * valid) / torch.clamp(torch.sum(valid), min=1.0)
 
 
+def top_k_lowest_index_first(x: torch.Tensor, k: int):
+    """(values, indices) of the k largest entries along the last axis, ties
+    broken towards the lower index as jax.lax.top_k does: a stable descending
+    sort keeps equal entries (the zero weights behind a surface) in their
+    original order. torch.topk promises no order among ties."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 def render_core(params, scfg: ShapeConfig, fg_lut, rays_o, rays_d, z_full, cos_anneal_ratio,
-                step: int, is_train: bool, gen: torch.Generator | None = None) -> dict:
-    """z_full [R, n_total] (inner z then background z). `params` resolved."""
+                step: int, is_train: bool, gen: torch.Generator | None = None,
+                human_poses: torch.Tensor | None = None) -> dict:
+    """z_full [R, n_total] (inner z then background z). `params` resolved.
+    human_poses [R, 3, 4] per ray when the shader has the human light."""
     r, s_total = z_full.shape
     s_inner = scfg.n_inner
     dists = z_full[..., 1:] - z_full[..., :-1]
@@ -236,28 +271,57 @@ def render_core(params, scfg: ShapeConfig, fg_lut, rays_o, rays_d, z_full, cos_a
     dirs = rays_d[:, None, :].expand(points.shape)
     dirs = dirs / torch.clamp(torch.linalg.norm(dirs, dim=-1, keepdim=True), min=1e-12)
 
-    # background only on the outer samples (nero_tpu's bg_on_inner=False)
-    alpha_out, color_out = compute_density_alpha(
-        params, points[:, s_inner:], dists[:, s_inner:], -dirs[:, s_inner:])
-    alpha_bg = torch.cat([alpha_out.new_zeros((r, s_inner)), alpha_out], dim=1)
-    color_bg = torch.cat([color_out.new_zeros((r, s_inner, 3)), color_out], dim=1)
+    if scfg.bg_on_inner:
+        # background on the full lattice, selected by the inner mask below
+        alpha_bg, color_bg = compute_density_alpha(params, points, dists, -dirs)
+    else:
+        # background only on the outer samples
+        alpha_out, color_out = compute_density_alpha(
+            params, points[:, s_inner:], dists[:, s_inner:], -dirs[:, s_inner:])
+        alpha_bg = torch.cat([alpha_out.new_zeros((r, s_inner)), alpha_out], dim=1)
+        color_bg = torch.cat([color_out.new_zeros((r, s_inner, 3)), color_out], dim=1)
 
     pts_in = points[:, :s_inner]
     dists_in = dists[:, :s_inner]
     dirs_in = dirs[:, :s_inner]
     alpha_sdf, grads, feats, inv_s, sdf = compute_sdf_alpha(
         params, scfg, pts_in, dists_in, dirs_in, cos_anneal_ratio, step)
+    hp_in = None if human_poses is None else human_poses[:, None].expand(r, s_inner, 3, 4)
     inner_in = inner_mask[:, :s_inner]
     alpha = torch.cat([torch.where(inner_in, alpha_sdf, alpha_bg[:, :s_inner]),
                        alpha_bg[:, s_inner:]], dim=1)
+    # the weights depend on alpha only: they exist before any shading, so the
+    # shader can be kept to the samples that carry mass
     weights = _composite(alpha)
     mask_sdf = torch.cat([inner_in, inner_in.new_zeros((r, s_total - s_inner))], dim=1)
     rgb_bg_part = torch.sum(color_bg * (weights * ~mask_sdf)[..., None], dim=1)
 
-    color_sdf, occ_info = app_shading_apply(params["shader"], scfg.shader, fg_lut, pts_in,
-                                            grads, -dirs_in, feats)
-    w_sdf = weights[:, :s_inner] * inner_in
-    ray_rgb = rgb_bg_part + torch.sum(color_sdf * w_sdf[..., None], dim=1)
+    def shade(pts, nrm, view, ft, hp):
+        args = [pts, nrm, view, ft] + ([] if hp is None else [hp])
+        fn = lambda *a: app_shading_apply(params["shader"], scfg.shader, fg_lut, *a)
+        if is_train and scfg.remat_shader and torch.is_grad_enabled():
+            # keep no shader activation for the backward: run it again there
+            return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                                     preserve_rng_state=False)
+        return fn(*args)
+
+    want_occ = scfg.apply_occ_loss and is_train
+    occ_phase = step >= scfg.occ_loss_step
+    k = scfg.shade_top_k
+    if is_train and k and k < s_inner and occ_phase:
+        # only the k samples of each ray with the most weight are shaded
+        wk, idx = top_k_lowest_index_first(weights[:, :s_inner] * inner_in, k)
+        sel = lambda a: torch.gather(a, 1, idx.reshape(r, k, *([1] * (a.dim() - 2)))
+                                     .expand(r, k, *a.shape[2:]))
+        pts_s, grads_s, dirs_s, sdf_s = sel(pts_in), sel(grads), sel(dirs_in), sel(sdf)
+        color_s, occ_info = shade(pts_s, grads_s, -dirs_s, sel(feats),
+                                  None if hp_in is None else sel(hp_in))
+        ray_rgb = rgb_bg_part + torch.sum(color_s * wk[..., None], dim=1)
+    else:
+        pts_s, grads_s, dirs_s, sdf_s = pts_in, grads, dirs_in, sdf
+        color_s, occ_info = shade(pts_in, grads, -dirs_in, feats, hp_in)
+        w_sdf = weights[:, :s_inner] * inner_in
+        ray_rgb = rgb_bg_part + torch.sum(color_s * w_sdf[..., None], dim=1)
 
     grad_err = (torch.linalg.norm(grads, dim=-1) - 1.0) ** 2
     n_inside = torch.clamp(torch.sum(inner_in), min=1.0)
@@ -268,21 +332,21 @@ def render_core(params, scfg: ShapeConfig, fg_lut, rays_o, rays_d, z_full, cos_a
         "sdf_pts_norm": torch.linalg.norm(pts_in, dim=-1).reshape(-1),
         "sdf_vals": sdf.reshape(-1),
     }
-    if scfg.apply_occ_loss and is_train:
-        if step >= scfg.occ_loss_step:
-            loss_occ = compute_occ_loss(params, scfg, gen, pts_in, occ_info["reflective"],
-                                        occ_info["occ_prob"][..., 0], sdf, grads, dirs_in)
+    if want_occ:
+        if occ_phase:
+            loss_occ = compute_occ_loss(params, scfg, gen, pts_s, occ_info["reflective"],
+                                        occ_info["occ_prob"][..., 0], sdf_s, grads_s, dirs_s)
         else:
             loss_occ = ray_rgb.new_zeros(())
         outputs["loss_occ"] = loss_occ.reshape(1)
     if not is_train:
         outputs.update(compute_validation_info(params, scfg, fg_lut, z_full, rays_o, rays_d,
-                                               weights))
+                                               weights, human_poses))
     return outputs
 
 
 def compute_validation_info(params, scfg: ShapeConfig, fg_lut, z_vals, rays_o, rays_d,
-                            weights) -> dict:
+                            weights, human_poses=None) -> dict:
     """Depth/normal/material maps + traced occ-prob ground truth."""
     depth = torch.sum(weights * z_vals, dim=-1, keepdim=True)
     points = depth * rays_d + rays_o
@@ -292,9 +356,10 @@ def compute_validation_info(params, scfg: ShapeConfig, fg_lut, z_vals, rays_o, r
               + 1.0) * 0.5 * inner
     view = -rays_d / torch.clamp(torch.linalg.norm(rays_d, dim=-1, keepdim=True), min=1e-12)
     _, occ_info, inter = app_shading_apply(params["shader"], scfg.shader, fg_lut, points,
-                                           grads, view, feats, inter_results=True)
+                                           grads, view, feats, human_poses,
+                                           inter_results=True)
     inv_s = variance_inv_s(params["variance"], scfg.std_act)
-    sdf_fun = lambda x: sdf_value(params["sdf"], x, scfg.sdf_cfg)
+    sdf_fun = make_nograd_sdf_fn(params, scfg)
     _, occ_prob, _ = get_intersection(sdf_fun, inv_s, points, occ_info["reflective"],
                                       sn0=128, sn1=9)
     outputs = {"depth": depth, "normal": normal,
@@ -306,9 +371,11 @@ def compute_validation_info(params, scfg: ShapeConfig, fg_lut, z_vals, rays_o, r
 
 def render(params, scfg: ShapeConfig, fg_lut, rays_o, rays_d, near, far, step: int,
            gen: torch.Generator | None = None, is_train: bool = True,
-           perturb_overwrite: float = -1.0, cos_anneal_ratio=None) -> dict:
+           perturb_overwrite: float = -1.0, cos_anneal_ratio=None,
+           human_poses: torch.Tensor | None = None) -> dict:
     """Full Stage-I render of a ray batch. Weight norm is resolved once here
-    and autograd chains back to {v, g} through it."""
+    and autograd chains back to {v, g} through it. human_poses [R, 3, 4]
+    per ray when the shader has the human light."""
     params = resolve_weight_norm(params)
     perturb = scfg.perturb if perturb_overwrite < 0 else perturb_overwrite
     if cos_anneal_ratio is None:
@@ -317,7 +384,7 @@ def render(params, scfg: ShapeConfig, fg_lut, rays_o, rays_d, near, far, step: i
                                    gen=gen if perturb > 0 else None, perturb=perturb)
     z_full = torch.cat([z_inner, z_out], dim=-1)
     return render_core(params, scfg, fg_lut, rays_o, rays_d, z_full, cos_anneal_ratio, step,
-                       is_train, gen=gen)
+                       is_train, gen=gen, human_poses=human_poses)
 
 
 def compute_rgb_loss(rgb_pr, rgb_gt, kind: str = "charbonier"):

@@ -56,3 +56,20 @@ def test_sdf_forward_matches(jax_params):
     with torch.no_grad():
         out = sdf_apply(from_numpy_tree(pj["sdf"]), torch.from_numpy(x), SDFConfig()).numpy()
     np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-5)
+
+
+def test_bridge_carries_the_human_head_and_the_wide_outer_light():
+    """The real-capture shader: a seventh head (`human_light`, 24 -> 4) and,
+    with `sphere_direction`, a 144-wide first layer of `outer_light`."""
+    scfg = shape_config_from_dict({"shader_config": {"human_light": True,
+                                                     "sphere_direction": True}})
+    pj = jax.tree_util.tree_map(np.asarray, init_shape_params(jax.random.PRNGKey(1), scfg))
+    pt = from_numpy_tree(pj)
+    assert len(pt["shader"]) == 7 and len(pt["shader"]["human_light"]) == 4
+    assert pt["shader"]["human_light"][0]["v"].shape == (24, 256)
+    assert pt["shader"]["human_light"][3]["v"].shape == (256, 4)
+    assert pt["shader"]["outer_light"][0]["v"].shape == (144, 256)
+    back = to_numpy_tree(pt)
+    for (k, a), (k2, b) in zip(tree_items(pj), tree_items(back)):
+        assert k == k2
+        np.testing.assert_array_equal(a, b, err_msg=k)

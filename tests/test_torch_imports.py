@@ -40,19 +40,35 @@ def test_no_jax_or_reference_imports(path):
 
 CSRC = os.path.join(ROOT, "nero_tpu_torch", "csrc")
 KERNEL_SOURCES = ("sdf_grad.cu", "shader.cu", "sphere_march.cu", "march.cu", "field_fwd.cu",
-                  "lights.cu")
+                  "lights.cu", "sdf_fwd.cu", "predictor.cu")
+HEADERS = ("common.cuh", "encode.cuh", "field.cuh", "sdf_net.cuh")
 
 
 def test_every_kernel_source_is_registered():
     from nero_tpu_torch.ops import cuda_build
     assert tuple(f"{n}.cu" for n in cuda_build.SOURCES) == KERNEL_SOURCES
     assert sorted(n for n in os.listdir(CSRC) if n.endswith(".cu")) == sorted(KERNEL_SOURCES)
+    assert sorted(n for n in os.listdir(CSRC) if n.endswith(".cuh")) == sorted(HEADERS)
 
 
-@pytest.mark.parametrize("name", KERNEL_SOURCES + ("common.cuh", "encode.cuh", "field.cuh"))
+@pytest.mark.parametrize("name", KERNEL_SOURCES + HEADERS)
 def test_kernel_sources_call_no_library(name):
     text = open(os.path.join(CSRC, name)).read().lower()
     includes = [l for l in text.splitlines() if l.strip().startswith("#include")]
     for word in ("cublas", "cudnn", "cutlass", "torch", "aten", "c10", "thrust", "cub/"):
         assert not any(word in l for l in includes), f"{name} includes {word}"
     assert "cublas" not in text and "cudnn" not in text
+
+
+def test_every_tpu_kernel_has_a_wrapper_with_a_plain_version_and_a_count():
+    """One ops module per TPU kernel of nero_tpu/ops/pallas, each with its
+    plain version and its launch counters."""
+    import importlib
+    for mod, plain in (("sdf_grad", "sdf_with_grad_plain"), ("shader", "shader_raw_plain"),
+                       ("sphere_march", "sphere_march_plain"), ("march", "march_plain"),
+                       ("lights", "lights_raw_plain"), ("sdf_fwd", "sdf_fwd_plain"),
+                       ("field_fwd", "field_fwd_plain"), ("predictor", "predictor_plain")):
+        m = importlib.import_module(f"nero_tpu_torch.ops.{mod}")
+        assert callable(getattr(m, plain)), (mod, plain)
+        assert isinstance(m.launches, dict) and m.launches, mod
+        assert all(v == 0 for v in m.launches.values()), f"{mod}: counted a launch on the CPU"

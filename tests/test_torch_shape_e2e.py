@@ -1,10 +1,25 @@
 """End-to-end Stage-I smoke test of the port on the procedural scene (CPU,
-tiny shapes): the mirror of tests/test_shape_e2e.py."""
+tiny shapes): the mirror of tests/test_shape_e2e.py, and the two other
+Stage-I configurations (`configs/shape/proc/sphere_real.yaml`: the human
+light of the real captures; `sphere_heads.yaml`: per-head shader through the
+predictor function and the value-only SDF function) held against nero_tpu:
+loss and every gradient at a step before and a step inside the occlusion
+phase."""
+import os
+
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from nero_tpu.ops.fg_lut import get_fg_lut as jax_fg_lut
+from nero_tpu.render import shape as J
+from nero_tpu.train.losses import compute_losses as jax_compute_losses, total_loss as jax_total
+from nero_tpu_torch.core.config import load_cfg
+from nero_tpu_torch.core.convert import from_numpy_tree, tree_items
 from nero_tpu_torch.models.shape import NeROShapeModel
+from nero_tpu_torch.render.rays import human_coordinate_poses
 from nero_tpu_torch.train.trainer import Trainer
 
 # one intra-op thread: the suite runs several worker processes side by side
@@ -81,3 +96,120 @@ def test_entry_points_need_cuda_unless_told():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         NeROShapeModel(dict(TINY_CFG), training=False)
+
+
+# ---------------------------------------------------------------------------
+# the other Stage-I configurations against nero_tpu
+# ---------------------------------------------------------------------------
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+R = 32
+# every masked candidate is selected in the occlusion loss, so the random
+# scores (different generators in the two packages) drop out
+PARITY_CFG = {**TINY_CFG, "perturb": 0.0, "occ_loss_max_pn": R * 24}
+
+
+def _new_cfg(which: str) -> dict:
+    """The network block of configs/shape/proc/sphere_<which>.yaml on the tiny
+    sizes of TINY_CFG."""
+    yaml_cfg = load_cfg(os.path.join(ROOT, "configs", "shape", "proc", f"sphere_{which}.yaml"))
+    keys = ("shader_config", "use_fused_sdf")
+    return {**PARITY_CFG, **{k: yaml_cfg[k] for k in keys if k in yaml_cfg}}
+
+
+def test_new_config_files():
+    real, heads = _new_cfg("real"), _new_cfg("heads")
+    assert real["shader_config"] == {"human_light": True} and "use_fused_sdf" not in real
+    assert heads["shader_config"] == {"fused_shader": False, "fused_heads": True}
+    assert heads["use_fused_sdf"] is True
+    # off the TPU nero_tpu resolves both kernel switches off: both sides run f32
+    scfg_j = J.shape_config_from_dict(dict(heads))
+    assert not scfg_j.use_fused_sdf and not scfg_j.shader.fused_heads
+    scfg_t = NeROShapeModel(dict(heads), training=False, device="cpu").scfg
+    assert scfg_t.use_fused_sdf and scfg_t.shader.fused_heads
+
+
+def _parity_rays(model):
+    """Rays aimed near the origin with the 'human' poses of the scene's own
+    cameras (one camera per ray, round robin)."""
+    rng = np.random.default_rng(0)
+    o = rng.standard_normal((R, 3))
+    o = 2.5 * o / np.linalg.norm(o, axis=-1, keepdims=True)
+    d = -o + rng.uniform(-0.4, 0.4, (R, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    mid = -np.sum(o * d, -1, keepdims=True)
+    rays = dict(rays_o=o, rays_d=d, near=np.maximum(mid - 1.0, 1e-3), far=mid + 1.0,
+                rgb=rng.uniform(0, 1, (R, 3)))
+    poses = human_coordinate_poses(model.train_data["poses"], model.cfg["fixed_camera"])
+    rays["human_poses"] = poses[torch.arange(R) % poses.shape[0]].numpy()
+    return {k: np.asarray(v, np.float32) for k, v in rays.items()}
+
+
+@pytest.mark.parametrize("step", [3, 6], ids=["before_occ", "occ_phase"])
+@pytest.mark.parametrize("which", ["real", "heads"])
+def test_new_configs_loss_and_grads_match_jax(which, step):
+    """Normalised as tests/test_torch_shape.py::test_train_step_loss_and_grads:
+    each leaf by its max, or by 1e-2 of the step's largest gradient: 1e-3."""
+    cfg = _new_cfg(which)
+    scfg_j = J.shape_config_from_dict(dict(cfg))
+    params_j = jax.tree_util.tree_map(
+        np.asarray, J.init_shape_params(jax.random.PRNGKey(0), scfg_j))
+    model = NeROShapeModel(dict(cfg), training=True, device="cpu")
+    rays = _parity_rays(model)
+    j = {k: jnp.asarray(v) for k, v in rays.items()}
+
+    def loss_j(p):
+        out = J.render(p, scfg_j, jnp.asarray(jax_fg_lut()), j["rays_o"], j["rays_d"],
+                       j["near"], j["far"], j["human_poses"], step, key=jax.random.PRNGKey(0),
+                       is_train=True, perturb_overwrite=0.0)
+        out["loss_rgb"] = J.compute_rgb_loss(out["ray_rgb"], j["rgb"], "charbonier")
+        return jax_total(jax_compute_losses(cfg["loss"], out, None, step, cfg))
+
+    val_j, g_j = jax.jit(jax.value_and_grad(loss_j))(
+        jax.tree_util.tree_map(jnp.asarray, params_j))
+    model.params = from_numpy_tree(params_j)
+    loss_t, log = model.loss_fn(model.params, {k: torch.from_numpy(v) for k, v in rays.items()},
+                                step, gen=torch.Generator().manual_seed(0))
+    loss_t.backward()
+    assert (float(log["loss_occ"].detach()) > 0.0) == (step >= cfg["occ_loss_step"])
+    np.testing.assert_allclose(loss_t.item(), float(val_j), rtol=1e-4)
+    grads_j = list(tree_items(jax.tree_util.tree_map(np.asarray, g_j)))
+    if which == "real":
+        assert any(k.startswith("shader|human_light") for k, _ in grads_j)
+    floor = 1e-2 * max(np.abs(a).max() for _, a in grads_j)
+    got = dict(tree_items(model.params))
+    assert set(got) == {k for k, _ in grads_j}
+    for k, a in grads_j:
+        b = got[k].grad
+        b = np.zeros_like(a) if b is None else b.numpy()
+        scale = max(np.abs(a).max(), floor)
+        np.testing.assert_allclose(b / scale, a / scale, atol=1e-3, err_msg=k)
+
+
+@pytest.mark.parametrize("which", ["real", "heads"])
+def test_new_configs_train_and_validate(which):
+    """A few optimizer steps (into the occlusion phase) and one validation
+    view: the batches carry each camera's human pose; finite throughout."""
+    cfg = {**_new_cfg(which), "perturb": 1.0, "occ_loss_max_pn": 64}
+    m = NeROShapeModel(dict(cfg), training=True, device="cpu")
+    assert m.train_data["human_poses"].shape == (len(m.train_ids), 3, 4)
+    opt = torch.optim.Adam(m.parameters(), lr=1e-3)
+    logs = [{k: float(v) for k, v in m.train_step(opt, i).items()} for i in range(3, 7)]
+    assert all(np.isfinite(v) for log in logs for v in log.values())
+    assert logs[-1]["loss_occ"] > 0.0
+    outputs = m.test_step(m.params, 0, step=7)
+    assert ("human_light" in outputs) == (which == "real")
+    assert np.isfinite(outputs["ray_rgb"]).all() and np.isfinite(outputs["occ_prob_gt"]).all()
+
+
+def test_fixed_camera_keeps_the_camera_height():
+    """`fixed_camera` reaches the human poses of batches and validation rays."""
+    a = NeROShapeModel({**TINY_CFG, "fixed_camera": False}, training=True, device="cpu")
+    b = NeROShapeModel({**TINY_CFG, "fixed_camera": True}, training=True, device="cpu")
+    ha, hb = a.train_data["human_poses"], b.train_data["human_poses"]
+    torch.testing.assert_close(ha[..., :3], hb[..., :3])
+    assert not torch.allclose(ha[..., 3], hb[..., 3])
+    pose, K = a.test_imgs_info["poses"][0], a.test_imgs_info["Ks"][0]
+    ra, rb = a._image_rays(K, pose, 4, 4), b._image_rays(K, pose, 4, 4)
+    assert ra["human_poses"].shape == (16, 3, 4)
+    assert not torch.allclose(ra["human_poses"], rb["human_poses"])
