@@ -173,6 +173,26 @@ def check_sdf(n: int, dev) -> list:
     print(f"sdf_grad_fwd  max|d sdf| {e_sdf.max().item():.3e} (atol 5e-3 rtol 1e-2)  "
           f"max|d grad| {e_grad.max().item():.3e} (atol 2e-2 rtol 5e-2)  "
           f"mean|d feats| {feats_mean:.3e} (< 5e-3)")
+    # a ragged size (the wrapper pads to the 32-point tile) at the same bars
+    odd = pts[:1001]
+    with torch.no_grad():
+        o_k, o_p = K.sdf_with_grad(params, odd, cfg), K.sdf_with_grad_plain(params, odd, cfg)
+    check(all(a.shape == b.shape for a, b in zip(o_k, o_p)), "sdf_grad: ragged shapes")
+    e_odd = [(a - b).abs() for a, b in zip(o_k, o_p)]
+    check(bool((e_odd[0] <= 5e-3 + 1e-2 * o_p[0].abs()).all())
+          and bool((e_odd[2] <= 2e-2 + 5e-2 * o_p[2].abs()).all())
+          and e_odd[1].mean().item() < 5e-3,
+          f"sdf_grad at n = 1001: max errs sdf {e_odd[0].max()}, grad {e_odd[2].max()}, "
+          f"mean feats {e_odd[1].mean()}")
+    # no points: empty outputs and parameter gradients that are exactly zero
+    z_out = K.sdf_with_grad(params, pts[:0], cfg)
+    check([tuple(o.shape) for o in z_out] == [(0, 1), (0, 256), (0, 3)],
+          f"sdf_grad zero rows: shapes {[tuple(o.shape) for o in z_out]}")
+    g_zero = torch.autograd.grad(sum(o.sum() for o in z_out), leaves(params))
+    check(all(not g.any() for g in g_zero), "sdf_grad zero rows: non-zero parameter gradients")
+    print(f"sdf_grad_fwd  n = 1001: max|d sdf| {e_odd[0].max().item():.3e}  max|d grad| "
+          f"{e_odd[2].max().item():.3e}  mean|d feats| {e_odd[1].mean().item():.3e}; "
+          f"n = 0: shapes (0,1) (0,256) (0,3), parameter gradients zero")
 
     def loss(fn):
         sdf, feats, grad = fn(params, pts, cfg)
@@ -211,6 +231,9 @@ def check_sdf(n: int, dev) -> list:
                     "replaces": f"nero_tpu/ops/pallas/sdf_grad_kernel.py:{line}",
                     "max_abs_err": err, "ms": ms, "launch_ms": ms, "wrapper_ms": wms,
                     "plain_ms": pms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    from nero_tpu_torch.ops.cuda_build import ptxas_info
+    out[0].update(ptxas_info("sdf_grad", "sdf_grad_fwd_kernel"))
+    check(out[0].get("spill_bytes") == 0, f"sdf_grad_fwd_kernel spills: {out[0]}")
     return out
 
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -84,6 +85,34 @@ def load(name: str) -> ctypes.CDLL:
             _finish(name, path, job)
             _libs[name] = ctypes.CDLL(path)
         return _libs[name]
+
+
+def parse_ptxas(log: str, kernel: str) -> dict:
+    """Registers and spill bytes (stores + loads) that `-Xptxas -v` reported
+    for the first entry function whose mangled name holds `kernel`; empty if
+    the log does not have it."""
+    info, inside = {}, False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            if inside:
+                break
+            inside = kernel in line
+        elif inside and "spill stores" in line:
+            nums = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            info["spill_bytes"] = sum(int(x) for x in nums)
+        elif inside and "Used" in line and "registers" in line:
+            info["regs"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return info
+
+
+def ptxas_info(name: str, kernel: str) -> dict:
+    """`parse_ptxas` of csrc/<name>.cu's build log; empty without one (a
+    library built elsewhere)."""
+    log = _lib_path(name) + ".log"
+    if not os.path.exists(log):
+        return {}
+    with open(log) as f:
+        return parse_ptxas(f.read(), kernel)
 
 
 def check(rc: int, what: str) -> None:

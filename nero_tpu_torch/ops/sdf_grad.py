@@ -142,7 +142,7 @@ def _bwd(pts, W, bias, beta, scale, g_sdf, g_grad, g_feats):
     lib = _lib()
     scratch = torch.empty(lib.sdf_grad_scratch_elems(n_pad), dtype=torch.bfloat16, device=dev)
     part = torch.empty(lib.sdf_grad_part_elems(n_pad), device=dev)
-    dW = torch.empty(W.numel(), device=dev)
+    dW = torch.zeros(W.numel(), device=dev)  # zero rows: the kernel writes nothing
     db = torch.zeros(9, OUT_W, device=dev)
     rc = lib.sdf_grad_bwd(pts.data_ptr(), n_pad, W.data_ptr(), bias.data_ptr(), beta, scale,
                           g_sdf.data_ptr(), g_grad.data_ptr(), g_feats.data_ptr(),

@@ -11,8 +11,10 @@ The hot functions go through the port's CUDA kernels on the card:
 `ops/predictor.py`), and, with `use_fused_sdf`, `ops/sdf_fwd.py` for the
 no-gradient SDF values of the sampler and the occlusion marches
 (`make_nograd_sdf_fn`). The switches `bg_on_inner`, `shade_top_k` and
-`remat_shader` are plain torch here as they are plain JAX there;
-`bf16_hidden` is not ported.
+`remat_shader` are plain torch here as they are plain JAX there. The
+precision switches `sdf_grad_mode` and `bf16_hidden` are not ported: a
+config that sets one to a value the port cannot honour on its device raises
+(`check_precision_keys`).
 """
 from __future__ import annotations
 
@@ -92,6 +94,24 @@ def shape_config_from_dict(cfg: dict) -> ShapeConfig:
     fields = {k: v for k, v in cfg.items() if k in ShapeConfig._fields}
     fields["shader"] = shading_config_from_dict(cfg.get("shader_config", {}))
     return ShapeConfig(**fields)
+
+
+def check_precision_keys(cfg: dict, device) -> None:
+    """Raise NotImplementedError for an explicit `sdf_grad_mode` or
+    `bf16_hidden` that the port cannot honour on `device`, where nero_tpu
+    would switch precision. Honoured: `sdf_grad_mode` unset, `fused` on CUDA
+    (the bf16 kernel of ops/sdf_grad.py), `rev` on the CPU (the plain f32
+    reverse-mode eikonal); `bf16_hidden` unset."""
+    kind = torch.device(device).type
+    mode = cfg.get("sdf_grad_mode")
+    if mode is not None and (mode, kind) not in (("fused", "cuda"), ("rev", "cpu")):
+        raise NotImplementedError(
+            f"sdf_grad_mode={mode!r} on {kind}: the port runs the bf16 kernel on CUDA and the "
+            "f32 reverse-mode eikonal on the CPU; other modes wait for ROADMAP A3")
+    if cfg.get("bf16_hidden") is not None:
+        raise NotImplementedError(
+            f"bf16_hidden={cfg['bf16_hidden']!r}: Stage I's bf16 activations are not ported "
+            "(ROADMAP A3); leave the key unset")
 
 
 def make_nograd_sdf_fn(params, scfg: ShapeConfig):

@@ -90,6 +90,19 @@ def test_param_grads(setup, reference):
         np.testing.assert_allclose(g_t[k] / scale, a / scale, atol=atol, err_msg=k)
 
 
+def test_zero_rows(setup):
+    """No points: empty outputs of the right widths and parameter gradients
+    that are exactly zero (the kernel's zero-row case on the card)."""
+    params_j, _, _ = setup
+    p = from_numpy_tree(jax.tree_util.tree_map(np.asarray, params_j))
+    sdf, feats, grad = sdf_grad.sdf_with_grad(p, torch.zeros(0, 3), SDFConfig())
+    assert sdf.shape == (0, 1) and feats.shape == (0, 256) and grad.shape == (0, 3)
+    leaves = [v for _, v in tree_items(p)]
+    gs = torch.autograd.grad(sdf.sum() + feats.sum() + grad.sum(), leaves)
+    for g, leaf in zip(gs, leaves):
+        assert g.shape == leaf.shape and not g.any()
+
+
 def test_pack_unpack_round_trip(setup):
     params_j, _, _ = setup
     from nero_tpu_torch.ops.mlp import resolve_weight_norm
@@ -104,6 +117,27 @@ def test_pack_unpack_round_trip(setup):
         np.testing.assert_allclose(d.numpy(), want.numpy(), atol=8e-3 * float(w.abs().max()))
     for b0, d in zip(bs, dbs):
         np.testing.assert_array_equal(d.numpy(), b0.numpy())
+
+
+def test_ptxas_info_reads_the_build_log(tmp_path, monkeypatch):
+    """chip_smoke.py reports the forward kernel's registers and spill bytes
+    from the nvcc log; the parser takes the entry function it is asked for."""
+    from nero_tpu_torch.ops import cuda_build
+    log = tmp_path / "lib.so.log"
+    log.write_text(
+        "ptxas info    : Compiling entry function '_ZN15sdf_rows_kernelEv' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 96 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_ZN19sdf_grad_fwd_kernelEv' for 'sm_90a'\n"
+        "    32 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads\n"
+        "ptxas info    : Used 128 registers, used 1 barriers\n")
+    monkeypatch.setattr(cuda_build, "_lib_path", lambda name: str(tmp_path / "lib.so"))
+    assert cuda_build.ptxas_info("sdf_grad", "sdf_grad_fwd_kernel") == {"regs": 128,
+                                                                       "spill_bytes": 28}
+    assert cuda_build.ptxas_info("sdf_grad", "sdf_rows_kernel") == {"regs": 96, "spill_bytes": 0}
+    assert cuda_build.ptxas_info("sdf_grad", "missing_kernel") == {}
+    monkeypatch.setattr(cuda_build, "_lib_path", lambda name: str(tmp_path / "none.so"))
+    assert cuda_build.ptxas_info("sdf_grad", "sdf_grad_fwd_kernel") == {}
 
 
 @pytest.mark.gpu

@@ -110,6 +110,31 @@ def test_config_fields_reach_the_port():
     assert not default.use_fused_sdf and default.shader.fused_shader is None
 
 
+@pytest.mark.parametrize("key,value,device,honoured", [
+    ("sdf_grad_mode", None, "cpu", True), ("sdf_grad_mode", None, "cuda", True),
+    ("sdf_grad_mode", "fused", "cuda", True), ("sdf_grad_mode", "rev", "cpu", True),
+    ("sdf_grad_mode", "fused", "cpu", False), ("sdf_grad_mode", "rev", "cuda", False),
+    ("sdf_grad_mode", "fwd", "cpu", False), ("sdf_grad_mode", "fwd", "cuda", False),
+    ("bf16_hidden", None, "cuda", True), ("bf16_hidden", True, "cuda", False),
+    ("bf16_hidden", False, "cpu", False), ("bf16_hidden", True, "cpu", False),
+])
+def test_precision_keys_are_honoured_or_refused(key, value, device, honoured):
+    """nero_tpu switches precision on these keys; the port, which has one
+    precision per device, raises where it cannot honour an explicit value
+    instead of dropping it."""
+    cfg = {key: value}
+    if honoured:
+        T.check_precision_keys(cfg, device)
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+            T.check_precision_keys(cfg, device)
+
+
+def test_shape_model_refuses_an_unported_precision_key():
+    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+        NeROShapeModel({**TINY_CFG, "sdf_grad_mode": "fwd"}, training=False, device="cpu")
+
+
 @pytest.mark.parametrize("step", [2, OCC_STEP + 1], ids=["before_occ", "occ_phase"])
 def test_bg_on_inner(setup, step):
     """The background on the full lattice, selected by the inner mask."""
