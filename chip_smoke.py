@@ -231,9 +231,31 @@ def check_sdf(n: int, dev) -> list:
                     "replaces": f"nero_tpu/ops/pallas/sdf_grad_kernel.py:{line}",
                     "max_abs_err": err, "ms": ms, "launch_ms": ms, "wrapper_ms": wms,
                     "plain_ms": pms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
-    from nero_tpu_torch.ops.cuda_build import ptxas_info
+    # the backward's two parts alone, on the wrapper's buffers: recompute +
+    # reverse sweep, then the weight- and bias-gradient pass with its reduction
+    from nero_tpu_torch.ops.cuda_build import check as check_rc, ptxas_info
+    lib, stream = K._lib(), torch.cuda.current_stream(dev).cuda_stream
+    scratch, part = K.bwd_buffers(n, dev)
+    dW, db = torch.zeros(W.numel(), device=dev), torch.zeros(9, K.OUT_W, device=dev)
+    sweep_ms = cuda_ms(lambda: check_rc(lib.sdf_grad_bwd_sweep(
+        pts.data_ptr(), n, W.data_ptr(), bias.data_ptr(), beta, scale, g_sdf.data_ptr(),
+        g_grad.data_ptr(), cot.data_ptr(), scratch.data_ptr(), stream), "sweep"), iters=5)
+    params_ms = cuda_ms(lambda: check_rc(lib.sdf_grad_bwd_params(
+        n, scratch.data_ptr(), part.data_ptr(), dW.data_ptr(), db.data_ptr(), stream),
+        "params"), iters=5)
+    buf_bytes = scratch.numel() * 2 + part.numel() * 4
+    del scratch, part
+    out[1].update({"sweep_ms": sweep_ms, "params_ms": params_ms, "scratch_bytes": buf_bytes})
     out[0].update(ptxas_info("sdf_grad", "sdf_grad_fwd_kernel"))
     check(out[0].get("spill_bytes") == 0, f"sdf_grad_fwd_kernel spills: {out[0]}")
+    ptx = {k: ptxas_info("sdf_grad", k) for k in
+           ("sdf_bwd_sweep_kernel", "sdf_bwd_params_kernel", "sdf_bwd_reduce_kernel")}
+    check(all(v.get("spill_bytes") == 0 for v in ptx.values()), f"sdf_grad backward spills: {ptx}")
+    out[1]["ptxas"] = ptx
+    print(f"sdf_grad_bwd  launch {ms_bwd:.3f} ms = recompute + sweep {sweep_ms:.3f} + parameter "
+          f"pass {params_ms:.3f}; scratch + partials {buf_bytes / 1e9:.3f} GB at N = {n}; "
+          f"ptxas fwd {out[0]['regs']} regs, " + ", ".join(
+              f"{k} {v['regs']} regs {v['spill_bytes']} spill bytes" for k, v in ptx.items()))
     return out
 
 

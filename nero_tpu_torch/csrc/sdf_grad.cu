@@ -52,21 +52,44 @@
 // mma.sync, not the warpgroup products; tile 0 carries the d/dx rows
 // through all of layer 8.
 //
-// Backward (sdf_rows_kernel): where the TPU kept nine stacked pre-activations
-// of its row block in VMEM (4.7 MB), a Hopper block has 227 KB. So the
-// kernel recomputes the forward of its tile on WMMA tiles (common.cuh
-// block_mm, 16 warps, an f32 C tile in shared memory) and writes
-// pre-activations Z (bf16, as the TPU kernel stores them), layer inputs H
-// and the PE to device memory, then runs the reverse sweep of its tile in
-// shared memory (the through_act second-order softplus'' epilogue of
-// sdf_grad_kernel.py:297-309) and writes each layer's pre-activation
-// cotangent GZ. The parameter gradients dW_l = H_l^T GZ_l and db_l = sum of
-// primal rows of GZ_l then come from the two-pass chunked reduction of
-// common.cuh (the TPU accumulated them across a sequential grid). Point
-// gradients are not produced: sample positions are detached upstream, as on
-// the TPU (sdf_grad_kernel.py:431-432). Its bound is 0.745 ms at N = 65,536;
-// the scratch round trip through device memory (about 3.4 GB) and the
-// shared-memory C tile keep it far from it.
+// Backward (sdf_grad_bwd): where the TPU kept nine stacked pre-activations
+// of its row block in VMEM (4.7 MB) and accumulated dW across a sequential
+// grid, a Hopper block has 227 KB and blocks run in no order. So it is two
+// kernels and a reduction, three launches:
+//  * sdf_bwd_sweep_kernel, one block per tile on the forward's engine. The
+//    recompute is the forward's layers 0-7 (the same hidden_layers), which
+//    also stores each layer's activations H, bf16, from the accumulators (and
+//    the PE). Then the reverse sweep, layers 8 -> 1: GH = GZ_l @ W_l^T on
+//    mma.sync, the weights streamed by the same ring as slabs of 128 of their
+//    output columns ([in, k], so ldmatrix without .trans gives W^T's
+//    fragments), and the second-order through_act of
+//    sdf_grad_kernel.py:297-309 in registers on the same accumulator layout:
+//    a lane reads back the H it wrote (h_p and the h_t of one point at its two
+//    columns), takes s = sigmoid(beta z_p) = 1 - exp(-beta h_p), and forms
+//    gz_p = s gh_p + beta (1 - s) sum_t h_t gh_t and gz_t = s gh_t (the TPU
+//    kernel's s2 sum_t z_t gh_t, with s z_t = h_t). Each GZ_l goes once, bf16,
+//    to device memory and to the cotangent tile, the next product's A operand.
+//  * sdf_bwd_params_kernel, dW_l = H_l^T GZ_l for the ten packed products
+//    (w0 and w4b take the PE as H) in one launch over (product, 128-row half
+//    of its input, row chunk), mma.sync on stages of one tile's rows through
+//    a 2-stage cp.async ring; db_l, the column sums of GZ_l's primal rows,
+//    rides along in the blocks of the first half.
+//  * sdf_bwd_reduce_kernel adds the chunks' partials in chunk order (no
+//    atomics: the same gradients every run) into dW and db.
+// The scratch lies in pieces (piece_off), so the sweep's stores and loads
+// and the parameter pass's copies are whole 128-byte runs. Point gradients
+// are not produced: sample positions are detached upstream, as on the TPU
+// (sdf_grad_kernel.py:431-432).
+//
+// Where the card said otherwise than the first design (kernel_variants.py,
+// PERF.md): storing Z, as the TPU kernel does, and forming H from it in the
+// parameter pass costs that pass more than the stores of H cost the sweep;
+// the scratch in rows, not pieces, costs the sweep's scattered 4-byte stores
+// and loads. Bound: 0.745 ms at N = 65,536 (operations). What keeps it from
+// it: the recompute and the sweep each stream all the weights from L2 for
+// every tile (as the forward does), then the scratch round trip (H and GZ,
+// 2.3 GB at N = 65,536; the parameter pass reads GZ twice, once for each
+// half of a product's input).
 #include "sdf_net.cuh"
 
 using namespace nero;
@@ -76,173 +99,41 @@ namespace {
 
 constexpr int P = 32;           // points per tile
 constexpr int ROWS = 4 * P;     // primal + 3 tangent rows
-constexpr int LDA = OUTW + 8;   // shared-memory leading dims (bank skew)
-constexpr int LDP = PEW + 8;
-constexpr int LDC = OUTW + 4;
-constexpr int NTHREADS = 512;
-constexpr int DW_CHUNK_MIN_ROWS = 4096;  // stacked rows per weight-gradient chunk, at least
-constexpr size_t SMEM_BYTES =
-    (size_t)ROWS * LDA * 2 + (size_t)ROWS * LDP * 2 + (size_t)ROWS * LDC * 4;
-
-// scratch (bf16) per M = 4 * n_pad stacked rows: Z[8][M][256], H[8][M][256],
-// GZ[8][M][256], GZ8[M][272], PE[M][48]
-struct Scratch {
-  bf16 *Z, *H, *GZ, *GZ8, *PE;
-  __host__ __device__ Scratch(bf16* base, size_t M) {
-    Z = base;
-    H = Z + 8 * M * HID;
-    GZ = H + 8 * M * HID;
-    GZ8 = GZ + 8 * M * HID;
-    PE = GZ8 + M * OUTW;
-  }
-  static size_t elems(size_t M) { return 24 * M * HID + M * OUTW + M * PEW; }
-};
-
-__global__ void __launch_bounds__(NTHREADS, 1)
-sdf_rows_kernel(const float* __restrict__ pts, const bf16* __restrict__ W,
-                const float* __restrict__ bias, float beta, float scale, int n_pad,
-                const float* __restrict__ d_sdf, const float* __restrict__ d_grad,
-                const float* __restrict__ d_feats, bf16* __restrict__ scratch) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* A = reinterpret_cast<bf16*>(smem);
-  bf16* PEb = A + ROWS * LDA;
-  float* C = reinterpret_cast<float*>(PEb + ROWS * LDP);
-  const int tid = threadIdx.x;
-  const int p0 = blockIdx.x * P;
-  const size_t M = 4 * (size_t)n_pad;
-  const size_t row0 = (size_t)blockIdx.x * ROWS;
-  Scratch S(scratch, M);
-
-  // PE(6) of the scaled points and its tangents w.r.t. the unscaled points
-  for (int idx = tid; idx < ROWS * PEW; idx += NTHREADS) {
-    const int row = idx / PEW, c = idx % PEW;
-    const int s = row / P, r = row % P;
-    float v = 0.0f;
-    if (c < 3) {
-      v = s == 0 ? pts[(p0 + r) * 3 + c] * scale : (c == s - 1 ? scale : 0.0f);
-    } else if (c < NPE) {
-      const int i = (c - 3) / 6, q = (c - 3) % 6, k = q % 3;
-      const bool is_cos = q >= 3;
-      const float f = (float)(1 << i);
-      const float x = pts[(p0 + r) * 3 + k] * scale * f;
-      if (s == 0) v = is_cos ? cosf(x) : sinf(x);
-      else if (k == s - 1) v = scale * f * (is_cos ? -sinf(x) : cosf(x));
-    }
-    const bf16 bv = to_bf(v);
-    PEb[row * LDP + c] = bv;
-    S.PE[(row0 + row) * PEW + c] = bv;
-  }
-  __syncthreads();
-
-  for (int l = 0; l < 8; ++l) {  // the reverse sweep needs layers 0..7 only
-    if (l == 0) {
-      block_mm<false>(PEb, LDP, W + OFF_W0, HID, C, LDC, ROWS, HID, PEW, false);
-    } else if (l == 4) {
-      block_mm<false>(A, LDA, W + OFF_W4A, HID, C, LDC, ROWS, HID, HID, false);
-      __syncthreads();
-      block_mm<false>(PEb, LDP, W + OFF_W4B, HID, C, LDC, ROWS, HID, PEW, true);
-    } else {
-      block_mm<false>(A, LDA, W + layer_off(l), HID, C, LDC, ROWS, HID, HID, false);
-    }
-    __syncthreads();
-    // activation: primal softplus, tangents sigmoid(beta z_primal) * z_tangent
-    for (int idx = tid; idx < P * HID; idx += NTHREADS) {
-      const int r = idx / HID, c = idx % HID;
-      const float zp = C[r * LDC + c] + bias[l * OUTW + c];
-      const float s = sigmoidf_(beta * zp);
-      const bool masked = (l == 3 && c >= MASK_W);
-      const float hp = masked ? 0.0f : softplus_b(zp, beta);
-      A[r * LDA + c] = to_bf(hp);
-      S.Z[((size_t)l * M + row0 + r) * HID + c] = to_bf(zp);
-      S.H[((size_t)l * M + row0 + r) * HID + c] = to_bf(hp);
-#pragma unroll
-      for (int j = 1; j < 4; ++j) {
-        const int row = j * P + r;
-        const float zt = C[row * LDC + c];
-        const float ht = masked ? 0.0f : s * zt;
-        A[row * LDA + c] = to_bf(ht);
-        S.Z[((size_t)l * M + row0 + row) * HID + c] = to_bf(zt);
-        S.H[((size_t)l * M + row0 + row) * HID + c] = to_bf(ht);
-      }
-    }
-    __syncthreads();
-  }
-
-  // reverse sweep. Cotangent of z8: primal rows [d_sdf, d_feats], tangent
-  // row j carries d_grad_j in the sdf column.
-  for (int idx = tid; idx < ROWS * OUTW; idx += NTHREADS) {
-    const int row = idx / OUTW, c = idx % OUTW;
-    const int s = row / P, r = row % P;
-    float g = 0.0f;
-    if (s == 0) {
-      if (c == 0) g = d_sdf[p0 + r];
-      else if (c <= HID) g = d_feats[(size_t)(p0 + r) * HID + c - 1];
-    } else if (c == 0) {
-      g = d_grad[(p0 + r) * 3 + s - 1];
-    }
-    const bf16 gb = to_bf(g);
-    A[row * LDA + c] = gb;
-    S.GZ8[(row0 + row) * OUTW + c] = gb;
-  }
-  __syncthreads();
-
-  for (int l = 8; l >= 1; --l) {
-    // cotangent of h_l = act(z_{l-1}):  GH = GZ_l @ W_l^T  (w4a for the skip)
-    const int ldw = l == 8 ? OUTW : HID;
-    block_mm<true>(A, LDA, W + layer_off(l), ldw, C, LDC, ROWS, HID, ldw, false);
-    __syncthreads();
-    const int lp = l - 1;
-    const bf16* Z = S.Z + (size_t)lp * M * HID;
-    for (int idx = tid; idx < P * HID; idx += NTHREADS) {
-      const int r = idx / HID, c = idx % HID;
-      const float zp = from_bf(Z[(row0 + r) * HID + c]);
-      const float s = sigmoidf_(beta * zp);
-      const float s2 = beta * s * (1.0f - s);  // softplus_b''
-      const bool masked = (lp == 3 && c >= MASK_W);
-      float mix = 0.0f;
-      float gzt[3];
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const int row = (j + 1) * P + r;
-        const float ght = C[row * LDC + c];
-        mix += from_bf(Z[(row0 + row) * HID + c]) * ght;
-        gzt[j] = masked ? 0.0f : s * ght;
-      }
-      const float gzp = masked ? 0.0f : s * C[r * LDC + c] + s2 * mix;
-      bf16* GZ = S.GZ + (size_t)lp * M * HID;
-      A[r * LDA + c] = to_bf(gzp);
-      GZ[(row0 + r) * HID + c] = to_bf(gzp);
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const int row = (j + 1) * P + r;
-        A[row * LDA + c] = to_bf(gzt[j]);
-        GZ[(row0 + row) * HID + c] = to_bf(gzt[j]);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-
-// ---------------------------------------------------------------------------
-// forward: mma.sync with weight slabs in shared memory and a register epilogue
-// ---------------------------------------------------------------------------
-
+constexpr int LDP = PEW + 8;    // PE tile [ROWS][LDP] bf16 (bank skew)
 constexpr int WN = 8;           // n8-tiles a warp holds in layers 0-7: 64 columns
 constexpr int NQ = HID / (8 * WN);             // column groups: warps per point group
 constexpr int F_THREADS = 4 * NQ * 32;         // 4 point groups of 8 points
 constexpr int L8 = (OUTW / 8 + NQ - 1) / NQ;   // n8-tiles a warp holds in layer 8
 constexpr int LDH = HID + 8;    // activation tile [ROWS][LDH] bf16
-constexpr int SLAB_K = 128;     // weight rows per slab
-constexpr int LDB = OUTW + 8;   // slab [SLAB_K][LDB] bf16
+constexpr int LDG = OUTW + 8;   // the sweep's cotangent tile [ROWS][LDG] bf16, over H and the PE
+constexpr int SLAB_K = 128;     // weight rows (forward) or columns (sweep) per slab
+constexpr int LDB = OUTW + 8;   // forward slab [SLAB_K][LDB] bf16
+constexpr int LDT = SLAB_K + 8; // sweep slab [HID][LDT] bf16
 constexpr int STAGES = 2;
-constexpr int STAGE_ELEMS = SLAB_K * LDB;
+constexpr int STAGE_ELEMS = SLAB_K * LDB > HID * LDT ? SLAB_K * LDB : HID * LDT;
 constexpr int PE_SLABS = (PEW + SLAB_K - 1) / SLAB_K, H_SLABS = HID / SLAB_K;
-constexpr int N_SLABS = 2 * PE_SLABS + 8 * H_SLABS;  // w0, w1-w4a, w4b, w5-w8
+constexpr int HIDDEN_SLABS = 2 * PE_SLABS + 7 * H_SLABS;  // w0, w1-w4a, w4b, w5-w7
+constexpr int N_SLABS = HIDDEN_SLABS + H_SLABS;           // the forward's: and w8
+constexpr int W8_KSLABS = (OUTW + SLAB_K - 1) / SLAB_K;
+constexpr int B_SLABS = HIDDEN_SLABS + W8_KSLABS + 7 * H_SLABS;  // the backward's: W8^T .. W1^T
 constexpr int LDO = 260;        // f32 output staging [P][LDO], over the activations
 constexpr size_t F_SMEM = ((size_t)ROWS * LDH + (size_t)ROWS * LDP + (size_t)STAGES * STAGE_ELEMS) * 2;
 static_assert(F_SMEM <= 232448, "forward shared memory");
 static_assert((size_t)P * LDO * 4 + P * 3 * 4 <= (size_t)ROWS * LDH * 2, "output staging");
+static_assert(ROWS * LDG <= ROWS * (LDH + LDP), "cotangent tile");
+
+// The backward's scratch lies in device memory in pieces, not rows: a piece
+// is one kind's 8 rows x 8 columns of a point group (128 bytes), and a point
+// group of width W is its W / 8 column pieces in order, the groups in the
+// tile order. Element (row r, column c) of a width-W array is at
+// piece_off(r, c, W). A warp's accumulators hold whole pieces, so its stores
+// and loads of one (n8-tile, kind) are 128 contiguous bytes; a stage of the
+// parameter pass is two contiguous runs, copied as they lie, and ldmatrix
+// reads its 8 x 8 matrices as whole pieces.
+constexpr int F_S = 64, F_J = 4 * F_S;  // a kind's 8 x 8 block; a column piece of 4 kinds
+__host__ __device__ constexpr size_t piece_off(size_t r, int c, int W) {
+  return ((r >> 5) * (W / 8) + (c >> 3)) * F_J + ((r >> 3) & 3) * F_S + (r & 7) * 8 + (c & 7);
+}
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
@@ -287,14 +178,34 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Slab s of the weight stream: the packed layout is the stream's order, so
-// a slab is `rows` consecutive rows of n columns at element offset `off`.
+// This lane's offset (elements) in an ldmatrix.x4 of a 16 x 16 block whose
+// four 8 x 8 matrices are taken as (rows 0-7, cols 0-7), (0-7, 8-15),
+// (8-15, 0-7), (8-15, 8-15): an A operand stored [k][m] (with .trans) or a
+// B operand stored [n][k] (without), leading dim ld.
+__device__ __forceinline__ int x4_lane(int lane, int ld) {
+  return ((lane & 7) + ((lane >> 4) << 3)) * ld + ((lane >> 3) & 1) * 8;
+}
+
+// A slab of a weight stream: `rows` rows of `cols` columns at element offset
+// `off` of the packed weights, row stride ldg there and lds in the ring.
 struct Slab {
   size_t off;
-  int rows, n;
+  int rows, cols, ldg, lds;
 };
 
+// Slab s of the forward's stream: w0 w1 w2 w3 w4a w4b w5 w6 w7 w8 in
+// SLAB_K-row slabs, the packed order. The backward's (BWD) is the same up to
+// w7 (the recompute), then the reverse sweep's W8, W7, W6, W5, W4a, W3, W2,
+// W1, each in slabs of SLAB_K of its output columns with all 256 input rows.
+template <bool BWD>
 __device__ __forceinline__ Slab slab_at(int s) {
+  if (BWD && s >= HIDDEN_SLABS) {
+    s -= HIDDEN_SLABS;
+    const int l = s < W8_KSLABS ? 8 : 7 - (s - W8_KSLABS) / H_SLABS;
+    const int j = s < W8_KSLABS ? s : (s - W8_KSLABS) % H_SLABS;
+    const int n = l == 8 ? OUTW : HID;
+    return {layer_off(l) + (size_t)j * SLAB_K, HID, min(SLAB_K, n - j * SLAB_K), n, LDT};
+  }
   int p, j;  // product (0 = w0, 1-4 = w1 w2 w3 w4a, 5 = w4b, 6-9 = w5 w6 w7 w8), slab in it
   constexpr int E = PE_SLABS, Hs = H_SLABS;
   if (s < E) { p = 0; j = s; }
@@ -305,27 +216,28 @@ __device__ __forceinline__ Slab slab_at(int s) {
                    : p < 5 ? OFF_W1 + (p - 1) * SZ_H : OFF_W5 + (p - 6) * SZ_H;
   const int k = (p == 0 || p == 5) ? PEW : HID;
   const int n = p == 9 ? OUTW : HID;
-  return {off + (size_t)j * SLAB_K * n, min(SLAB_K, k - j * SLAB_K), n};
+  return {off + (size_t)j * SLAB_K * n, min(SLAB_K, k - j * SLAB_K), n, n, LDB};
 }
 
 // The ring of weight slabs. next() waits for the oldest slab, makes it (and
 // every shared-memory write before the call) visible to the block, refills
-// the stage that the block finished with, and returns this lane's ldmatrix
-// address in the slab.
+// the stage that the block finished with, and returns the slab's
+// shared-memory address.
+template <bool BWD>
 struct Ring {
+  static constexpr int COUNT = BWD ? B_SLABS : N_SLABS;
   bf16* base;
   const bf16* W;
-  unsigned lane_addr;  // this lane's ldmatrix row/column offset in stage 0
   int slab;
 
   __device__ __forceinline__ void load(int s) const {
-    if (s < N_SLABS) {
-      const Slab sl = slab_at(s);
+    if (s < COUNT) {
+      const Slab sl = slab_at<BWD>(s);
       bf16* st = base + (s % STAGES) * STAGE_ELEMS;
-      const int cpr = sl.n / 8;  // 16-byte chunks per row
+      const int cpr = sl.cols / 8;  // 16-byte chunks per row
       for (int v = threadIdx.x; v < sl.rows * cpr; v += F_THREADS) {
         const int r = v / cpr, c = (v - r * cpr) * 8;
-        cp_async16(st + r * LDB + c, W + sl.off + (size_t)r * sl.n + c);
+        cp_async16(st + r * sl.lds + c, W + sl.off + (size_t)r * sl.ldg + c);
       }
     }
     cp_async_commit();  // an empty group past the end keeps the count uniform
@@ -335,19 +247,25 @@ struct Ring {
     cp_async_wait<STAGES - 2>();
     __syncthreads();
     load(slab + STAGES - 1);
-    const unsigned a = lane_addr + (slab % STAGES) * STAGE_ELEMS * 2;
+    const unsigned a = smem_u32(base) + (slab % STAGES) * STAGE_ELEMS * 2;
     ++slab;
     return a;
   }
 };
 
-// acc[m][j] += X[rows of m-tile m, 0:K] @ Wslab[:, n8-tile j of this warp's
-// columns], k in steps of 16 from 0 up. x: this lane's ldmatrix address in
-// the warp's first row of X (leading dim ldx); col0: the warp's first column.
-__device__ __forceinline__ void product(float (&acc)[2][WN][4], Ring& ring, unsigned x, int ldx,
+// acc[m][j] += X[rows of m-tile m, 0:K] @ B[:, n8-tile j of the warp's
+// columns], k in steps of 16 from 0 up, B from the ring: the forward's slabs
+// [k][n] (ldmatrix.trans) or, WT, the sweep's [n][k], which are W^T's
+// fragments without .trans. x: this lane's ldmatrix address in the warp's
+// first row of X (leading dim ldx); col0: the warp's first column.
+template <bool WT, class R>
+__device__ __forceinline__ void product(float (&acc)[2][WN][4], R& ring, unsigned x, int ldx,
                                         int K, int col0) {
+  const int lane = threadIdx.x & 31;
+  const unsigned lane_b = WT ? (x4_lane(lane, LDT) + col0 * LDT) * 2
+                             : ((lane & 15) * LDB + (lane >> 4) * 8 + col0) * 2;
   for (int k0 = 0; k0 < K; k0 += SLAB_K) {
-    const unsigned b = ring.next() + col0 * 2;
+    const unsigned b = ring.next() + lane_b;
     const int ksteps = min(SLAB_K, K - k0) / 16;
 #pragma unroll 1  // unrolled, the k steps spill at the 128 registers of 512 threads
     for (int kk = 0; kk < ksteps; ++kk) {
@@ -357,7 +275,8 @@ __device__ __forceinline__ void product(float (&acc)[2][WN][4], Ring& ring, unsi
 #pragma unroll
       for (int j = 0; j < WN / 2; ++j) {
         unsigned bb[4];
-        ldsm_x4_t(bb, b + (kk * 16 * LDB + j * 16) * 2);
+        if (WT) ldsm_x4(bb, b + (j * 16 * LDT + kk * 16) * 2);
+        else ldsm_x4_t(bb, b + (kk * 16 * LDB + j * 16) * 2);
         mma_bf16(acc[0][2 * j], a[0], bb[0], bb[1]);
         mma_bf16(acc[1][2 * j], a[1], bb[0], bb[1]);
         mma_bf16(acc[0][2 * j + 1], a[0], bb[2], bb[3]);
@@ -379,27 +298,12 @@ __device__ __forceinline__ float div_beta(float x, float beta, float inv) {
   return fmaf(r, inv, q);
 }
 
-__global__ void __launch_bounds__(F_THREADS, 1)
-sdf_grad_fwd_kernel(const float* __restrict__ pts, const bf16* __restrict__ W,
-                    const float* __restrict__ bias, float beta, float scale,
-                    float* __restrict__ out_sdf, float* __restrict__ out_grad,
-                    float* __restrict__ out_feats) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* H = reinterpret_cast<bf16*>(smem);  // rows 32g + 8s + i: kind s of point 8g + i
-  bf16* PEb = H + ROWS * LDH;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int grp = warp / NQ, cq = warp % NQ;  // point group, column group
-  const int g = lane >> 2, t = lane & 3;      // accumulator row and column pair
-  const int p0 = blockIdx.x * P;
-  const float inv_beta = __frcp_rn(beta);
-  const int lrow = lane & 15, lcol = (lane >> 4) * 8;  // ldmatrix addressing
-
-  Ring ring{PEb + ROWS * LDP, W,
-            smem_u32(PEb + ROWS * LDP) + (unsigned)(lrow * LDB + lcol) * 2, 0};
-  for (int s = 0; s < STAGES - 1; ++s) ring.load(s);
-
-  // PE(6) of the scaled points and its tangents w.r.t. the unscaled points
-  for (int idx = tid; idx < ROWS * PEW; idx += F_THREADS) {
+// PE(6) of the scaled points and its tangents w.r.t. the unscaled points
+// into the PE tile, rows in the tile order (row 32g + 8s + i: kind s of
+// point 8g + i), and to PEg (device memory, in pieces) where it is given.
+__device__ __forceinline__ void pe_tile(bf16* PEb, const float* __restrict__ pts, int p0,
+                                        float scale, bf16* PEg) {
+  for (int idx = threadIdx.x; idx < ROWS * PEW; idx += F_THREADS) {
     const int row = idx / PEW, c = idx % PEW;
     const int s = (row >> 3) & 3, r = (row >> 5) * 8 + (row & 7);
     float v = 0.0f;
@@ -414,11 +318,26 @@ sdf_grad_fwd_kernel(const float* __restrict__ pts, const bf16* __restrict__ W,
       else if (k == s - 1) v = scale * f * (is_cos ? -sinf(x) : cosf(x));
     }
     PEb[row * LDP + c] = to_bf(v);
+    if (PEg) PEg[piece_off(row, c, PEW)] = to_bf(v);
   }
+}
 
+// Layers 0-7 of the tile, each layer's activations into the activation tile
+// H (bf16). Hg (the backward's recompute): also to device memory, from the
+// accumulators, layer l at Hg + l * lstride in pieces.
+template <class R>
+__device__ __forceinline__ void hidden_layers(bf16* H, const bf16* PEb, R& ring,
+                                              const float* __restrict__ bias, float beta,
+                                              bf16* Hg, size_t lstride) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int grp = warp / NQ, cq = warp % NQ;  // point group, column group
+  const int g = lane >> 2, t = lane & 3;      // accumulator row and column pair
+  const float inv_beta = __frcp_rn(beta);
+  const int lrow = lane & 15, lcol = (lane >> 4) * 8;  // ldmatrix addressing
   const unsigned h_x = smem_u32(H + (grp * 32 + lrow) * LDH + lcol);
   const unsigned pe_x = smem_u32(PEb + (grp * 32 + lrow) * LDP + lcol);
   const int col0 = cq * WN * 8;
+  const int goff = (int)piece_off(grp * 32 + g, col0 + 2 * t, HID);
 
   for (int l = 0; l < 8; ++l) {
     float acc[2][WN][4];
@@ -429,10 +348,10 @@ sdf_grad_fwd_kernel(const float* __restrict__ pts, const bf16* __restrict__ W,
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.0f;
     if (l == 0) {
-      product(acc, ring, pe_x, LDP, PEW, col0);
+      product<false>(acc, ring, pe_x, LDP, PEW, col0);
     } else {
-      product(acc, ring, h_x, LDH, HID, col0);
-      if (l == 4) product(acc, ring, pe_x, LDP, PEW, col0);
+      product<false>(acc, ring, h_x, LDH, HID, col0);
+      if (l == 4) product<false>(acc, ring, pe_x, LDP, PEW, col0);
     }
     __syncthreads();  // every warp is done reading this layer's input
     // epilogue: primal softplus (bias first), tangents sigmoid(beta z_primal) * z_tangent
@@ -455,14 +374,42 @@ sdf_grad_fwd_kernel(const float* __restrict__ pts, const bf16* __restrict__ W,
         h[3][e] = masked ? 0.0f : sg * acc[1][j][2 + e];
       }
 #pragma unroll
-      for (int s = 0; s < 4; ++s)
+      for (int s = 0; s < 4; ++s) {
         *reinterpret_cast<__nv_bfloat162*>(hrow + s * 8 * LDH + j * 8) =
             __floats2bfloat162_rn(h[s][0], h[s][1]);
+        if (Hg)
+          *reinterpret_cast<__nv_bfloat162*>(Hg + l * lstride + goff + s * F_S + j * F_J) =
+              __floats2bfloat162_rn(h[s][0], h[s][1]);
+      }
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(F_THREADS, 1)
+sdf_grad_fwd_kernel(const float* __restrict__ pts, const bf16* __restrict__ W,
+                    const float* __restrict__ bias, float beta, float scale,
+                    float* __restrict__ out_sdf, float* __restrict__ out_grad,
+                    float* __restrict__ out_feats) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* H = reinterpret_cast<bf16*>(smem);  // rows 32g + 8s + i: kind s of point 8g + i
+  bf16* PEb = H + ROWS * LDH;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = warp / NQ, cq = warp % NQ;  // point group, column group
+  const int g = lane >> 2, t = lane & 3;      // accumulator row and column pair
+  const int p0 = blockIdx.x * P;
+
+  Ring<false> ring{PEb + ROWS * LDP, W, 0};
+  for (int s = 0; s < STAGES - 1; ++s) ring.load(s);
+  pe_tile(PEb, pts, p0, scale, nullptr);
+  hidden_layers(H, PEb, ring, bias, beta, nullptr, 0);
 
   // layer 8: tile 0 (primal, d/dx) on the warp's L8 n8-tiles of the 272
   // columns; tile 1 (d/dy, d/dz) on the sdf column's n8-tile alone
+  const unsigned h_x = smem_u32(H + (grp * 32 + (lane & 15)) * LDH + (lane >> 4) * 8);
   float acc8[L8][4], accg[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
   for (int j = 0; j < L8; ++j)
@@ -470,7 +417,7 @@ sdf_grad_fwd_kernel(const float* __restrict__ pts, const bf16* __restrict__ W,
     for (int e = 0; e < 4; ++e) acc8[j][e] = 0.0f;
   const int col8 = cq * L8 * 8;
   for (int k0 = 0; k0 < HID; k0 += SLAB_K) {
-    const unsigned b = ring.next() + col8 * 2;
+    const unsigned b = ring.next() + ((lane & 15) * LDB + (lane >> 4) * 8 + col8) * 2;
 #pragma unroll
     for (int kk = 0; kk < SLAB_K / 16; ++kk) {
       unsigned a0[4], a1[4];
@@ -513,6 +460,293 @@ sdf_grad_fwd_kernel(const float* __restrict__ pts, const bf16* __restrict__ W,
   for (int idx = tid; idx < P * 3; idx += F_THREADS) out_grad[p0 * 3 + idx] = G[idx];
 }
 
+// ---------------------------------------------------------------------------
+// backward: recompute and reverse sweep
+// ---------------------------------------------------------------------------
+
+// Scratch of the backward (bf16, in pieces), M = 4 n_pad stacked rows in
+// the tile order: H[8][M][256], the activations of layers 0-7 as the
+// forward formed them, which the sweep and the parameter pass both read
+// (through_act needs s = sigmoid(beta z_p) = 1 - exp(-beta h_p) and the
+// products s z_t = h_t); GZ[8][M][256]; GZ8[M][272]; PE[M][48].
+struct Scratch {
+  bf16 *H, *GZ, *GZ8, *PE;
+  __host__ __device__ Scratch(bf16* base, size_t M) {
+    H = base;
+    GZ = H + 8 * M * HID;
+    GZ8 = GZ + 8 * M * HID;
+    PE = GZ8 + M * OUTW;
+  }
+  static size_t elems(size_t M) { return 16 * M * HID + M * (OUTW + PEW); }
+};
+
+__global__ void __launch_bounds__(F_THREADS, 1)
+sdf_bwd_sweep_kernel(const float* __restrict__ pts, const bf16* __restrict__ W,
+                     const float* __restrict__ bias, float beta, float scale, int n_pad,
+                     const float* __restrict__ d_sdf, const float* __restrict__ d_grad,
+                     const float* __restrict__ d_feats, bf16* __restrict__ scratch) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* H = reinterpret_cast<bf16*>(smem);
+  bf16* PEb = H + ROWS * LDH;
+  bf16* G = H;  // the sweep's cotangent tile [ROWS][LDG], over H and the PE
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = warp / NQ, cq = warp % NQ;
+  const int g = lane >> 2, t = lane & 3;
+  const int p0 = blockIdx.x * P;
+  const size_t M = 4 * (size_t)n_pad, row0 = (size_t)blockIdx.x * ROWS, LS = M * HID;
+  const Scratch S(scratch, M);
+
+  Ring<true> ring{PEb + ROWS * LDP, W, 0};
+  for (int s = 0; s < STAGES - 1; ++s) ring.load(s);
+  pe_tile(PEb, pts, p0, scale, S.PE + row0 * PEW);
+  hidden_layers(H, PEb, ring, bias, beta, S.H + row0 * HID, LS);
+  __syncthreads();  // the activations and the PE give way to the cotangent tile
+
+  // layer 8's cotangent: primal rows [d_sdf, d_feats], the tangent row of
+  // kind s carries d_grad_s in the sdf column
+  for (int idx = tid; idx < ROWS * OUTW / 2; idx += F_THREADS) {
+    const int row = idx / (OUTW / 2), c = 2 * (idx % (OUTW / 2));
+    const int s = (row >> 3) & 3, r = (row >> 5) * 8 + (row & 7);
+    float g0 = 0.0f, g1 = 0.0f;
+    if (s == 0) {
+      const size_t f = (size_t)(p0 + r) * HID;  // column c holds feats c - 1
+      g0 = c == 0 ? d_sdf[p0 + r] : c <= HID ? d_feats[f + c - 1] : 0.0f;
+      g1 = c + 1 <= HID ? d_feats[f + c] : 0.0f;
+    } else if (c == 0) {
+      g0 = d_grad[(p0 + r) * 3 + s - 1];
+    }
+    const __nv_bfloat162 v = __floats2bfloat162_rn(g0, g1);
+    *reinterpret_cast<__nv_bfloat162*>(G + row * LDG + c) = v;
+    *reinterpret_cast<__nv_bfloat162*>(S.GZ8 + piece_off(row0 + row, c, OUTW)) = v;
+  }
+
+  const unsigned g_x = smem_u32(G + (grp * 32 + (lane & 15)) * LDG + (lane >> 4) * 8);
+  const int col0 = cq * WN * 8;
+  const size_t goff = piece_off(row0 + grp * 32 + g, col0 + 2 * t, HID);
+  bf16* grow = G + (grp * 32 + g) * LDG + col0 + 2 * t;
+  for (int l = 8; l >= 1; --l) {
+    // cotangent of h_l = act(z_{l-1}): GH = GZ_l @ W_l^T (w4a for the skip)
+    float acc[2][WN][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int j = 0; j < WN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.0f;
+    product<true>(acc, ring, g_x, LDG, l == 8 ? OUTW : HID, col0);
+    __syncthreads();  // every warp is done reading the cotangent tile
+    const int lp = l - 1;
+    const bf16* hl = S.H + lp * LS + goff;
+    bf16* gzl = S.GZ + lp * LS + goff;
+#pragma unroll
+    for (int j = 0; j < WN; ++j) {
+      float h[4][2], gz[4][2];  // h: the stored activations of layer lp
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const float2 hf = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(hl + s * F_S + j * F_J));
+        h[s][0] = hf.x;
+        h[s][1] = hf.y;
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        // through_act: h_p = softplus_b(z_p), h_t = s z_t with s = sigmoid(beta z_p),
+        // so gz_p = s gh_p + beta s (1 - s) sum_t z_t gh_t and gz_t = s gh_t;
+        // 1 - s = exp(-beta h_p), and s z_t = h_t takes the place of z_t
+        const float gh[4] = {acc[0][j][e], acc[0][j][2 + e], acc[1][j][e], acc[1][j][2 + e]};
+        const float x = beta * h[0][e];
+        const float sg = -expm1f(-x), s2 = beta * expf(-x);
+        const float mix = h[1][e] * gh[1] + h[2][e] * gh[2] + h[3][e] * gh[3];
+        const bool masked = lp == 3 && col0 + j * 8 + 2 * t + e >= MASK_W;
+        gz[0][e] = masked ? 0.0f : sg * gh[0] + s2 * mix;
+#pragma unroll
+        for (int s = 1; s < 4; ++s) gz[s][e] = masked ? 0.0f : sg * gh[s];
+      }
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const __nv_bfloat162 v = __floats2bfloat162_rn(gz[s][0], gz[s][1]);
+        *reinterpret_cast<__nv_bfloat162*>(gzl + s * F_S + j * F_J) = v;
+        if (lp > 0) *reinterpret_cast<__nv_bfloat162*>(grow + s * 8 * LDG + j * 8) = v;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward: weight and bias gradients
+// ---------------------------------------------------------------------------
+
+constexpr int PW_THREADS = 512;  // 16 warps: a 128 x 256 tile of dW, 32 x 64 a warp
+constexpr int PW_RS = 128;       // rows per stage: one tile, four point groups
+constexpr int PW_STAGES = 2;
+constexpr int PW_STAGE = PW_RS * (128 + HID);  // X's 128 columns at most, G's 256
+constexpr size_t PW_SMEM = (size_t)PW_STAGES * PW_STAGE * 2;
+constexpr int PW_TILES = 20;
+constexpr int PW_MIN_ROWS = 4096;  // stacked rows per chunk, at least
+constexpr size_t PART_ROW = W_TOTAL + 9 * OUTW;  // one chunk's partials: dW, then db
+static_assert(PW_SMEM <= 232448, "parameter pass shared memory");
+
+// One block's share of the parameter gradients: dW[out + k * ldo + n] for
+// k < 8 xn, n < 8 gn = sum over the chunk's rows of X[row][8 xp + k]
+// G[row][8 gp + n], X and G in pieces of widths xw and gw.
+struct PwTile {
+  const bf16 *X, *G;
+  int xw, xp, xn;    // X: width, first column piece, pieces
+  int gw, gp, gn;    // G: the same
+  size_t out;
+  int ldo;
+  int db, db_col0, db_n;  // db[db][db_col0 + i], i < db_n: column sums (0 past G's); db < 0: none
+};
+
+// Tiles 0-15: w1 w2 w3 w4a w5 w6 w7 w8 (in 0-255 of the output columns),
+// two 128-row halves of the input each; 16, 17: w0 and w4b on the PE;
+// 18, 19: w8's output columns 256-271, two halves.
+__device__ __forceinline__ PwTile pw_tile(int t, const Scratch& S, size_t M) {
+  const size_t LS = M * HID;
+  if (t < 16) {
+    const int l = 1 + t / 2, it = t % 2, ldo = l == 8 ? OUTW : HID;
+    return {S.H + (l - 1) * LS, l == 8 ? S.GZ8 : S.GZ + l * LS, HID, 16 * it, 16, ldo, 0, 32,
+            layer_off(l) + (size_t)it * 128 * ldo, ldo, it == 0 ? l : -1, 0,
+            l == 8 ? HID : OUTW};
+  }
+  if (t < 18) {
+    const bool w0 = t == 16;
+    return {S.PE, S.GZ + (w0 ? 0 : 4) * LS, PEW, 0, PEW / 8, HID, 0, 32,
+            w0 ? OFF_W0 : OFF_W4B, HID, w0 ? 0 : -1, 0, OUTW};
+  }
+  const int it = t - 18;
+  return {S.H + 7 * LS, S.GZ8, HID, 16 * it, 16, OUTW, 32, 2,
+          OFF_W8 + (size_t)it * 128 * OUTW + HID, OUTW, it == 0 ? 8 : -1, HID, OUTW - HID};
+}
+
+__global__ void __launch_bounds__(PW_THREADS, 1)
+sdf_bwd_params_kernel(bf16* __restrict__ scratch, int n_pad, int rows_per_chunk,
+                      float* __restrict__ part) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* stages = reinterpret_cast<bf16*>(smem);  // per stage X then G, each in pieces
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ig = warp / 4, og = warp % 4;  // the warp's 32 input rows and 64 output columns
+  const int g = lane >> 2, t = lane & 3;
+  const size_t M = 4 * (size_t)n_pad;
+  const PwTile T = pw_tile(blockIdx.x, Scratch(scratch, M), M);
+  const int m0 = blockIdx.y * rows_per_chunk;
+  const int n_st = max(0, min((int)M - m0, rows_per_chunk)) / PW_RS;
+  constexpr int GROUPS = PW_RS / 32;
+
+  // the stage's point groups, pieces p .. p + n - 1 of each: GROUPS runs of
+  // n * F_J elements in device memory, 16 bytes a copy
+  auto copy = [&](bf16* dst, const bf16* src, int w, int p, int n, size_t m) {
+    const int run = n * F_J / 8;
+    for (int v = tid; v < GROUPS * run; v += PW_THREADS) {
+      const int q = v / run, c = (v - q * run) * 8;
+      cp_async16(dst + q * n * F_J + c, src + (m / 32 + q) * (w / 8) * F_J + p * F_J + c);
+    }
+  };
+  auto load = [&](int i) {
+    if (i < n_st) {
+      bf16* xs = stages + (i % PW_STAGES) * PW_STAGE;
+      const size_t m = (size_t)m0 + (size_t)i * PW_RS;
+      copy(xs, T.X, T.xw, T.xp, T.xn, m);
+      copy(xs + PW_RS * T.xn * 8, T.G, T.gw, T.gp, T.gn, m);
+    }
+    cp_async_commit();
+  };
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.0f;
+  float dbs = 0.0f;
+  const bool rows_here = ig * 4 < T.xn && og * 8 < T.gn;
+  // ldmatrix: lanes 8q .. 8q + 7 give the rows of matrix q. A = X^T (.trans):
+  // matrices (k 0-7, m 0-7), (k 0-7, m 8-15), (k 8-15, m 0-7), (k 8-15, m 8-15);
+  // B = G (.trans): (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15)
+  const int a_k8 = lane >> 4, a_m8 = (lane >> 3) & 1, b_k8 = (lane >> 3) & 1, b_n8 = lane >> 4;
+
+  for (int s = 0; s < PW_STAGES - 1; ++s) load(s);
+  for (int i = 0; i < n_st; ++i) {
+    cp_async_wait<PW_STAGES - 2>();
+    __syncthreads();
+    load(i + PW_STAGES - 1);  // into the stage the block finished with
+    bf16* xs = stages + (i % PW_STAGES) * PW_STAGE;
+    const bf16* gs = xs + PW_RS * T.xn * 8;
+    if (T.db >= 0 && tid < T.gn * 8) {  // the primal rows: kind 0 of each group
+#pragma unroll
+      for (int q = 0; q < GROUPS; ++q)
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          dbs += from_bf(gs[(q * T.gn + (tid >> 3)) * F_J + r * 8 + (tid & 7)]);
+    }
+    if (rows_here) {
+      const unsigned xa = smem_u32(xs), ga = smem_u32(gs);
+#pragma unroll
+      for (int kk = 0; kk < PW_RS / 16; ++kk) {
+        const int q = kk >> 1;  // the point group of rows 16 kk .. 16 kk + 15
+        unsigned a[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const int piece = ig * 4 + mt * 2 + a_m8, kind = (2 * kk + a_k8) & 3;
+          ldsm_x4_t(a[mt], xa + ((q * T.xn + piece) * F_J + kind * F_S + (lane & 7) * 8) * 2);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (og * 8 + j * 2 >= T.gn) break;
+          const int piece = og * 8 + j * 2 + b_n8, kind = (2 * kk + b_k8) & 3;
+          unsigned bb[4];
+          ldsm_x4_t(bb, ga + ((q * T.gn + piece) * F_J + kind * F_S + (lane & 7) * 8) * 2);
+          mma_bf16(acc[0][2 * j], a[0], bb[0], bb[1]);
+          mma_bf16(acc[1][2 * j], a[1], bb[0], bb[1]);
+          mma_bf16(acc[0][2 * j + 1], a[0], bb[2], bb[3]);
+          mma_bf16(acc[1][2 * j + 1], a[1], bb[2], bb[3]);
+        }
+      }
+    }
+  }
+
+  float* out = part + (size_t)blockIdx.y * PART_ROW;
+  if (rows_here) {
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int k = ig * 32 + m * 16 + g + h * 8, n = og * 64 + j * 8 + 2 * t;
+          if (k < T.xn * 8 && n < T.gn * 8)
+            *reinterpret_cast<float2*>(out + T.out + (size_t)k * T.ldo + n) =
+                make_float2(acc[m][j][2 * h], acc[m][j][2 * h + 1]);
+        }
+  }
+  if (T.db >= 0 && tid < T.db_n)
+    out[W_TOTAL + T.db * OUTW + T.db_col0 + tid] = tid < T.gn * 8 ? dbs : 0.0f;
+}
+
+// dW, db = the chunks' partials added in chunk order
+__global__ void sdf_bwd_reduce_kernel(const float* __restrict__ part, int n_chunks,
+                                      float* __restrict__ dW, float* __restrict__ db) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= PART_ROW) return;
+  float s = 0.0f;
+  for (int c = 0; c < n_chunks; ++c) s += part[(size_t)c * PART_ROW + i];
+  if (i < W_TOTAL) dW[i] = s;
+  else db[i - W_TOTAL] = s;
+}
+
+// Row chunks of the parameter pass: at least PW_MIN_ROWS rows each, at most
+// 64 (enough blocks to fill the card with the 20 tiles), PW_RS-row stages.
+int pw_chunks(int n_pad) {
+  const int c = 4 * n_pad / PW_MIN_ROWS;
+  return c < 1 ? 1 : c > 64 ? 64 : c;
+}
+
+int pw_chunk_rows(int n_pad) {
+  const int M = 4 * n_pad, c = pw_chunks(n_pad);
+  return ((M + c - 1) / c + PW_RS - 1) / PW_RS * PW_RS;
+}
+
 }  // namespace
 
 extern "C" {
@@ -520,9 +754,7 @@ extern "C" {
 size_t sdf_grad_weight_elems() { return W_TOTAL; }
 int sdf_grad_tile() { return P; }
 size_t sdf_grad_scratch_elems(int n_pad) { return Scratch::elems(4 * (size_t)n_pad); }
-size_t sdf_grad_part_elems(int n_pad) {
-  return part_elems(4 * n_pad, dw_chunks(4 * n_pad, DW_CHUNK_MIN_ROWS), HID, OUTW);
-}
+size_t sdf_grad_part_elems(int n_pad) { return (size_t)pw_chunks(n_pad) * PART_ROW; }
 
 // pts [n_pad,3] f32 (n_pad % 32 == 0); W packed bf16; bias [9,272] f32.
 int sdf_grad_fwd(const float* pts, int n_pad, const bf16* W, const float* bias, float beta,
@@ -536,34 +768,45 @@ int sdf_grad_fwd(const float* pts, int n_pad, const bf16* W, const float* bias, 
   return (int)cudaGetLastError();
 }
 
+// The backward's first part: recompute and reverse sweep into the scratch
+// (sdf_grad_scratch_elems(n_pad) bf16).
+int sdf_grad_bwd_sweep(const float* pts, int n_pad, const bf16* W, const float* bias,
+                       float beta, float scale, const float* d_sdf, const float* d_grad,
+                       const float* d_feats, bf16* scratch, cudaStream_t stream) {
+  if (n_pad <= 0) return 0;
+  const cudaError_t err = cudaFuncSetAttribute(
+      sdf_bwd_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  sdf_bwd_sweep_kernel<<<n_pad / P, F_THREADS, F_SMEM, stream>>>(
+      pts, W, bias, beta, scale, n_pad, d_sdf, d_grad, d_feats, scratch);
+  return (int)cudaGetLastError();
+}
+
+// The second: dW and db from the scratch; part holds sdf_grad_part_elems(n_pad) floats.
+int sdf_grad_bwd_params(int n_pad, bf16* scratch, float* part, float* dW, float* db,
+                        cudaStream_t stream) {
+  if (n_pad <= 0) return 0;
+  const cudaError_t err = cudaFuncSetAttribute(
+      sdf_bwd_params_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)PW_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int n_chunks = pw_chunks(n_pad);
+  sdf_bwd_params_kernel<<<dim3(PW_TILES, n_chunks), PW_THREADS, PW_SMEM, stream>>>(
+      scratch, n_pad, pw_chunk_rows(n_pad), part);
+  sdf_bwd_reduce_kernel<<<(unsigned)((PART_ROW + 255) / 256), 256, 0, stream>>>(part, n_chunks,
+                                                                               dW, db);
+  return (int)cudaGetLastError();
+}
+
 // Gradients w.r.t. the packed weights (dW, same layout, f32) and biases
-// (db [9,272] f32). part holds sdf_grad_part_elems(n_pad) floats.
+// (db [9,272] f32): the two parts above, three launches.
 int sdf_grad_bwd(const float* pts, int n_pad, const bf16* W, const float* bias, float beta,
                  float scale, const float* d_sdf, const float* d_grad, const float* d_feats,
                  bf16* scratch, float* part, float* dW, float* db, cudaStream_t stream) {
   if (n_pad <= 0) return 0;  // dW and db stay as the caller zeroed them
-  cudaFuncSetAttribute(sdf_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)SMEM_BYTES);
-  sdf_rows_kernel<<<n_pad / P, NTHREADS, SMEM_BYTES, stream>>>(
-      pts, W, bias, beta, scale, n_pad, d_sdf, d_grad, d_feats, scratch);
-  const int M = 4 * n_pad;
-  const int n_chunks = dw_chunks(M, DW_CHUNK_MIN_ROWS);
-  Scratch S(scratch, (size_t)M);
-  const size_t LH = (size_t)M * HID;
-  // layer 0 reads the PE; layer 4 reads h3 (w4a) and the PE (w4b)
-  weight_grad(S.PE, PEW, S.GZ, HID, M, PEW, HID, n_chunks, part, dW + OFF_W0, 0, stream);
-  for (int l = 1; l < 8; ++l)
-    weight_grad(S.H + (l - 1) * LH, HID, S.GZ + l * LH, HID, M, HID, HID, n_chunks, part,
-                dW + layer_off(l), 0, stream);
-  weight_grad(S.PE, PEW, S.GZ + 4 * LH, HID, M, PEW, HID, n_chunks, part, dW + OFF_W4B, 0,
-              stream);
-  weight_grad(S.H + 7 * LH, HID, S.GZ8, OUTW, M, HID, OUTW, n_chunks, part, dW + OFF_W8, 0,
-              stream);
-  // biases act on primal rows only: row % 128 < 32 in the tile-major layout
-  for (int l = 0; l < 8; ++l)
-    bias_grad(S.GZ + l * LH, HID, M, HID, ROWS, P, part, db + l * OUTW, 0, stream);
-  bias_grad(S.GZ8, OUTW, M, OUTW, ROWS, P, part, db + 8 * OUTW, 0, stream);
-  return (int)cudaGetLastError();
+  const int rc = sdf_grad_bwd_sweep(pts, n_pad, W, bias, beta, scale, d_sdf, d_grad, d_feats,
+                                    scratch, stream);
+  if (rc) return rc;
+  return sdf_grad_bwd_params(n_pad, scratch, part, dW, db, stream);
 }
 
 }  // extern "C"

@@ -1,18 +1,23 @@
-"""Times variants of the SDF-with-gradient forward kernel on the card.
+"""Times variants of the SDF-with-gradient kernels on the card.
 
     python -m nero_tpu_torch.kernel_variants [--parent OLD/sdf_grad.cu] [NAME ...]
 
-Each variant is `csrc/sdf_grad.cu` with one design choice of its forward
-kernel undone or one part of its work taken out (VARIANTS), built by nvcc
+Each variant is `csrc/sdf_grad.cu` with one design choice undone or one part
+of its work taken out (VARIANTS: the forward engine's, which the backward's
+recompute and reverse sweep share, then the backward's own), built by nvcc
 from a patched copy (one process each, in parallel) into
 `build/nero_tpu_torch/variants/`. `--parent` adds another version of the
-source, built as it is (an earlier commit's, with the same C entry). All are
-launched on the same packed weights and points at N = 65,536, the training
-lattice, in the given order and then in reverse, 20 timed launches each
-after 3 untimed ones (CUDA events). Prints per variant the registers and
-spill bytes that ptxas reported for the forward, the two times, and the
-largest difference of sdf, grad and feats from the kernel as it is: the
-variants that only reorganise the work must give 0 for sdf and feats.
+source, built as it is (an earlier commit's, with the same C entries
+`sdf_grad_fwd` and `sdf_grad_bwd`). All are launched on the same packed
+weights, points and cotangents at N = 65,536, the training lattice, in the
+given order and then in reverse, 20 timed forward and 10 timed backward
+launches each after 3 untimed ones (CUDA events). Prints per variant the
+registers and spill bytes that ptxas reported for the forward, the sweep and
+the parameter-pass kernels, the times of the forward, of the whole backward
+and of its two parts (recompute + sweep, parameter pass; not for a parent
+without them) in both passes, and the largest difference from the kernel as
+it is: of sdf, grad and feats, and of dW and db over their largest value. The
+variants that only reorganise the work must give 0.
 """
 from __future__ import annotations
 
@@ -33,7 +38,6 @@ N = 65536
 OUT_DIR = os.path.join(cuda_build.BUILD_DIR, "variants")
 
 _EPILOGUE = """\
-        const float zp = acc[0][j][e] + (e ? b2.y : b2.x);
         const float x = beta * zp;
         const float ex = expf(-fabsf(x));  // softplus_b's, shared with the sigmoid
         const float sg = __fdividef(x >= 0.0f ? 1.0f : ex, 1.0f + ex);
@@ -43,10 +47,22 @@ _EPILOGUE = """\
         h[2][e] = masked ? 0.0f : sg * acc[1][j][e];
         h[3][e] = masked ? 0.0f : sg * acc[1][j][2 + e];"""
 _NO_EPILOGUE = """\
-        h[0][e] = acc[0][j][e] * 0.01f + b2.x;
+        h[0][e] = zp * 0.01f;
         h[1][e] = acc[0][j][2 + e] * 0.01f;
         h[2][e] = acc[1][j][e] * 0.01f;
         h[3][e] = acc[1][j][2 + e] * 0.01f;"""
+_SWEEP_EPILOGUE = """\
+        const float x = beta * h[0][e];
+        const float sg = -expm1f(-x), s2 = beta * expf(-x);
+        const float mix = h[1][e] * gh[1] + h[2][e] * gh[2] + h[3][e] * gh[3];
+        const bool masked = lp == 3 && col0 + j * 8 + 2 * t + e >= MASK_W;
+        gz[0][e] = masked ? 0.0f : sg * gh[0] + s2 * mix;
+#pragma unroll
+        for (int s = 1; s < 4; ++s) gz[s][e] = masked ? 0.0f : sg * gh[s];"""
+# keeps the stored H's loads and the accumulators live
+_NO_SWEEP_EPILOGUE = """\
+#pragma unroll
+        for (int s = 0; s < 4; ++s) gz[s][e] = gh[s] * 0.01f + h[s][e];"""
 _MMA = """\
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
@@ -55,6 +71,51 @@ _MMA = """\
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));"""
 # keeps the fragments live (ldmatrix stays), no tensor-core work
 _NO_MMA = "  c[0] += __uint_as_float(a[0] & b0 & 0x3f800000u) - 1.0f;"
+# the recompute stores the pre-activations Z (bias added, no mask), as the
+# TPU kernel keeps them; the sweep takes s = sigmoid(beta z_p) and z_t from Z,
+# and the parameter pass forms H = act(bf16 z) in place in its stage (the TPU
+# kernel's h_of), layer 3's mask on tiles 6 and 7 (X is layer 3's output);
+# the sweep hands it beta through a device variable
+_STORE_H = """\
+        if (Hg)
+          *reinterpret_cast<__nv_bfloat162*>(Hg + l * lstride + goff + s * F_S + j * F_J) =
+              __floats2bfloat162_rn(h[s][0], h[s][1]);"""
+_STORE_Z = """\
+        if (Hg)
+          *reinterpret_cast<__nv_bfloat162*>(Hg + l * lstride + goff + s * F_S + j * F_J) =
+              s == 0 ? __floats2bfloat162_rn(acc[0][j][0] + b2.x, acc[0][j][1] + b2.y)
+                     : __floats2bfloat162_rn(acc[s >> 1][j][(s & 1) * 2],
+                                             acc[s >> 1][j][(s & 1) * 2 + 1]);"""
+_S_FROM_Z = """\
+        const float ex = expf(-fabsf(x));
+        const float sg = __fdividef(x >= 0.0f ? 1.0f : ex, 1.0f + ex);
+        const float s2 = beta * sg * (1.0f - sg);"""
+_STAGE = "    const bf16* gs = xs + PW_RS * T.xn * 8;\n"
+_H_FROM_Z = _STAGE + """\
+    if (T.xw == HID) {
+      const float beta = pw_beta, inv_beta = __frcp_rn(beta);
+      for (int v = tid; v < PW_RS / 4 * T.xn * 8; v += PW_THREADS) {
+        const int c = v & 7, row = (v >> 3) & 7, piece = (v >> 6) % T.xn, q = (v >> 6) / T.xn;
+        bf16* zr = xs + (q * T.xn + piece) * F_J + row * 8 + c;
+        const float x = beta * from_bf(zr[0]);
+        const float ex = expf(-fabsf(x));
+        const float sg = __fdividef(x >= 0.0f ? 1.0f : ex, 1.0f + ex);
+        const bool masked = blockIdx.x / 2 == 3 && (T.xp + piece) * 8 + c >= MASK_W;
+        zr[0] = to_bf(masked ? 0.0f : div_beta(fmaxf(x, 0.0f) + log1pf(ex), beta, inv_beta));
+#pragma unroll
+        for (int s = 1; s < 4; ++s) zr[s * F_S] = to_bf(masked ? 0.0f : sg * from_bf(zr[s * F_S]));
+      }
+      __syncthreads();
+    }
+"""
+_SWEEP_RECOMPUTE = "  hidden_layers(H, PEb, ring, bias, beta, S.H + row0 * HID, LS);\n"
+_PARAMS_LAUNCH = """\
+  sdf_bwd_params_kernel<<<dim3(PW_TILES, n_chunks), PW_THREADS, PW_SMEM, stream>>>(
+      scratch, n_pad, pw_chunk_rows(n_pad), part);"""
+_PARAMS_LAUNCH_PER_TILE = """\
+  for (int t = 0; t < PW_TILES; ++t)
+    sdf_bwd_params_kernel<<<dim3(1, n_chunks), PW_THREADS, PW_SMEM, stream>>>(
+        scratch, n_pad, t, pw_chunk_rows(n_pad), part);"""
 
 
 def _shape(wn: int, stages: int, slab_k: int):
@@ -65,19 +126,46 @@ def _shape(wn: int, stages: int, slab_k: int):
 
 VARIANTS = {
     "kernel": [],
+    # the forward engine (also the backward's recompute and reverse sweep)
     # the first design: 8 warps of 32 rows x 128 columns (128 accumulators)
     "warps8_cols128": _shape(16, 2, 128),
-    # weight slabs of 32 rows through a 4-stage ring
+    # weight slabs of 32 rows (sweep: columns) through a 4-stage ring
     "slab32_stages4": _shape(8, 4, 32),
     # softplus_b's IEEE division, and the IEEE sigmoid of the tangent rule
     "ieee_divisions": [
-        ("div_beta(fmaxf(x, 0.0f) + log1pf(ex), beta, inv_beta)", "softplus_b(zp, beta)"),
-        ("__fdividef(x >= 0.0f ? 1.0f : ex, 1.0f + ex)",
-         "x >= 0.0f ? 1.0f / (1.0f + ex) : ex / (1.0f + ex)")],
+        ("div_beta(fmaxf(x, 0.0f) + log1pf(ex), beta, inv_beta);\n        h[1]",
+         "softplus_b(zp, beta);\n        h[1]"),
+        ("__fdividef(x >= 0.0f ? 1.0f : ex, 1.0f + ex);\n        const bool masked = l == 3",
+         "x >= 0.0f ? 1.0f / (1.0f + ex) : ex / (1.0f + ex);\n        const bool masked = l == 3")],
     "no_epilogue": [(_EPILOGUE, _NO_EPILOGUE)],
     "no_mma": [(_MMA, _NO_MMA)],
-    "weights_only": [(_EPILOGUE, _NO_EPILOGUE), (_MMA, _NO_MMA)],
+    "weights_only": [(_EPILOGUE, _NO_EPILOGUE), (_SWEEP_EPILOGUE, _NO_SWEEP_EPILOGUE),
+                     (_MMA, _NO_MMA)],
+    # the backward's own
+    # the recompute stores Z, not H (see _STORE_Z)
+    "bwd_store_z": [
+        (_STORE_H, _STORE_Z),
+        ("        const float sg = -expm1f(-x), s2 = beta * expf(-x);", _S_FROM_Z),
+        ("struct Scratch {", "__device__ float pw_beta;\n\nstruct Scratch {"),
+        (_SWEEP_RECOMPUTE,
+         "  if (blockIdx.x == 0 && tid == 0) pw_beta = beta;\n" + _SWEEP_RECOMPUTE),
+        (_STAGE, _H_FROM_Z)],
+    # the parameter pass as one launch per tile (20), not one for all
+    "bwd_launch_per_tile": [
+        ("scratch, int n_pad, int rows_per_chunk,",
+         "scratch, int n_pad, int tile0, int rows_per_chunk,"),
+        ("pw_tile(blockIdx.x,", "pw_tile(tile0 + blockIdx.x,"),
+        (_PARAMS_LAUNCH, _PARAMS_LAUNCH_PER_TILE)],
+    # its ring: 3 stages of 64 rows, 4 of 32, not 2 of 128 (one tile)
+    "bwd_ring3_rows64": [("constexpr int PW_RS = 128;", "constexpr int PW_RS = 64;"),
+                         ("constexpr int PW_STAGES = 2;", "constexpr int PW_STAGES = 3;")],
+    "bwd_ring4_rows32": [("constexpr int PW_RS = 128;", "constexpr int PW_RS = 32;"),
+                         ("constexpr int PW_STAGES = 2;", "constexpr int PW_STAGES = 4;")],
+    # the sweep's through_act epilogue
+    "bwd_no_epilogue": [(_SWEEP_EPILOGUE, _NO_SWEEP_EPILOGUE)],
 }
+
+_KERNELS = ("sdf_grad_fwd_kernel", "sdf_bwd_sweep_kernel", "sdf_bwd_params_kernel")
 
 
 def variant_source(name: str) -> str:
@@ -110,11 +198,35 @@ def build(sources: dict) -> dict:
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.sdf_grad_fwd.restype = i
         lib.sdf_grad_fwd.argtypes = [vp, i, vp, vp, f, f, vp, vp, vp, vp]
-        # the parent's forward may be the template instance of the old kernel
-        info = (cuda_build.parse_ptxas(log, "sdf_grad_fwd_kernel")
-                or cuda_build.parse_ptxas(log, "sdf_rows_kernelILb0E"))
-        libs[name] = (lib, f"{info.get('regs')} regs, {info.get('spill_bytes')} spill bytes")
+        lib.sdf_grad_bwd.restype = i
+        lib.sdf_grad_bwd.argtypes = [vp, i, vp, vp, f, f, vp, vp, vp, vp, vp, vp, vp, vp]
+        for fn in ("sdf_grad_scratch_elems", "sdf_grad_part_elems"):
+            getattr(lib, fn).restype = ctypes.c_size_t
+            getattr(lib, fn).argtypes = [i]
+        parts = hasattr(lib, "sdf_grad_bwd_sweep")
+        if parts:
+            lib.sdf_grad_bwd_sweep.restype = i
+            lib.sdf_grad_bwd_sweep.argtypes = [vp, i, vp, vp, f, f, vp, vp, vp, vp, vp]
+            lib.sdf_grad_bwd_params.restype = i
+            lib.sdf_grad_bwd_params.argtypes = [i, vp, vp, vp, vp, vp]
+        regs = []
+        for kern in _KERNELS:
+            info = cuda_build.parse_ptxas(log, kern)
+            regs.append(f"{info.get('regs', '-')}/{info.get('spill_bytes', '-')}")
+        libs[name] = (lib, parts, " ".join(regs))
     return libs
+
+
+def _time(fn, iters: int) -> float:
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def main(argv=None) -> int:
@@ -132,41 +244,79 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda")
     cfg = SDFConfig()
+    beta, scale = float(cfg.beta), float(cfg.scale)
     layers = resolve_weight_norm(init_sdf(torch.Generator().manual_seed(3), cfg, device=dev))
     with torch.no_grad():
         W, bias = K.pack_weights([l["w"] for l in layers], [l["b"] for l in layers])
-    pts = torch.as_tensor(np.random.default_rng(1).uniform(-0.7, 0.7, (N, 3)).astype(np.float32),
-                          device=dev)
+    rng = np.random.default_rng(1)
+    t = lambda a: torch.as_tensor(a.astype(np.float32), device=dev)
+    pts = t(rng.uniform(-0.7, 0.7, (N, 3)))
+    g_sdf, g_grad = t(rng.standard_normal(N)) / N, t(rng.standard_normal((N, 3))) / N
+    g_feats = t(rng.standard_normal((N, 256))) * (0.1 / N)
     stream = torch.cuda.current_stream(dev).cuda_stream
 
-    def run(lib):
+    def fwd(lib):
         out = (torch.empty(N, device=dev), torch.empty(N, 3, device=dev),
                torch.empty(N, 256, device=dev))
-        rc = lib.sdf_grad_fwd(pts.data_ptr(), N, W.data_ptr(), bias.data_ptr(), float(cfg.beta),
-                              float(cfg.scale), *(o.data_ptr() for o in out), stream)
+        rc = lib.sdf_grad_fwd(pts.data_ptr(), N, W.data_ptr(), bias.data_ptr(), beta, scale,
+                              *(o.data_ptr() for o in out), stream)
         cuda_build.check(rc, "sdf_grad_fwd")
         return out
 
+    bufs = {}
+
+    def buffers(lib):
+        if id(lib) not in bufs:  # one set per library, outside the timed launches
+            bufs[id(lib)] = (
+                torch.empty(lib.sdf_grad_scratch_elems(N), dtype=torch.bfloat16, device=dev),
+                torch.empty(lib.sdf_grad_part_elems(N), device=dev),
+                torch.zeros(W.numel(), device=dev), torch.zeros(9, K.OUT_W, device=dev))
+        return bufs[id(lib)]
+
+    def sweep(lib):
+        scratch = buffers(lib)[0]
+        rc = lib.sdf_grad_bwd_sweep(pts.data_ptr(), N, W.data_ptr(), bias.data_ptr(), beta,
+                                    scale, g_sdf.data_ptr(), g_grad.data_ptr(),
+                                    g_feats.data_ptr(), scratch.data_ptr(), stream)
+        cuda_build.check(rc, "sdf_grad_bwd_sweep")
+
+    def params(lib):
+        scratch, part, dW, db = buffers(lib)
+        rc = lib.sdf_grad_bwd_params(N, scratch.data_ptr(), part.data_ptr(),
+                                     dW.data_ptr(), db.data_ptr(), stream)
+        cuda_build.check(rc, "sdf_grad_bwd_params")
+
+    def bwd(lib):
+        scratch, part, dW, db = buffers(lib)
+        rc = lib.sdf_grad_bwd(pts.data_ptr(), N, W.data_ptr(), bias.data_ptr(), beta, scale,
+                              g_sdf.data_ptr(), g_grad.data_ptr(), g_feats.data_ptr(),
+                              scratch.data_ptr(), part.data_ptr(), dW.data_ptr(),
+                              db.data_ptr(), stream)
+        cuda_build.check(rc, "sdf_grad_bwd")
+        return dW, db
+
     outs, times = {}, {n: [] for n in libs}
     for name in list(libs) + list(reversed(libs)):
-        lib = libs[name][0]
-        outs[name] = run(lib)
-        for _ in range(3):
-            run(lib)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(20):
-            run(lib)
-        end.record()
-        torch.cuda.synchronize()
-        times[name].append(start.elapsed_time(end) / 20)
+        lib, parts, _ = libs[name]
+        outs[name] = fwd(lib) + tuple(x.clone() for x in bwd(lib))
+        row = [_time(lambda: fwd(lib), 20), _time(lambda: bwd(lib), 10)]
+        if parts:
+            row += [_time(lambda: sweep(lib), 10), _time(lambda: params(lib), 10)]
+        times[name].append(row)
+    del bufs
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
-    for name, (_, ptx) in libs.items():
-        d = ", ".join(f"{(a - b).abs().max().item():.2e}" for a, b in zip(outs[name],
-                                                                           outs["kernel"]))
-        print(f"{name:16s} {ptx:26s} ms {times[name][0]:.4f} {times[name][1]:.4f}  "
-              f"max|d| sdf, grad, feats {d}")
+    print("variant              regs/spills fwd sweep params   ms: fwd, bwd (sweep + params), "
+          "first / second pass   max|d| sdf grad feats; dW db (over their max)")
+    ref = outs["kernel"]
+    for name, (_, parts, ptx) in libs.items():
+        o = outs[name]
+        d = [f"{(a - b).abs().max().item():.2e}" for a, b in zip(o[:3], ref[:3])]
+        d += [f"{((a - b).abs().max() / b.abs().max()).item():.2e}" for a, b in zip(o[3:], ref[3:])]
+        ms = []
+        for k, label in enumerate(("fwd", "bwd", "sweep", "params")[:len(times[name][0])]):
+            ms.append(f"{label} {times[name][0][k]:.4f}/{times[name][1][k]:.4f}")
+        print(f"{name:20s} {ptx:24s} {'  '.join(ms)}   {' '.join(d[:3])}; {' '.join(d[3:])}")
     return 0
 
 

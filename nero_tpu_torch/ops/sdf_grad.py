@@ -84,6 +84,10 @@ def _lib():
         lib.sdf_grad_fwd.argtypes = [vp, i, vp, vp, f, f, vp, vp, vp, vp]
         lib.sdf_grad_bwd.restype = i
         lib.sdf_grad_bwd.argtypes = [vp, i, vp, vp, f, f, vp, vp, vp, vp, vp, vp, vp, vp]
+        lib.sdf_grad_bwd_sweep.restype = i
+        lib.sdf_grad_bwd_sweep.argtypes = [vp, i, vp, vp, f, f, vp, vp, vp, vp, vp]
+        lib.sdf_grad_bwd_params.restype = i
+        lib.sdf_grad_bwd_params.argtypes = [i, vp, vp, vp, vp, vp]
         if (lib.sdf_grad_tile() != TILE
                 or lib.sdf_grad_weight_elems() != sum(r * c for r, c in PACK_SHAPES)):
             raise RuntimeError("csrc/sdf_grad.cu layout differs from ops/sdf_grad.py")
@@ -136,12 +140,19 @@ def _fwd(pts, W, bias, beta, scale):
     return sdf, grad, feats
 
 
+def bwd_buffers(n_pad: int, dev):
+    """The backward's scratch (bf16: H, GZ, layer 8's cotangent rows, the PE)
+    and its per-chunk partials (f32), one torch.empty each."""
+    lib = _lib()
+    return (torch.empty(lib.sdf_grad_scratch_elems(n_pad), dtype=torch.bfloat16, device=dev),
+            torch.empty(lib.sdf_grad_part_elems(n_pad), device=dev))
+
+
 def _bwd(pts, W, bias, beta, scale, g_sdf, g_grad, g_feats):
     n_pad = pts.shape[0]
     dev = pts.device
     lib = _lib()
-    scratch = torch.empty(lib.sdf_grad_scratch_elems(n_pad), dtype=torch.bfloat16, device=dev)
-    part = torch.empty(lib.sdf_grad_part_elems(n_pad), device=dev)
+    scratch, part = bwd_buffers(n_pad, dev)
     dW = torch.zeros(W.numel(), device=dev)  # zero rows: the kernel writes nothing
     db = torch.zeros(9, OUT_W, device=dev)
     rc = lib.sdf_grad_bwd(pts.data_ptr(), n_pad, W.data_ptr(), bias.data_ptr(), beta, scale,

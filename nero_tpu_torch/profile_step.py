@@ -39,7 +39,8 @@ from torch.profiler import ProfilerActivity, profile
 from nero_tpu_torch.core.config import load_cfg
 from nero_tpu_torch.train.trainer import Trainer
 
-PORT_KERNELS = ("sdf_grad_fwd_kernel", "sdf_rows_kernel", "shader_rows_kernel",
+PORT_KERNELS = ("sdf_grad_fwd_kernel", "sdf_bwd_sweep_kernel", "sdf_bwd_params_kernel",
+                "sdf_bwd_reduce_kernel", "shader_rows_kernel",
                 "lights_rows_kernel", "predictor_rows_kernel", "sdf_fwd_kernel",
                 "dw_partial_kernel", "colsum_partial_kernel", "reduce_kernel",
                 "sphere_march_kernel", "field_fwd_kernel", "march_kernel")

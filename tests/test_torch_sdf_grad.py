@@ -2,7 +2,9 @@
 ops/sdf_grad.py) against nero_tpu's XLA `sdf_with_grad` in f32, and against
 the TPU kernel `sdf_with_grad_fused` in interpret mode at the bars of
 tests/test_sdf_grad_kernel.py. The CUDA kernel itself is held against the
-plain version on the card by chip_smoke.py and by the `gpu`-marked test."""
+plain version on the card by chip_smoke.py and by the `gpu`-marked test; its
+backward's rounding points, emulated in plain torch (`emulate_kernel_bwd`),
+are held here at chip_smoke.py's bar."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -120,12 +122,12 @@ def test_pack_unpack_round_trip(setup):
 
 
 def test_ptxas_info_reads_the_build_log(tmp_path, monkeypatch):
-    """chip_smoke.py reports the forward kernel's registers and spill bytes
-    from the nvcc log; the parser takes the entry function it is asked for."""
+    """chip_smoke.py reports each B1 kernel's registers and spill bytes from
+    the nvcc log; the parser takes the entry function it is asked for."""
     from nero_tpu_torch.ops import cuda_build
     log = tmp_path / "lib.so.log"
     log.write_text(
-        "ptxas info    : Compiling entry function '_ZN15sdf_rows_kernelEv' for 'sm_90a'\n"
+        "ptxas info    : Compiling entry function '_ZN20sdf_bwd_sweep_kernelEv' for 'sm_90a'\n"
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
         "ptxas info    : Used 96 registers, used 1 barriers\n"
         "ptxas info    : Compiling entry function '_ZN19sdf_grad_fwd_kernelEv' for 'sm_90a'\n"
@@ -134,10 +136,127 @@ def test_ptxas_info_reads_the_build_log(tmp_path, monkeypatch):
     monkeypatch.setattr(cuda_build, "_lib_path", lambda name: str(tmp_path / "lib.so"))
     assert cuda_build.ptxas_info("sdf_grad", "sdf_grad_fwd_kernel") == {"regs": 128,
                                                                        "spill_bytes": 28}
-    assert cuda_build.ptxas_info("sdf_grad", "sdf_rows_kernel") == {"regs": 96, "spill_bytes": 0}
+    assert cuda_build.ptxas_info("sdf_grad", "sdf_bwd_sweep_kernel") == {"regs": 96,
+                                                                        "spill_bytes": 0}
     assert cuda_build.ptxas_info("sdf_grad", "missing_kernel") == {}
     monkeypatch.setattr(cuda_build, "_lib_path", lambda name: str(tmp_path / "none.so"))
     assert cuda_build.ptxas_info("sdf_grad", "sdf_grad_fwd_kernel") == {}
+
+
+def _bf(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _pe_rows(pts, scale):
+    """[4n, 48]: PE(6) of the scaled points, then its d/dx, d/dy, d/dz rows
+    (w.r.t. the unscaled points), as csrc/sdf_grad.cu::pe_tile builds them."""
+    n = pts.shape[0]
+    out = torch.zeros(4, n, sdf_grad.PE_W)
+    xs = pts * scale
+    out[0, :, :3] = xs
+    for j in range(3):
+        out[1 + j, :, j] = scale
+    for i in range(6):
+        f = 2.0 ** i
+        for k in range(3):
+            x = xs[:, k] * f
+            out[0, :, 3 + 6 * i + k] = torch.sin(x)
+            out[0, :, 6 + 6 * i + k] = torch.cos(x)
+            out[1 + k, :, 3 + 6 * i + k] = scale * f * torch.cos(x)
+            out[1 + k, :, 6 + 6 * i + k] = -scale * f * torch.sin(x)
+    return out.reshape(4 * n, sdf_grad.PE_W)
+
+
+def emulate_kernel_bwd(W, bias, beta, scale, pts, g_sdf, g_grad, g_feats):
+    """The backward of csrc/sdf_grad.cu in plain torch with its rounding
+    points: bf16 operands and f32 sums; the sweep's GZ and layer 8's
+    cotangent rows are bf16. The recompute stores the forward's
+    H = bf16(act(z)), the sweep takes s = 1 - exp(-beta h_p) and the
+    tangents' sum over h_t = s z_t from it, and the parameter pass uses it.
+    Rows are stacked kind-major [4n]. Returns (dW packed f32, db [9, 272])."""
+    n = pts.shape[0]
+    sizes = [r * c for r, c in sdf_grad.PACK_SHAPES]
+    w = [t.view(r, c).float() for t, (r, c) in zip(torch.split(W, sizes), sdf_grad.PACK_SHAPES)]
+    w0, w1, w2, w3, w4a, w4b, w5, w6, w7, w8 = w
+    primal = (torch.arange(4 * n) < n)[:, None].float()
+    col = torch.arange(sdf_grad.HID)
+
+    def act(z, l):
+        zp = z[:n]
+        s = torch.sigmoid(beta * zp)
+        h = torch.cat([torch.nn.functional.softplus(beta * zp) / beta, s.repeat(3, 1) * z[n:]])
+        return h * (col < sdf_grad.SKIP_W) if l == 3 else h
+
+    pe = _bf(_pe_rows(pts, scale))
+    hs, h = [], None
+    for l, wl in enumerate([w0, w1, w2, w3, w4a, w5, w6, w7]):
+        z = (pe if l == 0 else h) @ wl + (pe @ w4b if l == 4 else 0.0)
+        z = z + bias[l, :sdf_grad.HID] * primal
+        h = _bf(act(z, l))
+        hs.append(h)
+    gz8 = torch.zeros(4 * n, sdf_grad.OUT_W)
+    gz8[:n, 0] = g_sdf
+    gz8[:n, 1:257] = g_feats
+    for j in range(3):
+        gz8[(j + 1) * n:(j + 2) * n, 0] = g_grad[:, j]
+    gz = _bf(gz8)
+    gzs = [None] * 8
+    for l, wl in zip(range(8, 0, -1), [w8, w7, w6, w5, w4a, w3, w2, w1]):
+        gh = gz @ wl.T
+        a = hs[l - 1].double()
+        s, s2 = -torch.expm1(-beta * a[:n]), beta * torch.exp(-beta * a[:n])
+        ghp, ght, at = gh[:n], gh[n:], a[n:]
+        mix = sum(at[k * n:(k + 1) * n] * ght[k * n:(k + 1) * n] for k in range(3))
+        g = torch.cat([s * ghp + s2 * mix, s.repeat(3, 1) * ght]).float()
+        gz = _bf(g * (col < sdf_grad.SKIP_W) if l - 1 == 3 else g)
+        gzs[l - 1] = gz
+    dws = [pe.T @ gzs[0], hs[0].T @ gzs[1], hs[1].T @ gzs[2], hs[2].T @ gzs[3],
+           hs[3].T @ gzs[4], pe.T @ gzs[4], hs[4].T @ gzs[5], hs[5].T @ gzs[6],
+           hs[6].T @ gzs[7], hs[7].T @ _bf(gz8)]
+    db = torch.zeros(9, sdf_grad.OUT_W)
+    for l in range(8):
+        db[l, :sdf_grad.HID] = gzs[l][:n].sum(0)
+    db[8] = _bf(gz8)[:n].sum(0)
+    return torch.cat([d.reshape(-1) for d in dws]), db
+
+
+@pytest.mark.parametrize("reference", ["plain", "xla"])
+def test_kernel_rounding_points_hold_the_bar(setup, reference):
+    """The CUDA backward's rounding points, emulated on the CPU, keep every
+    {v,g,b} gradient within chip_smoke.py's 2e-2 (max |d| over the leaf's
+    max) of the f32 gradients: the port's plain version, or nero_tpu's XLA
+    `sdf_with_grad`."""
+    params_j, pts, cot = setup
+    from nero_tpu_torch.ops.mlp import resolve_weight_norm
+    p = from_numpy_tree(jax.tree_util.tree_map(np.asarray, params_j))
+    leaves = [v for _, v in tree_items(p)]
+    cfg, x, c = SDFConfig(), torch.from_numpy(pts), torch.from_numpy(cot)
+
+    def loss(sdf, feats, grad):
+        eik = ((torch.linalg.norm(grad, dim=-1) - 1.0) ** 2).mean()
+        return (sdf ** 2).mean() + 0.1 * eik + (feats * c).mean()
+
+    if reference == "plain":
+        want = torch.autograd.grad(loss(*sdf_grad.sdf_with_grad_plain(p, x, cfg)), leaves)
+    else:
+        g_j = jax.jit(jax.grad(_jax_loss(jax_swg, pts, cot)))(params_j)
+        g_j = dict(tree_items(jax.tree_util.tree_map(np.asarray, g_j)))
+        want = [torch.tensor(g_j[k]) for k, _ in tree_items(p)]
+    with torch.no_grad():
+        outs = [o.requires_grad_(True) for o in sdf_grad.sdf_with_grad_plain(p, x, cfg)]
+    with torch.enable_grad():
+        g_sdf, g_feats, g_grad = torch.autograd.grad(loss(*outs), outs)
+    layers = resolve_weight_norm(p)
+    ws, bs = [l["w"] for l in layers], [l["b"] for l in layers]
+    with torch.no_grad():
+        W, bias = sdf_grad.pack_weights(ws, bs)
+        dW, db = emulate_kernel_bwd(W, bias, cfg.beta, cfg.scale, x, g_sdf[:, 0], g_grad,
+                                    g_feats)
+    dws, dbs = sdf_grad.unpack_grads(dW, db)
+    got = torch.autograd.grad(ws + bs, leaves, dws + dbs)
+    for (k, _), a, b in zip(tree_items(p), want, got):
+        err = ((a - b).abs().max() / (a.abs().max() + 1e-8)).item()
+        assert err <= 2e-2, (k, err)
 
 
 @pytest.mark.gpu
