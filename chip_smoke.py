@@ -287,10 +287,13 @@ def check_shader(n: int, dev, sphere: bool = False, human: bool = False) -> list
     cot = t(rng.standard_normal((n, 3)))
     cot2 = t(rng.standard_normal((n, 1)))
     poses = torch.as_tensor(random_human_poses(rng, n), device=dev) if human else None
-    raw = lambda fn: fn(params, cfg, pts, normals, view, feats, poses)
 
-    def shade(fn):
-        return shade_from_raw(raw(fn), cfg, fg_lut)
+    def raw(fn, m: int = n):  # the first m rows
+        return fn(params, cfg, pts[:m], normals[:m], view[:m], feats[:m],
+                  poses[:m] if human else None)
+
+    def shade(fn, m: int = n):
+        return shade_from_raw(raw(fn, m), cfg, fg_lut)
 
     with torch.no_grad():
         color_k, occ_k = shade(K.shader_raw)
@@ -317,10 +320,14 @@ def check_shader(n: int, dev, sphere: bool = False, human: bool = False) -> list
         print(f"shader_fwd{sfx}    human hit rate {hit_rate:.3f}, same hit mask {same_hits:.6f} "
               f"(>= 0.9999), max|d human| after exp {e_hum:.3e} (atol 3e-3)")
 
-    def loss(fn, bf16: bool = False):
+    def loss(fn, bf16: bool = False, m: int = n):
         with torch.autocast("cuda", dtype=torch.bfloat16, enabled=bf16):
-            c, o = shade(fn)
-        return (c.float() * cot).sum() + (o["occ_prob"].float() * cot2).sum()
+            c, o = shade(fn, m)
+        return (c.float() * cot[:m]).sum() + (o["occ_prob"].float() * cot2[:m]).sum()
+
+    def worst_cosine(ga, gb) -> float:
+        return min((a.flatten() @ b.flatten() / (a.norm() * b.norm() + 1e-12)).item()
+                   for a, b in zip(ga, gb))
 
     def worst_mean_rel(ga, gb) -> float:
         return max(((a - b).abs().mean() / (a.abs().max() + 1e-8)).item()
@@ -330,8 +337,7 @@ def check_shader(n: int, dev, sphere: bool = False, human: bool = False) -> list
     g_p = torch.autograd.grad(loss(K.shader_raw_plain), wrt)
     g_k = torch.autograd.grad(loss(K.shader_raw), wrt)
     g_b = torch.autograd.grad(loss(K.shader_raw_plain, bf16=True), wrt)
-    worst_cos = min((a.flatten() @ b.flatten() / (a.norm() * b.norm() + 1e-12)).item()
-                    for a, b in zip(g_p, g_k))
+    worst_cos = worst_cosine(g_p, g_k)
     noise_ker, noise_bf16 = worst_mean_rel(g_p, g_k), worst_mean_rel(g_p, g_b)
     # test_shader_kernel.py's bars against the f32 reference: every leaf
     # within 0.99 cosine, and a worst mean error (normalised by the leaf's
@@ -351,6 +357,23 @@ def check_shader(n: int, dev, sphere: bool = False, human: bool = False) -> list
     print(f"shader_bwd{sfx}    grads worst cosine {worst_cos:.5f} (> {min_cos})  worst mean|d|/max|g| "
           f"{noise_ker:.3e} (< 4 x bf16 {noise_bf16:.3e} + {slack})  worst max|d|/max|g| "
           f"{bwd_err:.3e} (bf16 plain: {grad_err_normalised(g_p, g_b):.3e})")
+    # a ragged size (the backward's tiles are 128 rows, the forward's 64) at
+    # the same bars, and no rows: empty outputs, parameter gradients exactly 0
+    m = 1001
+    with torch.no_grad():
+        (c_k, o_k), (c_p, o_p) = shade(K.shader_raw, m), shade(K.shader_raw_plain, m)
+    e_odd = max((c_k - c_p).abs().max().item(), (o_k["occ_prob"] - o_p["occ_prob"]).abs().max().item())
+    cos_odd = worst_cosine(torch.autograd.grad(loss(K.shader_raw_plain, m=m), wrt),
+                           torch.autograd.grad(loss(K.shader_raw, m=m), wrt))
+    check(e_odd <= 2e-3 and cos_odd > min_cos,
+          f"shader{sfx} at n = {m}: max err {e_odd}, grads worst cosine {cos_odd}")
+    c_0, o_0 = shade(K.shader_raw, 0)
+    check(tuple(c_0.shape) == (0, 3) and tuple(o_0["occ_prob"].shape) == (0, 1),
+          f"shader{sfx} zero rows: shapes {tuple(c_0.shape)}, {tuple(o_0['occ_prob'].shape)}")
+    g_0 = torch.autograd.grad(loss(K.shader_raw, m=0), leaves(params))
+    check(all(not g.any() for g in g_0), f"shader{sfx} zero rows: non-zero parameter gradients")
+    print(f"shader_bwd{sfx}    n = {m}: max|d color, occ_prob| {e_odd:.3e}, grads worst cosine "
+          f"{cos_odd:.5f}; n = 0: shapes (0,3) (0,1), parameter gradients zero")
 
     # times: the wrapper's whole call (`ms`: weight norm, packing, launch, and
     # for the backward autograd and unpacking), the kernel launches alone on
@@ -379,6 +402,42 @@ def check_shader(n: int, dev, sphere: bool = False, human: bool = False) -> list
                     "plain_ms": pms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
     out[1]["mean_rel_err"] = noise_ker
     del g_p, g_k, g_b
+    # the backward's parts alone, on the wrapper's buffers: recompute + reverse
+    # sweep, then the weight- and bias-gradient pass with its reduction; the
+    # same gradients to the bit in two calls; no rows, no launch, zeros
+    from nero_tpu_torch.ops.cuda_build import check as check_rc, ptxas_info
+    sphere_i, human_i = spec[:2]
+    with torch.no_grad():
+        first, second = (K._bwd(geo, feats2d, W, B, sphere_i, human_i, gout) for _ in range(2))
+    check(all(torch.equal(a, b) for a, b in zip(first, second)),
+          f"shader_bwd{sfx}: two calls differ")
+    z = K._bwd(geo[:0], feats2d[:0], W, B, sphere_i, human_i, gout[:0])
+    check(not z[2].any() and not z[3].any(), f"shader_bwd{sfx} zero rows: dW or dB not zero")
+    del first, second, z
+    lib, stream = K._lib(), torch.cuda.current_stream(dev).cuda_stream
+    scratch, part = K.bwd_buffers(n, sphere_i, human_i, dev)
+    dgeo, dfeats = torch.empty(n, K.DGEO, device=dev), torch.empty(n, K.HID, device=dev)
+    dW, dB = torch.empty(W.numel(), device=dev), torch.empty_like(B)
+    tab = K.ide_table_on(dev)
+    sweep_ms = cuda_ms(lambda: check_rc(lib.shader_bwd_sweep(
+        geo.data_ptr(), feats2d.data_ptr(), n, W.data_ptr(), B.data_ptr(), tab.data_ptr(),
+        sphere_i, human_i, gout.data_ptr(), dgeo.data_ptr(), dfeats.data_ptr(),
+        scratch.data_ptr(), stream), "sweep"), iters=5)
+    params_ms = cuda_ms(lambda: check_rc(lib.shader_bwd_params(
+        n, sphere_i, human_i, scratch.data_ptr(), part.data_ptr(), dW.data_ptr(), dB.data_ptr(),
+        stream), "params"), iters=5)
+    buf_bytes = scratch.numel() * 2 + part.numel() * 4
+    del scratch, part, dgeo, dfeats, dW, dB
+    inst = f"\\w*Lb{sphere_i}ELb{human_i}E"  # the variant's template instance
+    ptx = {k: ptxas_info("shader", k + inst) for k in
+           ("shader_bwd_sweep_kernel", "shader_bwd_params_kernel", "shader_bwd_reduce_kernel")}
+    check(all(v.get("spill_bytes") == 0 for v in ptx.values()), f"shader{sfx} backward spills: {ptx}")
+    out[1].update({"sweep_ms": sweep_ms, "params_ms": params_ms, "scratch_bytes": buf_bytes,
+                   "ptxas": ptx})
+    print(f"shader_bwd{sfx}    launch {launch_bwd:.3f} ms = recompute + sweep {sweep_ms:.3f} + "
+          f"parameter pass {params_ms:.3f}; scratch + partials {buf_bytes / 1e9:.3f} GB at "
+          f"N = {n}; the same dW, dB, dgeo, dfeats to the bit in two calls; " + ", ".join(
+              f"{k} {v.get('regs')} regs {v.get('spill_bytes')} spill bytes" for k, v in ptx.items()))
     torch.cuda.empty_cache()
     return out
 

@@ -1,23 +1,28 @@
-"""Times variants of the SDF-with-gradient kernels on the card.
+"""Times variants of the SDF-with-gradient kernels or of the whole-shader
+backward on the card.
 
     python -m nero_tpu_torch.kernel_variants [--parent OLD/sdf_grad.cu] [NAME ...]
+    python -m nero_tpu_torch.kernel_variants --kernel shader [--parent OLD/shader.cu] [NAME ...]
 
-Each variant is `csrc/sdf_grad.cu` with one design choice undone or one part
-of its work taken out (VARIANTS: the forward engine's, which the backward's
-recompute and reverse sweep share, then the backward's own), built by nvcc
-from a patched copy (one process each, in parallel) into
-`build/nero_tpu_torch/variants/`. `--parent` adds another version of the
-source, built as it is (an earlier commit's, with the same C entries
-`sdf_grad_fwd` and `sdf_grad_bwd`). All are launched on the same packed
-weights, points and cotangents at N = 65,536, the training lattice, in the
-given order and then in reverse, 20 timed forward and 10 timed backward
-launches each after 3 untimed ones (CUDA events). Prints per variant the
-registers and spill bytes that ptxas reported for the forward, the sweep and
-the parameter-pass kernels, the times of the forward, of the whole backward
-and of its two parts (recompute + sweep, parameter pass; not for a parent
-without them) in both passes, and the largest difference from the kernel as
-it is: of sdf, grad and feats, and of dW and db over their largest value. The
-variants that only reorganise the work must give 0.
+Each variant is `csrc/sdf_grad.cu` (VARIANTS: the forward engine's, which the
+backward's recompute and reverse sweep share, then the backward's own) or
+`csrc/shader.cu` (SHADER_VARIANTS, the backward's) with one design choice
+undone or one part of its work taken out, built by nvcc from a patched copy
+(one process each, in parallel) into `build/nero_tpu_torch/variants/`.
+`--parent` adds another version of the source, built as it is (an earlier
+commit's, with the same C entries: `sdf_grad_fwd` and `sdf_grad_bwd`, or
+`shader_fwd` and `shader_bwd`). All are launched on the same packed weights,
+inputs and cotangents at N = 65,536, the training lattice (the shader in its
+default variant, or `--sphere` / `--human`), in the given order and then in
+reverse, 20 timed forward and 10 timed backward launches each after 3
+untimed ones (CUDA events). Prints per variant the registers and spill bytes
+that ptxas reported for the kernels, the times of the forward, of the whole
+backward and of its two parts (recompute + sweep, parameter pass; not for a
+parent without them) in both passes, and the largest difference from the
+kernel as it is (SDF: of sdf, grad and feats, and of dW and db over their
+largest value; shader: of dgeo, dfeats, dW and dB, each over its largest
+value). The variants that only reorganise the work must give 0 or, where
+they sum in another order, about 1e-6.
 """
 from __future__ import annotations
 
@@ -165,21 +170,96 @@ VARIANTS = {
     "bwd_no_epilogue": [(_SWEEP_EPILOGUE, _NO_SWEEP_EPILOGUE)],
 }
 
-_KERNELS = ("sdf_grad_fwd_kernel", "sdf_bwd_sweep_kernel", "sdf_bwd_params_kernel")
+# ---- the whole-shader backward (csrc/shader.cu) ----
+_SH_INCLUDE = '#include "mma.cuh"\n'
+# every mma.sync of the shader's kernels: keeps the fragments live, no tensor-core work
+_SH_NO_MMA = _SH_INCLUDE + """\
+__device__ __forceinline__ void mma_keep(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  c[0] += __uint_as_float(a[0] & b0 & 0x3f800000u) - 1.0f;
+}
+#define mma_bf16 mma_keep
+"""
+_SH_FWD_EPILOGUE = """\
+                  __floats2bfloat162_rn(fmaxf(acc[m][j][2 * hf] + b2.x, 0.0f),
+                                        fmaxf(acc[m][j][2 * hf + 1] + b2.y, 0.0f));"""
+_SH_NO_FWD_EPILOGUE = """\
+                  __floats2bfloat162_rn(acc[m][j][2 * hf] * 0.01f, acc[m][j][2 * hf + 1] * 0.01f);"""
+_SH_SWEEP_EPILOGUE = """\
+                __floats2bfloat162_rn(hv.x > 0.0f ? acc[m][j][2 * hf] : 0.0f,
+                                      hv.y > 0.0f ? acc[m][j][2 * hf + 1] : 0.0f);"""
+# keeps the stored H's loads live
+_SH_NO_SWEEP_EPILOGUE = """\
+                __floats2bfloat162_rn(acc[m][j][2 * hf] * 0.01f + hv.x,
+                                      acc[m][j][2 * hf + 1] * 0.01f + hv.y);"""
+_SH_ENC_FWD = """\
+  if (slot == 5) {
+    if constexpr (L::human) {
+      float pose[12];"""
+_SH_ENC_BWD = "        enc_bwd<L>(e, D, di, rs, tab, geo, p0, n);\n"
+
+SHADER_VARIANTS = {
+    "kernel": [],
+    # no products and no epilogues: the weight stream with the scratch traffic
+    "weights_only": [(_SH_INCLUDE, _SH_NO_MMA), (_SH_FWD_EPILOGUE, _SH_NO_FWD_EPILOGUE),
+                     (_SH_SWEEP_EPILOGUE, _SH_NO_SWEEP_EPILOGUE)],
+    # the per-row encodings left out, forward (the input slots stay zero) and backward
+    "no_encodings": [(_SH_ENC_FWD, "  if (slot >= 0) {\n  } else if (slot == 5) {\n"
+                                   "    if constexpr (L::human) {\n      float pose[12];"),
+                     (_SH_ENC_BWD, "")],
+    # the ring shape that lost: weight slabs of 64 rows (sweep: columns) through 3 stages
+    "slab64_stages3": [("constexpr int SLAB_K = 128; ", "constexpr int SLAB_K = 64; "),
+                       ("constexpr int STAGES = 2;", "constexpr int STAGES = 3;")],
+    # a light head's f32 dX through device memory (behind the scratch), not
+    # shared memory over the activation and points tiles
+    "dx_device_memory": [
+        ("6 * (size_t)L::NEVAL * m * HID + (size_t)L::NEVAL * m * DO;",
+         "6 * (size_t)L::NEVAL * m * HID + (size_t)L::NEVAL * m * DO + 2 * m * DX_MAX;"),
+        ("  float* D = reinterpret_cast<float*>(smem_raw);",
+         "  float* D = reinterpret_cast<float*>(scratch + BwdScratch<L>::elems((size_t)m_rows) -\n"
+         "                                      2 * (size_t)m_rows * DX_MAX) +\n"
+         "             (size_t)blockIdx.x * PB * DX_MAX;")],
+}
+
+_KERNELS = {"sdf_grad": ("sdf_grad_fwd_kernel", "sdf_bwd_sweep_kernel", "sdf_bwd_params_kernel"),
+            "shader": ("shader_rows_kernel", "shader_bwd_sweep_kernel", "shader_bwd_params_kernel")}
 
 
-def variant_source(name: str) -> str:
-    with open(os.path.join(cuda_build.CSRC, "sdf_grad.cu")) as f:
+def variant_source(name: str, kernel: str = "sdf_grad") -> str:
+    table = VARIANTS if kernel == "sdf_grad" else SHADER_VARIANTS
+    with open(os.path.join(cuda_build.CSRC, f"{kernel}.cu")) as f:
         src = f.read()
-    for old, new in VARIANTS[name]:
+    for old, new in table[name]:
         if old not in src:
-            raise ValueError(f"variant {name}: csrc/sdf_grad.cu no longer holds {old[:60]!r}")
+            raise ValueError(f"variant {name}: csrc/{kernel}.cu no longer holds {old[:60]!r}")
         src = src.replace(old, new)
     return src
 
 
-def build(sources: dict) -> dict:
-    """name -> source text; returns name -> (loaded library, ptxas summary)."""
+def _type_shader(lib):
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.shader_fwd.restype = i
+    lib.shader_fwd.argtypes = [vp, vp, i, vp, vp, vp, i, i, vp, vp]
+    lib.shader_bwd.restype = i
+    lib.shader_bwd.argtypes = [vp, vp, i, vp, vp, vp, i, i, vp, vp, vp, vp, vp, vp, vp, vp]
+    # an earlier source sizes by (m_rows, sphere, human) and (m_rows): the extra
+    # arguments are ignored there, and N is a multiple of both tiles
+    for fn in ("shader_scratch_elems", "shader_part_elems"):
+        getattr(lib, fn).restype = ctypes.c_size_t
+        getattr(lib, fn).argtypes = [i, i, i]
+    parts = hasattr(lib, "shader_bwd_sweep")
+    if parts:
+        lib.shader_bwd_sweep.restype = i
+        lib.shader_bwd_sweep.argtypes = [vp, vp, i, vp, vp, vp, i, i, vp, vp, vp, vp, vp]
+        lib.shader_bwd_params.restype = i
+        lib.shader_bwd_params.argtypes = [i, i, i, vp, vp, vp, vp, vp]
+    return parts
+
+
+def build(sources: dict, kernel: str = "sdf_grad", instance: str = "") -> dict:
+    """name -> source text; returns name -> (loaded library, whether it has the
+    backward's two parts, ptxas summary of the kernels whose names match
+    `instance` after theirs)."""
     os.makedirs(OUT_DIR, exist_ok=True)
     jobs = {}
     for name, src in sources.items():
@@ -195,6 +275,13 @@ def build(sources: dict) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
         lib = ctypes.CDLL(so)
+        regs = []
+        for kern in _KERNELS[kernel]:
+            info = cuda_build.parse_ptxas(log, kern + instance)
+            regs.append(f"{info.get('regs', '-')}/{info.get('spill_bytes', '-')}")
+        if kernel == "shader":
+            libs[name] = (lib, _type_shader(lib), " ".join(regs))
+            continue
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.sdf_grad_fwd.restype = i
         lib.sdf_grad_fwd.argtypes = [vp, i, vp, vp, f, f, vp, vp, vp, vp]
@@ -209,10 +296,6 @@ def build(sources: dict) -> dict:
             lib.sdf_grad_bwd_sweep.argtypes = [vp, i, vp, vp, f, f, vp, vp, vp, vp, vp]
             lib.sdf_grad_bwd_params.restype = i
             lib.sdf_grad_bwd_params.argtypes = [i, vp, vp, vp, vp, vp]
-        regs = []
-        for kern in _KERNELS:
-            info = cuda_build.parse_ptxas(log, kern)
-            regs.append(f"{info.get('regs', '-')}/{info.get('spill_bytes', '-')}")
         libs[name] = (lib, parts, " ".join(regs))
     return libs
 
@@ -229,17 +312,38 @@ def _time(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _card() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+
+
+def _passes(libs, run) -> dict:
+    """run(lib, parts) -> times, in the given order and then in reverse."""
+    times = {n: [] for n in libs}
+    for name in list(libs) + list(reversed(libs)):
+        lib, parts, _ = libs[name]
+        times[name].append(run(name, lib, parts))
+    return times
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("names", nargs="*", default=list(VARIANTS), help="variants (all)")
-    ap.add_argument("--parent", help="another sdf_grad.cu to build as it is")
+    ap.add_argument("names", nargs="*", help="variants (all of the kernel's table)")
+    ap.add_argument("--kernel", choices=["sdf_grad", "shader"], default="sdf_grad")
+    ap.add_argument("--parent", help="another sdf_grad.cu or shader.cu to build as it is")
+    ap.add_argument("--sphere", action="store_true", help="shader: the sphere_direction variant")
+    ap.add_argument("--human", action="store_true", help="shader: the human_light variant")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: needs a CUDA device")
-    sources = {n: variant_source(n) for n in dict.fromkeys(["kernel", *args.names])}
+    table = VARIANTS if args.kernel == "sdf_grad" else SHADER_VARIANTS
+    names = args.names or list(table)
+    sources = {n: variant_source(n, args.kernel) for n in dict.fromkeys(["kernel", *names])}
     if args.parent:
         with open(args.parent) as f:
             sources["parent"] = f.read()
+    if args.kernel == "shader":
+        return _main_shader(sources, int(args.sphere), int(args.human))
     libs = build(sources)
 
     dev = torch.device("cuda")
@@ -295,17 +399,18 @@ def main(argv=None) -> int:
         cuda_build.check(rc, "sdf_grad_bwd")
         return dW, db
 
-    outs, times = {}, {n: [] for n in libs}
-    for name in list(libs) + list(reversed(libs)):
-        lib, parts, _ = libs[name]
+    outs = {}
+
+    def run(name, lib, parts):
         outs[name] = fwd(lib) + tuple(x.clone() for x in bwd(lib))
         row = [_time(lambda: fwd(lib), 20), _time(lambda: bwd(lib), 10)]
         if parts:
             row += [_time(lambda: sweep(lib), 10), _time(lambda: params(lib), 10)]
-        times[name].append(row)
+        return row
+
+    times = _passes(libs, run)
     del bufs
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip())
+    print(_card())
     print("variant              regs/spills fwd sweep params   ms: fwd, bwd (sweep + params), "
           "first / second pass   max|d| sdf grad feats; dW db (over their max)")
     ref = outs["kernel"]
@@ -317,6 +422,89 @@ def main(argv=None) -> int:
         for k, label in enumerate(("fwd", "bwd", "sweep", "params")[:len(times[name][0])]):
             ms.append(f"{label} {times[name][0][k]:.4f}/{times[name][1][k]:.4f}")
         print(f"{name:20s} {ptx:24s} {'  '.join(ms)}   {' '.join(d[:3])}; {' '.join(d[3:])}")
+    return 0
+
+
+def _main_shader(sources: dict, sphere: int, human: int) -> int:
+    """The whole-shader backward's variants (and the forward beside them)."""
+    from nero_tpu_torch.fields.app_shading import AppShadingConfig, init_app_shading
+    from nero_tpu_torch.ops import shader as KS
+
+    libs = build(sources, "shader", f"\\w*Lb{sphere}ELb{human}E")
+    dev = torch.device("cuda")
+    cfg = AppShadingConfig(sphere_direction=bool(sphere), human_light=bool(human))
+    params = init_app_shading(torch.Generator().manual_seed(0), cfg, device=dev)
+    rng = np.random.default_rng(1)
+    t = lambda a: torch.as_tensor(a.astype(np.float32), device=dev)
+    poses = None
+    if human:
+        q, _ = np.linalg.qr(rng.standard_normal((N, 3, 3)))
+        poses = t(np.concatenate([q, rng.uniform(-0.5, 0.5, (N, 3, 1))], -1))
+    with torch.no_grad():
+        geo, feats, spec, ws, bs = KS.kernel_inputs(
+            params, cfg, t(rng.uniform(-0.6, 0.6, (N, 3))), t(rng.standard_normal((N, 3))),
+            t(rng.standard_normal((N, 3))), t(rng.standard_normal((N, 256)) * 0.3), poses)
+        W, B = KS.pack_weights(ws, bs, spec[2])
+    gout = t(rng.standard_normal((N, KS.OUT)))
+    tab = KS.ide_table_on(dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptr = lambda x: x.data_ptr()
+    head = lambda: (ptr(geo), ptr(feats), N, ptr(W), ptr(B), ptr(tab), sphere, human)
+    bufs = {}
+
+    def buffers(lib):
+        if id(lib) not in bufs:  # one set per library, outside the timed launches
+            bufs[id(lib)] = (
+                torch.empty(lib.shader_scratch_elems(N, sphere, human), dtype=torch.bfloat16,
+                            device=dev),
+                torch.empty(lib.shader_part_elems(N, sphere, human), device=dev),
+                torch.empty(N, KS.DGEO, device=dev), torch.empty(N, KS.HID, device=dev),
+                torch.zeros(W.numel(), device=dev), torch.zeros_like(B))
+        return bufs[id(lib)]
+
+    def fwd(lib):
+        out = torch.empty(N, KS.OUT, device=dev)
+        cuda_build.check(lib.shader_fwd(*head(), ptr(out), stream), "shader_fwd")
+        return out
+
+    def bwd(lib):
+        scratch, part, dgeo, dfeats, dW, dB = buffers(lib)
+        cuda_build.check(lib.shader_bwd(*head(), ptr(gout), ptr(dgeo), ptr(dfeats), ptr(scratch),
+                                        ptr(part), ptr(dW), ptr(dB), stream), "shader_bwd")
+        return dgeo, dfeats, dW, dB
+
+    def sweep(lib):
+        scratch, _, dgeo, dfeats, _, _ = buffers(lib)
+        cuda_build.check(lib.shader_bwd_sweep(*head(), ptr(gout), ptr(dgeo), ptr(dfeats),
+                                              ptr(scratch), stream), "shader_bwd_sweep")
+
+    def params_pass(lib):
+        scratch, part, _, _, dW, dB = buffers(lib)
+        cuda_build.check(lib.shader_bwd_params(N, sphere, human, ptr(scratch), ptr(part), ptr(dW),
+                                               ptr(dB), stream), "shader_bwd_params")
+
+    outs = {}
+
+    def run(name, lib, parts):
+        outs[name] = tuple(x.clone() for x in bwd(lib))
+        row = [_time(lambda: fwd(lib), 20), _time(lambda: bwd(lib), 10)]
+        if parts:
+            row += [_time(lambda: sweep(lib), 10), _time(lambda: params_pass(lib), 10)]
+        return row
+
+    times = _passes(libs, run)
+    del bufs
+    print(_card())
+    print(f"shader variant sphere={sphere} human={human}, N = {N}")
+    print("variant              regs/spills fwd sweep params   ms: fwd, bwd (sweep + params), "
+          "first / second pass   max|d|/max of dgeo dfeats dW dB")
+    ref = outs["kernel"]
+    for name, (_, parts, ptx) in libs.items():
+        d = [f"{((a - b).abs().max() / b.abs().max()).item():.2e}"
+             for a, b in zip(outs[name], ref)]
+        ms = [f"{label} {times[name][0][k]:.4f}/{times[name][1][k]:.4f}" for k, label in
+              enumerate(("fwd", "bwd", "sweep", "params")[:len(times[name][0])])]
+        print(f"{name:20s} {ptx:24s} {'  '.join(ms)}   {' '.join(d)}")
     return 0
 
 

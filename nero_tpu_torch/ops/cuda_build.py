@@ -89,14 +89,15 @@ def load(name: str) -> ctypes.CDLL:
 
 def parse_ptxas(log: str, kernel: str) -> dict:
     """Registers and spill bytes (stores + loads) that `-Xptxas -v` reported
-    for the first entry function whose mangled name holds `kernel`; empty if
-    the log does not have it."""
+    for the first entry function whose mangled name matches `kernel` (a
+    regular expression: a template instance is its name, `\\w*` and the
+    mangled arguments); empty if the log does not have it."""
     info, inside = {}, False
     for line in log.splitlines():
         if "Compiling entry function" in line:
             if inside:
                 break
-            inside = kernel in line
+            inside = re.search(kernel, line) is not None
         elif inside and "spill stores" in line:
             nums = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
             info["spill_bytes"] = sum(int(x) for x in nums)

@@ -15,6 +15,10 @@ mixing, the FG-LUT lookup and sRGB stay outside the kernel
 What bounds it on the card: tensor-core operations (`flops`), about 0.17 ms
 forward and 0.5 ms backward at N = 65,536 and 989 TFLOP/s; the bytes it
 must move (geometry and feats in, 24 raw channels out) are ~75 MB, 0.02 ms.
+The backward is three launches (recompute and reverse sweep, the weight-
+and bias-gradient pass, the reduction of its partials) through a scratch of
+X, H and GZ in device memory: 1.5 GB at N = 65,536, 1.7 GB with the human
+head (`bwd_buffers`).
 """
 from __future__ import annotations
 
@@ -31,7 +35,8 @@ from nero_tpu_torch.utils.encodings import (ide_dim, ide_tables, integrated_dir_
                                             positional_encode_dim)
 from nero_tpu_torch.utils.sphere import get_sphere_intersection, offset_points_to_sphere
 
-TILE = 64
+TILE = 64        # forward rows per block (csrc/shader.cu P)
+BWD_TILE = 128   # backward rows per block (PB)
 HID = 256
 OUT = 24
 DGEO = 9         # gradient rows: d pts, d normal, d view
@@ -184,15 +189,20 @@ def _lib():
         lib.shader_weight_elems.argtypes = [i, i]
         lib.shader_tile.restype = i
         lib.shader_tile.argtypes = []
-        lib.shader_scratch_elems.restype = ctypes.c_size_t
-        lib.shader_scratch_elems.argtypes = [i, i, i]
-        lib.shader_part_elems.restype = ctypes.c_size_t
-        lib.shader_part_elems.argtypes = [i]
+        for fn in ("shader_scratch_elems", "shader_part_elems"):
+            getattr(lib, fn).restype = ctypes.c_size_t
+            getattr(lib, fn).argtypes = [i, i, i]
         lib.shader_fwd.restype = i
         lib.shader_fwd.argtypes = [vp, vp, i, vp, vp, vp, i, i, vp, vp]
         lib.shader_bwd.restype = i
         lib.shader_bwd.argtypes = [vp, vp, i, vp, vp, vp, i, i, vp, vp, vp, vp, vp, vp, vp, vp]
-        if lib.shader_tile() != TILE:
+        lib.shader_bwd_sweep.restype = i
+        lib.shader_bwd_sweep.argtypes = [vp, vp, i, vp, vp, vp, i, i, vp, vp, vp, vp, vp]
+        lib.shader_bwd_params.restype = i
+        lib.shader_bwd_params.argtypes = [i, i, i, vp, vp, vp, vp, vp]
+        lib.shader_bwd_tile.restype = i
+        lib.shader_bwd_tile.argtypes = []
+        if lib.shader_tile() != TILE or lib.shader_bwd_tile() != BWD_TILE:
             raise RuntimeError("csrc/shader.cu tile differs from ops/shader.py")
         lib._nero_typed = True
     return lib
@@ -267,21 +277,29 @@ def _fwd(geo, feats, W, B, sphere: int, human: int) -> torch.Tensor:
     return out
 
 
+def bwd_buffers(n: int, sphere: int, human: int, dev):
+    """The backward's scratch (bf16: X of every input slot, H and GZ of every
+    layer of every head evaluation, in 8 x 8 pieces) and its per-chunk
+    partials (f32), one torch.empty each, sized by the library."""
+    lib = _lib()
+    return (torch.empty(lib.shader_scratch_elems(n, sphere, human), dtype=torch.bfloat16,
+                        device=dev),
+            torch.empty(lib.shader_part_elems(n, sphere, human), device=dev))
+
+
 def _bwd(geo, feats, W, B, sphere: int, human: int, gout):
-    """One backward launch (rows kernel + the gradient reductions): gout
-    [n, 24] -> (dgeo [n, 9], dfeats [n, 256], dW packed f32, dB)."""
+    """One backward call (recompute and sweep, parameter pass, reduction):
+    gout [n, 24] -> (dgeo [n, 9], dfeats [n, 256], dW packed f32, dB)."""
     n = geo.shape[0]
     dev = geo.device
     lib = _lib()
-    m_rows = -(-n // TILE) * TILE
-    scratch = torch.empty(lib.shader_scratch_elems(m_rows, sphere, human),
-                          dtype=torch.bfloat16, device=dev)
-    part = torch.empty(lib.shader_part_elems(m_rows), device=dev)
+    scratch, part = bwd_buffers(n, sphere, human, dev)
     dgeo = torch.empty(n, DGEO, device=dev)
     dfeats = torch.empty(n, HID, device=dev)
-    # no rows, no launch: the kernel would leave dW unwritten
-    dW = torch.empty(W.numel(), device=dev) if n else torch.zeros(W.numel(), device=dev)
-    dB = torch.zeros_like(B)
+    # no rows, no launch: the kernels write every element of dW and dB otherwise
+    new = torch.empty if n else torch.zeros
+    dW = new(W.numel(), device=dev)
+    dB = new(B.shape, device=dev)
     rc = lib.shader_bwd(geo.data_ptr(), feats.data_ptr(), n, W.data_ptr(), B.data_ptr(),
                         ide_table_on(dev).data_ptr(), sphere, human, gout.data_ptr(),
                         dgeo.data_ptr(), dfeats.data_ptr(), scratch.data_ptr(), part.data_ptr(),

@@ -116,7 +116,7 @@ def integrated_pos_encode(mean: torch.Tensor, var: torch.Tensor, min_deg: int,
     """mip-NeRF IPE over a diagonal Gaussian; output dim = 2*d*(max_deg-min_deg)."""
     scales = torch.tensor([2.0 ** i for i in range(min_deg, max_deg)], dtype=mean.dtype,
                           device=mean.device)
-    shape = mean.shape[:-1] + (-1,)
+    shape = mean.shape[:-1] + (len(scales) * mean.shape[-1],)  # also with no rows
     scaled_mean = (mean[..., None, :] * scales[:, None]).reshape(shape)
     scaled_var = (var[..., None, :] * scales[:, None] ** 2).reshape(shape)
     return expected_sin(torch.cat([scaled_mean, scaled_mean + 0.5 * math.pi], dim=-1),
