@@ -24,8 +24,9 @@ result line):
   3. the mesh of the bowl scene from its analytic SDF (host iso-surfacer); a
      `std` and a `wide` field distilled from it on the card; for each, the
      sphere-march and uniform-march kernels against their plain versions on
-     393,216 surface rays (found agreement >= 0.99, median |dt| < 1e-3) and
-     the one-evaluation kernel on 393,216 points (atol 1e-3 to its plain
+     393,216 surface rays (found agreement >= 0.99, median |dt| < 1e-3), the
+     sphere march also on 0 rays (empty outputs) and on the first 1,001 (the
+     same bars), and the one-evaluation kernel on 393,216 points (atol 1e-3 to its plain
      version, 2e-2 to the f32 field); the neural tracer (sphere march,
      uniform march, wide field) against the exact host BVH (clearing-ray hit
      agreement >= 0.98) and the device BVH traversal against the host's;
@@ -580,23 +581,6 @@ def check_stage1_kernels(dev) -> list:
     return kernels
 
 
-def surface_rays(mesh: dict, n: int, seed: int = 0):
-    """Area-weighted surface points with random directions, o = p + 1e-3 d:
-    the visibility rays of Stage II."""
-    rng = np.random.RandomState(seed)
-    verts, tris = mesh["vertices"], mesh["triangles"]
-    v0, v1, v2 = verts[tris[:, 0]], verts[tris[:, 1]], verts[tris[:, 2]]
-    areas = np.linalg.norm(np.cross(v1 - v0, v2 - v0), axis=-1)
-    ti = rng.choice(len(tris), n, p=areas / areas.sum())
-    u, v = rng.rand(n, 1), rng.rand(n, 1)
-    flip = (u + v) > 1
-    u, v = np.where(flip, 1 - u, u), np.where(flip, 1 - v, v)
-    p = v0[ti] + u * (v1[ti] - v0[ti]) + v * (v2[ti] - v0[ti])
-    d = rng.normal(size=(n, 3))
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    return (p + d * 1e-3).astype(np.float32), d.astype(np.float32)
-
-
 def field_tracer(mesh: dict, topology: str, dev):
     """A NeuralTracer of the bowl mesh with the material model's seed, so that
     the training runs below find its field in the distill cache."""
@@ -662,7 +646,9 @@ def check_field_kernels(mesh: dict, n: int, dev) -> list:
 
     from nero_tpu_torch.geometry.bvh import RayTracer
     from nero_tpu_torch.geometry.neural_tracer import field_apply, sphere_segment
+    from nero_tpu_torch.geometry.proc_mesh import surface_rays
     from nero_tpu_torch.ops import field_fwd as KF
+    from nero_tpu_torch.ops.cuda_build import ptxas_info
     from nero_tpu_torch.ops import march as KM
     from nero_tpu_torch.ops import sphere_march as K
 
@@ -694,6 +680,21 @@ def check_field_kernels(mesh: dict, n: int, dev) -> list:
                      "median": max(worst["median"], st["median"]),
                      "max": max(worst["max"], st["max"])}
         check(bool((res["illinois"] == res["bisect"]).all()), "refine mode changed `found`")
+        # the edges: no rays, and 1,001, a multiple of neither the 16-ray warp
+        # tile nor the 128-point block tile
+        t_0, f_0 = K.sphere_march(packed, *(x[:0] for x in rays), n_refine=2,
+                                  refine="illinois", topology=topology, **kw)
+        torch.cuda.synchronize()
+        check(t_0.shape == f_0.shape == (0,) and t_0.dtype == torch.float32
+              and f_0.dtype == torch.bool, f"sphere_march{sfx} at R = 0: {t_0}, {f_0}")
+        for refine, n_refine in (("illinois", 2), ("bisect", 8)):
+            ragged = tuple(x[:1001] for x in rays)
+            march_agreement(
+                f"sphere_march{sfx}  {refine}-{n_refine}, R = 1001",
+                lambda: K.sphere_march(packed, *ragged, n_refine=n_refine, refine=refine,
+                                       topology=topology, **kw),
+                lambda: K.sphere_march_plain(packed, *ragged, n_refine=n_refine, refine=refine,
+                                             **kw))
         args = (*rays, tracer.n_sphere, 2, True, 0.012 + 1e-6, tracer.margin, 0.9,
                 kw["dt_frac"], 0.25)
         ms = cuda_ms(lambda: K._launch(W, Fv, wide, *args), iters=10)
@@ -701,12 +702,16 @@ def check_field_kernels(mesh: dict, n: int, dev) -> list:
                                                         refine="illinois", **kw),
                            iters=3, warmup=1)
         b_ms, b_by = bound(K.flops(n, tracer.n_sphere, 2, topology), K.min_bytes(n, topology))
+        ptx = ptxas_info("sphere_march", rf"sphere_march_kernel\w*Lb{int(wide)}E")
+        check(ptx.get("spill_bytes") == 0, f"sphere_march_kernel{sfx} spills: {ptx}")
+        print(f"sphere_march{sfx}: launch {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{b_ms:.3f} ms; ptxas {ptx}")
         out.append({"name": f"sphere_march{sfx}", "route": "cuda",
                     "source": "nero_tpu_torch/csrc/sphere_march.cu",
                     "replaces": "nero_tpu/ops/pallas/march_kernel.py:338",
                     "max_abs_err": worst["max"], "median_abs_err": worst["median"],
                     "found_agreement": worst["agree"], "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "ptxas": ptx})
 
         # uniform march: n_coarse samples, 8 bisections
         nc, nr = tracer.n_coarse, 8
@@ -1206,7 +1211,7 @@ def material_variants(bowl: dict, dev) -> list:
     unfused and fused, the uniform march, the wide field under both marches,
     and the grid tracer."""
     from nero_tpu_torch.geometry.grid_tracer import GridTracer
-    from nero_tpu_torch.geometry.proc_mesh import proc_mesh
+    from nero_tpu_torch.geometry.proc_mesh import proc_mesh, surface_rays
 
     sphere = proc_mesh("sphere")
     convex = dict(database_name="proc/sphere/100_12", name="proc_sphere_material")

@@ -30,6 +30,23 @@ def proc_mesh(scene: str, grid: int = 128, lo: float = -1.01, hi: float = 1.01) 
             "triangles": tris}
 
 
+def surface_rays(mesh: dict, n: int, seed: int = 0):
+    """Area-weighted surface points with random directions, o = p + 1e-3 d:
+    the visibility rays of Stage II."""
+    rng = np.random.RandomState(seed)
+    verts, tris = mesh["vertices"], mesh["triangles"]
+    v0, v1, v2 = verts[tris[:, 0]], verts[tris[:, 1]], verts[tris[:, 2]]
+    areas = np.linalg.norm(np.cross(v1 - v0, v2 - v0), axis=-1)
+    ti = rng.choice(len(tris), n, p=areas / areas.sum())
+    u, v = rng.rand(n, 1), rng.rand(n, 1)
+    flip = (u + v) > 1
+    u, v = np.where(flip, 1 - u, u), np.where(flip, 1 - v, v)
+    p = v0[ti] + u * (v1[ti] - v0[ti]) + v * (v2[ti] - v0[ti])
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return (p + d * 1e-3).astype(np.float32), d.astype(np.float32)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("scene")

@@ -1,8 +1,10 @@
-"""Times variants of the SDF-with-gradient kernels or of the whole-shader
-backward on the card.
+"""Times variants of the SDF-with-gradient kernels, of the whole-shader
+backward or of the sphere march on the card.
 
     python -m nero_tpu_torch.kernel_variants [--parent OLD/sdf_grad.cu] [NAME ...]
     python -m nero_tpu_torch.kernel_variants --kernel shader [--parent OLD/shader.cu] [NAME ...]
+    python -m nero_tpu_torch.kernel_variants --kernel sphere_march [--wide]
+        [--parent OLD/sphere_march.cu] [NAME ...]
 
 Each variant is `csrc/sdf_grad.cu` (VARIANTS: the forward engine's, which the
 backward's recompute and reverse sweep share, then the backward's own) or
@@ -23,6 +25,17 @@ kernel as it is (SDF: of sdf, grad and feats, and of dW and db over their
 largest value; shader: of dgeo, dfeats, dW and dB, each over its largest
 value). The variants that only reorganise the work must give 0 or, where
 they sum in another order, about 1e-6.
+
+The sphere march (SPHERE_VARIANTS, `csrc/sphere_march.cu`; `--parent` an
+earlier source with the same C entry `sphere_march`) runs on the field
+distilled from the bowl mesh (`std`, or `wide` with `--wide`; cached in
+`data/cache/neural_tracer_torch/`) over N_RAYS = 393,216 surface rays with
+the Stage-II defaults (18 sphere steps, 2 Illinois steps), 20 timed launches
+after 3 untimed ones, in the given order and then in reverse. It prints per
+variant the registers and spill bytes, `launch_ms` of both passes, the share
+of `found` equal to the kernel's and the largest |dt| on rays both found;
+and the kernel's agreement with the plain version. A variant that spills is
+built and reported, not timed.
 """
 from __future__ import annotations
 
@@ -221,12 +234,172 @@ SHADER_VARIANTS = {
          "             (size_t)blockIdx.x * PB * DX_MAX;")],
 }
 
+# ---- the sphere march (csrc/sphere_march.cu) ----
+_SM_ENCODE = "  encode<WIDE>(p, lane, Es);\n"
+# the raw coordinates alone in the staging tile (the other channels stay 0)
+_SM_RAW = """\
+  if ((lane & 3) == 0)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int k = 0; k < 3; ++k) Es[((lane >> 2) + 8 * r) * FD_LDW + k] = to_bf(p[r][k]);
+  __syncwarp();
+"""
+_SM_WARPS = "constexpr int SM_WARPS = 12; "
+_SM_OUT_MMA = """  // 128 -> 1 on the tensor cores: bf16(relu(acc + b_last)) @ w_out, w_out
+  // being column 0 of an n8-tile that sits in the padding columns of the
+  // last layer's rows (ldmatrix.trans, four x4 for the eight k-tiles); the
+  // even and odd k-tiles summed apart
+  unsigned h[8][4];
+  bias_relu(acc, Fs + D::HIDDEN * FD_W, lane, h);
+  const unsigned wo = smem_u32(Ws + (D::WROWS - FD_W + lane) * FD_LDW + FD_W);
+  float o[2][4] = {};
+#pragma unroll
+  for (int k = 0; k < 8; k += 2) {
+    unsigned b[4];
+    ldsm_x4_t(b, wo + k * 16 * FD_LDW * 2);
+    mma_bf16(o[0], h[k], b[0], b[1]);
+    mma_bf16(o[1], h[k + 1], b[2], b[3]);
+  }
+  // column 0 is c0 (row g) and c2 (row g + 8) of lane 4g: to the whole quad
+  const float b_out = Fs[(D::HIDDEN + 2) * FD_W];
+  v[0] = __shfl_sync(FULL, o[0][0] + o[1][0], lane & ~3) + b_out;
+  v[1] = __shfl_sync(FULL, o[0][2] + o[1][2], lane & ~3) + b_out;
+"""
+# the first design: each lane's 32 columns of both rows, the quad's four
+# parts added by two xor shuffles
+_SM_OUT_DOT = """  // 128 -> 1: bf16-rounded activations times bf16-rounded weights, f32 sums
+  const float* b_last = Fs + D::HIDDEN * FD_W;
+  const float* w_out = Fs + (D::HIDDEN + 1) * FD_W;
+  const int q = lane & 3;
+  float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const float2 b = *reinterpret_cast<const float2*>(b_last + 8 * j + 2 * q);
+    float2 w = *reinterpret_cast<const float2*>(w_out + 8 * j + 2 * q);
+    w = make_float2(from_bf(to_bf(w.x)), from_bf(to_bf(w.y)));
+    s0 += from_bf(to_bf(fmaxf(acc[j][0] + b.x, 0.0f))) * w.x;
+    s0 += from_bf(to_bf(fmaxf(acc[j][1] + b.y, 0.0f))) * w.y;
+    s1 += from_bf(to_bf(fmaxf(acc[j][2] + b.x, 0.0f))) * w.x;
+    s1 += from_bf(to_bf(fmaxf(acc[j][3] + b.y, 0.0f))) * w.y;
+  }
+  // a + b == b + a in f32: all four lanes end with the same sums
+  s0 += __shfl_xor_sync(FULL, s0, 1);
+  s1 += __shfl_xor_sync(FULL, s1, 1);
+  s0 += __shfl_xor_sync(FULL, s0, 2);
+  s1 += __shfl_xor_sync(FULL, s1, 2);
+  const float b_out = Fs[(D::HIDDEN + 2) * FD_W];
+  v[0] = s0 + b_out;
+  v[1] = s1 + b_out;
+"""
+_SM_PRODUCT = "// acc = A @ W for the tile's 16 rows"
+# the first design: the encoding built straight in the A fragments, every
+# lane running every recurrence, the quad sharing the transcendentals
+_SM_ENCODE_REGS = """// The first layer's A fragments of the tile's 16 points, straight from the
+// encoding (every lane runs every recurrence and keeps its own slots). p[r][k]: coordinate k of row g + 8r. Channel c of a row sits in
+// k-tile c / 16, register 2 * ((c % 16) / 8) + r, half c % 2, of lane
+// q = (c % 8) / 2. Channel order of ops/sphere_march.py's pe_rows (std: xyz,
+// then sin(xyz), cos(xyz) per octave, six octaves) and pe_rows_wide (xyz,
+// then four chains of five octaves at bases 2^(k/4)); padding channels are 0.
+template <bool WIDE>
+__device__ __forceinline__ void encode_regs(const float (&p)[2][3], int lane,
+                                       unsigned (&a)[MarchDims<WIDE>::KT0][4]) {
+  constexpr int KT0 = MarchDims<WIDE>::KT0;
+  constexpr int NCH = WIDE ? 4 : 1, NOCT = WIDE ? 5 : 6;
+  const int q = lane & 3, quad = lane & ~3;
+  float f[KT0][4][2];
+#pragma unroll
+  for (int k = 0; k < KT0; ++k)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) f[k][r][0] = f[k][r][1] = 0.0f;
+  // channel c of row r, kept by the lane whose slot it is (c is a constant
+  // once unrolled: one predicated move)
+  auto put = [&](int c, int r, float v) {
+    const int w = c % 16;
+    if (q == (w & 7) >> 1) f[c / 16][2 * (w >> 3) + r][c & 1] = v;
+  };
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int k = 0; k < 3; ++k) put(k, r, p[r][k]);
+  // the six (row, coordinate) pairs: lane q takes pair q and, for q < 2, q + 4
+  const float x0 = q == 0 ? p[0][0] : q == 1 ? p[0][1] : q == 2 ? p[0][2] : p[1][0];
+  const float x1 = q == 0 ? p[1][1] : p[1][2];
+  // bases 2^(k/4) rounded to f32, as the reference's x * base
+  const float base[4] = {1.0f, 1.189207115002721f, 1.4142135623730951f, 1.681792830507429f};
+#pragma unroll
+  for (int ch = 0; ch < NCH; ++ch) {
+    float sm[2] = {0.0f, 0.0f}, cm[2] = {0.0f, 0.0f};
+    sincosf(x0 * base[ch], &sm[0], &cm[0]);
+    if (q < 2) sincosf(x1 * base[ch], &sm[1], &cm[1]);
+    float s[6], c[6];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+      s[i] = __shfl_sync(FULL, sm[i >> 2], quad | (i & 3));
+      c[i] = __shfl_sync(FULL, cm[i >> 2], quad | (i & 3));
+    }
+#pragma unroll
+    for (int o = 0; o < NOCT; ++o) {
+      const int c0 = 3 + 6 * NOCT * ch + 6 * o;
+#pragma unroll
+      for (int i = 0; i < 6; ++i) {
+        put(c0 + i % 3, i / 3, s[i]);
+        put(c0 + 3 + i % 3, i / 3, c[i]);
+      }
+      if (o + 1 < NOCT) {
+#pragma unroll
+        for (int i = 0; i < 6; ++i) {
+          const float s2 = 2.0f * s[i] * c[i];
+          c[i] = 1.0f - 2.0f * s[i] * s[i];
+          s[i] = s2;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < KT0; ++k)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[k][r] = pack_bf2(f[k][r][0], f[k][r][1]);
+}
+
+"""
+
+_SM_WARPS8 = (_SM_WARPS, "constexpr int SM_WARPS = 8; ")
+
+# The variants that need more registers than the 168 of 12 warps run at 8
+# warps (255 registers): hold them against `warps8`.
+SPHERE_VARIANTS = {
+    "kernel": [],
+    # the encoding left out: its cost
+    "no_encode": [(_SM_ENCODE, _SM_RAW)],
+    # more or fewer warps per block (the registers a thread may take: 128, 255)
+    "warps16": [(_SM_WARPS, "constexpr int SM_WARPS = 16; ")],
+    "warps8": [_SM_WARPS8],
+    # at 8 warps: the B fragments loaded, no products: the floor of the
+    # fragment traffic
+    "no_mma_w8": [(_SH_INCLUDE, _SH_NO_MMA), _SM_WARPS8],
+    # at 8 warps: each layer's B fragments loaded once, for its first k-tile,
+    # and used for every k-tile: the products without the fragment traffic
+    "b_once_w8": [("      ldsm_x4_t(b[j], ", "      if (k == 0) ldsm_x4_t(b[j], "), _SM_WARPS8],
+    # at 8 warps: the encoding straight into the A fragments, not through the
+    # staging tile
+    "encode_in_registers_w8": [(_SM_ENCODE + "  load_a(Es, lane, a0);\n",
+                                "  encode_regs<WIDE>(p, lane, a0);\n"),
+                               (_SM_PRODUCT, _SM_ENCODE_REGS + _SM_PRODUCT), _SM_WARPS8],
+    # at 8 warps: the 128 -> 1 output as per-lane dot products, not on the
+    # tensor cores
+    "output_dot_w8": [(_SM_OUT_MMA, _SM_OUT_DOT), _SM_WARPS8],
+}
+
 _KERNELS = {"sdf_grad": ("sdf_grad_fwd_kernel", "sdf_bwd_sweep_kernel", "sdf_bwd_params_kernel"),
-            "shader": ("shader_rows_kernel", "shader_bwd_sweep_kernel", "shader_bwd_params_kernel")}
+            "shader": ("shader_rows_kernel", "shader_bwd_sweep_kernel", "shader_bwd_params_kernel"),
+            "sphere_march": ("sphere_march_kernel",)}
+_TABLES = {"sdf_grad": VARIANTS, "shader": SHADER_VARIANTS, "sphere_march": SPHERE_VARIANTS}
+N_RAYS = 393216  # Stage II: 512 points x (512 + 256) directions
 
 
 def variant_source(name: str, kernel: str = "sdf_grad") -> str:
-    table = VARIANTS if kernel == "sdf_grad" else SHADER_VARIANTS
+    table = _TABLES[kernel]
     with open(os.path.join(cuda_build.CSRC, f"{kernel}.cu")) as f:
         src = f.read()
     for old, new in table[name]:
@@ -272,6 +445,8 @@ def build(sources: dict, kernel: str = "sdf_grad", instance: str = "") -> dict:
     libs = {}
     for name, (proc, so) in jobs.items():
         log = proc.communicate()[0]
+        with open(so + ".log", "w") as f:
+            f.write(log)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
         lib = ctypes.CDLL(so)
@@ -281,6 +456,13 @@ def build(sources: dict, kernel: str = "sdf_grad", instance: str = "") -> dict:
             regs.append(f"{info.get('regs', '-')}/{info.get('spill_bytes', '-')}")
         if kernel == "shader":
             libs[name] = (lib, _type_shader(lib), " ".join(regs))
+            continue
+        if kernel == "sphere_march":
+            vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.sphere_march.restype = i
+            lib.sphere_march.argtypes = [vp, vp, vp, vp, i, vp, vp, i, i, i, i, f, f, f, f, f,
+                                         vp, vp, vp]
+            libs[name] = (lib, None, " ".join(regs))
             continue
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.sdf_grad_fwd.restype = i
@@ -329,21 +511,24 @@ def _passes(libs, run) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("names", nargs="*", help="variants (all of the kernel's table)")
-    ap.add_argument("--kernel", choices=["sdf_grad", "shader"], default="sdf_grad")
-    ap.add_argument("--parent", help="another sdf_grad.cu or shader.cu to build as it is")
+    ap.add_argument("--kernel", choices=list(_TABLES), default="sdf_grad")
+    ap.add_argument("--parent", help="another sdf_grad.cu, shader.cu or sphere_march.cu to "
+                                     "build as it is")
     ap.add_argument("--sphere", action="store_true", help="shader: the sphere_direction variant")
     ap.add_argument("--human", action="store_true", help="shader: the human_light variant")
+    ap.add_argument("--wide", action="store_true", help="sphere_march: the `wide` field")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: needs a CUDA device")
-    table = VARIANTS if args.kernel == "sdf_grad" else SHADER_VARIANTS
-    names = args.names or list(table)
+    names = args.names or list(_TABLES[args.kernel])
     sources = {n: variant_source(n, args.kernel) for n in dict.fromkeys(["kernel", *names])}
     if args.parent:
         with open(args.parent) as f:
             sources["parent"] = f.read()
     if args.kernel == "shader":
         return _main_shader(sources, int(args.sphere), int(args.human))
+    if args.kernel == "sphere_march":
+        return _main_sphere(sources, args.wide)
     libs = build(sources)
 
     dev = torch.device("cuda")
@@ -505,6 +690,70 @@ def _main_shader(sources: dict, sphere: int, human: int) -> int:
         ms = [f"{label} {times[name][0][k]:.4f}/{times[name][1][k]:.4f}" for k, label in
               enumerate(("fwd", "bwd", "sweep", "params")[:len(times[name][0])])]
         print(f"{name:20s} {ptx:24s} {'  '.join(ms)}   {' '.join(d)}")
+    return 0
+
+
+def _main_sphere(sources: dict, wide: bool) -> int:
+    """The sphere march's variants on the distilled bowl field."""
+    from nero_tpu_torch.geometry.neural_tracer import NeuralTracer, sphere_segment
+    from nero_tpu_torch.geometry.proc_mesh import proc_mesh, surface_rays
+    from nero_tpu_torch.models.material import DEFAULT_MATERIAL_CFG
+    from nero_tpu_torch.ops import sphere_march as KM
+
+    libs = build(sources, "sphere_march", rf"\w*Lb{int(wide)}E")
+    dev = torch.device("cuda")
+    topology = "wide" if wide else "std"
+    mesh = proc_mesh("bowl")
+    tracer = NeuralTracer(mesh["vertices"], mesh["triangles"], verbose=False, device=dev,
+                          seed=DEFAULT_MATERIAL_CFG["random_seed"], field_topology=topology)
+    o_np, d_np = surface_rays(mesh, N_RAYS)
+    o, d = torch.as_tensor(o_np, device=dev), torch.as_tensor(d_np, device=dev)
+    t_enter, t_exit, _ = sphere_segment(o, d, tracer.bound)
+    rays = tuple(KM.prep(x) for x in (o, d, t_enter, t_exit))
+    W, Fv = KM.kernel_buffers(tracer.packed)
+    dt_frac = 1.0 / (tracer.n_coarse - 1)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    t_out = torch.empty(N_RAYS, device=dev)
+    found = torch.empty(N_RAYS, dtype=torch.bool, device=dev)
+
+    def launch(lib):
+        rc = lib.sphere_march(*(x.data_ptr() for x in rays), N_RAYS, W.data_ptr(), Fv.data_ptr(),
+                              int(wide), tracer.n_sphere, 2, 1, 0.012 + 1e-6, tracer.margin, 0.9,
+                              dt_frac, 0.25, t_out.data_ptr(), found.data_ptr(), stream)
+        cuda_build.check(rc, "sphere_march")
+
+    outs, spills = {}, {}
+
+    def run(name, lib, _):
+        if name not in outs:
+            launch(lib)
+            outs[name] = (t_out.clone(), found.clone())
+        ptx = libs[name][2]
+        spills[name] = ptx.split("/")[-1] not in ("0", "-")
+        return [float("nan") if spills[name] else _time(lambda: launch(lib), 20)]
+
+    times = _passes(libs, run)
+    t_p, f_p = KM.sphere_march_plain(tracer.packed, *rays, n_sphere=tracer.n_sphere,
+                                     n_refine=2, margin=tracer.margin, dt_frac=dt_frac,
+                                     refine="illinois")
+    print(_card())
+    t_k, f_k = outs["kernel"]
+    both = f_k & f_p
+    print(f"sphere march, {topology} field, N = {N_RAYS}, {tracer.n_sphere} sphere + 2 Illinois "
+          f"steps; kernel against the plain version: found agreement "
+          f"{(f_k == f_p).float().mean().item():.6f}, median |dt| "
+          f"{(t_k - t_p).abs()[both].median().item():.3e}, max |dt| "
+          f"{(t_k - t_p).abs()[both].max().item():.3e}, found rate {f_k.float().mean().item():.4f}")
+    print("variant                 regs/spills  launch ms, first / second pass   found as the "
+          "kernel's   max|dt| (both found)")
+    for name, (_, _, ptx) in libs.items():
+        t_v, f_v = outs[name]
+        both = f_v & f_k
+        dt = (t_v - t_k).abs()[both].max().item() if bool(both.any()) else float("nan")
+        ms = ("not timed (spills)" if spills[name]
+              else f"{times[name][0][0]:.4f}/{times[name][1][0]:.4f}")
+        print(f"{name:23s} {ptx:12s} {ms:34s} "
+              f"{(f_v == f_k).float().mean().item():.6f}   {dt:.3e}")
     return 0
 
 

@@ -1,10 +1,13 @@
 """ops/sphere_march.py on the CPU: the plain version of the sphere-march
-kernel against the TPU kernel `sphere_march_fused` in interpret mode, on a
-small field fitted to a torus as tests/test_pallas_kernels.py builds it, at
-that file's bars (agreement, not elementwise: `v <= 0` is a discrete
-decision and a grazing ray may bracket another crossing). The CUDA kernel
-itself is held against the plain version on the card by chip_smoke.py and by
-the `gpu`-marked test."""
+kernel against the TPU kernel `sphere_march_fused` in interpret mode, on
+small fields (`std` and `wide`) fitted to a torus as
+tests/test_pallas_kernels.py builds them, at that file's bars (agreement, not
+elementwise: `v <= 0` is a discrete decision and a grazing ray may bracket
+another crossing). The CUDA kernel itself is held against the plain version
+on the card by chip_smoke.py and by the `gpu`-marked test; the patches of
+its variants in kernel_variants.py are checked here."""
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,23 +19,25 @@ from nero_tpu.geometry.neural_tracer import field_apply as field_apply_jax, init
 from nero_tpu.ops.pallas.field_kernel import pack_field_params as pack_jax
 from nero_tpu.ops.pallas.march_kernel import _field_eval_t, sphere_march_fused
 from nero_tpu.utils.encodings import positional_encode
+from nero_tpu_torch import kernel_variants
 from nero_tpu_torch.core.convert import from_numpy_tree
+from nero_tpu_torch.ops import cuda_build
 from nero_tpu_torch.ops import sphere_march as K
 
 # one intra-op thread: the suite runs several worker processes side by side
 torch.set_num_threads(1)
 
 R = 256
+TOPOLOGIES = ["std", "wide"]
 
 
-@pytest.fixture(scope="module")
-def fitted():
+def _fit(topology):
     """(JAX params, JAX packed, port packed) of a field fitted to a torus."""
     def torus_sdf(p):
         q = jnp.stack([jnp.linalg.norm(p[..., :2], axis=-1) - 0.55, p[..., 2]], axis=-1)
         return jnp.linalg.norm(q, axis=-1) - 0.12
 
-    params = init_field(jax.random.PRNGKey(0))
+    params = init_field(jax.random.PRNGKey(0), topology=topology)
     opt = optax.adam(2e-3)
     opt_state = opt.init(params)
 
@@ -41,7 +46,7 @@ def fitted():
         pts = jax.random.uniform(key, (4096, 3), minval=-0.9, maxval=0.9)
         tgt = torus_sdf(pts)
         loss, g = jax.value_and_grad(
-            lambda p: jnp.mean((field_apply_jax(p, pts) - tgt) ** 2))(params)
+            lambda p: jnp.mean((field_apply_jax(p, pts, topology=topology) - tgt) ** 2))(params)
         up, opt_state2 = opt.update(g, opt_state, params)
         return optax.apply_updates(params, up), opt_state2, loss
 
@@ -51,39 +56,78 @@ def fitted():
     assert float(loss) < 2e-3
     params_t = from_numpy_tree(jax.tree_util.tree_map(np.asarray, params),
                                requires_grad=False)
-    return params, pack_jax(params), K.pack_field_params(params_t)
+    return (params, pack_jax(params, topology=topology),
+            K.pack_field_params(params_t, topology=topology))
 
 
-def _rays():
+@pytest.fixture(scope="module")
+def fields():
+    """Topology -> (JAX params, JAX packed, port packed)."""
+    return {t: _fit(t) for t in TOPOLOGIES}
+
+
+@pytest.fixture(scope="module")
+def fitted(fields):
+    return fields["std"]
+
+
+def _rays(n=R):
     """Rays from a sphere of radius 1.4 in random directions, as the JAX test."""
     rng = np.random.default_rng(4)
-    o = rng.standard_normal((R, 3))
+    o = rng.standard_normal((n, 3))
     o = 1.4 * o / np.linalg.norm(o, axis=-1, keepdims=True)
-    d = rng.standard_normal((R, 3))
+    d = rng.standard_normal((n, 3))
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    return (o.astype(np.float32), d.astype(np.float32), np.full(R, 0.012, np.float32),
-            np.full(R, 2.8, np.float32))
+    return (o.astype(np.float32), d.astype(np.float32), np.full(n, 0.012, np.float32),
+            np.full(n, 2.8, np.float32))
 
 
-def _both(fitted, refine, n_refine):
+def _both(fitted, refine, n_refine, n=R, topology="std", n_sphere=16):
     _, packed_j, packed_t = fitted
-    rays = _rays()
-    kw = dict(n_sphere=16, n_refine=n_refine, dt_frac=1.0 / 31.0, margin=0.004, refine=refine)
-    t_j, h_j = sphere_march_fused(packed_j, *map(jnp.asarray, rays), interpret=True, **kw)
+    rays = _rays(n)
+    kw = dict(n_sphere=n_sphere, n_refine=n_refine, dt_frac=1.0 / 31.0, margin=0.004,
+              refine=refine)
+    t_j, h_j = sphere_march_fused(packed_j, *map(jnp.asarray, rays), interpret=True,
+                                  topology=topology, **kw)
     t_t, h_t = K.sphere_march_plain(packed_t, *map(torch.from_numpy, rays), **kw)
     return np.asarray(t_j), np.asarray(h_j), t_t.numpy(), h_t.numpy()
 
 
-@pytest.mark.parametrize("refine,n_refine", [("illinois", 3), ("illinois", 2), ("bisect", 8)])
-def test_plain_matches_pallas_interpret(fitted, refine, n_refine):
+def _agree(t_j, h_j, t_t, h_t):
     """Bars of tests/test_pallas_kernels.py:105-109: found agreement > 0.99
     and median |dt| < 1e-3 on rays both found."""
-    t_j, h_j, t_t, h_t = _both(fitted, refine, n_refine)
     assert h_j.any() and not h_j.all()
     assert (h_j == h_t).mean() > 0.99
     both = h_j & h_t
     assert np.median(np.abs(t_j[both] - t_t[both])) < 1e-3
     assert np.isfinite(t_t).all()
+
+
+@pytest.mark.parametrize("refine,n_refine", [("illinois", 3), ("illinois", 2), ("bisect", 8)])
+def test_plain_matches_pallas_interpret(fitted, refine, n_refine):
+    _agree(*_both(fitted, refine, n_refine))
+
+
+@pytest.mark.parametrize("topology", TOPOLOGIES)
+def test_ragged_ray_count_matches_pallas_interpret(fields, topology):
+    """1,001 rays, a multiple of neither the CUDA kernel's 16-ray warp tile
+    nor the 128-ray tiles of the TPU kernel and field.cuh: the Stage-II
+    defaults (18 sphere steps, 2 Illinois steps) at the same bars."""
+    out = _both(fields[topology], "illinois", 2, n=1001, topology=topology, n_sphere=18)
+    assert out[2].shape == out[3].shape == (1001,)
+    _agree(*out)
+
+
+@pytest.mark.parametrize("topology", TOPOLOGIES)
+def test_zero_rays(fields, topology):
+    """No rays: an empty f32 t and an empty bool found, without error."""
+    _, _, packed_t = fields[topology]
+    empty = tuple(torch.from_numpy(a[:0]) for a in _rays(1))
+    for refine in ("illinois", "bisect"):
+        t, found = K.sphere_march(packed_t, *empty, n_sphere=18, n_refine=2, refine=refine,
+                                  topology=topology)
+        assert t.shape == found.shape == (0,)
+        assert t.dtype == torch.float32 and found.dtype == torch.bool
 
 
 def test_refine_mode_keeps_found(fitted):
@@ -161,18 +205,44 @@ def test_work_per_launch():
     assert K.min_bytes(393216) == 393216 * 40 + 304 * 128 * 2
 
 
+@pytest.mark.parametrize("name", list(kernel_variants.SPHERE_VARIANTS))
+def test_every_variant_patch_applies(name):
+    """A stale patch shows only on the card: each variant's every (old, new)
+    pair must find its text in csrc/sphere_march.cu as it is, and change it."""
+    src = kernel_variants.variant_source(name, "sphere_march")
+    with open(os.path.join(cuda_build.CSRC, "sphere_march.cu")) as f:
+        orig = f.read()
+    assert (src == orig) == (not kernel_variants.SPHERE_VARIANTS[name])
+
+
 @pytest.mark.gpu
-def test_cuda_kernel_matches_plain_version(fitted):
+@pytest.mark.parametrize("topology", TOPOLOGIES)
+def test_cuda_kernel_matches_plain_version(fields, topology):
+    """Both refine modes at 0, 1, 1,001 and 65,536 rays: empty outputs at 0,
+    elsewhere found agreement > 0.99 and median |dt| < 1e-3, and the refine
+    mode keeps `found`."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    _, _, packed_t = fitted
+    _, _, packed_t = fields[topology]
     dev = torch.device("cuda")
     packed = {k: v.to(dev) for k, v in packed_t.items()}
-    rays = tuple(torch.from_numpy(a).to(dev) for a in _rays())
-    for refine, n_refine in (("illinois", 2), ("bisect", 8)):
-        kw = dict(n_sphere=18, n_refine=n_refine, refine=refine)
-        t_k, h_k = K.sphere_march(packed, *rays, **kw)
-        t_p, h_p = K.sphere_march_plain(packed, *rays, **kw)
-        assert (h_k == h_p).float().mean() > 0.99
-        both = h_k & h_p
-        assert (t_k - t_p).abs()[both].median() < 1e-3
+    all_rays = tuple(torch.from_numpy(a).to(dev) for a in _rays(65536))
+    for n in (0, 1, 1001, 65536):
+        rays = tuple(a[:n] for a in all_rays)
+        found = {}
+        for refine, n_refine in (("illinois", 2), ("bisect", 8)):
+            kw = dict(n_sphere=18, n_refine=n_refine, refine=refine)
+            t_k, h_k = K.sphere_march(packed, *rays, topology=topology, **kw)
+            t_p, h_p = K.sphere_march_plain(packed, *rays, **kw)
+            torch.cuda.synchronize()
+            assert t_k.shape == h_k.shape == (n,)
+            assert t_k.dtype == torch.float32 and h_k.dtype == torch.bool
+            found[refine] = h_k
+            if n == 0:
+                continue
+            assert torch.isfinite(t_k).all()
+            assert (h_k == h_p).float().mean() > 0.99
+            both = h_k & h_p
+            if bool(both.any()):
+                assert (t_k - t_p).abs()[both].median() < 1e-3
+        assert torch.equal(found["illinois"], found["bisect"])
