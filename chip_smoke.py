@@ -19,7 +19,9 @@ result line):
      shader's seven head shapes (259 -> 1 ... 24 -> 4); the value-only SDF kernel at 131,072
      points (the occlusion march's first pass) and 32,768 (the sampler's);
      then the light kernel (fwd/bwd; both heads, and the outer head alone
-     with `sphere_direction`) at N = 393,216 rows; kernel and plain times
+     with `sphere_direction`) at N = 393,216 rows, and at n = 1,001 and 0,
+     its backward's dW / dB to the bit in two calls, its two parts timed
+     apart, its three kernels' ptxas (0 spill bytes); kernel and plain times
      from CUDA events;
   3. the mesh of the bowl scene from its analytic SDF (host iso-surfacer); a
      `std` and a `wide` field distilled from it on the card; for each, the
@@ -791,7 +793,11 @@ def check_lights(n: int, dev) -> list:
     max) under 4x that of the plain version with bf16 head products + 1e-3;
     cosine > 0.99 per parameter leaf and > 0.98 for d directions (and d
     points). Mode `both` with the `direction` outer light, and mode `outer`
-    with `sphere_direction`."""
+    with `sphere_direction`. Then a ragged n = 1001 at the same bars, n = 0
+    (empty outputs, parameter gradients exactly 0), dW, dB and dgeo equal to
+    the bit in two calls, the backward's sweep and parameter pass timed
+    apart with their buffer bytes, and ptxas of its three kernels (0 spill
+    bytes)."""
     from nero_tpu_torch.fields.mc_shading import MCShadingConfig, init_mc_shading
     from nero_tpu_torch.ops import lights as K
     from nero_tpu_torch.ops.mlp import exp_activation, predictor_raw
@@ -811,8 +817,8 @@ def check_lights(n: int, dev) -> list:
         params = init_mc_shading(torch.Generator().manual_seed(0), cfg, device=dev)
         heads = {k: params[k] for k in ("inner_light", "outer_light")[mode == "outer":]}
 
-        def lights(fn):
-            inner_z, outer_z = fn(params, cfg, pts, dirs, inters, normals, mode)
+        def lights(fn, m: int = n):  # the first m rows
+            inner_z, outer_z = fn(params, cfg, pts[:m], dirs[:m], inters[:m], normals[:m], mode)
             return (exp_activation(inner_z, cfg.inner_light_exp_max),
                     exp_activation(outer_z, cfg.light_exp_max))
 
@@ -837,9 +843,9 @@ def check_lights(n: int, dev) -> list:
         print(f"lights_fwd{sfx}    max|d inner| {e_in:.3e}  max|d outer| {e_out:.3e} "
               f"(after exp, atol 3e-3)")
 
-        def loss(fn):
-            inner, outer = lights(fn)
-            return (inner * cot_i).sum() + (outer * cot_o).sum()
+        def loss(fn, m: int = n):
+            inner, outer = lights(fn, m)
+            return (inner * cot_i[:m]).sum() + (outer * cot_o[:m]).sum()
 
         wrt = leaves(heads) + [dirs] + ([pts] if version == "sphere_direction" else [])
         n_par = len(leaves(heads))
@@ -889,6 +895,67 @@ def check_lights(n: int, dev) -> list:
                         "library_ms": None})
         out[-1]["mean_rel_err"] = noise_ker
         del g_p, g_k, g_b
+        # a ragged size (tiles of 64 rows forward, 128 backward) at the same
+        # bars, and no rows: empty outputs, parameter gradients exactly 0
+        m = 1001
+        with torch.no_grad():
+            (i_k, o_k), (i_p, o_p) = lights(K.lights_raw, m), lights(K.lights_raw_plain, m)
+        e_odd = max((i_k - i_p).abs().max().item(), (o_k - o_p).abs().max().item())
+        g_p = torch.autograd.grad(loss(K.lights_raw_plain, m), wrt)
+        g_k = torch.autograd.grad(loss(K.lights_raw, m), wrt)
+        cos_odd = (min(cos(a, b) for a, b in zip(g_p[:n_par], g_k[:n_par])),
+                   min(cos(a, b) for a, b in zip(g_p[n_par:], g_k[n_par:])))
+        check(e_odd <= 3e-3 and cos_odd[0] > 0.99 and cos_odd[1] > 0.98,
+              f"lights{sfx} at n = {m}: max err {e_odd}, cosines {cos_odd}")
+        counted = dict(K.launches)
+        i_0, o_0 = lights(K.lights_raw, 0)
+        check(tuple(i_0.shape) == (0, 3) and tuple(o_0.shape) == (0, 3),
+              f"lights{sfx} zero rows: shapes {tuple(i_0.shape)}, {tuple(o_0.shape)}")
+        g_0 = torch.autograd.grad(loss(K.lights_raw, 0), leaves(heads))
+        check(all(not g.any() for g in g_0), f"lights{sfx} zero rows: non-zero parameter gradients")
+        check(K.launches == counted, f"lights{sfx} zero rows: counted a launch that was not made")
+        print(f"lights_bwd{sfx}    n = {m}: max|d lights| {e_odd:.3e}, worst cosine parameters "
+              f"{cos_odd[0]:.5f} geometry {cos_odd[1]:.5f}; n = 0: shapes (0,3) (0,3), parameter "
+              f"gradients zero")
+        del g_p, g_k
+        # the backward's parts alone, on the wrapper's buffers: recompute +
+        # reverse sweep, then the weight- and bias-gradient pass with its
+        # reduction; the same gradients to the bit in two calls; no rows, no
+        # launch, zeros
+        from nero_tpu_torch.ops.cuda_build import check as check_rc, ptxas_info
+        with torch.no_grad():
+            first, second = (K._bwd(geo, W, B, sphere, both, gout) for _ in range(2))
+        check(all(torch.equal(a, b) for a, b in zip(first, second)),
+              f"lights_bwd{sfx}: two calls differ")
+        z = K._bwd(geo[:0], W, B, sphere, both, gout[:0])
+        check(not z[1].any() and not z[2].any(), f"lights_bwd{sfx} zero rows: dW or dB not zero")
+        del first, second, z
+        lib, stream = K._lib(), torch.cuda.current_stream(dev).cuda_stream
+        scratch, part = K.bwd_buffers(n, sphere, both, dev)
+        dgeo6 = torch.empty(n, 6, device=dev)
+        dW, dB = torch.empty(W.numel(), device=dev), torch.empty_like(B)
+        tab = K.ide_table_on(dev)
+        sweep_ms = cuda_ms(lambda: check_rc(lib.lights_bwd_sweep(
+            geo.data_ptr(), n, W.data_ptr(), B.data_ptr(), tab.data_ptr(), int(sphere),
+            int(both), gout.data_ptr(), dgeo6.data_ptr(), scratch.data_ptr(), stream), "sweep"),
+            iters=5)
+        params_ms = cuda_ms(lambda: check_rc(lib.lights_bwd_params(
+            n, int(sphere), int(both), scratch.data_ptr(), part.data_ptr(), dW.data_ptr(),
+            dB.data_ptr(), stream), "params"), iters=5)
+        buf_bytes = scratch.numel() * 2 + part.numel() * 4
+        del scratch, part, dgeo6, dW, dB
+        inst = f"\\w*Lb{int(sphere)}ELb{int(both)}E"  # the variant's template instance
+        ptx = {k: ptxas_info("lights", k + inst) for k in
+               ("lights_bwd_sweep_kernel", "lights_bwd_params_kernel", "lights_bwd_reduce_kernel")}
+        check(all(v.get("spill_bytes") == 0 for v in ptx.values()),
+              f"lights{sfx} backward spills: {ptx}")
+        out[-1].update({"sweep_ms": sweep_ms, "params_ms": params_ms, "scratch_bytes": buf_bytes,
+                        "ptxas": ptx})
+        print(f"lights_bwd{sfx}    launch {launch_bwd:.3f} ms = recompute + sweep {sweep_ms:.3f} + "
+              f"parameter pass {params_ms:.3f}; scratch + partials {buf_bytes / 1e9:.3f} GB at "
+              f"N = {n}; the same dW, dB, dgeo to the bit in two calls; " + ", ".join(
+                  f"{k} {v.get('regs')} regs {v.get('spill_bytes')} spill bytes"
+                  for k, v in ptx.items()))
         torch.cuda.empty_cache()
     return out
 

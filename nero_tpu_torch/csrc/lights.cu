@@ -15,32 +15,53 @@
 //     IDE(reflection of the normalised -direction about the normalised hit
 //     normal, kappa = 0).
 // The exp activations, the hit select and the human light stay outside.
-// Heads are 4 layers, 256 wide, ReLU; weights bf16, sums f32 (block_mm).
+// Heads are 4 layers, 256 wide, ReLU; weights bf16, sums f32.
 //
-// Forward (lights_rows_kernel<false>): one block per tile of P = 64 rows; the
+// Forward (lights_rows_kernel): one block per tile of P = 64 rows; the
 // per-row geometry by one thread per row, the encodings by 8 threads per row
 // (IDE by the de-Moivre recurrence of encode.cuh, polynomial and NaN-free, so
 // it evaluates the unnormalised hit point as the plain version does), the
-// head products through block_mm, 6 floats out per row. Rows past N are
-// masked: never read, never written.
+// head products through common.cuh's block_mm, 6 floats out per row. Rows
+// past N are masked: never read, never written.
 //
 // Backward: the TPU kernel linearises its forward with jax.vjp inside its
-// body (:154); here it is derived by hand. lights_rows_kernel<true>
-// recomputes the tile's forward, writing each head's input X and hidden
-// activations H1..H3 (bf16) to device memory, then runs each head's ReLU
-// chain in reverse (dZ stored for the weight gradients, dX = dZ1 @ W1^T),
-// and pushes dX through the IDE and the row geometry to d points and
-// d directions: the sphere hit (through the root and the 0.999 clamp of the
-// point), the reflection and the normalisation of -direction. The traced hit
-// points and normals arrive detached and get no gradient. Weight and bias
-// gradients come from the two-pass chunked reduction of common.cuh
-// (deterministic, no atomics).
+// body (:154) and accumulates the parameter cotangents in VMEM across a
+// sequential grid; here the gradient is derived by hand in three launches on
+// the mma.sync engine of engine.cuh (the engine of csrc/shader.cu's
+// backward):
+//  * lights_bwd_sweep_kernel, one block of 16 warps per tile of PB = 128
+//    rows (warp w: rows 32(w/4) .. +31, columns 64(w%4) .. +63). It
+//    recomputes the outer head and then (mode `both`) the inner head: the
+//    input built in the tile by the row's 4 lanes (IDE and PE8 of encode.cuh),
+//    the products on weight slabs streamed through the 2-stage cp.async ring,
+//    bias and ReLU in registers from the accumulators, X and H1-H3 to the
+//    scratch once, bf16. Then the reverse sweep, head by head: GZ4 from the
+//    head's three cotangent columns, GH = GZ W^T, the ReLU mask from the H
+//    the lane wrote, each GZ to the scratch; then dX = GZ1 W1^T only over the
+//    input columns that carry a gradient (the inner head's IDE, columns
+//    51:123 as the n8-tiles 48:128: PE8 of the traced hit point is detached;
+//    all of the outer head's), f32 in shared memory over the tile. dX goes
+//    back through the IDE (4 lanes a row, their partial sums added in a fixed
+//    order) and the row geometry to d points and d directions: the sphere
+//    hit (through the root and the 0.999 clamp of the point), the
+//    reflection and the normalisation of -direction. The traced hit points
+//    and normals arrive detached and get no gradient.
+//  * lights_bwd_params_kernel: every dW = X^T GZ and db (column sums of GZ)
+//    of both heads in one launch over (head, layer, 128-row part of the
+//    layer's input, row chunk), mma.sync on 128-row stages.
+//  * lights_bwd_reduce_kernel adds the chunks' partials in chunk order (no
+//    atomics): dW and dB are the same to the bit in every call.
+// Rows past N carry zero cotangents: they add nothing.
 //
 // Bound: tensor-core operations, 2*(di*256 + 2*256*256 + 256*3) per row and
-// head forward and 3x that backward, against 72 bytes per row. This first
-// version streams the weights from L2 and round-trips the backward's
-// activations (6.7 KB per row) through device memory.
+// head forward and 3x that backward (0.748 ms in mode `both` at N = 393,216),
+// against 72 bytes per row. What keeps the backward from it: the sweep
+// streams both heads' weights (0.65 MB bf16) from L2 twice per 128-row tile,
+// ~4 GB a launch at N = 393,216, and writes the scratch (6.6 KB a row in
+// mode `both`), which the parameter pass reads back (the GZ of a 256-wide
+// layer twice, once for each 128-row part of its input).
 #include "encode.cuh"
+#include "engine.cuh"
 
 using namespace nero;
 
@@ -48,7 +69,7 @@ namespace {
 
 constexpr int P = 64;
 constexpr int NTHREADS = 512;
-constexpr int LANES = NTHREADS / P;  // threads per row in the per-row phases
+constexpr int LANES = NTHREADS / P;  // threads per row in the forward's per-row phases
 constexpr int HID = 256;
 constexpr int DO = 16;   // head outputs padded
 constexpr int GEO = 12;  // points, directions, traced hit points, hit normals
@@ -60,67 +81,96 @@ constexpr int DI_OUTER = 80;       // 72, padded
 constexpr int DI_OUTER_SPH = 144;  // 2 x 72
 constexpr int MAX_DI = DI_OUTER_SPH;
 constexpr int LDX = MAX_DI + 8, LDH = HID + 8, LDC = HID + 4;
-constexpr int DW_CHUNK_MIN_ROWS = 2048;  // rows per weight-gradient chunk, at least
+static_assert(HID == LAYER_W, "the engine's layer width");
 
 __host__ __device__ constexpr size_t head_welems(int di) {
   return (size_t)di * HID + 2 * (size_t)HID * HID + (size_t)HID * DO;
 }
-// backward scratch of one head for M rows (bf16): X [M][di], H [3][M][256],
-// DZ [3][M][256], DZ4 [M][16]
-__host__ __device__ constexpr size_t head_scratch(int di, size_t M) {
-  return M * di + 6 * M * HID + M * DO;
+
+__device__ __forceinline__ float dot3(const float* a, const float* b) {
+  return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
 }
+
+// ---- the row geometry, shared by the forward and the backward ----
+
+// sphere_direction: the point pulled inside the unit sphere (radius 0.999),
+// then the ray's exit point hp = sp + d * dist, NOT normalised.
+struct SphereRow {
+  float sp[3], hp[3], dist, root, norm, disc;
+};
+
+__device__ __forceinline__ void sphere_row(const float* p, const float* d, SphereRow& h) {
+  h.norm = sqrtf(dot3(p, p));
+  for (int k = 0; k < 3; ++k)
+    h.sp[k] = h.norm > 0.999f ? p[k] * 0.999f / fmaxf(h.norm, 1e-12f) : p[k];
+  const float dtx = dot3(h.sp, d), xtx = dot3(h.sp, h.sp);
+  h.disc = dtx * dtx - xtx + 1.0f;
+  h.root = sqrtf(fmaxf(h.disc, 0.0f) + 1e-6f);
+  h.dist = -dtx + h.root;
+  for (int k = 0; k < 3; ++k) h.hp[k] = h.sp[k] + d[k] * h.dist;
+}
+
+// cotangent dhp of the exit point -> dp (set), dd (added to). hp = sp + d
+// dist, dist = -dtx + sqrt(max(disc, 0) + 1e-6), disc = dtx^2 - xtx + 1,
+// dtx = sp.d, xtx = sp.sp; sp = p * 0.999 / |p| where |p| > 0.999, else p.
+__device__ __forceinline__ void sphere_row_bwd(const float* p, const float* d, const SphereRow& h,
+                                               const float* dhp, float* dp, float* dd) {
+  const float d_dist = dot3(dhp, d);
+  const float d_disc = h.disc > 0.0f ? d_dist / (2.0f * h.root) : 0.0f;
+  const float dtx = dot3(h.sp, d);
+  const float d_dtx = -d_dist + 2.0f * dtx * d_disc;
+  float dsp[3];
+  for (int k = 0; k < 3; ++k) {
+    dd[k] += dhp[k] * h.dist + d_dtx * h.sp[k];
+    dsp[k] = dhp[k] + d_dtx * d[k] - 2.0f * d_disc * h.sp[k];
+  }
+  if (h.norm > 0.999f) {
+    const float pd = dot3(p, dsp) / (h.norm * h.norm);
+    for (int k = 0; k < 3; ++k) dp[k] = 0.999f * (dsp[k] - p[k] * pd) / h.norm;
+  } else {
+    for (int k = 0; k < 3; ++k) dp[k] = dsp[k];
+  }
+}
+
+// mode both: n = normalize(hit normal), v = normalize(-d), |-d|, and the
+// reflection r = 2 (v.n) n - v
+__device__ __forceinline__ void inner_row(const float* normal, const float* d, float* n, float* v,
+                                          float* vlen, float* r) {
+  float nlen;
+  normalize3(normal, n, &nlen);
+  const float negd[3] = {-d[0], -d[1], -d[2]};
+  normalize3(negd, v, vlen);
+  const float nov = dot3(v, n);
+  for (int k = 0; k < 3; ++k) r[k] = nov * n[k] * 2.0f - v[k];
+}
+
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
 
 struct Head {
   const bf16* W;   // w1 [di,256], w2, w3 [256,256], w4 [256,16], row-major [in,out]
   const float* B;  // [4][256]
   int di;          // padded input width
-  int col;         // first column of the head's outputs in the packed row
-  bf16 *X, *H, *DZ, *DZ4;  // backward scratch (null in the forward)
-  size_t M;                // rows of the scratch
 };
-
-__host__ __device__ inline void head_layers(const Head& h, const bf16** Wl) {
-  Wl[0] = h.W;
-  Wl[1] = Wl[0] + (size_t)h.di * HID;
-  Wl[2] = Wl[1] + (size_t)HID * HID;
-  Wl[3] = Wl[2] + (size_t)HID * HID;
-}
-
-inline Head make_head(const bf16* W, const float* B, int di, int col, bf16* scratch, size_t M) {
-  Head h{W, B, di, col, nullptr, nullptr, nullptr, nullptr, M};
-  if (scratch) {
-    h.X = scratch;
-    h.H = h.X + M * di;
-    h.DZ = h.H + 3 * M * HID;
-    h.DZ4 = h.DZ + 3 * M * HID;
-  }
-  return h;
-}
 
 struct Args {
   Head inner, outer;
   int n, sphere, both;
 };
 
-// per-row state in shared memory
-enum { RS_D = 0, RS_SP = 3, RS_HP = 6, RS_DIST = 9, RS_ROOT = 10, RS_NORM = 11, RS_DISC = 12,
-       RS_P = 13, RS_N = 16, RS_V = 19, RS_VLEN = 22, RS_R = 23, RS_IN = 26, RS_W = 32 };
-// per-row gradient accumulators
-enum { RG_P = 0, RG_D = 3, RG_W = 8 };
+// per-row state of the forward in shared memory
+enum { RS_D = 0, RS_HP = 3, RS_IN = 6, RS_R = 9, RS_W = 12 };
 
 struct Smem {
   bf16* X;     // [P][LDX]
   bf16* Hb;    // [P][LDH]
   float* C;    // [P][LDC]
   float* rs;   // [P][RS_W]
-  float* G;    // [P][8]  cotangent of the packed outputs
-  float* rg;   // [P][RG_W]
   float* tab;  // IDE table
 };
 constexpr size_t SMEM_BYTES = (size_t)P * LDX * 2 + (size_t)P * LDH * 2 + (size_t)P * LDC * 4 +
-                              (size_t)P * RS_W * 4 + (size_t)P * 8 * 4 + (size_t)P * RG_W * 4 +
-                              TAB * 4;
+                              (size_t)P * RS_W * 4 + TAB * 4;
 
 __device__ Smem carve(unsigned char* base) {
   Smem s;
@@ -128,27 +178,12 @@ __device__ Smem carve(unsigned char* base) {
   s.Hb = s.X + P * LDX;
   s.C = reinterpret_cast<float*>(s.Hb + P * LDH);
   s.rs = s.C + P * LDC;
-  s.G = s.rs + P * RS_W;
-  s.rg = s.G + P * 8;
-  s.tab = s.rg + P * RG_W;
+  s.tab = s.rs + P * RS_W;
   return s;
 }
 
-__device__ __forceinline__ float dot3(const float* a, const float* b) {
-  return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
-}
-
-// sum over the LANES neighbouring threads of a row
-__device__ __forceinline__ float lane_sum(float v) {
-#pragma unroll
-  for (int o = 1; o < LANES; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// The head's input tile into X (and, for the backward, into its scratch).
-template <bool BWD>
-__device__ void build_input(const Smem& s, const Head& h, bool inner, bool sphere,
-                            size_t row0) {
+// The head's input tile into X.
+__device__ void build_input(const Smem& s, const Head& h, bool inner, bool sphere) {
   const int tid = threadIdx.x;
   const int r = tid / LANES, lane = tid % LANES;
   const float* rs = s.rs + r * RS_W;
@@ -164,28 +199,22 @@ __device__ void build_input(const Smem& s, const Head& h, bool inner, bool spher
     for (int c = (sphere ? 2 : 1) * NIDE + lane; c < h.di; c += LANES) xrow[c] = to_bf(0.0f);
   }
   __syncthreads();
-  if (BWD) {
-    for (int idx = tid; idx < P * h.di; idx += NTHREADS) {
-      const int rr = idx / h.di, c = idx % h.di;
-      h.X[(row0 + rr) * h.di + c] = s.X[rr * LDX + c];
-    }
-  }
 }
 
 // one head forward; raw outputs go to C[:, 0:DO] (bias added)
-template <bool BWD>
-__device__ void head_fwd(const Smem& s, const Head& h, size_t row0) {
+__device__ void head_fwd(const Smem& s, const Head& h) {
   const bf16* Wl[4];
-  head_layers(h, Wl);
+  Wl[0] = h.W;
+  Wl[1] = Wl[0] + (size_t)h.di * HID;
+  Wl[2] = Wl[1] + (size_t)HID * HID;
+  Wl[3] = Wl[2] + (size_t)HID * HID;
   for (int l = 0; l < 3; ++l) {
     if (l == 0) block_mm<false>(s.X, LDX, Wl[0], HID, s.C, LDC, P, HID, h.di, false);
     else block_mm<false>(s.Hb, LDH, Wl[l], HID, s.C, LDC, P, HID, HID, false);
     __syncthreads();
     for (int idx = threadIdx.x; idx < P * HID; idx += NTHREADS) {
       const int r = idx / HID, c = idx % HID;
-      const bf16 v = to_bf(fmaxf(s.C[r * LDC + c] + h.B[l * HID + c], 0.0f));
-      s.Hb[r * LDH + c] = v;
-      if (BWD) h.H[((size_t)l * h.M + row0 + r) * HID + c] = v;
+      s.Hb[r * LDH + c] = to_bf(fmaxf(s.C[r * LDC + c] + h.B[l * HID + c], 0.0f));
     }
     __syncthreads();
   }
@@ -198,222 +227,505 @@ __device__ void head_fwd(const Smem& s, const Head& h, size_t row0) {
   __syncthreads();
 }
 
-// one head backward from the cotangent in G (its three output columns); dZ
-// of every layer goes to the scratch; the input cotangent dX = dZ1 @ W1^T is
-// left in C[:, 0:di].
-__device__ void head_bwd(const Smem& s, const Head& h, size_t row0) {
-  const bf16* Wl[4];
-  head_layers(h, Wl);
-  for (int idx = threadIdx.x; idx < P * DO; idx += NTHREADS) {
-    const int r = idx / DO, c = idx % DO;
-    const bf16 v = to_bf(c < 3 ? s.G[r * 8 + h.col + c] : 0.0f);
-    s.Hb[r * LDH + c] = v;
-    h.DZ4[(row0 + r) * DO + c] = v;
-  }
-  __syncthreads();
-  block_mm<true>(s.Hb, LDH, Wl[3], DO, s.C, LDC, P, HID, DO, false);  // dH3
-  __syncthreads();
-  for (int l = 2; l >= 0; --l) {
-    const bf16* H = h.H + (size_t)l * h.M * HID;
-    bf16* DZ = h.DZ + (size_t)l * h.M * HID;
-    for (int idx = threadIdx.x; idx < P * HID; idx += NTHREADS) {
-      const int r = idx / HID, c = idx % HID;
-      const bool on = from_bf(H[(row0 + r) * HID + c]) > 0.0f;
-      const bf16 v = to_bf(on ? s.C[r * LDC + c] : 0.0f);
-      s.Hb[r * LDH + c] = v;
-      DZ[(row0 + r) * HID + c] = v;
-    }
-    __syncthreads();
-    if (l > 0) block_mm<true>(s.Hb, LDH, Wl[l], HID, s.C, LDC, P, HID, HID, false);
-    else block_mm<true>(s.Hb, LDH, Wl[0], HID, s.C, LDC, P, h.di, HID, false);
-    __syncthreads();
-  }
-}
-
-template <bool BWD>
 __global__ void __launch_bounds__(NTHREADS, 1)
 lights_rows_kernel(const float* __restrict__ geo, Args a, const float* __restrict__ ide_tab,
-                   float* __restrict__ out, const float* __restrict__ gout,
-                   float* __restrict__ dgeo) {
+                   float* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const Smem s = carve(smem_raw);
   const int tid = threadIdx.x;
   const int p0 = blockIdx.x * P;
-  const size_t row0 = (size_t)p0;
   const int n = a.n;
   const bool sphere = a.sphere != 0, both = a.both != 0;
 
   for (int i = tid; i < TAB; i += NTHREADS) s.tab[i] = ide_tab[i];
   if (tid < P) {
-    // row geometry
     const int r = tid;
     float* rs = s.rs + r * RS_W;
     float g[GEO] = {0.0f};
     if (p0 + r < n)
       for (int k = 0; k < GEO; ++k) g[k] = geo[(size_t)(p0 + r) * GEO + k];
-    const float* p = g;
-    const float* d = g + 3;
     for (int k = 0; k < 3; ++k) {
-      rs[RS_P + k] = p[k];
-      rs[RS_D + k] = d[k];
+      rs[RS_D + k] = g[3 + k];
       rs[RS_IN + k] = g[6 + k];
     }
     if (sphere) {
-      // the point pulled inside the unit sphere, then the ray's exit point
-      const float norm = sqrtf(dot3(p, p));
-      float sp[3];
-      for (int k = 0; k < 3; ++k)
-        sp[k] = norm > 0.999f ? p[k] * 0.999f / fmaxf(norm, 1e-12f) : p[k];
-      const float dtx = dot3(sp, d), xtx = dot3(sp, sp);
-      const float disc = dtx * dtx - xtx + 1.0f;
-      const float root = sqrtf(fmaxf(disc, 0.0f) + 1e-6f);
-      const float dist = -dtx + root;
-      for (int k = 0; k < 3; ++k) {
-        rs[RS_SP + k] = sp[k];
-        rs[RS_HP + k] = sp[k] + d[k] * dist;
-      }
-      rs[RS_DIST] = dist;
-      rs[RS_ROOT] = root;
-      rs[RS_NORM] = norm;
-      rs[RS_DISC] = disc;
+      SphereRow h;
+      sphere_row(g, g + 3, h);
+      for (int k = 0; k < 3; ++k) rs[RS_HP + k] = h.hp[k];
     }
     if (both) {
-      float nlen;
-      normalize3(g + 9, rs + RS_N, &nlen);
-      const float negd[3] = {-d[0], -d[1], -d[2]};
-      normalize3(negd, rs + RS_V, rs + RS_VLEN);
-      const float nov = dot3(rs + RS_V, rs + RS_N);
-      for (int k = 0; k < 3; ++k) rs[RS_R + k] = nov * rs[RS_N + k] * 2.0f - rs[RS_V + k];
+      float nn[3], vv[3], vlen;
+      inner_row(g + 9, g + 3, nn, vv, &vlen, rs + RS_R);
     }
   }
   __syncthreads();
 
-  // forward: outer head, then (mode both) inner head
-  build_input<BWD>(s, a.outer, false, sphere, row0);
-  head_fwd<BWD>(s, a.outer, row0);
-  if (!BWD) {
+  // outer head, then (mode both) inner head
+  build_input(s, a.outer, false, sphere);
+  head_fwd(s, a.outer);
+  for (int idx = tid; idx < P * 3; idx += NTHREADS) {
+    const int r = idx / 3, c = idx % 3;
+    if (p0 + r < n) {
+      out[(size_t)(p0 + r) * OUT + 3 + c] = s.C[r * LDC + c];
+      if (!both) out[(size_t)(p0 + r) * OUT + c] = 0.0f;
+    }
+  }
+  __syncthreads();
+  if (both) {
+    build_input(s, a.inner, true, sphere);
+    head_fwd(s, a.inner);
     for (int idx = tid; idx < P * 3; idx += NTHREADS) {
       const int r = idx / 3, c = idx % 3;
-      if (p0 + r < n) {
-        out[(size_t)(p0 + r) * OUT + 3 + c] = s.C[r * LDC + c];
-        if (!both) out[(size_t)(p0 + r) * OUT + c] = 0.0f;
-      }
+      if (p0 + r < n) out[(size_t)(p0 + r) * OUT + c] = s.C[r * LDC + c];
     }
-    __syncthreads();
-  }
-  if (both) {
-    build_input<BWD>(s, a.inner, true, sphere, row0);
-    head_fwd<BWD>(s, a.inner, row0);
-    if (!BWD) {
-      for (int idx = tid; idx < P * 3; idx += NTHREADS) {
-        const int r = idx / 3, c = idx % 3;
-        if (p0 + r < n) out[(size_t)(p0 + r) * OUT + c] = s.C[r * LDC + c];
-      }
-    }
-  }
-  if (!BWD) return;
-
-  // ---- backward ----
-  for (int idx = tid; idx < P * 8; idx += NTHREADS) {
-    const int r = idx / 8, c = idx % 8;
-    s.G[idx] = (c < OUT && p0 + r < n) ? gout[(size_t)(p0 + r) * OUT + c] : 0.0f;
-  }
-  for (int idx = tid; idx < P * RG_W; idx += NTHREADS) s.rg[idx] = 0.0f;
-  __syncthreads();
-
-  const int r = tid / LANES, lane = tid % LANES;
-  const float* rs = s.rs + r * RS_W;
-  float* rg = s.rg + r * RG_W;
-
-  head_bwd(s, a.outer, row0);
-  {
-    // IDE(direction) and IDE(sphere hit point) back to the row geometry
-    float dd[3] = {0.0f, 0.0f, 0.0f}, dhp[3] = {0.0f, 0.0f, 0.0f};
-    ide_row_bwd(s.tab, rs[RS_D], rs[RS_D + 1], rs[RS_D + 2], 0.0f, s.C + r * LDC, dd, lane,
-                LANES);
-    if (sphere)
-      ide_row_bwd(s.tab, rs[RS_HP], rs[RS_HP + 1], rs[RS_HP + 2], 0.0f, s.C + r * LDC + NIDE,
-                  dhp, lane, LANES);
-    for (int k = 0; k < 3; ++k) {
-      dd[k] = lane_sum(dd[k]);
-      dhp[k] = lane_sum(dhp[k]);
-    }
-    if (lane == 0) {
-      float dp[3] = {0.0f, 0.0f, 0.0f};
-      if (sphere) {
-        // hp = sp + d * dist, dist = -dtx + sqrt(max(disc, 0) + 1e-6),
-        // disc = dtx^2 - xtx + 1, dtx = sp.d, xtx = sp.sp
-        const float* d = rs + RS_D;
-        const float* sp = rs + RS_SP;
-        const float dist = rs[RS_DIST];
-        const float d_dist = dot3(dhp, d);
-        const float d_disc = rs[RS_DISC] > 0.0f ? d_dist / (2.0f * rs[RS_ROOT]) : 0.0f;
-        const float dtx = dot3(sp, d);
-        const float d_dtx = -d_dist + 2.0f * dtx * d_disc;
-        float dsp[3];
-        for (int k = 0; k < 3; ++k) {
-          dd[k] += dhp[k] * dist + d_dtx * sp[k];
-          dsp[k] = dhp[k] + d_dtx * d[k] - 2.0f * d_disc * sp[k];
-        }
-        // sp = p * 0.999 / |p| where |p| > 0.999, else p
-        const float norm = rs[RS_NORM];
-        if (norm > 0.999f) {
-          const float* p = rs + RS_P;
-          const float pd = dot3(p, dsp) / (norm * norm);
-          for (int k = 0; k < 3; ++k) dp[k] = 0.999f * (dsp[k] - p[k] * pd) / norm;
-        } else {
-          for (int k = 0; k < 3; ++k) dp[k] = dsp[k];
-        }
-      }
-      for (int k = 0; k < 3; ++k) {
-        rg[RG_P + k] = dp[k];
-        rg[RG_D + k] = dd[k];
-      }
-    }
-  }
-  __syncthreads();
-
-  if (both) {
-    head_bwd(s, a.inner, row0);
-    // IDE(reflection) -> view -> direction; PE8(traced hit point) is detached
-    float dr[3] = {0.0f, 0.0f, 0.0f};
-    ide_row_bwd(s.tab, rs[RS_R], rs[RS_R + 1], rs[RS_R + 2], 0.0f, s.C + r * LDC + NPE8, dr,
-                lane, LANES);
-    for (int k = 0; k < 3; ++k) dr[k] = lane_sum(dr[k]);
-    if (lane == 0) {
-      // refl = 2 (v.n) n - v with n detached; v = normalize(-d)
-      const float* nn = rs + RS_N;
-      const float ndr = dot3(nn, dr);
-      float dv[3], dneg[3];
-      for (int k = 0; k < 3; ++k) dv[k] = 2.0f * ndr * nn[k] - dr[k];
-      normalize3_bwd(rs + RS_V, rs[RS_VLEN], dv, dneg);
-      for (int k = 0; k < 3; ++k) rg[RG_D + k] -= dneg[k];
-    }
-    __syncthreads();
-  }
-
-  for (int idx = tid; idx < P * DGEO; idx += NTHREADS) {
-    const int rr = idx / DGEO, c = idx % DGEO;
-    if (p0 + rr < n) dgeo[(size_t)(p0 + rr) * DGEO + c] = s.rg[rr * RG_W + c];
   }
 }
 
 int outer_di(int sphere) { return sphere ? DI_OUTER_SPH : DI_OUTER; }
 
 // heads over the packed buffers: [inner (mode both)] [outer]
-Args make_args(const bf16* W, const float* B, int n, int sphere, int both, bf16* scratch,
-               size_t M) {
-  Args a;
-  a.n = n;
-  a.sphere = sphere;
-  a.both = both;
-  const int di_o = outer_di(sphere);
+Args make_args(const bf16* W, const float* B, int n, int sphere, int both) {
   const bf16* Wo = W + (both ? head_welems(DI_INNER) : 0);
   const float* Bo = B + (both ? 4 * HID : 0);
-  bf16* so = scratch ? scratch + (both ? head_scratch(DI_INNER, M) : 0) : nullptr;
-  a.inner = make_head(W, B, DI_INNER, 0, both ? scratch : nullptr, M);
-  a.outer = make_head(Wo, Bo, di_o, 3, so, M);
-  return a;
+  return {{W, B, DI_INNER}, {Wo, Bo, outer_di(sphere)}, n, sphere, both};
+}
+
+// ---------------------------------------------------------------------------
+// backward: recompute and reverse sweep
+// ---------------------------------------------------------------------------
+
+constexpr int PB = 128;        // rows per tile
+constexpr int BTHREADS = 512;  // 16 warps: PB / 32 row groups x NQ column groups
+constexpr int LDA = HID + 8;   // input / activation / cotangent tile [PB][LDA] bf16
+constexpr int RSB = 28;        // row state floats
+static_assert(BTHREADS == 4 * PB, "the per-row phases run 4 lanes a row");
+static_assert(BTHREADS / 32 == PB / 32 * NQ, "warps tile the rows and the columns");
+static_assert(PW_RS % PB == 0, "the scratch's rows are whole tiles");
+
+// per-row state of the backward: geometry, then the gradient accumulators
+// (d points, d directions)
+enum { B_P = 0, B_D = 3, B_IN = 6, B_N = 9, B_V = 12, B_VLEN = 15, B_R = 16, B_GP = 19,
+       B_GD = 22 };
+
+// The layout of one variant: the heads in the packed buffers (inner 0 in
+// mode both, outer last), their widths and the columns of their input
+// cotangents.
+template <bool SPHERE, bool BOTH>
+struct LV {
+  static constexpr bool sphere = SPHERE, both = BOTH;
+  static constexpr int NH = BOTH ? 2 : 1;
+  static constexpr int OUTER = NH - 1;
+  __host__ __device__ static constexpr bool is_inner(int h) { return BOTH && h == 0; }
+  __host__ __device__ static constexpr int di(int h) {
+    return is_inner(h) ? DI_INNER : SPHERE ? DI_OUTER_SPH : DI_OUTER;
+  }
+  __host__ __device__ static constexpr size_t woff(int h) { return h == 0 ? 0 : head_welems(di(0)); }
+  __host__ __device__ static constexpr size_t w_total() { return woff(OUTER) + head_welems(di(OUTER)); }
+  // first packed output column of the head's raw outputs
+  __host__ __device__ static constexpr int col(int h) { return is_inner(h) ? 0 : 3; }
+  // input columns dx0 .. dx0 + dxw - 1 get a cotangent: the inner head's IDE
+  // 51:123 as the n8-tiles 48:128, all of the outer head's
+  __host__ __device__ static constexpr int dx0(int h) { return is_inner(h) ? 48 : 0; }
+  __host__ __device__ static constexpr int dxw(int h) { return is_inner(h) ? 80 : di(h); }
+  // the recompute's and the sweep's order: outer, then inner
+  __host__ __device__ static constexpr int ev(int i) { return i == 0 ? OUTER : 0; }
+  __host__ __device__ static constexpr size_t x_off(int h) { return h == 0 ? 0 : di(0); }
+  __host__ __device__ static constexpr size_t x_row() { return x_off(OUTER) + di(OUTER); }
+  static constexpr int DX_MAX = SPHERE ? DI_OUTER_SPH : DI_OUTER;  // the widest dxw
+  // shared memory of the sweep: the tile (or the f32 dX over it), the ring,
+  // row state, IDE table, then the slab table
+  static constexpr size_t TILE_BYTES = (size_t)PB * LDA * 2 > (size_t)PB * DX_MAX * 4
+                                           ? (size_t)PB * LDA * 2 : (size_t)PB * DX_MAX * 4;
+};
+
+// Scratch of the backward (bf16, in pieces) for M rows: X of every head
+// (width di), H[head][3][M][256] (layers 1-3 as the recompute formed them),
+// GZ[head][3][M][256], GZ4[head][M][16].
+template <class L>
+struct Scratch {
+  bf16* base;
+  size_t M;
+  __host__ __device__ Scratch(bf16* b, size_t m) : base(b), M(m) {}
+  __host__ __device__ bf16* x(int h) const { return base + M * L::x_off(h); }
+  __host__ __device__ bf16* hid(int h, int l) const {
+    return base + M * L::x_row() + ((size_t)h * 3 + l) * M * HID;
+  }
+  __host__ __device__ bf16* gz(int h, int l) const { return hid(L::NH + h, l); }
+  __host__ __device__ bf16* gz4(int h) const { return hid(2 * L::NH, 0) + (size_t)h * M * DO; }
+  __host__ __device__ static size_t elems(size_t m) {
+    return m * L::x_row() + 6 * (size_t)L::NH * m * HID + (size_t)L::NH * m * DO;
+  }
+};
+
+// Slab s of the stream: the recompute's W1 W2 W3 of every head in order, in
+// slabs of SLAB_K rows (the output layer's product is not needed); then the
+// sweep's W4^T, W3^T, W2^T and W1^T (its rows dx0 .. dx0 + dxw - 1) of each
+// head, in slabs of SLAB_K of their output columns (W4: its 16) with all
+// their input rows. rows = 0 past the end.
+template <class L>
+__device__ __forceinline__ Slab slab_at(int s) {
+#pragma unroll
+  for (int i = 0; i < L::NH; ++i) {
+    const int h = L::ev(i), di = L::di(h);
+    const int n1 = (di + SLAB_K - 1) / SLAB_K;
+    const size_t w = L::woff(h);
+    if (s < n1) return {w + (size_t)s * SLAB_K * HID, min(SLAB_K, di - s * SLAB_K), HID, HID, LDB};
+    if (s < n1 + 2 * HS) {
+      const int l = 1 + (s - n1) / HS, j = (s - n1) % HS;
+      return {layer_woff(w, di, l) + (size_t)j * SLAB_K * HID, SLAB_K, HID, HID, LDB};
+    }
+    s -= n1 + 2 * HS;
+  }
+#pragma unroll
+  for (int i = 0; i < L::NH; ++i) {
+    const int h = L::ev(i), di = L::di(h);
+    const size_t w = L::woff(h);
+    if (s == 0) return {layer_woff(w, di, 3), HID, DO, DO, LDT};
+    if (s < 1 + 3 * HS) {
+      const int l = 2 - (s - 1) / HS, j = (s - 1) % HS;  // W3, W2, W1
+      if (l == 0)
+        return {w + (size_t)L::dx0(h) * HID + (size_t)j * SLAB_K, L::dxw(h), SLAB_K, HID, LDT};
+      return {layer_woff(w, di, l) + (size_t)j * SLAB_K, HID, SLAB_K, HID, LDT};
+    }
+    s -= 1 + 3 * HS;
+  }
+  return {0, 0, 0, 0, 0};
+}
+
+template <class L>
+__host__ __device__ constexpr int n_slabs() {
+  int c = 0;
+  for (int h = 0; h < L::NH; ++h) c += (L::di(h) + SLAB_K - 1) / SLAB_K + 2 * HS + 1 + 3 * HS;
+  return c;
+}
+
+template <class L>
+constexpr size_t b_smem() {
+  return L::TILE_BYTES + (size_t)STAGES * STAGE_ELEMS * 2 + (size_t)PB * RSB * 4 + TAB * 4 +
+         (size_t)n_slabs<L>() * sizeof(SlabRec);
+}
+
+// Head h's input into the tile A, 4 lanes a row: [PE8(traced hit point),
+// IDE(reflection)] for the inner head, IDE(direction) [, IDE(sphere exit
+// point)] for the outer; zeros in the padding. Not inlined, as enc_bwd: the
+// per-row phases get registers of their own, and the products keep theirs.
+template <class L>
+__device__ __noinline__ void build_input_bwd(int h, bf16* A, const float* rs, const float* tab) {
+  const int tid = threadIdx.x, r = tid >> 2, q = tid & 3;
+  const float* s = rs + r * RSB;
+  bf16* x = A + r * LDA;
+  int used;
+  if (L::is_inner(h)) {
+    for (int c = q; c < NPE8; c += 4) x[c] = to_bf(pe_val(s + B_IN, c));
+    ide_row(tab, s[B_R], s[B_R + 1], s[B_R + 2], 0.0f, x + NPE8, 1, q, 4);
+    used = NPE8 + NIDE;
+  } else {
+    ide_row(tab, s[B_D], s[B_D + 1], s[B_D + 2], 0.0f, x, 1, q, 4);
+    if (L::sphere) {
+      SphereRow sh;
+      sphere_row(s + B_P, s + B_D, sh);
+      ide_row(tab, sh.hp[0], sh.hp[1], sh.hp[2], 0.0f, x + NIDE, 1, q, 4);
+    }
+    used = (L::sphere ? 2 : 1) * NIDE;
+  }
+  for (int c = used + q; c < L::di(h); c += 4) x[c] = to_bf(0.0f);
+  __syncthreads();
+}
+
+// The tile's input to the scratch, 16 bytes a copy.
+__device__ __forceinline__ void store_x(const bf16* A, bf16* Xg, int di, size_t row0) {
+  const int cb = di / 8;
+  for (int v = threadIdx.x; v < PB * cb; v += BTHREADS) {
+    const int r = v / cb, c = (v % cb) * 8;
+    *reinterpret_cast<uint4*>(Xg + piece_off(row0 + r, c, di)) =
+        *reinterpret_cast<const uint4*>(A + r * LDA + c);
+  }
+}
+
+// The backward of head h's encodings from its input cotangent D [PB][dxw]
+// (f32, columns dx0 ..), 4 lanes a row, into the row's gradient
+// accumulators (added by the row's lane 0: the outer head's first, then the
+// inner head's).
+template <class L>
+__device__ __noinline__ void enc_bwd(int h, const float* D, float* rs, const float* tab) {
+  const int r = threadIdx.x >> 2, q = threadIdx.x & 3;
+  float* s = rs + r * RSB;
+  const float* g = D + r * L::dxw(h);
+  if (L::is_inner(h)) {
+    // IDE(reflection) -> view -> direction; r = 2 (v.n) n - v, n detached,
+    // v = normalize(-d)
+    float dr[3] = {0.0f, 0.0f, 0.0f};
+    ide_row_bwd(tab, s[B_R], s[B_R + 1], s[B_R + 2], 0.0f, g + (NPE8 - L::dx0(h)), dr, q, 4);
+    row_sum3(dr);
+    if (q == 0) {
+      const float* nn = s + B_N;
+      const float ndr = dot3(nn, dr);
+      float dv[3], dneg[3];
+      for (int k = 0; k < 3; ++k) dv[k] = 2.0f * ndr * nn[k] - dr[k];
+      normalize3_bwd(s + B_V, s[B_VLEN], dv, dneg);
+      for (int k = 0; k < 3; ++k) s[B_GD + k] -= dneg[k];
+    }
+  } else {
+    // IDE(direction) and IDE(sphere exit point) back to the point and the direction
+    float dd[3] = {0.0f, 0.0f, 0.0f}, dp[3] = {0.0f, 0.0f, 0.0f};
+    ide_row_bwd(tab, s[B_D], s[B_D + 1], s[B_D + 2], 0.0f, g, dd, q, 4);
+    row_sum3(dd);
+    if (L::sphere) {
+      SphereRow sh;
+      sphere_row(s + B_P, s + B_D, sh);
+      float dhp[3] = {0.0f, 0.0f, 0.0f};
+      ide_row_bwd(tab, sh.hp[0], sh.hp[1], sh.hp[2], 0.0f, g + NIDE, dhp, q, 4);
+      row_sum3(dhp);
+      sphere_row_bwd(s + B_P, s + B_D, sh, dhp, dp, dd);
+    }
+    if (q == 0)
+      for (int k = 0; k < 3; ++k) {
+        s[B_GP + k] += dp[k];
+        s[B_GD + k] += dd[k];
+      }
+  }
+}
+
+template <class L>
+__global__ void __launch_bounds__(BTHREADS, 1)
+lights_bwd_sweep_kernel(const float* __restrict__ geo, int n, const bf16* __restrict__ W,
+                        const float* __restrict__ B, const float* __restrict__ ide_tab,
+                        const float* __restrict__ gout, float* __restrict__ dgeo,
+                        bf16* __restrict__ scratch, int m_rows) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* A = reinterpret_cast<bf16*>(smem_raw);  // inputs, activations, cotangents [PB][LDA]
+  float* D = reinterpret_cast<float*>(smem_raw);  // a head's input cotangent [PB][dxw], over A
+  bf16* ring_base = reinterpret_cast<bf16*>(smem_raw + L::TILE_BYTES);
+  float* rs = reinterpret_cast<float*>(ring_base + STAGES * STAGE_ELEMS);  // [PB][RSB]
+  float* tab = rs + PB * RSB;
+  SlabRec* recs = reinterpret_cast<SlabRec*>(tab + TAB);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = warp / NQ, cq = warp % NQ;  // row group, column group
+  const int g = lane >> 2, t = lane & 3;      // accumulator row and column pair
+  const int p0 = blockIdx.x * PB;
+  const size_t row0 = (size_t)p0;
+  const Scratch<L> S(scratch, (size_t)m_rows);
+
+  for (int i = tid; i < n_slabs<L>(); i += BTHREADS) recs[i] = slab_rec(slab_at<L>(i));
+  for (int i = tid; i < TAB; i += BTHREADS) tab[i] = ide_tab[i];
+  if (tid < PB) {
+    const int r = tid;
+    float* s = rs + r * RSB;
+    float gg[GEO];
+    for (int k = 0; k < GEO; ++k) gg[k] = p0 + r < n ? geo[(size_t)(p0 + r) * GEO + k] : 0.0f;
+    for (int k = 0; k < 3; ++k) {
+      s[B_P + k] = gg[k];
+      s[B_D + k] = gg[3 + k];
+      s[B_IN + k] = gg[6 + k];
+      s[B_GP + k] = 0.0f;
+      s[B_GD + k] = 0.0f;
+    }
+    if (L::both) inner_row(gg + 9, gg + 3, s + B_N, s + B_V, s + B_VLEN, s + B_R);
+  }
+  __syncthreads();
+  Ring ring{ring_base, W, recs, n_slabs<L>(), 0};
+  for (int st = 0; st < STAGES - 1; ++st) ring.load(st);
+
+  const unsigned a_x = smem_u32(A + (grp * 32 + (lane & 15)) * LDA + (lane >> 4) * 8);
+  const int col0 = cq * WN * 8;
+  const size_t go = piece_off(row0 + grp * 32 + g, col0 + 2 * t, HID);
+  bf16* arow = A + (grp * 32 + g) * LDA + col0 + 2 * t;
+  float acc[2][WN][4];
+
+  // ---- recompute: both heads forward, X and H to the scratch ----
+  for (int i = 0; i < L::NH; ++i) {
+    const int h = L::ev(i), di = L::di(h);
+    build_input_bwd<L>(h, A, rs, tab);
+    store_x(A, S.x(h), di, row0);
+    const float* bh = B + h * 4 * HID;
+    for (int l = 0; l < 3; ++l) {
+      zero(acc);
+      product<false>(acc, ring, a_x, LDA, l == 0 ? di : HID, col0, HID - col0);
+      __syncthreads();  // every warp is done reading the tile
+      // H = relu(z + b): to the tile and the scratch
+      bf16* hg = S.hid(h, l) + go;
+#pragma unroll
+      for (int j = 0; j < WN; ++j) {
+        const float2 b2 = *reinterpret_cast<const float2*>(bh + l * HID + col0 + j * 8 + 2 * t);
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const __nv_bfloat162 v =
+                __floats2bfloat162_rn(fmaxf(acc[m][j][2 * hf] + b2.x, 0.0f),
+                                      fmaxf(acc[m][j][2 * hf + 1] + b2.y, 0.0f));
+            *reinterpret_cast<__nv_bfloat162*>(arow + (16 * m + 8 * hf) * LDA + j * 8) = v;
+            *reinterpret_cast<__nv_bfloat162*>(hg + (2 * m + hf) * F_S + j * F_J) = v;
+          }
+      }
+    }
+  }
+  __syncthreads();  // the last H is in the tile: the sweep's GZ4 goes over it
+
+  // ---- reverse sweep, head by head ----
+  for (int i = 0; i < L::NH; ++i) {
+    const int h = L::ev(i);
+    {  // GZ4: the cotangent of the head's three packed outputs
+      const int r = tid >> 2, c = (tid & 3) * 4;
+      float v[4];
+      for (int k = 0; k < 4; ++k)
+        v[k] = p0 + r < n && c + k < 3 ? gout[(size_t)(p0 + r) * OUT + L::col(h) + c + k] : 0.0f;
+      const __nv_bfloat162 v01 = __floats2bfloat162_rn(v[0], v[1]);
+      const __nv_bfloat162 v23 = __floats2bfloat162_rn(v[2], v[3]);
+      __nv_bfloat162* a2 = reinterpret_cast<__nv_bfloat162*>(A + r * LDA + c);
+      a2[0] = v01;
+      a2[1] = v23;
+      __nv_bfloat162* g2 = reinterpret_cast<__nv_bfloat162*>(S.gz4(h) + piece_off(row0 + r, c, DO));
+      g2[0] = v01;
+      g2[1] = v23;
+    }
+    for (int l = 2; l >= 0; --l) {
+      // the cotangent of H_l: GH = GZ_{l+1} @ W_{l+1}^T; then the ReLU mask
+      zero(acc);
+      product<true>(acc, ring, a_x, LDA, l == 2 ? DO : HID, col0, HID - col0);
+      __syncthreads();  // every warp is done reading the cotangent tile
+      const bf16* hl = S.hid(h, l) + go;
+      bf16* gzl = S.gz(h, l) + go;
+#pragma unroll
+      for (int j = 0; j < WN; ++j)
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const float2 hv = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(hl + (2 * m + hf) * F_S + j * F_J));
+            const __nv_bfloat162 v =
+                __floats2bfloat162_rn(hv.x > 0.0f ? acc[m][j][2 * hf] : 0.0f,
+                                      hv.y > 0.0f ? acc[m][j][2 * hf + 1] : 0.0f);
+            *reinterpret_cast<__nv_bfloat162*>(gzl + (2 * m + hf) * F_S + j * F_J) = v;
+            *reinterpret_cast<__nv_bfloat162*>(arow + (16 * m + 8 * hf) * LDA + j * 8) = v;
+          }
+    }
+    // dX = GZ1 @ W1^T over the input columns dx0 .. dx0 + dxw - 1
+    const int dxw = L::dxw(h);
+    zero(acc);
+    product<true>(acc, ring, a_x, LDA, HID, col0, dxw - col0);
+    __syncthreads();  // every warp is done reading GZ1: the tile becomes D
+#pragma unroll
+    for (int j = 0; j < WN; ++j) {
+      const int c = col0 + j * 8 + 2 * t;
+      if (c >= dxw) break;
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          *reinterpret_cast<float2*>(D + (grp * 32 + 16 * m + 8 * hf + g) * dxw + c) =
+              make_float2(acc[m][j][2 * hf], acc[m][j][2 * hf + 1]);
+    }
+    __syncthreads();
+    enc_bwd<L>(h, D, rs, tab);
+    __syncthreads();  // before the next head's GZ4 goes over the tile
+  }
+
+  if (tid < PB && p0 + tid < n) {
+    const float* s = rs + tid * RSB;
+    float* d = dgeo + (size_t)(p0 + tid) * DGEO;
+    for (int k = 0; k < 3; ++k) {
+      d[k] = s[B_GP + k];
+      d[3 + k] = s[B_GD + k];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward: weight and bias gradients
+// ---------------------------------------------------------------------------
+
+// The parameter pass's table: per head its layer-1 input in 128-row parts,
+// then two each of layers 2-4; X and GZ from the scratch.
+template <class L>
+struct PwTab {
+  __host__ __device__ static constexpr int head_items(int h) { return (L::di(h) + 127) / 128 + 6; }
+  __host__ __device__ static constexpr int n_items() {
+    int c = 0;
+    for (int h = 0; h < L::NH; ++h) c += head_items(h);
+    return c;
+  }
+  __host__ __device__ static constexpr size_t w_total() { return L::w_total(); }
+  // floats of one chunk's partials: dW (packed), then dB [heads][4][256]
+  __host__ __device__ static constexpr size_t part_row() {
+    return L::w_total() + (size_t)L::NH * 4 * HID;
+  }
+  __device__ static PwTile tile(int t, bf16* scratch, size_t M) {
+    const Scratch<L> S(scratch, M);
+#pragma unroll
+    for (int h = 0; h < L::NH; ++h) {
+      const int n = head_items(h);
+      if (t < n) {
+        const int di = L::di(h), n1 = n - 6;
+        const int l = t < n1 ? 0 : 1 + (t - n1) / 2, it = t < n1 ? t : (t - n1) % 2;
+        const int xw = l == 0 ? di : HID, ldo = l == 3 ? DO : HID;
+        return {l == 0 ? S.x(h) : S.hid(h, l - 1), l == 3 ? S.gz4(h) : S.gz(h, l), xw, 16 * it,
+                min(16, xw / 8 - 16 * it), ldo / 8,
+                layer_woff(L::woff(h), di, l) + (size_t)it * 128 * ldo, ldo,
+                it == 0 ? h * 4 + l : -1};
+      }
+      t -= n;
+    }
+    return {};
+  }
+};
+
+template <class L>
+__global__ void __launch_bounds__(PW_THREADS, 1)
+lights_bwd_params_kernel(bf16* __restrict__ scratch, int m_rows, int rows_per_chunk,
+                         float* __restrict__ part) {
+  param_pass<PwTab<L>>(scratch, m_rows, rows_per_chunk, part);
+}
+
+template <class L>
+__global__ void lights_bwd_reduce_kernel(const float* __restrict__ part, int n_chunks,
+                                         float* __restrict__ dW, float* __restrict__ dB) {
+  reduce_chunks<PwTab<L>>(part, n_chunks, dW, dB);
+}
+
+// rows of the backward's scratch: n rounded up to the parameter pass's stage
+inline int bwd_rows(int n) { return (n + PW_RS - 1) / PW_RS * PW_RS; }
+
+template <class L>
+int launch_bwd_sweep(const float* geo, int n, const bf16* W, const float* B, const float* tab,
+                     const float* gout, float* dgeo, bf16* scratch, cudaStream_t stream) {
+  static_assert(b_smem<L>() <= 232448, "sweep shared memory");
+  const cudaError_t err = cudaFuncSetAttribute(
+      lights_bwd_sweep_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)b_smem<L>());
+  if (err != cudaSuccess) return (int)err;
+  const int m = bwd_rows(n);
+  lights_bwd_sweep_kernel<L><<<m / PB, BTHREADS, b_smem<L>(), stream>>>(
+      geo, n, W, B, tab, gout, dgeo, scratch, m);
+  return (int)cudaGetLastError();
+}
+
+template <class L>
+int launch_bwd_params(int n, bf16* scratch, float* part, float* dW, float* dB,
+                      cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      lights_bwd_params_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)PW_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int m = bwd_rows(n), n_chunks = pw_chunks(m);
+  lights_bwd_params_kernel<L><<<dim3(PwTab<L>::n_items(), n_chunks), PW_THREADS, PW_SMEM, stream>>>(
+      scratch, m, pw_chunk_rows(m), part);
+  lights_bwd_reduce_kernel<L><<<(unsigned)((PwTab<L>::part_row() + 255) / 256), 256, 0, stream>>>(
+      part, n_chunks, dW, dB);
+  return (int)cudaGetLastError();
+}
+
+// call fn<LV<sphere, both>>(args...) for the runtime variant
+#define LIGHTS_DISPATCH(fn, sphere, both, ...)                    \
+  ((sphere) ? ((both) ? fn<LV<true, true>>(__VA_ARGS__)           \
+                      : fn<LV<true, false>>(__VA_ARGS__))         \
+            : ((both) ? fn<LV<false, true>>(__VA_ARGS__)          \
+                      : fn<LV<false, false>>(__VA_ARGS__)))
+
+template <class L> size_t scratch_elems_of(int n) {
+  return Scratch<L>::elems((size_t)bwd_rows(n));
+}
+template <class L> size_t part_elems_of(int n) {
+  return (size_t)pw_chunks(bwd_rows(n)) * PwTab<L>::part_row();
 }
 
 }  // namespace
@@ -421,17 +733,16 @@ Args make_args(const bf16* W, const float* B, int n, int sphere, int both, bf16*
 extern "C" {
 
 int lights_tile() { return P; }
+int lights_bwd_tile() { return PB; }
 size_t lights_weight_elems(int sphere, int both) {
   return head_welems(outer_di(sphere)) + (both ? head_welems(DI_INNER) : 0);
 }
-size_t lights_scratch_elems(int m_rows, int sphere, int both) {
-  return head_scratch(outer_di(sphere), (size_t)m_rows) +
-         (both ? head_scratch(DI_INNER, (size_t)m_rows) : 0);
+// bf16 elements of the backward's scratch, floats of its partials, for n rows
+size_t lights_scratch_elems(int n, int sphere, int both) {
+  return LIGHTS_DISPATCH(scratch_elems_of, sphere, both, n);
 }
-size_t lights_part_elems(int m_rows) {
-  // the largest product of the reduction is a hidden layer's, 256 x 256
-  return part_elems(m_rows, dw_chunks(m_rows, DW_CHUNK_MIN_ROWS), MAX_DI > HID ? MAX_DI : HID,
-                    HID);
+size_t lights_part_elems(int n, int sphere, int both) {
+  return LIGHTS_DISPATCH(part_elems_of, sphere, both, n);
 }
 
 // geo [n,12] (points, directions, traced hit points, hit normals); W packed
@@ -440,54 +751,44 @@ size_t lights_part_elems(int m_rows) {
 int lights_fwd(const float* geo, int n, const bf16* W, const float* B, const float* tab,
                int sphere, int both, float* out, cudaStream_t stream) {
   if (n <= 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(lights_rows_kernel<false>,
+  cudaError_t err = cudaFuncSetAttribute(lights_rows_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   const int tiles = (n + P - 1) / P;
-  const Args a = make_args(W, B, n, sphere, both, nullptr, (size_t)tiles * P);
-  lights_rows_kernel<false><<<tiles, NTHREADS, SMEM_BYTES, stream>>>(geo, a, tab, out, nullptr,
-                                                                    nullptr);
+  lights_rows_kernel<<<tiles, NTHREADS, SMEM_BYTES, stream>>>(
+      geo, make_args(W, B, n, sphere, both), tab, out);
   return (int)cudaGetLastError();
 }
 
-// gout [n,6] -> dgeo [n,6] (d points, d directions), dW (packed layout, f32),
-// dB [heads][4][256] (zeroed by the caller). scratch: lights_scratch_elems
-// bf16; part: lights_part_elems floats; m_rows = n rounded up to the tile.
-int lights_bwd(const float* geo, int n, const bf16* W, const float* B, const float* tab,
-               int sphere, int both, const float* gout, float* dgeo, bf16* scratch,
-               float* part, float* dW, float* dB, cudaStream_t stream) {
+// The backward's first part: recompute and reverse sweep, gout [n,6] ->
+// dgeo [n,6] (d points, d directions), and the scratch
+// (lights_scratch_elems bf16) for the second.
+int lights_bwd_sweep(const float* geo, int n, const bf16* W, const float* B, const float* tab,
+                     int sphere, int both, const float* gout, float* dgeo, bf16* scratch,
+                     cudaStream_t stream) {
   if (n <= 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(lights_rows_kernel<true>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles = (n + P - 1) / P;
-  const int M = tiles * P;
-  const int n_chunks = dw_chunks(M, DW_CHUNK_MIN_ROWS);
-  const Args a = make_args(W, B, n, sphere, both, scratch, (size_t)M);
-  lights_rows_kernel<true><<<tiles, NTHREADS, SMEM_BYTES, stream>>>(geo, a, tab, nullptr, gout,
-                                                                   dgeo);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const size_t LH = (size_t)M * HID;
-  for (int k = both ? 0 : 1; k < 2; ++k) {
-    const Head& h = k == 0 ? a.inner : a.outer;
-    float* dw = dW + (h.W - W);
-    float* db = dB + (h.B - B);
-    const int di = h.di;
-    weight_grad(h.X, di, h.DZ, HID, M, di, HID, n_chunks, part, dw, 0, stream);
-    weight_grad(h.H, HID, h.DZ + LH, HID, M, HID, HID, n_chunks, part, dw + (size_t)di * HID, 0,
-                stream);
-    weight_grad(h.H + LH, HID, h.DZ + 2 * LH, HID, M, HID, HID, n_chunks, part,
-                dw + (size_t)di * HID + HID * HID, 0, stream);
-    weight_grad(h.H + 2 * LH, HID, h.DZ4, DO, M, HID, DO, n_chunks, part,
-                dw + (size_t)di * HID + 2 * HID * HID, 0, stream);
-    for (int l = 0; l < 3; ++l)
-      bias_grad(h.DZ + l * LH, HID, M, HID, 1, 1, part, db + l * HID, 0, stream);
-    bias_grad(h.DZ4, DO, M, DO, 1, 1, part, db + 3 * HID, 0, stream);
-  }
-  return (int)cudaGetLastError();
+  return LIGHTS_DISPATCH(launch_bwd_sweep, sphere, both, geo, n, W, B, tab, gout, dgeo, scratch,
+                         stream);
+}
+
+// The second: dW (packed layout, f32) and dB [heads][4][256] from the
+// scratch; part holds lights_part_elems floats.
+int lights_bwd_params(int n, int sphere, int both, bf16* scratch, float* part, float* dW,
+                      float* dB, cudaStream_t stream) {
+  if (n <= 0) return 0;
+  return LIGHTS_DISPATCH(launch_bwd_params, sphere, both, n, scratch, part, dW, dB, stream);
+}
+
+// Both parts, three launches. With no rows nothing is launched: dW and dB
+// stay as the caller made them.
+int lights_bwd(const float* geo, int n, const bf16* W, const float* B, const float* tab,
+               int sphere, int both, const float* gout, float* dgeo, bf16* scratch, float* part,
+               float* dW, float* dB, cudaStream_t stream) {
+  if (n <= 0) return 0;
+  const int rc = lights_bwd_sweep(geo, n, W, B, tab, sphere, both, gout, dgeo, scratch, stream);
+  if (rc) return rc;
+  return lights_bwd_params(n, sphere, both, scratch, part, dW, dB, stream);
 }
 
 }  // extern "C"

@@ -3,13 +3,15 @@
 Counterpart of nero_tpu/fields/app_shading.py. Two paths compute the same
 function:
 
-* the whole-shader path (`fused_shader` unset or true): the heads and their
+* the whole-shader path (`fused_shader` unset or true, for a configuration
+  the kernel takes, `fused_shader_active`): the heads and their
   encodings run as one function (`ops/shader.py::shader_raw`: the CUDA kernel
   for CUDA tensors, its plain torch version for CPU tensors) and the final
   activations, the human mixing, the FG-LUT lookup and the linear->sRGB
   combine run in `shade_from_raw`, as in `_app_shading_apply_fused`
   (app_shading.py:256-319);
-* the per-head path (`fused_shader: false`, app_shading.py:329-371): the
+* the per-head path (`fused_shader: false`, or a configuration the kernel
+  does not take, app_shading.py:329-371): the
   encodings are tensor ops and every head goes through
   `ops/mlp.py::apply_predictor(fused=cfg.fused_heads)`, which with
   `fused_heads` is the predictor kernel on the card.
@@ -20,6 +22,7 @@ the real captures), which needs the per-ray `human_poses`.
 from __future__ import annotations
 
 import math
+import warnings
 from typing import NamedTuple
 
 import torch
@@ -27,6 +30,7 @@ import torch
 from nero_tpu_torch.ops.fg_lut import fg_lookup
 from nero_tpu_torch.ops.mlp import apply_predictor, exp_activation, init_predictor
 from nero_tpu_torch.ops.shader import shader_raw, shader_raw_plain, unpack_raw
+from nero_tpu_torch.ops.shader import supported as shader_supported
 from nero_tpu_torch.utils.color import linear_to_srgb
 from nero_tpu_torch.utils.encodings import ide_dim, positional_encode_dim
 
@@ -43,15 +47,32 @@ class AppShadingConfig(NamedTuple):
     ide_deg: int = 5
     # per-head path only: each 4-layer head through the predictor kernel
     fused_heads: bool = False
-    # None or True: the whole-shader kernel, for every variant; False: the
-    # per-head path. (The JAX package sends human_light to its per-head path
-    # when this is unset, on a timing taken on its TPU; PERF.md has both
-    # paths' times on the card.)
+    # None or True: the whole-shader kernel, for every variant it takes
+    # (ops/shader.py::supported), else the per-head path; False: the per-head
+    # path. (The JAX package sends human_light to its per-head path when this
+    # is unset, on a timing taken on its TPU; PERF.md has both paths' times
+    # on the card.)
     fused_shader: bool | None = None
 
 
 def fused_shader_active(cfg: AppShadingConfig) -> bool:
-    return cfg.fused_shader is None or bool(cfg.fused_shader)
+    """Resolve cfg.fused_shader: False = the per-head path; None or True =
+    the whole-shader kernel where it takes the configuration
+    (ops/shader.py::supported: 256 feats, IDE degree 5, light PE 8), else the
+    per-head path (`heads_raw`), with a warning (once, by the warnings
+    module's default filter) when True was asked for, as nero_tpu does
+    (fields/app_shading.py:227-237). A rule about the configuration, never
+    about the device."""
+    if cfg.fused_shader is False:
+        return False
+    if shader_supported(cfg):
+        return True
+    if cfg.fused_shader:
+        warnings.warn("fused_shader=True was requested but the shader kernel does not take "
+                      f"this configuration (feats_dim={cfg.feats_dim}, ide_deg={cfg.ide_deg}, "
+                      f"light_pos_freq={cfg.light_pos_freq}); taking the per-head path.",
+                      RuntimeWarning, stacklevel=2)
+    return False
 
 
 def shading_config_from_dict(cfg: dict) -> AppShadingConfig:

@@ -26,6 +26,7 @@ import torch
 
 from nero_tpu_torch.fields.app_shading import get_camera_plane_intersection
 from nero_tpu_torch.ops.lights import inner_light_input, lights_raw, outer_light_input
+from nero_tpu_torch.ops.lights import supported as lights_kernel_supported
 from nero_tpu_torch.ops.mlp import (apply_dense, apply_predictor, exp_activation, init_dense,
                                     init_predictor, resolve_weight_norm)
 from nero_tpu_torch.utils.color import linear_to_srgb
@@ -67,9 +68,10 @@ class MCShadingConfig(NamedTuple):
     outer_compact_frac: float = 0.0
     # run the light heads with their IDE / PE encodings through the fused
     # kernel (ops/lights.py, forward and backward) instead of separate tensor
-    # ops. None = off; True opts in where outer compaction is off and
-    # ide_deg <= 5 (with inner compaction on, the kernel runs the outer head
-    # only). Head weights and their cotangents are bf16 inside the kernel.
+    # ops. None = off; True opts in where outer compaction is off and the
+    # kernel takes the configuration (ops/lights.py::supported: ide_deg 5)
+    # (with inner compaction on, the kernel runs the outer head only). Head
+    # weights and their cotangents are bf16 inside the kernel.
     fused_lights: bool | None = None
 
 
@@ -80,13 +82,14 @@ def mc_config_from_dict(cfg: dict) -> MCShadingConfig:
 
 def fused_lights_active(cfg: MCShadingConfig) -> bool:
     """Resolve cfg.fused_lights at apply time: None = off; True opts in where
-    the configuration is one the kernel takes (outer compaction off,
-    ide_deg <= 5), else warns (once, by the warnings module's default filter)
-    and takes the unfused light path. This is a rule about the
-    configuration, never about the device."""
+    the configuration is one the kernel takes (outer compaction off and
+    ops/lights.py::supported, the one rule of what the kernel takes), else
+    warns (once, by the warnings module's default filter) and takes the
+    unfused light path, which computes the same function. This is a rule
+    about the configuration, never about the device."""
     if not cfg.fused_lights:
         return False
-    if cfg.outer_compact_frac == 0.0 and cfg.ide_deg <= 5:
+    if cfg.outer_compact_frac == 0.0 and lights_kernel_supported(cfg):
         return True
     warnings.warn("fused_lights=True was requested but the light kernel does not take "
                   f"this configuration (outer_compact_frac={cfg.outer_compact_frac}, "

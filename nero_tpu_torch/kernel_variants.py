@@ -1,10 +1,12 @@
 """Times variants of the SDF-with-gradient kernels, of the whole-shader
-backward or of the sphere march on the card.
+backward, of the sphere march or of the light kernel's backward on the card.
 
     python -m nero_tpu_torch.kernel_variants [--parent OLD/sdf_grad.cu] [NAME ...]
     python -m nero_tpu_torch.kernel_variants --kernel shader [--parent OLD/shader.cu] [NAME ...]
     python -m nero_tpu_torch.kernel_variants --kernel sphere_march [--wide]
         [--parent OLD/sphere_march.cu] [NAME ...]
+    python -m nero_tpu_torch.kernel_variants --kernel lights [--outer]
+        [--parent OLD/lights.cu] [NAME ...]
 
 Each variant is `csrc/sdf_grad.cu` (VARIANTS: the forward engine's, which the
 backward's recompute and reverse sweep share, then the backward's own) or
@@ -36,6 +38,17 @@ variant the registers and spill bytes, `launch_ms` of both passes, the share
 of `found` equal to the kernel's and the largest |dt| on rays both found;
 and the kernel's agreement with the plain version. A variant that spills is
 built and reported, not timed.
+
+The light kernel (LIGHTS_VARIANTS, `csrc/lights.cu`; `--parent` an earlier
+source with the same C entries `lights_fwd` and `lights_bwd`) runs at
+N_RAYS rows of the Stage-II lattice in mode `both` with the `direction`
+outer light, or with `--outer` in mode `outer` with `sphere_direction`, on
+random geometry and cotangents, 20 timed forward and 10 timed backward
+launches after 3 untimed ones, in the given order and then in reverse. It
+prints per variant the registers and spill bytes of the backward's three
+kernels and of the forward, the forward, the whole backward and its two
+parts (not for a parent without them), and the largest difference from the
+kernel of dgeo, dW, dB and the forward, each over its largest value.
 """
 from __future__ import annotations
 
@@ -50,6 +63,7 @@ import torch
 from nero_tpu_torch.fields.sdf import SDFConfig, init_sdf
 from nero_tpu_torch.ops import cuda_build
 from nero_tpu_torch.ops import sdf_grad as K
+from nero_tpu_torch.ops.lights import type_lib as lights_type_lib
 from nero_tpu_torch.ops.mlp import resolve_weight_norm
 
 N = 65536
@@ -391,10 +405,52 @@ SPHERE_VARIANTS = {
     "output_dot_w8": [(_SM_OUT_MMA, _SM_OUT_DOT), _SM_WARPS8],
 }
 
+# ---- the light kernel's backward (csrc/lights.cu) ----
+_LI_INCLUDE = '#include "engine.cuh"\n'
+# every mma.sync of the backward's kernels (the sweep's products and the
+# parameter pass, both in engine.cuh): keeps the fragments live, no
+# tensor-core work
+_LI_NO_MMA = '#include "mma.cuh"\n' + _SH_NO_MMA[len(_SH_INCLUDE):] + _LI_INCLUDE
+_LI_FWD_EPILOGUE = """\
+                __floats2bfloat162_rn(fmaxf(acc[m][j][2 * hf] + b2.x, 0.0f),
+                                      fmaxf(acc[m][j][2 * hf + 1] + b2.y, 0.0f));"""
+_LI_NO_FWD_EPILOGUE = """\
+                __floats2bfloat162_rn(acc[m][j][2 * hf] * 0.01f, acc[m][j][2 * hf + 1] * 0.01f);"""
+_LI_SWEEP_EPILOGUE = """\
+                __floats2bfloat162_rn(hv.x > 0.0f ? acc[m][j][2 * hf] : 0.0f,
+                                      hv.y > 0.0f ? acc[m][j][2 * hf + 1] : 0.0f);"""
+# keeps the stored H's loads live
+_LI_NO_SWEEP_EPILOGUE = """\
+                __floats2bfloat162_rn(acc[m][j][2 * hf] * 0.01f + hv.x,
+                                      acc[m][j][2 * hf + 1] * 0.01f + hv.y);"""
+_LI_DX = """\
+  __host__ __device__ static constexpr int dx0(int h) { return is_inner(h) ? 48 : 0; }
+  __host__ __device__ static constexpr int dxw(int h) { return is_inner(h) ? 80 : di(h); }"""
+
+LIGHTS_VARIANTS = {
+    "kernel": [],
+    # no products and no epilogues: the weight stream with the scratch traffic
+    "weights_only": [(_LI_INCLUDE, _LI_NO_MMA), (_LI_FWD_EPILOGUE, _LI_NO_FWD_EPILOGUE),
+                     (_LI_SWEEP_EPILOGUE, _LI_NO_SWEEP_EPILOGUE)],
+    # the sweep alone: the C entry does not run the parameter pass (dW, dB
+    # are left as they were)
+    "no_params": [("  if (rc) return rc;\n  return lights_bwd_params(", "  return rc;\n  (void)lights_bwd_params(")],
+    # dX over all 128 input columns of the inner head (PE8's too), not the
+    # 80 of its IDE
+    "full_dx_inner": [(_LI_DX, _LI_DX.replace("is_inner(h) ? 48 : 0", "0")
+                                      .replace("is_inner(h) ? 80 : di(h)", "di(h)"))],
+    # 8 warps over 64-row tiles: the weight stream twice per 128 rows
+    "warps8": [("constexpr int PB = 128; ", "constexpr int PB = 64; "),
+               ("constexpr int BTHREADS = 512; ", "constexpr int BTHREADS = 256; ")],
+}
+
 _KERNELS = {"sdf_grad": ("sdf_grad_fwd_kernel", "sdf_bwd_sweep_kernel", "sdf_bwd_params_kernel"),
             "shader": ("shader_rows_kernel", "shader_bwd_sweep_kernel", "shader_bwd_params_kernel"),
-            "sphere_march": ("sphere_march_kernel",)}
-_TABLES = {"sdf_grad": VARIANTS, "shader": SHADER_VARIANTS, "sphere_march": SPHERE_VARIANTS}
+            "sphere_march": ("sphere_march_kernel",),
+            "lights": ("lights_bwd_sweep_kernel", "lights_bwd_params_kernel",
+                       "lights_bwd_reduce_kernel")}
+_TABLES = {"sdf_grad": VARIANTS, "shader": SHADER_VARIANTS, "sphere_march": SPHERE_VARIANTS,
+           "lights": LIGHTS_VARIANTS}
 N_RAYS = 393216  # Stage II: 512 points x (512 + 256) directions
 
 
@@ -457,6 +513,12 @@ def build(sources: dict, kernel: str = "sdf_grad", instance: str = "") -> dict:
         if kernel == "shader":
             libs[name] = (lib, _type_shader(lib), " ".join(regs))
             continue
+        if kernel == "lights":
+            # the forward beside them (the parent's `lights_rows_kernel<false>`)
+            info = cuda_build.parse_ptxas(log, r"lights_rows_kernel(ILb0E|E)")
+            regs.append(f"{info.get('regs', '-')}/{info.get('spill_bytes', '-')}")
+            libs[name] = (lib, lights_type_lib(lib), " ".join(regs))
+            continue
         if kernel == "sphere_march":
             vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.sphere_march.restype = i
@@ -512,11 +574,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("names", nargs="*", help="variants (all of the kernel's table)")
     ap.add_argument("--kernel", choices=list(_TABLES), default="sdf_grad")
-    ap.add_argument("--parent", help="another sdf_grad.cu, shader.cu or sphere_march.cu to "
-                                     "build as it is")
+    ap.add_argument("--parent", help="another sdf_grad.cu, shader.cu, sphere_march.cu or "
+                                     "lights.cu to build as it is")
     ap.add_argument("--sphere", action="store_true", help="shader: the sphere_direction variant")
     ap.add_argument("--human", action="store_true", help="shader: the human_light variant")
     ap.add_argument("--wide", action="store_true", help="sphere_march: the `wide` field")
+    ap.add_argument("--outer", action="store_true",
+                    help="lights: mode `outer` with `sphere_direction` (default: mode `both`)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: needs a CUDA device")
@@ -529,6 +593,8 @@ def main(argv=None) -> int:
         return _main_shader(sources, int(args.sphere), int(args.human))
     if args.kernel == "sphere_march":
         return _main_sphere(sources, args.wide)
+    if args.kernel == "lights":
+        return _main_lights(sources, args.outer)
     libs = build(sources)
 
     dev = torch.device("cuda")
@@ -690,6 +756,92 @@ def _main_shader(sources: dict, sphere: int, human: int) -> int:
         ms = [f"{label} {times[name][0][k]:.4f}/{times[name][1][k]:.4f}" for k, label in
               enumerate(("fwd", "bwd", "sweep", "params")[:len(times[name][0])])]
         print(f"{name:20s} {ptx:24s} {'  '.join(ms)}   {' '.join(d)}")
+    return 0
+
+
+def _main_lights(sources: dict, outer: bool) -> int:
+    """The light kernel's backward variants (and the forward beside them) at
+    N_RAYS rows, the Stage-II lattice."""
+    from nero_tpu_torch.fields.mc_shading import MCShadingConfig, init_mc_shading
+    from nero_tpu_torch.ops import lights as KL
+
+    sphere, both = int(outer), int(not outer)
+    libs = build(sources, "lights", f"\\w*Lb{sphere}ELb{both}E")
+    dev = torch.device("cuda")
+    n = N_RAYS
+    cfg = MCShadingConfig(human_lights=False,
+                          outer_light_version="sphere_direction" if outer else "direction")
+    mode = "outer" if outer else "both"
+    params = init_mc_shading(torch.Generator().manual_seed(0), cfg, device=dev)
+    rng = np.random.default_rng(1)
+    t = lambda a: torch.as_tensor(a.astype(np.float32), device=dev)
+    dirs = rng.standard_normal((n, 3))
+    with torch.no_grad():
+        geo, _, _, ws, bs = KL.kernel_inputs(
+            params, cfg, t(rng.uniform(-0.6, 0.6, (n, 3))),
+            t(dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)),
+            t(rng.uniform(-0.6, 0.6, (n, 3))), t(rng.standard_normal((n, 3))), mode)
+        W, B = KL.pack_buffers(ws, bs, bool(sphere), bool(both))
+    gout = t(rng.standard_normal((n, KL.OUT)))
+    tab = KL.ide_table_on(dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptr = lambda x: x.data_ptr()
+    head = lambda: (ptr(geo), n, ptr(W), ptr(B), ptr(tab), sphere, both)
+    bufs = {}
+
+    def buffers(lib):
+        if id(lib) not in bufs:  # one set per library, outside the timed launches
+            bufs[id(lib)] = (
+                torch.empty(lib.lights_scratch_elems(n, sphere, both), dtype=torch.bfloat16,
+                            device=dev),
+                torch.empty(lib.lights_part_elems(n, sphere, both), device=dev),
+                torch.empty(n, 6, device=dev), torch.zeros(W.numel(), device=dev),
+                torch.zeros_like(B))
+        return bufs[id(lib)]
+
+    def fwd(lib):
+        out = torch.empty(n, KL.OUT, device=dev)
+        cuda_build.check(lib.lights_fwd(*head(), ptr(out), stream), "lights_fwd")
+        return out
+
+    def bwd(lib):
+        scratch, part, dgeo, dW, dB = buffers(lib)
+        cuda_build.check(lib.lights_bwd(*head(), ptr(gout), ptr(dgeo), ptr(scratch), ptr(part),
+                                        ptr(dW), ptr(dB), stream), "lights_bwd")
+        return dgeo, dW, dB
+
+    def sweep(lib):
+        scratch, _, dgeo, _, _ = buffers(lib)
+        cuda_build.check(lib.lights_bwd_sweep(*head(), ptr(gout), ptr(dgeo), ptr(scratch),
+                                              stream), "lights_bwd_sweep")
+
+    def params_pass(lib):
+        scratch, part, _, dW, dB = buffers(lib)
+        cuda_build.check(lib.lights_bwd_params(n, sphere, both, ptr(scratch), ptr(part), ptr(dW),
+                                               ptr(dB), stream), "lights_bwd_params")
+
+    outs = {}
+
+    def run(name, lib, parts):
+        outs[name] = tuple(x.clone() for x in bwd(lib)) + (fwd(lib),)
+        row = [_time(lambda: fwd(lib), 20), _time(lambda: bwd(lib), 10)]
+        if parts:
+            row += [_time(lambda: sweep(lib), 10), _time(lambda: params_pass(lib), 10)]
+        return row
+
+    times = _passes(libs, run)
+    del bufs
+    print(_card())
+    print(f"light kernel, mode {mode}{' with sphere_direction' if outer else ''}, N = {n}")
+    print("variant              regs/spills sweep params reduce fwd   ms: fwd, bwd (sweep + "
+          "params), first / second pass   max|d|/max of dgeo dW dB fwd")
+    ref = outs["kernel"]
+    for name, (_, parts, ptx) in libs.items():
+        d = [f"{((a - b).abs().max() / b.abs().max()).item():.2e}"
+             for a, b in zip(outs[name], ref)]
+        ms = [f"{label} {times[name][0][k]:.4f}/{times[name][1][k]:.4f}" for k, label in
+              enumerate(("fwd", "bwd", "sweep", "params")[:len(times[name][0])])]
+        print(f"{name:20s} {ptx:32s} {'  '.join(ms)}   {' '.join(d)}")
     return 0
 
 

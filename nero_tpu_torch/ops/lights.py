@@ -22,8 +22,12 @@ Gradients flow to the heads' parameters, the points and the directions; the
 traced hit points and normals get none (they come from the tracer detached).
 
 What bounds it on the card: tensor-core operations (`flops`): at 393,216
-rows and 989 TFLOP/s about 0.25 ms forward and 0.75 ms backward in mode
+rows and 989 TFLOP/s about 0.25 ms forward and 0.74 ms backward in mode
 'both'; the bytes it must move (48 in and 24 out per row) take 0.008 ms.
+The backward is three launches (recompute and reverse sweep, the weight-
+and bias-gradient pass, the reduction of its partials) through a scratch of
+X, H and GZ in device memory: 6.6 KB a row in mode 'both', 2.6 GB at
+393,216 rows (`bwd_buffers`).
 """
 from __future__ import annotations
 
@@ -40,7 +44,8 @@ from nero_tpu_torch.utils.encodings import (ide_dim, integrated_dir_encode, posi
                                             positional_encode_dim)
 from nero_tpu_torch.utils.sphere import get_sphere_intersection
 
-TILE = 64
+TILE = 64       # forward rows per block (csrc/lights.cu P)
+BWD_TILE = 128  # backward rows per block (PB)
 HID = 256
 DO = 16
 GEO = 12   # points, directions, traced hit points, hit normals
@@ -141,19 +146,36 @@ def weight_elems(sphere: bool, both: bool) -> int:
     return sum(r * c for n in _heads(both) for r, c in _head_shapes(n, sphere))
 
 
+def type_lib(lib) -> bool:
+    """Give the library's C entries their ctypes signatures; returns whether
+    it has the backward's two parts (`lights_bwd_sweep`, `lights_bwd_params`).
+    An earlier source sizes its buffers by (m_rows, sphere, both) and
+    (m_rows): the extra arguments are ignored there."""
+    vp, i, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+    lib.lights_tile.restype, lib.lights_tile.argtypes = i, []
+    lib.lights_weight_elems.restype, lib.lights_weight_elems.argtypes = sz, [i, i]
+    for fn in ("lights_scratch_elems", "lights_part_elems"):
+        getattr(lib, fn).restype, getattr(lib, fn).argtypes = sz, [i, i, i]
+    lib.lights_fwd.restype = i
+    lib.lights_fwd.argtypes = [vp, i, vp, vp, vp, i, i, vp, vp]
+    lib.lights_bwd.restype = i
+    lib.lights_bwd.argtypes = [vp, i, vp, vp, vp, i, i, vp, vp, vp, vp, vp, vp, vp]
+    parts = hasattr(lib, "lights_bwd_sweep")
+    if parts:
+        lib.lights_bwd_tile.restype, lib.lights_bwd_tile.argtypes = i, []
+        lib.lights_bwd_sweep.restype = i
+        lib.lights_bwd_sweep.argtypes = [vp, i, vp, vp, vp, i, i, vp, vp, vp, vp]
+        lib.lights_bwd_params.restype = i
+        lib.lights_bwd_params.argtypes = [i, i, i, vp, vp, vp, vp, vp]
+    return parts
+
+
 def _lib():
     lib = cuda_build.load("lights")
     if not getattr(lib, "_nero_typed", False):
-        vp, i, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
-        lib.lights_tile.restype, lib.lights_tile.argtypes = i, []
-        lib.lights_weight_elems.restype, lib.lights_weight_elems.argtypes = sz, [i, i]
-        lib.lights_scratch_elems.restype, lib.lights_scratch_elems.argtypes = sz, [i, i, i]
-        lib.lights_part_elems.restype, lib.lights_part_elems.argtypes = sz, [i]
-        lib.lights_fwd.restype = i
-        lib.lights_fwd.argtypes = [vp, i, vp, vp, vp, i, i, vp, vp]
-        lib.lights_bwd.restype = i
-        lib.lights_bwd.argtypes = [vp, i, vp, vp, vp, i, i, vp, vp, vp, vp, vp, vp, vp]
-        if lib.lights_tile() != TILE or any(
+        if not type_lib(lib):
+            raise RuntimeError("csrc/lights.cu has no lights_bwd_sweep / lights_bwd_params")
+        if (lib.lights_tile(), lib.lights_bwd_tile()) != (TILE, BWD_TILE) or any(
                 lib.lights_weight_elems(int(s), int(b)) != weight_elems(s, b)
                 for s in (False, True) for b in (False, True)):
             raise RuntimeError("csrc/lights.cu layout differs from ops/lights.py")
@@ -216,30 +238,40 @@ def _fwd(geo, W, B, sphere: bool, both: bool) -> torch.Tensor:
                            ide_table_on(geo.device).data_ptr(), int(sphere), int(both),
                            out.data_ptr(), torch.cuda.current_stream(geo.device).cuda_stream)
     cuda_build.check(rc, "lights_fwd")
-    launches["lights_fwd" if both else "lights_fwd_outer"] += 1
+    if n:  # the C entry launches nothing for no rows
+        launches["lights_fwd" if both else "lights_fwd_outer"] += 1
     return out
 
 
+def bwd_buffers(n: int, sphere: bool, both: bool, dev):
+    """The backward's scratch (bf16: X, H and GZ of every layer of every
+    evaluated head, in 8 x 8 pieces) and its per-chunk partials (f32), one
+    torch.empty each, sized by the library."""
+    lib = _lib()
+    return (torch.empty(lib.lights_scratch_elems(n, int(sphere), int(both)),
+                        dtype=torch.bfloat16, device=dev),
+            torch.empty(lib.lights_part_elems(n, int(sphere), int(both)), device=dev))
+
+
 def _bwd(geo, W, B, sphere: bool, both: bool, gout):
-    """One backward launch (rows kernel + the gradient reductions): gout
-    [n, 6] -> (d points and d directions [n, 6], dW packed f32, dB)."""
+    """One backward call (recompute and sweep, parameter pass, reduction):
+    gout [n, 6] -> (d points and d directions [n, 6], dW packed f32, dB)."""
     n = geo.shape[0]
     dev = geo.device
     lib = _lib()
-    m_rows = -(-n // TILE) * TILE
-    scratch = torch.empty(lib.lights_scratch_elems(m_rows, int(sphere), int(both)),
-                          dtype=torch.bfloat16, device=dev)
-    part = torch.empty(lib.lights_part_elems(m_rows), device=dev)
+    scratch, part = bwd_buffers(n, sphere, both, dev)
     dgeo6 = torch.empty(n, 6, device=dev)
-    # no rows, no launch: the kernel would leave dW unwritten
-    dW = torch.empty(W.numel(), device=dev) if n else torch.zeros(W.numel(), device=dev)
-    dB = torch.zeros_like(B)
+    # no rows, no launch: the kernels write every element of dW and dB otherwise
+    new = torch.empty if n else torch.zeros
+    dW = new(W.numel(), device=dev)
+    dB = new(B.shape, device=dev)
     rc = lib.lights_bwd(geo.data_ptr(), n, W.data_ptr(), B.data_ptr(),
                         ide_table_on(dev).data_ptr(), int(sphere), int(both), gout.data_ptr(),
                         dgeo6.data_ptr(), scratch.data_ptr(), part.data_ptr(), dW.data_ptr(),
                         dB.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, "lights_bwd")
-    launches["lights_bwd" if both else "lights_bwd_outer"] += 1
+    if n:
+        launches["lights_bwd" if both else "lights_bwd_outer"] += 1
     return dgeo6, dW, dB
 
 
@@ -306,10 +338,26 @@ def flops_per_row(cfg, mode: str = "both") -> float:
                      for d_in, d_out in head_dims(cfg, mode).values())
 
 
+def bwd_flops_per_row(cfg, mode: str = "both") -> float:
+    """What the backward needs: the recompute of the hidden layers (the
+    output layer's value is not needed), dW = X^T GZ of every layer, and
+    GH = GZ W^T down to the input columns that carry a gradient. The inner
+    head's PE8 of the traced hit point carries none (the hit point is
+    detached), so its dX is over the IDE columns alone."""
+    sph = ide_dim(cfg.ide_deg)
+    total = 0.0
+    for name, (d_in, d_out) in head_dims(cfg, mode).items():
+        dx_in = sph if name == "inner_light" else d_in
+        recompute = d_in * HID + 2 * HID * HID
+        dw = d_in * HID + 2 * HID * HID + HID * d_out
+        dx = HID * d_out + 2 * HID * HID + HID * dx_in
+        total += 2.0 * (recompute + dw + dx)
+    return total
+
+
 def flops(n: int, cfg, mode: str = "both", backward: bool = False) -> float:
-    """Forward; the backward recomputes it, then the input-cotangent and
-    weight-gradient products (3x)."""
-    return n * flops_per_row(cfg, mode) * (3 if backward else 1)
+    """The forward's products, or the backward's (`bwd_flops_per_row`)."""
+    return n * (bwd_flops_per_row(cfg, mode) if backward else flops_per_row(cfg, mode))
 
 
 def min_bytes(n: int, cfg, mode: str = "both", backward: bool = False) -> float:

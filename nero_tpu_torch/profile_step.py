@@ -42,7 +42,8 @@ from nero_tpu_torch.train.trainer import Trainer
 PORT_KERNELS = ("sdf_grad_fwd_kernel", "sdf_bwd_sweep_kernel", "sdf_bwd_params_kernel",
                 "sdf_bwd_reduce_kernel", "shader_rows_kernel", "shader_bwd_sweep_kernel",
                 "shader_bwd_params_kernel", "shader_bwd_reduce_kernel",
-                "lights_rows_kernel", "predictor_rows_kernel", "sdf_fwd_kernel",
+                "lights_rows_kernel", "lights_bwd_sweep_kernel", "lights_bwd_params_kernel",
+                "lights_bwd_reduce_kernel", "predictor_rows_kernel", "sdf_fwd_kernel",
                 "dw_partial_kernel", "colsum_partial_kernel", "reduce_kernel",
                 "sphere_march_kernel", "field_fwd_kernel", "march_kernel")
 GEMM_MARKS = ("gemm", "cutlass", "nvjet", "cublas", "gemv")

@@ -14,11 +14,14 @@ no-gradient SDF values of the sampler and the occlusion marches
 `remat_shader` are plain torch here as they are plain JAX there. The
 precision switches `sdf_grad_mode` and `bf16_hidden` are not ported: a
 config that sets one to a value the port cannot honour on its device raises
-(`check_precision_keys`).
+(`check_precision_keys`), and so does an SDF topology that the kernel does
+not take, on CUDA (`check_sdf_topology`); `use_fused_sdf` is dropped for such
+an SDF (`shape_config_from_dict`).
 """
 from __future__ import annotations
 
 import math
+import warnings
 from typing import NamedTuple
 
 import torch
@@ -34,6 +37,7 @@ from nero_tpu_torch.ops.mlp import resolve_weight_norm
 from nero_tpu_torch.ops.sample_pdf import sample_pdf
 from nero_tpu_torch.ops.sdf_fwd import make_sdf_fwd_fn
 from nero_tpu_torch.ops.sdf_grad import sdf_with_grad
+from nero_tpu_torch.ops.sdf_grad import supported as sdf_kernel_supported
 from nero_tpu_torch.utils.color import linear_to_srgb
 
 
@@ -91,9 +95,37 @@ class ShapeConfig(NamedTuple):
 
 
 def shape_config_from_dict(cfg: dict) -> ShapeConfig:
+    """The ShapeConfig of a config dict. `use_fused_sdf` with an SDF that the
+    value-only kernel does not take (`ops/sdf_grad.py::supported`) is dropped
+    with a warning, as nero_tpu drops it (render/shape.py:179-180): a rule
+    about the configuration, never about the device."""
     fields = {k: v for k, v in cfg.items() if k in ShapeConfig._fields}
     fields["shader"] = shading_config_from_dict(cfg.get("shader_config", {}))
-    return ShapeConfig(**fields)
+    scfg = ShapeConfig(**fields)
+    if scfg.use_fused_sdf and not sdf_kernel_supported(scfg.sdf_cfg):
+        warnings.warn("use_fused_sdf=True was requested but the value-only SDF kernel does not "
+                      f"take this SDF ({_topology(scfg)}); taking sdf_value.",
+                      RuntimeWarning, stacklevel=2)
+        scfg = scfg._replace(use_fused_sdf=False)
+    return scfg
+
+
+def _topology(scfg: ShapeConfig) -> str:
+    return (f"sdf_n_layers={scfg.sdf_n_layers}, sdf_freq={scfg.sdf_freq}, "
+            f"sdf_d_out={scfg.sdf_d_out}")
+
+
+def check_sdf_topology(scfg: ShapeConfig, device) -> None:
+    """Raise NotImplementedError on CUDA for an SDF that the SDF-with-gradient
+    kernel does not take (`ops/sdf_grad.py::supported`): nero_tpu resolves
+    such an SDF to its f32 reverse-mode gradient (render/shape.py:142-149),
+    which the port runs on the CPU only until ROADMAP A3 brings it to the
+    card. The CPU takes any topology."""
+    if torch.device(device).type == "cuda" and not sdf_kernel_supported(scfg.sdf_cfg):
+        raise NotImplementedError(
+            f"SDF topology {_topology(scfg)} on cuda: the SDF-with-gradient kernel takes "
+            "the default (8 layers, skip 4, 256 wide, PE 6, 257 outputs); the f32 'rev' path "
+            "on the card waits for ROADMAP A3")
 
 
 def check_precision_keys(cfg: dict, device) -> None:

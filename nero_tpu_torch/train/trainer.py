@@ -9,7 +9,8 @@ The optimizer is `torch.optim.Adam` over the {v, g, b} leaves, stepped
 with lr(step) from `train/lr.py` through LambdaLR: this reproduces
 `optax.adam(learning_rate=schedule)` (defaults b1 0.9, b2 0.999, eps 1e-8,
 bias correction, eps outside the square root in both). nero_tpu's MFU
-logging (core/mfu.py) reads XLA cost analysis and is not ported.
+logging (core/mfu.py) reads XLA cost analysis and is not ported; its
+`matmul_precision` is honoured only as "highest" (`check_matmul_precision`).
 """
 from __future__ import annotations
 
@@ -30,6 +31,19 @@ from nero_tpu_torch.train.metrics import name2metrics
 from nero_tpu_torch.train.valid import ValidationEvaluator
 
 
+def check_matmul_precision(cfg: dict) -> None:
+    """Raise NotImplementedError for an explicit `matmul_precision` other
+    than "highest": nero_tpu sets JAX's matmul precision from it
+    (train/trainer.py:42-45,62; its default "default" takes bf16 operands),
+    while the port's library products run in f32, which is "highest".
+    ROADMAP A3 brings the other settings."""
+    mp = cfg.get("matmul_precision")
+    if mp is not None and mp != "highest":
+        raise NotImplementedError(
+            f"matmul_precision={mp!r}: the port's library products run in f32 ('highest'); "
+            "other precisions wait for ROADMAP A3. Leave the key unset or set 'highest'")
+
+
 class Trainer:
     default_cfg = {
         "optimizer_type": "adam",
@@ -45,6 +59,7 @@ class Trainer:
     }
 
     def __init__(self, cfg: dict, device=None):
+        check_matmul_precision(cfg)
         self.cfg = {**self.default_cfg, **cfg}
         self.device = resolve_device(device)
         random.seed(self.cfg["random_seed"])

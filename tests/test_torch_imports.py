@@ -41,7 +41,7 @@ def test_no_jax_or_reference_imports(path):
 CSRC = os.path.join(ROOT, "nero_tpu_torch", "csrc")
 KERNEL_SOURCES = ("sdf_grad.cu", "shader.cu", "sphere_march.cu", "march.cu", "field_fwd.cu",
                   "lights.cu", "sdf_fwd.cu", "predictor.cu")
-HEADERS = ("common.cuh", "encode.cuh", "field.cuh", "mma.cuh", "sdf_net.cuh")
+HEADERS = ("common.cuh", "encode.cuh", "engine.cuh", "field.cuh", "mma.cuh", "sdf_net.cuh")
 
 
 def test_every_kernel_source_is_registered():

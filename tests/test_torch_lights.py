@@ -10,6 +10,8 @@ amplifies the ~1e-7 difference of the two packages' sin/cos). Gradients are
 compared at ide_deg = 4: at 5 both packages carry ~1e-2 of f32 noise near the
 poles. The CUDA kernel itself is held against the plain version on the card
 by chip_smoke.py and by the `gpu`-marked test."""
+import warnings
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -252,12 +254,21 @@ def test_wrapper_runs_plain_on_cpu_tensors():
 
 def test_work_per_launch():
     """393,216 rows, both heads at their true widths (123 and 72 inputs):
-    627,200 operations a row forward, 3x that backward."""
+    627,200 operations a row forward; backward the hidden layers'
+    recompute, every dW, and dX down to the columns that carry a gradient
+    (the inner head's 72 IDE columns, all 72 of the outer head's)."""
     cfg = T.MCShadingConfig()
     assert L.flops_per_row(cfg) == 2 * ((123 * 256 + 2 * 256 * 256 + 256 * 3)
                                         + (72 * 256 + 2 * 256 * 256 + 256 * 3))
     assert L.flops(393216, cfg) == pytest.approx(2.466e11, rel=1e-3)
-    assert L.flops(393216, cfg, backward=True) == 3 * L.flops(393216, cfg)
+    recompute = (123 + 72) * 256 + 2 * 2 * 256 * 256
+    dw = L.flops_per_row(cfg) / 2
+    dx = 2 * (256 * 3 + 2 * 256 * 256 + 72 * 256)
+    assert L.bwd_flops_per_row(cfg) == 2 * (recompute + dw + dx) == 1852416
+    assert L.flops(393216, cfg, backward=True) == 393216 * 1852416
+    sph = cfg._replace(outer_light_version="sphere_direction")
+    assert L.bwd_flops_per_row(sph, "outer") == 2 * (
+        (144 * 256 + 2 * 256 * 256) + 2 * (144 * 256 + 2 * 256 * 256 + 256 * 3))
     assert L.flops_per_row(cfg, "outer") < 0.5 * L.flops_per_row(cfg)
     assert L.min_bytes(393216, cfg) == 393216 * 18 * 4 + L.weight_elems(False, True) * 2
     assert L.supported(cfg) and not L.supported(cfg._replace(ide_deg=4))
@@ -281,3 +292,23 @@ def test_cuda_kernel_matches_plain_version():
         g_p = torch.autograd.grad(sum(o.sum() for o in out_p), args[1])[0]
         cos = (g_k.flatten() @ g_p.flatten()) / (g_k.norm() * g_p.norm())
         assert cos > 0.98
+
+
+@pytest.mark.parametrize("ide_deg", range(1, 7))
+def test_resolver_agrees_with_the_kernel(ide_deg):
+    """`fused_lights=True` reaches the kernel exactly where ops/lights.py::
+    supported takes the configuration (ide_deg 5), and warns exactly where
+    it does not, taking the unfused path: the one rule of what the kernel
+    takes, so no configuration passes the resolver and raises on the card."""
+    cfg = T.MCShadingConfig(fused_lights=True, ide_deg=ide_deg)
+    takes = L.supported(cfg)
+    assert takes == (ide_deg == L.IDE_DEG)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        active = T.fused_lights_active(cfg)
+    assert active == takes
+    warned = [w for w in caught if issubclass(w.category, RuntimeWarning)
+              and "unfused light path" in str(w.message)]
+    assert bool(warned) == (not takes)
+    if not takes:
+        assert f"ide_deg={ide_deg}" in str(warned[0].message)

@@ -2,6 +2,8 @@
 `remat_shader` in the port against nero_tpu/render/shape.py on the CPU, f32,
 tiny config: the same weights (bridged from the JAX init) and the same rays
 (made with numpy) go through both."""
+import warnings
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -279,3 +281,90 @@ def test_remat_shader_matches_jax_loss(setup):
     training outputs."""
     out_j, out_t = _render_core_both(setup, {"remat_shader": True}, 2)
     _assert_outputs_close(out_j, out_t)
+
+
+# ---------------------------------------------------------------------------
+# Stage I's kernel gates are rules about the configuration
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("knob,value", [("ide_deg", 4), ("light_pos_freq", 6),
+                                        ("feats_dim", 128)])
+def test_shader_kernel_gate_routes_to_the_per_head_path(knob, value, monkeypatch):
+    """A shader the whole-shader kernel does not take (ops/shader.py::
+    supported) resolves to the per-head path, as nero_tpu's does
+    (fields/app_shading.py:227-237): silently when `fused_shader` is unset,
+    with a warning when it was asked for; app_shading_apply then never calls
+    the kernel's wrapper."""
+    from nero_tpu_torch.fields import app_shading as A
+    from nero_tpu_torch.ops import shader as S
+
+    cfg = A.AppShadingConfig(**{knob: value})
+    assert not S.supported(cfg) and S.supported(A.AppShadingConfig())
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert not A.fused_shader_active(cfg)
+        assert A.fused_shader_active(A.AppShadingConfig())
+        assert A.fused_shader_active(A.AppShadingConfig(fused_shader=True))
+        assert not A.fused_shader_active(cfg._replace(fused_shader=False))
+    with pytest.warns(RuntimeWarning, match=f"{knob}={value}.*per-head path"):
+        assert not A.fused_shader_active(cfg._replace(fused_shader=True))
+    params = A.init_app_shading(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(0)
+    x = lambda w: torch.from_numpy(rng.standard_normal((5, w)).astype(np.float32))
+    monkeypatch.setattr(A, "shader_raw", None)  # a call would raise
+    color, _ = A.app_shading_apply(params, cfg, torch.from_numpy(get_fg_lut()), x(3), x(3),
+                                   x(3), x(cfg.feats_dim))
+    assert color.shape == (5, 3) and torch.isfinite(color).all()
+
+
+def test_fused_sdf_gate_drops_the_switch():
+    """`use_fused_sdf` with an SDF the value-only kernel does not take is
+    dropped with a warning, as nero_tpu drops it (render/shape.py:179-180);
+    with the default SDF it stays."""
+    with pytest.warns(RuntimeWarning, match="sdf_n_layers=6"):
+        scfg = T.shape_config_from_dict({"use_fused_sdf": True, "sdf_n_layers": 6})
+    assert not scfg.use_fused_sdf and scfg.sdf_n_layers == 6
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert T.shape_config_from_dict({"use_fused_sdf": True}).use_fused_sdf
+        assert not T.shape_config_from_dict({"sdf_freq": 4}).use_fused_sdf
+
+
+@pytest.mark.parametrize("over", [{"sdf_n_layers": 6}, {"sdf_freq": 4}, {"sdf_d_out": 129}])
+def test_sdf_topology_gate(over, monkeypatch):
+    """A non-default SDF on CUDA raises at NeROShapeModel construction, naming
+    the topology and ROADMAP A3 (nero_tpu resolves it to its f32 `rev`
+    gradient, which the port runs on the CPU only); the CPU takes it, and the
+    default SDF passes on either device. No device is needed: the model
+    raises before it touches one."""
+    from nero_tpu_torch.models import shape as M
+
+    scfg = T.shape_config_from_dict(over)
+    key, value = next(iter(over.items()))
+    with pytest.raises(NotImplementedError, match=f"{key}={value}.*ROADMAP A3"):
+        T.check_sdf_topology(scfg, "cuda")
+    T.check_sdf_topology(scfg, "cpu")
+    T.check_sdf_topology(T.shape_config_from_dict({}), "cuda")
+    monkeypatch.setattr(M, "resolve_device", lambda device: torch.device("cuda"))
+    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+        NeROShapeModel({**TINY_CFG, **over}, training=False)
+
+
+@pytest.mark.parametrize("value,honoured", [(None, True), ("highest", True),
+                                            ("default", False), ("high", False)])
+def test_matmul_precision_is_honoured_or_refused(value, honoured, tmp_path):
+    """nero_tpu sets JAX's matmul precision from `matmul_precision`
+    (train/trainer.py:42-45,62); the port's library products run in f32
+    ("highest"), so another explicit value raises and names ROADMAP A3."""
+    from nero_tpu_torch.train.trainer import Trainer
+
+    cfg = {"name": "mp", "model_root": str(tmp_path), "network": "shape"}
+    if value is not None:
+        cfg["matmul_precision"] = value
+    if honoured:
+        assert Trainer(cfg, device="cpu").cfg.get("matmul_precision") == value
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+            Trainer(cfg, device="cpu")
+        assert not (tmp_path / "mp").exists()
