@@ -15,7 +15,9 @@ result line):
      from a seed, against their plain versions, with the tolerances of the
      JAX kernel tests: SDF-with-gradient fwd/bwd; the whole-shader kernel
      fwd/bwd in its four variants (default, `sphere_direction`,
-     `human_light`, both); the predictor kernel fwd/bwd for each of the
+     `human_light`, both), at n = 1,001 and 0 too, each direction the same
+     to the bit in two calls, its four kernels' ptxas (0 spill bytes); the
+     predictor kernel fwd/bwd for each of the
      shader's seven head shapes (259 -> 1 ... 24 -> 4); the value-only SDF kernel at 131,072
      points (the occlusion march's first pass) and 32,768 (the sampler's);
      then the light kernel (fwd/bwd; both heads, and the outer head alone
@@ -360,8 +362,8 @@ def check_shader(n: int, dev, sphere: bool = False, human: bool = False) -> list
     print(f"shader_bwd{sfx}    grads worst cosine {worst_cos:.5f} (> {min_cos})  worst mean|d|/max|g| "
           f"{noise_ker:.3e} (< 4 x bf16 {noise_bf16:.3e} + {slack})  worst max|d|/max|g| "
           f"{bwd_err:.3e} (bf16 plain: {grad_err_normalised(g_p, g_b):.3e})")
-    # a ragged size (the backward's tiles are 128 rows, the forward's 64) at
-    # the same bars, and no rows: empty outputs, parameter gradients exactly 0
+    # a ragged size (both directions' tiles are 128 rows) at the same bars,
+    # and no rows: empty outputs, parameter gradients exactly 0
     m = 1001
     with torch.no_grad():
         (c_k, o_k), (c_p, o_p) = shade(K.shader_raw, m), shade(K.shader_raw_plain, m)
@@ -407,9 +409,14 @@ def check_shader(n: int, dev, sphere: bool = False, human: bool = False) -> list
     del g_p, g_k, g_b
     # the backward's parts alone, on the wrapper's buffers: recompute + reverse
     # sweep, then the weight- and bias-gradient pass with its reduction; the
-    # same gradients to the bit in two calls; no rows, no launch, zeros
+    # same packed outputs and gradients to the bit in two calls; no rows, no
+    # launch, zeros
     from nero_tpu_torch.ops.cuda_build import check as check_rc, ptxas_info
     sphere_i, human_i = spec[:2]
+    with torch.no_grad():
+        fwd_first, fwd_second = (K._fwd(geo, feats2d, W, B, sphere_i, human_i) for _ in range(2))
+    check(torch.equal(fwd_first, fwd_second), f"shader_fwd{sfx}: two calls differ")
+    del fwd_first, fwd_second
     with torch.no_grad():
         first, second = (K._bwd(geo, feats2d, W, B, sphere_i, human_i, gout) for _ in range(2))
     check(all(torch.equal(a, b) for a, b in zip(first, second)),
@@ -432,11 +439,17 @@ def check_shader(n: int, dev, sphere: bool = False, human: bool = False) -> list
     buf_bytes = scratch.numel() * 2 + part.numel() * 4
     del scratch, part, dgeo, dfeats, dW, dB
     inst = f"\\w*Lb{sphere_i}ELb{human_i}E"  # the variant's template instance
+    ptx_fwd = ptxas_info("shader", "shader_fwd_kernel" + inst)
+    check(ptx_fwd.get("spill_bytes") == 0, f"shader_fwd{sfx} spills: {ptx_fwd}")
     ptx = {k: ptxas_info("shader", k + inst) for k in
            ("shader_bwd_sweep_kernel", "shader_bwd_params_kernel", "shader_bwd_reduce_kernel")}
     check(all(v.get("spill_bytes") == 0 for v in ptx.values()), f"shader{sfx} backward spills: {ptx}")
+    out[0]["ptxas"] = {"shader_fwd_kernel": ptx_fwd}
     out[1].update({"sweep_ms": sweep_ms, "params_ms": params_ms, "scratch_bytes": buf_bytes,
                    "ptxas": ptx})
+    print(f"shader_fwd{sfx}    launch {launch_fwd:.3f} ms on {n // K.TILE} tiles of {K.TILE} rows; "
+          f"the same packed outputs to the bit in two calls; shader_fwd_kernel "
+          f"{ptx_fwd.get('regs')} regs {ptx_fwd.get('spill_bytes')} spill bytes")
     print(f"shader_bwd{sfx}    launch {launch_bwd:.3f} ms = recompute + sweep {sweep_ms:.3f} + "
           f"parameter pass {params_ms:.3f}; scratch + partials {buf_bytes / 1e9:.3f} GB at "
           f"N = {n}; the same dW, dB, dgeo, dfeats to the bit in two calls; " + ", ".join(

@@ -6,12 +6,25 @@
 // (sphere_direction, :289-314; human_light, _human_block :219-255), so the
 // default variant compiles to the code it had before the other three existed.
 //
-// Forward (shader_rows_kernel): one block per tile of P = 64 rows. Per row:
-// normalize normal and view, NoV, reflective; IDE(normal, 1),
-// IDE(reflective, sigmoid(roughness_z)) by the de-Moivre recurrence of
-// utils/encodings.py (polynomial, NaN-free), PE(pts, 8), PE(reflective, 6);
-// then the six 4-layer 256-wide ReLU heads (outer light twice) through
-// block_mm, and the packed raw [N, 24] of shader_kernel.py:262-265. Rows past
+// Forward (shader_fwd_kernel): one block of 16 warps per tile of PB = 128
+// rows; warp w owns rows 32(w/4) .. +31 and columns 64(w%4) .. +63 as two
+// m16n8k16 row tiles and 8 n8-tiles (64 f32 accumulators a lane). Per row:
+// normalize normal and view, NoV, reflective. Then the 7 (human: 8) head
+// evaluations in order (materials, outer light on the normal and on the
+// reflective direction, inner light, occ [, human]), each with
+// the evaluation's input built in the activation tile by build_slot, 4 lanes
+// a row (IDE(normal, 1), IDE(reflective, sigmoid(roughness_z)) by the
+// de-Moivre recurrence of utils/encodings.py, polynomial and NaN-free;
+// PE(pts, 8), PE(reflective, 6), the sphere hit, the human IPE; the material
+// input's 3 point columns in a narrow points tile), the four 256-wide layers
+// on mma.sync with B fragments by ldmatrix.trans from weight slabs of up to
+// 128 rows that a 2-stage cp.async ring brings from L2 (the slab table holds
+// W1-W4 of every evaluation in order), bias and ReLU in registers with each H
+// written once, bf16, into the tile; layer 4 on the warps of columns 0-63,
+// whose first 16 are the padded outputs: f32 bias added, the evaluation's
+// raw outputs to the packed [N, 24] of shader_kernel.py:262-265, and after the
+// roughness head kappa = sigmoid(z) into the row state. The tail writes
+// reflective, NoV and zeros, or (human) the hit mask in column 23. Rows past
 // N are masked (never read, never written), not padded.
 //
 // Backward: the TPU kernel linearises its forward with jax.vjp inside the
@@ -74,14 +87,25 @@
 // reflective direction; the masks are constants.
 //
 // Bound: tensor-core operations, 2,754,960 FLOP per row forward
-// (shader_kernel.py::_flops_per_row) and 3x that backward: 0.48-0.55 ms at
-// N = 65,536. What keeps the backward from it (PERF.md, kernel_variants.py
-// --kernel shader): the sweep streams all the head weights from L2 twice per
-// tile (recompute and sweep, ~5 MB a tile) and moves the scratch (X, H, GZ:
-// 1.5 GB at N = 65,536, 1.7 GB with the human head); the parameter pass
-// reads X and H once and GZ once for each 128-row part of a layer's input.
-// The forward still runs the per-row encodings one thread per row and its
-// products through block_mm.
+// (shader_kernel.py::_flops_per_row) and 3x that backward: 0.16-0.18 ms
+// forward and 0.48-0.55 ms backward at N = 65,536. What keeps them from it
+// (PERF.md, kernel_variants.py --kernel shader): every tile streams all the
+// head weights from L2 through the ring (2.5 MB a tile in the default
+// variant, the backward twice), so a 128-row tile halves the stream per row
+// against 64; in the forward the ring alone takes a third of the launch, and
+// the block's phases (input slot, products, epilogue) run one after another
+// in a block that fills the SM. The backward also moves the scratch (X, H,
+// GZ: 1.5 GB at N = 65,536, 1.7 GB with the human head), which the parameter
+// pass reads back (X and H once, GZ once for each 128-row part of a layer's
+// input).
+//
+// Two loops on one engine: the forward's head loop is the backward's
+// recompute without the scratch stores of X and H, plus the packed outputs.
+// As one force-inlined function templated on the stores, the sphere
+// variants' sweep spilled (ptxas -v); with a loop of its own in each kernel,
+// and the lane's scratch offset in 32 bits, no kernel spills. The per-row
+// phases (build_slot, enc_bwd) are calls of their own for the same reason:
+// inlined, the sphere variants' sweep spilled.
 #include "encode.cuh"
 #include "mma.cuh"
 
@@ -89,15 +113,12 @@ using namespace nero;
 
 namespace {
 
-constexpr int P = 64;        // forward rows per tile
 constexpr int NTHREADS = 512;
 constexpr int HID = 256;
 constexpr int DO = 16;       // head outputs padded
 constexpr int OUT = 24;      // packed raw outputs
 constexpr int DGEO = 9;     // d pts, d normal, d view
 constexpr int NPE8 = 51, NPE6 = 39;
-constexpr int NIPE = 24;     // IPE of the 2-D plane hit, 6 octaves
-constexpr int LDX = 272 + 8, LDH = HID + 8, LDC = 272 + 4;
 
 enum { H_MET = 0, H_ROUGH, H_ALB, H_OUTER, H_INNER, H_OCC, H_HUMAN };
 
@@ -109,7 +130,6 @@ struct Var {
   static constexpr int NEVAL = HUMAN ? 8 : 7;
   static constexpr int NSLOT = HUMAN ? 6 : 5;
   static constexpr int GEO = HUMAN ? 21 : 9;  // pts, normal, view [, R row-major, t]
-  static constexpr int RS_W = HUMAN ? 32 : 16;
   // input width per head, padded to a tile multiple: [feats,pts] 259, IDE 72
   // (twice with SPHERE), [PE8(pts), IDE] 123, [PE8(pts), PE6(refl)] 90, IPE 24
   __host__ __device__ static constexpr int head_di(int h) {
@@ -146,34 +166,7 @@ struct Var {
   }
   __host__ __device__ static constexpr size_t w_total() { return head_off(NHEADS); }
   __host__ __device__ static constexpr size_t x_row() { return slot_off(NSLOT); }
-  static constexpr size_t smem_bytes() {
-    return (size_t)P * LDX * 2 + (size_t)P * LDH * 2 + (size_t)P * LDC * 4 +
-           (size_t)P * RS_W * 4 + TAB * 4;
-  }
 };
-
-// per-row state of the forward in shared memory (RS_POSE, RS_HIT: HUMAN only, rows 32 wide)
-enum { RS_PTS = 0, RS_N = 3, RS_V = 6, RS_R = 9, RS_NOV = 12, RS_KAPPA = 13, RS_NLEN = 14,
-       RS_VLEN = 15, RS_POSE = 16, RS_HIT = 28 };
-
-struct Smem {
-  bf16* X;       // [P][LDX]
-  bf16* Hb;      // [P][LDH]
-  float* C;      // [P][LDC]
-  float* rs;     // [P][RS_W]
-  float* tab;    // IDE table: mat [(LMAX+1)][NML], sigma [NML], m [NML]
-};
-
-template <class L>
-__device__ Smem carve(unsigned char* base) {
-  Smem s;
-  s.X = reinterpret_cast<bf16*>(base);
-  s.Hb = s.X + P * LDX;
-  s.C = reinterpret_cast<float*>(s.Hb + P * LDH);
-  s.rs = s.C + P * LDC;
-  s.tab = s.rs + P * L::RS_W;
-  return s;
-}
 
 __device__ __forceinline__ float dot3(const float* a, const float* b) {
   return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
@@ -252,7 +245,7 @@ __device__ void human_row(const float* pose, const float* p, const float* r, flo
 // IPE, octaves lane, lane + nlanes, ... of 0..5: enc[2 i + k] = E[sin],
 // enc[12 + 2 i + k] = E[cos]
 template <typename T>
-__device__ void human_ipe(const HumanRow& h, T* enc, int lane = 0, int nlanes = 1) {
+__device__ void human_ipe(const HumanRow& h, T* enc, int lane, int nlanes) {
   for (int i = lane; i < 6; i += nlanes) {
     const float s = (float)(1 << i);
     const float att = expf(-0.5f * h.var * s * s);
@@ -263,167 +256,8 @@ __device__ void human_ipe(const HumanRow& h, T* enc, int lane = 0, int nlanes = 
   }
 }
 
-// build head input slot s into X
-template <class L>
-__device__ void build_input(const Smem& s, int slot, const float* feats, int p0, int n) {
-  const int tid = threadIdx.x;
-  const int di = L::slot_di(slot);
-  if (slot == 0) {
-    for (int idx = tid; idx < P * di; idx += NTHREADS) {
-      const int r = idx / di, c = idx % di;
-      float v = 0.0f;
-      if (p0 + r < n) {
-        if (c < HID) v = feats[(size_t)(p0 + r) * HID + c];
-        else if (c < HID + 3) v = s.rs[r * L::RS_W + RS_PTS + c - HID];
-      }
-      s.X[r * LDX + c] = to_bf(v);
-    }
-  } else {
-    // zero, then per-row encodings
-    for (int idx = tid; idx < P * di; idx += NTHREADS) s.X[(idx / di) * LDX + idx % di] = to_bf(0.0f);
-    __syncthreads();
-    if (slot == 3 || slot == 4) {
-      for (int idx = tid; idx < P * NPE8; idx += NTHREADS) {
-        const int r = idx / NPE8, c = idx % NPE8;
-        s.X[r * LDX + c] = to_bf(pe_val(s.rs + r * L::RS_W + RS_PTS, c));
-      }
-    }
-    if (slot == 4) {
-      for (int idx = tid; idx < P * NPE6; idx += NTHREADS) {
-        const int r = idx / NPE6, c = idx % NPE6;
-        s.X[r * LDX + NPE8 + c] = to_bf(pe_val(s.rs + r * L::RS_W + RS_R, c));
-      }
-    } else if (slot == 5) {
-      if constexpr (L::human) if (tid < P) {
-        const int r = tid;
-        float* rs = s.rs + r * L::RS_W;
-        HumanRow h;
-        human_row(rs + RS_POSE, rs + RS_PTS, rs + RS_R, rs[RS_KAPPA], h);
-        rs[RS_HIT] = h.hit;
-        float enc[NIPE];
-        human_ipe(h, enc);
-        for (int c = 0; c < NIPE; ++c) s.X[r * LDX + c] = to_bf(enc[c]);
-      }
-    } else if (tid < P) {
-      const int r = tid;
-      const float* rs = s.rs + r * L::RS_W;
-      const bool normal = slot == 1;
-      const float* d = rs + (normal ? RS_N : RS_R);
-      const float kappa = normal ? 1.0f : rs[RS_KAPPA];
-      float enc[NIDE];
-      ide_row(s.tab, d[0], d[1], d[2], kappa, enc, 1);
-      const int off = slot == 3 ? NPE8 : 0;
-      for (int c = 0; c < NIDE; ++c) s.X[r * LDX + off + c] = to_bf(enc[c]);
-      if constexpr (L::sphere) if (slot <= 2) {
-        SphereHit h;
-        sphere_hit(rs + RS_PTS, d, h);
-        ide_row(s.tab, h.u[0], h.u[1], h.u[2], kappa, enc, 1);
-        for (int c = 0; c < NIDE; ++c) s.X[r * LDX + NIDE + c] = to_bf(enc[c]);
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// one head evaluation forward; raw outputs go to C[:, 0:DO] (bias added)
-template <class L>
-__device__ void head_fwd(const Smem& s, int e, const bf16* Wall, const float* Ball) {
-  const int h = L::ev_head(e), di = L::head_di(h);
-  const bf16* W1 = Wall + L::head_off(h);
-  const bf16* Wl[4] = {W1, W1 + (size_t)di * HID, W1 + (size_t)di * HID + HID * HID,
-                       W1 + (size_t)di * HID + 2 * HID * HID};
-  const float* b = Ball + h * 4 * HID;
-  for (int l = 0; l < 3; ++l) {
-    if (l == 0) block_mm<false>(s.X, LDX, Wl[0], HID, s.C, LDC, P, HID, di, false);
-    else block_mm<false>(s.Hb, LDH, Wl[l], HID, s.C, LDC, P, HID, HID, false);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < P * HID; idx += NTHREADS) {
-      const int r = idx / HID, c = idx % HID;
-      s.Hb[r * LDH + c] = to_bf(fmaxf(s.C[r * LDC + c] + b[l * HID + c], 0.0f));
-    }
-    __syncthreads();
-  }
-  block_mm<false>(s.Hb, LDH, Wl[3], DO, s.C, LDC, P, DO, HID, false);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < P * DO; idx += NTHREADS) {
-    const int r = idx / DO, c = idx % DO;
-    s.C[r * LDC + c] += b[3 * HID + c];
-  }
-  __syncthreads();
-}
-
-template <class L>
-__global__ void __launch_bounds__(NTHREADS, 1)
-shader_rows_kernel(const float* __restrict__ geo, const float* __restrict__ feats, int n,
-                   const bf16* __restrict__ W, const float* __restrict__ B,
-                   const float* __restrict__ ide_tab, float* __restrict__ out) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Smem s = carve<L>(smem_raw);
-  constexpr int RS_W = L::RS_W;
-  constexpr int GEO = L::GEO;
-  const int tid = threadIdx.x;
-  const int p0 = blockIdx.x * P;
-
-  for (int i = tid; i < TAB; i += NTHREADS) s.tab[i] = ide_tab[i];
-  if (tid < P) {
-    const int r = tid;
-    float* rs = s.rs + r * RS_W;
-    float g[GEO] = {0.0f};
-    if (p0 + r < n)
-      for (int k = 0; k < GEO; ++k) g[k] = geo[(size_t)(p0 + r) * GEO + k];
-    for (int k = 0; k < 3; ++k) rs[RS_PTS + k] = g[k];
-    normalize3(g + 3, rs + RS_N, rs + RS_NLEN);
-    normalize3(g + 6, rs + RS_V, rs + RS_VLEN);
-    const float* nn = rs + RS_N;
-    const float* vv = rs + RS_V;
-    const float nov = nn[0] * vv[0] + nn[1] * vv[1] + nn[2] * vv[2];
-    rs[RS_NOV] = nov;
-    for (int k = 0; k < 3; ++k) rs[RS_R + k] = nov * nn[k] * 2.0f - vv[k];
-    if constexpr (L::human)
-      for (int k = 0; k < 12; ++k) rs[RS_POSE + k] = g[(GEO - 12) + k];
-  }
-  __syncthreads();
-
-  // materials, then the lights (IDE_r needs the roughness)
-  build_input<L>(s, 0, feats, p0, n);
-  for (int e = 0; e < L::NEVAL; ++e) {
-    if (e >= 3) build_input<L>(s, L::ev_slot(e), feats, p0, n);
-    head_fwd<L>(s, e, W, B);
-    for (int idx = tid; idx < P * L::ev_nout(e); idx += NTHREADS) {
-      const int r = idx / L::ev_nout(e), c = idx % L::ev_nout(e);
-      if (p0 + r < n) out[(size_t)(p0 + r) * OUT + L::ev_col(e) + c] = s.C[r * LDC + c];
-    }
-    if (e == 1 && tid < P) s.rs[tid * RS_W + RS_KAPPA] = sigmoidf_(s.C[tid * LDC]);
-    __syncthreads();
-  }
-  // reflective 15:18, NoV 18; then zeros, or (HUMAN) the hit mask in 23
-  // behind the seventh head's 19:23
-  for (int idx = tid; idx < P * (OUT - 15); idx += NTHREADS) {
-    const int r = idx / (OUT - 15), c = idx % (OUT - 15);
-    if (p0 + r >= n) continue;
-    if (L::human && c >= 4 && c < 8) continue;
-    const float* rs = s.rs + r * RS_W;
-    const float v = c < 3 ? rs[RS_R + c] : c == 3 ? rs[RS_NOV]
-                  : (L::human && c == 8) ? rs[RS_HIT] : 0.0f;
-    out[(size_t)(p0 + r) * OUT + 15 + c] = v;
-  }
-}
-
-template <class L>
-int launch_fwd(const float* geo, const float* feats, int n, const bf16* W, const float* B,
-               const float* tab, float* out, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(shader_rows_kernel<L>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)L::smem_bytes());
-  if (err != cudaSuccess) return (int)err;
-  const int tiles = (n + P - 1) / P;
-  shader_rows_kernel<L><<<tiles, NTHREADS, L::smem_bytes(), stream>>>(geo, feats, n, W, B, tab,
-                                                                      out);
-  return (int)cudaGetLastError();
-}
-
 // ---------------------------------------------------------------------------
-// backward: recompute and reverse sweep
+// the engine of both directions: 128-row tiles, the weight ring, mma.sync
 // ---------------------------------------------------------------------------
 
 constexpr int PB = 128;                  // rows per tile
@@ -440,17 +274,17 @@ constexpr int STAGE_ELEMS = SLAB_K * LDB > HID * LDT ? SLAB_K * LDB : HID * LDT;
 constexpr int HS = HID / SLAB_K;         // slabs of a 256-row (recompute) or -column (sweep) layer
 constexpr int DX_MAX = 144;              // widest input cotangent of a light head (f32)
 constexpr int RSB = 28;                  // row state floats
-// shared memory of the sweep: tiles, ring, row state, IDE table, then the slab table
+// shared memory of both kernels: tiles, ring, row state, IDE table, then the slab table
 constexpr size_t B_SMEM0 = ((size_t)PB * LDA + (size_t)PB * LDP + (size_t)STAGES * STAGE_ELEMS) * 2 +
                            (size_t)PB * RSB * 4 + TAB * 4;
 static_assert((size_t)PB * DX_MAX * 4 <= ((size_t)PB * LDA + (size_t)PB * LDP) * 2,
               "input cotangent staging over the activation and points tiles");
 static_assert(NTHREADS == 4 * PB, "the per-row phases run 4 lanes a row");
 
-// per-row state of the backward: geometry, then the gradient accumulators
-// (d pts, d normal, d reflective, d kappa)
+// per-row state: geometry, then the backward's gradient accumulators (d pts,
+// d normal, d reflective, d kappa) and the forward's human hit mask
 enum { B_PTS = 0, B_N = 3, B_V = 6, B_R = 9, B_NOV = 12, B_KAPPA = 13, B_NLEN = 14,
-       B_VLEN = 15, B_GPTS = 16, B_GN = 19, B_GR = 22, B_GKAPPA = 25 };
+       B_VLEN = 15, B_GPTS = 16, B_GN = 19, B_GR = 22, B_GKAPPA = 25, B_HIT = 26 };
 
 // The scratch lies in device memory in pieces, not rows: a piece is 8 rows x
 // 8 columns (128 bytes), a group of 32 rows of width W is its W / 8 column
@@ -548,24 +382,31 @@ struct SlabRec {
   unsigned short rows, cols, ldg, lds;
 };
 
+// the forward's stream: the recompute prefix of slab_at's, W1-W4 of every
+// evaluation in order
 template <class L>
-__host__ __device__ constexpr int n_slabs() {
+__host__ __device__ constexpr int n_fwd_slabs() {
   int c = 0;
-  for (int e = 0; e < L::NEVAL; ++e)
-    c += (L::head_di(L::ev_head(e)) + SLAB_K - 1) / SLAB_K + 3 * HS + 1 + (e == 6 ? 2 : 3) * HS;
+  for (int e = 0; e < L::NEVAL; ++e) c += (L::head_di(L::ev_head(e)) + SLAB_K - 1) / SLAB_K + 3 * HS;
   return c;
 }
 
+// the sweep's: the recompute, then the reverse sweep
 template <class L>
-constexpr size_t b_smem() {
-  return B_SMEM0 + (size_t)n_slabs<L>() * sizeof(SlabRec);
+__host__ __device__ constexpr int n_slabs() {
+  int c = n_fwd_slabs<L>();
+  for (int e = 0; e < L::NEVAL; ++e) c += 1 + (e == 6 ? 2 : 3) * HS;
+  return c;
 }
 
-// The ring of weight slabs. next() waits for the oldest slab, makes it (and
-// every shared-memory write before the call) visible to the block, refills
-// the stage that the block finished with, and returns the slab's
-// shared-memory address.
-template <class L>
+// shared memory of a kernel whose slab table holds ns slabs
+constexpr size_t b_smem(int ns) { return B_SMEM0 + (size_t)ns * sizeof(SlabRec); }
+
+// The ring of the first NS slabs of the stream. next() waits for the oldest
+// slab, makes it (and every shared-memory write before the call) visible to
+// the block, refills the stage that the block finished with, and returns the
+// slab's shared-memory address.
+template <int NS>
 struct Ring {
   bf16* base;
   const bf16* W;
@@ -573,7 +414,7 @@ struct Ring {
   int slab;
 
   __device__ __forceinline__ void load(int s) const {
-    if (s < n_slabs<L>()) {
+    if (s < NS) {
       const SlabRec sl = recs[s];
       bf16* st = base + (s % STAGES) * STAGE_ELEMS;
       const int cpr = sl.cols / 8;  // 16-byte chunks per row
@@ -714,11 +555,12 @@ __device__ __forceinline__ void load_pose(const float* geo, int row, int n, int 
 }
 
 // Head input slot `slot` of the tile into the activation tile A (slot 0:
-// feats there, the points in the points tile Pt), 4 lanes a row. Not
+// feats there, the points in the points tile Pt), 4 lanes a row; the human
+// slot also keeps the row's hit mask in the row state. Not
 // inlined, as enc_bwd: the per-row phases get registers of their own, and
 // the sweep's products keep theirs (inlined, the sphere variants spill).
 template <class L>
-__device__ __noinline__ void build_slot(int slot, bf16* A, bf16* Pt, const float* rs, const float* tab,
+__device__ __noinline__ void build_slot(int slot, bf16* A, bf16* Pt, float* rs, const float* tab,
                            const float* __restrict__ feats, const float* __restrict__ geo,
                            int p0, int n) {
   const int tid = threadIdx.x, r = tid >> 2, q = tid & 3;
@@ -739,7 +581,7 @@ __device__ __noinline__ void build_slot(int slot, bf16* A, bf16* Pt, const float
   for (int v = tid; v < PB * (di / 8); v += NTHREADS)
     *reinterpret_cast<uint4*>(A + (v / (di / 8)) * LDA + (v % (di / 8)) * 8) = make_uint4(0, 0, 0, 0);
   __syncthreads();
-  const float* s = rs + r * RSB;
+  float* s = rs + r * RSB;
   bf16* x = A + r * LDA;
   if (slot == 5) {
     if constexpr (L::human) {
@@ -748,6 +590,7 @@ __device__ __noinline__ void build_slot(int slot, bf16* A, bf16* Pt, const float
       HumanRow h;
       human_row(pose, s + B_PTS, s + B_R, s[B_KAPPA], h);
       human_ipe(h, x, q, 4);
+      if (q == 0) s[B_HIT] = h.hit;
     }
   } else if (slot == 4) {
     for (int c = q; c < NPE8; c += 4) x[c] = to_bf(pe_val(s + B_PTS, c));
@@ -777,6 +620,145 @@ __device__ void store_slot(const bf16* A, const bf16* Pt, bf16* Xg, int di, size
     const bf16* src = c < HID ? A + r * LDA + c : Pt + r * LDP + (c - HID);
     *reinterpret_cast<uint4*>(Xg + piece_off(row0 + r, c, di)) =
         *reinterpret_cast<const uint4*>(src);
+  }
+}
+
+// The block's prologue: the first ns slabs of the stream as the slab table,
+// the IDE table, and each row's geometry (normalised normal and view, NoV,
+// reflective; the rest of the row state zero).
+template <class L>
+__device__ __forceinline__ void tile_setup(int ns, SlabRec* recs, float* tab,
+                                           const float* __restrict__ ide_tab, float* rs,
+                                           const float* __restrict__ geo, int p0, int n) {
+  const int tid = threadIdx.x;
+  for (int i = tid; i < ns; i += NTHREADS) {
+    const Slab sl = slab_at<L>(i);
+    recs[i] = {(unsigned)sl.off, (unsigned short)sl.rows, (unsigned short)sl.cols,
+               (unsigned short)sl.ldg, (unsigned short)sl.lds};
+  }
+  for (int i = tid; i < TAB; i += NTHREADS) tab[i] = ide_tab[i];
+  if (tid < PB) {
+    const int r = tid;
+    float* s = rs + r * RSB;
+    float gg[9];
+    for (int k = 0; k < 9; ++k) gg[k] = p0 + r < n ? geo[(size_t)(p0 + r) * L::GEO + k] : 0.0f;
+    for (int k = 0; k < 3; ++k) s[B_PTS + k] = gg[k];
+    normalize3(gg + 3, s + B_N, s + B_NLEN);
+    normalize3(gg + 6, s + B_V, s + B_VLEN);
+    const float nov = dot3(s + B_N, s + B_V);
+    s[B_NOV] = nov;
+    for (int k = 0; k < 3; ++k) s[B_R + k] = nov * s[B_N + k] * 2.0f - s[B_V + k];
+    for (int k = B_GPTS; k < RSB; ++k) s[k] = 0.0f;
+  }
+  __syncthreads();
+}
+
+// shared memory: activations [PB][LDA], the material input's points
+// [PB][LDP], the ring, the row state [PB][RSB], the IDE table, the slab table
+struct Tiles {
+  bf16 *A, *Pt, *ring;
+  float *rs, *tab;
+  SlabRec* recs;
+  __device__ explicit Tiles(unsigned char* base) {
+    A = reinterpret_cast<bf16*>(base);
+    Pt = A + PB * LDA;
+    ring = Pt + PB * LDP;
+    rs = reinterpret_cast<float*>(ring + STAGES * STAGE_ELEMS);
+    tab = rs + PB * RSB;
+    recs = reinterpret_cast<SlabRec*>(tab + TAB);
+  }
+};
+
+// The forward: every head evaluation in order on the tile, its input slot
+// built in the activation tile, the four products from the ring, bias and
+// ReLU in registers with each H once, bf16, into the tile; layer 4 on the
+// warps of columns 0-63, whose n8-tile 0 holds the padded outputs: z4 + b4 to
+// out [n, 24], and after the roughness head kappa = sigmoid(z) into the row
+// state. The backward's recompute runs the same loop with the scratch stores.
+template <class L>
+__global__ void __launch_bounds__(NTHREADS, 1)
+shader_fwd_kernel(const float* __restrict__ geo, const float* __restrict__ feats, int n,
+                  const bf16* __restrict__ W, const float* __restrict__ B,
+                  const float* __restrict__ ide_tab, float* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  constexpr int NS = n_fwd_slabs<L>();
+  const Tiles T(smem_raw);
+  bf16* A = T.A;
+  bf16* Pt = T.Pt;
+  float* rs = T.rs;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = warp / NQ, cq = warp % NQ;  // row group, column group
+  const int g = lane >> 2, t = lane & 3;      // accumulator row and column pair
+  const int p0 = blockIdx.x * PB;
+  tile_setup<L>(NS, T.recs, T.tab, ide_tab, rs, geo, p0, n);
+  Ring<NS> ring{T.ring, W, T.recs, 0};
+  for (int st = 0; st < STAGES - 1; ++st) ring.load(st);
+  const unsigned a_x = smem_u32(A + (grp * 32 + (lane & 15)) * LDA + (lane >> 4) * 8);
+  const unsigned p_x = smem_u32(Pt + (grp * 32 + (lane & 15)) * LDP + (lane >> 4) * 8);
+  const int col0 = cq * WN * 8;
+  bf16* arow = A + (grp * 32 + g) * LDA + col0 + 2 * t;
+  float acc[2][WN][4];
+
+  for (int e = 0; e < L::NEVAL; ++e) {
+    const int h = L::ev_head(e), slot = L::ev_slot(e), di = L::head_di(h);
+    build_slot<L>(slot, A, Pt, rs, T.tab, feats, geo, p0, n);
+    const float* bh = B + h * 4 * HID;
+    for (int l = 0; l < 4; ++l) {
+      zero(acc);
+      if (l == 0) {
+        product<false>(acc, ring, a_x, LDA, min(di, HID), col0, HID - col0);
+        if (di > HID) product<false>(acc, ring, p_x, LDP, di - HID, col0, HID - col0);
+      } else {
+        product<false>(acc, ring, a_x, LDA, HID, col0, (l == 3 ? DO : HID) - col0);
+      }
+      __syncthreads();  // every warp is done reading the tile
+      if (l < 3) {  // H = relu(z + b) to the tile
+#pragma unroll
+        for (int j = 0; j < WN; ++j) {
+          const float2 b2 = *reinterpret_cast<const float2*>(bh + l * HID + col0 + j * 8 + 2 * t);
+#pragma unroll
+          for (int m = 0; m < 2; ++m)
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf)
+              *reinterpret_cast<__nv_bfloat162*>(arow + (16 * m + 8 * hf) * LDA + j * 8) =
+                  __floats2bfloat162_rn(fmaxf(acc[m][j][2 * hf] + b2.x, 0.0f),
+                                        fmaxf(acc[m][j][2 * hf + 1] + b2.y, 0.0f));
+        }
+        continue;
+      }
+      if (cq == 0 && 2 * t < L::ev_nout(e)) {  // the outputs: columns 2t, 2t + 1
+        const int nout = L::ev_nout(e);
+        float* o = out + L::ev_col(e) + 2 * t;
+        const float b0 = bh[3 * HID + 2 * t], b1 = bh[3 * HID + 2 * t + 1];
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int row = p0 + grp * 32 + 16 * m + 8 * hf + g;
+            if (row >= n) continue;
+            o[(size_t)row * OUT] = acc[m][0][2 * hf] + b0;
+            if (2 * t + 1 < nout) o[(size_t)row * OUT + 1] = acc[m][0][2 * hf + 1] + b1;
+          }
+      }
+      if (e == 1 && cq == 0 && t == 0) {  // kappa = sigmoid(roughness_z)
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf)
+            rs[(grp * 32 + 16 * m + 8 * hf + g) * RSB + B_KAPPA] =
+                sigmoidf_(acc[m][0][2 * hf] + bh[3 * HID]);
+      }
+    }
+  }
+  // reflective 15:18, NoV 18; then zeros, or (HUMAN) the hit mask in 23
+  // behind the seventh head's 19:23
+  for (int idx = tid; idx < PB * (OUT - 15); idx += NTHREADS) {
+    const int r = idx / (OUT - 15), c = idx % (OUT - 15);
+    if (p0 + r >= n) continue;
+    if (L::human && c >= 4 && c < 8) continue;
+    const float* s = rs + r * RSB;
+    const float v = c < 3 ? s[B_R + c] : c == 3 ? s[B_NOV] : (L::human && c == 8) ? s[B_HIT] : 0.0f;
+    out[(size_t)(p0 + r) * OUT + 15 + c] = v;
   }
 }
 
@@ -842,14 +824,13 @@ shader_bwd_sweep_kernel(const float* __restrict__ geo, const float* __restrict__
                         float* __restrict__ dgeo, float* __restrict__ dfeats,
                         bf16* __restrict__ scratch, int m_rows) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* A = reinterpret_cast<bf16*>(smem_raw);  // activations, then cotangents [PB][LDA]
-  bf16* Pt = A + PB * LDA;                       // the material input's points [PB][LDP]
-  bf16* ring_base = Pt + PB * LDP;
-  float* rs = reinterpret_cast<float*>(ring_base + STAGES * STAGE_ELEMS);  // [PB][RSB]
-  float* tab = rs + PB * RSB;
-  SlabRec* recs = reinterpret_cast<SlabRec*>(tab + TAB);
+  constexpr int NS = n_slabs<L>();
+  const Tiles T(smem_raw);
+  bf16* A = T.A;  // activations, then cotangents
+  bf16* Pt = T.Pt;
+  float* rs = T.rs;
+  const float* tab = T.tab;
   float* D = reinterpret_cast<float*>(smem_raw);  // a light head's dX [PB][di], over A and Pt
-  constexpr int GEO = L::GEO;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int grp = warp / NQ, cq = warp % NQ;  // row group, column group
   const int g = lane >> 2, t = lane & 3;      // accumulator row and column pair
@@ -857,33 +838,16 @@ shader_bwd_sweep_kernel(const float* __restrict__ geo, const float* __restrict__
   const size_t row0 = (size_t)p0;
   const BwdScratch<L> S(scratch, (size_t)m_rows);
 
-  for (int i = tid; i < n_slabs<L>(); i += NTHREADS) {
-    const Slab sl = slab_at<L>(i);
-    recs[i] = {(unsigned)sl.off, (unsigned short)sl.rows, (unsigned short)sl.cols,
-               (unsigned short)sl.ldg, (unsigned short)sl.lds};
-  }
-  for (int i = tid; i < TAB; i += NTHREADS) tab[i] = ide_tab[i];
-  if (tid < PB) {
-    const int r = tid;
-    float* s = rs + r * RSB;
-    float gg[9];
-    for (int k = 0; k < 9; ++k) gg[k] = p0 + r < n ? geo[(size_t)(p0 + r) * GEO + k] : 0.0f;
-    for (int k = 0; k < 3; ++k) s[B_PTS + k] = gg[k];
-    normalize3(gg + 3, s + B_N, s + B_NLEN);
-    normalize3(gg + 6, s + B_V, s + B_VLEN);
-    const float nov = dot3(s + B_N, s + B_V);
-    s[B_NOV] = nov;
-    for (int k = 0; k < 3; ++k) s[B_R + k] = nov * s[B_N + k] * 2.0f - s[B_V + k];
-    for (int k = B_GPTS; k < RSB; ++k) s[k] = 0.0f;
-  }
-  __syncthreads();
-  Ring<L> ring{ring_base, W, recs, 0};
+  tile_setup<L>(NS, T.recs, T.tab, ide_tab, rs, geo, p0, n);
+  Ring<NS> ring{T.ring, W, T.recs, 0};
   for (int st = 0; st < STAGES - 1; ++st) ring.load(st);
 
   const unsigned a_x = smem_u32(A + (grp * 32 + (lane & 15)) * LDA + (lane >> 4) * 8);
   const unsigned p_x = smem_u32(Pt + (grp * 32 + (lane & 15)) * LDP + (lane >> 4) * 8);
   const int col0 = cq * WN * 8;
-  const size_t go = piece_off(row0 + grp * 32 + g, col0 + 2 * t, HID);
+  // this lane's first element in a 256-wide scratch array (32 bits: the sweep
+  // spills with it in 64)
+  const unsigned go = (unsigned)piece_off(row0 + grp * 32 + g, col0 + 2 * t, HID);
   bf16* arow = A + (grp * 32 + g) * LDA + col0 + 2 * t;
   float acc[2][WN][4];
 
@@ -1273,15 +1237,29 @@ inline int pw_chunk_rows(int m_rows) {
 }
 
 template <class L>
+int launch_fwd(const float* geo, const float* feats, int n, const bf16* W, const float* B,
+               const float* tab, float* out, cudaStream_t stream) {
+  constexpr size_t smem = b_smem(n_fwd_slabs<L>());
+  static_assert(smem <= 232448, "forward shared memory");
+  const cudaError_t err = cudaFuncSetAttribute(
+      shader_fwd_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  shader_fwd_kernel<L><<<(n + PB - 1) / PB, NTHREADS, smem, stream>>>(geo, feats, n, W, B, tab,
+                                                                      out);
+  return (int)cudaGetLastError();
+}
+
+template <class L>
 int launch_bwd_sweep(const float* geo, const float* feats, int n, const bf16* W, const float* B,
                      const float* tab, const float* gout, float* dgeo, float* dfeats,
                      bf16* scratch, cudaStream_t stream) {
-  static_assert(b_smem<L>() <= 232448, "sweep shared memory");
+  constexpr size_t smem = b_smem(n_slabs<L>());
+  static_assert(smem <= 232448, "sweep shared memory");
   const cudaError_t err = cudaFuncSetAttribute(
-      shader_bwd_sweep_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)b_smem<L>());
+      shader_bwd_sweep_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int m = bwd_rows(n);
-  shader_bwd_sweep_kernel<L><<<m / PB, NTHREADS, b_smem<L>(), stream>>>(
+  shader_bwd_sweep_kernel<L><<<m / PB, NTHREADS, smem, stream>>>(
       geo, feats, n, W, B, tab, gout, dgeo, dfeats, scratch, m);
   return (int)cudaGetLastError();
 }
@@ -1322,8 +1300,7 @@ extern "C" {
 size_t shader_weight_elems(int sphere, int human) {
   return SHADER_DISPATCH(weight_elems_of, sphere, human, 0);
 }
-int shader_tile() { return P; }
-int shader_bwd_tile() { return PB; }
+int shader_tile() { return PB; }  // rows per block, both directions
 // bf16 elements of the backward's scratch, floats of its partials, for n rows
 size_t shader_scratch_elems(int n, int sphere, int human) {
   return SHADER_DISPATCH(scratch_elems_of, sphere, human, n);

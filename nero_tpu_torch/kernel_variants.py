@@ -10,7 +10,8 @@ backward, of the sphere march or of the light kernel's backward on the card.
 
 Each variant is `csrc/sdf_grad.cu` (VARIANTS: the forward engine's, which the
 backward's recompute and reverse sweep share, then the backward's own) or
-`csrc/shader.cu` (SHADER_VARIANTS, the backward's) with one design choice
+`csrc/shader.cu` (SHADER_VARIANTS, of both directions, whose forward is the
+backward's recompute) with one design choice
 undone or one part of its work taken out, built by nvcc from a patched copy
 (one process each, in parallel) into `build/nero_tpu_torch/variants/`.
 `--parent` adds another version of the source, built as it is (an earlier
@@ -24,8 +25,9 @@ that ptxas reported for the kernels, the times of the forward, of the whole
 backward and of its two parts (recompute + sweep, parameter pass; not for a
 parent without them) in both passes, and the largest difference from the
 kernel as it is (SDF: of sdf, grad and feats, and of dW and db over their
-largest value; shader: of dgeo, dfeats, dW and dB, each over its largest
-value). The variants that only reorganise the work must give 0 or, where
+largest value; shader: of the forward's packed [N, 24] output, dgeo,
+dfeats, dW and dB, each over its largest value). The `fwd_*` variants are
+for the forward's column: they change the backward too. The variants that only reorganise the work must give 0 or, where
 they sum in another order, about 1e-6.
 
 The sphere march (SPHERE_VARIANTS, `csrc/sphere_march.cu`; `--parent` an
@@ -224,6 +226,9 @@ _SH_ENC_FWD = """\
     if constexpr (L::human) {
       float pose[12];"""
 _SH_ENC_BWD = "        enc_bwd<L>(e, D, di, rs, tab, geo, p0, n);\n"
+# the forward's own (the recompute's differ)
+_SH_FWD_BUILD = "    build_slot<L>(slot, A, Pt, rs, T.tab, feats, geo, p0, n);\n"
+_SH_FWD_H = "      if (l < 3) {  // H = relu(z + b) to the tile\n"
 
 SHADER_VARIANTS = {
     "kernel": [],
@@ -246,6 +251,14 @@ SHADER_VARIANTS = {
          "  float* D = reinterpret_cast<float*>(scratch + BwdScratch<L>::elems((size_t)m_rows) -\n"
          "                                      2 * (size_t)m_rows * DX_MAX) +\n"
          "             (size_t)blockIdx.x * PB * DX_MAX;")],
+    # the forward's weight-stream floor: the ring with its barriers and the
+    # fragments' ldmatrix, no mma.sync, no input slots, no epilogues, no
+    # outputs but the tail (the backward's columns: it loses its mma.sync too)
+    "fwd_weights_only": [(_SH_INCLUDE, _SH_NO_MMA), (_SH_FWD_BUILD, ""),
+                         (_SH_FWD_H, "      if (true) continue;\n" + _SH_FWD_H)],
+    # 64-row tiles of 8 warps, both directions: the weight stream per row doubled
+    "fwd_p64_tiles": [("constexpr int PB = 128; ", "constexpr int PB = 64; "),
+                      ("constexpr int NTHREADS = 512;", "constexpr int NTHREADS = 256;")],
 }
 
 # ---- the sphere march (csrc/sphere_march.cu) ----
@@ -445,7 +458,9 @@ LIGHTS_VARIANTS = {
 }
 
 _KERNELS = {"sdf_grad": ("sdf_grad_fwd_kernel", "sdf_bwd_sweep_kernel", "sdf_bwd_params_kernel"),
-            "shader": ("shader_rows_kernel", "shader_bwd_sweep_kernel", "shader_bwd_params_kernel"),
+            # the forward: shader_fwd_kernel, or an earlier source's shader_rows_kernel
+            "shader": ("(?:shader_fwd_kernel|shader_rows_kernel)", "shader_bwd_sweep_kernel",
+                       "shader_bwd_params_kernel"),
             "sphere_march": ("sphere_march_kernel",),
             "lights": ("lights_bwd_sweep_kernel", "lights_bwd_params_kernel",
                        "lights_bwd_reduce_kernel")}
@@ -677,7 +692,7 @@ def main(argv=None) -> int:
 
 
 def _main_shader(sources: dict, sphere: int, human: int) -> int:
-    """The whole-shader backward's variants (and the forward beside them)."""
+    """The whole-shader kernel's variants, forward and backward."""
     from nero_tpu_torch.fields.app_shading import AppShadingConfig, init_app_shading
     from nero_tpu_torch.ops import shader as KS
 
@@ -737,7 +752,7 @@ def _main_shader(sources: dict, sphere: int, human: int) -> int:
     outs = {}
 
     def run(name, lib, parts):
-        outs[name] = tuple(x.clone() for x in bwd(lib))
+        outs[name] = (fwd(lib),) + tuple(x.clone() for x in bwd(lib))
         row = [_time(lambda: fwd(lib), 20), _time(lambda: bwd(lib), 10)]
         if parts:
             row += [_time(lambda: sweep(lib), 10), _time(lambda: params_pass(lib), 10)]
@@ -748,7 +763,7 @@ def _main_shader(sources: dict, sphere: int, human: int) -> int:
     print(_card())
     print(f"shader variant sphere={sphere} human={human}, N = {N}")
     print("variant              regs/spills fwd sweep params   ms: fwd, bwd (sweep + params), "
-          "first / second pass   max|d|/max of dgeo dfeats dW dB")
+          "first / second pass   max|d|/max of out dgeo dfeats dW dB")
     ref = outs["kernel"]
     for name, (_, parts, ptx) in libs.items():
         d = [f"{((a - b).abs().max() / b.abs().max()).item():.2e}"

@@ -91,14 +91,19 @@ def parse_ptxas(log: str, kernel: str) -> dict:
     """Registers and spill bytes (stores + loads) that `-Xptxas -v` reported
     for the first entry function whose mangled name matches `kernel` (a
     regular expression: a template instance is its name, `\\w*` and the
-    mangled arguments); empty if the log does not have it."""
-    info, inside = {}, False
+    mangled arguments); empty if the log does not have it. The spills are
+    the entry's own, not those of the functions it calls, which ptxas lists
+    after it."""
+    info, inside, own, entry = {}, False, False, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             if inside:
                 break
-            inside = re.search(kernel, line) is not None
-        elif inside and "spill stores" in line:
+            inside = own = re.search(kernel, line) is not None
+            entry = re.search(r"Compiling entry function '([^']+)'", line).group(1)
+        elif inside and "Function properties for" in line:
+            own = line.split("Function properties for", 1)[1].strip() == entry
+        elif own and "spill stores" in line:
             nums = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
             info["spill_bytes"] = sum(int(x) for x in nums)
         elif inside and "Used" in line and "registers" in line:

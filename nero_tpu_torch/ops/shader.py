@@ -15,7 +15,8 @@ mixing, the FG-LUT lookup and sRGB stay outside the kernel
 What bounds it on the card: tensor-core operations (`flops`), about 0.17 ms
 forward and 0.5 ms backward at N = 65,536 and 989 TFLOP/s; the bytes it
 must move (geometry and feats in, 24 raw channels out) are ~75 MB, 0.02 ms.
-The backward is three launches (recompute and reverse sweep, the weight-
+The forward is one launch over 128-row tiles, the same engine as the
+backward's recompute. The backward is three launches (recompute and reverse sweep, the weight-
 and bias-gradient pass, the reduction of its partials) through a scratch of
 X, H and GZ in device memory: 1.5 GB at N = 65,536, 1.7 GB with the human
 head (`bwd_buffers`).
@@ -35,8 +36,7 @@ from nero_tpu_torch.utils.encodings import (ide_dim, ide_tables, integrated_dir_
                                             positional_encode_dim)
 from nero_tpu_torch.utils.sphere import get_sphere_intersection, offset_points_to_sphere
 
-TILE = 64        # forward rows per block (csrc/shader.cu P)
-BWD_TILE = 128   # backward rows per block (PB)
+TILE = 128       # rows per block, forward and backward (csrc/shader.cu PB)
 HID = 256
 OUT = 24
 DGEO = 9         # gradient rows: d pts, d normal, d view
@@ -200,9 +200,7 @@ def _lib():
         lib.shader_bwd_sweep.argtypes = [vp, vp, i, vp, vp, vp, i, i, vp, vp, vp, vp, vp]
         lib.shader_bwd_params.restype = i
         lib.shader_bwd_params.argtypes = [i, i, i, vp, vp, vp, vp, vp]
-        lib.shader_bwd_tile.restype = i
-        lib.shader_bwd_tile.argtypes = []
-        if lib.shader_tile() != TILE or lib.shader_bwd_tile() != BWD_TILE:
+        if lib.shader_tile() != TILE:
             raise RuntimeError("csrc/shader.cu tile differs from ops/shader.py")
         lib._nero_typed = True
     return lib
@@ -263,8 +261,10 @@ def ide_table_on(device) -> torch.Tensor:
 
 def _fwd(geo, feats, W, B, sphere: int, human: int) -> torch.Tensor:
     """One forward launch on packed weights: geo [n, 9 or 21], feats [n, 256]
-    -> raw [n, 24]."""
+    -> raw [n, 24]. No rows: an empty output, no launch."""
     n = geo.shape[0]
+    if n == 0:
+        return torch.empty(0, OUT, device=geo.device)
     lib = _lib()
     if lib.shader_weight_elems(sphere, human) != W.numel():
         raise RuntimeError("csrc/shader.cu layout differs from ops/shader.py")

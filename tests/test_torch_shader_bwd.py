@@ -19,8 +19,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from nero_tpu.fields.app_shading import (AppShadingConfig as JCfg, app_shading_apply as jax_apply,
-                                         init_app_shading)
+from nero_tpu.fields.app_shading import AppShadingConfig as JCfg, app_shading_apply as jax_apply
 from nero_tpu.ops.fg_lut import get_fg_lut as jax_fg_lut
 from nero_tpu_torch import kernel_variants
 from nero_tpu_torch.core.convert import from_numpy_tree, tree_items
@@ -28,30 +27,9 @@ from nero_tpu_torch.fields.app_shading import AppShadingConfig, shade_from_raw
 from nero_tpu_torch.ops import cuda_build, shader
 from nero_tpu_torch.ops.fg_lut import get_fg_lut
 from nero_tpu_torch.ops.mlp import resolve_weight_norm
+from torch_shader_common import R, S, VARIANTS, _kernel_head, _setup
 
 torch.set_num_threads(1)
-
-R, S = 2, 48
-VARIANTS = {"default": dict(), "sphere": dict(sphere_direction=True),
-            "human": dict(human_light=True),
-            "both": dict(sphere_direction=True, human_light=True)}
-
-
-def _setup(variant):
-    """Random rotations and small translations for the camera frames (hit and
-    miss rows of the human light), a few points outside radius 0.999."""
-    kw = VARIANTS[variant]
-    params_j = jax.tree_util.tree_map(
-        np.asarray, init_app_shading(jax.random.PRNGKey(0), JCfg(**kw)))
-    rng = np.random.default_rng(11)
-    f = lambda *shape: rng.standard_normal(shape).astype(np.float32)
-    q, _ = np.linalg.qr(rng.standard_normal((R, S, 3, 3)))
-    hp = np.concatenate([q, rng.uniform(-0.5, 0.5, (R, S, 3, 1))], -1).astype(np.float32)
-    inputs = {"pts": rng.uniform(-0.6, 0.6, (R, S, 3)).astype(np.float32),
-              "normals": f(R, S, 3), "view": f(R, S, 3), "feats": f(R, S, 256) * 0.3, "hp": hp}
-    inputs["pts"][0, :4] *= 2.5
-    return kw, params_j, inputs, (f(R, S, 3), f(R, S, 1))
-
 
 @pytest.fixture(scope="module", params=list(VARIANTS))
 def setup(request):
@@ -61,44 +39,6 @@ def setup(request):
 # ---------------------------------------------------------------------------
 # the backward's rounding points
 # ---------------------------------------------------------------------------
-
-
-def _bf(x):
-    return x.to(torch.bfloat16).float()
-
-
-class _KernelHead(torch.autograd.Function):
-    """One 4-layer head as the kernels round it: forward, the recompute's
-    bf16 input X and activations H = bf16(relu(X W + b)) with f32 sums; the
-    sweep's GZ4 = bf16(cotangent), GZ = bf16(mask(H) * (GZ W^T)), dX = GZ1
-    W1^T in f32; the parameter pass's dW = X^T GZ and db = sum GZ in f32."""
-
-    @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2, w3, b3, w4, b4):
-        shape = x.shape[:-1]
-        xb = _bf(x.reshape(-1, x.shape[-1]))
-        ws = [_bf(w) for w in (w1, w2, w3, w4)]
-        hs, h = [], xb
-        for w, b in zip(ws[:3], (b1, b2, b3)):
-            h = _bf(torch.relu(h @ w + b))
-            hs.append(h)
-        ctx.save_for_backward(xb, *hs, *ws)
-        ctx.shape = shape
-        return (h @ ws[3] + b4).reshape(*shape, -1)
-
-    @staticmethod
-    def backward(ctx, g):
-        xb, h1, h2, h3, w1, w2, w3, w4 = ctx.saved_tensors
-        gz4 = _bf(g.reshape(-1, g.shape[-1]))
-        gz3 = _bf((gz4 @ w4.T) * (h3 > 0))
-        gz2 = _bf((gz3 @ w3.T) * (h2 > 0))
-        gz1 = _bf((gz2 @ w2.T) * (h1 > 0))
-        return ((gz1 @ w1.T).reshape(*ctx.shape, -1), xb.T @ gz1, gz1.sum(0), h1.T @ gz2,
-                gz2.sum(0), h2.T @ gz3, gz3.sum(0), h3.T @ gz4, gz4.sum(0))
-
-
-def _kernel_head(layers, x):
-    return _KernelHead.apply(x, *[l[k] for l in layers for k in ("w", "b")])
 
 
 def emulate_shader_bwd(W, B, geo, feats, gout, sphere: bool, human: bool):
@@ -259,7 +199,7 @@ def test_backward_buffer_sizes(variant):
     kw = VARIANTS[variant]
     sphere, human = bool(kw.get("sphere_direction")), bool(kw.get("human_light"))
     c = _source_constants()
-    assert c["PB"] == shader.BWD_TILE == 128
+    assert c["PB"] == shader.TILE == 128
     x_row = {(0, 0): 656, (1, 0): 784, (0, 1): 688, (1, 1): 816}[(sphere, human)]
     n_eval = 8 if human else 7
     for n, m, chunks in ((1, 128, 1), (1001, 1024, 1), (65536, 65536, 32)):
@@ -352,7 +292,10 @@ def test_cuda_backward_matches_plain_and_emulation(variant):
     raw = shader.shader_raw_plain(p, cfg, *xs_g, hp)
     want = torch.autograd.grad(raw, leaves + xs_g, gout)
     dws, dbs = shader.unpack_grads(got[2], got[3], spec[2], spec[3])
-    mine = list(torch.autograd.grad(ws + bs, leaves, dws + dbs, allow_unused=True))
+    # the kernel's dW, dB to the parameter leaves through the weight norm,
+    # resolved again with autograd on (the launches above ran without it)
+    ws_g, bs_g = shader.kernel_inputs(p, cfg, *xs, hp)[3:]
+    mine = list(torch.autograd.grad(ws_g + bs_g, leaves, dws + dbs, allow_unused=True))
     mine += [got[0][:, 0:3], got[0][:, 3:6], got[0][:, 6:9], got[1]]
     assert min(_cosines([a.cpu().numpy() for a in want], [b.cpu().numpy() for b in mine])) > bar
     assert min(_cosines([a.numpy() for a in emu], [b.cpu().numpy() for b in got])) > 0.9999
