@@ -17,8 +17,10 @@ result line):
      fwd/bwd in its four variants (default, `sphere_direction`,
      `human_light`, both), at n = 1,001 and 0 too, each direction the same
      to the bit in two calls, its four kernels' ptxas (0 spill bytes); the
-     predictor kernel fwd/bwd for each of the
-     shader's seven head shapes (259 -> 1 ... 24 -> 4); the value-only SDF kernel at 131,072
+     predictor kernel fwd/bwd for each of the shader's seven head shapes
+     (259 -> 1 ... 24 -> 4), at n = 1,001 and 0 too, its backward's dx, dW
+     and dB to the bit in two calls, its three parts timed apart, their
+     ptxas (0 spill bytes); the value-only SDF kernel at 131,072
      points (the occlusion march's first pass) and 32,768 (the sampler's);
      then the light kernel (fwd/bwd; both heads, and the outer head alone
      with `sphere_direction`) at N = 393,216 rows, and at n = 1,001 and 0,
@@ -582,6 +584,63 @@ def check_predictor(n: int, dev) -> list:
                         "library_ms": None})
         out[-1]["mean_rel_err"] = noise_ker
         del g_p, g_k, g_b
+        # a ragged size (tiles of 64 rows forward, 128 backward) at the same
+        # bars, and no rows: an empty dx, dW and dB exactly 0, nothing counted
+        m = 1001
+        x_m = x[:m].detach().clone().requires_grad_(True)
+        wrt_m = leaves(layers) + [x_m]
+        g_p = torch.autograd.grad((K.predictor_plain(layers, x_m) * cot[:m]).sum(), wrt_m)
+        g_k = torch.autograd.grad((K.predictor(layers, x_m) * cot[:m]).sum(), wrt_m)
+        cos_odd = min((a.flatten() @ b.flatten() / (a.norm() * b.norm() + 1e-12)).item()
+                      for a, b in zip(g_p, g_k))
+        dx_odd = mean_rel(g_p[-1:], g_k[-1:])
+        check(cos_odd > 0.99 and dx_odd < 0.02,
+              f"predictor{sfx} at n = {m}: grads worst cosine {cos_odd}, d x {dx_odd}")
+        del g_p, g_k
+        counted = dict(K.launches)
+        z = K._bwd(xd[:0], W, B, cot[:0])
+        check(tuple(z[0].shape) == (0, d_in) and not z[1].any() and not z[2].any(),
+              f"predictor_bwd{sfx} zero rows: dx {tuple(z[0].shape)}, dW or dB not zero")
+        check(K.launches == counted,
+              f"predictor{sfx} zero rows: counted a launch that was not made")
+        # the backward's parts alone, on the wrapper's buffers: recompute +
+        # reverse sweep, parameter pass, reduction; dx, dW and dB the same to
+        # the bit in two calls
+        from nero_tpu_torch.ops.cuda_build import check as check_rc, ptxas_info
+        with torch.no_grad():
+            first, second = (K._bwd(xd, W, B, cot) for _ in range(2))
+        check(all(torch.equal(a, b) for a, b in zip(first, second)),
+              f"predictor_bwd{sfx}: two calls differ")
+        del first, second, z
+        lib, stream = K._lib(), torch.cuda.current_stream(dev).cuda_stream
+        di = K.padded_d_in(d_in)
+        scratch, part = K.bwd_buffers(n, di, dev)
+        dx_buf = torch.empty(n, d_in, device=dev)
+        dW, dB = torch.empty(W.numel(), device=dev), torch.empty_like(B)
+        sweep_ms = cuda_ms(lambda: check_rc(lib.predictor_bwd_sweep(
+            xd.data_ptr(), n, d_in, di, d_out, W.data_ptr(), B.data_ptr(), cot.data_ptr(),
+            dx_buf.data_ptr(), 1, scratch.data_ptr(), stream), "sweep"), iters=5)
+        params_ms = cuda_ms(lambda: check_rc(lib.predictor_bwd_params(
+            n, di, scratch.data_ptr(), part.data_ptr(), stream), "params"), iters=5)
+        reduce_ms = cuda_ms(lambda: check_rc(lib.predictor_bwd_reduce(
+            n, di, part.data_ptr(), dW.data_ptr(), dB.data_ptr(), stream), "reduce"), iters=5)
+        buf_bytes = scratch.numel() * 2 + part.numel() * 4
+        del scratch, part, dx_buf, dW, dB
+        ptx = {k: ptxas_info("predictor", k) for k in
+               ("predictor_bwd_sweep_kernel", "predictor_bwd_params_kernel",
+                "predictor_bwd_reduce_kernel")}
+        check(all(v.get("spill_bytes") == 0 for v in ptx.values()),
+              f"predictor{sfx} backward spills: {ptx}")
+        out[-1].update({"sweep_ms": sweep_ms, "params_ms": params_ms, "reduce_ms": reduce_ms,
+                        "scratch_bytes": buf_bytes, "ptxas": ptx})
+        print(f"predictor{sfx}  n = {m}: grads worst cosine {cos_odd:.5f}, d x {dx_odd:.3e}; "
+              f"n = 0: dx (0, {d_in}), dW and dB zero")
+        print(f"predictor_bwd{sfx}  launch {launch_bwd:.3f} ms = sweep {sweep_ms:.3f} + parameter "
+              f"pass {params_ms:.3f} + reduction {reduce_ms:.3f}; wrapper {ms_bwd:.3f} ms, bound "
+              f"{out[-1]['bound_ms']:.3f} ms; scratch + partials {buf_bytes / 1e9:.3f} GB at "
+              f"N = {n}; the same dx, dW, dB to the bit in two calls; " + ", ".join(
+                  f"{k} {v.get('regs')} regs {v.get('spill_bytes')} spill bytes"
+                  for k, v in ptx.items()))
         torch.cuda.empty_cache()
     return out
 

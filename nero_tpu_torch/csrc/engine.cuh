@@ -1,8 +1,9 @@
 // The mma.sync engine of the backward sweeps, as one header: the ring of
 // weight slabs, the warp's product on it, the scratch's 8 x 8 pieces, and
 // the parameter pass with its reduction as templates over a table of (X, GZ,
-// widths). The light kernel's backward (lights.cu) runs on it; shader.cu and
-// sdf_grad.cu keep their own copies of the same engine.
+// widths). The light kernel's backward (lights.cu) and the predictor
+// kernel's backward (predictor.cu) run on it; shader.cu and sdf_grad.cu keep
+// their own copies of the same engine.
 //
 // A sweep block holds 16 warps over a tile of rows: warp w owns 32 rows
 // (two m16n8k16 row tiles) and 64 columns (WN = 8 n8-tiles) of a 256-wide
@@ -199,11 +200,13 @@ inline int pw_chunk_rows(int m_rows) {
 }
 
 // The parameter pass of block (blockIdx.x = tile of the table, blockIdx.y =
-// row chunk). Tab: static PwTile tile(int t, bf16* scratch, size_t M),
-// w_total() (floats of dW) and part_row() (floats of one chunk's partials:
-// dW, then dB [heads][4][256]).
+// row chunk). tab: PwTile tile(int t, bf16* scratch, size_t M), w_total()
+// (floats of dW) and part_row() (floats of one chunk's partials: dW, then dB
+// [heads][4][256]); a table whose widths are fixed when it is compiled
+// (lights.cu) is a stateless object, one whose input width comes at run time
+// (predictor.cu) carries it.
 template <class Tab>
-__device__ __forceinline__ void param_pass(bf16* __restrict__ scratch, int m_rows,
+__device__ __forceinline__ void param_pass(const Tab& tab, bf16* __restrict__ scratch, int m_rows,
                                            int rows_per_chunk, float* __restrict__ part) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* stages = reinterpret_cast<bf16*>(smem_raw);  // per stage X then G, each in pieces
@@ -211,7 +214,7 @@ __device__ __forceinline__ void param_pass(bf16* __restrict__ scratch, int m_row
   const int ig = warp / 4, og = warp % 4;  // the warp's 32 input rows and 64 output columns
   const int g = lane >> 2, t = lane & 3;
   const size_t M = (size_t)m_rows;
-  const PwTile T = Tab::tile(blockIdx.x, scratch, M);
+  const PwTile T = tab.tile(blockIdx.x, scratch, M);
   const int m0 = blockIdx.y * rows_per_chunk;
   const int n_st = max(0, min((int)M - m0, rows_per_chunk)) / PW_RS;
   constexpr int GROUPS = PW_RS / 32;
@@ -289,7 +292,7 @@ __device__ __forceinline__ void param_pass(bf16* __restrict__ scratch, int m_row
     }
   }
 
-  float* out = part + (size_t)blockIdx.y * Tab::part_row();
+  float* out = part + (size_t)blockIdx.y * tab.part_row();
   if (rows_here) {
 #pragma unroll
     for (int m = 0; m < 2; ++m)
@@ -304,19 +307,21 @@ __device__ __forceinline__ void param_pass(bf16* __restrict__ scratch, int m_row
         }
   }
   if (T.db >= 0 && tid < LAYER_W)
-    out[Tab::w_total() + T.db * LAYER_W + tid] = tid < T.gn * 8 ? dbs : 0.0f;
+    out[tab.w_total() + T.db * LAYER_W + tid] = tid < T.gn * 8 ? dbs : 0.0f;
 }
 
 // dW, dB = the chunks' partials added in chunk order
 template <class Tab>
-__device__ __forceinline__ void reduce_chunks(const float* __restrict__ part, int n_chunks,
-                                              float* __restrict__ dW, float* __restrict__ dB) {
+__device__ __forceinline__ void reduce_chunks(const Tab& tab, const float* __restrict__ part,
+                                              int n_chunks, float* __restrict__ dW,
+                                              float* __restrict__ dB) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= Tab::part_row()) return;
+  const size_t row = tab.part_row(), w = tab.w_total();
+  if (i >= row) return;
   float s = 0.0f;
-  for (int c = 0; c < n_chunks; ++c) s += part[(size_t)c * Tab::part_row() + i];
-  if (i < Tab::w_total()) dW[i] = s;
-  else dB[i - Tab::w_total()] = s;
+  for (int c = 0; c < n_chunks; ++c) s += part[(size_t)c * row + i];
+  if (i < w) dW[i] = s;
+  else dB[i - w] = s;
 }
 
 }  // namespace nero

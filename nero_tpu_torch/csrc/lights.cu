@@ -675,13 +675,13 @@ template <class L>
 __global__ void __launch_bounds__(PW_THREADS, 1)
 lights_bwd_params_kernel(bf16* __restrict__ scratch, int m_rows, int rows_per_chunk,
                          float* __restrict__ part) {
-  param_pass<PwTab<L>>(scratch, m_rows, rows_per_chunk, part);
+  param_pass(PwTab<L>{}, scratch, m_rows, rows_per_chunk, part);
 }
 
 template <class L>
 __global__ void lights_bwd_reduce_kernel(const float* __restrict__ part, int n_chunks,
                                          float* __restrict__ dW, float* __restrict__ dB) {
-  reduce_chunks<PwTab<L>>(part, n_chunks, dW, dB);
+  reduce_chunks(PwTab<L>{}, part, n_chunks, dW, dB);
 }
 
 // rows of the backward's scratch: n rounded up to the parameter pass's stage

@@ -1,31 +1,53 @@
 // One 4-layer prediction head, forward and backward, for Hopper (sm_90a).
 //
 // Replaces nero_tpu/ops/pallas/predictor_kernel.py::predictor_fused (:226),
-// pallas_calls nero_predictor_fwd (:151) and nero_predictor_bwd (:171):
-// x [n, d_in] -> 3 x (product + bias + ReLU, 256 wide) -> product + bias ->
-// out [n, d_out], pre-activation; the final sigmoid / exp stays outside.
-// Weights arrive weight-norm-resolved, bf16, [in, out] row-major, w1 padded
-// to a multiple of 16 rows and w4 to 16 columns; sums are f32 (block_mm).
-// Any d_in up to 272 and d_out up to 16: every head of the Stage-I shader.
+// pallas_calls nero_predictor_fwd (:151) and nero_predictor_bwd (:171), bodies
+// _fwd_kernel and _bwd_kernel (:92-134): x [n, d_in] -> 3 x (product + bias +
+// ReLU, 256 wide) -> product + bias -> out [n, d_out], pre-activation; the
+// final sigmoid / exp stays outside. Weights arrive weight-norm-resolved,
+// bf16, [in, out] row-major, w1 padded to a multiple of 16 rows (di) and w4
+// to 16 columns; sums are f32. Any d_in up to 272 and d_out up to 16: every
+// head of the Stage-I shader.
 //
-// Forward (predictor_rows_kernel<false>): one block per tile of P = 64 rows;
-// only x comes in and only out goes out. Rows past n are masked.
+// Forward (predictor_rows_kernel): one block per tile of P = 64 rows, the
+// products through common.cuh's block_mm; only x comes in and only out goes
+// out. Rows past n are masked.
 //
 // Backward: the TPU kernel adds dW and db into VMEM accumulators across a
-// sequential grid (:112-134). Blocks on this card run in no order, so
-// predictor_rows_kernel<true> recomputes its tile's forward, keeps the three
-// ReLU masks (taken from the f32 pre-activation, z > 0) in shared memory,
-// writes the layer inputs X, H1..H3 and the pre-activation cotangents
-// dZ1..dZ4 (bf16) to device memory and the input cotangent dx = dZ1 @ W1^T
-// to its output; dW_l = H_l^T dZ_l and db_l then come from the two-pass
-// chunked reduction of common.cuh: per-chunk partial sums added in a fixed
-// order, no atomics.
+// sequential grid (:112-134). Blocks on this card run in no order, so the
+// gradient is taken in three launches on the mma.sync engine of engine.cuh,
+// which lights.cu's backward runs too:
+//  * predictor_bwd_sweep_kernel, one block of 16 warps per tile of PB = 128
+//    rows (warp w: rows 32(w/4) .. +31, columns 64(w%4) .. +63). It
+//    recomputes the head: x rounded to bf16 into the tile (zeros past d_in
+//    and past n, read a float at a time: a row of an odd d_in starts at an
+//    odd float), the products on weight slabs streamed through the 2-stage
+//    cp.async ring, bias and ReLU in registers, X and H1-H3 to the scratch
+//    once, bf16. Then the reverse sweep: GZ4 = bf16(gout) in 16 columns,
+//    GH = GZ W^T, the ReLU mask from the H the lane wrote, each GZ to the
+//    scratch; then (want_dx) dx = GZ1 W1^T, stored as scalars straight from
+//    the accumulators (no encoding backward needs it in shared memory). The
+//    16 warps span 256 columns, and a W1^T slab of all 272 input rows would
+//    not fit a stage of the ring (272 x 136 > STAGE_ELEMS), so at di = 272
+//    the columns 256-271 take a second pass over GZ1 on two 16-row slabs
+//    (one warp of each row group does the work).
+//  * predictor_bwd_params_kernel: dW = X^T GZ and db (column sums of GZ) of
+//    the four layers in one launch over (layer, 128-row part of its input,
+//    row chunk): engine.cuh's param_pass on a table that carries di.
+//  * predictor_bwd_reduce_kernel adds the chunks' partials in chunk order (no
+//    atomics): dW and dB are the same to the bit in every call.
+// Rows past n carry zero cotangents: they add nothing.
 //
 // Bound: tensor-core operations, 2 * (d_in*256 + 2*256*256 + 256*d_out) per
-// row forward and 3x that backward, against 4 * (d_in + d_out) bytes per
-// row. This first version streams the weights from L2 and round-trips the
-// backward's activations (about 3.6 KB a row) through device memory.
-#include "common.cuh"
+// row forward and 3x that backward (0.026 and 0.079 ms at N = 65,536, d_in
+// 259), against 4 * (d_in + d_out) bytes per row in and out. What keeps the
+// backward from it: the sweep streams the head's weights (0.41 MB bf16 at di
+// 272) from L2 twice per 128-row tile, ~0.4 GB a launch at N = 65,536, and
+// writes the scratch (3.6 KB a row at di 272), which the parameter pass reads
+// back (each layer's GZ once for each 128-row part of its input). The
+// forward is still the first version: 64-row tiles on block_mm, every warp
+// streaming its B fragments from L2.
+#include "engine.cuh"
 
 using namespace nero;
 
@@ -37,22 +59,8 @@ constexpr int HID = 256;
 constexpr int DO = 16;       // head outputs padded
 constexpr int MAX_DI = 272;  // the widest input: [feats, pts] = 259, padded
 constexpr int LDX = MAX_DI + 8, LDH = HID + 8, LDC = MAX_DI + 4;
-constexpr int DW_CHUNK_MIN_ROWS = 2048;  // rows per weight-gradient chunk, at least
 constexpr size_t SMEM_FWD = (size_t)P * LDX * 2 + (size_t)P * LDH * 2 + (size_t)P * LDC * 4;
-constexpr size_t SMEM_BWD = SMEM_FWD + 3 * (size_t)P * HID;  // + the ReLU masks
-
-// backward scratch for M rows (bf16): X [M][di], H [3][M][256], DZ [3][M][256],
-// DZ4 [M][16]
-struct Scratch {
-  bf16 *X, *H, *DZ, *DZ4;
-  __host__ __device__ Scratch(bf16* base, size_t M, int di) {
-    X = base;
-    H = X + M * di;
-    DZ = H + 3 * M * HID;
-    DZ4 = DZ + 3 * M * HID;
-  }
-  static size_t elems(size_t M, int di) { return M * di + 6 * M * HID + M * DO; }
-};
+static_assert(HID == LAYER_W, "the engine's layer width");
 
 __host__ __device__ inline void head_layers(const bf16* W, int di, const bf16** Wl) {
   Wl[0] = W;
@@ -62,34 +70,24 @@ __host__ __device__ inline void head_layers(const bf16* W, int di, const bf16** 
 }
 
 // x [n, d_in] f32; W packed bf16 (w1 [di,256], w2, w3, w4 [256,16]); B [4][256]
-// f32. Forward: out [n, d_out]. Backward: gout [n, d_out] -> dx [n, d_in] (if
-// want_dx) and the scratch that feeds the weight-gradient pass.
-template <bool BWD>
+// f32 -> out [n, d_out].
 __global__ void __launch_bounds__(NTHREADS, 1)
 predictor_rows_kernel(const float* __restrict__ x, int n, int d_in, int di, int d_out,
                       const bf16* __restrict__ W, const float* __restrict__ B,
-                      float* __restrict__ out, const float* __restrict__ gout,
-                      float* __restrict__ dx, int want_dx, bf16* __restrict__ scratch,
-                      int m_rows) {
+                      float* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* X = reinterpret_cast<bf16*>(smem_raw);
   bf16* Hb = X + P * LDX;
   float* C = reinterpret_cast<float*>(Hb + P * LDH);
-  unsigned char* mask = reinterpret_cast<unsigned char*>(C + P * LDC);  // [3][P][HID], BWD
   const int tid = threadIdx.x;
   const int p0 = blockIdx.x * P;
-  const size_t row0 = (size_t)p0;
-  const size_t M = (size_t)m_rows;
-  Scratch S(scratch, M, di);
   const bf16* Wl[4];
   head_layers(W, di, Wl);
 
   for (int idx = tid; idx < P * di; idx += NTHREADS) {
     const int r = idx / di, c = idx % di;
     const float v = (p0 + r < n && c < d_in) ? x[(size_t)(p0 + r) * d_in + c] : 0.0f;
-    const bf16 bv = to_bf(v);
-    X[r * LDX + c] = bv;
-    if (BWD) S.X[(row0 + r) * di + c] = bv;
+    X[r * LDX + c] = to_bf(v);
   }
   __syncthreads();
 
@@ -99,126 +97,348 @@ predictor_rows_kernel(const float* __restrict__ x, int n, int d_in, int di, int 
     __syncthreads();
     for (int idx = tid; idx < P * HID; idx += NTHREADS) {
       const int r = idx / HID, c = idx % HID;
-      const float z = C[r * LDC + c] + B[l * HID + c];
-      const bf16 v = to_bf(fmaxf(z, 0.0f));
-      Hb[r * LDH + c] = v;
-      if (BWD) {
-        mask[(l * P + r) * HID + c] = z > 0.0f;
-        S.H[((size_t)l * M + row0 + r) * HID + c] = v;
-      }
+      Hb[r * LDH + c] = to_bf(fmaxf(C[r * LDC + c] + B[l * HID + c], 0.0f));
     }
     __syncthreads();
   }
 
-  if (!BWD) {
-    block_mm<false>(Hb, LDH, Wl[3], DO, C, LDC, P, DO, HID, false);
-    __syncthreads();
-    for (int idx = tid; idx < P * d_out; idx += NTHREADS) {
-      const int r = idx / d_out, c = idx % d_out;
-      if (p0 + r < n) out[(size_t)(p0 + r) * d_out + c] = C[r * LDC + c] + B[3 * HID + c];
-    }
-    return;
-  }
-
-  // ---- backward: dZ4 = gout, then the ReLU chain in reverse ----
-  for (int idx = tid; idx < P * DO; idx += NTHREADS) {
-    const int r = idx / DO, c = idx % DO;
-    const float g = (c < d_out && p0 + r < n) ? gout[(size_t)(p0 + r) * d_out + c] : 0.0f;
-    const bf16 v = to_bf(g);
-    Hb[r * LDH + c] = v;
-    S.DZ4[(row0 + r) * DO + c] = v;
-  }
+  block_mm<false>(Hb, LDH, Wl[3], DO, C, LDC, P, DO, HID, false);
   __syncthreads();
-  block_mm<true>(Hb, LDH, Wl[3], DO, C, LDC, P, HID, DO, false);  // dH3
-  __syncthreads();
-  for (int l = 2; l >= 0; --l) {
-    bf16* DZ = S.DZ + (size_t)l * M * HID;
-    for (int idx = tid; idx < P * HID; idx += NTHREADS) {
-      const int r = idx / HID, c = idx % HID;
-      const bf16 v = to_bf(mask[(l * P + r) * HID + c] ? C[r * LDC + c] : 0.0f);
-      Hb[r * LDH + c] = v;
-      DZ[(row0 + r) * HID + c] = v;
-    }
-    __syncthreads();
-    if (l > 0) block_mm<true>(Hb, LDH, Wl[l], HID, C, LDC, P, HID, HID, false);
-    else if (want_dx) block_mm<true>(Hb, LDH, Wl[0], HID, C, LDC, P, di, HID, false);
-    __syncthreads();
-  }
-  if (want_dx) {
-    for (int idx = tid; idx < P * d_in; idx += NTHREADS) {
-      const int r = idx / d_in, c = idx % d_in;
-      if (p0 + r < n) dx[(size_t)(p0 + r) * d_in + c] = C[r * LDC + c];
-    }
+  for (int idx = tid; idx < P * d_out; idx += NTHREADS) {
+    const int r = idx / d_out, c = idx % d_out;
+    if (p0 + r < n) out[(size_t)(p0 + r) * d_out + c] = C[r * LDC + c] + B[3 * HID + c];
   }
 }
+
+inline bool di_ok(int di) { return di >= 16 && di % 16 == 0 && di <= MAX_DI; }
 
 inline bool dims_ok(int d_in, int di, int d_out) {
-  return d_in >= 1 && di >= d_in && di % 16 == 0 && di <= MAX_DI && d_out >= 1 && d_out <= DO;
+  return d_in >= 1 && di >= d_in && di_ok(di) && d_out >= 1 && d_out <= DO;
 }
+
+// ---------------------------------------------------------------------------
+// backward: recompute and reverse sweep
+// ---------------------------------------------------------------------------
+
+constexpr int PB = 128;          // rows per tile
+constexpr int BTHREADS = 512;    // 16 warps: PB / 32 row groups x NQ column groups
+constexpr int LDA = MAX_DI + 8;  // input / activation / cotangent tile [PB][LDA] bf16
+constexpr size_t TILE_BYTES = (size_t)PB * LDA * 2;
+// the stream at di = 272 with dx: W1 in 3 slabs, W2, W3, W4^T, W3^T, W2^T,
+// and W1^T in two passes of HS slabs
+constexpr int MAX_SLABS = (MAX_DI + SLAB_K - 1) / SLAB_K + 6 * HS + 1;
+constexpr size_t B_SMEM =
+    TILE_BYTES + (size_t)STAGES * STAGE_ELEMS * 2 + (size_t)MAX_SLABS * sizeof(SlabRec);
+static_assert(BTHREADS == 4 * PB, "GZ4 is loaded by 4 lanes a row");
+static_assert(BTHREADS / 32 == PB / 32 * NQ, "warps tile the rows and the columns");
+static_assert(PW_RS % PB == 0, "the scratch's rows are whole tiles");
+static_assert(B_SMEM <= 232448, "sweep shared memory");
+
+// Scratch of the backward (bf16, in pieces) for M rows: X [M][di], H
+// [3][M][256] (layers 1-3 as the recompute formed them), GZ [3][M][256],
+// GZ4 [M][16].
+struct Scratch {
+  bf16* base;
+  size_t M;
+  int di;
+  __host__ __device__ bf16* x() const { return base; }
+  __host__ __device__ bf16* hid(int l) const { return base + M * di + (size_t)l * M * HID; }
+  __host__ __device__ bf16* gz(int l) const { return hid(3 + l); }
+  __host__ __device__ bf16* gz4() const { return hid(6); }
+  __host__ __device__ static size_t elems(size_t m, int di) {
+    return m * di + 6 * m * HID + m * DO;
+  }
+};
+
+// dx passes of W1^T: its input columns 0 .. 255, and 256 .. di - 1 when di > 256
+__host__ __device__ inline int dx_passes(int di, bool dx) { return dx ? (di + HID - 1) / HID : 0; }
+
+__host__ __device__ inline int n_slabs(int di, bool dx) {
+  return (di + SLAB_K - 1) / SLAB_K + 4 * HS + 1 + dx_passes(di, dx) * HS;
+}
+
+// Slab s of the stream: the recompute's W1 (di rows in slabs of SLAB_K), W2
+// and W3 (the output layer's product is not needed); then the sweep's W4^T,
+// W3^T and W2^T in slabs of SLAB_K of their output columns (W4: its 16) with
+// all their input rows; then (dx) W1^T, its rows 0 .. 255 and then 256 ..
+// di - 1 (at di > 256). rows = 0 past the end.
+__device__ Slab slab_at(int s, int di, bool dx) {
+  const int n1 = (di + SLAB_K - 1) / SLAB_K;
+  if (s < n1) return {(size_t)s * SLAB_K * HID, min(SLAB_K, di - s * SLAB_K), HID, HID, LDB};
+  s -= n1;
+  if (s < 2 * HS) {
+    const int l = 1 + s / HS, j = s % HS;
+    return {layer_woff(0, di, l) + (size_t)j * SLAB_K * HID, SLAB_K, HID, HID, LDB};
+  }
+  s -= 2 * HS;
+  if (s == 0) return {layer_woff(0, di, 3), HID, DO, DO, LDT};
+  s -= 1;
+  if (s < 2 * HS) {
+    const int l = 2 - s / HS, j = s % HS;  // W3, W2
+    return {layer_woff(0, di, l) + (size_t)j * SLAB_K, HID, SLAB_K, HID, LDT};
+  }
+  s -= 2 * HS;
+  if (s < dx_passes(di, dx) * HS) {
+    const int r0 = s / HS * HID, j = s % HS;
+    return {(size_t)r0 * HID + (size_t)j * SLAB_K, min(HID, di - r0), SLAB_K, HID, LDT};
+  }
+  return {0, 0, 0, 0, 0};
+}
+
+// The tile's input: x rounded to bf16, zeros past d_in and past n, a float at
+// a time. Not inlined: the per-row phases keep their registers out of the
+// products'.
+__device__ __noinline__ void load_x(const float* __restrict__ x, int n, int d_in, int di, int p0,
+                                    bf16* A) {
+  for (int idx = threadIdx.x; idx < PB * di; idx += BTHREADS) {
+    const int r = idx / di, c = idx - r * di;
+    A[r * LDA + c] = to_bf(p0 + r < n && c < d_in ? x[(size_t)(p0 + r) * d_in + c] : 0.0f);
+  }
+}
+
+// x [n, d_in], gout [n, d_out] f32 -> dx [n, d_in] (want_dx) and the scratch
+// (m_rows rows) that the parameter pass reads.
+__global__ void __launch_bounds__(BTHREADS, 1)
+predictor_bwd_sweep_kernel(const float* __restrict__ x, int n, int d_in, int di, int d_out,
+                           const bf16* __restrict__ W, const float* __restrict__ B,
+                           const float* __restrict__ gout, float* __restrict__ dx, int want_dx,
+                           bf16* __restrict__ scratch, int m_rows) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* A = reinterpret_cast<bf16*>(smem_raw);  // input, activations, cotangents [PB][LDA]
+  bf16* ring_base = reinterpret_cast<bf16*>(smem_raw + TILE_BYTES);
+  SlabRec* recs = reinterpret_cast<SlabRec*>(ring_base + STAGES * STAGE_ELEMS);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = warp / NQ, cq = warp % NQ;  // row group, column group
+  const int g = lane >> 2, t = lane & 3;      // accumulator row and column pair
+  const int p0 = blockIdx.x * PB;
+  const size_t row0 = (size_t)p0;
+  const Scratch S{scratch, (size_t)m_rows, di};
+  const bool with_dx = want_dx != 0;
+  const int count = n_slabs(di, with_dx);
+
+  for (int i = tid; i < count; i += BTHREADS) recs[i] = slab_rec(slab_at(i, di, with_dx));
+  load_x(x, n, d_in, di, p0, A);
+  __syncthreads();
+  {  // X to the scratch, 16 bytes a copy
+    const int cb = di / 8;
+    for (int v = tid; v < PB * cb; v += BTHREADS) {
+      const int r = v / cb, c = (v - r * cb) * 8;
+      *reinterpret_cast<uint4*>(S.x() + piece_off(row0 + r, c, di)) =
+          *reinterpret_cast<const uint4*>(A + r * LDA + c);
+    }
+  }
+  Ring ring{ring_base, W, recs, count, 0};
+  for (int st = 0; st < STAGES - 1; ++st) ring.load(st);
+
+  const unsigned a_x = smem_u32(A + (grp * 32 + (lane & 15)) * LDA + (lane >> 4) * 8);
+  const int col0 = cq * WN * 8;
+  const size_t go = piece_off(row0 + grp * 32 + g, col0 + 2 * t, HID);
+  bf16* arow = A + (grp * 32 + g) * LDA + col0 + 2 * t;
+  float acc[2][WN][4];
+
+  // ---- recompute: H = relu(z + b) to the tile and the scratch ----
+  for (int l = 0; l < 3; ++l) {
+    zero(acc);
+    product<false>(acc, ring, a_x, LDA, l == 0 ? di : HID, col0, HID - col0);
+    __syncthreads();  // every warp is done reading the tile
+    bf16* hg = S.hid(l) + go;
+#pragma unroll
+    for (int j = 0; j < WN; ++j) {
+      const float2 b2 = *reinterpret_cast<const float2*>(B + l * HID + col0 + j * 8 + 2 * t);
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const __nv_bfloat162 v =
+              __floats2bfloat162_rn(fmaxf(acc[m][j][2 * hf] + b2.x, 0.0f),
+                                    fmaxf(acc[m][j][2 * hf + 1] + b2.y, 0.0f));
+          *reinterpret_cast<__nv_bfloat162*>(arow + (16 * m + 8 * hf) * LDA + j * 8) = v;
+          *reinterpret_cast<__nv_bfloat162*>(hg + (2 * m + hf) * F_S + j * F_J) = v;
+        }
+    }
+  }
+  __syncthreads();  // the last H is in the tile: GZ4 goes over it
+
+  // ---- reverse sweep ----
+  {  // GZ4 = bf16(gout) in 16 columns, zeros past d_out and past n
+    const int r = tid >> 2, c = (tid & 3) * 4;
+    float v[4];
+    for (int k = 0; k < 4; ++k)
+      v[k] = p0 + r < n && c + k < d_out ? gout[(size_t)(p0 + r) * d_out + c + k] : 0.0f;
+    const __nv_bfloat162 v01 = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 v23 = __floats2bfloat162_rn(v[2], v[3]);
+    __nv_bfloat162* a2 = reinterpret_cast<__nv_bfloat162*>(A + r * LDA + c);
+    a2[0] = v01;
+    a2[1] = v23;
+    __nv_bfloat162* g2 = reinterpret_cast<__nv_bfloat162*>(S.gz4() + piece_off(row0 + r, c, DO));
+    g2[0] = v01;
+    g2[1] = v23;
+  }
+  for (int l = 2; l >= 0; --l) {
+    // the cotangent of H_l: GH = GZ_{l+1} @ W_{l+1}^T; then the ReLU mask
+    zero(acc);
+    product<true>(acc, ring, a_x, LDA, l == 2 ? DO : HID, col0, HID - col0);
+    __syncthreads();  // every warp is done reading the cotangent tile
+    const bf16* hl = S.hid(l) + go;
+    bf16* gzl = S.gz(l) + go;
+#pragma unroll
+    for (int j = 0; j < WN; ++j)
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const float2 hv = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(hl + (2 * m + hf) * F_S + j * F_J));
+          const __nv_bfloat162 v =
+              __floats2bfloat162_rn(hv.x > 0.0f ? acc[m][j][2 * hf] : 0.0f,
+                                    hv.y > 0.0f ? acc[m][j][2 * hf + 1] : 0.0f);
+          *reinterpret_cast<__nv_bfloat162*>(gzl + (2 * m + hf) * F_S + j * F_J) = v;
+          *reinterpret_cast<__nv_bfloat162*>(arow + (16 * m + 8 * hf) * LDA + j * 8) = v;
+        }
+  }
+
+  // dx = GZ1 @ W1^T, 256 columns a pass, from the accumulators
+  for (int c0 = 0; c0 < dx_passes(di, with_dx) * HID; c0 += HID) {
+    zero(acc);
+    product<true>(acc, ring, a_x, LDA, HID, col0, min(HID, di - c0) - col0);
+#pragma unroll
+    for (int j = 0; j < WN; ++j)
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int r = p0 + grp * 32 + 16 * m + 8 * hf + g;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = c0 + col0 + j * 8 + 2 * t + e;
+            if (r < n && c < d_in) dx[(size_t)r * d_in + c] = acc[m][j][2 * hf + e];
+          }
+        }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward: weight and bias gradients
+// ---------------------------------------------------------------------------
+
+// The parameter pass's table: layer 1's input in 128-row parts, then two
+// items each for layers 2-4; X and GZ from the scratch.
+struct PwTab {
+  int di;
+  __host__ __device__ int n1() const { return (di + 127) / 128; }
+  __host__ __device__ int n_items() const { return n1() + 6; }
+  __host__ __device__ size_t w_total() const { return layer_woff(0, di, 3) + (size_t)HID * DO; }
+  // floats of one chunk's partials: dW (packed), then dB [4][256]
+  __host__ __device__ size_t part_row() const { return w_total() + 4 * HID; }
+  __device__ PwTile tile(int t, bf16* scratch, size_t M) const {
+    const Scratch S{scratch, M, di};
+    const int l = t < n1() ? 0 : 1 + (t - n1()) / 2, it = t < n1() ? t : (t - n1()) % 2;
+    const int xw = l == 0 ? di : HID, ldo = l == 3 ? DO : HID;
+    return {l == 0 ? S.x() : S.hid(l - 1), l == 3 ? S.gz4() : S.gz(l), xw, 16 * it,
+            min(16, xw / 8 - 16 * it), ldo / 8, layer_woff(0, di, l) + (size_t)it * 128 * ldo, ldo,
+            it == 0 ? l : -1};
+  }
+};
+
+__global__ void __launch_bounds__(PW_THREADS, 1)
+predictor_bwd_params_kernel(PwTab tab, bf16* __restrict__ scratch, int m_rows,
+                            int rows_per_chunk, float* __restrict__ part) {
+  param_pass(tab, scratch, m_rows, rows_per_chunk, part);
+}
+
+__global__ void predictor_bwd_reduce_kernel(PwTab tab, const float* __restrict__ part,
+                                            int n_chunks, float* __restrict__ dW,
+                                            float* __restrict__ dB) {
+  reduce_chunks(tab, part, n_chunks, dW, dB);
+}
+
+// rows of the backward's scratch: n rounded up to the parameter pass's stage
+inline int bwd_rows(int n) { return (n + PW_RS - 1) / PW_RS * PW_RS; }
 
 }  // namespace
 
 extern "C" {
 
 int predictor_tile() { return P; }
+int predictor_bwd_tile() { return PB; }
 int predictor_max_d_in() { return MAX_DI; }
 int predictor_max_d_out() { return DO; }
 size_t predictor_weight_elems(int di) {
   return (size_t)di * HID + 2 * (size_t)HID * HID + (size_t)HID * DO;
 }
-size_t predictor_scratch_elems(int m_rows, int di) { return Scratch::elems((size_t)m_rows, di); }
-// the reduction scratch covers the widest product of any head: the first layer
-// at the widest input (272 x 256), which also covers the 256 x 256 hidden ones
-size_t predictor_part_elems(int m_rows) {
-  return part_elems(m_rows, dw_chunks(m_rows, DW_CHUNK_MIN_ROWS), MAX_DI, HID);
+// bf16 elements of the backward's scratch, floats of its partials, for n rows
+// of a head whose input is padded to di
+size_t predictor_scratch_elems(int n, int di) { return Scratch::elems((size_t)bwd_rows(n), di); }
+size_t predictor_part_elems(int n, int di) {
+  return (size_t)pw_chunks(bwd_rows(n)) * PwTab{di}.part_row();
 }
 
 int predictor_fwd(const float* x, int n, int d_in, int di, int d_out, const bf16* W,
                   const float* B, float* out, cudaStream_t stream) {
   if (!dims_ok(d_in, di, d_out)) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(predictor_rows_kernel<false>,
+  cudaError_t err = cudaFuncSetAttribute(predictor_rows_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)SMEM_FWD);
   if (err != cudaSuccess) return (int)err;
   const int tiles = (n + P - 1) / P;
-  predictor_rows_kernel<false><<<tiles, NTHREADS, SMEM_FWD, stream>>>(
-      x, n, d_in, di, d_out, W, B, out, nullptr, nullptr, 0, nullptr, tiles * P);
+  predictor_rows_kernel<<<tiles, NTHREADS, SMEM_FWD, stream>>>(x, n, d_in, di, d_out, W, B, out);
   return (int)cudaGetLastError();
 }
 
-// gout [n, d_out] -> dx [n, d_in] (if want_dx), dW (packed layout, f32), dB
-// [4][256] (zeroed by the caller). scratch: predictor_scratch_elems bf16;
-// part: predictor_part_elems floats; m_rows = n rounded up to the tile.
+// The backward's first part: recompute and reverse sweep, gout [n, d_out] ->
+// dx [n, d_in] (if want_dx), and the scratch (predictor_scratch_elems bf16)
+// for the second.
+int predictor_bwd_sweep(const float* x, int n, int d_in, int di, int d_out, const bf16* W,
+                        const float* B, const float* gout, float* dx, int want_dx,
+                        bf16* scratch, cudaStream_t stream) {
+  if (!dims_ok(d_in, di, d_out)) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return 0;
+  const cudaError_t err = cudaFuncSetAttribute(
+      predictor_bwd_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)B_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int m = bwd_rows(n);
+  predictor_bwd_sweep_kernel<<<m / PB, BTHREADS, B_SMEM, stream>>>(
+      x, n, d_in, di, d_out, W, B, gout, dx, want_dx, scratch, m);
+  return (int)cudaGetLastError();
+}
+
+// The second: the parameter pass, the scratch -> part (predictor_part_elems
+// floats).
+int predictor_bwd_params(int n, int di, bf16* scratch, float* part, cudaStream_t stream) {
+  if (!di_ok(di)) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return 0;
+  const cudaError_t err = cudaFuncSetAttribute(
+      predictor_bwd_params_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)PW_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int m = bwd_rows(n);
+  const PwTab tab{di};
+  predictor_bwd_params_kernel<<<dim3(tab.n_items(), pw_chunks(m)), PW_THREADS, PW_SMEM, stream>>>(
+      tab, scratch, m, pw_chunk_rows(m), part);
+  return (int)cudaGetLastError();
+}
+
+// The third: dW (packed layout, f32) and dB [4][256], every element.
+int predictor_bwd_reduce(int n, int di, const float* part, float* dW, float* dB,
+                         cudaStream_t stream) {
+  if (!di_ok(di)) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return 0;
+  const PwTab tab{di};
+  predictor_bwd_reduce_kernel<<<(unsigned)((tab.part_row() + 255) / 256), 256, 0, stream>>>(
+      tab, part, pw_chunks(bwd_rows(n)), dW, dB);
+  return (int)cudaGetLastError();
+}
+
+// All three, three launches. With no rows nothing is launched: dW and dB stay
+// as the caller made them.
 int predictor_bwd(const float* x, int n, int d_in, int di, int d_out, const bf16* W,
                   const float* B, const float* gout, float* dx, int want_dx, bf16* scratch,
                   float* part, float* dW, float* dB, cudaStream_t stream) {
-  if (!dims_ok(d_in, di, d_out)) return (int)cudaErrorInvalidValue;
-  if (n <= 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(predictor_rows_kernel<true>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)SMEM_BWD);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles = (n + P - 1) / P;
-  const int M = tiles * P;
-  predictor_rows_kernel<true><<<tiles, NTHREADS, SMEM_BWD, stream>>>(
-      x, n, d_in, di, d_out, W, B, nullptr, gout, dx, want_dx, scratch, M);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int n_chunks = dw_chunks(M, DW_CHUNK_MIN_ROWS);
-  Scratch S(scratch, (size_t)M, di);
-  const size_t LH = (size_t)M * HID;
-  weight_grad(S.X, di, S.DZ, HID, M, di, HID, n_chunks, part, dW, 0, stream);
-  weight_grad(S.H, HID, S.DZ + LH, HID, M, HID, HID, n_chunks, part, dW + (size_t)di * HID, 0,
-              stream);
-  weight_grad(S.H + LH, HID, S.DZ + 2 * LH, HID, M, HID, HID, n_chunks, part,
-              dW + (size_t)di * HID + HID * HID, 0, stream);
-  weight_grad(S.H + 2 * LH, HID, S.DZ4, DO, M, HID, DO, n_chunks, part,
-              dW + (size_t)di * HID + 2 * HID * HID, 0, stream);
-  for (int l = 0; l < 3; ++l)
-    bias_grad(S.DZ + l * LH, HID, M, HID, 1, 1, part, dB + l * HID, 0, stream);
-  bias_grad(S.DZ4, DO, M, DO, 1, 1, part, dB + 3 * HID, 0, stream);
-  return (int)cudaGetLastError();
+  int rc = predictor_bwd_sweep(x, n, d_in, di, d_out, W, B, gout, dx, want_dx, scratch, stream);
+  if (rc) return rc;
+  rc = predictor_bwd_params(n, di, scratch, part, stream);
+  if (rc) return rc;
+  return predictor_bwd_reduce(n, di, part, dW, dB, stream);
 }
 
 }  // extern "C"

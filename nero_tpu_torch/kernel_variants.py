@@ -1,5 +1,6 @@
 """Times variants of the SDF-with-gradient kernels, of the whole-shader
-backward, of the sphere march or of the light kernel's backward on the card.
+backward, of the sphere march, of the light kernel's backward or of the
+predictor kernel's backward on the card.
 
     python -m nero_tpu_torch.kernel_variants [--parent OLD/sdf_grad.cu] [NAME ...]
     python -m nero_tpu_torch.kernel_variants --kernel shader [--parent OLD/shader.cu] [NAME ...]
@@ -7,6 +8,8 @@ backward, of the sphere march or of the light kernel's backward on the card.
         [--parent OLD/sphere_march.cu] [NAME ...]
     python -m nero_tpu_torch.kernel_variants --kernel lights [--outer]
         [--parent OLD/lights.cu] [NAME ...]
+    python -m nero_tpu_torch.kernel_variants --kernel predictor [--parent OLD/predictor.cu]
+        [NAME ...]
 
 Each variant is `csrc/sdf_grad.cu` (VARIANTS: the forward engine's, which the
 backward's recompute and reverse sweep share, then the backward's own) or
@@ -16,19 +19,21 @@ undone or one part of its work taken out, built by nvcc from a patched copy
 (one process each, in parallel) into `build/nero_tpu_torch/variants/`.
 `--parent` adds another version of the source, built as it is (an earlier
 commit's, with the same C entries: `sdf_grad_fwd` and `sdf_grad_bwd`, or
-`shader_fwd` and `shader_bwd`). All are launched on the same packed weights,
-inputs and cotangents at N = 65,536, the training lattice (the shader in its
-default variant, or `--sphere` / `--human`), in the given order and then in
-reverse, 20 timed forward and 10 timed backward launches each after 3
-untimed ones (CUDA events). Prints per variant the registers and spill bytes
-that ptxas reported for the kernels, the times of the forward, of the whole
-backward and of its two parts (recompute + sweep, parameter pass; not for a
-parent without them) in both passes, and the largest difference from the
-kernel as it is (SDF: of sdf, grad and feats, and of dW and db over their
-largest value; shader: of the forward's packed [N, 24] output, dgeo,
-dfeats, dW and dB, each over its largest value). The `fwd_*` variants are
-for the forward's column: they change the backward too. The variants that only reorganise the work must give 0 or, where
-they sum in another order, about 1e-6.
+`shader_fwd` and `shader_bwd`), against the headers that lie beside it
+(unpack the earlier commit's csrc/ whole) before those of csrc/. All are
+launched on the same packed weights, inputs and cotangents at N = 65,536, the
+training lattice (the shader in its default variant, or `--sphere` /
+`--human`), in the given order and then in reverse, 20 timed forward and 10
+timed backward launches each after 3 untimed ones (CUDA events). Prints per
+variant the registers and spill bytes that ptxas reported for the kernels,
+the times of the forward, of the whole backward and of its two parts
+(recompute + sweep, parameter pass; not for a parent without them) in both
+passes, and the largest difference from the kernel as it is (SDF: of sdf,
+grad and feats, and of dW and db over their largest value; shader: of the
+forward's packed [N, 24] output, dgeo, dfeats, dW and dB, each over its
+largest value). The `fwd_*` variants are for the forward's column: they
+change the backward too. The variants that only reorganise the work must give
+0 or, where they sum in another order, about 1e-6.
 
 The sphere march (SPHERE_VARIANTS, `csrc/sphere_march.cu`; `--parent` an
 earlier source with the same C entry `sphere_march`) runs on the field
@@ -51,6 +56,18 @@ prints per variant the registers and spill bytes of the backward's three
 kernels and of the forward, the forward, the whole backward and its two
 parts (not for a parent without them), and the largest difference from the
 kernel of dgeo, dW, dB and the forward, each over its largest value.
+
+The predictor kernel (PREDICTOR_VARIANTS, `csrc/predictor.cu`; `--parent` an
+earlier source with the same C entries `predictor_fwd` and `predictor_bwd`)
+runs at N = 65,536 rows for each head shape of PREDICTOR_SHAPES (259 -> 3 and
+72 -> 3, the per-head shader's most launched), on
+random inputs and cotangents, 20 timed forward and 10 timed backward launches
+after 3 untimed ones, in the given order and then in reverse. It prints per
+variant the registers and spill bytes of the backward's three kernels and of
+the forward, the forward, the whole backward and its three parts (sweep,
+parameter pass, reduction; not for a parent without them), and the largest
+difference from the kernel of dx, dW, dB and the forward, each over its
+largest value.
 """
 from __future__ import annotations
 
@@ -66,6 +83,7 @@ from nero_tpu_torch.fields.sdf import SDFConfig, init_sdf
 from nero_tpu_torch.ops import cuda_build
 from nero_tpu_torch.ops import sdf_grad as K
 from nero_tpu_torch.ops.lights import type_lib as lights_type_lib
+from nero_tpu_torch.ops.predictor import type_lib as predictor_type_lib
 from nero_tpu_torch.ops.mlp import resolve_weight_norm
 
 N = 65536
@@ -457,16 +475,52 @@ LIGHTS_VARIANTS = {
                ("constexpr int BTHREADS = 512; ", "constexpr int BTHREADS = 256; ")],
 }
 
+# ---- the predictor kernel's backward (csrc/predictor.cu) ----
+_PR_FWD_EPILOGUE = """\
+              __floats2bfloat162_rn(fmaxf(acc[m][j][2 * hf] + b2.x, 0.0f),
+                                    fmaxf(acc[m][j][2 * hf + 1] + b2.y, 0.0f));"""
+_PR_NO_FWD_EPILOGUE = """\
+              __floats2bfloat162_rn(acc[m][j][2 * hf] * 0.01f, acc[m][j][2 * hf + 1] * 0.01f);"""
+_PR_SWEEP_EPILOGUE = """\
+              __floats2bfloat162_rn(hv.x > 0.0f ? acc[m][j][2 * hf] : 0.0f,
+                                    hv.y > 0.0f ? acc[m][j][2 * hf + 1] : 0.0f);"""
+# keeps the stored H's loads live
+_PR_NO_SWEEP_EPILOGUE = """\
+              __floats2bfloat162_rn(acc[m][j][2 * hf] * 0.01f + hv.x,
+                                    acc[m][j][2 * hf + 1] * 0.01f + hv.y);"""
+
+PREDICTOR_VARIANTS = {
+    "kernel": [],
+    # no products and no epilogues (the sweep's and the parameter pass's
+    # mma.sync, both in engine.cuh): the weight stream with the scratch traffic
+    "weights_only": [(_LI_INCLUDE, _LI_NO_MMA), (_PR_FWD_EPILOGUE, _PR_NO_FWD_EPILOGUE),
+                     (_PR_SWEEP_EPILOGUE, _PR_NO_SWEEP_EPILOGUE)],
+    # the sweep alone: the C entry runs neither the parameter pass nor the
+    # reduction (dW, dB are left as they were)
+    "no_params": [("  if (rc) return rc;\n  rc = predictor_bwd_params(",
+                   "  return rc;\n  rc = predictor_bwd_params(")],
+    # 8 warps over 64-row tiles: the weight stream twice per 128 rows
+    "p64_tiles": [("constexpr int PB = 128; ", "constexpr int PB = 64; "),
+                  ("constexpr int BTHREADS = 512; ", "constexpr int BTHREADS = 256; ")],
+}
+
 _KERNELS = {"sdf_grad": ("sdf_grad_fwd_kernel", "sdf_bwd_sweep_kernel", "sdf_bwd_params_kernel"),
             # the forward: shader_fwd_kernel, or an earlier source's shader_rows_kernel
             "shader": ("(?:shader_fwd_kernel|shader_rows_kernel)", "shader_bwd_sweep_kernel",
                        "shader_bwd_params_kernel"),
             "sphere_march": ("sphere_march_kernel",),
             "lights": ("lights_bwd_sweep_kernel", "lights_bwd_params_kernel",
-                       "lights_bwd_reduce_kernel")}
+                       "lights_bwd_reduce_kernel"),
+            # the forward beside them: predictor_rows_kernel, or an earlier
+            # source's predictor_rows_kernel<false>
+            "predictor": ("predictor_bwd_sweep_kernel", "predictor_bwd_params_kernel",
+                          "predictor_bwd_reduce_kernel", r"predictor_rows_kernel(ILb0E|E)")}
 _TABLES = {"sdf_grad": VARIANTS, "shader": SHADER_VARIANTS, "sphere_march": SPHERE_VARIANTS,
-           "lights": LIGHTS_VARIANTS}
+           "lights": LIGHTS_VARIANTS, "predictor": PREDICTOR_VARIANTS}
 N_RAYS = 393216  # Stage II: 512 points x (512 + 256) directions
+# the predictor's head shapes (d_in, d_out): the two most launched by the
+# per-head shader, at di 272 and 80
+PREDICTOR_SHAPES = ((259, 3), (72, 3))
 
 
 def variant_source(name: str, kernel: str = "sdf_grad") -> str:
@@ -501,16 +555,20 @@ def _type_shader(lib):
 
 
 def build(sources: dict, kernel: str = "sdf_grad", instance: str = "") -> dict:
-    """name -> source text; returns name -> (loaded library, whether it has the
-    backward's two parts, ptxas summary of the kernels whose names match
-    `instance` after theirs)."""
+    """name -> source text, or (source text, directory searched for its
+    headers before csrc/: an earlier commit's source with the headers of that
+    commit); returns name -> (loaded library, whether it has the backward's
+    parts, ptxas summary of the kernels whose names match `instance` after
+    theirs)."""
     os.makedirs(OUT_DIR, exist_ok=True)
     jobs = {}
     for name, src in sources.items():
+        src, own = (src, None) if isinstance(src, str) else src
         cu, so = os.path.join(OUT_DIR, f"{name}.cu"), os.path.join(OUT_DIR, f"{name}.so")
         with open(cu, "w") as f:
             f.write(src)
-        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I", cuda_build.CSRC, "-o", so, cu]
+        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, *(["-I", own] if own else []),
+               "-I", cuda_build.CSRC, "-o", so, cu]
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True), so)
     libs = {}
@@ -533,6 +591,9 @@ def build(sources: dict, kernel: str = "sdf_grad", instance: str = "") -> dict:
             info = cuda_build.parse_ptxas(log, r"lights_rows_kernel(ILb0E|E)")
             regs.append(f"{info.get('regs', '-')}/{info.get('spill_bytes', '-')}")
             libs[name] = (lib, lights_type_lib(lib), " ".join(regs))
+            continue
+        if kernel == "predictor":
+            libs[name] = (lib, predictor_type_lib(lib), " ".join(regs))
             continue
         if kernel == "sphere_march":
             vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -585,12 +646,40 @@ def _passes(libs, run) -> dict:
     return times
 
 
+def _bwd_table(libs, fwd, bwd, parts_of, parts, outputs: str) -> None:
+    """Times and prints a kernel whose backward runs in parts: each library's
+    backward outputs and forward output against the `kernel` variant's
+    (max|d| over the variant's max), and in two passes the forward, the whole
+    backward and, where the library has them, the backward's parts
+    (`parts_of(lib)`, one callable each, named by `parts`)."""
+    outs = {}
+
+    def run(name, lib, has_parts):
+        outs[name] = tuple(x.clone() for x in bwd(lib)) + (fwd(lib),)
+        row = [_time(lambda: fwd(lib), 20), _time(lambda: bwd(lib), 10)]
+        if has_parts:
+            row += [_time(fn, 10) for fn in parts_of(lib)]
+        return row
+
+    times = _passes(libs, run)
+    labels = ("fwd", "bwd", *parts)
+    print(f"variant              regs/spills sweep params reduce fwd   ms: fwd, bwd "
+          f"({' + '.join(parts)}), first / second pass   max|d|/max of {outputs}")
+    ref = outs["kernel"]
+    for name, (_, _, ptx) in libs.items():
+        d = [f"{((a - b).abs().max() / b.abs().max()).item():.2e}"
+             for a, b in zip(outs[name], ref)]
+        ms = [f"{label} {times[name][0][k]:.4f}/{times[name][1][k]:.4f}"
+              for k, label in enumerate(labels[:len(times[name][0])])]
+        print(f"{name:20s} {ptx:32s} {'  '.join(ms)}   {' '.join(d)}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("names", nargs="*", help="variants (all of the kernel's table)")
     ap.add_argument("--kernel", choices=list(_TABLES), default="sdf_grad")
-    ap.add_argument("--parent", help="another sdf_grad.cu, shader.cu, sphere_march.cu or "
-                                     "lights.cu to build as it is")
+    ap.add_argument("--parent", help="another sdf_grad.cu, shader.cu, sphere_march.cu, "
+                                     "lights.cu or predictor.cu to build as it is")
     ap.add_argument("--sphere", action="store_true", help="shader: the sphere_direction variant")
     ap.add_argument("--human", action="store_true", help="shader: the human_light variant")
     ap.add_argument("--wide", action="store_true", help="sphere_march: the `wide` field")
@@ -601,15 +690,17 @@ def main(argv=None) -> int:
         raise SystemExit("kernel_variants: needs a CUDA device")
     names = args.names or list(_TABLES[args.kernel])
     sources = {n: variant_source(n, args.kernel) for n in dict.fromkeys(["kernel", *names])}
-    if args.parent:
+    if args.parent:  # with the headers beside it, where it has them
         with open(args.parent) as f:
-            sources["parent"] = f.read()
+            sources["parent"] = (f.read(), os.path.dirname(os.path.abspath(args.parent)))
     if args.kernel == "shader":
         return _main_shader(sources, int(args.sphere), int(args.human))
     if args.kernel == "sphere_march":
         return _main_sphere(sources, args.wide)
     if args.kernel == "lights":
         return _main_lights(sources, args.outer)
+    if args.kernel == "predictor":
+        return _main_predictor(sources)
     libs = build(sources)
 
     dev = torch.device("cuda")
@@ -825,38 +916,76 @@ def _main_lights(sources: dict, outer: bool) -> int:
                                         ptr(dW), ptr(dB), stream), "lights_bwd")
         return dgeo, dW, dB
 
-    def sweep(lib):
-        scratch, _, dgeo, _, _ = buffers(lib)
-        cuda_build.check(lib.lights_bwd_sweep(*head(), ptr(gout), ptr(dgeo), ptr(scratch),
-                                              stream), "lights_bwd_sweep")
+    def parts_of(lib):
+        scratch, part, dgeo, dW, dB = buffers(lib)
+        return (lambda: cuda_build.check(lib.lights_bwd_sweep(
+                    *head(), ptr(gout), ptr(dgeo), ptr(scratch), stream), "lights_bwd_sweep"),
+                lambda: cuda_build.check(lib.lights_bwd_params(
+                    n, sphere, both, ptr(scratch), ptr(part), ptr(dW), ptr(dB), stream),
+                    "lights_bwd_params"))
 
-    def params_pass(lib):
-        scratch, part, _, dW, dB = buffers(lib)
-        cuda_build.check(lib.lights_bwd_params(n, sphere, both, ptr(scratch), ptr(part), ptr(dW),
-                                               ptr(dB), stream), "lights_bwd_params")
-
-    outs = {}
-
-    def run(name, lib, parts):
-        outs[name] = tuple(x.clone() for x in bwd(lib)) + (fwd(lib),)
-        row = [_time(lambda: fwd(lib), 20), _time(lambda: bwd(lib), 10)]
-        if parts:
-            row += [_time(lambda: sweep(lib), 10), _time(lambda: params_pass(lib), 10)]
-        return row
-
-    times = _passes(libs, run)
-    del bufs
     print(_card())
     print(f"light kernel, mode {mode}{' with sphere_direction' if outer else ''}, N = {n}")
-    print("variant              regs/spills sweep params reduce fwd   ms: fwd, bwd (sweep + "
-          "params), first / second pass   max|d|/max of dgeo dW dB fwd")
-    ref = outs["kernel"]
-    for name, (_, parts, ptx) in libs.items():
-        d = [f"{((a - b).abs().max() / b.abs().max()).item():.2e}"
-             for a, b in zip(outs[name], ref)]
-        ms = [f"{label} {times[name][0][k]:.4f}/{times[name][1][k]:.4f}" for k, label in
-              enumerate(("fwd", "bwd", "sweep", "params")[:len(times[name][0])])]
-        print(f"{name:20s} {ptx:32s} {'  '.join(ms)}   {' '.join(d)}")
+    _bwd_table(libs, fwd, bwd, parts_of, ("sweep", "params"), "dgeo dW dB fwd")
+    return 0
+
+
+def _main_predictor(sources: dict) -> int:
+    """The predictor kernel's backward variants (and the forward beside them)
+    at N = 65,536 rows, the training lattice, for each of PREDICTOR_SHAPES."""
+    from nero_tpu_torch.ops import predictor as KP
+    from nero_tpu_torch.ops.mlp import init_predictor
+
+    libs = build(sources, "predictor")
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptr = lambda x: x.data_ptr()
+    print(_card())
+    for d_in, d_out in PREDICTOR_SHAPES:
+        di = KP.padded_d_in(d_in)
+        layers = resolve_weight_norm(init_predictor(torch.Generator().manual_seed(d_in), d_in,
+                                                    d_out, device=dev))
+        with torch.no_grad():
+            W, B = KP.pack_weights([l["w"] for l in layers], [l["b"] for l in layers])
+        rng = np.random.default_rng(1)
+        x = torch.as_tensor((rng.standard_normal((N, d_in)) * 0.5).astype(np.float32), device=dev)
+        gout = torch.as_tensor(rng.standard_normal((N, d_out)).astype(np.float32), device=dev)
+        head = (ptr(x), N, d_in, di, d_out, ptr(W), ptr(B))
+        bufs = {}
+
+        def buffers(lib):
+            if id(lib) not in bufs:  # one set per library, outside the timed launches
+                bufs[id(lib)] = (
+                    torch.empty(lib.predictor_scratch_elems(N, di), dtype=torch.bfloat16,
+                                device=dev),
+                    torch.empty(lib.predictor_part_elems(N, di), device=dev),
+                    torch.empty(N, d_in, device=dev), torch.zeros(W.numel(), device=dev),
+                    torch.zeros(4, KP.HID, device=dev))
+            return bufs[id(lib)]
+
+        def fwd(lib):
+            out = torch.empty(N, d_out, device=dev)
+            cuda_build.check(lib.predictor_fwd(*head, ptr(out), stream), "predictor_fwd")
+            return out
+
+        def bwd(lib):
+            scratch, part, dx, dW, dB = buffers(lib)
+            cuda_build.check(lib.predictor_bwd(*head, ptr(gout), ptr(dx), 1, ptr(scratch),
+                                               ptr(part), ptr(dW), ptr(dB), stream),
+                             "predictor_bwd")
+            return dx, dW, dB
+
+        def parts_of(lib):
+            scratch, part, dx, dW, dB = buffers(lib)
+            return (lambda: cuda_build.check(lib.predictor_bwd_sweep(
+                        *head, ptr(gout), ptr(dx), 1, ptr(scratch), stream), "sweep"),
+                    lambda: cuda_build.check(lib.predictor_bwd_params(
+                        N, di, ptr(scratch), ptr(part), stream), "params"),
+                    lambda: cuda_build.check(lib.predictor_bwd_reduce(
+                        N, di, ptr(part), ptr(dW), ptr(dB), stream), "reduce"))
+
+        print(f"predictor head {d_in} -> {d_out} (di {di}), N = {N}")
+        _bwd_table(libs, fwd, bwd, parts_of, ("sweep", "params", "reduce"), "dx dW dB fwd")
     return 0
 
 

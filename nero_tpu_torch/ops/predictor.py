@@ -23,7 +23,8 @@ import torch.nn.functional as F
 from nero_tpu_torch.ops import cuda_build
 from nero_tpu_torch.ops.mlp import predictor_raw, resolve_weight_norm
 
-TILE = 64
+TILE = 64        # forward rows per block (csrc/predictor.cu P)
+BWD_TILE = 128   # backward rows per block (csrc/predictor.cu PB)
 HID = 256
 DO = 16          # outputs padded (csrc/predictor.cu DO)
 MAX_D_IN = 272   # csrc/predictor.cu MAX_DI
@@ -54,25 +55,41 @@ def padded_d_in(d_in: int) -> int:
     return -(-d_in // 16) * 16
 
 
+def type_lib(lib) -> bool:
+    """Give the library's C entries their ctypes signatures; returns whether
+    it has the backward's three parts (`predictor_bwd_sweep`, `_params`,
+    `_reduce`). An earlier source sizes its buffers by (m_rows, di) and
+    (m_rows): at a row count that is a multiple of both tiles the sizes are
+    the same, and the extra argument is ignored there."""
+    vp, i, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+    for name in ("predictor_tile", "predictor_max_d_in", "predictor_max_d_out"):
+        getattr(lib, name).restype, getattr(lib, name).argtypes = i, []
+    lib.predictor_weight_elems.restype, lib.predictor_weight_elems.argtypes = sz, [i]
+    for fn in ("predictor_scratch_elems", "predictor_part_elems"):
+        getattr(lib, fn).restype, getattr(lib, fn).argtypes = sz, [i, i]
+    lib.predictor_fwd.restype = i
+    lib.predictor_fwd.argtypes = [vp, i, i, i, i, vp, vp, vp, vp]
+    lib.predictor_bwd.restype = i
+    lib.predictor_bwd.argtypes = [vp, i, i, i, i, vp, vp, vp, vp, i, vp, vp, vp, vp, vp]
+    parts = hasattr(lib, "predictor_bwd_sweep")
+    if parts:
+        lib.predictor_bwd_tile.restype, lib.predictor_bwd_tile.argtypes = i, []
+        lib.predictor_bwd_sweep.restype = i
+        lib.predictor_bwd_sweep.argtypes = [vp, i, i, i, i, vp, vp, vp, vp, i, vp, vp]
+        lib.predictor_bwd_params.restype = i
+        lib.predictor_bwd_params.argtypes = [i, i, vp, vp, vp]
+        lib.predictor_bwd_reduce.restype = i
+        lib.predictor_bwd_reduce.argtypes = [i, i, vp, vp, vp, vp]
+    return parts
+
+
 def _lib():
     lib = cuda_build.load("predictor")
     if not getattr(lib, "_nero_typed", False):
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        for name in ("predictor_tile", "predictor_max_d_in", "predictor_max_d_out"):
-            getattr(lib, name).restype = i
-            getattr(lib, name).argtypes = []
-        lib.predictor_weight_elems.restype = ctypes.c_size_t
-        lib.predictor_weight_elems.argtypes = [i]
-        lib.predictor_scratch_elems.restype = ctypes.c_size_t
-        lib.predictor_scratch_elems.argtypes = [i, i]
-        lib.predictor_part_elems.restype = ctypes.c_size_t
-        lib.predictor_part_elems.argtypes = [i]
-        lib.predictor_fwd.restype = i
-        lib.predictor_fwd.argtypes = [vp, i, i, i, i, vp, vp, vp, vp]
-        lib.predictor_bwd.restype = i
-        lib.predictor_bwd.argtypes = [vp, i, i, i, i, vp, vp, vp, vp, i, vp, vp, vp, vp, vp]
-        if (lib.predictor_tile() != TILE or lib.predictor_max_d_in() != MAX_D_IN
-                or lib.predictor_max_d_out() != DO):
+        if not type_lib(lib):
+            raise RuntimeError("csrc/predictor.cu has no predictor_bwd_sweep / _params / _reduce")
+        if ((lib.predictor_tile(), lib.predictor_bwd_tile()) != (TILE, BWD_TILE)
+                or lib.predictor_max_d_in() != MAX_D_IN or lib.predictor_max_d_out() != DO):
             raise RuntimeError("csrc/predictor.cu layout differs from ops/predictor.py")
         lib._nero_typed = True
     return lib
@@ -101,31 +118,39 @@ def _fwd(x, W, B, d_out: int) -> torch.Tensor:
                               B.data_ptr(), out.data_ptr(),
                               torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(rc, "predictor_fwd")
-    _count("fwd", d_in, d_out)
+    if n:  # the C entry launches nothing for no rows
+        _count("fwd", d_in, d_out)
     return out
 
 
+def bwd_buffers(n: int, di: int, dev):
+    """The backward's scratch (bf16: X, H and GZ of every layer, in 8 x 8
+    pieces) and its per-chunk partials (f32), one torch.empty each, sized by
+    the library."""
+    lib = _lib()
+    return (torch.empty(lib.predictor_scratch_elems(n, di), dtype=torch.bfloat16, device=dev),
+            torch.empty(lib.predictor_part_elems(n, di), device=dev))
+
+
 def _bwd(x, W, B, gout, want_dx: bool = True):
-    """One backward launch (rows kernel + the gradient reductions): gout
-    [n, d_out] -> (dx [n, d_in] or None, dW packed f32, dB [4, 256])."""
+    """One backward call (recompute and sweep, parameter pass, reduction):
+    gout [n, d_out] -> (dx [n, d_in] or None, dW packed f32, dB [4, 256])."""
     n, d_in = x.shape
     d_out, di = gout.shape[1], padded_d_in(d_in)
     dev = x.device
-    lib = _lib()
-    m_rows = -(-n // TILE) * TILE
-    scratch = torch.empty(lib.predictor_scratch_elems(m_rows, di), dtype=torch.bfloat16,
-                          device=dev)
-    part = torch.empty(lib.predictor_part_elems(m_rows), device=dev)
+    scratch, part = bwd_buffers(n, di, dev)
     dx = torch.empty(n, d_in, device=dev) if want_dx else None
-    # no rows, no launch: the kernel would leave dW unwritten
-    dW = torch.empty(W.numel(), device=dev) if n else torch.zeros(W.numel(), device=dev)
-    dB = torch.zeros(4, HID, device=dev)
-    rc = lib.predictor_bwd(x.data_ptr(), n, d_in, di, d_out, W.data_ptr(), B.data_ptr(),
-                           gout.data_ptr(), dx.data_ptr() if want_dx else None, int(want_dx),
-                           scratch.data_ptr(), part.data_ptr(), dW.data_ptr(), dB.data_ptr(),
-                           torch.cuda.current_stream(dev).cuda_stream)
+    # no rows, no launch: the kernels write every element of dW and dB otherwise
+    new = torch.empty if n else torch.zeros
+    dW = new(W.numel(), device=dev)
+    dB = new(4, HID, device=dev)
+    rc = _lib().predictor_bwd(x.data_ptr(), n, d_in, di, d_out, W.data_ptr(), B.data_ptr(),
+                              gout.data_ptr(), dx.data_ptr() if want_dx else None, int(want_dx),
+                              scratch.data_ptr(), part.data_ptr(), dW.data_ptr(), dB.data_ptr(),
+                              torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, "predictor_bwd")
-    _count("bwd", d_in, d_out)
+    if n:
+        _count("bwd", d_in, d_out)
     return dx, dW, dB
 
 
@@ -172,11 +197,23 @@ def predictor(layers, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def bwd_flops_per_row(d_in: int, d_out: int, want_dx: bool = True) -> float:
+    """What the backward needs: the recompute of the hidden layers (the
+    output layer's value is not needed: its cotangent GZ4 is the input
+    cotangent), dW = X^T GZ of every layer, and GH = GZ W^T down to the
+    input, its last product only when dx is wanted."""
+    recompute = d_in * HID + 2 * HID * HID
+    dw = d_in * HID + 2 * HID * HID + HID * d_out
+    dx = HID * d_out + 2 * HID * HID + (d_in * HID if want_dx else 0)
+    return 2.0 * (recompute + dw + dx)
+
+
 def flops(n: int, d_in: int, d_out: int, backward: bool = False) -> float:
-    """Forward; the backward recomputes it, then the input-cotangent and
-    weight-gradient products (3x)."""
-    kn = d_in * HID + 2 * HID * HID + HID * d_out
-    return 2.0 * n * kn * (3 if backward else 1)
+    """The forward's products, or the backward's with dx
+    (`bwd_flops_per_row`)."""
+    if backward:
+        return n * bwd_flops_per_row(d_in, d_out)
+    return 2.0 * n * (d_in * HID + 2 * HID * HID + HID * d_out)
 
 
 def min_bytes(n: int, d_in: int, d_out: int, backward: bool = False) -> float:

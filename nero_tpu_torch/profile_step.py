@@ -43,9 +43,10 @@ PORT_KERNELS = ("sdf_grad_fwd_kernel", "sdf_bwd_sweep_kernel", "sdf_bwd_params_k
                 "sdf_bwd_reduce_kernel", "shader_fwd_kernel", "shader_bwd_sweep_kernel",
                 "shader_bwd_params_kernel", "shader_bwd_reduce_kernel",
                 "lights_rows_kernel", "lights_bwd_sweep_kernel", "lights_bwd_params_kernel",
-                "lights_bwd_reduce_kernel", "predictor_rows_kernel", "sdf_fwd_kernel",
-                "dw_partial_kernel", "colsum_partial_kernel", "reduce_kernel",
-                "sphere_march_kernel", "field_fwd_kernel", "march_kernel")
+                "lights_bwd_reduce_kernel", "predictor_rows_kernel",
+                "predictor_bwd_sweep_kernel", "predictor_bwd_params_kernel",
+                "predictor_bwd_reduce_kernel", "sdf_fwd_kernel", "sphere_march_kernel",
+                "field_fwd_kernel", "march_kernel")
 GEMM_MARKS = ("gemm", "cutlass", "nvjet", "cublas", "gemv")
 
 
@@ -146,8 +147,8 @@ def main(argv=None):
         name = evt.key
         for short in PORT_KERNELS:
             # the port's kernels live in namespace nero or in a source's
-            # anonymous namespace (PyTorch has reduce_kernels of its own,
-            # under at::)
+            # anonymous namespace (PyTorch has anonymous-namespace kernels
+            # of its own, under at::)
             if "nero::" + short in name or ("(anonymous namespace)::" + short in name
                                             and "at::" not in name):
                 # the first template argument tells backward from forward

@@ -134,7 +134,12 @@ def test_packing_round_trip_and_bounds():
     assert torch.all(w4[:, 3:] == 0)
     torch.testing.assert_close(B[3, :3], bs[3], atol=0, rtol=0)
     assert K.flops(10, 259, 3) == 2.0 * 10 * (259 * 256 + 2 * 256 * 256 + 256 * 3)
-    assert K.flops(10, 259, 3, backward=True) == 3 * K.flops(10, 259, 3)
+    # the backward: the hidden layers' recompute (the output layer's value is
+    # not needed), dW of all four layers, the cotangents down to the input
+    assert K.flops(10, 259, 3, backward=True) == 2.0 * 10 * (
+        3 * 259 * 256 + 6 * 256 * 256 + 2 * 256 * 3)
+    assert K.bwd_flops_per_row(259, 3, want_dx=False) == 2.0 * (
+        2 * 259 * 256 + 6 * 256 * 256 + 2 * 256 * 3)
     assert not K.supported([torch.zeros(300, 256), *ws[1:]])
 
 
