@@ -21,11 +21,13 @@ result line):
      (259 -> 1 ... 24 -> 4), at n = 1,001 and 0 too, its backward's dx, dW
      and dB to the bit in two calls, its three parts timed apart, their
      ptxas (0 spill bytes); the value-only SDF kernel at 131,072
-     points (the occlusion march's first pass) and 32,768 (the sampler's);
+     points (the occlusion march's first pass) and 32,768 (the sampler's),
+     timed also at 8,192 (its three up-sample passes);
      then the light kernel (fwd/bwd; both heads, and the outer head alone
      with `sphere_direction`) at N = 393,216 rows, and at n = 1,001 and 0,
-     its backward's dW / dB to the bit in two calls, its two parts timed
-     apart, its three kernels' ptxas (0 spill bytes); kernel and plain times
+     its forward's outputs and its backward's dW / dB to the bit in two
+     calls, the backward's two parts timed apart, its four kernels' ptxas
+     (0 spill bytes); kernel and plain times
      from CUDA events;
   3. the mesh of the bowl scene from its analytic SDF (host iso-surfacer); a
      `std` and a `wide` field distilled from it on the card; for each, the
@@ -84,6 +86,7 @@ PEAK_BYTES = 3.35e12   # H100 SXM HBM3, bytes/s
 N_ROWS = 65536         # the training lattice: 512 rays x 128 inner samples
 N_OCC_MARCH = 131072   # the occlusion march's first pass: 2048 points x 64 samples
 N_SAMPLER = 32768      # the proposal sampler's first pass: 512 rays x 64 samples
+N_UPSAMPLE = 8192      # each of its three up-sample passes: 512 rays x 16 samples
 N_MARCH_RAYS = 393216  # Stage II: 512 points x (512 diffuse + 256 specular) directions
 STAGE1_STEPS = 30      # Stage I: sphere.yaml, sphere_real.yaml, sphere_heads.yaml
 HEADS_HELD_OUT_TOL = 1e-3  # sphere_heads.yaml against sphere.yaml after STAGE1_STEPS steps
@@ -466,7 +469,8 @@ def check_sdf_fwd(n: int, n_small: int, dev) -> list:
     the bars of tests/test_pallas_kernels.py (atol 2e-2, mean error under
     3e-3: bf16 operands), and against the sdf of the SDF-with-gradient
     kernel, which runs the same arithmetic; also at a ragged size and with a
-    scale other than 1."""
+    scale other than 1. Timed at `n`, `n_small` and N_UPSAMPLE, the sizes of
+    the sampler's and the occlusion march's launches."""
     from nero_tpu_torch.fields.sdf import SDFConfig, init_sdf
     from nero_tpu_torch.ops import sdf_fwd as K
     from nero_tpu_torch.ops.sdf_grad import sdf_with_grad
@@ -500,8 +504,9 @@ def check_sdf_fwd(n: int, n_small: int, dev) -> list:
              "replaces": "nero_tpu/ops/pallas/sdf_kernel.py:122", "max_abs_err": err.max().item(),
              "library_ms": None, "n": n}
     # `ms`: the launch on packed weights, which is what the renderer calls
-    # (it packs once a step and launches 4-6 times); `wrapper_ms` packs too
-    for m, key in ((n, ""), (n_small, f"_n{n_small}")):
+    # (it packs once a step and launches 4-6 times); `wrapper_ms` packs too.
+    # Timed also at the sampler's up-sample size, 3 of its 4 launches a step
+    for m, key in ((n, ""), (n_small, f"_n{n_small}"), (N_UPSAMPLE, f"_n{N_UPSAMPLE}")):
         sub = pts[:m].contiguous()
         entry["ms" + key] = cuda_ms(lambda: K.sdf_fwd_packed(packed, sub, cfg))
         entry["launch_ms" + key] = entry["ms" + key]
@@ -866,10 +871,10 @@ def check_lights(n: int, dev) -> list:
     cosine > 0.99 per parameter leaf and > 0.98 for d directions (and d
     points). Mode `both` with the `direction` outer light, and mode `outer`
     with `sphere_direction`. Then a ragged n = 1001 at the same bars, n = 0
-    (empty outputs, parameter gradients exactly 0), dW, dB and dgeo equal to
-    the bit in two calls, the backward's sweep and parameter pass timed
-    apart with their buffer bytes, and ptxas of its three kernels (0 spill
-    bytes)."""
+    (empty outputs, parameter gradients exactly 0), the forward's outputs and
+    dW, dB and dgeo equal to the bit in two calls, the backward's sweep and
+    parameter pass timed apart with their buffer bytes, and ptxas of the
+    forward kernel and the backward's three (0 spill bytes)."""
     from nero_tpu_torch.fields.mc_shading import MCShadingConfig, init_mc_shading
     from nero_tpu_torch.ops import lights as K
     from nero_tpu_torch.ops.mlp import exp_activation, predictor_raw
@@ -967,8 +972,8 @@ def check_lights(n: int, dev) -> list:
                         "library_ms": None})
         out[-1]["mean_rel_err"] = noise_ker
         del g_p, g_k, g_b
-        # a ragged size (tiles of 64 rows forward, 128 backward) at the same
-        # bars, and no rows: empty outputs, parameter gradients exactly 0
+        # a ragged size (tiles of 128 rows) at the same bars, and no rows:
+        # empty outputs, parameter gradients exactly 0
         m = 1001
         with torch.no_grad():
             (i_k, o_k), (i_p, o_p) = lights(K.lights_raw, m), lights(K.lights_raw_plain, m)
@@ -992,10 +997,12 @@ def check_lights(n: int, dev) -> list:
         del g_p, g_k
         # the backward's parts alone, on the wrapper's buffers: recompute +
         # reverse sweep, then the weight- and bias-gradient pass with its
-        # reduction; the same gradients to the bit in two calls; no rows, no
-        # launch, zeros
+        # reduction; the same outputs and gradients to the bit in two calls;
+        # no rows, no launch, zeros
         from nero_tpu_torch.ops.cuda_build import check as check_rc, ptxas_info
         with torch.no_grad():
+            check(torch.equal(K._fwd(geo, W, B, sphere, both), K._fwd(geo, W, B, sphere, both)),
+                  f"lights_fwd{sfx}: two calls differ")
             first, second = (K._bwd(geo, W, B, sphere, both, gout) for _ in range(2))
         check(all(torch.equal(a, b) for a, b in zip(first, second)),
               f"lights_bwd{sfx}: two calls differ")
@@ -1018,11 +1025,16 @@ def check_lights(n: int, dev) -> list:
         del scratch, part, dgeo6, dW, dB
         inst = f"\\w*Lb{int(sphere)}ELb{int(both)}E"  # the variant's template instance
         ptx = {k: ptxas_info("lights", k + inst) for k in
-               ("lights_bwd_sweep_kernel", "lights_bwd_params_kernel", "lights_bwd_reduce_kernel")}
-        check(all(v.get("spill_bytes") == 0 for v in ptx.values()),
-              f"lights{sfx} backward spills: {ptx}")
+               ("lights_fwd_kernel", "lights_bwd_sweep_kernel", "lights_bwd_params_kernel",
+                "lights_bwd_reduce_kernel")}
+        check(all(v.get("spill_bytes") == 0 for v in ptx.values()), f"lights{sfx} spills: {ptx}")
+        out[-2]["ptxas"] = {"lights_fwd_kernel": ptx.pop("lights_fwd_kernel")}
         out[-1].update({"sweep_ms": sweep_ms, "params_ms": params_ms, "scratch_bytes": buf_bytes,
                         "ptxas": ptx})
+        print(f"lights_fwd{sfx}    launch {launch_fwd:.3f} ms on {-(-n // K.TILE)} tiles of "
+              f"{K.TILE} rows, wrapper {ms_fwd:.3f}; the same outputs to the bit in two calls; "
+              f"lights_fwd_kernel {out[-2]['ptxas']['lights_fwd_kernel'].get('regs')} regs "
+              f"{out[-2]['ptxas']['lights_fwd_kernel'].get('spill_bytes')} spill bytes")
         print(f"lights_bwd{sfx}    launch {launch_bwd:.3f} ms = recompute + sweep {sweep_ms:.3f} + "
               f"parameter pass {params_ms:.3f}; scratch + partials {buf_bytes / 1e9:.3f} GB at "
               f"N = {n}; the same dW, dB, dgeo to the bit in two calls; " + ", ".join(

@@ -7,8 +7,8 @@
 //    f32-accumulate matmuls. Each warp owns a 64x16 output strip (four
 //    accumulator fragments) and streams its B fragments from device memory
 //    (the weights stay resident in the 50 MB L2). The forwards of the
-//    predictor, light and value-only SDF kernels and field.cuh (the uniform
-//    march, the field forward) run on it.
+//    predictor and value-only SDF kernels and field.cuh (the uniform march,
+//    the field forward) run on it.
 // The backwards' weight and bias gradients are engine.cuh's parameter pass
 // (or the copies of it in shader.cu and sdf_grad.cu).
 #pragma once

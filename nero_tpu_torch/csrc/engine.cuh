@@ -1,7 +1,7 @@
 // The mma.sync engine of the backward sweeps, as one header: the ring of
 // weight slabs, the warp's product on it, the scratch's 8 x 8 pieces, and
 // the parameter pass with its reduction as templates over a table of (X, GZ,
-// widths). The light kernel's backward (lights.cu) and the predictor
+// widths). The light kernel, both directions (lights.cu), and the predictor
 // kernel's backward (predictor.cu) run on it; shader.cu and sdf_grad.cu keep
 // their own copies of the same engine.
 //

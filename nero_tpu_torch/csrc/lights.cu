@@ -17,12 +17,17 @@
 // The exp activations, the hit select and the human light stay outside.
 // Heads are 4 layers, 256 wide, ReLU; weights bf16, sums f32.
 //
-// Forward (lights_rows_kernel): one block per tile of P = 64 rows; the
-// per-row geometry by one thread per row, the encodings by 8 threads per row
+// Forward (lights_fwd_kernel): on the backward's engine (engine.cuh), one
+// block of 16 warps per tile of PB = 128 rows (warp w: rows 32(w/4) .. +31,
+// columns 64(w%4) .. +63, 64 f32 accumulators a lane). The outer head, then
+// (mode both) the inner: the input built in the tile by the row's 4 lanes
 // (IDE by the de-Moivre recurrence of encode.cuh, polynomial and NaN-free, so
-// it evaluates the unnormalised hit point as the plain version does), the
-// head products through common.cuh's block_mm, 6 floats out per row. Rows
-// past N are masked: never read, never written.
+// it evaluates the unnormalised hit point as the plain version does; PE8),
+// W1-W4 streamed as slabs of up to 128 rows through the 2-stage cp.async
+// ring, mma.sync, bias and ReLU in registers with each H once into the tile,
+// bf16; the output layer on the warps of columns 0-63, its three raw
+// outputs f32 straight to out. Rows past N are masked: never read, never
+// written.
 //
 // Backward: the TPU kernel linearises its forward with jax.vjp inside its
 // body (:154) and accumulates the parameter cotangents in VMEM across a
@@ -54,12 +59,19 @@
 // Rows past N carry zero cotangents: they add nothing.
 //
 // Bound: tensor-core operations, 2*(di*256 + 2*256*256 + 256*3) per row and
-// head forward and 3x that backward (0.748 ms in mode `both` at N = 393,216),
-// against 72 bytes per row. What keeps the backward from it: the sweep
-// streams both heads' weights (0.65 MB bf16) from L2 twice per 128-row tile,
-// ~4 GB a launch at N = 393,216, and writes the scratch (6.6 KB a row in
-// mode `both`), which the parameter pass reads back (the GZ of a 256-wide
-// layer twice, once for each 128-row part of its input).
+// head forward (0.249 ms in mode `both` at N = 393,216) and about 3x that
+// backward (ops/lights.py::bwd_flops_per_row: 0.737 ms), against 72 bytes
+// per row. What keeps the forward from it: its phases, one after another.
+// Each 128-row tile streams both heads' weights (0.65 MB bf16) from L2 once,
+// ~2 GB a launch at N = 393,216, slab by slab through a 2-stage ring that
+// one block an SM refills; on the H100 the ring alone takes about 55% of
+// the forward's time (kernel_variants.py's ring_only), the tile's inputs
+// (the IDE, 4 lanes a row) about 25% (no_inputs), mma.sync and the
+// epilogues about 20% (weights_only). What keeps the backward from it: the
+// sweep streams the weights twice per 128-row tile, ~4 GB a launch, and
+// writes the scratch (6.6 KB a row in mode `both`), which the parameter pass
+// reads back (the GZ of a 256-wide layer twice, once for each 128-row part
+// of its input).
 #include "encode.cuh"
 #include "engine.cuh"
 
@@ -67,9 +79,6 @@ using namespace nero;
 
 namespace {
 
-constexpr int P = 64;
-constexpr int NTHREADS = 512;
-constexpr int LANES = NTHREADS / P;  // threads per row in the forward's per-row phases
 constexpr int HID = 256;
 constexpr int DO = 16;   // head outputs padded
 constexpr int GEO = 12;  // points, directions, traced hit points, hit normals
@@ -79,8 +88,6 @@ constexpr int NPE8 = 51;
 constexpr int DI_INNER = 128;      // 51 + 72 = 123, padded
 constexpr int DI_OUTER = 80;       // 72, padded
 constexpr int DI_OUTER_SPH = 144;  // 2 x 72
-constexpr int MAX_DI = DI_OUTER_SPH;
-constexpr int LDX = MAX_DI + 8, LDH = HID + 8, LDC = HID + 4;
 static_assert(HID == LAYER_W, "the engine's layer width");
 
 __host__ __device__ constexpr size_t head_welems(int di) {
@@ -145,153 +152,7 @@ __device__ __forceinline__ void inner_row(const float* normal, const float* d, f
 }
 
 // ---------------------------------------------------------------------------
-// forward
-// ---------------------------------------------------------------------------
-
-struct Head {
-  const bf16* W;   // w1 [di,256], w2, w3 [256,256], w4 [256,16], row-major [in,out]
-  const float* B;  // [4][256]
-  int di;          // padded input width
-};
-
-struct Args {
-  Head inner, outer;
-  int n, sphere, both;
-};
-
-// per-row state of the forward in shared memory
-enum { RS_D = 0, RS_HP = 3, RS_IN = 6, RS_R = 9, RS_W = 12 };
-
-struct Smem {
-  bf16* X;     // [P][LDX]
-  bf16* Hb;    // [P][LDH]
-  float* C;    // [P][LDC]
-  float* rs;   // [P][RS_W]
-  float* tab;  // IDE table
-};
-constexpr size_t SMEM_BYTES = (size_t)P * LDX * 2 + (size_t)P * LDH * 2 + (size_t)P * LDC * 4 +
-                              (size_t)P * RS_W * 4 + TAB * 4;
-
-__device__ Smem carve(unsigned char* base) {
-  Smem s;
-  s.X = reinterpret_cast<bf16*>(base);
-  s.Hb = s.X + P * LDX;
-  s.C = reinterpret_cast<float*>(s.Hb + P * LDH);
-  s.rs = s.C + P * LDC;
-  s.tab = s.rs + P * RS_W;
-  return s;
-}
-
-// The head's input tile into X.
-__device__ void build_input(const Smem& s, const Head& h, bool inner, bool sphere) {
-  const int tid = threadIdx.x;
-  const int r = tid / LANES, lane = tid % LANES;
-  const float* rs = s.rs + r * RS_W;
-  bf16* xrow = s.X + r * LDX;
-  if (inner) {
-    for (int c = lane; c < NPE8; c += LANES) xrow[c] = to_bf(pe_val(rs + RS_IN, c));
-    ide_row(s.tab, rs[RS_R], rs[RS_R + 1], rs[RS_R + 2], 0.0f, xrow + NPE8, 1, lane, LANES);
-    for (int c = NPE8 + NIDE + lane; c < h.di; c += LANES) xrow[c] = to_bf(0.0f);
-  } else {
-    ide_row(s.tab, rs[RS_D], rs[RS_D + 1], rs[RS_D + 2], 0.0f, xrow, 1, lane, LANES);
-    if (sphere)
-      ide_row(s.tab, rs[RS_HP], rs[RS_HP + 1], rs[RS_HP + 2], 0.0f, xrow + NIDE, 1, lane, LANES);
-    for (int c = (sphere ? 2 : 1) * NIDE + lane; c < h.di; c += LANES) xrow[c] = to_bf(0.0f);
-  }
-  __syncthreads();
-}
-
-// one head forward; raw outputs go to C[:, 0:DO] (bias added)
-__device__ void head_fwd(const Smem& s, const Head& h) {
-  const bf16* Wl[4];
-  Wl[0] = h.W;
-  Wl[1] = Wl[0] + (size_t)h.di * HID;
-  Wl[2] = Wl[1] + (size_t)HID * HID;
-  Wl[3] = Wl[2] + (size_t)HID * HID;
-  for (int l = 0; l < 3; ++l) {
-    if (l == 0) block_mm<false>(s.X, LDX, Wl[0], HID, s.C, LDC, P, HID, h.di, false);
-    else block_mm<false>(s.Hb, LDH, Wl[l], HID, s.C, LDC, P, HID, HID, false);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < P * HID; idx += NTHREADS) {
-      const int r = idx / HID, c = idx % HID;
-      s.Hb[r * LDH + c] = to_bf(fmaxf(s.C[r * LDC + c] + h.B[l * HID + c], 0.0f));
-    }
-    __syncthreads();
-  }
-  block_mm<false>(s.Hb, LDH, Wl[3], DO, s.C, LDC, P, DO, HID, false);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < P * DO; idx += NTHREADS) {
-    const int r = idx / DO, c = idx % DO;
-    s.C[r * LDC + c] += h.B[3 * HID + c];
-  }
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(NTHREADS, 1)
-lights_rows_kernel(const float* __restrict__ geo, Args a, const float* __restrict__ ide_tab,
-                   float* __restrict__ out) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Smem s = carve(smem_raw);
-  const int tid = threadIdx.x;
-  const int p0 = blockIdx.x * P;
-  const int n = a.n;
-  const bool sphere = a.sphere != 0, both = a.both != 0;
-
-  for (int i = tid; i < TAB; i += NTHREADS) s.tab[i] = ide_tab[i];
-  if (tid < P) {
-    const int r = tid;
-    float* rs = s.rs + r * RS_W;
-    float g[GEO] = {0.0f};
-    if (p0 + r < n)
-      for (int k = 0; k < GEO; ++k) g[k] = geo[(size_t)(p0 + r) * GEO + k];
-    for (int k = 0; k < 3; ++k) {
-      rs[RS_D + k] = g[3 + k];
-      rs[RS_IN + k] = g[6 + k];
-    }
-    if (sphere) {
-      SphereRow h;
-      sphere_row(g, g + 3, h);
-      for (int k = 0; k < 3; ++k) rs[RS_HP + k] = h.hp[k];
-    }
-    if (both) {
-      float nn[3], vv[3], vlen;
-      inner_row(g + 9, g + 3, nn, vv, &vlen, rs + RS_R);
-    }
-  }
-  __syncthreads();
-
-  // outer head, then (mode both) inner head
-  build_input(s, a.outer, false, sphere);
-  head_fwd(s, a.outer);
-  for (int idx = tid; idx < P * 3; idx += NTHREADS) {
-    const int r = idx / 3, c = idx % 3;
-    if (p0 + r < n) {
-      out[(size_t)(p0 + r) * OUT + 3 + c] = s.C[r * LDC + c];
-      if (!both) out[(size_t)(p0 + r) * OUT + c] = 0.0f;
-    }
-  }
-  __syncthreads();
-  if (both) {
-    build_input(s, a.inner, true, sphere);
-    head_fwd(s, a.inner);
-    for (int idx = tid; idx < P * 3; idx += NTHREADS) {
-      const int r = idx / 3, c = idx % 3;
-      if (p0 + r < n) out[(size_t)(p0 + r) * OUT + c] = s.C[r * LDC + c];
-    }
-  }
-}
-
-int outer_di(int sphere) { return sphere ? DI_OUTER_SPH : DI_OUTER; }
-
-// heads over the packed buffers: [inner (mode both)] [outer]
-Args make_args(const bf16* W, const float* B, int n, int sphere, int both) {
-  const bf16* Wo = W + (both ? head_welems(DI_INNER) : 0);
-  const float* Bo = B + (both ? 4 * HID : 0);
-  return {{W, B, DI_INNER}, {Wo, Bo, outer_di(sphere)}, n, sphere, both};
-}
-
-// ---------------------------------------------------------------------------
-// backward: recompute and reverse sweep
+// the tile of the engine, the forward's and the backward's
 // ---------------------------------------------------------------------------
 
 constexpr int PB = 128;        // rows per tile
@@ -302,8 +163,8 @@ static_assert(BTHREADS == 4 * PB, "the per-row phases run 4 lanes a row");
 static_assert(BTHREADS / 32 == PB / 32 * NQ, "warps tile the rows and the columns");
 static_assert(PW_RS % PB == 0, "the scratch's rows are whole tiles");
 
-// per-row state of the backward: geometry, then the gradient accumulators
-// (d points, d directions)
+// per-row state: geometry, then the backward's gradient accumulators (d
+// points, d directions)
 enum { B_P = 0, B_D = 3, B_IN = 6, B_N = 9, B_V = 12, B_VLEN = 15, B_R = 16, B_GP = 19,
        B_GD = 22 };
 
@@ -405,12 +266,69 @@ constexpr size_t b_smem() {
          (size_t)n_slabs<L>() * sizeof(SlabRec);
 }
 
+// Slab s of the forward's stream: W1-W4 of every head in the recompute's
+// order, in slabs of up to SLAB_K rows (W4: two of SLAB_K rows x its 16
+// columns). Not a prefix of slab_at's, whose recompute has no W4. rows = 0
+// past the end.
+template <class L>
+__device__ __forceinline__ Slab fwd_slab_at(int s) {
+#pragma unroll
+  for (int i = 0; i < L::NH; ++i) {
+    const int h = L::ev(i), di = L::di(h);
+    const int n1 = (di + SLAB_K - 1) / SLAB_K;
+    const size_t w = L::woff(h);
+    if (s < n1) return {w + (size_t)s * SLAB_K * HID, min(SLAB_K, di - s * SLAB_K), HID, HID, LDB};
+    if (s < n1 + 3 * HS) {
+      const int l = 1 + (s - n1) / HS, j = (s - n1) % HS, nc = l == 3 ? DO : HID;
+      return {layer_woff(w, di, l) + (size_t)j * SLAB_K * nc, SLAB_K, nc, nc, LDB};
+    }
+    s -= n1 + 3 * HS;
+  }
+  return {0, 0, 0, 0, 0};
+}
+
+template <class L>
+__host__ __device__ constexpr int n_fwd_slabs() {
+  int c = 0;
+  for (int h = 0; h < L::NH; ++h) c += (L::di(h) + SLAB_K - 1) / SLAB_K + 3 * HS;
+  return c;
+}
+
+// shared memory of the forward: the tile, the ring, row state, IDE table,
+// then its slab table
+template <class L>
+constexpr size_t f_smem() {
+  return (size_t)PB * LDA * 2 + (size_t)STAGES * STAGE_ELEMS * 2 + (size_t)PB * RSB * 4 +
+         TAB * 4 + (size_t)n_fwd_slabs<L>() * sizeof(SlabRec);
+}
+
+// The tile's row state, one thread a row: points, directions, traced hit
+// points (zeros past n), the gradient accumulators zeroed, and (mode both)
+// the inner head's normal, view and reflection.
+template <class L>
+__device__ __forceinline__ void load_rows(float* rs, const float* __restrict__ geo, int p0, int n) {
+  if (threadIdx.x >= PB) return;
+  const int r = threadIdx.x;
+  float* s = rs + r * RSB;
+  float gg[GEO];
+  for (int k = 0; k < GEO; ++k) gg[k] = p0 + r < n ? geo[(size_t)(p0 + r) * GEO + k] : 0.0f;
+  for (int k = 0; k < 3; ++k) {
+    s[B_P + k] = gg[k];
+    s[B_D + k] = gg[3 + k];
+    s[B_IN + k] = gg[6 + k];
+    s[B_GP + k] = 0.0f;
+    s[B_GD + k] = 0.0f;
+  }
+  if (L::both) inner_row(gg + 9, gg + 3, s + B_N, s + B_V, s + B_VLEN, s + B_R);
+}
+
 // Head h's input into the tile A, 4 lanes a row: [PE8(traced hit point),
 // IDE(reflection)] for the inner head, IDE(direction) [, IDE(sphere exit
-// point)] for the outer; zeros in the padding. Not inlined, as enc_bwd: the
-// per-row phases get registers of their own, and the products keep theirs.
+// point)] for the outer; zeros in the padding. The forward's and the
+// recompute's. Not inlined, as enc_bwd: the per-row phases get registers of
+// their own, and the products keep theirs.
 template <class L>
-__device__ __noinline__ void build_input_bwd(int h, bf16* A, const float* rs, const float* tab) {
+__device__ __noinline__ void build_input(int h, bf16* A, const float* rs, const float* tab) {
   const int tid = threadIdx.x, r = tid >> 2, q = tid & 3;
   const float* s = rs + r * RSB;
   bf16* x = A + r * LDA;
@@ -431,6 +349,108 @@ __device__ __noinline__ void build_input_bwd(int h, bf16* A, const float* rs, co
   for (int c = used + q; c < L::di(h); c += 4) x[c] = to_bf(0.0f);
   __syncthreads();
 }
+
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
+
+// Both heads on the tile, the outer and then (mode both) the inner: the
+// input built in the tile, the four products from the ring, bias and ReLU
+// in registers with each H once, bf16, into the tile (the recompute's
+// epilogue without its scratch stores: one shared loop made shader.cu's
+// sweep spill); the output layer on the warps of columns 0-63, whose
+// n8-tiles 0 and 1 hold the 16 padded outputs: z4 + b4 of columns 0-2 to
+// the head's raw outputs, f32. Mode outer writes zeros as inner_z. Rows past
+// n are read as zeros and never written.
+template <class L>
+__global__ void __launch_bounds__(BTHREADS, 1)
+lights_fwd_kernel(const float* __restrict__ geo, int n, const bf16* __restrict__ W,
+                  const float* __restrict__ B, const float* __restrict__ ide_tab,
+                  float* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  constexpr int NS = n_fwd_slabs<L>();
+  bf16* A = reinterpret_cast<bf16*>(smem_raw);  // inputs, activations [PB][LDA]
+  bf16* ring_base = A + PB * LDA;
+  float* rs = reinterpret_cast<float*>(ring_base + STAGES * STAGE_ELEMS);  // [PB][RSB]
+  float* tab = rs + PB * RSB;
+  SlabRec* recs = reinterpret_cast<SlabRec*>(tab + TAB);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = warp / NQ, cq = warp % NQ;  // row group, column group
+  const int g = lane >> 2, t = lane & 3;      // accumulator row and column pair
+  const int p0 = blockIdx.x * PB;
+
+  for (int i = tid; i < NS; i += BTHREADS) recs[i] = slab_rec(fwd_slab_at<L>(i));
+  for (int i = tid; i < TAB; i += BTHREADS) tab[i] = ide_tab[i];
+  load_rows<L>(rs, geo, p0, n);
+  __syncthreads();
+  Ring ring{ring_base, W, recs, NS, 0};
+  for (int st = 0; st < STAGES - 1; ++st) ring.load(st);
+
+  const unsigned a_x = smem_u32(A + (grp * 32 + (lane & 15)) * LDA + (lane >> 4) * 8);
+  const int col0 = cq * WN * 8;
+  bf16* arow = A + (grp * 32 + g) * LDA + col0 + 2 * t;
+  float acc[2][WN][4];
+
+  for (int i = 0; i < L::NH; ++i) {
+    const int h = L::ev(i);
+    build_input<L>(h, A, rs, tab);
+    const float* bh = B + h * 4 * HID;
+    for (int l = 0; l < 3; ++l) {
+      zero(acc);
+      product<false>(acc, ring, a_x, LDA, l == 0 ? L::di(h) : HID, col0, HID - col0);
+      __syncthreads();  // every warp is done reading the tile
+      // H = relu(z + b) to the tile
+#pragma unroll
+      for (int j = 0; j < WN; ++j) {
+        const float2 b2 = *reinterpret_cast<const float2*>(bh + l * HID + col0 + j * 8 + 2 * t);
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf)
+            *reinterpret_cast<__nv_bfloat162*>(arow + (16 * m + 8 * hf) * LDA + j * 8) =
+                __floats2bfloat162_rn(fmaxf(acc[m][j][2 * hf] + b2.x, 0.0f),
+                                      fmaxf(acc[m][j][2 * hf + 1] + b2.y, 0.0f));
+      }
+    }
+    zero(acc);
+    product<false>(acc, ring, a_x, LDA, HID, col0, DO - col0);
+    __syncthreads();  // every warp is done reading H3: the next head's input goes over it
+    if (cq == 0 && t < 2) {  // columns c, c + 1 of the head's three
+      const int c = 2 * t;
+      const float b0 = bh[3 * HID + c], b1 = bh[3 * HID + c + 1];
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int row = p0 + grp * 32 + 16 * m + 8 * hf + g;
+          if (row >= n) continue;
+          float* o = out + (size_t)row * OUT;
+          o[L::col(h) + c] = acc[m][0][2 * hf] + b0;
+          if (c + 1 < 3) o[L::col(h) + c + 1] = acc[m][0][2 * hf + 1] + b1;
+          if (!L::both) {
+            o[c] = 0.0f;
+            if (c + 1 < 3) o[c + 1] = 0.0f;
+          }
+        }
+    }
+  }
+}
+
+template <class L>
+int launch_fwd(const float* geo, int n, const bf16* W, const float* B, const float* tab,
+               float* out, cudaStream_t stream) {
+  static_assert(f_smem<L>() <= b_smem<L>() && b_smem<L>() <= 232448, "forward shared memory");
+  const cudaError_t err = cudaFuncSetAttribute(
+      lights_fwd_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)f_smem<L>());
+  if (err != cudaSuccess) return (int)err;
+  lights_fwd_kernel<L><<<(n + PB - 1) / PB, BTHREADS, f_smem<L>(), stream>>>(geo, n, W, B, tab,
+                                                                             out);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// backward: recompute and reverse sweep
+// ---------------------------------------------------------------------------
 
 // The tile's input to the scratch, 16 bytes a copy.
 __device__ __forceinline__ void store_x(const bf16* A, bf16* Xg, int di, size_t row0) {
@@ -508,20 +528,7 @@ lights_bwd_sweep_kernel(const float* __restrict__ geo, int n, const bf16* __rest
 
   for (int i = tid; i < n_slabs<L>(); i += BTHREADS) recs[i] = slab_rec(slab_at<L>(i));
   for (int i = tid; i < TAB; i += BTHREADS) tab[i] = ide_tab[i];
-  if (tid < PB) {
-    const int r = tid;
-    float* s = rs + r * RSB;
-    float gg[GEO];
-    for (int k = 0; k < GEO; ++k) gg[k] = p0 + r < n ? geo[(size_t)(p0 + r) * GEO + k] : 0.0f;
-    for (int k = 0; k < 3; ++k) {
-      s[B_P + k] = gg[k];
-      s[B_D + k] = gg[3 + k];
-      s[B_IN + k] = gg[6 + k];
-      s[B_GP + k] = 0.0f;
-      s[B_GD + k] = 0.0f;
-    }
-    if (L::both) inner_row(gg + 9, gg + 3, s + B_N, s + B_V, s + B_VLEN, s + B_R);
-  }
+  load_rows<L>(rs, geo, p0, n);
   __syncthreads();
   Ring ring{ring_base, W, recs, n_slabs<L>(), 0};
   for (int st = 0; st < STAGES - 1; ++st) ring.load(st);
@@ -535,7 +542,7 @@ lights_bwd_sweep_kernel(const float* __restrict__ geo, int n, const bf16* __rest
   // ---- recompute: both heads forward, X and H to the scratch ----
   for (int i = 0; i < L::NH; ++i) {
     const int h = L::ev(i), di = L::di(h);
-    build_input_bwd<L>(h, A, rs, tab);
+    build_input<L>(h, A, rs, tab);
     store_x(A, S.x(h), di, row0);
     const float* bh = B + h * 4 * HID;
     for (int l = 0; l < 3; ++l) {
@@ -732,10 +739,9 @@ template <class L> size_t part_elems_of(int n) {
 
 extern "C" {
 
-int lights_tile() { return P; }
-int lights_bwd_tile() { return PB; }
+int lights_tile() { return PB; }
 size_t lights_weight_elems(int sphere, int both) {
-  return head_welems(outer_di(sphere)) + (both ? head_welems(DI_INNER) : 0);
+  return head_welems(sphere ? DI_OUTER_SPH : DI_OUTER) + (both ? head_welems(DI_INNER) : 0);
 }
 // bf16 elements of the backward's scratch, floats of its partials, for n rows
 size_t lights_scratch_elems(int n, int sphere, int both) {
@@ -751,14 +757,7 @@ size_t lights_part_elems(int n, int sphere, int both) {
 int lights_fwd(const float* geo, int n, const bf16* W, const float* B, const float* tab,
                int sphere, int both, float* out, cudaStream_t stream) {
   if (n <= 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(lights_rows_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles = (n + P - 1) / P;
-  lights_rows_kernel<<<tiles, NTHREADS, SMEM_BYTES, stream>>>(
-      geo, make_args(W, B, n, sphere, both), tab, out);
-  return (int)cudaGetLastError();
+  return LIGHTS_DISPATCH(launch_fwd, sphere, both, geo, n, W, B, tab, out, stream);
 }
 
 // The backward's first part: recompute and reverse sweep, gout [n,6] ->

@@ -1,6 +1,6 @@
 """Times variants of the SDF-with-gradient kernels, of the whole-shader
-backward, of the sphere march, of the light kernel's backward or of the
-predictor kernel's backward on the card.
+kernel, of the sphere march, of the light kernel or of the predictor
+kernel's backward on the card.
 
     python -m nero_tpu_torch.kernel_variants [--parent OLD/sdf_grad.cu] [NAME ...]
     python -m nero_tpu_torch.kernel_variants --kernel shader [--parent OLD/shader.cu] [NAME ...]
@@ -46,8 +46,10 @@ of `found` equal to the kernel's and the largest |dt| on rays both found;
 and the kernel's agreement with the plain version. A variant that spills is
 built and reported, not timed.
 
-The light kernel (LIGHTS_VARIANTS, `csrc/lights.cu`; `--parent` an earlier
-source with the same C entries `lights_fwd` and `lights_bwd`) runs at
+The light kernel (LIGHTS_VARIANTS, `csrc/lights.cu`, of both directions: the
+forward runs on the backward's engine and builds its inputs with the
+recompute's code; `--parent` an earlier source with the same C entries
+`lights_fwd` and `lights_bwd`) runs at
 N_RAYS rows of the Stage-II lattice in mode `both` with the `direction`
 outer light, or with `--outer` in mode `outer` with `sphere_direction`, on
 random geometry and cotangents, 20 timed forward and 10 timed backward
@@ -436,7 +438,7 @@ SPHERE_VARIANTS = {
     "output_dot_w8": [(_SM_OUT_MMA, _SM_OUT_DOT), _SM_WARPS8],
 }
 
-# ---- the light kernel's backward (csrc/lights.cu) ----
+# ---- the light kernel, forward and backward (csrc/lights.cu) ----
 _LI_INCLUDE = '#include "engine.cuh"\n'
 # every mma.sync of the backward's kernels (the sweep's products and the
 # parameter pass, both in engine.cuh): keeps the fragments live, no
@@ -458,11 +460,25 @@ _LI_DX = """\
   __host__ __device__ static constexpr int dx0(int h) { return is_inner(h) ? 48 : 0; }
   __host__ __device__ static constexpr int dxw(int h) { return is_inner(h) ? 80 : di(h); }"""
 
+_LI_WEIGHTS_ONLY = [(_LI_INCLUDE, _LI_NO_MMA), (_LI_FWD_EPILOGUE, _LI_NO_FWD_EPILOGUE),
+                    (_LI_SWEEP_EPILOGUE, _LI_NO_SWEEP_EPILOGUE)]
+# build_input writes zeros: no encodings, the row state and the tile's
+# zero fill only
+_LI_NO_INPUTS = [("  int used;\n  if (L::is_inner(h)) {", "  int used = 0;\n  if (false) {"),
+                 ("  } else {\n    ide_row(tab, s[B_D]",
+                  "  } else if (false) {\n    ide_row(tab, s[B_D]")]
+
 LIGHTS_VARIANTS = {
     "kernel": [],
-    # no products and no epilogues: the weight stream with the scratch traffic
-    "weights_only": [(_LI_INCLUDE, _LI_NO_MMA), (_LI_FWD_EPILOGUE, _LI_NO_FWD_EPILOGUE),
-                     (_LI_SWEEP_EPILOGUE, _LI_NO_SWEEP_EPILOGUE)],
+    # no products and no hidden-layer epilogues (the forward's and the
+    # recompute's share their text): the weight stream, with the scratch
+    # traffic in the backward
+    "weights_only": _LI_WEIGHTS_ONLY,
+    # the forward's (and the recompute's) per-tile input phase without its
+    # encodings
+    "no_inputs": _LI_NO_INPUTS,
+    # both: the ring and the slab stream with the tile's barriers alone
+    "ring_only": _LI_WEIGHTS_ONLY + _LI_NO_INPUTS,
     # the sweep alone: the C entry does not run the parameter pass (dW, dB
     # are left as they were)
     "no_params": [("  if (rc) return rc;\n  return lights_bwd_params(", "  return rc;\n  (void)lights_bwd_params(")],
@@ -470,7 +486,8 @@ LIGHTS_VARIANTS = {
     # 80 of its IDE
     "full_dx_inner": [(_LI_DX, _LI_DX.replace("is_inner(h) ? 48 : 0", "0")
                                       .replace("is_inner(h) ? 80 : di(h)", "di(h)"))],
-    # 8 warps over 64-row tiles: the weight stream twice per 128 rows
+    # 8 warps over 64-row tiles, forward and backward: the weight stream
+    # twice per 128 rows
     "warps8": [("constexpr int PB = 128; ", "constexpr int PB = 64; "),
                ("constexpr int BTHREADS = 512; ", "constexpr int BTHREADS = 256; ")],
 }
@@ -587,8 +604,10 @@ def build(sources: dict, kernel: str = "sdf_grad", instance: str = "") -> dict:
             libs[name] = (lib, _type_shader(lib), " ".join(regs))
             continue
         if kernel == "lights":
-            # the forward beside them (the parent's `lights_rows_kernel<false>`)
-            info = cuda_build.parse_ptxas(log, r"lights_rows_kernel(ILb0E|E)")
+            # the forward beside them: lights_fwd_kernel, or an earlier
+            # source's lights_rows_kernel (plain or <false>)
+            info = cuda_build.parse_ptxas(
+                log, rf"(?:lights_fwd_kernel{instance}|lights_rows_kernel(?:ILb0E|E))")
             regs.append(f"{info.get('regs', '-')}/{info.get('spill_bytes', '-')}")
             libs[name] = (lib, lights_type_lib(lib), " ".join(regs))
             continue

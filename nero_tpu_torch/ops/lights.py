@@ -24,6 +24,10 @@ traced hit points and normals get none (they come from the tracer detached).
 What bounds it on the card: tensor-core operations (`flops`): at 393,216
 rows and 989 TFLOP/s about 0.25 ms forward and 0.74 ms backward in mode
 'both'; the bytes it must move (48 in and 24 out per row) take 0.008 ms.
+The forward is one launch on the backward's engine (128-row tiles, the
+weights streamed from L2 as slabs through a cp.async ring, mma.sync); its
+phases run one after another, and the weight stream is the largest (about
+55% of its time on the H100, the input encodings 25%, the products 20%).
 The backward is three launches (recompute and reverse sweep, the weight-
 and bias-gradient pass, the reduction of its partials) through a scratch of
 X, H and GZ in device memory: 6.6 KB a row in mode 'both', 2.6 GB at
@@ -44,8 +48,7 @@ from nero_tpu_torch.utils.encodings import (ide_dim, integrated_dir_encode, posi
                                             positional_encode_dim)
 from nero_tpu_torch.utils.sphere import get_sphere_intersection
 
-TILE = 64       # forward rows per block (csrc/lights.cu P)
-BWD_TILE = 128  # backward rows per block (PB)
+TILE = 128      # rows per block, forward and backward (csrc/lights.cu PB)
 HID = 256
 DO = 16
 GEO = 12   # points, directions, traced hit points, hit normals
@@ -162,7 +165,6 @@ def type_lib(lib) -> bool:
     lib.lights_bwd.argtypes = [vp, i, vp, vp, vp, i, i, vp, vp, vp, vp, vp, vp, vp]
     parts = hasattr(lib, "lights_bwd_sweep")
     if parts:
-        lib.lights_bwd_tile.restype, lib.lights_bwd_tile.argtypes = i, []
         lib.lights_bwd_sweep.restype = i
         lib.lights_bwd_sweep.argtypes = [vp, i, vp, vp, vp, i, i, vp, vp, vp, vp]
         lib.lights_bwd_params.restype = i
@@ -175,7 +177,7 @@ def _lib():
     if not getattr(lib, "_nero_typed", False):
         if not type_lib(lib):
             raise RuntimeError("csrc/lights.cu has no lights_bwd_sweep / lights_bwd_params")
-        if (lib.lights_tile(), lib.lights_bwd_tile()) != (TILE, BWD_TILE) or any(
+        if lib.lights_tile() != TILE or any(
                 lib.lights_weight_elems(int(s), int(b)) != weight_elems(s, b)
                 for s in (False, True) for b in (False, True)):
             raise RuntimeError("csrc/lights.cu layout differs from ops/lights.py")
@@ -231,15 +233,17 @@ def unpack_grads(dW: torch.Tensor, dB: torch.Tensor, shapes, sphere: bool, both:
 
 
 def _fwd(geo, W, B, sphere: bool, both: bool) -> torch.Tensor:
-    """One forward launch on packed weights: geo [n, 12] -> raw [n, 6]."""
+    """One forward launch on packed weights: geo [n, 12] -> raw [n, 6]. No
+    rows: an empty output, no launch."""
     n = geo.shape[0]
     out = torch.empty(n, OUT, device=geo.device)
+    if n == 0:
+        return out
     rc = _lib().lights_fwd(geo.data_ptr(), n, W.data_ptr(), B.data_ptr(),
                            ide_table_on(geo.device).data_ptr(), int(sphere), int(both),
                            out.data_ptr(), torch.cuda.current_stream(geo.device).cuda_stream)
     cuda_build.check(rc, "lights_fwd")
-    if n:  # the C entry launches nothing for no rows
-        launches["lights_fwd" if both else "lights_fwd_outer"] += 1
+    launches["lights_fwd" if both else "lights_fwd_outer"] += 1
     return out
 
 

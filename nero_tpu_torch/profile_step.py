@@ -42,7 +42,7 @@ from nero_tpu_torch.train.trainer import Trainer
 PORT_KERNELS = ("sdf_grad_fwd_kernel", "sdf_bwd_sweep_kernel", "sdf_bwd_params_kernel",
                 "sdf_bwd_reduce_kernel", "shader_fwd_kernel", "shader_bwd_sweep_kernel",
                 "shader_bwd_params_kernel", "shader_bwd_reduce_kernel",
-                "lights_rows_kernel", "lights_bwd_sweep_kernel", "lights_bwd_params_kernel",
+                "lights_fwd_kernel", "lights_bwd_sweep_kernel", "lights_bwd_params_kernel",
                 "lights_bwd_reduce_kernel", "predictor_rows_kernel",
                 "predictor_bwd_sweep_kernel", "predictor_bwd_params_kernel",
                 "predictor_bwd_reduce_kernel", "sdf_fwd_kernel", "sphere_march_kernel",
