@@ -3,7 +3,8 @@
 holds each against its plain PyTorch version, then trains Stage I on
 `configs/shape/proc/{sphere,sphere_real,sphere_heads}.yaml` and Stage II on
 `configs/material/proc/{bowl,bowl_fused}.yaml` at full width through the
-kernels, and takes a few steps through every other switch of both stages.
+kernels, takes a few steps through every other switch of both stages, and
+runs the chain Stage I -> mesh -> Chamfer -> Stage II -> materials.
 
     python3 chip_smoke.py
 
@@ -59,7 +60,18 @@ result line):
      sphere scene with the human light and the sphere_direction outer light
      (inner compaction on), unfused and fused (the light kernel runs the
      outer head only); the uniform march; the wide field under both marches;
-     `tracer: grid`, whose grid tracer is held against the exact host BVH.
+     `tracer: grid`, whose grid tracer is held against the exact host BVH;
+  7. the chain a user runs after training (`chain`): `sphere.yaml` for 300
+     steps, its mesh by `extract_mesh` at 512^3 (grid evaluation and host
+     iso-surface timed apart), the same checkpoint's 64^3 grid on the card
+     against the CPU (max |diff| <= 1e-4), `eval_synthetic_shape` on
+     `proc/sphere/128_16`, the Chamfer distance to the denser cloud of
+     `proc/sphere/256_24` and the vertices' mean |scene SDF| (finite, > 100
+     vertices, median radius in (0.2, 0.9)), `bowl.yaml`'s Stage II for 5
+     steps on that mesh through the neural tracer (finite losses), then
+     `extract_materials` (finite, in [0, 1], one row per vertex) and
+     `extract_materials_texture_map` at 1024^2 (the files written); both
+     trainings' launches asserted and counted, extraction launching none.
 The line before the result is a JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Of a kernel's times, `ms` is
 the wrapper's whole call for the kernels behind an autograd function (shader,
@@ -1114,6 +1126,27 @@ def stage1_expect(scfg, steps: int, val_chunks: int = 0, occ_steps: int = 0) -> 
     return expect_launches(**e)
 
 
+def stage1_val_chunks(model) -> int:
+    """Ray chunks of one validation pass of a shape model."""
+    h, w = model.test_imgs_info["imgs"].shape[1:3]
+    ratio = model.cfg["downsample_ratio"]
+    rays = int(ratio * h) * int(ratio * w) * len(model.test_ids)
+    return -(-rays // model.cfg["test_ray_num"])
+
+
+def material_val_chunks(model) -> int:
+    """Chunks of test_ray_num hit pixels of one validation pass of a
+    material model (one march launch each)."""
+    info = model.test_imgs_info
+    h, w = info["imgs"].shape[1:3]
+    chunks = 0
+    for i in range(len(model.test_ids)):
+        hit = model.ray_tracer.trace_cpu(*model._image_rays_np(info["Ks"][i], info["poses"][i],
+                                                               h, w))[3]
+        chunks += -(-int(hit.sum()) // model.cfg["test_ray_num"])
+    return chunks
+
+
 def train(cfg_file: str, steps: int, dev) -> dict:
     """Stage I through Trainer at full width: `steps` steps and one
     validation view, then one step at occ_loss_step."""
@@ -1154,10 +1187,7 @@ def train(cfg_file: str, steps: int, dev) -> dict:
     val = trainer.val_results
     check(all(math.isfinite(v) for v in val.values()), f"{tag} validation: {val}")
 
-    h, w = model.test_imgs_info["imgs"].shape[1:3]
-    ratio = model.cfg["downsample_ratio"]
-    rays = int(ratio * h) * int(ratio * w) * len(model.test_ids)
-    chunks = -(-rays // model.cfg["test_ray_num"])
+    chunks = stage1_val_chunks(model)
     expect = stage1_expect(model.scfg, steps, val_chunks=chunks)
     check(launches == expect, f"{tag} launches {nonzero(launches)}, expected {nonzero(expect)}")
 
@@ -1307,15 +1337,9 @@ def train_material(mesh: dict, steps: int, dev, cfg_file: str, fused: bool) -> d
     val = trainer.val_results
     check(all(math.isfinite(v) for v in val.values()), f"{tag} validation: {val}")
 
-    # one validation view: its hit pixels in chunks of test_ray_num; per
-    # chunk one march launch and, fused, one forward of the light kernel
-    info = model.test_imgs_info
-    h, w = info["imgs"].shape[1:3]
-    chunks = 0
-    for i in range(len(model.test_ids)):
-        hit = model.ray_tracer.trace_cpu(*model._image_rays_np(info["Ks"][i], info["poses"][i],
-                                                               h, w))[3]
-        chunks += -(-int(hit.sum()) // model.cfg["test_ray_num"])
+    # one validation view: per chunk of its hit pixels one march launch and,
+    # fused, one forward of the light kernel
+    chunks = material_val_chunks(model)
     expect = expect_launches(sphere_march=steps + chunks)
     if fused:
         expect.update(lights_fwd=steps + chunks, lights_bwd=steps)
@@ -1401,6 +1425,183 @@ def material_variants(bowl: dict, dev) -> list:
         short_material_run("grid tracer", bowl, 3, dev, {}, grid_tracer, tracer="grid"),
     ]
 
+# ---------------------------------------------------------------------------
+# phase 7: the whole chain, Stage I -> mesh -> Stage II -> materials
+# ---------------------------------------------------------------------------
+
+CHAIN_STEPS = 300        # Stage I of the chain (sphere.yaml)
+CHAIN_MESH_RES = 512     # the extraction grid, as extract_mesh.py's default
+CHAIN_PARITY_RES = 64    # the grid evaluated on the card and on the CPU
+CHAIN_PARITY_TOL = 1e-4  # max |grid difference| between them
+CHAIN_EVAL_DB = "proc/sphere/128_16"    # the scene Stage I trained on
+CHAIN_DENSE_DB = "proc/sphere/256_24"   # a denser view set for the Chamfer figure
+CHAIN_DENSE_VOXEL = 0.005
+CHAIN_STAGE2_STEPS = 5
+CHAIN_TEXTURE_RES = 1024
+
+
+def write_cfg(cfg: dict, path: str) -> str:
+    import yaml
+
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def chain(dev) -> list:
+    """What a NeRO user runs after training, on a Stage-I model of the
+    port's own: `sphere.yaml` trained CHAIN_STEPS steps, its mesh at
+    CHAIN_MESH_RES^3 (`extract_mesh`), the same grid on the card and on the
+    CPU at CHAIN_PARITY_RES^3, the Chamfer evaluation (`eval_synthetic_shape`,
+    and the distance to a denser cloud with the mesh's error against the
+    scene's analytic SDF), Stage II (`bowl.yaml`'s shader, losses and
+    trainer) on that mesh through the neural tracer, then the per-vertex
+    materials and the texture maps. Returns the launches of both trainings."""
+    from nero_tpu_torch import (eval_synthetic_shape, extract_materials,
+                                extract_materials_texture_map, extract_mesh)
+    from nero_tpu_torch.core.checkpoint import load_checkpoint
+    from nero_tpu_torch.dataset.database import get_database_eval_points, parse_database_name
+    from nero_tpu_torch.dataset.synthetic import scene_sdf
+    from nero_tpu_torch.fields.sdf import sdf_value
+    from nero_tpu_torch.geometry.chamfer import chamfer_distance
+    from nero_tpu_torch.geometry.isosurface import extract_fields
+    from nero_tpu_torch.models.shape import NeROShapeModel
+    from nero_tpu_torch.train.trainer import Trainer
+
+    root = tempfile.mkdtemp(prefix="nero_smoke_chain_")
+    tag = "chain"
+
+    # Stage I, checkpoint saved at the end
+    cfg1 = shape_cfg("sphere.yaml", root, total_step=CHAIN_STEPS, val_interval=CHAIN_STEPS,
+                     save_interval=10 * CHAIN_STEPS, train_log_step=10)
+    cfg1_fn = write_cfg(cfg1, os.path.join(root, "shape.yaml"))
+    trainer = Trainer(cfg1, device=dev)
+    trainer.setup()
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer.run()
+    torch.cuda.synchronize()
+    stage1_s = time.perf_counter() - t0
+    stage1 = read_launches()
+    for h in trainer.train_history:
+        check(all(math.isfinite(v) for v in h.values()), f"{tag} Stage I step {h['step']}: {h}")
+    want = stage1_expect(trainer.model.scfg, CHAIN_STEPS,
+                         val_chunks=stage1_val_chunks(trainer.model))
+    check(stage1 == want, f"{tag} Stage I launches {nonzero(stage1)}, expected {nonzero(want)}")
+    hist = trainer.train_history
+    step_ms = float(np.median([h["step_seconds"] for h in hist[2:]])) * 1e3
+    print(f"{tag}: Stage I {CHAIN_STEPS} steps of sphere.yaml in {stage1_s:.1f} s (step "
+          f"{step_ms:.2f} ms, median), loss_rgb {hist[0]['loss_rgb']:.4f} -> "
+          f"{hist[-1]['loss_rgb']:.4f}, val psnr "
+          f"{trainer.val_results.get('val-psnr', float('nan')):.3f}; launches {nonzero(stage1)}")
+
+    # the mesh; extraction and evaluation launch no kernel of the port (the
+    # grid's SDF values and the Chamfer product are plain torch, as they are
+    # XLA outside any Pallas kernel in the JAX package)
+    reset_launches()
+    on = ["--device", dev.type]
+    mesh = extract_mesh.main(["--cfg", cfg1_fn, "--resolution", str(CHAIN_MESH_RES),
+                              "--output_dir", os.path.join(root, "meshes")] + on)
+    verts, tris = mesh["vertices"], mesh["triangles"]
+    radius = float(np.median(np.linalg.norm(verts, axis=-1)))
+    check(len(verts) > 100 and np.isfinite(verts).all() and 0.2 < radius < 0.9,
+          f"{tag} mesh: {len(verts)} vertices, median radius {radius}")
+    print(f"{tag}: mesh at {CHAIN_MESH_RES}^3: {len(verts)} vertices, {len(tris)} triangles, "
+          f"median radius {radius:.5f}; grid evaluation on the card "
+          f"({CHAIN_MESH_RES ** 3} points in {-(-CHAIN_MESH_RES ** 3 // 262144)} chunks) "
+          f"{mesh['grid_seconds']:.3f} s, host iso-surface {mesh['surface_seconds']:.3f} s")
+
+    # the same checkpoint's grid on the card and on the CPU
+    grids = []
+    for d in (dev, torch.device("cpu")):
+        model = NeROShapeModel(cfg1, training=False, device=d)
+        load_checkpoint(os.path.join(root, cfg1["name"], "model.npz"), model.params)
+        sdf_params, sdf_cfg = model.params["sdf"], model.scfg.sdf_cfg
+        grids.append(extract_fields([-1.01] * 3, [1.01] * 3, CHAIN_PARITY_RES,
+                                    lambda p: sdf_value(sdf_params, p, sdf_cfg), device=d))
+    grid_err = float(np.abs(grids[0] - grids[1]).max())
+    print(f"{tag}: {CHAIN_PARITY_RES}^3 grid, card against CPU: max |diff| {grid_err:.3e} "
+          f"(<= {CHAIN_PARITY_TOL})")
+    check(grid_err <= CHAIN_PARITY_TOL, f"{tag}: card grid against CPU grid {grid_err}")
+
+    # Chamfer: the evaluator, then a denser cloud and the analytic SDF
+    t0 = time.perf_counter()
+    ev = eval_synthetic_shape.main(["--mesh", mesh["path"], "--object", CHAIN_EVAL_DB,
+                                    "--log", os.path.join(root, "geometry.log")] + on)
+    eval_s = time.perf_counter() - t0
+    gt = get_database_eval_points(parse_database_name(CHAIN_DENSE_DB),
+                                  voxel_size=CHAIN_DENSE_VOXEL)
+    t0 = time.perf_counter()
+    dense, _, _ = chamfer_distance(verts, gt, device=dev)
+    dense_s = time.perf_counter() - t0
+    sdf_mae = float(np.abs(scene_sdf("sphere")(verts)).mean())
+    figures = [ev["chamfer"], float(dense), sdf_mae]
+    check(all(math.isfinite(x) for x in figures), f"{tag}: Chamfer figures {figures}")
+    after = read_launches()
+    check(after == expect_launches(), f"{tag}: extraction and evaluation launched "
+                                      f"{nonzero(after)}")
+    print(f"{tag}: Chamfer on {CHAIN_EVAL_DB} (eval_synthetic_shape, {eval_s:.2f} s) "
+          f"{ev['chamfer']:.6f} (pr-to-gt {ev['pr_to_gt']:.6f}, gt-to-pr {ev['gt_to_pr']:.6f}); "
+          f"vertices to the {len(gt)}-point cloud of {CHAIN_DENSE_DB} at voxel "
+          f"{CHAIN_DENSE_VOXEL}: {float(dense):.6f} ({len(verts)} x {len(gt)} on the card "
+          f"{dense_s:.3f} s); mean |scene SDF| of the vertices {sdf_mae:.6f}")
+
+    # Stage II on that mesh, through the neural tracer (B3)
+    from nero_tpu_torch.core.config import load_cfg
+
+    cfg2 = load_cfg(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "configs", "material", "proc", "bowl.yaml"))
+    cfg2.update(name="chain_material", database_name=CHAIN_EVAL_DB, mesh=mesh["path"],
+                model_root=root, vis_dir=root, total_step=CHAIN_STAGE2_STEPS,
+                val_interval=CHAIN_STAGE2_STEPS, save_interval=10 * CHAIN_STAGE2_STEPS,
+                train_log_step=1)
+    cfg2_fn = write_cfg(cfg2, os.path.join(root, "material.yaml"))
+    field_tracer({"vertices": verts, "triangles": tris}, "std", dev)   # distilled, cached
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg2, device=dev)
+    trainer.setup()
+    setup_s = time.perf_counter() - t0
+    reset_launches()
+    trainer.run()
+    torch.cuda.synchronize()
+    stage2 = read_launches()
+    hist = trainer.train_history
+    check(len(hist) == CHAIN_STAGE2_STEPS, f"{tag}: {len(hist)} logged Stage-II steps")
+    for h in hist:
+        check(all(math.isfinite(v) for v in h.values()), f"{tag} Stage II step {h['step']}: {h}")
+    want = expect_launches(sphere_march=CHAIN_STAGE2_STEPS + material_val_chunks(trainer.model))
+    check(stage2 == want, f"{tag} Stage II launches {nonzero(stage2)}, expected {nonzero(want)}")
+    step_ms = float(np.median([h["step_seconds"] for h in hist[2:]])) * 1e3
+    print(f"{tag}: Stage II on the extracted mesh ({trainer.model.tbn} hit pixels; set-up with "
+          f"the cached field {setup_s:.1f} s), {CHAIN_STAGE2_STEPS} steps (step {step_ms:.2f} ms, "
+          f"median), loss_rgb " + ", ".join(f"{h['loss_rgb']:.5f}" for h in hist)
+          + f", loss_total {hist[-1]['loss_total']:.5f}; launches {nonzero(stage2)}")
+
+    # materials: per vertex, then the texture maps
+    reset_launches()
+    mats = extract_materials.main(["--cfg", cfg2_fn,
+                                   "--output_dir", os.path.join(root, "materials")] + on)
+    n_verts = len(verts)
+    for k, v in mats["materials"].items():
+        check(v.shape[0] == n_verts and np.isfinite(v).all() and v.min() >= 0 and v.max() <= 1,
+              f"{tag} material {k}: shape {v.shape}, range {v.min()}..{v.max()}")
+        check(os.path.exists(os.path.join(mats["dir"], f"{k}.npy")), f"{tag}: {k}.npy")
+    tex = extract_materials_texture_map.main(
+        ["--cfg", cfg2_fn, "--resolution", str(CHAIN_TEXTURE_RES),
+         "--output_dir", os.path.join(root, "textures")] + on)
+    for k in ("albedo", "metallic", "roughness"):
+        v = tex[k]
+        check(v.shape[:2] == (CHAIN_TEXTURE_RES, CHAIN_TEXTURE_RES) and np.isfinite(v).all()
+              and v.min() >= 0 and v.max() <= 1, f"{tag} texture {k}: {v.shape}")
+    for f in ("albedo.jpg", "metallic.jpg", "roughness.jpg", "material.mtl", "mesh.obj"):
+        check(os.path.exists(os.path.join(tex["dir"], f)), f"{tag}: {f}")
+    after = read_launches()
+    check(after == expect_launches(), f"{tag}: material export launched {nonzero(after)}")
+    print(f"{tag}: materials of {n_verts} vertices finite and in [0, 1], files written; "
+          f"texture bake at {CHAIN_TEXTURE_RES}^2 {tex['bake_seconds']:.3f} s (atlas, host "
+          f"rasteriser, material queries on the card, inpainting)")
+    return [stage1, stage2]
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1454,6 +1655,7 @@ def main(argv=None) -> int:
     runs += [train_material(bowl, UNFUSED_STEPS, dev, "bowl.yaml", fused=False),
              train_material(bowl, FUSED_STEPS, dev, "bowl_fused.yaml", fused=True)]
     runs += material_variants(bowl, dev)
+    runs += chain(dev)
     launches = {k: sum(r.get(k, 0) for r in runs) for r0 in runs for k in r0}
     for k in kernels:
         k["launches"] = launches[k["name"]]

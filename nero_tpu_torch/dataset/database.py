@@ -1,9 +1,11 @@
 """Scene databases for the port: the procedural `proc/` family.
 
 Counterpart of the parts of nero_tpu/dataset/database.py that Stage-I
-training on a procedural scene needs: `ProceduralDatabase`,
-`parse_database_name` (other families raise until a later slice ports them)
-and the seed-6033 validation split of `get_database_split`.
+training and evaluation on a procedural scene need: `ProceduralDatabase`,
+`parse_database_name` (other families raise until a later slice ports them),
+the seed-6033 validation split of `get_database_split`, and the fused
+depth cloud that the Chamfer evaluation compares a mesh with
+(`get_database_eval_points`, `voxel_downsample`).
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import random
 import numpy as np
 
 from nero_tpu_torch.dataset.synthetic import make_cameras, render_view
+from nero_tpu_torch.utils.pose import mask_depth_to_pts, pose_apply, pose_inverse
 
 
 class BaseDatabase(abc.ABC):
@@ -96,3 +99,30 @@ def get_database_split(database: BaseDatabase, split_type: str = "validation"):
     img_ids = list(database.get_img_ids())
     rng.shuffle(img_ids)
     return img_ids[1:], img_ids[:1]
+
+
+def voxel_downsample(points: np.ndarray, voxel_size: float) -> np.ndarray:
+    """Average points per occupied voxel (open3d.voxel_down_sample equivalent)."""
+    if len(points) == 0:
+        return points
+    keys = np.floor(points / voxel_size).astype(np.int64)
+    _, inv, counts = np.unique(keys, axis=0, return_inverse=True, return_counts=True)
+    sums = np.zeros((counts.shape[0], 3), np.float64)
+    np.add.at(sums, inv, points)
+    return (sums / counts[:, None]).astype(np.float32)
+
+
+def get_database_eval_points(database: BaseDatabase, voxel_size: float = 0.01) -> np.ndarray:
+    """Fused depth point cloud of every view of a procedural scene (full
+    coverage of the analytic surface), voxel-downsampled: the ground truth of
+    the Chamfer evaluation."""
+    if not isinstance(database, ProceduralDatabase):
+        raise NotImplementedError(
+            f"evaluation points of {type(database).__name__}: only proc/ scenes are ported; "
+            "the GlossySynthetic reader and its eval_pts.npy wait for ROADMAP queue A, item 4")
+    pts = []
+    for img_id in database.get_img_ids():
+        depth, mask = database.get_depth(img_id)
+        pts_cam = mask_depth_to_pts(mask, depth, database.get_K(img_id))
+        pts.append(pose_apply(pose_inverse(database.get_pose(img_id)), pts_cam))
+    return voxel_downsample(np.concatenate(pts, 0).astype(np.float32), voxel_size)

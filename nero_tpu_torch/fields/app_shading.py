@@ -180,6 +180,15 @@ def shade_from_raw(packed: torch.Tensor, cfg: AppShadingConfig, fg_lut,
     return color, occ_info, inter
 
 
+def predict_materials(params, points, feature_vectors):
+    """(metallic, roughness, albedo) in [0, 1] from the shader's material
+    heads over [feature, point] (nero_tpu/fields/app_shading.py:181-186),
+    plain, as nero_tpu's only caller runs them (models/shape.py:251-253)."""
+    inp = torch.cat([feature_vectors, points], dim=-1)
+    return tuple(apply_predictor(params[k], inp, activation="sigmoid")
+                 for k in ("metallic", "roughness", "albedo"))
+
+
 def get_camera_plane_intersection(pts: torch.Tensor, dirs: torch.Tensor, poses: torch.Tensor):
     """Intersect rays with the camera XoY plane in 'human' coordinates
     (nero_tpu/fields/app_shading.py:90-103; used by the Stage-II human light).

@@ -1,5 +1,6 @@
 """Mesh of a procedural scene, made on the host from its analytic SDF: the
-stand-in for a Stage-I mesh where Stage II runs on a `proc/*` scene.
+exact surface that Stage II's cells and the tracer checks run on (a mesh
+that Stage I made comes from `python -m nero_tpu_torch.extract_mesh`).
 
     python -m nero_tpu_torch.geometry.proc_mesh bowl data/meshes/proc_bowl.ply
 
@@ -15,7 +16,7 @@ import os
 import numpy as np
 
 from nero_tpu_torch.dataset.synthetic import scene_sdf
-from nero_tpu_torch.geometry import native
+from nero_tpu_torch.geometry.isosurface import surface_from_grid
 from nero_tpu_torch.geometry.mesh_io import write_ply
 
 
@@ -25,9 +26,8 @@ def proc_mesh(scene: str, grid: int = 128, lo: float = -1.01, hi: float = 1.01) 
     X, Y, Z = np.meshgrid(xs, xs, xs, indexing="ij")
     vals = np.asarray(scene_sdf(scene)(np.stack([X, Y, Z], -1).reshape(-1, 3)),
                       np.float32).reshape(grid, grid, grid)
-    verts, tris = native.isosurface(vals, 0.0)
-    return {"vertices": (verts / (grid - 1.0) * (hi - lo) + lo).astype(np.float32),
-            "triangles": tris}
+    verts, tris = surface_from_grid(vals, [lo] * 3, [hi] * 3, 0.0)
+    return {"vertices": verts, "triangles": tris}
 
 
 def surface_rays(mesh: dict, n: int, seed: int = 0):

@@ -6,7 +6,9 @@ device as uint8; each step samples a ray batch there with the model's
 nero_tpu/models/shape.py:107-128), back-propagates and takes an Adam step.
 Every ray carries the 'human' pose of its camera (render/rays.py::
 human_coordinate_poses; `fixed_camera` keeps the camera centre's height),
-which the shader's human light reads.
+which the shader's human light reads. With `val_geometry`, the first
+validation view also carries a 128^3 mesh of the SDF; `predict_materials`
+gives Stage I's per-vertex materials of a mesh.
 Multi-device training (nero_tpu's mesh / constrain_rays) is a later slice.
 """
 from __future__ import annotations
@@ -18,6 +20,10 @@ from nero_tpu_torch.core.convert import tree_leaves
 from nero_tpu_torch.core.device import resolve_device
 from nero_tpu_torch.dataset.database import (BaseDatabase, get_database_split,
                                              parse_database_name)
+from nero_tpu_torch.fields.app_shading import predict_materials as shader_materials
+from nero_tpu_torch.fields.sdf import sdf_apply, sdf_value
+from nero_tpu_torch.geometry.isosurface import extract_geometry
+from nero_tpu_torch.geometry.mesh_io import read_ply
 from nero_tpu_torch.ops.fg_lut import get_fg_lut
 from nero_tpu_torch.render.rays import (human_coordinate_poses, rays_from_pixels,
                                         sample_ray_batch)
@@ -33,6 +39,7 @@ DEFAULT_SHAPE_CFG = {
     "test_ray_num": 1024,
     "test_downsample_ratio": True,
     "downsample_ratio": 0.25,
+    "val_geometry": False,
     "rgb_loss": "charbonier",
     "fixed_camera": False,
     "random_seed": 6033,
@@ -170,12 +177,37 @@ class NeROShapeModel:
                 outputs[k] = v.reshape(h, w, -1)
         outputs["gt_depth"] = gt_depth[..., None]
         outputs["gt_mask"] = gt_mask[..., None].astype(np.int32)
+        if self.cfg["val_geometry"] and index == 0:
+            # low-resolution geometry snapshot of the validation
+            sdf_cfg = self.scfg.sdf_cfg
+            outputs["vertices"], outputs["triangles"] = extract_geometry(
+                [-1, -1, -1], [1, 1, 1], 128, 0.0,
+                lambda p: sdf_value(params["sdf"], p, sdf_cfg), device=self.device)
         return outputs
 
     def nvs(self, params, pose: np.ndarray, K: np.ndarray, h: int, w: int,
             step: int = 300000) -> np.ndarray:
         rays = self._image_rays(K.astype(np.float32), pose.astype(np.float32), h, w)
         return self._render_rays_chunked(params, rays, step)["ray_rgb"].reshape(h, w, 3)
+
+    @torch.no_grad()
+    def predict_materials(self, params=None, mesh_path: str | None = None,
+                          vertices: np.ndarray | None = None, batch_size: int = 8192) -> dict:
+        """Stage-I per-vertex materials of a mesh (`mesh_path` or `vertices`):
+        the SDF's features at each vertex through the shader's metallic,
+        roughness and albedo heads, `batch_size` vertices at a time."""
+        params = self.params if params is None else params
+        if vertices is None:
+            vertices = read_ply(mesh_path)["vertices"]
+        sdf_cfg = self.scfg.sdf_cfg
+        out = {"metallic": [], "roughness": [], "albedo": []}
+        for vi in range(0, len(vertices), batch_size):
+            x = torch.as_tensor(np.asarray(vertices[vi:vi + batch_size], np.float32),
+                                device=self.device)
+            feats = sdf_apply(params["sdf"], x, sdf_cfg)[..., 1:]
+            for k, v in zip(out, shader_materials(params["shader"], x, feats)):
+                out[k].append(v.cpu().numpy())
+        return {k: np.concatenate(v, 0) for k, v in out.items()}
 
     def num_train_rays_per_step(self) -> int:
         return self.cfg["train_ray_num"]
