@@ -33,10 +33,11 @@ result line):
   3. the mesh of the bowl scene from its analytic SDF (host iso-surfacer); a
      `std` and a `wide` field distilled from it on the card; for each, the
      sphere-march and uniform-march kernels against their plain versions on
-     393,216 surface rays (found agreement >= 0.99, median |dt| < 1e-3), the
-     sphere march also on 0 rays (empty outputs) and on the first 1,001 (the
-     same bars), and the one-evaluation kernel on 393,216 points (atol 1e-3 to its plain
-     version, 2e-2 to the f32 field); the neural tracer (sphere march,
+     393,216 surface rays (found agreement >= 0.99, median |dt| < 1e-3), both
+     marches also on 0 rays (empty outputs) and on the first 1,001 (the
+     same bars), and the one-evaluation kernel on 393,216 and 1,001 points
+     (atol 1e-3 to its plain version, 2e-2 to the f32 field) and on none; the
+     three kernels' ptxas (0 spill bytes); the neural tracer (sphere march,
      uniform march, wide field) against the exact host BVH (clearing-ray hit
      agreement >= 0.98) and the device BVH traversal against the host's;
   4. `Trainer` on each of the three sphere configs with only total_step,
@@ -771,8 +772,7 @@ def check_field_kernels(mesh: dict, n: int, dev) -> list:
                      "median": max(worst["median"], st["median"]),
                      "max": max(worst["max"], st["max"])}
         check(bool((res["illinois"] == res["bisect"]).all()), "refine mode changed `found`")
-        # the edges: no rays, and 1,001, a multiple of neither the 16-ray warp
-        # tile nor the 128-point block tile
+        # the edges: no rays, and 1,001, not a multiple of the 16-ray warp tile
         t_0, f_0 = K.sphere_march(packed, *(x[:0] for x in rays), n_refine=2,
                                   refine="illinois", topology=topology, **kw)
         torch.cuda.synchronize()
@@ -804,48 +804,76 @@ def check_field_kernels(mesh: dict, n: int, dev) -> list:
                     "found_agreement": worst["agree"], "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "ptxas": ptx})
 
-        # uniform march: n_coarse samples, 8 bisections
+        # uniform march: n_coarse samples, 8 bisections; on all rays, on the
+        # first 1,001 (not a multiple of the 16-ray warp tile) and on none
         nc, nr = tracer.n_coarse, 8
         _, st = march_agreement(
             f"march{sfx}  c{nc}-r{nr}",
             lambda: KM.march(packed, *rays, n_coarse=nc, n_refine=nr, topology=topology),
             lambda: KM.march_plain(packed, *rays, n_coarse=nc, n_refine=nr))
-        ms = cuda_ms(lambda: KM._launch(W, Fv, wide, *rays, nc, nr, 0.012 + 1e-6), iters=5)
+        ragged = tuple(x[:1001] for x in rays)
+        march_agreement(
+            f"march{sfx}  c{nc}-r{nr}, R = 1001",
+            lambda: KM.march(packed, *ragged, n_coarse=nc, n_refine=nr, topology=topology),
+            lambda: KM.march_plain(packed, *ragged, n_coarse=nc, n_refine=nr))
+        t_0, f_0 = KM.march(packed, *(x[:0] for x in rays), n_coarse=nc, n_refine=nr,
+                            topology=topology)
+        torch.cuda.synchronize()
+        check(t_0.shape == f_0.shape == (0,) and t_0.dtype == torch.float32
+              and f_0.dtype == torch.bool, f"march{sfx} at R = 0: {t_0}, {f_0}")
+        ms = cuda_ms(lambda: KM._launch(W, Fv, wide, *rays, nc, nr, 0.012 + 1e-6), iters=10)
         plain_ms = cuda_ms(lambda: KM.march_plain(packed, *rays, n_coarse=nc, n_refine=nr),
                            iters=2, warmup=1)
         b_ms, b_by = bound(KM.flops(n, nc, nr, topology), K.min_bytes(n, topology))
+        ptx = ptxas_info("march", rf"march_kernel\w*Lb{int(wide)}E")
+        check(ptx.get("spill_bytes") == 0, f"march_kernel{sfx} spills: {ptx}")
+        print(f"march{sfx}: launch {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms; "
+              f"ptxas {ptx}")
         out.append({"name": f"march{sfx}", "route": "cuda",
                     "source": "nero_tpu_torch/csrc/march.cu",
                     "replaces": "nero_tpu/ops/pallas/march_kernel.py:190",
                     "max_abs_err": st["max"], "median_abs_err": st["median"],
                     "found_agreement": st["agree"], "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "ptxas": ptx})
 
-        # one evaluation per point: the points where the rays leave the surface
+        # one evaluation per point: the points where the rays leave the surface,
+        # all of them, the first 1,001 and none
         pts = (o + d * 0.02).contiguous()
-        v_k = KF.field_fwd(packed, pts, topology=topology)
-        v_p = KF.field_fwd_plain(packed, pts)
-        with torch.no_grad():
-            v_f = field_apply(tracer.field_params, pts, topology=topology)
+        errs = []
+        for m in (n, 1001):
+            v_k = KF.field_fwd(packed, pts[:m], topology=topology)
+            v_p = KF.field_fwd_plain(packed, pts[:m])
+            with torch.no_grad():
+                v_f = field_apply(tracer.field_params, pts[:m], topology=topology)
+            torch.cuda.synchronize()
+            e_plain = (v_k - v_p).abs().max().item()
+            e_f32 = (v_k - v_f).abs().max().item()
+            # the plain version rounds where the kernel does: they differ in
+            # the order of the f32 sums (atol 1e-3); against the f32 field the
+            # bar is tests/test_pallas_kernels.py's atol 2e-2
+            check(e_plain <= 1e-3, f"field_fwd{sfx}, N = {m}: max |d| to the plain version "
+                                   f"{e_plain}")
+            check(e_f32 <= 2e-2, f"field_fwd{sfx}, N = {m}: max |d| to the f32 field {e_f32}")
+            print(f"field_fwd{sfx}, N = {m}: max|d| to plain {e_plain:.3e} (atol 1e-3), to the "
+                  f"f32 field {e_f32:.3e} (atol 2e-2)")
+            errs.append((e_plain, e_f32))
+        v_0 = KF.field_fwd(packed, pts[:0], topology=topology)
         torch.cuda.synchronize()
-        e_plain = (v_k - v_p).abs().max().item()
-        e_f32 = (v_k - v_f).abs().max().item()
-        # the plain version rounds where the kernel does: they differ in the
-        # order of the f32 sums (atol 1e-3); against the f32 field the bar is
-        # tests/test_pallas_kernels.py's atol 2e-2
-        check(e_plain <= 1e-3, f"field_fwd{sfx}: max |d| to the plain version {e_plain}")
-        check(e_f32 <= 2e-2, f"field_fwd{sfx}: max |d| to the f32 field {e_f32}")
-        print(f"field_fwd{sfx}: max|d| to plain {e_plain:.3e} (atol 1e-3), to the f32 field "
-              f"{e_f32:.3e} (atol 2e-2)")
+        check(v_0.shape == (0,) and v_0.dtype == torch.float32, f"field_fwd{sfx} at N = 0: {v_0}")
         ms = cuda_ms(lambda: KF._launch(W, Fv, wide, pts), iters=10)
         plain_ms = cuda_ms(lambda: KF.field_fwd_plain(packed, pts), iters=5)
         b_ms, b_by = bound(KF.flops(n, topology), KF.min_bytes(n, topology))
+        ptx = ptxas_info("field_fwd", rf"field_fwd_kernel\w*Lb{int(wide)}E")
+        check(ptx.get("spill_bytes") == 0, f"field_fwd_kernel{sfx} spills: {ptx}")
+        print(f"field_fwd{sfx}: launch {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} "
+              f"ms; ptxas {ptx}")
         out.append({"name": f"field_fwd{sfx}", "route": "cuda",
                     "source": "nero_tpu_torch/csrc/field_fwd.cu",
                     "replaces": "nero_tpu/ops/pallas/field_kernel.py:90",
-                    "max_abs_err": e_plain, "max_abs_err_f32_field": e_f32, "ms": ms,
+                    "max_abs_err": max(e for e, _ in errs),
+                    "max_abs_err_f32_field": max(e for _, e in errs), "ms": ms,
                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                    "library_ms": None})
+                    "library_ms": None, "ptxas": ptx})
 
     # every tracer (march + validity + normal) against the exact host BVH
     std = tracers["std"]

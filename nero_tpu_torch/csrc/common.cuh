@@ -6,9 +6,8 @@
 //    with f32 accumulation -- the numerics of the TPU kernels' bf16-operand /
 //    f32-accumulate matmuls. Each warp owns a 64x16 output strip (four
 //    accumulator fragments) and streams its B fragments from device memory
-//    (the weights stay resident in the 50 MB L2). The forwards of the
-//    predictor and value-only SDF kernels and field.cuh (the uniform march,
-//    the field forward) run on it.
+//    (the weights stay resident in the 50 MB L2). It has two users left: the
+//    forward of predictor.cu and sdf_fwd.cu.
 // The backwards' weight and bias gradients are engine.cuh's parameter pass
 // (or the copies of it in shader.cu and sdf_grad.cu).
 #pragma once

@@ -10,33 +10,45 @@
 // (2*(39*128 + 2*128*128 + 128) operations, `std`) against 16 bytes per
 // point of device-memory traffic.
 //
-// Design: one block of 256 threads walks tiles of 128 points on a persistent
-// grid with the weights resident in shared memory; the ragged last tile is
-// masked: points past N are neither read nor written.
+// Design: csrc/field.cuh's warp-tile engine, one field16 call per 16-point
+// warp tile. FF_WARPS = 12 warps a block on a persistent grid, the weights
+// resident in shared memory; the warp's table holds its tile's points. The
+// ragged last tile is masked: points past N are neither read nor written.
 #include "field.cuh"
 
 namespace nero {
 
+constexpr int FF_WARPS = 12;  // warps per block
+constexpr int FF_VALS = 3;    // the point, per row of the warp's table
+
 template <bool WIDE>
-__global__ void __launch_bounds__(FD_THREADS) field_fwd_kernel(
+using FfBlock = FieldBlock<WIDE, FF_WARPS, FF_VALS>;
+
+template <bool WIDE>
+__global__ void __launch_bounds__(FF_WARPS * 32, 1) field_fwd_kernel(
     const float* __restrict__ pts, int N, const bf16* __restrict__ W,
     const float* __restrict__ F, float* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char ff_smem[];
-  const FieldSmem s = field_carve<WIDE>(ff_smem);
-  field_load<WIDE>(s, W, F);
-
-  const int n_tiles = (N + FD_RAYS - 1) / FD_RAYS;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int p = tile * FD_RAYS + (threadIdx.x >> 1);
-    const bool live = p < N;
-    float x = 0.f, y = 0.f, z = 0.f;
-    if (live) {
-      x = pts[3 * (size_t)p];
-      y = pts[3 * (size_t)p + 1];
-      z = pts[3 * (size_t)p + 2];
-    }
-    const float v = field_eval<WIDE>(x, y, z, s);
-    if (live && (threadIdx.x & 1) == 0) out[p] = v;
+  const WarpField f = field_prologue<WIDE, FF_WARPS, FF_VALS>(ff_smem, W, F);
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const int n_tiles = (N + FD_TILE - 1) / FD_TILE;
+  for (int tile = blockIdx.x * FF_WARPS + (threadIdx.x >> 5); tile < n_tiles;
+       tile += gridDim.x * FF_WARPS) {
+    // lane q = 0 of each quad loads and stores row g, q = 1 row g + 8
+    const int row = g + 8 * q, id = tile * FD_TILE + row;
+    __syncwarp();  // the previous tile's points are read
+    if (q < 2)
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        f.Rs[k * FD_TILE + row] = id < N ? pts[3 * (size_t)id + k] : 0.0f;
+    __syncwarp();
+    float p[2][3], v[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int k = 0; k < 3; ++k) p[r][k] = f.Rs[k * FD_TILE + g + 8 * r];
+    field16<WIDE>(p, f.Ws, f.Fs, f.Es, lane, v);
+    if (q < 2 && id < N) out[id] = q == 0 ? v[0] : v[1];
   }
 }
 
@@ -48,13 +60,13 @@ template <bool WIDE>
 int launch_field_fwd(const void* pts, int N, const void* W, const void* F, void* out,
                      void* stream) {
   using namespace nero;
+  constexpr size_t smem = FfBlock<WIDE>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(field_fwd_kernel<WIDE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)FieldDims<WIDE>::SMEM);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int grid = field_grid((N + FD_RAYS - 1) / FD_RAYS, &err);
+  const int grid = field_grid(N, FF_WARPS, &err);
   if (err != cudaSuccess) return (int)err;
-  field_fwd_kernel<WIDE><<<grid, FD_THREADS, FieldDims<WIDE>::SMEM, (cudaStream_t)stream>>>(
+  field_fwd_kernel<WIDE><<<grid, FfBlock<WIDE>::THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)pts, N, (const bf16*)W, (const float*)F, (float*)out);
   return (int)cudaGetLastError();
 }
@@ -63,7 +75,7 @@ int launch_field_fwd(const void* pts, int N, const void* W, const void* F, void*
 
 extern "C" {
 
-int field_fwd_tile() { return nero::FD_RAYS; }
+int field_fwd_tile() { return nero::FD_TILE; }
 size_t field_fwd_weight_elems(int wide) {
   return wide ? nero::FieldDims<true>::WELEMS : nero::FieldDims<false>::WELEMS;
 }

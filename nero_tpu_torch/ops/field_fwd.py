@@ -42,6 +42,8 @@ def _lib():
 def _launch(W, Fv, wide, pts):
     n = pts.shape[0]
     out = torch.empty(n, device=pts.device)
+    if n == 0:  # nothing to launch, nothing counted
+        return out
     rc = _lib().field_fwd(pts.data_ptr(), n, W.data_ptr(), Fv.data_ptr(), int(wide),
                           out.data_ptr(), torch.cuda.current_stream(pts.device).cuda_stream)
     cuda_build.check(rc, "field_fwd")

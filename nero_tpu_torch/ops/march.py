@@ -67,6 +67,8 @@ def _launch(W, Fv, wide, rays_o, rays_d, t_enter, t_exit, n_coarse, n_refine, t0
     dev = rays_o.device
     t_out = torch.empty(r, device=dev)
     found = torch.empty(r, dtype=torch.bool, device=dev)
+    if r == 0:  # nothing to launch, nothing counted
+        return t_out, found
     rc = _lib().march(rays_o.data_ptr(), rays_d.data_ptr(), t_enter.data_ptr(),
                       t_exit.data_ptr(), r, W.data_ptr(), Fv.data_ptr(), int(wide), n_coarse,
                       n_refine, t0_eps, t_out.data_ptr(), found.data_ptr(),

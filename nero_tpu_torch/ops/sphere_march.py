@@ -5,10 +5,10 @@ ops/field_fwd.py.
 Replaces nero_tpu/ops/pallas/march_kernel.py::sphere_march_fused (:358, its
 pallas_call at :338) and keeps nero_tpu/ops/pallas/field_kernel.py's
 `pack_field_params` layout (:26-52) for both field topologies. The kernel
-source is csrc/sphere_march.cu, on the weight layout of csrc/field.cuh: warp-
-private tiles of 16 rays on mma.sync with the weights resident in shared
-memory and the activations in registers; its header comment gives the
-design. `sphere_march` launches the kernel for CUDA
+source is csrc/sphere_march.cu, on csrc/field.cuh's warp-tile engine (which
+the uniform march and the field forward share): warp-private tiles of 16
+rays on mma.sync with the weights resident in shared memory and the
+activations in registers; the two files' header comments give the design. `sphere_march` launches the kernel for CUDA
 tensors and runs `sphere_march_plain` for CPU tensors, and only then. Both
 compute, per ray, `n_sphere` sphere-trace evaluations of the field (`std`:
 PE6 -> 3 x 128 ReLU -> 1; `wide`: a quarter-octave PE of 123 channels ->
@@ -33,8 +33,7 @@ from nero_tpu_torch.ops import cuda_build
 FIELD_W = 128
 FEAT_PAD = 48    # 3 + 6*pe channels padded (pe = 6 -> 39 -> 48)
 PE = 6
-TILE = 128       # points per block of the march and field kernels (csrc/field.cuh FD_RAYS)
-SPHERE_TILE = 16  # rays per warp tile of the sphere march (csrc/sphere_march.cu SM_RAYS)
+TILE = 16        # rows per warp tile of the three field kernels (csrc/field.cuh FD_TILE)
 # the `wide` topology's encoding: (base frequency, octaves) per double-angle
 # chain, quarter-octave spacing up to 2^4.75
 WIDE_CHAINS = ((1.0, 5), (2.0 ** 0.25, 5), (2.0 ** 0.5, 5), (2.0 ** 0.75, 5))
@@ -203,10 +202,10 @@ def buffer_elems(wide: bool) -> tuple:
     return (FEAT_PAD + 2 * FIELD_W) * FIELD_W, 4 * FIELD_W + 4
 
 
-def field_lib(name: str, fn_argtypes: list, tile: int = TILE):
-    """The library of a kernel on csrc/field.cuh's weight layout (`name` is
-    both the source and its entry point), typed and checked against this
-    module's layout and the kernel's `tile` on first use."""
+def field_lib(name: str, fn_argtypes: list):
+    """The library of a kernel on csrc/field.cuh's engine (`name` is both
+    the source and its entry point), typed and checked against this module's
+    layout and TILE on first use."""
     lib = cuda_build.load(name)
     if not getattr(lib, "_nero_typed", False):
         i = ctypes.c_int
@@ -217,7 +216,7 @@ def field_lib(name: str, fn_argtypes: list, tile: int = TILE):
             fn.restype, fn.argtypes = ctypes.c_size_t, [i]
         entry = getattr(lib, name)
         entry.restype, entry.argtypes = i, fn_argtypes
-        if lib_tile() != tile or any((w_elems(w), f_elems(w)) != buffer_elems(bool(w))
+        if lib_tile() != TILE or any((w_elems(w), f_elems(w)) != buffer_elems(bool(w))
                                  for w in (0, 1)):
             raise RuntimeError(f"csrc/{name}.cu layout differs from ops/sphere_march.py")
         lib._nero_typed = True
@@ -227,7 +226,7 @@ def field_lib(name: str, fn_argtypes: list, tile: int = TILE):
 def _lib():
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     return field_lib("sphere_march", [vp, vp, vp, vp, i, vp, vp, i, i, i, i, f, f, f, f, f,
-                                      vp, vp, vp], SPHERE_TILE)
+                                      vp, vp, vp])
 
 
 def kernel_buffers(packed: dict):
@@ -265,6 +264,8 @@ def _launch(W, Fv, wide, rays_o, rays_d, t_enter, t_exit, n_sphere, n_refine, il
     dev = rays_o.device
     t_out = torch.empty(r, device=dev)
     found = torch.empty(r, dtype=torch.bool, device=dev)
+    if r == 0:  # nothing to launch, nothing counted
+        return t_out, found
     rc = _lib().sphere_march(rays_o.data_ptr(), rays_d.data_ptr(), t_enter.data_ptr(),
                              t_exit.data_ptr(), r, W.data_ptr(), Fv.data_ptr(), int(wide),
                              n_sphere, n_refine, int(illinois), t0_eps, margin, lip, dt_frac, cap_frac,

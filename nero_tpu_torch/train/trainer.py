@@ -8,9 +8,12 @@ with auto-resume, scalar logs in the model dir and a rays/sec meter.
 The optimizer is `torch.optim.Adam` over the {v, g, b} leaves, stepped
 with lr(step) from `train/lr.py` through LambdaLR: this reproduces
 `optax.adam(learning_rate=schedule)` (defaults b1 0.9, b2 0.999, eps 1e-8,
-bias correction, eps outside the square root in both). nero_tpu's MFU
-logging (core/mfu.py) reads XLA cost analysis and is not ported; its
-`matmul_precision` is honoured only as "highest" (`check_matmul_precision`).
+bias correction, eps outside the square root in both). With `profile_dir`
+set it writes a torch.profiler Chrome trace of steps [profile_start,
+profile_start + profile_steps) there, as nero_tpu writes its JAX trace.
+nero_tpu's MFU logging (core/mfu.py) reads XLA cost analysis and is not
+ported; its `matmul_precision` is honoured only as "highest"
+(`check_matmul_precision`).
 """
 from __future__ import annotations
 
@@ -56,6 +59,10 @@ class Trainer:
         "random_seed": 6033,
         "model_root": "data/model",
         "vis_dir": "data/train_vis",
+        # write a torch.profiler trace of steps [profile_start, profile_start + profile_steps)
+        "profile_dir": None,
+        "profile_start": 20,
+        "profile_steps": 5,
     }
 
     def __init__(self, cfg: dict, device=None):
@@ -110,6 +117,26 @@ class Trainer:
             return best_para, step
         return 0.0, 0
 
+    def _start_profile(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof, first: int, last: int) -> None:
+        """Close the window once the device has finished its steps, as
+        nero_tpu blocks on the loss, and write the Chrome trace."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        Path(self.cfg["profile_dir"]).mkdir(exist_ok=True, parents=True)
+        path = os.path.join(self.cfg["profile_dir"],
+                            f"{self.model_name}_steps{first}-{last}.trace.json")
+        prof.export_chrome_trace(path)
+        print(f"profiler trace of steps {first}-{last}: {path}")
+
     def run(self):
         if self.model is None:
             self.setup()
@@ -123,8 +150,16 @@ class Trainer:
         total = self.cfg["total_step"]
         params = self.model.params
         meter.sync(start_step, rays_per_step)
+        prof = None
+        prof_start = self.cfg["profile_start"]
+        prof_last = min(prof_start + self.cfg["profile_steps"], total) - 1
         for step in range(start_step, total):
+            if self.cfg["profile_dir"] and step == prof_start <= prof_last:
+                prof = self._start_profile()
             log = self.train_step(step)
+            if prof is not None and step == prof_last:
+                self._stop_profile(prof, prof_start, prof_last)
+                prof = None
 
             if (step + 1) % self.cfg["train_log_step"] == 0:
                 host_log = {k: float(v) for k, v in log.items()}

@@ -7,6 +7,9 @@ torus as tests/test_pallas_kernels.py builds them, at that file's bars
 ray may bracket another crossing). The CUDA kernels themselves are held
 against the plain versions on the card by chip_smoke.py and by the
 `gpu`-marked test."""
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,8 +21,10 @@ from nero_tpu.geometry import neural_tracer as J
 from nero_tpu.ops.pallas.field_kernel import field_fwd_fused, pack_field_params as pack_jax
 from nero_tpu.ops.pallas.march_kernel import (_field_eval_t_wide, march_fused,
                                               sphere_march_fused)
+from nero_tpu_torch import kernel_variants
 from nero_tpu_torch.core.convert import from_numpy_tree
 from nero_tpu_torch.geometry import neural_tracer as T
+from nero_tpu_torch.ops import cuda_build
 from nero_tpu_torch.ops import field_fwd as KF
 from nero_tpu_torch.ops import march as KM
 from nero_tpu_torch.ops import sphere_march as K
@@ -65,15 +70,15 @@ def fitted():
     return {t: _fit(t) for t in TOPOLOGIES}
 
 
-def _rays():
+def _rays(n=R):
     """Rays from a sphere of radius 1.4 in random directions, as the JAX test."""
     rng = np.random.default_rng(4)
-    o = rng.standard_normal((R, 3))
+    o = rng.standard_normal((n, 3))
     o = 1.4 * o / np.linalg.norm(o, axis=-1, keepdims=True)
-    d = rng.standard_normal((R, 3))
+    d = rng.standard_normal((n, 3))
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    return (o.astype(np.float32), d.astype(np.float32), np.full(R, 0.012, np.float32),
-            np.full(R, 2.8, np.float32))
+    return (o.astype(np.float32), d.astype(np.float32), np.full(n, 0.012, np.float32),
+            np.full(n, 2.8, np.float32))
 
 
 def _agree(t_j, h_j, t_t, h_t):
@@ -276,17 +281,76 @@ def test_work_per_launch():
     assert K.min_bytes(393216, "wide") == 393216 * 40 + 256 * 128 * 2
 
 
+def _read(fn):
+    with open(os.path.join(cuda_build.CSRC, fn)) as f:
+        return f.read()
+
+
+def test_field_kernels_run_on_the_warp_engine():
+    """The three kernels of the distilled field run on csrc/field.cuh's
+    warp-tile engine: no block_mm and no barrier of their own; the engine
+    keeps no block path, and its one __syncthreads is the prologue's."""
+    for fn in ("sphere_march.cu", "march.cu", "field_fwd.cu"):
+        src = _read(fn)
+        assert "block_mm" not in src and "__syncthreads()" not in src, fn
+        assert "field_prologue<WIDE," in src and src.count("field16<WIDE>(") == 1, fn
+    engine = _read("field.cuh")
+    prologue = engine[engine.index("WarpField field_prologue("):]
+    prologue = prologue[:prologue.index("\n}\n")]
+    assert engine.count("__syncthreads()") == prologue.count("__syncthreads()") == 1
+    for fn in os.listdir(cuda_build.CSRC):
+        if fn.endswith((".cu", ".cuh")):
+            src = _read(fn)
+            for gone in ("field_eval", "field_load", "field_carve", "FieldSmem",
+                         "bias_relu_store", "field_encode"):
+                assert not re.search(rf"\b{gone}\b", src), (fn, gone)
+
+
+def test_tile_is_the_warp_tile():
+    """The wrappers check the kernels' 16-row warp tile against this."""
+    assert K.TILE == 16 and "constexpr int FD_TILE = 16;" in _read("field.cuh")
+
+
+@pytest.mark.parametrize("name", list(kernel_variants.MARCH_VARIANTS))
+def test_every_march_variant_patch_applies(name):
+    """A stale patch shows only on the card: each variant's every (old, new)
+    pair must find its text in csrc/march.cu or in the engine's
+    csrc/field.cuh as they are, and change it."""
+    files = kernel_variants.variant_files(name, "march")
+    assert "march.cu" in files and set(files) <= {"march.cu", "field.cuh"}
+    changed = any(text != _read(fn) for fn, text in files.items())
+    assert changed == bool(kernel_variants.MARCH_VARIANTS[name])
+
+
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain_versions(fitted):
+    """At 256 rays and points, at 1,001 (not a multiple of the 16-row warp
+    tile) and at 0 (empty, correctly typed outputs, no launch counted): the
+    march's found agreement > 0.99 and median |dt| < 1e-3, the field within
+    1e-3 of its plain version and 2e-2 of the f32 field."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     dev = torch.device("cuda")
-    rays = tuple(torch.from_numpy(a).to(dev) for a in _rays())
-    for topology in TOPOLOGIES:
-        packed = {k: v.to(dev) for k, v in fitted[topology][3].items()}
-        t_k, h_k = KM.march(packed, *rays, n_coarse=32, n_refine=8, topology=topology)
-        t_p, h_p = KM.march_plain(packed, *rays, n_coarse=32, n_refine=8)
-        assert (h_k == h_p).float().mean() > 0.99
-        assert (t_k - t_p).abs()[h_k & h_p].median() < 1e-3
-        v_k = KF.field_fwd(packed, rays[0], topology=topology)
-        assert (v_k - KF.field_fwd_plain(packed, rays[0])).abs().max() < 1e-3
+    for n in (R, 1001, 0):
+        rays = tuple(torch.from_numpy(a).to(dev) for a in _rays(n))
+        for topology in TOPOLOGIES:
+            _, _, params_t, packed_t = fitted[topology]
+            packed = {k: v.to(dev) for k, v in packed_t.items()}
+            before = (dict(KM.launches), dict(KF.launches))
+            t_k, h_k = KM.march(packed, *rays, n_coarse=32, n_refine=8, topology=topology)
+            v_k = KF.field_fwd(packed, rays[0], topology=topology)
+            inside = 0.6 * rays[0]   # within the fitted box
+            v_in = KF.field_fwd(packed, inside, topology=topology)
+            torch.cuda.synchronize()
+            assert t_k.shape == h_k.shape == v_k.shape == (n,)
+            assert t_k.dtype == v_k.dtype == torch.float32 and h_k.dtype == torch.bool
+            if n == 0:
+                assert (KM.launches, KF.launches) == before
+                continue
+            t_p, h_p = KM.march_plain(packed, *rays, n_coarse=32, n_refine=8)
+            assert torch.isfinite(t_k).all()
+            assert (h_k == h_p).float().mean() > 0.99
+            assert (t_k - t_p).abs()[h_k & h_p].median() < 1e-3
+            assert (v_k - KF.field_fwd_plain(packed, rays[0])).abs().max() < 1e-3
+            f32 = T.field_apply(params_t, inside.cpu(), topology=topology)
+            assert (v_in.cpu() - f32).abs().max() < 2e-2

@@ -5,6 +5,7 @@ light of the real captures; `sphere_heads.yaml`: per-head shader through the
 predictor function and the value-only SDF function) held against nero_tpu:
 loss and every gradient at a step before and a step inside the occlusion
 phase."""
+import json
 import os
 
 import jax
@@ -89,6 +90,27 @@ def test_trainer_runs_validates_and_resumes(tmp_path):
     resumed = Trainer({**cfg, "total_step": 4}, device="cpu")
     resumed.run()
     assert [h["step"] for h in resumed.train_history] == [3]
+
+
+def test_trainer_writes_the_profile_trace(tmp_path):
+    """`profile_dir` (nero_tpu's key and defaults): a torch.profiler Chrome
+    trace of steps [profile_start, profile_start + profile_steps); a run
+    without the key writes none."""
+    cfg = {**TINY_CFG, "val_metric": ["shape_render"], "total_step": 4, "train_log_step": 10,
+           "val_interval": 10, "save_interval": 10, "lr_cfg": {"end_warm": 1, "lr": 1e-3}}
+    assert Trainer(dict(cfg, model_root=str(tmp_path / "plain")), device="cpu").cfg[
+        "profile_dir"] is None
+    traced = tmp_path / "trace"
+    Trainer({**cfg, "model_root": str(tmp_path / "model"), "vis_dir": str(tmp_path / "vis"),
+             "profile_dir": str(traced), "profile_start": 1, "profile_steps": 2},
+            device="cpu").run()
+    assert [p.name for p in traced.iterdir()] == ["test_tiny_steps1-2.trace.json"]
+    with open(traced / "test_tiny_steps1-2.trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("name", "").startswith("aten::") for e in events)
+    Trainer({**cfg, "model_root": str(tmp_path / "plain"), "vis_dir": str(tmp_path / "vis2")},
+            device="cpu").run()
+    assert not list(tmp_path.glob("plain/**/*.json")) and not list(tmp_path.glob("*.json"))
 
 
 def test_entry_points_need_cuda_unless_told():

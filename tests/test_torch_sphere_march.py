@@ -208,11 +208,15 @@ def test_work_per_launch():
 @pytest.mark.parametrize("name", list(kernel_variants.SPHERE_VARIANTS))
 def test_every_variant_patch_applies(name):
     """A stale patch shows only on the card: each variant's every (old, new)
-    pair must find its text in csrc/sphere_march.cu as it is, and change it."""
-    src = kernel_variants.variant_source(name, "sphere_march")
-    with open(os.path.join(cuda_build.CSRC, "sphere_march.cu")) as f:
-        orig = f.read()
-    assert (src == orig) == (not kernel_variants.SPHERE_VARIANTS[name])
+    pair must find its text in csrc/sphere_march.cu or in the engine's
+    csrc/field.cuh as they are, and change it."""
+    files = kernel_variants.variant_files(name, "sphere_march")
+    assert "sphere_march.cu" in files and set(files) <= {"sphere_march.cu", "field.cuh"}
+    changed = False
+    for fn, text in files.items():
+        with open(os.path.join(cuda_build.CSRC, fn)) as f:
+            changed |= text != f.read()
+    assert changed == bool(kernel_variants.SPHERE_VARIANTS[name])
 
 
 @pytest.mark.gpu
