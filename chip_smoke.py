@@ -19,11 +19,14 @@ result line):
      `human_light`, both), at n = 1,001 and 0 too, each direction the same
      to the bit in two calls, its four kernels' ptxas (0 spill bytes); the
      predictor kernel fwd/bwd for each of the shader's seven head shapes
-     (259 -> 1 ... 24 -> 4), at n = 1,001 and 0 too, its backward's dx, dW
-     and dB to the bit in two calls, its three parts timed apart, their
-     ptxas (0 spill bytes); the value-only SDF kernel at 131,072
-     points (the occlusion march's first pass) and 32,768 (the sampler's),
-     timed also at 8,192 (its three up-sample passes);
+     (259 -> 1 ... 24 -> 4), at n = 1,001 and 0 too, its forward's output
+     and its backward's dx, dW and dB to the bit in two calls, the
+     backward's three parts timed apart, the four kernels' ptxas (0 spill
+     bytes); the value-only SDF kernel at 131,072 points (the occlusion
+     march's first pass) and 32,768 (the sampler's), equal to the bit to the
+     SDF-with-gradient kernel's sdf there and at 3 x 1,001 points, its two
+     tile sizes the same bits, 0 spill bytes, timed also at 8,192 (its three
+     up-sample passes) and on both sides of its tile rule's threshold;
      then the light kernel (fwd/bwd; both heads, and the outer head alone
      with `sphere_direction`) at N = 393,216 rows, and at n = 1,001 and 0,
      its forward's outputs and its backward's dW / dB to the bit in two
@@ -480,12 +483,17 @@ def check_sdf_fwd(n: int, n_small: int, dev) -> list:
     """The value-only SDF kernel against its plain (f32) version at the
     occlusion march's first-pass size `n` and the sampler's `n_small`, with
     the bars of tests/test_pallas_kernels.py (atol 2e-2, mean error under
-    3e-3: bf16 operands), and against the sdf of the SDF-with-gradient
-    kernel, which runs the same arithmetic; also at a ragged size and with a
-    scale other than 1. Timed at `n`, `n_small` and N_UPSAMPLE, the sizes of
-    the sampler's and the occlusion march's launches."""
+    3e-3: bf16 operands), and equal to the bit to the sdf of the
+    SDF-with-gradient kernel, which runs the same arithmetic on the same
+    engine: at `n_small` points and at a ragged size (3 x 1001 points, which
+    B1's wrapper pads) with a scale other than 1. Its two tile sizes give the
+    same bits; neither instance spills, nor does B1's forward after the lift.
+    Timed at `n`, `n_small` and N_UPSAMPLE, the sizes of the sampler's and
+    the occlusion march's launches, and on both sides of the tile rule's
+    threshold (64 points a tile up to 64 x the card's SM count)."""
     from nero_tpu_torch.fields.sdf import SDFConfig, init_sdf
     from nero_tpu_torch.ops import sdf_fwd as K
+    from nero_tpu_torch.ops.cuda_build import ptxas_info
     from nero_tpu_torch.ops.sdf_grad import sdf_with_grad
 
     cfg = SDFConfig()
@@ -495,37 +503,61 @@ def check_sdf_fwd(n: int, n_small: int, dev) -> list:
     with torch.no_grad():
         v_k, v_p = K.sdf_fwd(params, pts, cfg), K.sdf_fwd_plain(params, pts, cfg)
         v_g = sdf_with_grad(params, pts[:n_small], cfg)[0]
+        v_small = K.sdf_fwd(params, pts[:N_UPSAMPLE], cfg)
     err = (v_k - v_p).abs()
     check(err.max().item() <= 2e-2 and err.mean().item() < 3e-3,
           f"sdf_fwd: max err {err.max()}, mean {err.mean()}")
-    e_grad_kernel = (v_k[:n_small] - v_g).abs().max().item()
-    check(e_grad_kernel <= 1e-5, f"sdf_fwd against sdf_grad's sdf: {e_grad_kernel}")
+    check(torch.equal(v_k[:n_small], v_g),
+          f"sdf_fwd against sdf_grad's sdf: max |d| {(v_k[:n_small] - v_g).abs().max()}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tiles = (K.tile(N_UPSAMPLE, sms), K.tile(n, sms))
+    check(torch.equal(v_small, v_k[:N_UPSAMPLE]),
+          f"sdf_fwd: {tiles[0]}-point tiles differ from {tiles[1]}-point tiles")
     # ragged tail, leading shape, scale != 1
     cfg2 = cfg._replace(scale=1.3)
     odd = pts[:3 * 1001].reshape(3, 1001, 3)
     with torch.no_grad():
         o_k, o_p = K.sdf_fwd(params, odd, cfg2), K.sdf_fwd_plain(params, odd, cfg2)
+        o_g = sdf_with_grad(params, odd, cfg2)[0]
     check(o_k.shape == (3, 1001, 1), f"sdf_fwd shape {o_k.shape}")
-    e_odd = (o_k - o_p).abs().max().item()
-    check(e_odd <= 2e-2, f"sdf_fwd (3 x 1001 points, scale 1.3): max err {e_odd}")
+    e_odd = (o_k - o_p).abs()
+    check(e_odd.max().item() <= 2e-2 and e_odd.mean().item() < 3e-3,
+          f"sdf_fwd (3 x 1001 points, scale 1.3): max err {e_odd.max()}, mean {e_odd.mean()}")
+    check(torch.equal(o_k, o_g), f"sdf_fwd against sdf_grad's sdf at 3 x 1001 points, scale 1.3: "
+                                 f"max |d| {(o_k - o_g).abs().max()}")
+    ptx = {k: ptxas_info("sdf_fwd", pat) for k, pat in
+           (("sdf_fwd_kernel<2>", r"sdf_fwd_kernelILi2E"),
+            ("sdf_fwd_kernel<1>", r"sdf_fwd_kernelILi1E"))}
+    ptx["sdf_grad_fwd_kernel"] = ptxas_info("sdf_grad", "sdf_grad_fwd_kernel")
+    check(all(v.get("spill_bytes") == 0 for v in ptx.values()), f"sdf_fwd spills: {ptx}")
     print(f"sdf_fwd       max|d sdf| {err.max().item():.3e} (atol 2e-2), mean "
-          f"{err.mean().item():.3e} (< 3e-3) at N = {n}; "
-          f"against sdf_grad's sdf {e_grad_kernel:.3e} (<= 1e-5); 3 x 1001 points at scale 1.3 "
-          f"{e_odd:.3e} (atol 2e-2)")
+          f"{err.mean().item():.3e} (< 3e-3) at N = {n}; equal to sdf_grad's sdf to the bit at "
+          f"N = {n_small} and at 3 x 1001 points at scale 1.3 ({e_odd.max().item():.3e} from the "
+          f"plain version); {tiles[0]}- and {tiles[1]}-point tiles the same bits; " + ", ".join(
+              f"{k} {v.get('regs')} regs {v.get('spill_bytes')} spill bytes"
+              for k, v in ptx.items()))
     packed = K.pack_params(params, cfg)
     entry = {"name": "sdf_fwd", "route": "cuda", "source": "nero_tpu_torch/csrc/sdf_fwd.cu",
              "replaces": "nero_tpu/ops/pallas/sdf_kernel.py:122", "max_abs_err": err.max().item(),
-             "library_ms": None, "n": n}
+             "library_ms": None, "n": n, "ptxas": ptx}
     # `ms`: the launch on packed weights, which is what the renderer calls
     # (it packs once a step and launches 4-6 times); `wrapper_ms` packs too.
-    # Timed also at the sampler's up-sample size, 3 of its 4 launches a step
-    for m, key in ((n, ""), (n_small, f"_n{n_small}"), (N_UPSAMPLE, f"_n{N_UPSAMPLE}")):
+    # Timed also at the sampler's up-sample size, 3 of its 4 launches a step,
+    # and on both sides of the tile rule's threshold
+    thr = K.SMALL_TILE * sms
+    sizes = [n, n_small, N_UPSAMPLE, thr, thr + K.SMALL_TILE]
+    said = []
+    for m in sizes:
+        key = "" if m == n else f"_n{m}"
         sub = pts[:m].contiguous()
         entry["ms" + key] = cuda_ms(lambda: K.sdf_fwd_packed(packed, sub, cfg))
         entry["launch_ms" + key] = entry["ms" + key]
+        entry["tile" + key] = K.tile(m, sms)
         entry["wrapper_ms" + key] = cuda_ms(lambda: K.sdf_fwd(params, sub, cfg))
         entry["plain_ms" + key] = cuda_ms(lambda: K.sdf_fwd_plain(params, sub, cfg))
         entry["bound_ms" + key], entry["bound_by" + key] = bound(K.flops(m), K.min_bytes(m))
+        said.append(f"{entry['ms' + key]:.4f} at {m} ({entry['tile' + key]}-point tiles)")
+    print("sdf_fwd       launch ms " + ", ".join(said))
     return [entry]
 
 
@@ -533,7 +565,8 @@ def check_predictor(n: int, dev) -> list:
     """The predictor kernel, forward and backward, against its plain version
     for every head shape of the Stage-I shader (all its variants:
     `ops/predictor.py::SHADER_SHAPES`), with tests/test_predictor_kernel.py's bars:
-    values atol 2e-3 + rtol 1e-2; parameter gradients' worst mean error
+    values atol 2e-3 + rtol 1e-2 (at n and at 1,001 rows, the same bits in
+    two calls, 0 spill bytes); parameter gradients' worst mean error
     (normalised by each leaf's max) under 1.5x that of the plain version with
     bf16 products + 1e-4, every leaf within cosine 0.99; the input cotangent's
     mean error under 0.02 of its max."""
@@ -602,9 +635,14 @@ def check_predictor(n: int, dev) -> list:
                         "library_ms": None})
         out[-1]["mean_rel_err"] = noise_ker
         del g_p, g_k, g_b
-        # a ragged size (tiles of 64 rows forward, 128 backward) at the same
-        # bars, and no rows: an empty dx, dW and dB exactly 0, nothing counted
+        # a ragged size (tiles of 128 rows) at the same bars, and no rows: an
+        # empty output, dx, dW and dB exactly 0, nothing counted
         m = 1001
+        with torch.no_grad():
+            y_m, y_mp = K.predictor(layers, x[:m]), K.predictor_plain(layers, x[:m])
+        err_m = (y_m - y_mp).abs()
+        check(bool((err_m <= 2e-3 + 1e-2 * y_mp.abs()).all()),
+              f"predictor{sfx} at n = {m}: max err {err_m.max()}")
         x_m = x[:m].detach().clone().requires_grad_(True)
         wrt_m = leaves(layers) + [x_m]
         g_p = torch.autograd.grad((K.predictor_plain(layers, x_m) * cot[:m]).sum(), wrt_m)
@@ -619,6 +657,8 @@ def check_predictor(n: int, dev) -> list:
         z = K._bwd(xd[:0], W, B, cot[:0])
         check(tuple(z[0].shape) == (0, d_in) and not z[1].any() and not z[2].any(),
               f"predictor_bwd{sfx} zero rows: dx {tuple(z[0].shape)}, dW or dB not zero")
+        check(tuple(K._fwd(xd[:0], W, B, d_out).shape) == (0, d_out),
+              f"predictor_fwd{sfx} zero rows: the output's shape")
         check(K.launches == counted,
               f"predictor{sfx} zero rows: counted a launch that was not made")
         # the backward's parts alone, on the wrapper's buffers: recompute +
@@ -627,9 +667,11 @@ def check_predictor(n: int, dev) -> list:
         from nero_tpu_torch.ops.cuda_build import check as check_rc, ptxas_info
         with torch.no_grad():
             first, second = (K._bwd(xd, W, B, cot) for _ in range(2))
+            fwd_twice = [K._fwd(xd, W, B, d_out) for _ in range(2)]
         check(all(torch.equal(a, b) for a, b in zip(first, second)),
               f"predictor_bwd{sfx}: two calls differ")
-        del first, second, z
+        check(torch.equal(*fwd_twice), f"predictor_fwd{sfx}: two calls differ")
+        del first, second, z, fwd_twice
         lib, stream = K._lib(), torch.cuda.current_stream(dev).cuda_stream
         di = K.padded_d_in(d_in)
         scratch, part = K.bwd_buffers(n, di, dev)
@@ -649,10 +691,20 @@ def check_predictor(n: int, dev) -> list:
                 "predictor_bwd_reduce_kernel")}
         check(all(v.get("spill_bytes") == 0 for v in ptx.values()),
               f"predictor{sfx} backward spills: {ptx}")
+        ptx_fwd = {"predictor_fwd_kernel": ptxas_info("predictor", "predictor_fwd_kernel")}
+        check(ptx_fwd["predictor_fwd_kernel"].get("spill_bytes") == 0,
+              f"predictor{sfx} forward spills: {ptx_fwd}")
+        out[-2]["ptxas"] = ptx_fwd
         out[-1].update({"sweep_ms": sweep_ms, "params_ms": params_ms, "reduce_ms": reduce_ms,
                         "scratch_bytes": buf_bytes, "ptxas": ptx})
-        print(f"predictor{sfx}  n = {m}: grads worst cosine {cos_odd:.5f}, d x {dx_odd:.3e}; "
-              f"n = 0: dx (0, {d_in}), dW and dB zero")
+        print(f"predictor{sfx}  n = {m}: fwd max|d| {err_m.max().item():.3e}, grads worst cosine "
+              f"{cos_odd:.5f}, d x {dx_odd:.3e}; n = 0: out (0, {d_out}), dx (0, {d_in}), dW and "
+              f"dB zero")
+        print(f"predictor_fwd{sfx}  launch {launch_fwd:.3f} ms on {-(-n // K.TILE)} tiles of "
+              f"{K.TILE} rows, wrapper {ms_fwd:.3f}, bound {out[-2]['bound_ms']:.3f} ms; the same "
+              f"output to the bit in two calls; predictor_fwd_kernel "
+              f"{ptx_fwd['predictor_fwd_kernel'].get('regs')} regs "
+              f"{ptx_fwd['predictor_fwd_kernel'].get('spill_bytes')} spill bytes")
         print(f"predictor_bwd{sfx}  launch {launch_bwd:.3f} ms = sweep {sweep_ms:.3f} + parameter "
               f"pass {params_ms:.3f} + reduction {reduce_ms:.3f}; wrapper {ms_bwd:.3f} ms, bound "
               f"{out[-1]['bound_ms']:.3f} ms; scratch + partials {buf_bytes / 1e9:.3f} GB at "

@@ -9,9 +9,22 @@
 // to 16 columns; sums are f32. Any d_in up to 272 and d_out up to 16: every
 // head of the Stage-I shader.
 //
-// Forward (predictor_rows_kernel): one block per tile of P = 64 rows, the
-// products through common.cuh's block_mm; only x comes in and only out goes
-// out. Rows past n are masked.
+// Forward (predictor_fwd_kernel), on the mma.sync engine of engine.cuh that
+// the backward and lights.cu run too: one block of 16 warps per tile of PB
+// = 128 rows (warp w: rows 32(w/4) .. +31, columns 64(w%4) .. +63, 64 f32
+// accumulators a lane). x goes into the tile as bf16 through load_x, the
+// sweep's input code (zeros past d_in and past n, a float at a time: a row
+// of an odd d_in starts at an odd float); the weights stream through the
+// 2-stage cp.async ring on a slab table of the forward's own (W1 in
+// ceil(di / 128) slabs, W2, W3 in two each, then W4 [256, 16] as two
+// 128-row slabs of its 16 columns: the backward never streams W4, so its
+// table is not a prefix); bias and ReLU in registers, each H once into the
+// tile, bf16, with the rounding points of the sweep's recompute (bf16 X and
+// H, f32 sums, k from 0 up in steps of 16). The output layer runs on the
+// warps of columns 0-63, their first two n8-tiles, and its f32 sums plus
+// the bias go straight from the accumulators to out. No C tile; the
+// forward and the recompute stay two loops (one shared loop spilled in the
+// shader kernel). Rows past n are masked.
 //
 // Backward: the TPU kernel adds dW and db into VMEM accumulators across a
 // sequential grid (:112-134). Blocks on this card run in no order, so the
@@ -40,75 +53,43 @@
 //
 // Bound: tensor-core operations, 2 * (d_in*256 + 2*256*256 + 256*d_out) per
 // row forward and 3x that backward (0.026 and 0.079 ms at N = 65,536, d_in
-// 259), against 4 * (d_in + d_out) bytes per row in and out. What keeps the
-// backward from it: the sweep streams the head's weights (0.41 MB bf16 at di
-// 272) from L2 twice per 128-row tile, ~0.4 GB a launch at N = 65,536, and
-// writes the scratch (3.6 KB a row at di 272), which the parameter pass reads
-// back (each layer's GZ once for each 128-row part of its input). The
-// forward is still the first version: 64-row tiles on block_mm, every warp
-// streaming its B fragments from L2.
+// 259), against 4 * (d_in + d_out) bytes per row in and out. What keeps both
+// directions from it: every 128-row tile streams the head's weights (0.41
+// MB bf16 at di 272) from L2 through a 2-stage ring, a block barrier a
+// slab, so a block's products wait on the stream and the epilogues run
+// between them, not beside them (the backward twice, ~0.4 GB a launch at N
+// = 65,536); mma.sync, not the warpgroup products; the output layer keeps
+// 12 of the 16 warps idle for its 16 columns. The backward also writes the
+// scratch (3.6 KB a row at di 272), which the parameter pass reads back
+// (each layer's GZ once for each 128-row part of its input).
 #include "engine.cuh"
 
 using namespace nero;
 
 namespace {
 
-constexpr int P = 64;
-constexpr int NTHREADS = 512;
 constexpr int HID = 256;
-constexpr int DO = 16;       // head outputs padded
-constexpr int MAX_DI = 272;  // the widest input: [feats, pts] = 259, padded
-constexpr int LDX = MAX_DI + 8, LDH = HID + 8, LDC = MAX_DI + 4;
-constexpr size_t SMEM_FWD = (size_t)P * LDX * 2 + (size_t)P * LDH * 2 + (size_t)P * LDC * 4;
+constexpr int DO = 16;           // head outputs padded
+constexpr int MAX_DI = 272;      // the widest input: [feats, pts] = 259, padded
+constexpr int PB = 128;          // rows per tile, both directions
+constexpr int BTHREADS = 512;    // 16 warps: PB / 32 row groups x NQ column groups
+constexpr int LDA = MAX_DI + 8;  // input / activation / cotangent tile [PB][LDA] bf16
+constexpr size_t TILE_BYTES = (size_t)PB * LDA * 2;
+// the forward's stream: W1 in up to 3 slabs, W2, W3 and W4 in HS each
+constexpr int MAX_FWD_SLABS = (MAX_DI + SLAB_K - 1) / SLAB_K + 3 * HS;
+constexpr size_t F_SMEM =
+    TILE_BYTES + (size_t)STAGES * STAGE_ELEMS * 2 + (size_t)MAX_FWD_SLABS * sizeof(SlabRec);
+// the backward's at di = 272 with dx: W1 in 3 slabs, W2, W3, W4^T, W3^T,
+// W2^T, and W1^T in two passes of HS slabs
+constexpr int MAX_SLABS = (MAX_DI + SLAB_K - 1) / SLAB_K + 6 * HS + 1;
+constexpr size_t B_SMEM =
+    TILE_BYTES + (size_t)STAGES * STAGE_ELEMS * 2 + (size_t)MAX_SLABS * sizeof(SlabRec);
 static_assert(HID == LAYER_W, "the engine's layer width");
-
-__host__ __device__ inline void head_layers(const bf16* W, int di, const bf16** Wl) {
-  Wl[0] = W;
-  Wl[1] = Wl[0] + (size_t)di * HID;
-  Wl[2] = Wl[1] + (size_t)HID * HID;
-  Wl[3] = Wl[2] + (size_t)HID * HID;
-}
-
-// x [n, d_in] f32; W packed bf16 (w1 [di,256], w2, w3, w4 [256,16]); B [4][256]
-// f32 -> out [n, d_out].
-__global__ void __launch_bounds__(NTHREADS, 1)
-predictor_rows_kernel(const float* __restrict__ x, int n, int d_in, int di, int d_out,
-                      const bf16* __restrict__ W, const float* __restrict__ B,
-                      float* __restrict__ out) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* X = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Hb = X + P * LDX;
-  float* C = reinterpret_cast<float*>(Hb + P * LDH);
-  const int tid = threadIdx.x;
-  const int p0 = blockIdx.x * P;
-  const bf16* Wl[4];
-  head_layers(W, di, Wl);
-
-  for (int idx = tid; idx < P * di; idx += NTHREADS) {
-    const int r = idx / di, c = idx % di;
-    const float v = (p0 + r < n && c < d_in) ? x[(size_t)(p0 + r) * d_in + c] : 0.0f;
-    X[r * LDX + c] = to_bf(v);
-  }
-  __syncthreads();
-
-  for (int l = 0; l < 3; ++l) {
-    if (l == 0) block_mm<false>(X, LDX, Wl[0], HID, C, LDC, P, HID, di, false);
-    else block_mm<false>(Hb, LDH, Wl[l], HID, C, LDC, P, HID, HID, false);
-    __syncthreads();
-    for (int idx = tid; idx < P * HID; idx += NTHREADS) {
-      const int r = idx / HID, c = idx % HID;
-      Hb[r * LDH + c] = to_bf(fmaxf(C[r * LDC + c] + B[l * HID + c], 0.0f));
-    }
-    __syncthreads();
-  }
-
-  block_mm<false>(Hb, LDH, Wl[3], DO, C, LDC, P, DO, HID, false);
-  __syncthreads();
-  for (int idx = tid; idx < P * d_out; idx += NTHREADS) {
-    const int r = idx / d_out, c = idx % d_out;
-    if (p0 + r < n) out[(size_t)(p0 + r) * d_out + c] = C[r * LDC + c] + B[3 * HID + c];
-  }
-}
+static_assert(BTHREADS == 4 * PB, "GZ4 is loaded by 4 lanes a row");
+static_assert(BTHREADS / 32 == PB / 32 * NQ, "warps tile the rows and the columns");
+static_assert(PW_RS % PB == 0, "the scratch's rows are whole tiles");
+static_assert(DO <= 8 * WN && DO % 16 == 0, "the output layer: the first n8-tiles of a warp");
+static_assert(F_SMEM <= 232448 && B_SMEM <= 232448, "shared memory");
 
 inline bool di_ok(int di) { return di >= 16 && di % 16 == 0 && di <= MAX_DI; }
 
@@ -116,23 +97,106 @@ inline bool dims_ok(int d_in, int di, int d_out) {
   return d_in >= 1 && di >= d_in && di_ok(di) && d_out >= 1 && d_out <= DO;
 }
 
+// The tile's input: x rounded to bf16, zeros past d_in and past n, a float at
+// a time (a row of an odd d_in starts at an odd float). Not inlined: the
+// per-row phases keep their registers out of the products'.
+__device__ __noinline__ void load_x(const float* __restrict__ x, int n, int d_in, int di, int p0,
+                                    bf16* A) {
+  for (int idx = threadIdx.x; idx < PB * di; idx += BTHREADS) {
+    const int r = idx / di, c = idx - r * di;
+    A[r * LDA + c] = to_bf(p0 + r < n && c < d_in ? x[(size_t)(p0 + r) * d_in + c] : 0.0f);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
+
+__host__ __device__ inline int n_fwd_slabs(int di) { return (di + SLAB_K - 1) / SLAB_K + 3 * HS; }
+
+// Slab s of the forward's stream: W1 (di rows in slabs of SLAB_K), W2 and
+// W3 as [k][n] slabs of SLAB_K rows, then W4 [256, 16] as HS slabs of SLAB_K
+// rows and its 16 columns. The backward's slab_at starts with the same
+// slabs but never streams W4.
+__device__ Slab fwd_slab_at(int s, int di) {
+  const int n1 = (di + SLAB_K - 1) / SLAB_K;
+  if (s < n1) return {(size_t)s * SLAB_K * HID, min(SLAB_K, di - s * SLAB_K), HID, HID, LDB};
+  s -= n1;
+  const int l = 1 + s / HS, j = s % HS, cols = l == 3 ? DO : HID;
+  return {layer_woff(0, di, l) + (size_t)j * SLAB_K * cols, SLAB_K, cols, cols, LDB};
+}
+
+// x [n, d_in] f32; W packed bf16 (w1 [di,256], w2, w3, w4 [256,16]); B [4][256]
+// f32 -> out [n, d_out].
+__global__ void __launch_bounds__(BTHREADS, 1)
+predictor_fwd_kernel(const float* __restrict__ x, int n, int d_in, int di, int d_out,
+                     const bf16* __restrict__ W, const float* __restrict__ B,
+                     float* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* A = reinterpret_cast<bf16*>(smem_raw);  // input, then activations [PB][LDA]
+  bf16* ring_base = reinterpret_cast<bf16*>(smem_raw + TILE_BYTES);
+  SlabRec* recs = reinterpret_cast<SlabRec*>(ring_base + STAGES * STAGE_ELEMS);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = warp / NQ, cq = warp % NQ;  // row group, column group
+  const int g = lane >> 2, t = lane & 3;      // accumulator row and column pair
+  const int p0 = blockIdx.x * PB;
+  const int count = n_fwd_slabs(di);
+
+  for (int i = tid; i < count; i += BTHREADS) recs[i] = slab_rec(fwd_slab_at(i, di));
+  __syncthreads();
+  Ring ring{ring_base, W, recs, count, 0};
+  for (int st = 0; st < STAGES - 1; ++st) ring.load(st);  // in flight while x comes in
+  load_x(x, n, d_in, di, p0, A);
+
+  const unsigned a_x = smem_u32(A + (grp * 32 + (lane & 15)) * LDA + (lane >> 4) * 8);
+  const int col0 = cq * WN * 8;
+  bf16* arow = A + (grp * 32 + g) * LDA + col0 + 2 * t;
+  float acc[2][WN][4];
+
+  // H = relu(z + b) to the tile, once, bf16
+  for (int l = 0; l < 3; ++l) {
+    zero(acc);
+    product<false>(acc, ring, a_x, LDA, l == 0 ? di : HID, col0, HID - col0);
+    __syncthreads();  // every warp is done reading the tile
+#pragma unroll
+    for (int j = 0; j < WN; ++j) {
+      const float2 b2 = *reinterpret_cast<const float2*>(B + l * HID + col0 + j * 8 + 2 * t);
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const __nv_bfloat162 v =
+              __floats2bfloat162_rn(fmaxf(acc[m][j][2 * hf] + b2.x, 0.0f),
+                                    fmaxf(acc[m][j][2 * hf + 1] + b2.y, 0.0f));
+          *reinterpret_cast<__nv_bfloat162*>(arow + (16 * m + 8 * hf) * LDA + j * 8) = v;
+        }
+    }
+  }
+
+  // the output layer on the warps of columns 0-63, their first DO / 8
+  // n8-tiles; f32 sums plus the bias straight to out
+  zero(acc);
+  product<false>(acc, ring, a_x, LDA, HID, col0, DO - col0);
+  if (cq != 0) return;
+#pragma unroll
+  for (int j = 0; j < DO / 8; ++j)
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = p0 + grp * 32 + 16 * m + 8 * hf + g;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = j * 8 + 2 * t + e;
+          if (r < n && c < d_out)
+            out[(size_t)r * d_out + c] = acc[m][j][2 * hf + e] + B[3 * HID + c];
+        }
+      }
+}
+
 // ---------------------------------------------------------------------------
 // backward: recompute and reverse sweep
 // ---------------------------------------------------------------------------
-
-constexpr int PB = 128;          // rows per tile
-constexpr int BTHREADS = 512;    // 16 warps: PB / 32 row groups x NQ column groups
-constexpr int LDA = MAX_DI + 8;  // input / activation / cotangent tile [PB][LDA] bf16
-constexpr size_t TILE_BYTES = (size_t)PB * LDA * 2;
-// the stream at di = 272 with dx: W1 in 3 slabs, W2, W3, W4^T, W3^T, W2^T,
-// and W1^T in two passes of HS slabs
-constexpr int MAX_SLABS = (MAX_DI + SLAB_K - 1) / SLAB_K + 6 * HS + 1;
-constexpr size_t B_SMEM =
-    TILE_BYTES + (size_t)STAGES * STAGE_ELEMS * 2 + (size_t)MAX_SLABS * sizeof(SlabRec);
-static_assert(BTHREADS == 4 * PB, "GZ4 is loaded by 4 lanes a row");
-static_assert(BTHREADS / 32 == PB / 32 * NQ, "warps tile the rows and the columns");
-static_assert(PW_RS % PB == 0, "the scratch's rows are whole tiles");
-static_assert(B_SMEM <= 232448, "sweep shared memory");
 
 // Scratch of the backward (bf16, in pieces) for M rows: X [M][di], H
 // [3][M][256] (layers 1-3 as the recompute formed them), GZ [3][M][256],
@@ -183,17 +247,6 @@ __device__ Slab slab_at(int s, int di, bool dx) {
     return {(size_t)r0 * HID + (size_t)j * SLAB_K, min(HID, di - r0), SLAB_K, HID, LDT};
   }
   return {0, 0, 0, 0, 0};
-}
-
-// The tile's input: x rounded to bf16, zeros past d_in and past n, a float at
-// a time. Not inlined: the per-row phases keep their registers out of the
-// products'.
-__device__ __noinline__ void load_x(const float* __restrict__ x, int n, int d_in, int di, int p0,
-                                    bf16* A) {
-  for (int idx = threadIdx.x; idx < PB * di; idx += BTHREADS) {
-    const int r = idx / di, c = idx - r * di;
-    A[r * LDA + c] = to_bf(p0 + r < n && c < d_in ? x[(size_t)(p0 + r) * d_in + c] : 0.0f);
-  }
 }
 
 // x [n, d_in], gout [n, d_out] f32 -> dx [n, d_in] (want_dx) and the scratch
@@ -359,8 +412,7 @@ inline int bwd_rows(int n) { return (n + PW_RS - 1) / PW_RS * PW_RS; }
 
 extern "C" {
 
-int predictor_tile() { return P; }
-int predictor_bwd_tile() { return PB; }
+int predictor_tile() { return PB; }
 int predictor_max_d_in() { return MAX_DI; }
 int predictor_max_d_out() { return DO; }
 size_t predictor_weight_elems(int di) {
@@ -377,12 +429,11 @@ int predictor_fwd(const float* x, int n, int d_in, int di, int d_out, const bf16
                   const float* B, float* out, cudaStream_t stream) {
   if (!dims_ok(d_in, di, d_out)) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(predictor_rows_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)SMEM_FWD);
+  const cudaError_t err = cudaFuncSetAttribute(
+      predictor_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F_SMEM);
   if (err != cudaSuccess) return (int)err;
-  const int tiles = (n + P - 1) / P;
-  predictor_rows_kernel<<<tiles, NTHREADS, SMEM_FWD, stream>>>(x, n, d_in, di, d_out, W, B, out);
+  predictor_fwd_kernel<<<(n + PB - 1) / PB, BTHREADS, F_SMEM, stream>>>(x, n, d_in, di, d_out, W,
+                                                                        B, out);
   return (int)cudaGetLastError();
 }
 

@@ -8,19 +8,39 @@
 // sdf column alone. It serves the no-gradient callers of Stage I: the
 // proposal sampler, the occlusion march and the validation march.
 //
-// One block per tile of P = 128 points: PE into shared memory, each layer a
-// block_mm on bf16 operands with f32 sums (the same network, layout and
-// rounding as sdf_grad.cu's primal rows, whose packed weights it reads; see
-// sdf_net.cuh), the last layer on one 16-column tile. Nothing but the points
-// comes in and nothing but one float per point goes out. The TPU layout's
-// padding (39 -> 128 lanes, 217 -> 256) is not copied: the PE is padded to
-// the 48 of the MMA tile and layer 3's 39 spare columns are masked to zero.
-// Rows past n are masked: read as zero, never written.
+// It runs on the SDF-with-gradient kernel's forward engine (sdf_net.cuh)
+// with one row kind: a block of 16 warps, warp w on 16 MT points (MT
+// m16n8k16 row tiles) and 64 columns of a layer, so a tile is 64 MT points.
+// The PE goes into shared memory, padded from 39 to 48 channels, zero past
+// n (rows past n are never read and never written); the weights stream
+// through the engine's 2-stage cp.async ring on a slab table of this
+// kernel's own (w0, w1-w4a, w4b, w5-w7, then of w8 the sdf column's n8-tile
+// alone: 4 KB of w8's 139 KB); each layer's bias and softplus run in
+// registers on the accumulators and go once, bf16, into the activation tile.
+// Layer 8 is the sdf n8-tile on the warps of columns 0-63, and its column 0
+// plus the bias goes straight from the accumulators to `out`. The arithmetic
+// is B1's primal rows' (the same PE code, k from 0 up in steps of 16, w4a
+// before w4b into the same sums, the bias after the product, div_beta), so
+// the sdf equals sdf_grad.cu's to the bit, at either tile size.
+//
+// The tile per launch: 64 points (MT = 1) when the launch is one wave of
+// them, n <= 64 x the card's SM count (8,448 points on an H100: the
+// sampler's 8,192-point up-sample passes run 128 tiles of 64 points on 132
+// SMs, not 64 tiles of 128), else 128 (MT = 2). A 64-point block streams the
+// same weights for half the points and takes about 0.7 of a 128-point
+// block's time (kernel_variants.py --kernel sdf_fwd), so it pays only where
+// it saves a wave: from 64 x SMs points on, 128 points a tile needs no more
+// waves than 64 would.
 //
 // Bound: tensor-core operations, 2 * 459,008 per point (ops/sdf_fwd.py::
-// flops) against 16 bytes per point. This first version streams the weights
-// from L2 for every tile and round-trips each layer through shared memory
-// in f32.
+// flops) against 16 bytes per point. What keeps it from the bound: the
+// softplus (expf and log1pf) of every element of every hidden layer, which
+// B1 forms on one row in four and B6 on every row, runs between the
+// products, not beside them; every block streams all 0.97 MB of the hidden
+// layers' weights from L2 through the 2-stage ring, a block barrier a slab
+// (with the PE, the stream alone takes 0.41 of the launch's 0.97 ms at
+// 131,072 points: kernel_variants.py's `weights_only`); mma.sync, not the
+// warpgroup products.
 #include "sdf_net.cuh"
 
 using namespace nero;
@@ -28,63 +48,74 @@ using namespace nero::sdfnet;
 
 namespace {
 
-constexpr int P = 128;  // points per tile
-constexpr int NTHREADS = 512;
-constexpr int LDA = HID + 8, LDP = PEW + 8, LDC = HID + 4;
-constexpr size_t SMEM_BYTES = (size_t)P * LDA * 2 + (size_t)P * LDP * 2 + (size_t)P * LDC * 4;
+template <int MT>
+struct Tile {
+  static constexpr int P = 4 * 16 * MT;  // points: 4 row groups of MT m16 tiles
+  static constexpr size_t SMEM =
+      ((size_t)P * LDH + (size_t)P * LDP + (size_t)STAGES * STAGE_ELEMS) * 2;
+};
+static_assert(Tile<2>::SMEM <= 232448, "shared memory");
 
-__global__ void __launch_bounds__(NTHREADS, 1)
+// pts [n,3] f32; W packed bf16 (sdf_net.cuh); bias [9,272] f32 -> out [n] f32.
+template <int MT>
+__global__ void __launch_bounds__(F_THREADS, 1)
 sdf_fwd_kernel(const float* __restrict__ pts, int n, const bf16* __restrict__ W,
                const float* __restrict__ bias, float beta, float scale,
                float* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* A = reinterpret_cast<bf16*>(smem);
-  bf16* PEb = A + P * LDA;
-  float* C = reinterpret_cast<float*>(PEb + P * LDP);
-  const int tid = threadIdx.x;
+  constexpr int P = Tile<MT>::P;
+  bf16* H = reinterpret_cast<bf16*>(smem);  // activations [P][LDH]
+  bf16* PEb = H + P * LDH;                  // PE [P][LDP]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int grp = warp / NQ, cq = warp % NQ;  // row group, column group
+  const int g = lane >> 2, t = lane & 3;      // accumulator row and column pair
   const int p0 = blockIdx.x * P;
 
-  for (int idx = tid; idx < P * PEW; idx += NTHREADS) {
-    const int r = idx / PEW, c = idx % PEW;
-    float v = 0.0f;
-    if (p0 + r < n && c < NPE) {
-      const float* p = pts + (size_t)(p0 + r) * 3;
-      if (c < 3) {
-        v = p[c] * scale;
-      } else {
-        const int i = (c - 3) / 6, q = (c - 3) % 6;
-        const float x = p[q % 3] * scale * (float)(1 << i);
-        v = q >= 3 ? cosf(x) : sinf(x);
+  Ring<VALUE_STREAM> ring{PEb + P * LDP, W, 0};
+  for (int s = 0; s < STAGES - 1; ++s) ring.load(s);
+  pe_tile<1, MT>(PEb, pts, p0, n, scale, nullptr);
+  hidden_layers<1, MT>(H, PEb, ring, bias, beta, nullptr, 0);
+
+  // layer 8: the sdf column's n8-tile, k in steps of 16 from 0 up
+  const unsigned h_x = smem_u32(H + (grp * 16 * MT + (lane & 15)) * LDH + (lane >> 4) * 8);
+  float acc[MT][4] = {};
+  for (int k0 = 0; k0 < HID; k0 += SLAB_K) {
+    const unsigned b = ring.next() + ((lane & 15) * LDB + (lane >> 4) * 8) * 2;
+    if (cq != 0) continue;  // the other warps keep the ring's pace
+#pragma unroll
+    for (int kk = 0; kk < SLAB_K / 16; ++kk) {
+      unsigned bb[2];
+      ldsm_x2_t(bb, b + kk * 16 * LDB * 2);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        unsigned a[4];
+        ldsm_x4(a, h_x + (16 * m * LDH + k0 + kk * 16) * 2);
+        mma_bf16(acc[m], a, bb[0], bb[1]);
       }
     }
-    PEb[r * LDP + c] = to_bf(v);
   }
-  __syncthreads();
+  if (cq == 0 && t == 0) {  // column 0: c0 (row g) and c2 (row g + 8) of each row tile
+    const float b8 = bias[8 * OUTW];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = p0 + grp * 16 * MT + 16 * m + 8 * hf + g;
+        if (r < n) out[r] = acc[m][2 * hf] + b8;
+      }
+  }
+}
 
-  for (int l = 0; l < 8; ++l) {
-    if (l == 0) {
-      block_mm<false>(PEb, LDP, W + OFF_W0, HID, C, LDC, P, HID, PEW, false);
-    } else if (l == 4) {
-      block_mm<false>(A, LDA, W + OFF_W4A, HID, C, LDC, P, HID, HID, false);
-      __syncthreads();
-      block_mm<false>(PEb, LDP, W + OFF_W4B, HID, C, LDC, P, HID, PEW, true);
-    } else {
-      block_mm<false>(A, LDA, W + layer_off(l), HID, C, LDC, P, HID, HID, false);
-    }
-    __syncthreads();
-    for (int idx = tid; idx < P * HID; idx += NTHREADS) {
-      const int r = idx / HID, c = idx % HID;
-      const float z = C[r * LDC + c] + bias[l * OUTW + c];
-      const bool masked = (l == 3 && c >= MASK_W);
-      A[r * LDA + c] = to_bf(masked ? 0.0f : softplus_b(z, beta));
-    }
-    __syncthreads();
-  }
-  // the sdf is column 0 of layer 8: one 16-column tile of w8 [256, 272]
-  block_mm<false>(A, LDA, W + OFF_W8, OUTW, C, LDC, P, 16, HID, false);
-  __syncthreads();
-  for (int r = tid; r < P; r += NTHREADS)
-    if (p0 + r < n) out[p0 + r] = C[r * LDC] + bias[8 * OUTW];
+template <int MT>
+int launch(const float* pts, int n, const bf16* W, const float* bias, float beta, float scale,
+           float* out, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      sdf_fwd_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Tile<MT>::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int P = Tile<MT>::P;
+  sdf_fwd_kernel<MT><<<(n + P - 1) / P, F_THREADS, Tile<MT>::SMEM, stream>>>(
+      pts, n, W, bias, beta, scale, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -93,17 +124,20 @@ extern "C" {
 
 size_t sdf_fwd_weight_elems() { return W_TOTAL; }
 
+// Points a tile at n points on a card of `sms` SMs: 64 when the launch is
+// one wave of 64-point tiles, else 128.
+int sdf_fwd_tile(int n, int sms) { return (n + 63) / 64 <= sms ? 64 : 128; }
+
 // pts [n,3] f32; W packed bf16 (sdf_net.cuh); bias [9,272] f32; out [n] f32.
 int sdf_fwd(const float* pts, int n, const bf16* W, const float* bias, float beta, float scale,
             float* out, cudaStream_t stream) {
   if (n <= 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(sdf_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)SMEM_BYTES);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  sdf_fwd_kernel<<<(n + P - 1) / P, NTHREADS, SMEM_BYTES, stream>>>(pts, n, W, bias, beta,
-                                                                     scale, out);
-  return (int)cudaGetLastError();
+  if (sdf_fwd_tile(n, sms) == 64) return launch<1>(pts, n, W, bias, beta, scale, out, stream);
+  return launch<2>(pts, n, W, bias, beta, scale, out, stream);
 }
 
 }  // extern "C"

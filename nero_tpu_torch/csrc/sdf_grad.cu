@@ -25,12 +25,14 @@
 // ldmatrix.trans (the weights are [in, out] row-major), A fragments from
 // the activation tile with ldmatrix. Layer 8 runs tile 0 on all 34 n8-tiles
 // and tile 1 on the sdf column's n8-tile alone: grad needs nothing else.
-// k runs in steps of 16 from 0 up, w4a before w4b into the same sums, the
+// The ring, the product, the PE and layers 0-7 are sdf_net.cuh's engine at
+// four row kinds, which the value-only kernel (sdf_fwd.cu) runs at one: k
+// runs in steps of 16 from 0 up, w4a before w4b into the same sums, the
 // bias is added after the product, the PE is the same code and softplus_b's
 // division is done without its slow-path branch but to the same bits
-// (div_beta), so the primal rows equal the value-only kernel's (sdf_fwd.cu)
-// to the bit. 225,280 bytes of shared memory, 512 threads of at most 128
-// registers: one block per SM.
+// (div_beta), so the primal rows equal the value-only kernel's to the bit.
+// 225,280 bytes of shared memory, 512 threads of at most 128 registers: one
+// block per SM.
 //
 // Where the card said otherwise than the first design (nero_tpu_torch/
 // kernel_variants.py times each choice undone, PERF.md): 8 warps of 128
@@ -99,291 +101,14 @@ namespace {
 
 constexpr int P = 32;           // points per tile
 constexpr int ROWS = 4 * P;     // primal + 3 tangent rows
-constexpr int LDP = PEW + 8;    // PE tile [ROWS][LDP] bf16 (bank skew)
-constexpr int WN = 8;           // n8-tiles a warp holds in layers 0-7: 64 columns
-constexpr int NQ = HID / (8 * WN);             // column groups: warps per point group
-constexpr int F_THREADS = 4 * NQ * 32;         // 4 point groups of 8 points
 constexpr int L8 = (OUTW / 8 + NQ - 1) / NQ;   // n8-tiles a warp holds in layer 8
-constexpr int LDH = HID + 8;    // activation tile [ROWS][LDH] bf16
 constexpr int LDG = OUTW + 8;   // the sweep's cotangent tile [ROWS][LDG] bf16, over H and the PE
-constexpr int SLAB_K = 128;     // weight rows (forward) or columns (sweep) per slab
-constexpr int LDB = OUTW + 8;   // forward slab [SLAB_K][LDB] bf16
-constexpr int LDT = SLAB_K + 8; // sweep slab [HID][LDT] bf16
-constexpr int STAGES = 2;
-constexpr int STAGE_ELEMS = SLAB_K * LDB > HID * LDT ? SLAB_K * LDB : HID * LDT;
-constexpr int PE_SLABS = (PEW + SLAB_K - 1) / SLAB_K, H_SLABS = HID / SLAB_K;
-constexpr int HIDDEN_SLABS = 2 * PE_SLABS + 7 * H_SLABS;  // w0, w1-w4a, w4b, w5-w7
-constexpr int N_SLABS = HIDDEN_SLABS + H_SLABS;           // the forward's: and w8
-constexpr int W8_KSLABS = (OUTW + SLAB_K - 1) / SLAB_K;
-constexpr int B_SLABS = HIDDEN_SLABS + W8_KSLABS + 7 * H_SLABS;  // the backward's: W8^T .. W1^T
 constexpr int LDO = 260;        // f32 output staging [P][LDO], over the activations
 constexpr size_t F_SMEM = ((size_t)ROWS * LDH + (size_t)ROWS * LDP + (size_t)STAGES * STAGE_ELEMS) * 2;
+static_assert(ROWS == 4 * 16 * 2, "the engine's tile: 4 row groups of two m16 tiles");
 static_assert(F_SMEM <= 232448, "forward shared memory");
 static_assert((size_t)P * LDO * 4 + P * 3 * 4 <= (size_t)ROWS * LDH * 2, "output staging");
 static_assert(ROWS * LDG <= ROWS * (LDH + LDP), "cotangent tile");
-
-// The backward's scratch lies in device memory in pieces, not rows: a piece
-// is one kind's 8 rows x 8 columns of a point group (128 bytes), and a point
-// group of width W is its W / 8 column pieces in order, the groups in the
-// tile order. Element (row r, column c) of a width-W array is at
-// piece_off(r, c, W). A warp's accumulators hold whole pieces, so its stores
-// and loads of one (n8-tile, kind) are 128 contiguous bytes; a stage of the
-// parameter pass is two contiguous runs, copied as they lie, and ldmatrix
-// reads its 8 x 8 matrices as whole pieces.
-constexpr int F_S = 64, F_J = 4 * F_S;  // a kind's 8 x 8 block; a column piece of 4 kinds
-__host__ __device__ constexpr size_t piece_off(size_t r, int c, int W) {
-  return ((r >> 5) * (W / 8) + (c >> 3)) * F_J + ((r >> 3) & 3) * F_S + (r & 7) * 8 + (c & 7);
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x2_t(unsigned (&r)[2], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr));
-}
-
-// c += a @ b on one m16n8k16 tile, bf16 operands, f32 sums
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// This lane's offset (elements) in an ldmatrix.x4 of a 16 x 16 block whose
-// four 8 x 8 matrices are taken as (rows 0-7, cols 0-7), (0-7, 8-15),
-// (8-15, 0-7), (8-15, 8-15): an A operand stored [k][m] (with .trans) or a
-// B operand stored [n][k] (without), leading dim ld.
-__device__ __forceinline__ int x4_lane(int lane, int ld) {
-  return ((lane & 7) + ((lane >> 4) << 3)) * ld + ((lane >> 3) & 1) * 8;
-}
-
-// A slab of a weight stream: `rows` rows of `cols` columns at element offset
-// `off` of the packed weights, row stride ldg there and lds in the ring.
-struct Slab {
-  size_t off;
-  int rows, cols, ldg, lds;
-};
-
-// Slab s of the forward's stream: w0 w1 w2 w3 w4a w4b w5 w6 w7 w8 in
-// SLAB_K-row slabs, the packed order. The backward's (BWD) is the same up to
-// w7 (the recompute), then the reverse sweep's W8, W7, W6, W5, W4a, W3, W2,
-// W1, each in slabs of SLAB_K of its output columns with all 256 input rows.
-template <bool BWD>
-__device__ __forceinline__ Slab slab_at(int s) {
-  if (BWD && s >= HIDDEN_SLABS) {
-    s -= HIDDEN_SLABS;
-    const int l = s < W8_KSLABS ? 8 : 7 - (s - W8_KSLABS) / H_SLABS;
-    const int j = s < W8_KSLABS ? s : (s - W8_KSLABS) % H_SLABS;
-    const int n = l == 8 ? OUTW : HID;
-    return {layer_off(l) + (size_t)j * SLAB_K, HID, min(SLAB_K, n - j * SLAB_K), n, LDT};
-  }
-  int p, j;  // product (0 = w0, 1-4 = w1 w2 w3 w4a, 5 = w4b, 6-9 = w5 w6 w7 w8), slab in it
-  constexpr int E = PE_SLABS, Hs = H_SLABS;
-  if (s < E) { p = 0; j = s; }
-  else if (s < E + 4 * Hs) { p = 1 + (s - E) / Hs; j = (s - E) % Hs; }
-  else if (s < 2 * E + 4 * Hs) { p = 5; j = s - E - 4 * Hs; }
-  else { p = 6 + (s - 2 * E - 4 * Hs) / Hs; j = (s - 2 * E - 4 * Hs) % Hs; }
-  const size_t off = p == 0 ? OFF_W0 : p == 5 ? OFF_W4B
-                   : p < 5 ? OFF_W1 + (p - 1) * SZ_H : OFF_W5 + (p - 6) * SZ_H;
-  const int k = (p == 0 || p == 5) ? PEW : HID;
-  const int n = p == 9 ? OUTW : HID;
-  return {off + (size_t)j * SLAB_K * n, min(SLAB_K, k - j * SLAB_K), n, n, LDB};
-}
-
-// The ring of weight slabs. next() waits for the oldest slab, makes it (and
-// every shared-memory write before the call) visible to the block, refills
-// the stage that the block finished with, and returns the slab's
-// shared-memory address.
-template <bool BWD>
-struct Ring {
-  static constexpr int COUNT = BWD ? B_SLABS : N_SLABS;
-  bf16* base;
-  const bf16* W;
-  int slab;
-
-  __device__ __forceinline__ void load(int s) const {
-    if (s < COUNT) {
-      const Slab sl = slab_at<BWD>(s);
-      bf16* st = base + (s % STAGES) * STAGE_ELEMS;
-      const int cpr = sl.cols / 8;  // 16-byte chunks per row
-      for (int v = threadIdx.x; v < sl.rows * cpr; v += F_THREADS) {
-        const int r = v / cpr, c = (v - r * cpr) * 8;
-        cp_async16(st + r * sl.lds + c, W + sl.off + (size_t)r * sl.ldg + c);
-      }
-    }
-    cp_async_commit();  // an empty group past the end keeps the count uniform
-  }
-
-  __device__ __forceinline__ unsigned next() {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    load(slab + STAGES - 1);
-    const unsigned a = smem_u32(base) + (slab % STAGES) * STAGE_ELEMS * 2;
-    ++slab;
-    return a;
-  }
-};
-
-// acc[m][j] += X[rows of m-tile m, 0:K] @ B[:, n8-tile j of the warp's
-// columns], k in steps of 16 from 0 up, B from the ring: the forward's slabs
-// [k][n] (ldmatrix.trans) or, WT, the sweep's [n][k], which are W^T's
-// fragments without .trans. x: this lane's ldmatrix address in the warp's
-// first row of X (leading dim ldx); col0: the warp's first column.
-template <bool WT, class R>
-__device__ __forceinline__ void product(float (&acc)[2][WN][4], R& ring, unsigned x, int ldx,
-                                        int K, int col0) {
-  const int lane = threadIdx.x & 31;
-  const unsigned lane_b = WT ? (x4_lane(lane, LDT) + col0 * LDT) * 2
-                             : ((lane & 15) * LDB + (lane >> 4) * 8 + col0) * 2;
-  for (int k0 = 0; k0 < K; k0 += SLAB_K) {
-    const unsigned b = ring.next() + lane_b;
-    const int ksteps = min(SLAB_K, K - k0) / 16;
-#pragma unroll 1  // unrolled, the k steps spill at the 128 registers of 512 threads
-    for (int kk = 0; kk < ksteps; ++kk) {
-      unsigned a[2][4];
-      ldsm_x4(a[0], x + (k0 + kk * 16) * 2);
-      ldsm_x4(a[1], x + (16 * ldx + k0 + kk * 16) * 2);
-#pragma unroll
-      for (int j = 0; j < WN / 2; ++j) {
-        unsigned bb[4];
-        if (WT) ldsm_x4(bb, b + (j * 16 * LDT + kk * 16) * 2);
-        else ldsm_x4_t(bb, b + (kk * 16 * LDB + j * 16) * 2);
-        mma_bf16(acc[0][2 * j], a[0], bb[0], bb[1]);
-        mma_bf16(acc[1][2 * j], a[1], bb[0], bb[1]);
-        mma_bf16(acc[0][2 * j + 1], a[0], bb[2], bb[3]);
-        mma_bf16(acc[1][2 * j + 1], a[1], bb[2], bb[3]);
-      }
-    }
-  }
-}
-
-// x / beta rounded to nearest, given inv = 1/beta rounded to nearest: q is
-// within an ulp of the quotient, r = x - q beta is exact, and q + r inv
-// rounds to the correctly rounded quotient (Markstein's theorem), so this is
-// softplus_b's IEEE division bit for bit wherever no value is subnormal,
-// without the branch to the division's slow path that keeps the compiler
-// from interleaving the epilogue's elements.
-__device__ __forceinline__ float div_beta(float x, float beta, float inv) {
-  const float q = x * inv;
-  const float r = fmaf(-q, beta, x);
-  return fmaf(r, inv, q);
-}
-
-// PE(6) of the scaled points and its tangents w.r.t. the unscaled points
-// into the PE tile, rows in the tile order (row 32g + 8s + i: kind s of
-// point 8g + i), and to PEg (device memory, in pieces) where it is given.
-__device__ __forceinline__ void pe_tile(bf16* PEb, const float* __restrict__ pts, int p0,
-                                        float scale, bf16* PEg) {
-  for (int idx = threadIdx.x; idx < ROWS * PEW; idx += F_THREADS) {
-    const int row = idx / PEW, c = idx % PEW;
-    const int s = (row >> 3) & 3, r = (row >> 5) * 8 + (row & 7);
-    float v = 0.0f;
-    if (c < 3) {
-      v = s == 0 ? pts[(p0 + r) * 3 + c] * scale : (c == s - 1 ? scale : 0.0f);
-    } else if (c < NPE) {
-      const int i = (c - 3) / 6, q = (c - 3) % 6, k = q % 3;
-      const bool is_cos = q >= 3;
-      const float f = (float)(1 << i);
-      const float x = pts[(p0 + r) * 3 + k] * scale * f;
-      if (s == 0) v = is_cos ? cosf(x) : sinf(x);
-      else if (k == s - 1) v = scale * f * (is_cos ? -sinf(x) : cosf(x));
-    }
-    PEb[row * LDP + c] = to_bf(v);
-    if (PEg) PEg[piece_off(row, c, PEW)] = to_bf(v);
-  }
-}
-
-// Layers 0-7 of the tile, each layer's activations into the activation tile
-// H (bf16). Hg (the backward's recompute): also to device memory, from the
-// accumulators, layer l at Hg + l * lstride in pieces.
-template <class R>
-__device__ __forceinline__ void hidden_layers(bf16* H, const bf16* PEb, R& ring,
-                                              const float* __restrict__ bias, float beta,
-                                              bf16* Hg, size_t lstride) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int grp = warp / NQ, cq = warp % NQ;  // point group, column group
-  const int g = lane >> 2, t = lane & 3;      // accumulator row and column pair
-  const float inv_beta = __frcp_rn(beta);
-  const int lrow = lane & 15, lcol = (lane >> 4) * 8;  // ldmatrix addressing
-  const unsigned h_x = smem_u32(H + (grp * 32 + lrow) * LDH + lcol);
-  const unsigned pe_x = smem_u32(PEb + (grp * 32 + lrow) * LDP + lcol);
-  const int col0 = cq * WN * 8;
-  const int goff = (int)piece_off(grp * 32 + g, col0 + 2 * t, HID);
-
-  for (int l = 0; l < 8; ++l) {
-    float acc[2][WN][4];
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int j = 0; j < WN; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.0f;
-    if (l == 0) {
-      product<false>(acc, ring, pe_x, LDP, PEW, col0);
-    } else {
-      product<false>(acc, ring, h_x, LDH, HID, col0);
-      if (l == 4) product<false>(acc, ring, pe_x, LDP, PEW, col0);
-    }
-    __syncthreads();  // every warp is done reading this layer's input
-    // epilogue: primal softplus (bias first), tangents sigmoid(beta z_primal) * z_tangent
-    const float* bl = bias + l * OUTW + col0 + 2 * t;
-    bf16* hrow = H + (grp * 32 + g) * LDH + col0 + 2 * t;
-#pragma unroll
-    for (int j = 0; j < WN; ++j) {
-      const float2 b2 = *reinterpret_cast<const float2*>(bl + j * 8);
-      float h[4][2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float zp = acc[0][j][e] + (e ? b2.y : b2.x);
-        const float x = beta * zp;
-        const float ex = expf(-fabsf(x));  // softplus_b's, shared with the sigmoid
-        const float sg = __fdividef(x >= 0.0f ? 1.0f : ex, 1.0f + ex);
-        const bool masked = l == 3 && col0 + j * 8 + 2 * t + e >= MASK_W;
-        h[0][e] = masked ? 0.0f : div_beta(fmaxf(x, 0.0f) + log1pf(ex), beta, inv_beta);
-        h[1][e] = masked ? 0.0f : sg * acc[0][j][2 + e];
-        h[2][e] = masked ? 0.0f : sg * acc[1][j][e];
-        h[3][e] = masked ? 0.0f : sg * acc[1][j][2 + e];
-      }
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        *reinterpret_cast<__nv_bfloat162*>(hrow + s * 8 * LDH + j * 8) =
-            __floats2bfloat162_rn(h[s][0], h[s][1]);
-        if (Hg)
-          *reinterpret_cast<__nv_bfloat162*>(Hg + l * lstride + goff + s * F_S + j * F_J) =
-              __floats2bfloat162_rn(h[s][0], h[s][1]);
-      }
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // forward
@@ -402,10 +127,10 @@ sdf_grad_fwd_kernel(const float* __restrict__ pts, const bf16* __restrict__ W,
   const int g = lane >> 2, t = lane & 3;      // accumulator row and column pair
   const int p0 = blockIdx.x * P;
 
-  Ring<false> ring{PEb + ROWS * LDP, W, 0};
+  Ring<FWD_STREAM> ring{PEb + ROWS * LDP, W, 0};
   for (int s = 0; s < STAGES - 1; ++s) ring.load(s);
-  pe_tile(PEb, pts, p0, scale, nullptr);
-  hidden_layers(H, PEb, ring, bias, beta, nullptr, 0);
+  pe_tile<4, 2>(PEb, pts, p0, p0 + P, scale, nullptr);
+  hidden_layers<4, 2>(H, PEb, ring, bias, beta, nullptr, 0);
 
   // layer 8: tile 0 (primal, d/dx) on the warp's L8 n8-tiles of the 272
   // columns; tile 1 (d/dy, d/dz) on the sdf column's n8-tile alone
@@ -496,10 +221,10 @@ sdf_bwd_sweep_kernel(const float* __restrict__ pts, const bf16* __restrict__ W,
   const size_t M = 4 * (size_t)n_pad, row0 = (size_t)blockIdx.x * ROWS, LS = M * HID;
   const Scratch S(scratch, M);
 
-  Ring<true> ring{PEb + ROWS * LDP, W, 0};
+  Ring<BWD_STREAM> ring{PEb + ROWS * LDP, W, 0};
   for (int s = 0; s < STAGES - 1; ++s) ring.load(s);
-  pe_tile(PEb, pts, p0, scale, S.PE + row0 * PEW);
-  hidden_layers(H, PEb, ring, bias, beta, S.H + row0 * HID, LS);
+  pe_tile<4, 2>(PEb, pts, p0, p0 + P, scale, S.PE + row0 * PEW);
+  hidden_layers<4, 2>(H, PEb, ring, bias, beta, S.H + row0 * HID, LS);
   __syncthreads();  // the activations and the PE give way to the cotangent tile
 
   // layer 8's cotangent: primal rows [d_sdf, d_feats], the tangent row of

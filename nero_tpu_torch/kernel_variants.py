@@ -1,6 +1,6 @@
 """Times variants of the SDF-with-gradient kernels, of the whole-shader
-kernel, of the sphere or uniform march, of the light kernel or of the
-predictor kernel's backward on the card.
+kernel, of the sphere or uniform march, of the light kernel, of the
+predictor kernel or of the value-only SDF kernel on the card.
 
     python -m nero_tpu_torch.kernel_variants [--parent OLD/sdf_grad.cu] [NAME ...]
     python -m nero_tpu_torch.kernel_variants --kernel shader [--parent OLD/shader.cu] [NAME ...]
@@ -12,9 +12,12 @@ predictor kernel's backward on the card.
         [--parent OLD/lights.cu] [NAME ...]
     python -m nero_tpu_torch.kernel_variants --kernel predictor [--parent OLD/predictor.cu]
         [NAME ...]
+    python -m nero_tpu_torch.kernel_variants --kernel sdf_fwd [--parent OLD/sdf_fwd.cu]
+        [NAME ...]
 
 Each variant is `csrc/sdf_grad.cu` (VARIANTS: the forward engine's, which the
-backward's recompute and reverse sweep share, then the backward's own) or
+backward's recompute and reverse sweep share and which lives in
+`csrc/sdf_net.cuh`, then the backward's own) or
 `csrc/shader.cu` (SHADER_VARIANTS, of both directions, whose forward is the
 backward's recompute) with one design choice
 undone or one part of its work taken out, built by nvcc from a patched copy
@@ -79,6 +82,16 @@ the forward, the forward, the whole backward and its three parts (sweep,
 parameter pass, reduction; not for a parent without them), and the largest
 difference from the kernel of dx, dW, dB and the forward, each over its
 largest value.
+
+The value-only SDF kernel (SDF_FWD_VARIANTS, `csrc/sdf_fwd.cu` on the engine
+of `csrc/sdf_net.cuh`, where a patch that the source does not hold is made;
+`--parent` an earlier source with the same C entry `sdf_fwd`) runs at
+SDF_FWD_SIZES points (the sampler's up-sample and first passes, the
+occlusion march's first pass) on the packed weights of a seeded network, 20
+timed launches after 3 untimed ones at each size, in the given order and
+then in reverse. It prints per variant the registers and spill bytes of
+the 128- and 64-point instances, the launch times of both passes at each
+size, and whether its values equal the kernel's to the bit at every size.
 """
 from __future__ import annotations
 
@@ -102,19 +115,19 @@ N = 65536
 OUT_DIR = os.path.join(cuda_build.BUILD_DIR, "variants")
 
 _EPILOGUE = """\
-        const float x = beta * zp;
-        const float ex = expf(-fabsf(x));  // softplus_b's, shared with the sigmoid
-        const float sg = __fdividef(x >= 0.0f ? 1.0f : ex, 1.0f + ex);
-        const bool masked = l == 3 && col0 + j * 8 + 2 * t + e >= MASK_W;
-        h[0][e] = masked ? 0.0f : div_beta(fmaxf(x, 0.0f) + log1pf(ex), beta, inv_beta);
-        h[1][e] = masked ? 0.0f : sg * acc[0][j][2 + e];
-        h[2][e] = masked ? 0.0f : sg * acc[1][j][e];
-        h[3][e] = masked ? 0.0f : sg * acc[1][j][2 + e];"""
+          const float x = beta * zp;
+          const float ex = expf(-fabsf(x));  // softplus_b's, shared with the sigmoid
+          const float sg = __fdividef(x >= 0.0f ? 1.0f : ex, 1.0f + ex);
+          const bool masked = l == 3 && col0 + j * 8 + 2 * t + e >= MASK_W;
+          h[0][e] = masked ? 0.0f : div_beta(fmaxf(x, 0.0f) + log1pf(ex), beta, inv_beta);
+          h[1][e] = masked ? 0.0f : sg * acc[0][j][2 + e];
+          h[2][e] = masked ? 0.0f : sg * acc[1][j][e];
+          h[3][e] = masked ? 0.0f : sg * acc[1][j][2 + e];"""
 _NO_EPILOGUE = """\
-        h[0][e] = zp * 0.01f;
-        h[1][e] = acc[0][j][2 + e] * 0.01f;
-        h[2][e] = acc[1][j][e] * 0.01f;
-        h[3][e] = acc[1][j][2 + e] * 0.01f;"""
+          h[0][e] = zp * 0.01f;
+          h[1][e] = acc[0][j][2 + e] * 0.01f;
+          h[2][e] = acc[1][j][e] * 0.01f;
+          h[3][e] = acc[1][j][2 + e] * 0.01f;"""
 _SWEEP_EPILOGUE = """\
         const float x = beta * h[0][e];
         const float sg = -expm1f(-x), s2 = beta * expf(-x);
@@ -127,29 +140,33 @@ _SWEEP_EPILOGUE = """\
 _NO_SWEEP_EPILOGUE = """\
 #pragma unroll
         for (int s = 0; s < 4; ++s) gz[s][e] = gh[s] * 0.01f + h[s][e];"""
-_MMA = """\
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));"""
-# keeps the fragments live (ldmatrix stays), no tensor-core work
-_NO_MMA = "  c[0] += __uint_as_float(a[0] & b0 & 0x3f800000u) - 1.0f;"
+# put before a source's first include: every mma.sync after it keeps its
+# fragments live and does no tensor-core work
+_NO_MMA = """#include "mma.cuh"
+__device__ __forceinline__ void mma_keep(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  c[0] += __uint_as_float(a[0] & b0 & 0x3f800000u) - 1.0f;
+}
+#define mma_bf16 mma_keep
+"""
+_SDF_INCLUDE = '#include "sdf_net.cuh"\n'
+# every mma.sync of the SDF engine (sdf_net.cuh) and of the source's own kernels
+_SDF_NO_MMA = (_SDF_INCLUDE, _NO_MMA + _SDF_INCLUDE)
 # the recompute stores the pre-activations Z (bias added, no mask), as the
 # TPU kernel keeps them; the sweep takes s = sigmoid(beta z_p) and z_t from Z,
 # and the parameter pass forms H = act(bf16 z) in place in its stage (the TPU
 # kernel's h_of), layer 3's mask on tiles 6 and 7 (X is layer 3's output);
 # the sweep hands it beta through a device variable
 _STORE_H = """\
-        if (Hg)
-          *reinterpret_cast<__nv_bfloat162*>(Hg + l * lstride + goff + s * F_S + j * F_J) =
-              __floats2bfloat162_rn(h[s][0], h[s][1]);"""
+          if (Hg)
+            *reinterpret_cast<__nv_bfloat162*>(Hg + l * lstride + goff + s * F_S + j * F_J) =
+                __floats2bfloat162_rn(h[s][0], h[s][1]);"""
 _STORE_Z = """\
-        if (Hg)
-          *reinterpret_cast<__nv_bfloat162*>(Hg + l * lstride + goff + s * F_S + j * F_J) =
-              s == 0 ? __floats2bfloat162_rn(acc[0][j][0] + b2.x, acc[0][j][1] + b2.y)
-                     : __floats2bfloat162_rn(acc[s >> 1][j][(s & 1) * 2],
-                                             acc[s >> 1][j][(s & 1) * 2 + 1]);"""
+          if (Hg)
+            *reinterpret_cast<__nv_bfloat162*>(Hg + l * lstride + goff + s * F_S + j * F_J) =
+                s == 0 ? __floats2bfloat162_rn(acc[0][j][0] + b2.x, acc[0][j][1] + b2.y)
+                       : __floats2bfloat162_rn(acc[s >> 1][j][(s & 1) * 2],
+                                               acc[s >> 1][j][(s & 1) * 2 + 1]);"""
 _S_FROM_Z = """\
         const float ex = expf(-fabsf(x));
         const float sg = __fdividef(x >= 0.0f ? 1.0f : ex, 1.0f + ex);
@@ -172,7 +189,7 @@ _H_FROM_Z = _STAGE + """\
       __syncthreads();
     }
 """
-_SWEEP_RECOMPUTE = "  hidden_layers(H, PEb, ring, bias, beta, S.H + row0 * HID, LS);\n"
+_SWEEP_RECOMPUTE = "  hidden_layers<4, 2>(H, PEb, ring, bias, beta, S.H + row0 * HID, LS);\n"
 _PARAMS_LAUNCH = """\
   sdf_bwd_params_kernel<<<dim3(PW_TILES, n_chunks), PW_THREADS, PW_SMEM, stream>>>(
       scratch, n_pad, pw_chunk_rows(n_pad), part);"""
@@ -197,14 +214,14 @@ VARIANTS = {
     "slab32_stages4": _shape(8, 4, 32),
     # softplus_b's IEEE division, and the IEEE sigmoid of the tangent rule
     "ieee_divisions": [
-        ("div_beta(fmaxf(x, 0.0f) + log1pf(ex), beta, inv_beta);\n        h[1]",
-         "softplus_b(zp, beta);\n        h[1]"),
-        ("__fdividef(x >= 0.0f ? 1.0f : ex, 1.0f + ex);\n        const bool masked = l == 3",
-         "x >= 0.0f ? 1.0f / (1.0f + ex) : ex / (1.0f + ex);\n        const bool masked = l == 3")],
+        ("div_beta(fmaxf(x, 0.0f) + log1pf(ex), beta, inv_beta);\n          h[1]",
+         "softplus_b(zp, beta);\n          h[1]"),
+        ("__fdividef(x >= 0.0f ? 1.0f : ex, 1.0f + ex);\n          const bool masked = l == 3",
+         "x >= 0.0f ? 1.0f / (1.0f + ex) : ex / (1.0f + ex);\n          const bool masked = l == 3")],
     "no_epilogue": [(_EPILOGUE, _NO_EPILOGUE)],
-    "no_mma": [(_MMA, _NO_MMA)],
+    "no_mma": [_SDF_NO_MMA],
     "weights_only": [(_EPILOGUE, _NO_EPILOGUE), (_SWEEP_EPILOGUE, _NO_SWEEP_EPILOGUE),
-                     (_MMA, _NO_MMA)],
+                     _SDF_NO_MMA],
     # the backward's own
     # the recompute stores Z, not H (see _STORE_Z)
     "bwd_store_z": [
@@ -231,14 +248,6 @@ VARIANTS = {
 
 # ---- the whole-shader backward (csrc/shader.cu) ----
 _SH_INCLUDE = '#include "mma.cuh"\n'
-# every mma.sync of the shader's kernels: keeps the fragments live, no tensor-core work
-_SH_NO_MMA = _SH_INCLUDE + """\
-__device__ __forceinline__ void mma_keep(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  c[0] += __uint_as_float(a[0] & b0 & 0x3f800000u) - 1.0f;
-}
-#define mma_bf16 mma_keep
-"""
 _SH_FWD_EPILOGUE = """\
                   __floats2bfloat162_rn(fmaxf(acc[m][j][2 * hf] + b2.x, 0.0f),
                                         fmaxf(acc[m][j][2 * hf + 1] + b2.y, 0.0f));"""
@@ -263,7 +272,7 @@ _SH_FWD_H = "      if (l < 3) {  // H = relu(z + b) to the tile\n"
 SHADER_VARIANTS = {
     "kernel": [],
     # no products and no epilogues: the weight stream with the scratch traffic
-    "weights_only": [(_SH_INCLUDE, _SH_NO_MMA), (_SH_FWD_EPILOGUE, _SH_NO_FWD_EPILOGUE),
+    "weights_only": [(_SH_INCLUDE, _NO_MMA), (_SH_FWD_EPILOGUE, _SH_NO_FWD_EPILOGUE),
                      (_SH_SWEEP_EPILOGUE, _SH_NO_SWEEP_EPILOGUE)],
     # the per-row encodings left out, forward (the input slots stay zero) and backward
     "no_encodings": [(_SH_ENC_FWD, "  if (slot >= 0) {\n  } else if (slot == 5) {\n"
@@ -284,7 +293,7 @@ SHADER_VARIANTS = {
     # the forward's weight-stream floor: the ring with its barriers and the
     # fragments' ldmatrix, no mma.sync, no input slots, no epilogues, no
     # outputs but the tail (the backward's columns: it loses its mma.sync too)
-    "fwd_weights_only": [(_SH_INCLUDE, _SH_NO_MMA), (_SH_FWD_BUILD, ""),
+    "fwd_weights_only": [(_SH_INCLUDE, _NO_MMA), (_SH_FWD_BUILD, ""),
                          (_SH_FWD_H, "      if (true) continue;\n" + _SH_FWD_H)],
     # 64-row tiles of 8 warps, both directions: the weight stream per row doubled
     "fwd_p64_tiles": [("constexpr int PB = 128; ", "constexpr int PB = 64; "),
@@ -436,7 +445,7 @@ SPHERE_VARIANTS = {
     "warps8": [_SM_WARPS8],
     # at 8 warps: the B fragments loaded, no products: the floor of the
     # fragment traffic
-    "no_mma_w8": [(_SH_INCLUDE, _SH_NO_MMA), _SM_WARPS8],
+    "no_mma_w8": [(_SH_INCLUDE, _NO_MMA), _SM_WARPS8],
     # at 8 warps: each layer's B fragments loaded once, for its first k-tile,
     # and used for every k-tile: the products without the fragment traffic
     "b_once_w8": [("      ldsm_x4_t(b[j], ", "      if (k == 0) ldsm_x4_t(b[j], "), _SM_WARPS8],
@@ -467,7 +476,7 @@ _LI_INCLUDE = '#include "engine.cuh"\n'
 # every mma.sync of the backward's kernels (the sweep's products and the
 # parameter pass, both in engine.cuh): keeps the fragments live, no
 # tensor-core work
-_LI_NO_MMA = '#include "mma.cuh"\n' + _SH_NO_MMA[len(_SH_INCLUDE):] + _LI_INCLUDE
+_LI_NO_MMA = _NO_MMA + _LI_INCLUDE
 _LI_FWD_EPILOGUE = """\
                 __floats2bfloat162_rn(fmaxf(acc[m][j][2 * hf] + b2.x, 0.0f),
                                       fmaxf(acc[m][j][2 * hf + 1] + b2.y, 0.0f));"""
@@ -545,6 +554,26 @@ PREDICTOR_VARIANTS = {
                   ("constexpr int BTHREADS = 512; ", "constexpr int BTHREADS = 256; ")],
 }
 
+# ---- the value-only SDF kernel (csrc/sdf_fwd.cu, on sdf_net.cuh's engine) ----
+_SF_RULE = "int sdf_fwd_tile(int n, int sms) { return (n + 63) / 64 <= sms ? 64 : 128; }"
+_SF_EPILOGUE = """\
+            const float x = beta * zp;
+            const float ex = expf(-fabsf(x));
+            const bool masked = l == 3 && col0 + j * 8 + 2 * t + e >= MASK_W;
+            h[e] = masked ? 0.0f : div_beta(fmaxf(x, 0.0f) + log1pf(ex), beta, inv_beta);"""
+_SF_NO_EPILOGUE = "            h[e] = zp * 0.01f;"
+
+SDF_FWD_VARIANTS = {
+    "kernel": [],
+    # 64-point tiles (16 warps of one m16 row tile each) at every size
+    "p64_tiles": [(_SF_RULE, "int sdf_fwd_tile(int n, int sms) { return 64; }")],
+    # 128-point tiles at every size
+    "p128_tiles": [(_SF_RULE, "int sdf_fwd_tile(int n, int sms) { return 128; }")],
+    # no products and no softplus: the PE, the weight stream with its
+    # barriers and the fragments' ldmatrix
+    "weights_only": [(_SF_EPILOGUE, _SF_NO_EPILOGUE), _SDF_NO_MMA],
+}
+
 _KERNELS = {"sdf_grad": ("sdf_grad_fwd_kernel", "sdf_bwd_sweep_kernel", "sdf_bwd_params_kernel"),
             # the forward: shader_fwd_kernel, or an earlier source's shader_rows_kernel
             "shader": ("(?:shader_fwd_kernel|shader_rows_kernel)", "shader_bwd_sweep_kernel",
@@ -553,14 +582,22 @@ _KERNELS = {"sdf_grad": ("sdf_grad_fwd_kernel", "sdf_bwd_sweep_kernel", "sdf_bwd
             "march": ("march_kernel",),
             "lights": ("lights_bwd_sweep_kernel", "lights_bwd_params_kernel",
                        "lights_bwd_reduce_kernel"),
-            # the forward beside them: predictor_rows_kernel, or an earlier
-            # source's predictor_rows_kernel<false>
+            # the forward beside them: predictor_fwd_kernel, or an earlier
+            # source's predictor_rows_kernel (plain or <false>)
             "predictor": ("predictor_bwd_sweep_kernel", "predictor_bwd_params_kernel",
-                          "predictor_bwd_reduce_kernel", r"predictor_rows_kernel(ILb0E|E)")}
+                          "predictor_bwd_reduce_kernel",
+                          r"(?:predictor_fwd_kernel|predictor_rows_kernel(?:ILb0E)?)E"),
+            # 128- and 64-point tiles, or an earlier source's one kernel
+            "sdf_fwd": (r"sdf_fwd_kernel(?:ILi2EE|E)", r"sdf_fwd_kernelILi1EE")}
 _TABLES = {"sdf_grad": VARIANTS, "shader": SHADER_VARIANTS, "sphere_march": SPHERE_VARIANTS,
-           "march": MARCH_VARIANTS, "lights": LIGHTS_VARIANTS, "predictor": PREDICTOR_VARIANTS}
+           "march": MARCH_VARIANTS, "lights": LIGHTS_VARIANTS, "predictor": PREDICTOR_VARIANTS,
+           "sdf_fwd": SDF_FWD_VARIANTS}
 # the headers that a kernel's variants may patch, after its own source
-_HEADERS = {"sphere_march": ("field.cuh",), "march": ("field.cuh",)}
+_HEADERS = {"sphere_march": ("field.cuh",), "march": ("field.cuh",),
+            "sdf_grad": ("sdf_net.cuh",), "sdf_fwd": ("sdf_net.cuh",)}
+# the value-only SDF kernel's sizes: the sampler's up-sample and first
+# passes, the occlusion march's first pass
+SDF_FWD_SIZES = (8192, 32768, 131072)
 N_RAYS = 393216  # Stage II: 512 points x (512 + 256) directions
 # the predictor's head shapes (d_in, d_out): the two most launched by the
 # per-head shader, at di 272 and 80
@@ -675,6 +712,11 @@ def build(sources: dict, kernel: str = "sdf_grad", instance: str = "") -> dict:
         if kernel == "predictor":
             libs[name] = (lib, predictor_type_lib(lib), " ".join(regs))
             continue
+        if kernel == "sdf_fwd":
+            vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.sdf_fwd.restype, lib.sdf_fwd.argtypes = i, [vp, i, vp, vp, f, f, vp, vp]
+            libs[name] = (lib, None, " ".join(regs))
+            continue
         if kernel in _MARCH_ARGS:
             entry = getattr(lib, kernel)
             entry.restype, entry.argtypes = ctypes.c_int, _MARCH_ARGS[kernel]
@@ -780,6 +822,8 @@ def main(argv=None) -> int:
         return _main_lights(sources, args.outer)
     if args.kernel == "predictor":
         return _main_predictor(sources)
+    if args.kernel == "sdf_fwd":
+        return _main_sdf_fwd(sources)
     libs = build(sources)
 
     dev = torch.device("cuda")
@@ -1065,6 +1109,51 @@ def _main_predictor(sources: dict) -> int:
 
         print(f"predictor head {d_in} -> {d_out} (di {di}), N = {N}")
         _bwd_table(libs, fwd, bwd, parts_of, ("sweep", "params", "reduce"), "dx dW dB fwd")
+    return 0
+
+
+def _main_sdf_fwd(sources: dict) -> int:
+    """The value-only SDF kernel's variants at SDF_FWD_SIZES points, on the
+    packed weights of a seeded network; each library's values held to the
+    kernel's to the bit at every size."""
+    libs = build(sources, "sdf_fwd")
+    dev = torch.device("cuda")
+    cfg = SDFConfig()
+    beta, scale = float(cfg.beta), float(cfg.scale)
+    layers = resolve_weight_norm(init_sdf(torch.Generator().manual_seed(3), cfg, device=dev))
+    with torch.no_grad():
+        W, bias = K.pack_weights([l["w"] for l in layers], [l["b"] for l in layers])
+    rng = np.random.default_rng(1)
+    pts = torch.as_tensor(rng.uniform(-0.7, 0.7, (max(SDF_FWD_SIZES), 3)).astype(np.float32),
+                          device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = torch.empty(max(SDF_FWD_SIZES), device=dev)
+
+    def launch(lib, m):
+        cuda_build.check(lib.sdf_fwd(pts.data_ptr(), m, W.data_ptr(), bias.data_ptr(), beta,
+                                     scale, out.data_ptr(), stream), "sdf_fwd")
+
+    outs = {}
+
+    def run(name, lib, _):
+        row = []
+        for m in SDF_FWD_SIZES:
+            if (name, m) not in outs:
+                launch(lib, m)
+                outs[name, m] = out[:m].clone()
+            row.append(_time(lambda: launch(lib, m), 20))
+        return row
+
+    times = _passes(libs, run)
+    print(_card())
+    print(f"value-only SDF kernel at {', '.join(map(str, SDF_FWD_SIZES))} points")
+    print("variant              regs/spills 128 64   launch ms at each size, first / second pass"
+          "   values as the kernel's to the bit")
+    for name, (_, _, ptx) in libs.items():
+        bits = all(torch.equal(outs[name, m], outs["kernel", m]) for m in SDF_FWD_SIZES)
+        ms = [f"{m} {times[name][0][k]:.4f}/{times[name][1][k]:.4f}"
+              for k, m in enumerate(SDF_FWD_SIZES)]
+        print(f"{name:20s} {ptx:16s} {'  '.join(ms)}   {'yes' if bits else 'no'}")
     return 0
 
 

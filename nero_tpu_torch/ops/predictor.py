@@ -23,8 +23,7 @@ import torch.nn.functional as F
 from nero_tpu_torch.ops import cuda_build
 from nero_tpu_torch.ops.mlp import predictor_raw, resolve_weight_norm
 
-TILE = 64        # forward rows per block (csrc/predictor.cu P)
-BWD_TILE = 128   # backward rows per block (csrc/predictor.cu PB)
+TILE = 128       # rows per block, forward and backward (csrc/predictor.cu PB)
 HID = 256
 DO = 16          # outputs padded (csrc/predictor.cu DO)
 MAX_D_IN = 272   # csrc/predictor.cu MAX_DI
@@ -73,7 +72,6 @@ def type_lib(lib) -> bool:
     lib.predictor_bwd.argtypes = [vp, i, i, i, i, vp, vp, vp, vp, i, vp, vp, vp, vp, vp]
     parts = hasattr(lib, "predictor_bwd_sweep")
     if parts:
-        lib.predictor_bwd_tile.restype, lib.predictor_bwd_tile.argtypes = i, []
         lib.predictor_bwd_sweep.restype = i
         lib.predictor_bwd_sweep.argtypes = [vp, i, i, i, i, vp, vp, vp, vp, i, vp, vp]
         lib.predictor_bwd_params.restype = i
@@ -88,7 +86,7 @@ def _lib():
     if not getattr(lib, "_nero_typed", False):
         if not type_lib(lib):
             raise RuntimeError("csrc/predictor.cu has no predictor_bwd_sweep / _params / _reduce")
-        if ((lib.predictor_tile(), lib.predictor_bwd_tile()) != (TILE, BWD_TILE)
+        if (lib.predictor_tile() != TILE
                 or lib.predictor_max_d_in() != MAX_D_IN or lib.predictor_max_d_out() != DO):
             raise RuntimeError("csrc/predictor.cu layout differs from ops/predictor.py")
         lib._nero_typed = True

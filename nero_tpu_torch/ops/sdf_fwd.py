@@ -24,7 +24,16 @@ from nero_tpu_torch.ops import cuda_build
 from nero_tpu_torch.ops.mlp import resolve_weight_norm
 from nero_tpu_torch.ops.sdf_grad import N_PE, PACK_SHAPES, SKIP_W, pack_weights, supported
 
+TILE, SMALL_TILE = 128, 64  # points per block (csrc/sdf_fwd.cu Tile<2>, Tile<1>)
+
 launches = {"sdf_fwd": 0}
+
+
+def tile(n: int, sms: int) -> int:
+    """Points a block at n points on a card of `sms` SMs, csrc/sdf_fwd.cu's
+    rule (its C entry `sdf_fwd_tile`): SMALL_TILE when the launch is one
+    wave of SMALL_TILE-point blocks, else TILE."""
+    return SMALL_TILE if -(-n // SMALL_TILE) <= sms else TILE
 
 
 @torch.no_grad()
@@ -41,8 +50,11 @@ def _lib():
         lib.sdf_fwd_weight_elems.argtypes = []
         lib.sdf_fwd.restype = i
         lib.sdf_fwd.argtypes = [vp, i, vp, vp, f, f, vp, vp]
+        lib.sdf_fwd_tile.restype, lib.sdf_fwd_tile.argtypes = i, [i, i]
         if lib.sdf_fwd_weight_elems() != sum(r * c for r, c in PACK_SHAPES):
             raise RuntimeError("csrc/sdf_fwd.cu layout differs from ops/sdf_grad.py")
+        if any(lib.sdf_fwd_tile(n, 132) != tile(n, 132) for n in (1, 8448, 8449)):
+            raise RuntimeError("csrc/sdf_fwd.cu's tile rule differs from ops/sdf_fwd.py")
         lib._nero_typed = True
     return lib
 

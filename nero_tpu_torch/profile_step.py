@@ -43,7 +43,7 @@ PORT_KERNELS = ("sdf_grad_fwd_kernel", "sdf_bwd_sweep_kernel", "sdf_bwd_params_k
                 "sdf_bwd_reduce_kernel", "shader_fwd_kernel", "shader_bwd_sweep_kernel",
                 "shader_bwd_params_kernel", "shader_bwd_reduce_kernel",
                 "lights_fwd_kernel", "lights_bwd_sweep_kernel", "lights_bwd_params_kernel",
-                "lights_bwd_reduce_kernel", "predictor_rows_kernel",
+                "lights_bwd_reduce_kernel", "predictor_fwd_kernel",
                 "predictor_bwd_sweep_kernel", "predictor_bwd_params_kernel",
                 "predictor_bwd_reduce_kernel", "sdf_fwd_kernel", "sphere_march_kernel",
                 "field_fwd_kernel", "march_kernel")

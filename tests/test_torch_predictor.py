@@ -2,7 +2,13 @@
 CUDA kernel runs on the card only) against nero_tpu's `apply_predictor` body
 in f32 and against the TPU kernel `predictor_fused` in interpret mode at the
 bars of tests/test_predictor_kernel.py, values and gradients to x and to
-the {v, g, b} leaves."""
+the {v, g, b} leaves; a mirror of the kernel's forward (its weight stream
+and shared memory) against the constants of csrc/predictor.cu and
+csrc/engine.cuh, and the sources' shape: the forward on the engine, no
+`block_mm` left."""
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,8 +18,10 @@ import torch
 from nero_tpu.ops.mlp import apply_predictor as apply_jax, hidden_dtype, init_predictor
 from nero_tpu.ops.pallas.predictor_kernel import predictor_fused
 from nero_tpu_torch.core.convert import from_numpy_tree, tree_items
+from nero_tpu_torch.ops import cuda_build
 from nero_tpu_torch.ops import predictor as K
-from nero_tpu_torch.ops.mlp import apply_predictor
+from nero_tpu_torch.ops.mlp import apply_predictor, resolve_weight_norm
+from torch_shader_common import _kernel_head
 
 torch.set_num_threads(1)
 
@@ -143,14 +151,109 @@ def test_packing_round_trip_and_bounds():
     assert not K.supported([torch.zeros(300, 256), *ws[1:]])
 
 
+# ---------------------------------------------------------------------------
+# the forward's weight stream and shared memory: a mirror of csrc/predictor.cu
+# ---------------------------------------------------------------------------
+
+SMEM_MAX = 232448  # a block's shared memory on the H100
+SLAB_REC = 12      # SlabRec: unsigned offset, four unsigned shorts
+
+
+def _read(fn):
+    with open(os.path.join(cuda_build.CSRC, fn)) as f:
+        return f.read()
+
+
+def _source_constants() -> dict:
+    out = {}
+    for fn, keys in (("predictor.cu", ("PB", "BTHREADS", "MAX_DI", "DO")),
+                     ("engine.cuh", ("LAYER_W", "WN", "SLAB_K", "STAGES"))):
+        src = _read(fn)
+        out.update({k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+                    for k in keys})
+    return out
+
+
+def forward_stream(di: int, c: dict) -> list:
+    """(element offset, rows, columns) of each slab of the forward, as
+    csrc/predictor.cu::fwd_slab_at lays them out: W1 in slabs of up to
+    SLAB_K rows, W2 and W3 in SLAB_K-row slabs, then W4 [256, 16] as
+    SLAB_K-row slabs of its 16 columns."""
+    h, k, do = c["LAYER_W"], c["SLAB_K"], c["DO"]
+    off = [0, di * h, di * h + h * h, di * h + 2 * h * h]
+    s = [(r * h, min(k, di - r), h) for r in range(0, di, k)]
+    s += [(off[l] + r * h, k, h) for l in (1, 2) for r in range(0, h, k)]
+    return s + [(off[3] + r * do, k, do) for r in range(0, h, k)]
+
+
+@pytest.mark.parametrize("d_in", sorted({d for d, _ in K.SHADER_SHAPES}))
+def test_forward_weight_stream_and_smem(d_in):
+    """ceil(di / 128) + 6 slabs that stream every packed weight once, in
+    order, each within a stage of the ring (SLAB_K rows of LAYER_W + 8);
+    128-row tiles (the wrapper's TILE) of 16 warps, 32 rows x 64 columns
+    each, whose first two n8-tiles hold W4's 16 columns; the tile, the ring
+    and the slab table within a block's 232,448 bytes at the widest input."""
+    c = _source_constants()
+    assert c["PB"] == K.TILE == 128 and c["MAX_DI"] == K.MAX_D_IN
+    assert c["BTHREADS"] == 4 * c["PB"] and c["BTHREADS"] // 32 == c["PB"] // 32 * 4
+    assert c["DO"] == K.DO and c["DO"] <= 8 * c["WN"] and c["DO"] % 16 == 0
+    di = K.padded_d_in(d_in)
+    stream = forward_stream(di, c)
+    assert len(stream) == -(-di // 128) + 6
+    ends = [o + r * cols for o, r, cols in stream]
+    assert stream[0][0] == 0 and [o for o, _, _ in stream[1:]] == ends[:-1]
+    assert ends[-1] == sum(r * cols for _, r, cols in stream) == (
+        di * 256 + 2 * 256 * 256 + 256 * K.DO)
+    stage = max(c["SLAB_K"] * (c["LAYER_W"] + 8), c["LAYER_W"] * (c["SLAB_K"] + 8))
+    assert all(r <= c["SLAB_K"] and r * (c["LAYER_W"] + 8) <= stage and cols % 8 == 0
+               for _, r, cols in stream)
+    n_max = len(forward_stream(c["MAX_DI"], c))
+    smem = (c["PB"] * (c["MAX_DI"] + 8) * 2 + c["STAGES"] * stage * 2 + n_max * SLAB_REC)
+    assert n_max == 9 and smem <= SMEM_MAX, smem
+
+
+def test_the_forward_runs_on_the_engine():
+    """csrc/predictor.cu's C entry `predictor_fwd` launches
+    `predictor_fwd_kernel` on engine.cuh's ring and product, with no copy of
+    them; the first version's rows kernel is gone, and so is common.cuh's
+    `block_mm`, from every source; `kernel_variants`' `weights_only` takes
+    the forward's epilogue with the recompute's."""
+    from nero_tpu_torch import kernel_variants
+    src = _read("predictor.cu")
+    assert '#include "engine.cuh"' in src and "predictor_fwd_kernel<<<" in src
+    assert "predictor_rows_kernel" not in src
+    for copy in ("struct Ring", "void product(", "struct SlabRec"):
+        assert copy not in src
+    assert src.count(kernel_variants._PR_FWD_EPILOGUE) == 2
+    for fn in os.listdir(cuda_build.CSRC):
+        if fn.endswith((".cu", ".cuh")):
+            assert "block_mm" not in _read(fn), fn
+
+
 @pytest.mark.gpu
-def test_cuda_kernel_matches_plain_version():
+@pytest.mark.parametrize("d_in,d_out", K.SHADER_SHAPES)
+def test_cuda_kernel_matches_plain_version(d_in, d_out):
+    """n = 1001 (ragged for the 128-row tile) and 0: the forward within the
+    TPU kernel's bar of the plain version and at the emulation of its
+    rounding points (bf16 X and H, f32 sums): the same rounding points with
+    the sums in another order, so most outputs agree to the f32 sums' noise
+    (median |d| <= 1e-6), and an H element whose sum lies at a bf16 rounding
+    boundary may round the other way and move its row by ~1e-4 (max |d| <=
+    1e-3); the same bits in two calls; no rows give an empty output and
+    count no launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    layers, x, _ = _setup(259, 3, (1001,))
+    layers, x, _ = _setup(d_in, d_out, (1001,))
     dev = torch.device("cuda")
     p = from_numpy_tree(layers, device=dev)
     xt = torch.from_numpy(x).to(dev)
     with torch.no_grad():
-        torch.testing.assert_close(K.predictor(p, xt), K.predictor_plain(p, xt),
-                                   atol=2e-3, rtol=1e-2)
+        got = K.predictor(p, xt)
+        torch.testing.assert_close(got, K.predictor_plain(p, xt), atol=2e-3, rtol=1e-2)
+        emu = _kernel_head(resolve_weight_norm(from_numpy_tree(layers)), torch.from_numpy(x))
+        d = (got.cpu() - emu).abs()
+        assert d.median().item() <= 1e-6 and d.max().item() <= 1e-3, (d.median(), d.max())
+        assert torch.equal(got, K.predictor(p, xt))
+        counted = dict(K.launches)
+        assert K.predictor(p, xt[:0]).shape == (0, d_out)
+        assert K.launches == counted

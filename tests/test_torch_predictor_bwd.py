@@ -182,7 +182,7 @@ def test_backward_buffer_sizes_and_weight_stream(d_in, d_out):
     ring and lies inside the packed weights; at di = 272 W1^T takes two
     passes, since all its 272 rows would not fit one stage."""
     c = _source_constants()
-    assert c["PB"] == K.BWD_TILE == 128 and c["PW_RS"] % c["PB"] == 0
+    assert c["PB"] == K.TILE == 128 and c["PW_RS"] % c["PB"] == 0
     assert c["MAX_DI"] == K.MAX_D_IN
     di = K.padded_d_in(d_in)
     for n, m, chunks in ((1, 128, 1), (1001, 1024, 1), (65536, 65536, 32)):
@@ -203,14 +203,21 @@ def test_backward_buffer_sizes_and_weight_stream(d_in, d_out):
     assert 272 * (c["SLAB_K"] + 8) > stage  # one W1^T slab of 272 rows would not fit
 
 
-@pytest.mark.parametrize("name", list(kernel_variants.PREDICTOR_VARIANTS))
-def test_every_variant_patch_applies(name):
+@pytest.mark.parametrize("kernel,name",
+                         [("predictor", n) for n in kernel_variants.PREDICTOR_VARIANTS]
+                         + [("sdf_fwd", n) for n in kernel_variants.SDF_FWD_VARIANTS])
+def test_every_variant_patch_applies(kernel, name):
     """A stale patch shows only on the card: each variant's every (old, new)
-    pair must find its text in csrc/predictor.cu as it is, and change it."""
-    src = kernel_variants.variant_source(name, "predictor")
-    with open(os.path.join(cuda_build.CSRC, "predictor.cu")) as f:
-        orig = f.read()
-    assert (src == orig) == (not kernel_variants.PREDICTOR_VARIANTS[name])
+    pair must find its text in csrc/predictor.cu, or in csrc/sdf_fwd.cu or
+    the engine's csrc/sdf_net.cuh, as they are, and change it."""
+    files = kernel_variants.variant_files(name, kernel)
+    assert f"{kernel}.cu" in files
+    assert set(files) <= {f"{kernel}.cu", *kernel_variants._HEADERS.get(kernel, ())}
+    changed = False
+    for fn, text in files.items():
+        with open(os.path.join(cuda_build.CSRC, fn)) as f:
+            changed = changed or text != f.read()
+    assert changed == bool(kernel_variants._TABLES[kernel][name])
 
 
 def _c_entries():
@@ -230,8 +237,7 @@ def test_one_typing_covers_every_c_entry(parts):
     parts; a library without them (an earlier source) is typed all the
     same."""
     entries = _c_entries()
-    split = ("predictor_bwd_sweep", "predictor_bwd_params", "predictor_bwd_reduce",
-             "predictor_bwd_tile")
+    split = ("predictor_bwd_sweep", "predictor_bwd_params", "predictor_bwd_reduce")
     assert set(split) <= set(entries)
     lib = type("Lib", (), {})()
     for name in entries:

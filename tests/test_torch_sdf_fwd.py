@@ -2,7 +2,13 @@
 version: the CUDA kernel runs on the card only) against nero_tpu's
 `sdf_value` in f32 and against the TPU kernel `sdf_fwd_fused` in interpret
 mode at that kernel's own bar (atol 2e-2: bf16 operands), and
-`make_nograd_sdf_fn` with the switch on and off."""
+`make_nograd_sdf_fn` with the switch on and off; a mirror of the kernel's
+weight stream, shared memory and tile rule against the constants of
+csrc/sdf_fwd.cu and csrc/sdf_net.cuh, and the sources' shape: B6 and B1 on
+the one engine of sdf_net.cuh."""
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,7 +19,9 @@ from nero_tpu.fields.sdf import SDFConfig as JCfg, init_sdf, sdf_value as sdf_va
 from nero_tpu.ops.pallas.sdf_kernel import pack_sdf_params, sdf_fwd_fused
 from nero_tpu_torch.core.convert import from_numpy_tree
 from nero_tpu_torch.fields.sdf import SDFConfig
+from nero_tpu_torch.ops import cuda_build
 from nero_tpu_torch.ops import sdf_fwd as K
+from nero_tpu_torch.ops.sdf_grad import sdf_with_grad
 from nero_tpu_torch.ops.mlp import resolve_weight_norm
 from nero_tpu_torch.render import shape as T
 
@@ -88,13 +96,121 @@ def test_bound_inputs():
     assert K.min_bytes(131072) == 131072 * 16 + 2 * sum(r * c for r, c in K.PACK_SHAPES)
 
 
+# ---------------------------------------------------------------------------
+# the weight stream, shared memory and tile rule: a mirror of csrc/sdf_fwd.cu
+# ---------------------------------------------------------------------------
+
+SMEM_MAX = 232448  # a block's shared memory on the H100
+
+
+def _read(fn):
+    with open(os.path.join(cuda_build.CSRC, fn)) as f:
+        return f.read()
+
+
+def _source_constants() -> dict:
+    src = _read("sdf_net.cuh")
+    return {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+            for k in ("HID", "PEW", "OUTW", "NPE", "WN", "SLAB_K", "STAGES", "SDF_COLS")}
+
+
+def value_stream(c: dict) -> list:
+    """(element offset, rows, columns, row stride in the packed weights) of
+    each slab of the kernel's stream, as sdf_net.cuh::slab_at<VALUE_STREAM>
+    lays them out: w0, w1 w2 w3 w4a, w4b, w5 w6 w7 in slabs of up to SLAB_K
+    rows, in the packed order; then of w8 [256, 272] the sdf column's
+    n8-tile alone, SLAB_K rows a slab."""
+    h, pe, k = c["HID"], c["PEW"], c["SLAB_K"]
+    sizes = [r * cols for r, cols in K.PACK_SHAPES]
+    offs = [sum(sizes[:i]) for i in range(len(sizes))]
+    s = []
+    for p in range(9):  # w0 .. w7 with w4b: the first nine packed products
+        rows = pe if p in (0, 5) else h
+        s += [(offs[p] + r * h, min(k, rows - r), h, h) for r in range(0, rows, k)]
+    return s + [(offs[9] + r * c["OUTW"], k, c["SDF_COLS"], c["OUTW"]) for r in range(0, h, k)]
+
+
+def test_weight_stream_and_smem():
+    """The stream reads w0 .. w7 whole and in order, then w8's first 8
+    columns (4 KB of its 139 KB): 18 slabs, each within a stage of the ring
+    (SLAB_K rows of OUTW + 8) and inside the packed weights; the tile of 128
+    points (and of 64) with its PE and the ring within a block's 232,448
+    bytes."""
+    c = _source_constants()
+    assert (c["HID"], c["PEW"], c["OUTW"], c["NPE"]) == (256, 48, 272, 39)
+    stream = value_stream(c)
+    assert len(stream) == 18
+    hidden = stream[:-2]
+    ends = [o + r * cols for o, r, cols, _ in hidden]
+    assert hidden[0][0] == 0 and [o for o, _, _, _ in hidden[1:]] == ends[:-1]
+    assert ends[-1] == sum(r * cols for r, cols in K.PACK_SHAPES[:9])
+    w8 = stream[-2:]
+    assert c["SDF_COLS"] == 8 and all(cols == c["SDF_COLS"] for _, _, cols, _ in w8)
+    assert sum(r * cols for _, r, cols, _ in w8) * 2 == 4096
+    total = sum(r * cols for r, cols in K.PACK_SHAPES)
+    stage = max(c["SLAB_K"] * (c["OUTW"] + 8), c["HID"] * (c["SLAB_K"] + 8))
+    for off, rows, cols, ldg in stream:
+        assert rows <= c["SLAB_K"] and rows * (c["OUTW"] + 8) <= stage and cols % 8 == 0
+        assert off + (rows - 1) * ldg + cols <= total
+    for points in (K.TILE, K.SMALL_TILE):
+        smem = (points * (c["HID"] + 8) + points * (c["PEW"] + 8) + c["STAGES"] * stage) * 2
+        assert smem <= SMEM_MAX, (points, smem)
+    # 16 warps: 4 row groups x 4 column groups of 64, MT m16 tiles a warp
+    assert c["HID"] // (8 * c["WN"]) == 4 and K.TILE == 4 * 16 * 2 and K.SMALL_TILE == 4 * 16
+
+
+@pytest.mark.parametrize("sms", [132, 114, 1])
+def test_tile_rule(sms):
+    """64 points a tile when the launch is one wave of them, else 128: on an
+    H100's 132 SMs the 8,192-point up-sample passes run 128 tiles of 64, the
+    32,768- and 131,072-point passes tiles of 128; the source states the
+    same rule."""
+    thr = K.SMALL_TILE * sms
+    assert K.tile(1, sms) == K.tile(thr, sms) == K.SMALL_TILE
+    assert K.tile(thr + 1, sms) == K.tile(K.TILE * sms, sms) == K.TILE
+    if sms == 132:
+        assert [K.tile(n, sms) for n in (8192, 8448, 8449, 32768, 131072)] == [64, 64, 128,
+                                                                              128, 128]
+    assert "int sdf_fwd_tile(int n, int sms) { return (n + 63) / 64 <= sms ? 64 : 128; }" in (
+        _read("sdf_fwd.cu"))
+
+
+def test_both_kernels_run_on_the_shared_engine():
+    """sdf_fwd.cu (B6) and sdf_grad.cu (B1) take the ring, the product, the
+    PE and the hidden layers from sdf_net.cuh and keep no copy; B6 streams
+    its own table (VALUE_STREAM) with one row kind, B1 four; no source holds
+    common.cuh's `block_mm` any more."""
+    engine = _read("sdf_net.cuh")
+    for part in ("struct Ring {", "void product(", "float div_beta(", "void pe_tile(",
+                 "void hidden_layers(", "Slab slab_at("):
+        assert engine.count(part) == 1, part
+    for fn, kinds in (("sdf_fwd.cu", "1, MT"), ("sdf_grad.cu", "4, 2")):
+        src = _read(fn)
+        assert '#include "sdf_net.cuh"' in src
+        for part in ("struct Ring", "void product(", "div_beta(float", "void pe_tile(",
+                     "void hidden_layers(", "void cp_async16(", "void mma_bf16("):
+            assert part not in src, (fn, part)
+        assert f"hidden_layers<{kinds}>(" in src and f"pe_tile<{kinds}>(" in src
+    assert "Ring<VALUE_STREAM>" in _read("sdf_fwd.cu")
+    assert "Ring<FWD_STREAM>" in _read("sdf_grad.cu") and "Ring<BWD_STREAM>" in _read("sdf_grad.cu")
+    for fn in os.listdir(cuda_build.CSRC):
+        if fn.endswith((".cu", ".cuh")):
+            assert "block_mm" not in _read(fn), fn
+
+
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain_version(params_j):
+    """3 x 1001 points (ragged for both tiles, padded for B1): within the
+    TPU kernel's bar of the plain version, and equal to the bit to the sdf
+    of the SDF-with-gradient kernel, which runs the same arithmetic."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     dev = torch.device("cuda")
     p = from_numpy_tree(params_j, device=dev)
     pts = torch.from_numpy(_pts((3, 1001))).to(dev)
-    out, ref = K.sdf_fwd(p, pts), K.sdf_fwd_plain(p, pts)
+    with torch.no_grad():
+        out, ref = K.sdf_fwd(p, pts), K.sdf_fwd_plain(p, pts)
+        b1 = sdf_with_grad(p, pts)[0]
     assert out.shape == (3, 1001, 1)
     torch.testing.assert_close(out, ref, atol=2e-2, rtol=0)
+    assert torch.equal(out, b1)
