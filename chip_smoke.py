@@ -3,8 +3,10 @@
 holds each against its plain PyTorch version, then trains Stage I on
 `configs/shape/proc/{sphere,sphere_real,sphere_heads}.yaml` and Stage II on
 `configs/material/proc/{bowl,bowl_fused}.yaml` at full width through the
-kernels, takes a few steps through every other switch of both stages, and
-runs the chain Stage I -> mesh -> Chamfer -> Stage II -> materials.
+kernels, takes a few steps through every other switch of both stages, runs
+the chain Stage I -> mesh -> Chamfer -> Stage II -> materials, and the
+capture path: a scene written as a COLMAP custom object, read through the
+crop and raw caches by both stages and both pipeline tools.
 
     python3 chip_smoke.py
 
@@ -75,13 +77,30 @@ result line):
      steps on that mesh through the neural tracer (finite losses), then
      `extract_materials` (finite, in [0, 1], one row per vertex) and
      `extract_materials_texture_map` at 1024^2 (the files written); both
-     trainings' launches asserted and counted, extraction launching none.
+     trainings' launches asserted and counted, extraction launching none;
+  8. the capture data path (`capture`), under a temporary database root:
+     PIL's 16-bit PNG round trip; (a) the `capture` scene exported as a
+     custom object (`run_real_pipeline.export_scene`: 16 views at 300 px,
+     a COLMAP sparse model, the object cloud), its parse + crop cache at
+     256 and its raw cache; (b) `configs/custom/kettle_shape.yaml` on
+     `custom/capture_sim/raw_300` as in phase 4 (B1 and B2's human_light
+     variant, launches exact, held-out loss_rgb falling, one occ step);
+     (c) `run_real_pipeline` (Stage I 300 steps through the crop cache,
+     mesh at 128^3, Stage II 5 steps); (d) `configs/custom/kettle_material.
+     yaml` for 5 steps on (c)'s mesh over the raw images; (e)
+     `run_pipeline_demo --scene capture` with `tracer: neural`, `grid` and
+     `bvh`. The reports hold the JAX tools' keys, every figure finite;
+     every trainer's launches are asserted for the tracer its model chose
+     (B3 once a step and a validation chunk with the neural tracer, nothing
+     with the grid or the BVH), and each tool's total; every part's seconds
+     are printed.
 The line before the result is a JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Of a kernel's times, `ms` is
 the wrapper's whole call for the kernels behind an autograd function (shader,
 predictor, lights) and the launch on packed weights for the others;
 `launch_ms` and `wrapper_ms` give both readings where they differ. `--only
-kernels` stops after phase 3 (for work on a kernel; no result line).
+kernels` stops after phase 3 (for work on a kernel; no result line); `--only
+capture` builds the kernels and runs phase 8 alone (no result line).
 """
 from __future__ import annotations
 
@@ -1227,15 +1246,17 @@ def material_val_chunks(model) -> int:
     return chunks
 
 
-def train(cfg_file: str, steps: int, dev) -> dict:
+def train(cfg_file: str, steps: int, dev, cfg: dict | None = None) -> dict:
     """Stage I through Trainer at full width: `steps` steps and one
-    validation view, then one step at occ_loss_step."""
+    validation view, then one step at occ_loss_step. `cfg_file` names a
+    config of configs/shape/proc, or labels `cfg`, a config given whole."""
     from nero_tpu_torch.render.rays import sample_ray_batch
     from nero_tpu_torch.train.trainer import Trainer
 
     root = tempfile.mkdtemp(prefix="nero_smoke_")
-    cfg = shape_cfg(cfg_file, root, total_step=steps, val_interval=steps,
-                    save_interval=10 * steps, train_log_step=1)
+    over = dict(total_step=steps, val_interval=steps, save_interval=10 * steps, train_log_step=1)
+    cfg = shape_cfg(cfg_file, root, **over) if cfg is None else \
+        {**cfg, "model_root": root, "vis_dir": root, **over}
     trainer = Trainer(cfg, device=dev)
     trainer.setup()
     model = trainer.model
@@ -1683,11 +1704,286 @@ def chain(dev) -> list:
     return [stage1, stage2]
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the capture data path, COLMAP object on disk -> both stages
+# ---------------------------------------------------------------------------
+
+CAPTURE_NAME = "capture_sim"
+CAPTURE_RES, CAPTURE_VIEWS = 300, 16    # run_real_pipeline's defaults
+CAPTURE_RAW = f"custom/{CAPTURE_NAME}/raw_{CAPTURE_RES}"   # _resize_raw at ratio 1
+CAPTURE_CROP = f"custom/{CAPTURE_NAME}/256"                # the crop cache
+CAPTURE_STAGE2_STEPS = 5
+REAL_STEPS1 = 300
+REAL_ARGV = ["--steps1", str(REAL_STEPS1), "--steps2", str(CAPTURE_STAGE2_STEPS), "--max_len",
+             "256", "--train_rays", "512", "--mesh_res", "128"]
+DEMO_STEPS1, DEMO_STEPS2 = 100, 3
+DEMO_TRACERS = ("neural", "grid", "bvh")
+DEMO_ARGV = ["--scene", "capture", "--steps1", str(DEMO_STEPS1), "--steps2", str(DEMO_STEPS2),
+             "--res", "100", "--mesh_res", "128", "--tracers2", ",".join(DEMO_TRACERS)]
+# the reports' keys: those of tools/run_real_pipeline.py, and of
+# tools/run_pipeline_demo.py for a scene other than 'sphere'
+REAL_KEYS = {"export_seconds", "stage1_seconds", "stage1_psnr", "mesh_verts", "mesh_sdf_mae",
+             "chamfer_vs_object_cloud", "stage2_seconds", "stage2_psnr"}
+DEMO_KEYS = ({"stage1_seconds", "stage1_psnr", "mesh_verts", "chamfer", "mesh_sdf_mae",
+              "stage2_psnr"} | {f"stage2_seconds_{t}" for t in DEMO_TRACERS}
+             | {f"stage2_psnr_{t}" for t in DEMO_TRACERS})
+
+
+def synced() -> float:
+    torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+class ToolProbe:
+    """Around a pipeline tool's `main`: its trainers, each with its set-up
+    seconds, synchronised step times, every step's log and the launches of
+    its `run`, and the seconds of every field distillation. Patches the tool's `Trainer` and
+    neural_tracer.distill_field; restores both on exit."""
+
+    def __init__(self, tool):
+        from nero_tpu_torch.geometry import neural_tracer
+
+        self.tool, self.nt = tool, neural_tracer
+        self.trainers, self.distill_s = [], []
+
+    def __enter__(self):
+        probe, base, distill = self, self.tool.Trainer, self.nt.distill_field
+
+        class Recording(base):
+            def setup(self):
+                t0 = synced()
+                super().setup()
+                self.setup_s, self.step_s, self.logs = synced() - t0, [], []
+                probe.trainers.append(self)
+
+            def train_step(self, step):
+                t0 = synced()
+                log = super().train_step(step)
+                self.step_s.append(synced() - t0)
+                self.logs.append({k: float(v) for k, v in log.items()})
+                return log
+
+            def run(self):
+                if self.model is None:
+                    self.setup()
+                before = read_launches()
+                params = super().run()
+                torch.cuda.synchronize()
+                self.launches = {k: v - before[k] for k, v in read_launches().items()}
+                return params
+
+        def timed_distill(*args, **kw):
+            t0 = synced()
+            out = distill(*args, **kw)
+            probe.distill_s.append(synced() - t0)
+            return out
+
+        self.saved = (base, distill)
+        self.tool.Trainer, self.nt.distill_field = Recording, timed_distill
+        return self
+
+    def __exit__(self, *exc):
+        self.tool.Trainer, self.nt.distill_field = self.saved
+
+
+def add_launches(*counts: dict) -> dict:
+    return {k: sum(c.get(k, 0) for c in counts) for k in counts[0]}
+
+
+def stage2_expect(model, steps: int, val_passes: int = 1) -> dict:
+    """Launches of `steps` Stage-II steps and `val_passes` renders of the
+    validation view: one march per step and per chunk of hit pixels with the
+    neural tracer (std field, sphere march), none with the grid or the BVH."""
+    if type(model.ray_tracer).__name__ != "NeuralTracer":
+        return expect_launches()
+    return expect_launches(sphere_march=steps + val_passes * material_val_chunks(model))
+
+
+def tool_report(tag: str, report: dict, keys: set):
+    check(set(report) == keys, f"{tag}: report keys {sorted(report)}, expected {sorted(keys)}")
+    check(all(math.isfinite(v) for v in report.values()), f"{tag}: report {report}")
+    print(f"{tag}: report " + json.dumps(report))
+
+
+def stage1_of_tool(tag: str, trainer, steps: int) -> dict:
+    """The tool's Stage I: its run's launches as `stage1_expect` says, and
+    the launches of one more validation render (the tool's PSNR)."""
+    model = trainer.model
+    chunks = stage1_val_chunks(model)
+    occ = max(0, steps - model.scfg.occ_loss_step)
+    want = stage1_expect(model.scfg, steps, val_chunks=chunks, occ_steps=occ)
+    check(trainer.launches == want,
+          f"{tag} Stage I launches {nonzero(trainer.launches)}, expected {nonzero(want)}")
+    for i, log in enumerate(trainer.logs):
+        check(all(math.isfinite(v) for v in log.values()), f"{tag} Stage I step {i}: {log}")
+    print(f"{tag}: Stage I on {model.cfg['database_name']}: set-up {trainer.setup_s:.3f} s, "
+          f"{steps} steps, step {np.median(trainer.step_s) * 1e3:.2f} ms (median, host clock "
+          f"after synchronize), loss_rgb {trainer.logs[0]['loss_rgb']:.5f} -> "
+          f"{trainer.logs[-1]['loss_rgb']:.5f}, val psnr "
+          f"{trainer.val_results.get('val-psnr', float('nan')):.3f}; launches "
+          f"{nonzero(trainer.launches)} = {steps} steps + {chunks} validation chunks")
+    return stage1_expect(model.scfg, 0, val_chunks=chunks)
+
+
+def stage2_of_tool(tag: str, trainer, steps: int) -> dict:
+    """A Stage II of a tool: its run's launches for the tracer that the
+    model chose, and those of one more validation render (the tool's PSNR)."""
+    model = trainer.model
+    tracer = type(model.ray_tracer).__name__
+    want = stage2_expect(model, steps)
+    check(trainer.launches == want,
+          f"{tag} Stage II ({tracer}) launches {nonzero(trainer.launches)}, "
+          f"expected {nonzero(want)}")
+    for i, log in enumerate(trainer.logs):
+        check(all(math.isfinite(v) for v in log.values()), f"{tag} Stage II step {i}: {log}")
+    rms = getattr(model.ray_tracer, "distill_rms", float("nan"))
+    print(f"{tag}: Stage II, tracer {model.cfg['tracer']} -> {tracer} (distill RMS {rms:.5f}), "
+          f"{model.tbn} hit pixels, set-up {trainer.setup_s:.3f} s, {steps} steps, step "
+          f"{np.median(trainer.step_s) * 1e3:.2f} ms (median, host clock after synchronize), "
+          f"loss_rgb " + ", ".join(f"{log['loss_rgb']:.5f}" for log in trainer.logs)
+          + f", val psnr {trainer.val_results.get('val-psnr', float('nan')):.3f}; launches "
+          f"{nonzero(trainer.launches)}")
+    return add_launches(want, stage2_expect(model, 0))
+
+
+def check_png16(root: str):
+    """PIL on this machine reads a 16-bit PNG back as the uint16 array it
+    was given (the GlossySynthetic depth maps)."""
+    import PIL
+
+    from nero_tpu_torch.utils.image import imread, imsave
+
+    depth = (np.random.RandomState(0).rand(33, 17) * 65535).astype(np.uint16)
+    path = os.path.join(root, "depth16.png")
+    imsave(path, depth)
+    back = imread(path)
+    check(back.dtype == np.uint16 and np.array_equal(back, depth),
+          f"16-bit PNG read back as {back.dtype}")
+    print(f"capture: PIL {PIL.__version__} reads a 16-bit PNG back as uint16, to the bit")
+
+
+def capture(dev) -> list:
+    """The capture data path: (a) the `capture` scene exported as a custom
+    object (16 views at 300 px) and both image caches; (b) Stage I of
+    configs/custom/kettle_shape.yaml on the raw images; (c)
+    run_real_pipeline through the crop cache; (d) Stage II of
+    configs/custom/kettle_material.yaml on (c)'s mesh; (e) run_pipeline_demo
+    on the capture scene with every tracer. Returns the launches of each."""
+    from nero_tpu_torch import run_pipeline_demo, run_real_pipeline
+    from nero_tpu_torch.core.config import load_cfg
+    from nero_tpu_torch.dataset import database
+    from nero_tpu_torch.train.trainer import Trainer
+
+    root = tempfile.mkdtemp(prefix="nero_smoke_capture_")
+    saved_root, database.DATA_ROOT = database.DATA_ROOT, os.path.join(root, "data")
+    tag = "capture"
+    configs = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "custom")
+    on = ["--device", dev.type]
+    try:
+        check_png16(root)
+        # (a) the export, then the parse + crop cache and the raw cache
+        t0 = synced()
+        obj = run_real_pipeline.export_scene(CAPTURE_NAME, CAPTURE_RES, CAPTURE_VIEWS)
+        export_s = synced() - t0
+        t0 = synced()
+        crop = database.parse_database_name(CAPTURE_CROP)
+        crop_s = synced() - t0
+        t0 = synced()
+        raw = database.parse_database_name(CAPTURE_RAW)
+        raw_s = synced() - t0
+        check(len(crop.get_img_ids()) == CAPTURE_VIEWS
+              and crop.get_image(1).shape == (256, 256, 3)
+              and raw.get_image(1).shape == (CAPTURE_RES, CAPTURE_RES, 3)
+              and np.isclose(np.linalg.norm(raw.ref_points, axis=-1).max(), 1.0),
+              f"{tag}: databases of the export")
+        print(f"{tag}: export of {CAPTURE_VIEWS} views at {CAPTURE_RES} px {export_s:.3f} s; "
+              f"COLMAP parse + normalisation + crop cache at 256 {crop_s:.3f} s; raw cache "
+              f"{raw_s:.3f} s; {len(raw.ref_points)} object points")
+
+        # (b) the shipped custom Stage I at its widths, on the raw images
+        cfg = load_cfg(os.path.join(configs, "kettle_shape.yaml"))
+        cfg.update(database_name=CAPTURE_RAW)
+        raw_run = train("kettle_shape.yaml on " + CAPTURE_RAW, STAGE1_STEPS, dev, cfg=cfg)
+
+        # (c) the real-capture tool through the crop cache
+        reset_launches()
+        with ToolProbe(run_real_pipeline) as probe:
+            report = run_real_pipeline.main(REAL_ARGV + ["--out", os.path.join(root, "real")]
+                                            + on)
+        launches = read_launches()
+        tool_report(f"{tag} run_real_pipeline", report, REAL_KEYS)
+        check(report["mesh_verts"] > 100, f"{tag}: {report['mesh_verts']} mesh vertices")
+        t1, t2 = probe.trainers
+        want = add_launches(stage1_of_tool(f"{tag} run_real_pipeline", t1, REAL_STEPS1),
+                            t1.launches, stage2_of_tool(f"{tag} run_real_pipeline", t2,
+                                                        CAPTURE_STAGE2_STEPS))
+        check(launches == want, f"{tag} run_real_pipeline launches {nonzero(launches)}, "
+                                f"expected {nonzero(want)}")
+        print(f"{tag} run_real_pipeline: distillation " + ", ".join(
+            f"{s:.3f}" for s in probe.distill_s) + " s; Chamfer against the object cloud "
+            f"{report['chamfer_vs_object_cloud']}, mean |scene SDF| {report['mesh_sdf_mae']}")
+        real_launches = launches
+        mesh = os.path.join(root, "real", f"real_shape-{REAL_STEPS1}.ply")
+
+        # (d) the shipped custom Stage II on that mesh, over the raw images
+        cfg = load_cfg(os.path.join(configs, "kettle_material.yaml"))
+        cfg.update(database_name=CAPTURE_RAW, mesh=mesh, model_root=root, vis_dir=root,
+                   total_step=CAPTURE_STAGE2_STEPS)
+        trainer = Trainer(cfg, device=dev)
+        t0 = synced()
+        trainer.setup()
+        setup_s = synced() - t0
+        model = trainer.model
+        mc = model.mcfg
+        check(mc.human_lights and mc.outer_light_version == "sphere_direction"
+              and (mc.diffuse_sample_num, mc.specular_sample_num) == (512, 256)
+              and not mc.fused_lights, f"{tag} kettle_material.yaml: {mc}")
+        reset_launches()
+        times = []
+        for step in range(CAPTURE_STAGE2_STEPS):
+            t0 = synced()
+            log = {k: float(v) for k, v in trainer.train_step(step).items()}
+            times.append(synced() - t0)
+            check(all(math.isfinite(v) for v in log.values()), f"{tag} Stage II {step}: {log}")
+        kettle = read_launches()
+        want = stage2_expect(model, CAPTURE_STAGE2_STEPS, val_passes=0)
+        check(kettle == want, f"{tag} kettle_material.yaml launches {nonzero(kettle)}, "
+                              f"expected {nonzero(want)}")
+        print(f"{tag}: kettle_material.yaml on {CAPTURE_RAW}, tracer "
+              f"{type(model.ray_tracer).__name__}, {model.tbn} hit pixels, set-up {setup_s:.3f} "
+              f"s, {CAPTURE_STAGE2_STEPS} steps, step {np.median(times[1:]) * 1e3:.2f} ms "
+              f"(median after the first), last loss_rgb {log['loss_rgb']:.5f}; launches "
+              f"{nonzero(kettle)}")
+
+        # (e) the demo on the capture scene, every tracer
+        reset_launches()
+        with ToolProbe(run_pipeline_demo) as probe:
+            report = run_pipeline_demo.main(DEMO_ARGV + ["--out", os.path.join(root, "demo")]
+                                            + on)
+        launches = read_launches()
+        tool_report(f"{tag} run_pipeline_demo", report, DEMO_KEYS)
+        t1, *stage2 = probe.trainers
+        check(len(stage2) == len(DEMO_TRACERS), f"{tag}: {len(stage2)} Stage-II trainers")
+        want = [stage1_of_tool(f"{tag} run_pipeline_demo", t1, DEMO_STEPS1), t1.launches]
+        for t, name in zip(stage2, DEMO_TRACERS):
+            want.append(stage2_of_tool(f"{tag} run_pipeline_demo ({name})", t, DEMO_STEPS2))
+            print(f"{tag} run_pipeline_demo ({name}): Stage II {report[f'stage2_seconds_{name}']}"
+                  f" s, psnr {report[f'stage2_psnr_{name}']}")
+        want = add_launches(*want)
+        check(launches == want, f"{tag} run_pipeline_demo launches {nonzero(launches)}, "
+                                f"expected {nonzero(want)}")
+        print(f"{tag} run_pipeline_demo: distillation " + ", ".join(
+            f"{s:.3f}" for s in probe.distill_s) + " s")
+        return [raw_run["launches"], real_launches, kettle, launches]
+    finally:
+        database.DATA_ROOT = saved_root
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=["kernels"], default=None,
+    ap.add_argument("--only", choices=["kernels", "capture"], default=None,
                     help="kernels: stop after the kernel and tracer checks (no training, no "
-                         "result line)")
+                         "result line); capture: build, then phase 8 alone (no result line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1696,6 +1992,7 @@ def main(argv=None) -> int:
     from nero_tpu_torch.ops import cuda_build
 
     dev = torch.device("cuda")
+    start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -1711,6 +2008,10 @@ def main(argv=None) -> int:
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}")
 
+    if args.only == "capture":
+        launches = add_launches(*capture(dev))
+        print(f"capture: launches {nonzero(launches)}; {time.perf_counter() - start:.1f} s")
+        return 0
     kernels = check_stage1_kernels(dev)
     bowl = proc_mesh("bowl")
     kernels += check_lights(N_MARCH_RAYS, dev)
@@ -1736,6 +2037,7 @@ def main(argv=None) -> int:
              train_material(bowl, FUSED_STEPS, dev, "bowl_fused.yaml", fused=True)]
     runs += material_variants(bowl, dev)
     runs += chain(dev)
+    runs += capture(dev)
     launches = {k: sum(r.get(k, 0) for r in runs) for r0 in runs for k in r0}
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -1752,6 +2054,7 @@ def main(argv=None) -> int:
               f"{k['bound_ms']:.3f} ms by {k['bound_by']}), max err {k['max_abs_err']:.3e}, "
               f"launches {k['launches']}")
     print("kernels: " + ", ".join(k["name"] for k in kernels))
+    print(f"chip_smoke: {time.perf_counter() - start:.1f} s from the card check to the result")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

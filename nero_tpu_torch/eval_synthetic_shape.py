@@ -1,15 +1,16 @@
 """Chamfer evaluation of an extracted mesh against a scene's depth cloud:
 
-    python -m nero_tpu_torch.eval_synthetic_shape --mesh data/meshes/m.ply \
-        --object proc/sphere/128_16
+    python -m nero_tpu_torch.eval_synthetic_shape --mesh data/meshes/bell-300000.ply \
+        --object syn/bell
 
 Ground-truth points are fused from the scene's depth maps
 (`dataset/database.py::get_database_eval_points`); predicted points from the
 mesh's depth, rasterised on the host at the held-out views; both are
 voxel-downsampled at 0.01, and the symmetric Chamfer distance runs on the
 card (`--device cpu` on the CPU). The result is appended to `--log` in the
-format of the repository's eval_synthetic_shape.py. Only `proc/` scenes are
-ported; their held-out views are the `validation` split.
+format of the repository's eval_synthetic_shape.py. The held-out views are
+the `test` split for GlossySynthetic objects (`syn/<object>`) and the
+`validation` split for the others (a procedural scene, `proc/<kind>/<res>`).
 """
 import argparse
 import os
@@ -47,7 +48,7 @@ def main(argv=None) -> dict:
     parser = argparse.ArgumentParser()
     parser.add_argument("--mesh", type=str, required=True)
     parser.add_argument("--object", type=str, required=True,
-                        help="database name, e.g. proc/sphere/128_16")
+                        help="database name, e.g. syn/bell or proc/sphere/128_16")
     parser.add_argument("--log", type=str, default="data/geometry.log")
     parser.add_argument("--device", type=str, default=None, help="default: cuda")
     flags = parser.parse_args(argv)
@@ -55,7 +56,8 @@ def main(argv=None) -> dict:
 
     database = parse_database_name(flags.object)
     gt_pts = get_database_eval_points(database)
-    _, test_ids = get_database_split(database, "validation")
+    split = "test" if flags.object.startswith("syn") else "validation"
+    _, test_ids = get_database_split(database, split)
 
     pr_pts = mesh_points_from_views(read_ply(flags.mesh), database, test_ids)
     chamfer, d01, d10 = chamfer_distance(pr_pts, gt_pts, device=device)

@@ -21,12 +21,13 @@ import threading
 
 import numpy as np
 
+from nero_tpu_torch.core.paths import repo_path
+
 _LOCK = threading.Lock()
 _LIB = None
 
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_SRC = os.path.join(_REPO_ROOT, "csrc", "nero_native.cpp")
-_BUILD_DIR = os.path.join(_REPO_ROOT, "build", "nero_tpu_torch")
+_SRC = repo_path("csrc", "nero_native.cpp")
+_BUILD_DIR = repo_path("build", "nero_tpu_torch")
 _FLAGS = ["-O3", "-march=native", "-fopenmp", "-shared", "-fPIC"]
 
 _F32P = ctypes.POINTER(ctypes.c_float)

@@ -31,6 +31,7 @@ import os
 import numpy as np
 import torch
 
+from nero_tpu_torch.core.paths import repo_path
 from nero_tpu_torch.geometry.bvh import RayTracer
 from nero_tpu_torch.geometry.native import mesh_sdf_points
 from nero_tpu_torch.ops.march import march
@@ -39,7 +40,6 @@ from nero_tpu_torch.ops.sphere_march import (TOPOLOGIES, WIDE_CHAINS, WIDE_DIM,
                                              pack_field_params, sphere_march)
 from nero_tpu_torch.utils.encodings import positional_encode, positional_encode_dim
 
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 MARCH_MODES = ("sphere", "uniform")
 
 
@@ -211,7 +211,7 @@ class NeuralTracer:
     passes (`trace_cpu`)."""
 
     # repo-root anchored: CLIs running from another cwd hit the same cache
-    CACHE_DIR = os.path.join(_REPO_ROOT, "data", "cache", "neural_tracer_torch")
+    CACHE_DIR = repo_path("data", "cache", "neural_tracer_torch")
 
     def __init__(self, vertices: np.ndarray, triangles: np.ndarray, far: float = 10.0,
                  width: int = 128, depth: int = 4, pe: int = 6, distill_steps: int = 3000,

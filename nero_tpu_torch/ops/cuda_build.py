@@ -17,9 +17,10 @@ import shutil
 import subprocess
 import threading
 
+from nero_tpu_torch.core.paths import repo_path
+
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-BUILD_DIR = os.path.join(REPO_ROOT, "build", "nero_tpu_torch")
+BUILD_DIR = repo_path("build", "nero_tpu_torch")
 SOURCES = ("sdf_grad", "shader", "sphere_march", "march", "field_fwd", "lights", "sdf_fwd",
            "predictor")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

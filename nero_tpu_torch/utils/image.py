@@ -1,6 +1,11 @@
 """Host-side image utilities (numpy/scipy/PIL): PSNR, SSIM, gaussian-
-prefiltered downsample, bilinear resize, grid concat, save. Copy of the
-parts of nero_tpu/utils/image.py that validation uses."""
+prefiltered downsample and resize, bilinear resize, homography warp, grid
+concat, read and save. The port's own copy of nero_tpu/utils/image.py.
+
+Files go through PIL, where nero_tpu goes through imageio (whose PNG and
+JPEG plugin is PIL): `imread` returns what imageio returns, uint8 for 8-bit
+images and uint16 for 16-bit grayscale PNGs (the GlossySynthetic depth
+maps), so both packages read each other's files to the bit."""
 from __future__ import annotations
 
 import numpy as np
@@ -78,6 +83,37 @@ def resize_bilinear(img: np.ndarray, out_hw: tuple[int, int]) -> np.ndarray:
     return out[..., 0] if img.ndim == 2 else out
 
 
+def resize_img(img: np.ndarray, ratio: float) -> np.ndarray:
+    """Gaussian-prefiltered resize by a scale ratio."""
+    h, w = img.shape[:2]
+    hn, wn = int(round(h * ratio)), int(round(w * ratio))
+    src = downsample_gaussian_blur(img, ratio) if ratio < 1.0 else img
+    return resize_bilinear(src, (hn, wn))
+
+
+def warp_perspective(img: np.ndarray, H: np.ndarray, out_wh: tuple[int, int]) -> np.ndarray:
+    """Homography warp (dst(x,y) = src(H^-1 [x,y,1])), bilinear, zeros outside.
+
+    cv2.warpPerspective-compatible pixel-grid convention (no half-pixel shift).
+    """
+    from scipy.ndimage import map_coordinates
+    w, h = out_wh
+    xs, ys = np.meshgrid(np.arange(w, dtype=np.float64), np.arange(h, dtype=np.float64))
+    Hinv = np.linalg.inv(np.asarray(H, np.float64))
+    denom = Hinv[2, 0] * xs + Hinv[2, 1] * ys + Hinv[2, 2]
+    sx = (Hinv[0, 0] * xs + Hinv[0, 1] * ys + Hinv[0, 2]) / denom
+    sy = (Hinv[1, 0] * xs + Hinv[1, 1] * ys + Hinv[1, 2]) / denom
+    img2 = img[..., None] if img.ndim == 2 else img
+    out = np.stack([map_coordinates(img2[..., c].astype(np.float64),
+                                    [sy, sx], order=1, mode="constant", cval=0.0)
+                    for c in range(img2.shape[2])], axis=-1)
+    if np.issubdtype(img.dtype, np.integer):
+        out = np.clip(out + 0.5, 0, np.iinfo(img.dtype).max).astype(img.dtype)
+    else:
+        out = out.astype(img.dtype)
+    return out[..., 0] if img.ndim == 2 else out
+
+
 def concat_images(img0: np.ndarray, img1: np.ndarray, vert: bool = False) -> np.ndarray:
     if not vert:
         h0, h1 = img0.shape[0], img1.shape[0]
@@ -101,6 +137,22 @@ def concat_images_list(*imgs, vert: bool = False) -> np.ndarray:
     return out
 
 
+def imread(path: str) -> np.ndarray:
+    """The image as imageio reads it: palette images expanded to RGB(A),
+    16-bit grayscale PNGs as uint16 (PIL opens them as mode I;16 or, in
+    older versions, as 32-bit I)."""
+    from PIL import Image
+    with Image.open(path) as im:
+        if im.mode == "P":
+            im = im.convert("RGBA" if "transparency" in im.info else "RGB")
+        arr = np.asarray(im)
+        if im.mode.startswith("I;16") or (im.mode == "I" and im.format == "PNG"):
+            arr = arr.astype(np.uint16)
+    return arr
+
+
 def imsave(path: str, img: np.ndarray):
+    """PNG, JPEG, ... by the file's suffix; a uint16 2-D array becomes a
+    16-bit grayscale PNG."""
     from PIL import Image
     Image.fromarray(img).save(path)

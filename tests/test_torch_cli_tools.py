@@ -2,8 +2,9 @@
 train Stage I on a tiny procedural configuration, extract its mesh,
 evaluate it by Chamfer, train Stage II on that mesh, export its per-vertex
 materials and bake its texture maps; the counterpart of
-tests/test_cli_tools.py. And every entry point, called without `--device`
-on a machine without CUDA, raises instead of running on the CPU."""
+tests/test_cli_tools.py. And every entry point (the pipeline tools and
+render_nvs too), called without `--device` on a machine without CUDA,
+raises instead of running on the CPU, before it reads or writes anything."""
 import os
 
 import numpy as np
@@ -11,7 +12,8 @@ import pytest
 import torch
 
 from nero_tpu_torch import (eval_real_shape, eval_synthetic_shape, extract_materials,
-                            extract_materials_texture_map, extract_mesh, run_training)
+                            extract_materials_texture_map, extract_mesh, render_nvs,
+                            run_pipeline_demo, run_real_pipeline, run_training)
 from nero_tpu_torch.geometry.mesh_io import read_ply, write_ply
 
 # one intra-op thread: the suite runs several worker processes side by side
@@ -150,6 +152,10 @@ def test_texture_maps_of_the_extracted_mesh(chain):
     (eval_real_shape, ["--pr", "a.ply", "--gt", "b.ply"]),
     (extract_materials, ["--cfg", "configs/material/proc/bowl.yaml"]),
     (extract_materials_texture_map, ["--cfg", "configs/material/proc/bowl.yaml"]),
+    (run_pipeline_demo, ["--steps1", "4"]),
+    (run_real_pipeline, ["--steps1", "4"]),
+    (render_nvs, ["--cfg", "configs/shape/proc/sphere.yaml"]),
+    (eval_synthetic_shape, ["--mesh", "m.ply", "--object", "syn/bell"]),
 ], ids=lambda x: getattr(x, "__name__", "").rsplit(".", 1)[-1] or None)
 def test_entry_points_need_cuda_unless_told_otherwise(module, argv, monkeypatch):
     monkeypatch.chdir(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))

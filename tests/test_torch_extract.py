@@ -118,9 +118,11 @@ def test_eval_points_match():
 
 
 def test_eval_points_refuse_unported_families():
+    """A family without depth maps has no evaluation cloud, in both
+    packages (GlossySynthetic's is tested in test_torch_databases.py)."""
     class Other(TD.BaseDatabase):
         get_image = get_K = get_pose = get_img_ids = get_depth = lambda *a: None
-    with pytest.raises(NotImplementedError, match="queue A, item 4"):
+    with pytest.raises(NotImplementedError, match="Other: only GlossySynthetic and procedural"):
         TD.get_database_eval_points(Other("syn/bell"))
 
 
