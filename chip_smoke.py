@@ -6,7 +6,9 @@ holds each against its plain PyTorch version, then trains Stage I on
 kernels, takes a few steps through every other switch of both stages, runs
 the chain Stage I -> mesh -> Chamfer -> Stage II -> materials, and the
 capture path: a scene written as a COLMAP custom object, read through the
-crop and raw caches by both stages and both pipeline tools.
+crop and raw caches by both stages and both pipeline tools, and trains both
+stages under each setting of the precision switches, resuming one run from
+a checkpoint in nero_tpu's layout.
 
     python3 chip_smoke.py
 
@@ -93,14 +95,34 @@ result line):
      every trainer's launches are asserted for the tracer its model chose
      (B3 once a step and a validation chunk with the neural tracer, nothing
      with the grid or the BVH), and each tool's total; every part's seconds
-     are printed.
+     are printed;
+  9. the precision switches (`precision`): the three product modes of
+     ops/mlp.py (bf16 operands with an f32 result, forward and backward,
+     against the f64 product; TF32 set and restored); Stage I
+     `sphere.yaml` for 30 steps each with (a) the keys unset (B1 + B2),
+     (b) `sdf_grad_mode: rev`, (c) `fwd`, (d) `bf16_hidden: false` and (e)
+     with `fwd` ((d) and (e) at `matmul_precision: highest`, f32
+     throughout), each resolution and its exact launches checked, the
+     held-out loss_rgb falling, the step-0 loss of (e) within 1e-4 and of
+     (a)-(c) different from (d) but within 5e-4 of it; run (a) checkpoints
+     at step 15 in nero_tpu's layout and a fresh Trainer resumes it, steps
+     15-29 within 1e-5 of the unbroken run; Stage II `bowl.yaml` for 30
+     steps at `matmul_precision` `highest`, `high` and unset (bf16 storage)
+     and all-f32, launches exact, the held-out loss falling; against the
+     all-f32 run, the colours of one fixed batch before training within
+     3e-4, the held-out loss's fall within 1e-3 relative and its PSNR within
+     0.5 dB; the bf16 storage, TF32 and the bf16 operands each move those
+     colours; step medians, rays/s or points/s and the
+     busy ms a step (profile_step.py's counting) with its share in library
+     products printed beside the card's name and power limit.
 The line before the result is a JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Of a kernel's times, `ms` is
 the wrapper's whole call for the kernels behind an autograd function (shader,
 predictor, lights) and the launch on packed weights for the others;
 `launch_ms` and `wrapper_ms` give both readings where they differ. `--only
 kernels` stops after phase 3 (for work on a kernel; no result line); `--only
-capture` builds the kernels and runs phase 8 alone (no result line).
+capture` and `--only precision` build the kernels and run phase 8 or phase 9
+alone (no result line).
 """
 from __future__ import annotations
 
@@ -1196,8 +1218,9 @@ def shape_cfg(cfg_file: str, root: str, shader_over=None, **over) -> dict:
 
 def stage1_expect(scfg, steps: int, val_chunks: int = 0, occ_steps: int = 0) -> dict:
     """Launches of `steps` Stage-I training steps (`occ_steps` of them at or
-    past occ_loss_step) and `val_chunks` validation chunks. A step runs the
-    SDF-with-gradient kernel and the shader once each way (the shader's
+    past occ_loss_step) and `val_chunks` validation chunks, for a config as
+    the model resolved it. A step runs the SDF-with-gradient kernel (with
+    sdf_grad_mode `fused`) and the shader once each way (the shader's
     forward twice with remat_shader): the whole-shader kernel of the config's
     variant, or head by head (the outer-light head twice) through the
     predictor kernel. A validation chunk runs both forwards twice (render,
@@ -1209,8 +1232,10 @@ def stage1_expect(scfg, steps: int, val_chunks: int = 0, occ_steps: int = 0) -> 
 
     sh = scfg.shader
     fwd = (2 if scfg.remat_shader else 1) * steps + 2 * val_chunks
-    e = dict(sdf_grad_fwd=steps + 2 * val_chunks, sdf_grad_bwd=steps)
-    if fused_shader_active(sh):
+    e = {}
+    if scfg.sdf_grad_mode == "fused":
+        e.update(sdf_grad_fwd=steps + 2 * val_chunks, sdf_grad_bwd=steps)
+    if fused_shader_active(sh, torch.bfloat16 if scfg.bf16_hidden else torch.float32):
         e["shader_fwd" + KS.variant(sh)] = fwd
         e["shader_bwd" + KS.variant(sh)] = steps
     elif sh.fused_heads:
@@ -1315,6 +1340,19 @@ def train(cfg_file: str, steps: int, dev, cfg: dict | None = None) -> dict:
     return {"launches": total, "held_out": after, "loss_rgb": rgb, "step_ms": step_s * 1e3}
 
 
+def timed_steps(trainer, first: int, last: int, tag: str) -> tuple[list, list]:
+    """Steps [first, last) through Trainer.train_step, each synchronised:
+    (per-step logs as floats, per-step seconds); every loss finite."""
+    logs, times = [], []
+    for step in range(first, last):
+        t0 = synced()
+        log = {k: float(v) for k, v in trainer.train_step(step).items()}
+        times.append(synced() - t0)
+        check(all(math.isfinite(v) for v in log.values()), f"{tag} step {step}: {log}")
+        logs.append(log)
+    return logs, times
+
+
 def short_shape_run(label: str, steps: int, dev, cfg_file: str = "sphere.yaml",
                     start_step: int = 0, shader_over=None, **cfg_over) -> dict:
     """A few Stage-I steps of a variant of a sphere config through
@@ -1328,14 +1366,8 @@ def short_shape_run(label: str, steps: int, dev, cfg_file: str = "sphere.yaml",
     trainer.setup()
     model = trainer.model
     reset_launches()
-    times = []
-    for step in range(start_step, start_step + steps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        log = {k: float(v) for k, v in trainer.train_step(step).items()}
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        check(all(math.isfinite(v) for v in log.values()), f"{label} step {step}: {log}")
+    logs, times = timed_steps(trainer, start_step, start_step + steps, label)
+    log = logs[-1]
     launches = read_launches()
     occ_steps = sum(s >= model.scfg.occ_loss_step for s in range(start_step, start_step + steps))
     want = stage1_expect(model.scfg, steps, occ_steps=occ_steps)
@@ -1469,9 +1501,7 @@ def short_material_run(label: str, mesh: dict, steps: int, dev, expect: dict, re
     if regime is not None:
         regime(model)
     reset_launches()
-    for step in range(steps):
-        log = {k: float(v) for k, v in trainer.train_step(step).items()}
-        check(all(math.isfinite(v) for v in log.values()), f"{label} step {step}: {log}")
+    log = timed_steps(trainer, 0, steps, label)[0][-1]
     launches = read_launches()
     want = expect_launches(**expect)
     check(launches == want, f"{label} launches {nonzero(launches)}, expected {nonzero(want)}")
@@ -1939,12 +1969,8 @@ def capture(dev) -> list:
               and (mc.diffuse_sample_num, mc.specular_sample_num) == (512, 256)
               and not mc.fused_lights, f"{tag} kettle_material.yaml: {mc}")
         reset_launches()
-        times = []
-        for step in range(CAPTURE_STAGE2_STEPS):
-            t0 = synced()
-            log = {k: float(v) for k, v in trainer.train_step(step).items()}
-            times.append(synced() - t0)
-            check(all(math.isfinite(v) for v in log.values()), f"{tag} Stage II {step}: {log}")
+        logs, times = timed_steps(trainer, 0, CAPTURE_STAGE2_STEPS, f"{tag} Stage II")
+        log = logs[-1]
         kettle = read_launches()
         want = stage2_expect(model, CAPTURE_STAGE2_STEPS, val_passes=0)
         check(kettle == want, f"{tag} kettle_material.yaml launches {nonzero(kettle)}, "
@@ -1979,11 +2005,298 @@ def capture(dev) -> list:
         database.DATA_ROOT = saved_root
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the precision switches in both stages, and the checkpoint
+# ---------------------------------------------------------------------------
+
+PRECISION_STEPS = 30
+CKPT_STEP = 15             # the Stage-I run (a) checkpoints here; a fresh Trainer resumes
+CKPT_TOL = 1e-5            # relative, each resumed step's loss against the unbroken run's
+STEP0_F32_TOL = 1e-4       # Stage I step-0 loss, (e) against (d): both all-f32
+# and (a)-(c) against (d), which they must differ from: measured 1.6e-5 to
+# 6.3e-5 on the H100
+STEP0_BF16_TOL = 5e-4
+PSNR_TOL_DB = 0.5          # Stage II held-out PSNR against the all-f32 run
+# Stage II against the all-f32 run, from the same parameters: the colours of
+# one fixed batch before training (max |d|; each switch must move them), and
+# the fall of the held-out loss over the 30 steps (relative). On the H100
+# the sound runs gave colours within 2.9e-5 to 6.3e-5 and falls within
+# 7.5e-5; the bf16 product with W for W^T in its square layers' cotangents
+# gave 1.1e-3 (the tracer's normals are a backward inside the step) and a
+# fall 39% short. Each bar sits between the two.
+COLOR_TOL = 3e-4
+FALL_TOL = 1e-3
+PROFILED_STEPS = 3         # steps under torch.profiler for the busy time of each run
+# (label, config keys, resolved sdf_grad_mode, resolved bf16_hidden); (d) and
+# (e) also take matmul_precision "highest", so that they are f32 throughout
+# (the card's default "default" gives the plain layers bf16 operands)
+PRECISION_SHAPE_RUNS = (
+    ("a: keys unset", {}, "fused", True),
+    ("b: sdf_grad_mode rev", {"sdf_grad_mode": "rev"}, "rev", True),
+    ("c: sdf_grad_mode fwd", {"sdf_grad_mode": "fwd"}, "fwd", True),
+    ("d: bf16_hidden false", {"bf16_hidden": False, "matmul_precision": "highest"}, "rev",
+     False),
+    ("e: bf16_hidden false, fwd", {"bf16_hidden": False, "sdf_grad_mode": "fwd",
+                                   "matmul_precision": "highest"}, "fwd", False),
+)
+# (label, matmul_precision, shader_cfg keys, resolved bf16_hidden); the last is
+# the all-f32 run that the others are held against
+PRECISION_MATERIAL_RUNS = (
+    ("highest", "highest", {}, True),
+    ("high", "high", {}, True),
+    ("default (unset)", None, {}, True),
+    ("highest, bf16_hidden false", "highest", {"bf16_hidden": False}, False),
+)
+
+
+def busy_line(trainer, step: int) -> dict:
+    """Device busy ms per step over PROFILED_STEPS steps, by profile_step.py's
+    counting, and the library matrix products' share of it."""
+    from nero_tpu_torch.profile_step import device_breakdown
+
+    b = device_breakdown(trainer, step, PROFILED_STEPS)
+    return {"busy_ms": b["busy_ms"], "gemm_ms": b["library_gemm_ms"],
+            "gemm_share": b["library_gemm_ms"] / max(b["busy_ms"], 1e-9)}
+
+
+def precision_shape(label: str, over: dict, mode: str, bf16: bool, dev, card: str,
+                    ckpt: bool = False) -> dict:
+    """One Stage-I run of phase 9: PRECISION_STEPS steps of sphere.yaml from
+    the seed, the resolved switches and every launch checked, the held-out
+    loss_rgb falling; with `ckpt`, a checkpoint at CKPT_STEP that a fresh
+    Trainer resumes, its steps held to the unbroken run's losses."""
+    from nero_tpu_torch.render.rays import sample_ray_batch
+    from nero_tpu_torch.train.trainer import Trainer
+
+    root = tempfile.mkdtemp(prefix="nero_smoke_prec_")
+    cfg = shape_cfg("sphere.yaml", root, total_step=PRECISION_STEPS, **over)
+    tag = f"precision shape ({label})"
+    trainer = Trainer(cfg, device=dev)
+    trainer.setup()
+    model = trainer.model
+    check((model.scfg.sdf_grad_mode, model.scfg.bf16_hidden) == (mode, bf16),
+          f"{tag}: resolved {model.scfg.sdf_grad_mode}, bf16_hidden {model.scfg.bf16_hidden}")
+    d = model.train_data
+    fixed = sample_ray_batch(torch.Generator(device=dev).manual_seed(7), d["imgs_u8"],
+                             d["K_inv"], d["poses"], model.cfg["train_ray_num"],
+                             d["human_poses"])
+
+    def fixed_loss_rgb() -> float:
+        with torch.no_grad(), trainer.precision():
+            _, log = model.loss_fn(model.params, fixed, 0, gen=None)
+        return float(log["loss_rgb"].mean())
+
+    before = fixed_loss_rgb()
+    reset_launches()
+    first, t_first = timed_steps(trainer, 0, CKPT_STEP if ckpt else PRECISION_STEPS, tag)
+    if ckpt:
+        trainer.save(trainer.ckpt_fn, CKPT_STEP, 0.0)
+        rest, t_rest = timed_steps(trainer, CKPT_STEP, PRECISION_STEPS, tag)
+        first, t_first = first + rest, t_first + t_rest
+    launches = read_launches()
+    want = stage1_expect(model.scfg, PRECISION_STEPS)
+    check(launches == want, f"{tag} launches {nonzero(launches)}, expected {nonzero(want)}")
+    after = fixed_loss_rgb()
+    check(after < before, f"{tag}: held-out loss_rgb did not fall: {before} -> {after}")
+    step_s = float(np.median(t_first[2:]))
+    busy = busy_line(trainer, PRECISION_STEPS)
+    print(f"{tag}: {PRECISION_STEPS} steps, step-0 loss_total {first[0]['loss_total']:.8f}, "
+          f"held-out loss_rgb {before:.5f} -> {after:.5f}, step {step_s * 1e3:.2f} ms (median), "
+          f"{model.num_train_rays_per_step() / step_s:.1f} rays/s, busy {busy['busy_ms']:.2f} "
+          f"ms/step ({busy['gemm_share']:.3f} library products), launches {nonzero(launches)}; "
+          f"{card}")
+    out = {"launches": launches, "loss0": first[0]["loss_total"], "step_ms": step_s * 1e3,
+           **busy}
+    if ckpt:
+        out["resume"] = resume_check(cfg, dev, model, first[CKPT_STEP:], tag)
+    return out
+
+
+def resume_check(cfg: dict, dev, model, unbroken: list, tag: str) -> float:
+    """A fresh Trainer resumes the checkpoint written at CKPT_STEP (nero_tpu's
+    layout: O| keys for every parameter) and takes the remaining steps with
+    the unbroken run's losses (CKPT_TOL relative). Returns the worst
+    relative difference."""
+    from nero_tpu_torch.core.convert import tree_items
+    from nero_tpu_torch.train.trainer import Trainer
+
+    resumed = Trainer(cfg, device=dev)
+    resumed.setup()
+    with np.load(resumed.ckpt_fn) as data:
+        keys = set(data.files)
+        counts = int(data["O|0|count"]), int(data["O|1|count"])
+    leaves = [k for k, _ in tree_items(model.params)]
+    want = {"__step__", "__best_para__", "O|0|count", "O|1|count", "R|gen"} | {
+        p + k for k in leaves for p in ("P|", "O|0|mu|", "O|0|nu|")}
+    check(keys == want and counts == (CKPT_STEP, CKPT_STEP),
+          f"{tag} checkpoint: keys {sorted(keys ^ want)[:6]} differ, counts {counts}")
+    _, step = resumed.resume()
+    check(step == CKPT_STEP, f"{tag}: resumed at step {step}")
+    logs, _ = timed_steps(resumed, CKPT_STEP, PRECISION_STEPS, f"{tag} resumed")
+    worst = max(abs(a["loss_total"] - b["loss_total"]) / abs(b["loss_total"])
+                for a, b in zip(logs, unbroken))
+    print(f"{tag}: resumed at step {CKPT_STEP} from a checkpoint in nero_tpu's layout "
+          f"({len(leaves)} parameters, O|0|count {counts[0]}); steps {CKPT_STEP}-"
+          f"{PRECISION_STEPS - 1} differ from the unbroken run by at most {worst:.2e} "
+          f"relative (< {CKPT_TOL})")
+    check(worst < CKPT_TOL, f"{tag}: resumed losses differ by {worst}")
+    return worst
+
+
+def material_psnr(model, batches) -> tuple[float, float]:
+    """(mean loss_rgb, PSNR) of the held-out batches shaded on the fixed
+    direction lattice."""
+    from nero_tpu_torch.render.shape import compute_rgb_loss
+
+    loss, se, n = 0.0, 0.0, 0
+    with torch.no_grad():
+        for b in batches:
+            colors, _ = model.shade(model.params, b, gen=None)
+            loss += float(compute_rgb_loss(colors, b["rgb"], model.cfg["rgb_loss"]).mean())
+            se += float(torch.sum((colors.clamp(0, 1) - b["rgb"]) ** 2))
+            n += colors.numel()
+    return loss / len(batches), -10.0 * math.log10(se / n)
+
+
+def precision_material(label: str, mp, shader_over: dict, bf16: bool, bowl: dict, dev,
+                       card: str) -> dict:
+    """One Stage-II run of phase 9: PRECISION_STEPS steps of bowl.yaml at
+    `matmul_precision` `mp` (None: unset), the resolved bf16_hidden and the
+    launches checked, the held-out loss falling; its held-out PSNR."""
+    from nero_tpu_torch.train.trainer import Trainer
+
+    root = tempfile.mkdtemp(prefix="nero_smoke_prec2_")
+    over = {} if mp is None else {"matmul_precision": mp}
+    cfg = material_cfg(bowl, root, shader_over=shader_over, total_step=PRECISION_STEPS, **over)
+    tag = f"precision material ({label})"
+    trainer = Trainer(cfg, device=dev)
+    trainer.setup()
+    model = trainer.model
+    check(model.mcfg.bf16_hidden == bf16, f"{tag}: bf16_hidden {model.mcfg.bf16_hidden}")
+    held = [model.sample_batch(torch.Generator(device=dev).manual_seed(7 + i)) for i in range(4)]
+    with torch.no_grad(), trainer.precision():
+        colors0 = model.shade(model.params, held[0], gen=None)[0].double().cpu()
+    before, _ = material_psnr(model, held)
+    reset_launches()
+    logs, times = timed_steps(trainer, 0, PRECISION_STEPS, tag)
+    launches = read_launches()
+    want = expect_launches(sphere_march=PRECISION_STEPS)
+    check(launches == want, f"{tag} launches {nonzero(launches)}, expected {nonzero(want)}")
+    after, psnr = material_psnr(model, held)
+    check(after < before, f"{tag}: held-out loss_rgb did not fall: {before} -> {after}")
+    step_s = float(np.median(times[2:]))
+    busy = busy_line(trainer, PRECISION_STEPS)
+    print(f"{tag}: {PRECISION_STEPS} steps, per-step loss_rgb {logs[0]['loss_rgb']:.6f} -> "
+          f"{logs[-1]['loss_rgb']:.6f}, held-out loss_rgb {before:.7f} -> {after:.7f}, PSNR "
+          f"{psnr:.5f} dB, step {step_s * 1e3:.2f} ms (median), "
+          f"{model.num_train_rays_per_step() / step_s:.1f} points/s, busy "
+          f"{busy['busy_ms']:.2f} ms/step, library products {busy['gemm_ms']:.2f} ms "
+          f"({busy['gemm_share']:.3f} of busy); {card}")
+    return {"launches": launches, "psnr": psnr, "step_ms": step_s * 1e3, "colors0": colors0,
+            "fall": before - after, **busy}
+
+
+def f32_matmul_kind(dev) -> str:
+    """What an f32 matrix product computes in under the current settings:
+    1 + 2^-9 survives TF32 (10 mantissa bits) but not bf16 (7), 1 + 2^-12
+    survives f32 only."""
+    ones = torch.ones(64, 16, device=dev)
+    r9 = float((torch.full((16, 64), 1 + 2 ** -9, device=dev) @ ones)[0, 0])
+    r12 = float((torch.full((16, 64), 1 + 2 ** -12, device=dev) @ ones)[0, 0])
+    return "bf16" if r9 == 64.0 else ("tf32" if r12 == 64.0 else "f32")
+
+
+def product_check(dev, card: str):
+    """The three product modes of ops/mlp.py on the card: "bf16" gives an
+    f32 result equal to the f64 product of the bf16-rounded operands to f32
+    accumulation over up to 65,536 terms (1e-4 of the largest entry),
+    forward and backward; "tf32"
+    is TF32 and restores the flag; and what torch.set_float32_matmul_precision
+    ("medium") gives, which the port does not use."""
+    from nero_tpu_torch.ops.mlp import dense_product, product_mode, set_tf32
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(N_ROWS, 256, device=dev, generator=g).requires_grad_(True)
+    w = torch.randn(256, 256, device=dev, generator=g).requires_grad_(True)
+    with product_mode("bf16"):
+        y = dense_product(x, w)
+        gx, gw = torch.autograd.grad((y * y).sum(), (x, w))
+    bf = lambda t: t.detach().bfloat16().double()
+    ref = bf(x) @ bf(w)
+    err = float((y.detach().double() - ref).abs().max() / ref.abs().max())
+    gy = 2 * y.detach()
+    err_gx = float((gx.double() - bf(gy) @ bf(w).T).abs().max() / gx.abs().max())
+    err_gw = float((gw.double() - bf(x).T @ bf(gy)).abs().max() / gw.abs().max())
+    check(y.dtype == gx.dtype == gw.dtype == torch.float32 and max(err, err_gx, err_gw) < 1e-4,
+          f"bf16 product: {y.dtype}, errors {err}, {err_gx}, {err_gw}")
+    with product_mode("tf32"):
+        tf32 = f32_matmul_kind(dev)
+    after = f32_matmul_kind(dev)
+    torch.set_float32_matmul_precision("medium")
+    medium = f32_matmul_kind(dev)
+    torch.set_float32_matmul_precision("highest")
+    set_tf32(False)
+    check(tf32 == "tf32" and after == "f32" and f32_matmul_kind(dev) == "f32",
+          f"product modes: tf32 context {tf32}, after it {after}")
+    print(f"precision: torch {torch.__version__}: the bf16 product (torch.mm with out_dtype="
+          f"float32) returns {y.dtype}, {err:.1e} / {err_gx:.1e} / {err_gw:.1e} of the f64 "
+          f"product of bf16 operands (forward / dx / dW); the tf32 context computes in "
+          f"{tf32}, f32 after it; set_float32_matmul_precision('medium') gives {medium}; "
+          f"{card}")
+
+
+def precision(bowl: dict, dev, card: str) -> list:
+    """Phase 9: the product modes; Stage I under each resolution of
+    sdf_grad_mode and bf16_hidden, with the checkpoint round trip on run (a);
+    Stage II under each matmul_precision. Returns every run's launches."""
+    product_check(dev, card)
+    shape = {label: precision_shape(label, over, mode, bf16, dev, card, ckpt=i == 0)
+             for i, (label, over, mode, bf16) in enumerate(PRECISION_SHAPE_RUNS)}
+    ref = shape[PRECISION_SHAPE_RUNS[3][0]]["loss0"]
+    for label, r in shape.items():
+        rel = abs(r["loss0"] - ref) / abs(ref)
+        if label.startswith("e"):
+            ok, bar = rel < STEP0_F32_TOL, f"< {STEP0_F32_TOL}"
+        else:
+            # the bf16 paths moved the loss, by no more than their rounding
+            ok, bar = 0 < rel < STEP0_BF16_TOL, f"in (0, {STEP0_BF16_TOL})"
+        if not label.startswith("d"):
+            print(f"precision shape: step-0 loss ({label}) differs from (d) by {rel:.3e} "
+                  f"relative ({bar})")
+            check(ok, f"precision shape ({label}) step-0 loss: {rel} from (d)")
+    material = {label: precision_material(label, mp, over, bf16, bowl, dev, card)
+                for label, mp, over, bf16 in PRECISION_MATERIAL_RUNS}
+    f32 = material[PRECISION_MATERIAL_RUNS[-1][0]]
+    for label, r in material.items():
+        d = (r["colors0"] - f32["colors0"]).abs()
+        fall = abs(r["fall"] - f32["fall"]) / abs(f32["fall"])
+        print(f"precision material ({label}) against the all-f32 run: fixed-batch colours "
+              f"before training max |d| {float(d.max()):.3e}, median {float(d.median()):.3e} "
+              f"(max <= {COLOR_TOL}); held-out loss fall {r['fall']:.7e} vs {f32['fall']:.7e}, "
+              f"{fall:.3e} relative (<= {FALL_TOL}); PSNR {r['psnr']:.5f} dB, "
+              f"{r['psnr'] - f32['psnr']:+.5f} dB (within {PSNR_TOL_DB})")
+        check(float(d.max()) <= COLOR_TOL and fall <= FALL_TOL
+              and abs(r["psnr"] - f32["psnr"]) <= PSNR_TOL_DB,
+              f"precision material ({label}) against the all-f32 run")
+    # each switch moves the colours: the bf16 storage (highest against the
+    # all-f32 run), TF32 (high against highest), the bf16 operands (default
+    # against highest)
+    labels = [r[0] for r in PRECISION_MATERIAL_RUNS]
+    for a, b, what in ((labels[0], labels[3], "bf16 storage"), (labels[1], labels[0], "TF32"),
+                       (labels[2], labels[0], "bf16 operands")):
+        moved = float((material[a]["colors0"] - material[b]["colors0"]).abs().max())
+        print(f"precision material: {what} moves the fixed-batch colours by {moved:.3e} "
+              f"({a} against {b})")
+        check(moved > 0, f"precision material: {what} left the colours as they were")
+    return [r["launches"] for r in list(shape.values()) + list(material.values())]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=["kernels", "capture"], default=None,
+    ap.add_argument("--only", choices=["kernels", "capture", "precision"], default=None,
                     help="kernels: stop after the kernel and tracer checks (no training, no "
-                         "result line); capture: build, then phase 8 alone (no result line)")
+                         "result line); capture: build, then phase 8 alone (no result line); "
+                         "precision: build, then phase 9 alone (no result line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1991,9 +2304,12 @@ def main(argv=None) -> int:
     from nero_tpu_torch.geometry.proc_mesh import proc_mesh
     from nero_tpu_torch.ops import cuda_build
 
+    from nero_tpu_torch.ops.mlp import set_tf32
+
     dev = torch.device("cuda")
     start = time.perf_counter()
-    torch.backends.cuda.matmul.allow_tf32 = False
+    # f32 products outside the trainers' precision contexts
+    set_tf32(False)
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(f"device: {torch.cuda.get_device_name(0)}; torch {torch.__version__} "
@@ -2011,6 +2327,10 @@ def main(argv=None) -> int:
     if args.only == "capture":
         launches = add_launches(*capture(dev))
         print(f"capture: launches {nonzero(launches)}; {time.perf_counter() - start:.1f} s")
+        return 0
+    if args.only == "precision":
+        launches = add_launches(*precision(proc_mesh("bowl"), dev, card))
+        print(f"precision: launches {nonzero(launches)}; {time.perf_counter() - start:.1f} s")
         return 0
     kernels = check_stage1_kernels(dev)
     bowl = proc_mesh("bowl")
@@ -2038,6 +2358,7 @@ def main(argv=None) -> int:
     runs += material_variants(bowl, dev)
     runs += chain(dev)
     runs += capture(dev)
+    runs += precision(bowl, dev, card)
     launches = {k: sum(r.get(k, 0) for r in runs) for r0 in runs for k in r0}
     for k in kernels:
         k["launches"] = launches[k["name"]]

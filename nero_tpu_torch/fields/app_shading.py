@@ -3,15 +3,17 @@
 Counterpart of nero_tpu/fields/app_shading.py. Two paths compute the same
 function:
 
-* the whole-shader path (`fused_shader` unset or true, for a configuration
-  the kernel takes, `fused_shader_active`): the heads and their
+* the whole-shader path (`fused_shader` true, or unset under bf16 hidden
+  storage, for a configuration the kernel takes, `fused_shader_active`):
+  the heads and their
   encodings run as one function (`ops/shader.py::shader_raw`: the CUDA kernel
   for CUDA tensors, its plain torch version for CPU tensors) and the final
   activations, the human mixing, the FG-LUT lookup and the linear->sRGB
   combine run in `shade_from_raw`, as in `_app_shading_apply_fused`
   (app_shading.py:256-319);
-* the per-head path (`fused_shader: false`, or a configuration the kernel
-  does not take, app_shading.py:329-371): the
+* the per-head path (`fused_shader: false`, or unset under f32 hidden
+  storage, or a configuration the kernel does not take,
+  app_shading.py:329-371): the
   encodings are tensor ops and every head goes through
   `ops/mlp.py::apply_predictor(fused=cfg.fused_heads)`, which with
   `fused_heads` is the predictor kernel on the card.
@@ -28,7 +30,8 @@ from typing import NamedTuple
 import torch
 
 from nero_tpu_torch.ops.fg_lut import fg_lookup
-from nero_tpu_torch.ops.mlp import apply_predictor, exp_activation, init_predictor
+from nero_tpu_torch.ops.mlp import (apply_predictor, current_hidden_dtype, exp_activation,
+                                    init_predictor)
 from nero_tpu_torch.ops.shader import shader_raw, shader_raw_plain, unpack_raw
 from nero_tpu_torch.ops.shader import supported as shader_supported
 from nero_tpu_torch.utils.color import linear_to_srgb
@@ -47,23 +50,29 @@ class AppShadingConfig(NamedTuple):
     ide_deg: int = 5
     # per-head path only: each 4-layer head through the predictor kernel
     fused_heads: bool = False
-    # None or True: the whole-shader kernel, for every variant it takes
-    # (ops/shader.py::supported), else the per-head path; False: the per-head
+    # True: the whole-shader kernel, for every variant it takes
+    # (ops/shader.py::supported), else the per-head path; None: the same,
+    # but the per-head path under f32 hidden storage; False: the per-head
     # path. (The JAX package sends human_light to its per-head path when this
     # is unset, on a timing taken on its TPU; PERF.md has both paths' times
     # on the card.)
     fused_shader: bool | None = None
 
 
-def fused_shader_active(cfg: AppShadingConfig) -> bool:
-    """Resolve cfg.fused_shader: False = the per-head path; None or True =
-    the whole-shader kernel where it takes the configuration
-    (ops/shader.py::supported: 256 feats, IDE degree 5, light PE 8), else the
-    per-head path (`heads_raw`), with a warning (once, by the warnings
-    module's default filter) when True was asked for, as nero_tpu does
-    (fields/app_shading.py:227-237). A rule about the configuration, never
-    about the device."""
+def fused_shader_active(cfg: AppShadingConfig, storage=None) -> bool:
+    """Resolve cfg.fused_shader: False = the per-head path; None under
+    `storage` f32 (the render core's resolved `bf16_hidden: false`) = the
+    per-head path, since the kernel keeps its operands in bf16 and an
+    explicit false is never overridden by it (nero_tpu/fields/
+    app_shading.py:212-240); otherwise the whole-shader kernel where it
+    takes the configuration (ops/shader.py::supported: 256 feats, IDE
+    degree 5, light PE 8), else the per-head path (`heads_raw`), with a
+    warning (once, by the warnings module's default filter) when True was
+    asked for, as nero_tpu does (fields/app_shading.py:227-237). A rule about
+    the configuration, never about the device."""
     if cfg.fused_shader is False:
+        return False
+    if cfg.fused_shader is None and storage == torch.float32:
         return False
     if shader_supported(cfg):
         return True
@@ -106,7 +115,7 @@ def app_shading_apply(params, cfg: AppShadingConfig, fg_lut, points, normals, vi
     human_poses [..., 3, 4] per sample when cfg.human_light."""
     if cfg.human_light and human_poses is None:
         raise ValueError("human_light shading needs human_poses")
-    if fused_shader_active(cfg):
+    if fused_shader_active(cfg, current_hidden_dtype()):
         packed = shader_raw(params, cfg, points, normals, view_dirs, feature_vectors,
                             human_poses)
     else:

@@ -27,8 +27,9 @@ import torch
 from nero_tpu_torch.fields.app_shading import get_camera_plane_intersection
 from nero_tpu_torch.ops.lights import inner_light_input, lights_raw, outer_light_input
 from nero_tpu_torch.ops.lights import supported as lights_kernel_supported
-from nero_tpu_torch.ops.mlp import (apply_dense, apply_predictor, exp_activation, init_dense,
-                                    init_predictor, resolve_weight_norm)
+from nero_tpu_torch.ops.mlp import (apply_dense, apply_predictor, exp_activation, hidden_dtype,
+                                    init_dense, init_predictor, resolve_weight_norm,
+                                    storage_dtype)
 from nero_tpu_torch.utils.color import linear_to_srgb
 from nero_tpu_torch.utils.encodings import (ide_dim, integrated_dir_encode,
                                             integrated_pos_encode, positional_encode,
@@ -54,7 +55,8 @@ class MCShadingConfig(NamedTuple):
     random_azimuth: bool = True
     is_real: bool = False
     ide_deg: int = 5
-    # accepted and ignored: hidden activations are stored in f32 (ROADMAP A3)
+    # hidden activations of the material and light heads stored in bf16
+    # inside `mc_shading_apply`; None = on for a CUDA model (`hidden_act_dtype`)
     bf16_hidden: bool | None = None
     # Hit-compacted inner-light evaluation: the traced HIT directions are
     # gathered into K = ceil-to-128(frac * pn * sn) static slots (stable
@@ -74,10 +76,22 @@ class MCShadingConfig(NamedTuple):
     # weights and their cotangents are bf16 inside the kernel.
     fused_lights: bool | None = None
 
+    def hidden_act_dtype(self, device) -> torch.dtype:
+        """The hidden storage dtype on `device`, by Stage I's rule
+        (ops/mlp.py::storage_dtype; nero_tpu/fields/mc_shading.py:97-102)."""
+        return storage_dtype(self.bf16_hidden, device)
+
+    def resolved(self, device) -> "MCShadingConfig":
+        return self._replace(bf16_hidden=self.hidden_act_dtype(device) == torch.bfloat16)
+
 
 def mc_config_from_dict(cfg: dict) -> MCShadingConfig:
+    """The MCShadingConfig of a config dict; an unknown `bf16_hidden` value
+    raises ValueError."""
     fields = {k: v for k, v in cfg.items() if k in MCShadingConfig._fields}
-    return MCShadingConfig(**fields)
+    mcfg = MCShadingConfig(**fields)
+    storage_dtype(mcfg.bf16_hidden, "cpu")
+    return mcfg
 
 
 def fused_lights_active(cfg: MCShadingConfig) -> bool:
@@ -515,14 +529,16 @@ def mc_shading_apply(params, cfg: MCShadingConfig, samples, trace_fn, pts, view_
                      human_poses, gen=None, rots=None):
     """Full Stage-II shading. `gen` draws the per-point azimuth rotations
     (training); `rots` = (diffuse, specular) uniform draws [pn,1,1] replaces
-    the draw; both None = no rotation (validation)."""
+    the draw; both None = no rotation (validation). Hidden activations in the
+    storage dtype of `cfg` (nero_tpu/fields/mc_shading.py:583-591)."""
     params = resolve_weight_norm(params)
-    view_dirs = view_dirs / _norm(view_dirs)
-    normals = normals / _norm(normals)
-    reflections = torch.sum(view_dirs * normals, -1, keepdim=True) * normals * 2 - view_dirs
-    metallic, roughness, albedo = predict_materials_mc(params, pts)
-    return shade_mixed(params, cfg, samples, trace_fn, pts, normals, view_dirs, reflections,
-                       metallic, roughness, albedo, human_poses, gen, rots)
+    with hidden_dtype(cfg.hidden_act_dtype(pts.device)):
+        view_dirs = view_dirs / _norm(view_dirs)
+        normals = normals / _norm(normals)
+        reflections = torch.sum(view_dirs * normals, -1, keepdim=True) * normals * 2 - view_dirs
+        metallic, roughness, albedo = predict_materials_mc(params, pts)
+        return shade_mixed(params, cfg, samples, trace_fn, pts, normals, view_dirs,
+                           reflections, metallic, roughness, albedo, human_poses, gen, rots)
 
 
 # ---------------------------------------------------------------------------

@@ -3,17 +3,23 @@
 Counterpart of nero_tpu/fields/sdf.py: PE(6) on xyz with identity channels
 first, softplus(beta=100), skip concat / sqrt(2) before layer `skip`, a
 257-d output (sdf + 256-d feature). `sdf_value` is plain torch on every
-device (nero_tpu computes it outside Pallas by default). The SDF with its
-spatial gradient lives in ops/sdf_grad.py beside its CUDA kernel.
+device (nero_tpu computes it outside Pallas by default). Hidden activations
+take the storage dtype of ops/mlp.py's context at nero_tpu's points
+(fields/sdf.py:87-100). `sdf_apply_fwd` carries the forward-mode tangents
+of the sdf along the three axes beside the forward (nero_tpu's
+`jax.linearize` and three basis tangents, fields/sdf.py:118-122). The SDF
+with its spatial gradient lives in ops/sdf_grad.py beside its CUDA kernel.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
 import torch
 
-from nero_tpu_torch.ops.mlp import apply_dense, init_dense, normal_weight, softplus_beta
+from nero_tpu_torch.ops.mlp import (apply_dense, cast_hidden, dense_product, init_dense,
+                                    normal_weight, resolve_weight_norm, softplus_beta)
 from nero_tpu_torch.utils.encodings import positional_encode, positional_encode_dim
 
 
@@ -63,20 +69,63 @@ def init_sdf(gen: torch.Generator, cfg: SDFConfig = SDFConfig(), device="cpu"):
     return layers
 
 
+@functools.cache
+def _sqrt2(dtype: torch.dtype) -> float:
+    """The skip's divisor sqrt(2) in the activations' dtype: nero_tpu divides
+    by a Python float, which JAX takes in the array's dtype, so under bf16
+    storage the divisor is sqrt(2) rounded to bf16 (1.4140625)."""
+    return float(torch.tensor(math.sqrt(2.0), dtype=dtype))
+
+
 def sdf_apply(params, x: torch.Tensor, cfg: SDFConfig = SDFConfig()) -> torch.Tensor:
     """[..., 3] -> [..., d_out] (sdf first, then features). `params` may be
     {v,g,b} or resolved {w,b} layers."""
     x = x * cfg.scale
     inputs = positional_encode(x, cfg.multires) if cfg.multires > 0 else x
-    h = inputs
+    h = cast_hidden(inputs)
     n_lin = len(params)
     for l in range(n_lin):
         if l == cfg.skip:
-            h = torch.cat([h, inputs], dim=-1) / math.sqrt(2.0)
+            h = cast_hidden(torch.cat([h, cast_hidden(inputs)], dim=-1) / _sqrt2(h.dtype))
         h = apply_dense(params[l], h)
         if l < n_lin - 1:
-            h = softplus_beta(h, cfg.beta)
+            h = cast_hidden(softplus_beta(h, cfg.beta))
     return h
+
+
+def _encode_tangents(x: torch.Tensor, cfg: SDFConfig):
+    """(the input encoding of x * scale, its derivatives along the three
+    axes [..., 3, d0]) by torch.func.jvp, as JAX's jvp forms them."""
+    def encode(p):
+        p = p * cfg.scale
+        return positional_encode(p, cfg.multires) if cfg.multires > 0 else p
+
+    basis = torch.eye(3, dtype=x.dtype, device=x.device)
+    tans = [torch.func.jvp(encode, (x,), (basis[i].expand_as(x),))[1] for i in range(3)]
+    return encode(x), torch.stack(tans, dim=-2)
+
+
+def sdf_apply_fwd(params, x: torch.Tensor, cfg: SDFConfig = SDFConfig()):
+    """(sdf_apply(params, x) [..., d_out], d sdf / dx [..., 3]) by forward-mode
+    tangents along the three axes, stored and multiplied as the forward is.
+    Plain tensor ops throughout, so the training gradient reaches the
+    weights through the tangents too. x carries no gradient."""
+    layers = resolve_weight_norm(params)
+    inputs, inputs_t = _encode_tangents(x, cfg)
+    h, t = cast_hidden(inputs), cast_hidden(inputs_t)
+    n_lin = len(layers)
+    for l, layer in enumerate(layers):
+        if l == cfg.skip:
+            h = cast_hidden(torch.cat([h, cast_hidden(inputs)], dim=-1) / _sqrt2(h.dtype))
+            t = cast_hidden(torch.cat([t, cast_hidden(inputs_t)], dim=-1) / _sqrt2(t.dtype))
+        w = layer["w"]
+        z = dense_product(h, w) + layer["b"]
+        if l == n_lin - 1:
+            # only the sdf column's tangent is the gradient
+            grad = dense_product(t, w[:, :1])[..., 0]
+            return z, grad
+        h = cast_hidden(softplus_beta(z, cfg.beta))
+        t = cast_hidden(torch.sigmoid(cfg.beta * z)[..., None, :] * dense_product(t, w))
 
 
 def sdf_value(params, x: torch.Tensor, cfg: SDFConfig = SDFConfig()) -> torch.Tensor:

@@ -93,7 +93,8 @@ class NeROMaterialModel:
         self.device = resolve_device(device)
         shader_cfg = dict(self.cfg.get("shader_cfg") or {})
         shader_cfg["is_real"] = self.cfg["database_name"].startswith("real")
-        self.mcfg: MCShadingConfig = mc_config_from_dict(shader_cfg)
+        # bf16_hidden as it resolves on this device
+        self.mcfg: MCShadingConfig = mc_config_from_dict(shader_cfg).resolved(self.device)
         seed = self.cfg["random_seed"]
         self.params = init_mc_shading(torch.Generator().manual_seed(seed), self.mcfg,
                                       device=self.device)

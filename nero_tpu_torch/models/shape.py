@@ -27,9 +27,8 @@ from nero_tpu_torch.geometry.mesh_io import read_ply
 from nero_tpu_torch.ops.fg_lut import get_fg_lut
 from nero_tpu_torch.render.rays import (human_coordinate_poses, rays_from_pixels,
                                         sample_ray_batch)
-from nero_tpu_torch.render.shape import (ShapeConfig, check_precision_keys, check_sdf_topology,
-                                         compute_rgb_loss, init_shape_params, render,
-                                         shape_config_from_dict)
+from nero_tpu_torch.render.shape import (ShapeConfig, compute_rgb_loss, init_shape_params,
+                                         render, shape_config_from_dict)
 from nero_tpu_torch.train.losses import compute_losses, total_loss
 from nero_tpu_torch.utils.image import downsample_gaussian_blur, resize_bilinear
 
@@ -72,9 +71,8 @@ class NeROShapeModel:
     def __init__(self, cfg: dict, training: bool = True, device=None):
         self.cfg = {**DEFAULT_SHAPE_CFG, **cfg}
         self.device = resolve_device(device)
-        check_precision_keys(self.cfg, self.device)
-        self.scfg: ShapeConfig = shape_config_from_dict(self.cfg)
-        check_sdf_topology(self.scfg, self.device)
+        # sdf_grad_mode and bf16_hidden as they resolve on this device
+        self.scfg: ShapeConfig = shape_config_from_dict(self.cfg).resolved(self.device)
         self.fg_lut = torch.as_tensor(get_fg_lut(), device=self.device)
         seed = self.cfg["random_seed"]
         self.params = init_shape_params(torch.Generator().manual_seed(seed), self.scfg,

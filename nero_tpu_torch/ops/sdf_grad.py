@@ -3,9 +3,18 @@
 Replaces nero_tpu/ops/pallas/sdf_grad_kernel.py::sdf_with_grad_fused (:469),
 whose pallas_calls are nero_sdf_grad_fwd (:363) and nero_sdf_grad_bwd
 (:387). The kernel source is csrc/sdf_grad.cu; its header comment gives the
-design. `sdf_with_grad` launches the kernel for a CUDA tensor and runs the
-plain version (`sdf_with_grad_plain`, double backprop through
-`torch.autograd.grad(create_graph=True)`) for a CPU tensor, and only then.
+design. `sdf_with_grad(..., mode)` computes the gradient by the mode that
+the configuration resolved (render/shape.py::ShapeConfig.grad_mode), as
+nero_tpu's three modes do:
+
+* `fused`: the kernel for a CUDA tensor; its plain version
+  (`sdf_with_grad_plain`) for a CPU tensor, and only then;
+* `rev`: `sdf_with_grad_plain` on any device: reverse-mode double backprop
+  through `torch.autograd.grad(create_graph=True)`;
+* `fwd`: `sdf_with_grad_fwd` on any device: forward-mode tangents along the
+  three axes (fields/sdf.py::sdf_apply_fwd).
+
+`rev` and `fwd` store and multiply as ops/mlp.py's contexts say.
 
 What bounds it on the card: tensor-core operations (`flops`), about
 0.25 ms forward and 0.75 ms backward at N = 65,536 and 989 TFLOP/s; the
@@ -22,7 +31,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from nero_tpu_torch.fields.sdf import SDFConfig, sdf_apply
+from nero_tpu_torch.fields.sdf import SDFConfig, sdf_apply, sdf_apply_fwd
 from nero_tpu_torch.ops import cuda_build
 from nero_tpu_torch.ops.mlp import resolve_weight_norm
 
@@ -38,6 +47,7 @@ PACK_SHAPES = ((PE_W, HID), (HID, HID), (HID, HID), (HID, HID), (HID, HID),
                (PE_W, HID), (HID, HID), (HID, HID), (HID, HID), (HID, OUT_W))
 
 launches = {"sdf_grad_fwd": 0, "sdf_grad_bwd": 0}
+GRAD_MODES = ("rev", "fwd", "fused")
 
 
 def supported(cfg: SDFConfig) -> bool:
@@ -60,6 +70,14 @@ def sdf_with_grad_plain(params, x: torch.Tensor, cfg: SDFConfig = SDFConfig()):
         (grad,) = torch.autograd.grad(out[..., 0].sum(), xg, create_graph=create)
     if not create:
         out = out.detach()
+    return out[..., :1], out[..., 1:], grad
+
+
+def sdf_with_grad_fwd(params, x: torch.Tensor, cfg: SDFConfig = SDFConfig()):
+    """(sdf [...,1], feats [...,d_out-1], grad [...,3]) by forward-mode
+    tangents (nero_tpu/fields/sdf.py:118-122); differentiable in the
+    weights when grad mode is on."""
+    out, grad = sdf_apply_fwd(params, x.detach(), cfg)
     return out[..., :1], out[..., 1:], grad
 
 
@@ -199,10 +217,15 @@ class _SdfGradFn(torch.autograd.Function):
         return (None, None, None, *dws, *dbs)
 
 
-def sdf_with_grad(params, x: torch.Tensor, cfg: SDFConfig = SDFConfig()):
-    """(sdf [...,1], feats [...,256], grad [...,3]): the CUDA kernel for a
-    CUDA tensor, the plain version for a CPU tensor."""
-    if x.device.type == "cpu":
+def sdf_with_grad(params, x: torch.Tensor, cfg: SDFConfig = SDFConfig(), mode: str = "fused"):
+    """(sdf [...,1], feats [...,d_out-1], grad [...,3]) by `mode`: `fused`
+    is the CUDA kernel for a CUDA tensor and the plain version for a CPU
+    tensor; `rev` and `fwd` are plain on any device."""
+    if mode not in GRAD_MODES:
+        raise ValueError(f"sdf_grad_mode must be one of {GRAD_MODES}, got {mode!r}")
+    if mode == "fwd":
+        return sdf_with_grad_fwd(params, x, cfg)
+    if mode == "rev" or x.device.type == "cpu":
         return sdf_with_grad_plain(params, x, cfg)
     if not supported(cfg):
         raise NotImplementedError(f"sdf_grad kernel needs the default topology, got {cfg}")

@@ -101,6 +101,38 @@ def is_device_work(evt) -> bool:
             and not getattr(evt, "is_user_annotation", False) and "#" not in evt.key)
 
 
+def device_breakdown(trainer, step: int, steps: int) -> dict:
+    """Profile `steps` training steps from `step` (CPU + CUDA activities) and
+    count the device time per step: `kernels` {name: ms} (the port's under
+    their short names, listed in `port_names`), `busy_ms` their sum,
+    `library_gemm_ms` the library matrix products among the others."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            trainer.train_step(step + i)
+        torch.cuda.synchronize()
+    kernels, port_names = {}, set()
+    for evt in prof.key_averages():
+        if not is_device_work(evt):
+            continue
+        name = evt.key
+        for short in PORT_KERNELS:
+            # the port's kernels live in namespace nero or in a source's
+            # anonymous namespace (PyTorch has anonymous-namespace kernels
+            # of its own, under at::)
+            if "nero::" + short in name or ("(anonymous namespace)::" + short in name
+                                            and "at::" not in name):
+                # the first template argument tells backward from forward
+                m = re.search(re.escape(short) + r"<(true|false)", evt.key)
+                name = short + (f"<{m.group(1)}>" if m else "")
+                port_names.add(name)
+                break
+        kernels[name] = kernels.get(name, 0.0) + evt.self_device_time_total / 1e3 / steps
+    gemm = sum(v for k, v in kernels.items()
+               if k not in port_names and any(m in k.lower() for m in GEMM_MARKS))
+    return {"kernels": kernels, "port_names": port_names, "busy_ms": sum(kernels.values()),
+            "library_gemm_ms": gemm}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--cfg", default="configs/shape/proc/sphere.yaml")
@@ -130,34 +162,15 @@ def main(argv=None):
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) / args.steps * 1e3
 
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(args.steps):
-                trainer.train_step(step)
-                step += 1
-            torch.cuda.synchronize()
+        breakdown = device_breakdown(trainer, step, args.steps)
+        step += args.steps
         parts = {}
         if cfg["network"] == "material":
             parts = material_forward_parts(trainer, step, args.steps)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    kernels, port_names = {}, set()
-    for evt in prof.key_averages():
-        if not is_device_work(evt):
-            continue
-        name = evt.key
-        for short in PORT_KERNELS:
-            # the port's kernels live in namespace nero or in a source's
-            # anonymous namespace (PyTorch has anonymous-namespace kernels
-            # of its own, under at::)
-            if "nero::" + short in name or ("(anonymous namespace)::" + short in name
-                                            and "at::" not in name):
-                # the first template argument tells backward from forward
-                m = re.search(re.escape(short) + r"<(true|false)", evt.key)
-                name = short + (f"<{m.group(1)}>" if m else "")
-                port_names.add(name)
-                break
-        kernels[name] = kernels.get(name, 0.0) + evt.self_device_time_total / 1e3 / args.steps
-    busy = sum(kernels.values())
+    kernels, port_names = breakdown["kernels"], breakdown["port_names"]
+    busy = breakdown["busy_ms"]
     print(f"card: {card}")
     print(f"host step (synchronised): {host_ms:.2f} ms; device busy per step: {busy:.2f} ms; "
           f"device idle share: {max(0.0, 1.0 - busy / host_ms):.3f}")
@@ -168,8 +181,7 @@ def main(argv=None):
     others = sorted(((v, k) for k, v in kernels.items() if k not in port), reverse=True)[:8]
     for v, k in others:
         print(f"  {v:8.3f} ms    {k[:90]}")
-    gemm = sum(v for k, v in kernels.items()
-               if k not in port and any(m in k.lower() for m in GEMM_MARKS))
+    gemm = breakdown["library_gemm_ms"]
     print(f"  {gemm:8.3f} ms  of the others are library matrix products (name holds one of "
           f"{GEMM_MARKS})")
     for k, v in parts.items():

@@ -11,12 +11,22 @@ The hot functions go through the port's CUDA kernels on the card:
 `ops/predictor.py`), and, with `use_fused_sdf`, `ops/sdf_fwd.py` for the
 no-gradient SDF values of the sampler and the occlusion marches
 (`make_nograd_sdf_fn`). The switches `bg_on_inner`, `shade_top_k` and
-`remat_shader` are plain torch here as they are plain JAX there. The
-precision switches `sdf_grad_mode` and `bf16_hidden` are not ported: a
-config that sets one to a value the port cannot honour on its device raises
-(`check_precision_keys`), and so does an SDF topology that the kernel does
-not take, on CUDA (`check_sdf_topology`); `use_fused_sdf` is dropped for such
-an SDF (`shape_config_from_dict`).
+`remat_shader` are plain torch here as they are plain JAX there.
+
+The precision switches resolve by nero_tpu's rules (render/shape.py:127-149)
+with CUDA in the TPU's place, in one place (`ShapeConfig.hidden_act_dtype`,
+`ShapeConfig.grad_mode`, `ShapeConfig.resolved`):
+
+* `bf16_hidden`: the storage of hidden activations in the sampler and the
+  render core (ops/mlp.py::hidden_dtype); unset = bf16 on CUDA, f32 on the
+  CPU;
+* `sdf_grad_mode`: `fused` (the SDF-with-gradient kernel), `rev` or `fwd`
+  (ops/sdf_grad.py); unset = `fused` on CUDA where the kernel takes the SDF
+  and the storage is bf16, else `rev`; `fused` asked for where the kernel
+  cannot run (a CPU model, another SDF topology) warns and takes `rev`.
+
+A value outside these raises ValueError. `use_fused_sdf` is dropped for an
+SDF that the value-only kernel does not take (`shape_config_from_dict`).
 """
 from __future__ import annotations
 
@@ -33,10 +43,11 @@ from nero_tpu_torch.fields.bg_nerf import BgNeRFConfig, bg_nerf_apply, init_bg_n
 from nero_tpu_torch.fields.intersection import get_intersection
 from nero_tpu_torch.fields.sdf import SDFConfig, init_sdf, sdf_value
 from nero_tpu_torch.fields.variance import init_variance, inv_s as variance_inv_s
-from nero_tpu_torch.ops.mlp import resolve_weight_norm
+from nero_tpu_torch.ops.mlp import (current_precision, hidden_dtype, precision_of,
+                                    resolve_weight_norm, storage_dtype)
 from nero_tpu_torch.ops.sample_pdf import sample_pdf
 from nero_tpu_torch.ops.sdf_fwd import make_sdf_fwd_fn
-from nero_tpu_torch.ops.sdf_grad import sdf_with_grad
+from nero_tpu_torch.ops.sdf_grad import GRAD_MODES, sdf_with_grad
 from nero_tpu_torch.ops.sdf_grad import supported as sdf_kernel_supported
 from nero_tpu_torch.utils.color import linear_to_srgb
 
@@ -78,6 +89,39 @@ class ShapeConfig(NamedTuple):
     # from occ_loss_step on, shade only the k inner samples of each ray that
     # carry the most composited weight (0 = all); training only
     shade_top_k: int = 0
+    # the spatial SDF gradient: 'fused', 'rev' or 'fwd'; None = `grad_mode`'s rule
+    sdf_grad_mode: str | None = None
+    # hidden activations of the SDF and the shader's heads stored in bf16;
+    # None = on for a CUDA model
+    bf16_hidden: bool | None = None
+
+    def hidden_act_dtype(self, device) -> torch.dtype:
+        """The hidden storage dtype on `device` (ops/mlp.py::storage_dtype)."""
+        return storage_dtype(self.bf16_hidden, device)
+
+    def grad_mode(self, device) -> str:
+        """The resolved sdf_grad_mode on `device`. The kernel runs where the
+        device is CUDA and it takes the SDF; unset picks it only where the
+        storage is bf16 too, since the kernel stores its activations in bf16
+        and an explicit bf16_hidden=false is not overridden (nero_tpu/render/
+        shape.py:134-149)."""
+        mode = _checked_grad_mode(self)
+        kernel_ok = torch.device(device).type == "cuda" and sdf_kernel_supported(self.sdf_cfg)
+        if mode is None:
+            return ("fused" if kernel_ok and self.hidden_act_dtype(device) == torch.bfloat16
+                    else "rev")
+        if mode == "fused" and not kernel_ok:
+            warnings.warn(f"sdf_grad_mode='fused' was requested but the SDF-with-gradient kernel "
+                          f"does not run here (device {torch.device(device).type}, "
+                          f"{_topology(self)}); taking 'rev'.", RuntimeWarning, stacklevel=2)
+            return "rev"
+        return mode
+
+    def resolved(self, device) -> "ShapeConfig":
+        """This config with both precision switches set to what they resolve
+        to on `device`."""
+        return self._replace(bf16_hidden=self.hidden_act_dtype(device) == torch.bfloat16,
+                             sdf_grad_mode=self.grad_mode(device))
 
     @property
     def n_inner(self) -> int:
@@ -95,13 +139,17 @@ class ShapeConfig(NamedTuple):
 
 
 def shape_config_from_dict(cfg: dict) -> ShapeConfig:
-    """The ShapeConfig of a config dict. `use_fused_sdf` with an SDF that the
+    """The ShapeConfig of a config dict; an unknown value of `sdf_grad_mode`
+    or `bf16_hidden` raises ValueError. `use_fused_sdf` with an SDF that the
     value-only kernel does not take (`ops/sdf_grad.py::supported`) is dropped
     with a warning, as nero_tpu drops it (render/shape.py:179-180): a rule
     about the configuration, never about the device."""
     fields = {k: v for k, v in cfg.items() if k in ShapeConfig._fields}
     fields["shader"] = shading_config_from_dict(cfg.get("shader_config", {}))
     scfg = ShapeConfig(**fields)
+    # an unknown value of a precision switch raises here
+    _checked_grad_mode(scfg)
+    storage_dtype(scfg.bf16_hidden, "cpu")
     if scfg.use_fused_sdf and not sdf_kernel_supported(scfg.sdf_cfg):
         warnings.warn("use_fused_sdf=True was requested but the value-only SDF kernel does not "
                       f"take this SDF ({_topology(scfg)}); taking sdf_value.",
@@ -110,40 +158,16 @@ def shape_config_from_dict(cfg: dict) -> ShapeConfig:
     return scfg
 
 
+def _checked_grad_mode(scfg: ShapeConfig):
+    mode = scfg.sdf_grad_mode
+    if mode is not None and mode not in GRAD_MODES:
+        raise ValueError(f"sdf_grad_mode must be one of {GRAD_MODES} or unset, got {mode!r}")
+    return mode
+
+
 def _topology(scfg: ShapeConfig) -> str:
     return (f"sdf_n_layers={scfg.sdf_n_layers}, sdf_freq={scfg.sdf_freq}, "
             f"sdf_d_out={scfg.sdf_d_out}")
-
-
-def check_sdf_topology(scfg: ShapeConfig, device) -> None:
-    """Raise NotImplementedError on CUDA for an SDF that the SDF-with-gradient
-    kernel does not take (`ops/sdf_grad.py::supported`): nero_tpu resolves
-    such an SDF to its f32 reverse-mode gradient (render/shape.py:142-149),
-    which the port runs on the CPU only until ROADMAP A3 brings it to the
-    card. The CPU takes any topology."""
-    if torch.device(device).type == "cuda" and not sdf_kernel_supported(scfg.sdf_cfg):
-        raise NotImplementedError(
-            f"SDF topology {_topology(scfg)} on cuda: the SDF-with-gradient kernel takes "
-            "the default (8 layers, skip 4, 256 wide, PE 6, 257 outputs); the f32 'rev' path "
-            "on the card waits for ROADMAP A3")
-
-
-def check_precision_keys(cfg: dict, device) -> None:
-    """Raise NotImplementedError for an explicit `sdf_grad_mode` or
-    `bf16_hidden` that the port cannot honour on `device`, where nero_tpu
-    would switch precision. Honoured: `sdf_grad_mode` unset, `fused` on CUDA
-    (the bf16 kernel of ops/sdf_grad.py), `rev` on the CPU (the plain f32
-    reverse-mode eikonal); `bf16_hidden` unset."""
-    kind = torch.device(device).type
-    mode = cfg.get("sdf_grad_mode")
-    if mode is not None and (mode, kind) not in (("fused", "cuda"), ("rev", "cpu")):
-        raise NotImplementedError(
-            f"sdf_grad_mode={mode!r} on {kind}: the port runs the bf16 kernel on CUDA and the "
-            "f32 reverse-mode eikonal on the CPU; other modes wait for ROADMAP A3")
-    if cfg.get("bf16_hidden") is not None:
-        raise NotImplementedError(
-            f"bf16_hidden={cfg['bf16_hidden']!r}: Stage I's bf16 activations are not ported "
-            "(ROADMAP A3); leave the key unset")
 
 
 def make_nograd_sdf_fn(params, scfg: ShapeConfig):
@@ -192,7 +216,13 @@ def _upsample_z(rays_o, rays_d, z_vals, sdf, n_new, inv_s):
 @torch.no_grad()
 def sample_z_vals(params, scfg: ShapeConfig, rays_o, rays_d, near, far,
                   gen: torch.Generator | None = None, perturb: float = 1.0):
-    """Inner z values [R, n_inner] and background z values [R, n_bg]."""
+    """Inner z values [R, n_inner] and background z values [R, n_bg]; the
+    SDF values in the storage dtype (nero_tpu/render/shape.py:278)."""
+    with hidden_dtype(scfg.hidden_act_dtype(rays_o.device)):
+        return _sample_z_vals(params, scfg, rays_o, rays_d, near, far, gen, perturb)
+
+
+def _sample_z_vals(params, scfg: ShapeConfig, rays_o, rays_d, near, far, gen, perturb):
     r = rays_o.shape[0]
     sn = scfg.n_samples
     dev, dt = rays_o.device, rays_o.dtype
@@ -241,7 +271,7 @@ def sample_z_vals(params, scfg: ShapeConfig, rays_o, rays_d, near, far,
 def compute_sdf_alpha(params, scfg: ShapeConfig, points, dists, dirs, cos_anneal_ratio,
                       step: int):
     """NeuS alpha on the inner lattice. points [R,S,3] -> alpha, grads, feats, inv_s, sdf."""
-    sdf, feats, grads = sdf_with_grad(params["sdf"], points, scfg.sdf_cfg)
+    sdf, feats, grads = sdf_with_grad(params["sdf"], points, scfg.sdf_cfg, scfg.sdf_grad_mode)
     sdf = sdf[..., 0]
     inv_s = torch.clamp(variance_inv_s(params["variance"], scfg.std_act), 1e-6, 1e6)
     if scfg.freeze_inv_s_step is not None and step < scfg.freeze_inv_s_step:
@@ -312,7 +342,18 @@ def render_core(params, scfg: ShapeConfig, fg_lut, rays_o, rays_d, z_full, cos_a
                 step: int, is_train: bool, gen: torch.Generator | None = None,
                 human_poses: torch.Tensor | None = None) -> dict:
     """z_full [R, n_total] (inner z then background z). `params` resolved.
-    human_poses [R, 3, 4] per ray when the shader has the human light."""
+    human_poses [R, 3, 4] per ray when the shader has the human light.
+    The precision switches resolve here, on the rays' device (a model's
+    config is resolved already); hidden activations in the storage dtype
+    (nero_tpu/render/shape.py:421)."""
+    scfg = scfg.resolved(rays_o.device)
+    with hidden_dtype(scfg.hidden_act_dtype(rays_o.device)):
+        return _render_core(params, scfg, fg_lut, rays_o, rays_d, z_full, cos_anneal_ratio,
+                            step, is_train, gen, human_poses)
+
+
+def _render_core(params, scfg: ShapeConfig, fg_lut, rays_o, rays_d, z_full, cos_anneal_ratio,
+                 step: int, is_train: bool, gen, human_poses) -> dict:
     r, s_total = z_full.shape
     s_inner = scfg.n_inner
     dists = z_full[..., 1:] - z_full[..., :-1]
@@ -348,9 +389,17 @@ def render_core(params, scfg: ShapeConfig, fg_lut, rays_o, rays_d, z_full, cos_a
     mask_sdf = torch.cat([inner_in, inner_in.new_zeros((r, s_total - s_inner))], dim=1)
     rgb_bg_part = torch.sum(color_bg * (weights * ~mask_sdf)[..., None], dim=1)
 
+    state = current_precision()
+
+    def fn(*a):
+        # the storage and product contexts again: the recompute of
+        # remat_shader runs in the backward pass, on CUDA on autograd's
+        # device thread, where neither context is seen
+        with precision_of(state):
+            return app_shading_apply(params["shader"], scfg.shader, fg_lut, *a)
+
     def shade(pts, nrm, view, ft, hp):
         args = [pts, nrm, view, ft] + ([] if hp is None else [hp])
-        fn = lambda *a: app_shading_apply(params["shader"], scfg.shader, fg_lut, *a)
         if is_train and scfg.remat_shader and torch.is_grad_enabled():
             # keep no shader activation for the backward: run it again there
             return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
@@ -402,7 +451,7 @@ def compute_validation_info(params, scfg: ShapeConfig, fg_lut, z_vals, rays_o, r
     """Depth/normal/material maps + traced occ-prob ground truth."""
     depth = torch.sum(weights * z_vals, dim=-1, keepdim=True)
     points = depth * rays_d + rays_o
-    _, feats, grads = sdf_with_grad(params["sdf"], points, scfg.sdf_cfg)
+    _, feats, grads = sdf_with_grad(params["sdf"], points, scfg.sdf_cfg, scfg.sdf_grad_mode)
     inner = (torch.linalg.norm(points, dim=-1, keepdim=True) <= 1.0).to(points.dtype)
     normal = (grads / torch.clamp(torch.linalg.norm(grads, dim=-1, keepdim=True), min=1e-12)
               + 1.0) * 0.5 * inner

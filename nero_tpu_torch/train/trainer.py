@@ -8,12 +8,18 @@ with auto-resume, scalar logs in the model dir and a rays/sec meter.
 The optimizer is `torch.optim.Adam` over the {v, g, b} leaves, stepped
 with lr(step) from `train/lr.py` through LambdaLR: this reproduces
 `optax.adam(learning_rate=schedule)` (defaults b1 0.9, b2 0.999, eps 1e-8,
-bias correction, eps outside the square root in both). With `profile_dir`
-set it writes a torch.profiler Chrome trace of steps [profile_start,
-profile_start + profile_steps) there, as nero_tpu writes its JAX trace.
-nero_tpu's MFU logging (core/mfu.py) reads XLA cost analysis and is not
-ported; its `matmul_precision` is honoured only as "highest"
-(`check_matmul_precision`).
+bias correction, eps outside the square root in both). Checkpoints are
+nero_tpu's `.npz` (core/checkpoint.py): either package resumes the other's.
+With `profile_dir` set it writes a torch.profiler Chrome trace of steps
+[profile_start, profile_start + profile_steps) there, as nero_tpu writes its
+JAX trace. nero_tpu's MFU logging (core/mfu.py) reads XLA cost analysis and
+is not ported.
+
+`matmul_precision` (nero_tpu's names, default "default") sets the product
+mode of the plain MLP layers (ops/mlp.py::product_mode) inside the
+training step and the validation renders only, where nero_tpu sets JAX's
+precision for the whole process: model construction, the tracer's
+distillation and extraction stay f32.
 """
 from __future__ import annotations
 
@@ -28,23 +34,11 @@ from nero_tpu_torch.core.checkpoint import load_checkpoint, save_checkpoint
 from nero_tpu_torch.core.device import resolve_device
 from nero_tpu_torch.core.logger import Logger, RaysPerSecMeter
 from nero_tpu_torch.models import get_model
+from nero_tpu_torch.ops.mlp import product_mode, resolve_matmul_precision
 from nero_tpu_torch.train.losses import name2loss
 from nero_tpu_torch.train.lr import name2lr_schedule
 from nero_tpu_torch.train.metrics import name2metrics
 from nero_tpu_torch.train.valid import ValidationEvaluator
-
-
-def check_matmul_precision(cfg: dict) -> None:
-    """Raise NotImplementedError for an explicit `matmul_precision` other
-    than "highest": nero_tpu sets JAX's matmul precision from it
-    (train/trainer.py:42-45,62; its default "default" takes bf16 operands),
-    while the port's library products run in f32, which is "highest".
-    ROADMAP A3 brings the other settings."""
-    mp = cfg.get("matmul_precision")
-    if mp is not None and mp != "highest":
-        raise NotImplementedError(
-            f"matmul_precision={mp!r}: the port's library products run in f32 ('highest'); "
-            "other precisions wait for ROADMAP A3. Leave the key unset or set 'highest'")
 
 
 class Trainer:
@@ -57,6 +51,10 @@ class Trainer:
         "val_interval": 10000,
         "save_interval": 500,
         "random_seed": 6033,
+        # products of the plain MLP layers on the card: "default" takes bf16
+        # operands with f32 accumulation, "high" TF32, "highest" f32; on the
+        # CPU every name computes in f32
+        "matmul_precision": "default",
         "model_root": "data/model",
         "vis_dir": "data/train_vis",
         # write a torch.profiler trace of steps [profile_start, profile_start + profile_steps)
@@ -66,9 +64,10 @@ class Trainer:
     }
 
     def __init__(self, cfg: dict, device=None):
-        check_matmul_precision(cfg)
         self.cfg = {**self.default_cfg, **cfg}
         self.device = resolve_device(device)
+        # an unknown name raises before anything is written
+        self.product_mode = resolve_matmul_precision(self.cfg["matmul_precision"], self.device)
         random.seed(self.cfg["random_seed"])
         np.random.seed(self.cfg["random_seed"])
         self.model_name = self.cfg["name"]
@@ -103,19 +102,36 @@ class Trainer:
             self.optimizer, lambda s: self.lr_schedule(s) / base)
         self.val_evaluator = ValidationEvaluator(self.cfg)
 
+    def precision(self):
+        """The product context of `matmul_precision` on the trainer's device."""
+        return product_mode(self.product_mode)
+
     def train_step(self, step: int) -> dict:
         """One optimizer step at `step`, then the schedule's step; returns
         the step's (device) log."""
-        log = self.model.train_step(self.optimizer, step)
+        with self.precision():
+            log = self.model.train_step(self.optimizer, step)
         self.scheduler.step()
         return log
 
-    def _load_model(self):
-        if os.path.exists(self.ckpt_fn):
-            step, best_para = load_checkpoint(self.ckpt_fn, self.model.params, self.optimizer)
-            print(f"==> resuming from step {step} best para {best_para}")
-            return best_para, step
-        return 0.0, 0
+    def save(self, path: str, step: int, best_para: float):
+        """Checkpoint the parameters, the optimizer, the schedule's position
+        and the model's batch generator after `step` steps."""
+        save_checkpoint(path, step, best_para, self.model.params, self.optimizer,
+                        self.scheduler.last_epoch, getattr(self.model, "gen", None))
+
+    def resume(self) -> tuple[float, int]:
+        """Load the checkpoint at `ckpt_fn` (the port's or nero_tpu's) into the
+        model, optimizer, schedule and generator; returns (best_para, step),
+        (0.0, 0) without one."""
+        if not os.path.exists(self.ckpt_fn):
+            return 0.0, 0
+        step, best_para = load_checkpoint(self.ckpt_fn, self.model.params, self.optimizer,
+                                          self.scheduler, getattr(self.model, "gen", None))
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.lr_schedule(self.scheduler.last_epoch)
+        print(f"==> resuming from step {step} best para {best_para}")
+        return best_para, step
 
     def _start_profile(self):
         activities = [torch.profiler.ProfilerActivity.CPU]
@@ -142,10 +158,7 @@ class Trainer:
             self.setup()
         logger = Logger(self.model_dir)
         meter = RaysPerSecMeter(self.device)
-        best_para, start_step = self._load_model()
-        self.scheduler.last_epoch = start_step
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.lr_schedule(start_step)
+        best_para, start_step = self.resume()
         rays_per_step = self.model.num_train_rays_per_step()
         total = self.cfg["total_step"]
         params = self.model.params
@@ -175,24 +188,24 @@ class Trainer:
                              for vs in self.cfg.get("val_set_list", [{"name": "val"}])]
                 all_results, val_para = {}, 0.0
                 for vn in val_names:
-                    val_results, val_para = self.val_evaluator(
-                        self.model, params, self.val_losses, self.val_metrics,
-                        list(range(len(self.model.test_ids))), step, self.model_name,
-                        val_set_name=vn, vis_dir=self.cfg["vis_dir"])
+                    with self.precision():
+                        val_results, val_para = self.val_evaluator(
+                            self.model, params, self.val_losses, self.val_metrics,
+                            list(range(len(self.model.test_ids))), step, self.model_name,
+                            val_set_name=vn, vis_dir=self.cfg["vis_dir"])
                     for k, v in val_results.items():
                         all_results[f"{vn}-{k}"] = v
                 if val_para > best_para:
                     print(f"New best model {self.cfg['key_metric_name']}: "
                           f"{val_para:.5f} previous {best_para:.5f}")
                     best_para = val_para
-                    save_checkpoint(self.best_ckpt_fn, step + 1, best_para, params,
-                                    self.optimizer)
+                    self.save(self.best_ckpt_fn, step + 1, best_para)
                 self.val_results = {k: float(np.mean(v)) for k, v in all_results.items()}
                 logger.log(self.val_results, "val", step + 1)
                 meter.reset()
 
             if (step + 1) % self.cfg["save_interval"] == 0:
-                save_checkpoint(self.ckpt_fn, step + 1, best_para, params, self.optimizer)
+                self.save(self.ckpt_fn, step + 1, best_para)
                 meter.reset()
-        save_checkpoint(self.ckpt_fn, total, best_para, params, self.optimizer)
+        self.save(self.ckpt_fn, total, best_para)
         return params

@@ -112,29 +112,39 @@ def test_config_fields_reach_the_port():
     assert not default.use_fused_sdf and default.shader.fused_shader is None
 
 
-@pytest.mark.parametrize("key,value,device,honoured", [
-    ("sdf_grad_mode", None, "cpu", True), ("sdf_grad_mode", None, "cuda", True),
-    ("sdf_grad_mode", "fused", "cuda", True), ("sdf_grad_mode", "rev", "cpu", True),
-    ("sdf_grad_mode", "fused", "cpu", False), ("sdf_grad_mode", "rev", "cuda", False),
-    ("sdf_grad_mode", "fwd", "cpu", False), ("sdf_grad_mode", "fwd", "cuda", False),
-    ("bf16_hidden", None, "cuda", True), ("bf16_hidden", True, "cuda", False),
-    ("bf16_hidden", False, "cpu", False), ("bf16_hidden", True, "cpu", False),
+@pytest.mark.parametrize("key,value,device,resolved", [
+    ("sdf_grad_mode", None, "cpu", "rev"), ("sdf_grad_mode", None, "cuda", "fused"),
+    ("sdf_grad_mode", "fused", "cuda", "fused"), ("sdf_grad_mode", "rev", "cpu", "rev"),
+    ("sdf_grad_mode", "fused", "cpu", "rev"), ("sdf_grad_mode", "rev", "cuda", "rev"),
+    ("sdf_grad_mode", "fwd", "cpu", "fwd"), ("sdf_grad_mode", "fwd", "cuda", "fwd"),
+    ("bf16_hidden", None, "cuda", True), ("bf16_hidden", True, "cuda", True),
+    ("bf16_hidden", False, "cpu", False), ("bf16_hidden", True, "cpu", True),
+    ("bf16_hidden", None, "cpu", False), ("bf16_hidden", False, "cuda", False),
+    ("sdf_grad_mode", "bwd", "cpu", ValueError), ("bf16_hidden", "on", "cuda", ValueError),
 ])
-def test_precision_keys_are_honoured_or_refused(key, value, device, honoured):
-    """nero_tpu switches precision on these keys; the port, which has one
-    precision per device, raises where it cannot honour an explicit value
-    instead of dropping it."""
+def test_precision_keys_are_honoured_or_refused(key, value, device, resolved):
+    """nero_tpu switches precision on these keys and the port honours every
+    value, resolved by nero_tpu's rules with CUDA in the TPU's place
+    (`fused` where the kernel cannot run warns and takes `rev`); a value
+    outside the enumerations is refused with ValueError."""
     cfg = {key: value}
-    if honoured:
-        T.check_precision_keys(cfg, device)
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-            T.check_precision_keys(cfg, device)
+    if resolved is ValueError:
+        with pytest.raises(ValueError, match=key):
+            T.shape_config_from_dict(cfg)
+        return
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        scfg = T.shape_config_from_dict(cfg).resolved(device)
+    assert getattr(scfg, key) == resolved
 
 
 def test_shape_model_refuses_an_unported_precision_key():
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        NeROShapeModel({**TINY_CFG, "sdf_grad_mode": "fwd"}, training=False, device="cpu")
+    """The model resolves its switches at construction: `fwd` is honoured on
+    the CPU, an unknown value refused."""
+    model = NeROShapeModel({**TINY_CFG, "sdf_grad_mode": "fwd"}, training=False, device="cpu")
+    assert model.scfg.sdf_grad_mode == "fwd" and model.scfg.bf16_hidden is False
+    with pytest.raises(ValueError, match="sdf_grad_mode"):
+        NeROShapeModel({**TINY_CFG, "sdf_grad_mode": "forward"}, training=False, device="cpu")
 
 
 @pytest.mark.parametrize("step", [2, OCC_STEP + 1], ids=["before_occ", "occ_phase"])
@@ -332,39 +342,38 @@ def test_fused_sdf_gate_drops_the_switch():
 
 
 @pytest.mark.parametrize("over", [{"sdf_n_layers": 6}, {"sdf_freq": 4}, {"sdf_d_out": 129}])
-def test_sdf_topology_gate(over, monkeypatch):
-    """A non-default SDF on CUDA raises at NeROShapeModel construction, naming
-    the topology and ROADMAP A3 (nero_tpu resolves it to its f32 `rev`
-    gradient, which the port runs on the CPU only); the CPU takes it, and the
-    default SDF passes on either device. No device is needed: the model
-    raises before it touches one."""
-    from nero_tpu_torch.models import shape as M
-
+def test_sdf_topology_gate(over):
+    """An SDF that the SDF-with-gradient kernel does not take resolves to the
+    plain `rev` gradient on CUDA too, as nero_tpu resolves it on its TPU
+    (render/shape.py:142-149); `fused` asked for it warns, naming the
+    topology, and takes `rev`; the default SDF takes the kernel on CUDA."""
     scfg = T.shape_config_from_dict(over)
     key, value = next(iter(over.items()))
-    with pytest.raises(NotImplementedError, match=f"{key}={value}.*ROADMAP A3"):
-        T.check_sdf_topology(scfg, "cuda")
-    T.check_sdf_topology(scfg, "cpu")
-    T.check_sdf_topology(T.shape_config_from_dict({}), "cuda")
-    monkeypatch.setattr(M, "resolve_device", lambda device: torch.device("cuda"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        NeROShapeModel({**TINY_CFG, **over}, training=False)
+    assert scfg.resolved("cuda").sdf_grad_mode == "rev"
+    assert scfg.resolved("cpu").sdf_grad_mode == "rev"
+    with pytest.warns(RuntimeWarning, match=f"{key}={value}.*taking 'rev'"):
+        assert scfg._replace(sdf_grad_mode="fused").resolved("cuda").sdf_grad_mode == "rev"
+    assert T.shape_config_from_dict({}).resolved("cuda").sdf_grad_mode == "fused"
 
 
 @pytest.mark.parametrize("value,honoured", [(None, True), ("highest", True),
-                                            ("default", False), ("high", False)])
+                                            ("default", True), ("high", True),
+                                            ("medium", False), ("bf16", False)])
 def test_matmul_precision_is_honoured_or_refused(value, honoured, tmp_path):
     """nero_tpu sets JAX's matmul precision from `matmul_precision`
-    (train/trainer.py:42-45,62); the port's library products run in f32
-    ("highest"), so another explicit value raises and names ROADMAP A3."""
+    (train/trainer.py:42-45,62): the port honours each of its names (default
+    "default"; on the CPU every name computes in f32) and refuses another
+    name with ValueError before it writes anything."""
     from nero_tpu_torch.train.trainer import Trainer
 
     cfg = {"name": "mp", "model_root": str(tmp_path), "network": "shape"}
     if value is not None:
         cfg["matmul_precision"] = value
     if honoured:
-        assert Trainer(cfg, device="cpu").cfg.get("matmul_precision") == value
+        trainer = Trainer(cfg, device="cpu")
+        assert trainer.cfg["matmul_precision"] == (value or "default")
+        assert trainer.product_mode == "f32"
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+        with pytest.raises(ValueError, match="matmul_precision"):
             Trainer(cfg, device="cpu")
         assert not (tmp_path / "mp").exists()
