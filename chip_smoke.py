@@ -6,9 +6,11 @@ holds each against its plain PyTorch version, then trains Stage I on
 kernels, takes a few steps through every other switch of both stages, runs
 the chain Stage I -> mesh -> Chamfer -> Stage II -> materials, and the
 capture path: a scene written as a COLMAP custom object, read through the
-crop and raw caches by both stages and both pipeline tools, and trains both
+crop and raw caches by both stages and both pipeline tools, trains both
 stages under each setting of the precision switches, resuming one run from
-a checkpoint in nero_tpu's layout.
+a checkpoint in nero_tpu's layout, and takes both stages through the ray
+data-parallel path, two scenes through the multi-scene model and its tool,
+and every training configuration's FLOPs to an MFU.
 
     python3 chip_smoke.py
 
@@ -114,7 +116,26 @@ result line):
      0.5 dB; the bf16 storage, TF32 and the bf16 operands each move those
      colours; step medians, rays/s or points/s and the
      busy ms a step (profile_step.py's counting) with its share in library
-     products printed beside the card's name and power limit.
+     products printed beside the card's name and power limit;
+ 10. scale-out and MFU (`scaleout`): (a) `sphere.yaml` for 30 steps and
+     `bowl.yaml` for 10 through Trainer.train_step without a group and on a
+     one-rank NCCL group (global draws, a slice that is every row, the
+     all-reduces): every log value and parameter equal to the bit, launches
+     exact, both step medians; (b) two ranks on the one card over gloo, one
+     step of `sphere.yaml` at occ_loss_step from the seed's parameters against
+     one process: loss within 1e-5 relative, all-reduced gradients within
+     1e-3 (`grad_err_normalised`), and outside a bar under each runtime
+     patch (the all-reduce dropped, draws of the rank's own rows, kpr from
+     the rank's own rows), every number printed; the step's median on the
+     ranks and in one process; (c) two scenes of `sphere.yaml` for 20 steps
+     through MultiSceneShapeModel, each equal to the bit to the scene
+     trained alone with seed 6033 + s, launches the sum of both; then
+     `train_multi_scene` for 4 steps unbroken and resumed at 2, equal to the
+     bit, its exports loaded into NeROShapeModel; (d) the FLOPs of the first
+     step of phases 4 and 5's five trainings (library, kernels, total),
+     each kernel's tally equal to its launches x flops(...) at the main
+     path's shapes, `expect_kernels` on each configuration's kernels, the
+     step median and the logged mfu in (0, 1), with the card line.
 The line before the result is a JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Of a kernel's times, `ms` is
 the wrapper's whole call for the kernels behind an autograd function (shader,
@@ -122,7 +143,8 @@ predictor, lights) and the launch on packed weights for the others;
 `launch_ms` and `wrapper_ms` give both readings where they differ. `--only
 kernels` stops after phase 3 (for work on a kernel; no result line); `--only
 capture` and `--only precision` build the kernels and run phase 8 or phase 9
-alone (no result line).
+alone, `--only scaleout` the five trainings of phases 4 and 5 and phase 10
+(no result line).
 """
 from __future__ import annotations
 
@@ -1182,21 +1204,16 @@ def check_lights(n: int, dev) -> list:
 # ---------------------------------------------------------------------------
 
 
-def _launch_counters():
-    from nero_tpu_torch.ops import (field_fwd, lights, march, predictor, sdf_fwd, sdf_grad,
-                                    shader, sphere_march)
-    return tuple(m.launches for m in (sdf_grad, shader, sphere_march, march, field_fwd, lights,
-                                      sdf_fwd, predictor))
-
-
 def reset_launches():
-    for d in _launch_counters():
-        for k in d:
-            d[k] = 0
+    from nero_tpu_torch.core.mfu import kernel_modules
+    for m in kernel_modules():
+        for k in m.launches:
+            m.launches[k] = 0
 
 
 def read_launches() -> dict:
-    return {k: v for d in _launch_counters() for k, v in d.items()}
+    from nero_tpu_torch.core.mfu import launch_counts
+    return launch_counts()
 
 
 def expect_launches(**counts) -> dict:
@@ -1337,7 +1354,8 @@ def train(cfg_file: str, steps: int, dev, cfg: dict | None = None) -> dict:
     print(f"{tag}: launches over the run {nonzero(launches)} = {steps} steps + {chunks} "
           f"validation chunk(s); occ step {nonzero(occ_launches)}")
     total = {k: launches[k] + occ_launches[k] for k in launches}
-    return {"launches": total, "held_out": after, "loss_rgb": rgb, "step_ms": step_s * 1e3}
+    return {"launches": total, "held_out": after, "loss_rgb": rgb, "step_ms": step_s * 1e3,
+            "mfu": mfu_record(cfg_file, trainer)}
 
 
 def timed_steps(trainer, first: int, last: int, tag: str) -> tuple[list, list]:
@@ -1428,7 +1446,8 @@ def material_cfg(mesh: dict, root: str, cfg_file: str = "bowl.yaml", shader_over
 
 def train_material(mesh: dict, steps: int, dev, cfg_file: str, fused: bool) -> dict:
     """Stage II on the bowl scene at the published width, through Trainer:
-    `steps` steps and one validation view."""
+    `steps` steps and one validation view. Returns the launches and the
+    run's MFU record."""
     from nero_tpu_torch.render.shape import compute_rgb_loss
     from nero_tpu_torch.train.trainer import Trainer
 
@@ -1485,7 +1504,7 @@ def train_material(mesh: dict, steps: int, dev, cfg_file: str, fused: bool) -> d
     print(f"{tag}: step {step_s * 1e3:.2f} ms (median, host clock after synchronize), "
           f"{model.num_train_rays_per_step() / step_s:.1f} points/s; launches "
           f"{nonzero(launches)} = {steps} steps + {chunks} validation chunks")
-    return launches
+    return {"launches": launches, "mfu": mfu_record(cfg_file, trainer)}
 
 
 def short_material_run(label: str, mesh: dict, steps: int, dev, expect: dict, regime=None,
@@ -2291,12 +2310,380 @@ def precision(bowl: dict, dev, card: str) -> list:
     return [r["launches"] for r in list(shape.values()) + list(material.values())]
 
 
+# ---------------------------------------------------------------------------
+# phase 10: scale-out (ray data parallelism, multi-scene) and FLOPs / MFU
+# ---------------------------------------------------------------------------
+
+SCALEOUT_STEPS1 = 30    # sphere.yaml, one NCCL rank against no group
+SCALEOUT_STEPS2 = 10    # bowl.yaml, the same
+MULTI_STEPS = 20        # two scenes of sphere.yaml through MultiSceneShapeModel
+TOOL_STEPS = 4          # train_multi_scene, unbroken and resumed at half
+GLOO_RANKS = 2          # on the one card, over gloo
+# the two-rank step against one process: the ranks render the same rows with
+# the same per-row kernels, and sum over rows in another order (f32)
+GLOO_LOSS_BAR = 1e-5    # |loss_2 - loss_1| / |loss_1|
+GLOO_GRAD_BAR = 1e-3    # grad_err_normalised of the all-reduced gradients
+# runtime patches the bars must refuse (applied in the ranks, never in the tree)
+GLOO_PATCHES = ("no_all_reduce", "local_draws", "local_kpr")
+GLOO_TIMED = 5          # steps timed after the compared one, each synchronised
+MFU_CONFIGS = ("sphere.yaml", "sphere_real.yaml", "sphere_heads.yaml", "bowl.yaml",
+               "bowl_fused.yaml")
+KERNEL_FAMILIES = ("sdf_grad", "shader", "predictor", "sdf_fwd", "sphere_march", "march",
+                   "lights", "field_fwd")
+
+
+def step_kernel_flops(model) -> dict:
+    """{kernel counter: FLOPs} of one training step before occ_loss_step at
+    the main path's shapes, by each module's flops(...): the tallies the
+    wrappers must have added."""
+    from nero_tpu_torch.ops import lights as KL, predictor as KP, sdf_fwd as KF, sdf_grad as KG
+    from nero_tpu_torch.ops import shader as KS, sphere_march as KM
+
+    out = {}
+    add = lambda k, v: out.__setitem__(k, out.get(k, 0.0) + v)
+    r = model.cfg["train_ray_num"]
+    if hasattr(model, "scfg"):
+        from nero_tpu_torch.fields.app_shading import fused_shader_active
+        s = model.scfg
+        rows = r * s.n_inner
+        if s.sdf_grad_mode == "fused":
+            n_pad = -(-rows // KG.TILE) * KG.TILE
+            add("sdf_grad_fwd", KG.flops(n_pad))
+            add("sdf_grad_bwd", KG.flops(n_pad, backward=True))
+        sh = s.shader
+        if fused_shader_active(sh, torch.bfloat16 if s.bf16_hidden else torch.float32):
+            add("shader_fwd" + KS.variant(sh), KS.flops(rows, sh))
+            add("shader_bwd" + KS.variant(sh), KS.flops(rows, sh, backward=True))
+        elif sh.fused_heads:
+            for name, (d_in, d_out) in KS.head_dims(sh).items():
+                evals = 2 if name == "outer_light" else 1
+                add(f"predictor_fwd_{d_in}x{d_out}", evals * KP.flops(rows, d_in, d_out))
+                # the inner-weight head's input carries no gradient: no dx
+                add(f"predictor_bwd_{d_in}x{d_out}",
+                    evals * KP.flops(rows, d_in, d_out, True, want_dx=name != "inner_weight"))
+        if s.use_fused_sdf:
+            n_new = s.n_importance // s.up_sample_steps
+            add("sdf_fwd", KF.flops(r * s.n_samples + (s.up_sample_steps - 1) * r * n_new))
+    else:
+        from nero_tpu_torch.fields.mc_shading import fused_lights_active
+        mc, tr = model.mcfg, model.ray_tracer
+        rows = r * (mc.diffuse_sample_num + mc.specular_sample_num)
+        wide = "_wide" if tr.field_topology == "wide" else ""
+        add("sphere_march" + wide, KM.flops(rows, tr.n_sphere, tr.n_refine, tr.field_topology))
+        if fused_lights_active(mc):
+            mode = "outer" if mc.inner_compact_frac > 0 else "both"
+            suffix = "" if mode == "both" else "_outer"
+            add("lights_fwd" + suffix, KL.flops(rows, mc, mode))
+            add("lights_bwd" + suffix, KL.flops(rows, mc, mode, backward=True))
+    return out
+
+
+def mfu_record(tag: str, trainer) -> dict:
+    """What phase 10 reads of a Trainer.run: the first step's FLOP count,
+    the FLOPs its kernels should have tallied, the step median and the
+    logged mfu (median, after the first two logged steps)."""
+    hist = trainer.train_history[2:]
+    return {"tag": tag, "flops": trainer.flops, "expect": step_kernel_flops(trainer.model),
+            "step_ms": float(np.median([h["step_seconds"] for h in hist])) * 1e3,
+            "mfu": float(np.median([h["mfu"] for h in hist]))}
+
+
+def check_mfu(records: list, card: str):
+    """Each configuration's FLOP tallies against launches x flops(...),
+    expect_kernels on its kernels, and 0 < mfu < 1."""
+    from nero_tpu_torch.core.mfu import expect_kernels, peak_flops_per_sec
+
+    peak = peak_flops_per_sec(torch.device("cuda"))
+    for rec in records:
+        tag, f, want = rec["tag"], rec["flops"], rec["expect"]
+        got = f["kernels_by_name"]
+        print(f"mfu ({tag}): FLOPs a step {f['total']:.4e} = library {f['library']:.4e} + "
+              f"kernels {f['kernels']:.4e} ({', '.join(f'{k} {v:.3e}' for k, v in got.items())});"
+              f" step {rec['step_ms']:.3f} ms (median); mfu {rec['mfu']:.5f} of "
+              f"{peak / 1e12:.1f} TFLOP/s dense bf16 [{card}]")
+        check(set(got) == set(want) and f["unknown"] == 0,
+              f"mfu ({tag}): tallied {sorted(got)}, expected {sorted(want)}, unknown "
+              f"{f['unknown']}")
+        for k, v in want.items():
+            check(abs(got[k] - v) <= 1e-9 * v, f"mfu ({tag}): {k} tallied {got[k]}, "
+                                                f"launches x flops(...) = {v}")
+        expect_kernels({fam: any(k.startswith(fam) for k in want) for fam in KERNEL_FAMILIES},
+                       f"mfu ({tag})", f["launches_by_name"])
+        check(0 < rec["mfu"] < 1, f"mfu ({tag}): {rec['mfu']}")
+
+
+def params_equal(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
+
+
+def group_against_none(label: str, make_cfg, steps: int, dev, group, expect_fn,
+                       card: str) -> dict:
+    """`steps` steps through Trainer.train_step without a group and on the
+    one-rank group: the same logs and parameters to the bit, the expected
+    launches each. Returns the launches of both runs."""
+    from nero_tpu_torch.train.trainer import Trainer
+
+    runs = {}
+    for tag, g in (("no group", None), ("one NCCL rank", group)):
+        trainer = Trainer(make_cfg(tempfile.mkdtemp(prefix="nero_smoke_dp_")), device=dev, group=g)
+        trainer.setup()
+        reset_launches()
+        logs, times = timed_steps(trainer, 0, steps, f"{label} ({tag})")
+        launches = read_launches()
+        want = expect_fn(trainer.model, steps)
+        check(launches == want, f"{label} ({tag}) launches {nonzero(launches)}, expected "
+                                f"{nonzero(want)}")
+        runs[tag] = (logs, trainer.model.params, float(np.median(times[1:])) * 1e3, launches)
+    (la, pa, ma, xa), (lb, pb, mb, xb) = runs.values()
+    check(la == lb, f"{label}: the one-rank group's logs differ from no group's")
+    check(params_equal(pa, pb), f"{label}: the one-rank group's parameters differ")
+    print(f"{label}: {steps} steps, one NCCL rank equal to no group to the bit (every log value, "
+          f"every parameter); step {ma:.2f} ms without a group, {mb:.2f} ms on the group "
+          f"(median after the first) [{card}]; launches {nonzero(xb)} each")
+    return add_launches(xa, xb)
+
+
+class dp_patch:
+    """One of GLOO_PATCHES in this process, undone on exit."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        from nero_tpu_torch.models import shape as MS
+        from nero_tpu_torch.render import shape as RS
+
+        occ = RS.compute_occ_loss
+
+        def local_kpr(params, scfg, *args):
+            # the kpr of the rank's own rows: max_pn // (R / W)
+            shard = args[-1]
+            return occ(params, scfg._replace(occ_loss_max_pn=scfg.occ_loss_max_pn
+                                             * shard.group.size), *args)
+
+        mod, attr, new = {"no_all_reduce": (MS, "all_reduce_grads", lambda params, group: None),
+                          "local_draws": (RS, "draw_rows", lambda draw, shape, shard: draw(shape)),
+                          "local_kpr": (RS, "compute_occ_loss", local_kpr)}[self.name]
+        self.saved = (mod, attr, getattr(mod, attr))
+        setattr(mod, attr, new)
+
+    def __exit__(self, *exc):
+        mod, attr, old = self.saved
+        setattr(mod, attr, old)
+
+
+def dp_step(cfg: dict, step: int, group, dev, timed: int = 0) -> tuple:
+    """(loss, gradients as numpy, median ms of `timed` more steps) of one
+    Stage-I step from the seed's parameters, on `group` (None: one
+    process)."""
+    from nero_tpu_torch.models.shape import NeROShapeModel
+
+    model = NeROShapeModel(cfg, device=dev, group=group)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    log = model.train_step(opt, step)
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in model.parameters()]
+    grads = [g.detach().cpu().numpy() for g in grads]
+    times = []
+    for i in range(timed):
+        t0 = synced()
+        model.train_step(opt, step + 1 + i)
+        times.append(synced() - t0)
+    return float(log["loss_total"]), grads, float(np.median(times)) * 1e3 if times else None
+
+
+def gloo_rank(rank: int, init_file: str, cfg: dict, step: int, dev: str, out):
+    """A rank of the two-rank group on the one card: the step unpatched and
+    under each patch."""
+    import traceback
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    try:
+        dev = torch.device(dev)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev.index or 0)
+        dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                                world_size=GLOO_RANKS, timeout=timedelta(seconds=300))
+        from nero_tpu_torch.parallel.mesh import make_data_group
+
+        group = make_data_group()
+        res = {None: dp_step(cfg, step, group, dev, GLOO_TIMED)}
+        for name in GLOO_PATCHES:
+            with dp_patch(name):
+                res[name] = dp_step(cfg, step, group, dev)
+        dist.destroy_process_group()
+        out.put((rank, "ok", res))
+    except Exception:
+        out.put((rank, "error", traceback.format_exc()))
+
+
+def gloo_check(dev, card: str):
+    """Two ranks on the one card over gloo, one step of sphere.yaml at
+    occ_loss_step from the seed's parameters, against one process: the loss
+    and the all-reduced gradients within their bars, each patch refused."""
+    import multiprocessing as mp
+    import queue
+
+    from nero_tpu_torch.render.shape import shape_config_from_dict
+
+    cfg = shape_cfg("sphere.yaml", tempfile.mkdtemp(prefix="nero_smoke_gloo_"))
+    scfg = shape_config_from_dict(cfg)
+    step = scfg.occ_loss_step
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    init_file = os.path.join(tempfile.mkdtemp(prefix="nero_smoke_gloo_init_"), "init")
+    procs = [ctx.Process(target=gloo_rank, args=(r, init_file, cfg, step, str(dev), out))
+             for r in range(GLOO_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        ref_loss, ref_grads, ref_ms = dp_step(cfg, step, None, dev, GLOO_TIMED)
+        ranks, deadline = {}, time.time() + 600
+        while len(ranks) < GLOO_RANKS:
+            rank, status, value = out.get(timeout=max(deadline - time.time(), 1.0))
+            check(status == "ok", f"gloo rank {rank} failed:\n{value}")
+            ranks[rank] = value
+    except queue.Empty:
+        raise AssertionError(f"gloo ranks {sorted(set(range(GLOO_RANKS)) - set(ranks))} did "
+                             "not finish in 600 s") from None
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+    ref = [torch.from_numpy(g) for g in ref_grads]
+    max_pn, rays = scfg.occ_loss_max_pn, scfg.train_ray_num
+    print(f"scaleout gloo: {GLOO_RANKS} ranks on one card, {rays // GLOO_RANKS} rays each, "
+          f"step {step} (kpr = {max_pn} // {rays} = {max_pn // rays}; from a rank's own rows "
+          f"it would be {max_pn * GLOO_RANKS // rays}), one process's loss {ref_loss:.7f}; "
+          f"{time.perf_counter() - t0:.1f} s with the spawns [{card}]")
+    gloo_ms = [ranks[r][None][2] for r in range(GLOO_RANKS)]
+    print(f"scaleout gloo: step {', '.join(f'{m:.2f}' for m in gloo_ms)} ms on the ranks, "
+          f"{ref_ms:.2f} ms in one process beside them (median of {GLOO_TIMED} synchronised "
+          f"steps each, the three processes sharing the card) [{card}]")
+    for name in (None,) + GLOO_PATCHES:
+        worst_loss = worst_grad = 0.0
+        for r in range(GLOO_RANKS):
+            loss, grads, _ = ranks[r][name]
+            worst_loss = max(worst_loss, abs(loss - ref_loss) / abs(ref_loss))
+            worst_grad = max(worst_grad, grad_err_normalised(
+                ref, [torch.from_numpy(g) for g in grads]))
+        inside = worst_loss < GLOO_LOSS_BAR and worst_grad < GLOO_GRAD_BAR
+        print(f"scaleout gloo ({name or 'as built'}): loss off by {worst_loss:.3e} relative "
+              f"(bar {GLOO_LOSS_BAR}), gradients by {worst_grad:.3e} normalised (bar "
+              f"{GLOO_GRAD_BAR}): {'within' if inside else 'outside'} the bars")
+        check(inside == (name is None), f"scaleout gloo ({name or 'as built'}): within the "
+                                         f"bars = {inside}")
+
+
+def multi_scene_check(dev, card: str) -> dict:
+    """Two scenes of sphere.yaml through MultiSceneShapeModel against each
+    scene alone (seed random_seed + s), then train_multi_scene unbroken and
+    resumed at half, its exports loaded into NeROShapeModel. Returns the
+    multi-scene run's launches."""
+    from nero_tpu_torch import train_multi_scene
+    from nero_tpu_torch.core.checkpoint import load_checkpoint
+    from nero_tpu_torch.models.multi_scene import MultiSceneShapeModel
+    from nero_tpu_torch.models.shape import NeROShapeModel
+    from nero_tpu_torch.train.lr import warm_up_cos_schedule
+    from nero_tpu_torch.train.trainer import make_optimizer
+
+    root = tempfile.mkdtemp(prefix="nero_smoke_multi_")
+    # the schedule's end fixed, so a run of fewer steps takes the same lr
+    cfgs = [shape_cfg("sphere.yaml", root, name=f"scene{s}", lr_cfg={"end_iter": 300000})
+            for s in range(2)]
+    schedule = warm_up_cos_schedule(cfgs[0]["lr_cfg"])
+
+    def train(model, params, steps):
+        opt, sched = make_optimizer(params, "adam", schedule, dev)
+        reset_launches()
+        t0 = synced()
+        for step in range(steps):
+            model.train_step(opt, step)
+            sched.step()
+        return read_launches(), (synced() - t0) / steps * 1e3
+
+    ms = MultiSceneShapeModel(cfgs, device=dev)
+    multi, multi_ms = train(ms, ms.parameters(), MULTI_STEPS)
+    alone = []
+    for s in range(2):
+        m = NeROShapeModel({**cfgs[s], "random_seed": cfgs[s].get("random_seed", 6033) + s},
+                           device=dev)
+        launches, ms_alone = train(m, m.parameters(), MULTI_STEPS)
+        check(params_equal(ms.scene_params(s), m.params),
+              f"multi-scene: scene {s} differs from the scene alone")
+        alone.append(launches)
+    want = add_launches(*alone)
+    check(multi == want and multi == stage1_expect(ms.models[0].scfg, 2 * MULTI_STEPS),
+          f"multi-scene launches {nonzero(multi)}, the scenes alone {nonzero(want)}")
+    print(f"multi-scene: 2 scenes x {MULTI_STEPS} steps equal to the bit to each scene alone "
+          f"(seeds 6033, 6034); launches {nonzero(multi)} = the sum of both; {multi_ms:.1f} ms a "
+          f"step for both scenes, {ms_alone:.1f} ms for one alone [{card}]")
+
+    paths = [write_cfg(c, os.path.join(root, f"{c['name']}.yaml")) for c in cfgs]
+    argv = lambda r, n: ["--cfgs", *paths, "--total_step", str(n), "--model_root", r,
+                         "--log_step", "1", "--save_interval", str(TOOL_STEPS // 2),
+                         "--device", str(dev)]
+    full = train_multi_scene.main(argv(os.path.join(root, "a"), TOOL_STEPS))
+    train_multi_scene.main(argv(os.path.join(root, "b"), TOOL_STEPS // 2))
+    resumed = train_multi_scene.main(argv(os.path.join(root, "b"), TOOL_STEPS))
+    check([h["step"] for h in resumed["history"]] == list(range(TOOL_STEPS // 2, TOOL_STEPS)),
+          f"train_multi_scene did not resume: {resumed['history']}")
+    for s in range(2):
+        check(params_equal(full["model"].scene_params(s), resumed["model"].scene_params(s)),
+              f"train_multi_scene: scene {s} resumed differs from the unbroken run")
+        model = NeROShapeModel(cfgs[s], training=False, device=dev)
+        check(load_checkpoint(full["exports"][s], model.params)[0] == TOOL_STEPS,
+              "train_multi_scene export step")
+        check(params_equal(model.params, full["model"].scene_params(s)),
+              f"train_multi_scene: the export of scene {s} does not load into NeROShapeModel")
+    print(f"train_multi_scene: {TOOL_STEPS} steps unbroken and resumed at {TOOL_STEPS // 2} "
+          f"equal to the bit; {full['checkpoint']} in the stacked layout; both exports load "
+          f"into NeROShapeModel")
+    return multi
+
+
+def scaleout(dev, card: str, bowl: dict, mfu_records: list) -> list:
+    """Phase 10. Returns the launches of every run."""
+    import torch.distributed as dist
+    from nero_tpu_torch.parallel.mesh import make_data_group
+
+    t0 = time.perf_counter()
+    init_file = os.path.join(tempfile.mkdtemp(prefix="nero_smoke_nccl_"), "init")
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"file://{init_file}", rank=0, world_size=1)
+    try:
+        group = make_data_group()
+        runs = [group_against_none(
+            "scaleout stage I (sphere.yaml)",
+            lambda root: shape_cfg("sphere.yaml", root, total_step=SCALEOUT_STEPS1),
+            SCALEOUT_STEPS1, dev, group, lambda model, n: stage1_expect(model.scfg, n), card)]
+        runs.append(group_against_none(
+            "scaleout stage II (bowl.yaml)",
+            lambda root: material_cfg(bowl, root, total_step=SCALEOUT_STEPS2),
+            SCALEOUT_STEPS2, dev, group,
+            lambda model, n: expect_launches(sphere_march=n), card))
+    finally:
+        dist.destroy_process_group()
+    gloo_check(dev, card)
+    runs.append(multi_scene_check(dev, card))
+    check_mfu(mfu_records, card)
+    print(f"scaleout: {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=["kernels", "capture", "precision"], default=None,
+    ap.add_argument("--only", choices=["kernels", "capture", "precision", "scaleout"],
+                    default=None,
                     help="kernels: stop after the kernel and tracer checks (no training, no "
                          "result line); capture: build, then phase 8 alone (no result line); "
-                         "precision: build, then phase 9 alone (no result line)")
+                         "precision: build, then phase 9 alone (no result line); scaleout: "
+                         "build, the five trainings of phases 4 and 5 whose FLOPs phase 10 "
+                         "reads, then phase 10 (no result line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2332,6 +2719,14 @@ def main(argv=None) -> int:
         launches = add_launches(*precision(proc_mesh("bowl"), dev, card))
         print(f"precision: launches {nonzero(launches)}; {time.perf_counter() - start:.1f} s")
         return 0
+    if args.only == "scaleout":
+        bowl = proc_mesh("bowl")
+        runs = [train(f, STAGE1_STEPS, dev) for f in MFU_CONFIGS[:3]]
+        runs += [train_material(bowl, UNFUSED_STEPS, dev, "bowl.yaml", fused=False),
+                 train_material(bowl, FUSED_STEPS, dev, "bowl_fused.yaml", fused=True)]
+        launches = add_launches(*scaleout(dev, card, bowl, [r["mfu"] for r in runs]))
+        print(f"scaleout: launches {nonzero(launches)}; {time.perf_counter() - start:.1f} s")
+        return 0
     kernels = check_stage1_kernels(dev)
     bowl = proc_mesh("bowl")
     kernels += check_lights(N_MARCH_RAYS, dev)
@@ -2353,12 +2748,14 @@ def main(argv=None) -> int:
     check(d_held < HEADS_HELD_OUT_TOL and d_curve < HEADS_CURVE_TOL,
           f"sphere_heads.yaml loss curve: held-out {d_held}, per step {d_curve}")
     runs = [r["launches"] for r in stage1.values()] + shape_variants(dev)
-    runs += [train_material(bowl, UNFUSED_STEPS, dev, "bowl.yaml", fused=False),
-             train_material(bowl, FUSED_STEPS, dev, "bowl_fused.yaml", fused=True)]
+    stage2 = [train_material(bowl, UNFUSED_STEPS, dev, "bowl.yaml", fused=False),
+              train_material(bowl, FUSED_STEPS, dev, "bowl_fused.yaml", fused=True)]
+    runs += [r["launches"] for r in stage2]
     runs += material_variants(bowl, dev)
     runs += chain(dev)
     runs += capture(dev)
     runs += precision(bowl, dev, card)
+    runs += scaleout(dev, card, bowl, [r["mfu"] for r in list(stage1.values()) + stage2])
     launches = {k: sum(r.get(k, 0) for r in runs) for r0 in runs for k in r0}
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -16,6 +16,11 @@ One `.npz`, written and read by both packages:
 
 A port checkpoint written before the `O|` keys, whose optimizer state is a
 `torch.save` file `<path>.opt` beside it, still loads.
+
+The multi-scene layout (`save_stacked` / `load_stacked`) is nero_tpu's
+checkpoint of a vmapped step (tools/train_multi_scene.py): the same keys,
+every `P|` and `O|` leaf (and `R|gen`) with a leading scene axis, the counts
+of shape [S].
 """
 from __future__ import annotations
 
@@ -43,31 +48,53 @@ def _adam_blob(params, optimizer: torch.optim.Adam) -> dict:
     return blob
 
 
-def save_checkpoint(path: str, step: int, best_para: float, params,
-                    optimizer: torch.optim.Optimizer | None = None,
-                    schedule_count: int | None = None,
-                    generator: torch.Generator | None = None):
-    """Write `path` atomically. `schedule_count` is the schedule's position
-    (`step` when None); `generator` the model's batch generator."""
-    blob = {"__step__": np.asarray(step, np.int64),
-            "__best_para__": np.asarray(best_para, np.float64)}
-    for k, v in tree_items(params):
-        blob["P" + _SEP + k] = v.detach().cpu().numpy()
+def _tree_blob(params, optimizer, schedule_count: int) -> dict:
+    """The `P|` and `O|` keys of one parameter tree."""
+    blob = {"P" + _SEP + k: v.detach().cpu().numpy() for k, v in tree_items(params)}
     if optimizer is not None:
         if isinstance(optimizer, torch.optim.Adam):
             blob.update(_adam_blob(params, optimizer))
         elif not isinstance(optimizer, torch.optim.SGD) or any(optimizer.state.values()):
             raise NotImplementedError(f"checkpointing {type(optimizer).__name__}: nero_tpu's "
                                       "format holds optax.adam or momentum-free optax.sgd")
-        blob["O|1|count"] = np.asarray(step if schedule_count is None else schedule_count,
-                                       np.int32)
-    if generator is not None:
-        blob["R|gen"] = generator.get_state().numpy()
+        blob["O|1|count"] = np.asarray(schedule_count, np.int32)
+    return blob
+
+
+def _write(path: str, step: int, best_para: float, blob: dict):
+    """`blob` and the header into `path`, atomically."""
+    blob = {"__step__": np.asarray(step, np.int64),
+            "__best_para__": np.asarray(best_para, np.float64), **blob}
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         np.savez(f, **blob)
     os.replace(tmp, path)
+
+
+def save_checkpoint(path: str, step: int, best_para: float, params,
+                    optimizer: torch.optim.Optimizer | None = None,
+                    schedule_count: int | None = None,
+                    generator: torch.Generator | None = None):
+    """Write `path` atomically. `schedule_count` is the schedule's position
+    (`step` when None); `generator` the model's batch generator."""
+    blob = _tree_blob(params, optimizer, step if schedule_count is None else schedule_count)
+    if generator is not None:
+        blob["R|gen"] = generator.get_state().numpy()
+    _write(path, step, best_para, blob)
+
+
+def save_stacked(path: str, step: int, best_para: float, scene_params: list,
+                 optimizer: torch.optim.Optimizer | None = None,
+                 schedule_count: int | None = None, generators: list | None = None):
+    """The multi-scene checkpoint: scene s's leaves, optimizer state and
+    generator at index s of every leaf."""
+    count = step if schedule_count is None else schedule_count
+    blobs = [_tree_blob(p, optimizer, count) for p in scene_params]
+    if generators is not None:
+        for b, g in zip(blobs, generators):
+            b["R|gen"] = g.get_state().numpy()
+    _write(path, step, best_para, {k: np.stack([b[k] for b in blobs]) for k in blobs[0]})
 
 
 def _load_adam(data, params, optimizer: torch.optim.Adam):
@@ -81,10 +108,42 @@ def _load_adam(data, params, optimizer: torch.optim.Adam):
             # device when fused or capturable, else on the host)
             "step": torch.tensor(count, dtype=torch.float32,
                                  device=leaf.device if on_device else "cpu"),
-            "exp_avg": torch.from_numpy(data[f"O|0|mu|{k}"]).to(leaf.device).reshape(leaf.shape),
-            "exp_avg_sq": torch.from_numpy(data[f"O|0|nu|{k}"]).to(leaf.device)
+            "exp_avg": torch.from_numpy(np.asarray(data[f"O|0|mu|{k}"])).to(leaf.device)
+                            .reshape(leaf.shape),
+            "exp_avg_sq": torch.from_numpy(np.asarray(data[f"O|0|nu|{k}"])).to(leaf.device)
                                .reshape(leaf.shape),
         }
+
+
+class _Scene:
+    """Scene s of a stacked checkpoint, read as one tree's."""
+
+    def __init__(self, data, s: int):
+        self.data, self.s = data, s
+
+    def __getitem__(self, key):
+        return self.data[key][self.s]
+
+
+def _load_tree(data, files: set, step: int, params, optimizer, scheduler, generator) -> bool:
+    """Load one tree's keys (`data[key]`); returns whether optimizer state
+    was stored."""
+    with torch.no_grad():
+        for k, leaf in tree_items(params):
+            key = "P" + _SEP + k
+            if key not in files:
+                raise KeyError(f"checkpoint missing leaf {k}")
+            leaf.copy_(torch.from_numpy(np.asarray(data[key])))
+    has_opt = "O|1|count" in files
+    if optimizer is not None and has_opt and isinstance(optimizer, torch.optim.Adam):
+        if "O|0|count" not in files:
+            raise KeyError("checkpoint holds no Adam state (O|0|count)")
+        _load_adam(data, params, optimizer)
+    if scheduler is not None:
+        scheduler.last_epoch = int(data["O|1|count"]) if has_opt else step
+    if generator is not None and "R|gen" in files:
+        generator.set_state(torch.from_numpy(np.asarray(data["R|gen"])))
+    return has_opt
 
 
 def load_checkpoint(path: str, params, optimizer: torch.optim.Optimizer | None = None,
@@ -93,24 +152,24 @@ def load_checkpoint(path: str, params, optimizer: torch.optim.Optimizer | None =
     stored, the optimizer state, the scheduler's position (`last_epoch`)
     and the generator's state. Returns (step, best_para)."""
     with np.load(path, allow_pickle=False) as data:
-        files = set(data.files)
-        step = int(data["__step__"])
-        best_para = float(data["__best_para__"])
-        with torch.no_grad():
-            for k, leaf in tree_items(params):
-                key = "P" + _SEP + k
-                if key not in files:
-                    raise KeyError(f"checkpoint missing leaf {k}")
-                leaf.copy_(torch.from_numpy(data[key]))
-        has_opt = "O|1|count" in files
-        if optimizer is not None and has_opt and isinstance(optimizer, torch.optim.Adam):
-            if "O|0|count" not in files:
-                raise KeyError("checkpoint holds no Adam state (O|0|count)")
-            _load_adam(data, params, optimizer)
-        if scheduler is not None:
-            scheduler.last_epoch = int(data["O|1|count"]) if has_opt else step
-        if generator is not None and "R|gen" in files:
-            generator.set_state(torch.from_numpy(data["R|gen"]))
+        step, best_para = int(data["__step__"]), float(data["__best_para__"])
+        has_opt = _load_tree(data, set(data.files), step, params, optimizer, scheduler,
+                             generator)
     if optimizer is not None and not has_opt and os.path.exists(path + ".opt"):
         optimizer.load_state_dict(torch.load(path + ".opt"))
+    return step, best_para
+
+
+def load_stacked(path: str, scene_params: list, optimizer: torch.optim.Optimizer | None = None,
+                 scheduler=None, generators: list | None = None):
+    """Load a multi-scene checkpoint (the port's or nero_tpu's) into each
+    scene's parameters, the optimizer, the scheduler and the generators.
+    Returns (step, best_para)."""
+    with np.load(path, allow_pickle=False) as data:
+        step, best_para = int(data["__step__"]), float(data["__best_para__"])
+        files = set(data.files)
+        for s, params in enumerate(scene_params):
+            _load_tree(_Scene(data, s), files, step, params, optimizer,
+                       scheduler if s == 0 else None,
+                       None if generators is None else generators[s])
     return step, best_para

@@ -14,6 +14,14 @@ uniform / normal draws themselves (`rot`, `draws`) so that a test can feed
 both packages the same numbers. The tracer's outputs are detached. The hit /
 miss compaction keeps the JAX package's static-capacity semantics: no
 boolean-mask indexing, so no host synchronisation in the step.
+
+Under ray data parallelism (`shard`, parallel/mesh.py) the points are this
+rank's rows of the global batch: the rotation and regulariser draws are of
+the global batch's shape (`draw_rows`), the regulariser's min/max clamp sums
+over the global batch, and a compaction keeps nero_tpu's global function: K
+from the global entry count, and the first K selected entries of the global
+batch in row order, which is this rank's entries whose global index (the
+counts of the ranks before it plus its own) is under K.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ from nero_tpu_torch.ops.lights import supported as lights_kernel_supported
 from nero_tpu_torch.ops.mlp import (apply_dense, apply_predictor, exp_activation, hidden_dtype,
                                     init_dense, init_predictor, resolve_weight_norm,
                                     storage_dtype)
+from nero_tpu_torch.parallel.mesh import RayShard, draw_rows, rank_offset, sum_rows
 from nero_tpu_torch.utils.color import linear_to_srgb
 from nero_tpu_torch.utils.encodings import (ide_dim, integrated_dir_encode,
                                             integrated_pos_encode, positional_encode,
@@ -198,22 +207,23 @@ def get_orthogonal_directions(directions: torch.Tensor) -> torch.Tensor:
     return otho / _norm(otho)
 
 
-def _azimuth_rotation(n: int, like: torch.Tensor, gen, rot):
+def _azimuth_rotation(n: int, like: torch.Tensor, gen, rot, shard=None):
     """Per-point azimuth rotation in [0, 2 pi): from the given uniform draws
     `rot` [n,1,1], else drawn from `gen`, else none."""
     if rot is None and gen is not None:
-        rot = torch.rand(n, 1, 1, generator=gen, device=like.device, dtype=like.dtype)
+        rot = draw_rows(lambda shape: torch.rand(shape, generator=gen, device=like.device,
+                                                 dtype=like.dtype), (n, 1, 1), shard)
     return None if rot is None else rot * TWO_PI
 
 
-def sample_diffuse_directions(samples, normals, gen=None, rot=None):
+def sample_diffuse_directions(samples, normals, gen=None, rot=None, shard=None):
     """Cosine-hemisphere dirs around normals; [pn, sn, 3]."""
     z = normals
     x = get_orthogonal_directions(normals)
     y = torch.linalg.cross(z, x)
     az = samples[None, :, 0:1] * TWO_PI
     el = samples[None, :, 1:2]
-    rot = _azimuth_rotation(normals.shape[0], normals, gen, rot)
+    rot = _azimuth_rotation(normals.shape[0], normals, gen, rot, shard)
     if rot is not None:
         az = torch.remainder(az + rot, TWO_PI)
     el_sqrt = torch.sqrt(el + 1e-7)
@@ -223,7 +233,8 @@ def sample_diffuse_directions(samples, normals, gen=None, rot=None):
     return coeff_x * x[:, None] + coeff_y * y[:, None] + coeff_z * z[:, None]
 
 
-def sample_specular_directions(samples, reflections, roughness, gen=None, rot=None):
+def sample_specular_directions(samples, reflections, roughness, gen=None, rot=None,
+                               shard=None):
     """GGX-importance dirs around reflections; roughness is already squared."""
     z = reflections
     x = get_orthogonal_directions(reflections)
@@ -234,7 +245,7 @@ def sample_specular_directions(samples, reflections, roughness, gen=None, rot=No
     phi = TWO_PI * az
     cos_theta = torch.sqrt((1.0 - el + 1e-6) / (1.0 + (a ** 2 - 1.0) * el + 1e-6) + 1e-6)
     sin_theta = torch.sqrt(1 - cos_theta ** 2 + 1e-6)
-    rot = _azimuth_rotation(reflections.shape[0], reflections, gen, rot)
+    rot = _azimuth_rotation(reflections.shape[0], reflections, gen, rot, shard)
     if rot is not None:
         phi = torch.remainder(phi + rot, TWO_PI)
     coeff_x = torch.cos(phi) * sin_theta
@@ -326,7 +337,8 @@ def predict_outer_lights(params, cfg: MCShadingConfig, points, directions):
                            activation="exp", exp_max=cfg.light_exp_max)
 
 
-def get_lights(params, cfg: MCShadingConfig, trace_fn, points, directions, human_poses):
+def get_lights(params, cfg: MCShadingConfig, trace_fn, points, directions, human_poses,
+               shard: RayShard | None = None):
     """Trace every sample direction; hit -> indirect MLP, miss -> env (+human).
 
     points/directions [pn,sn,3], human_poses [pn,sn,3,4] or None.
@@ -360,7 +372,7 @@ def get_lights(params, cfg: MCShadingConfig, trace_fn, points, directions, human
 
     if cfg.outer_compact_frac > 0.0:
         miss_light, human_part = _compacted_miss_lights(params, cfg, points, directions,
-                                                        human_poses, hit)
+                                                        human_poses, hit, shard)
     else:
         if cfg.human_lights:
             human_lights, human_weights = get_human_light(params, points, directions,
@@ -373,7 +385,7 @@ def get_lights(params, cfg: MCShadingConfig, trace_fn, points, directions, human
 
     if cfg.inner_compact_frac > 0.0:
         lights = _compacted_inner_lights(params, cfg, inters, directions, normals, hit,
-                                         miss_light)
+                                         miss_light, shard)
     else:
         inner = (inner_raw if inner_raw is not None
                  else get_inner_lights(params, cfg, inters, -directions, normals))
@@ -384,13 +396,17 @@ def get_lights(params, cfg: MCShadingConfig, trace_fn, points, directions, human
     return lights, human_contrib, inters, normals, hit
 
 
-def _compaction(mask_flat: torch.Tensor, frac: float):
+def _compaction(mask_flat: torch.Tensor, frac: float, shard: RayShard | None = None):
     """Static-capacity stable compaction of the True entries of `mask_flat`
     [n] into K = ceil-to-128(frac * n) slots. Returns (compact_src [K]: the
     flat index in each slot, stale 0 past the count; scatter_to [K]: the same
-    with unfilled slots routed to the trash row n)."""
+    with unfilled slots routed to the trash row n). With `shard`, K is of
+    the global batch's entries and a rank keeps its selected entries whose
+    global index is under K, in min(K, n) slots."""
     n = mask_flat.numel()
-    k = min(-(-int(n * frac) // 128) * 128, n)
+    n_all = n if shard is None else n // shard.n_local * shard.n
+    k_all = min(-(-int(n_all * frac) // 128) * 128, n_all)
+    k = min(k_all, n)
     dev = mask_flat.device
     rank = torch.cumsum(mask_flat, 0) - 1                # rank among the selected
     count = rank[-1] + 1
@@ -399,19 +415,22 @@ def _compaction(mask_flat: torch.Tensor, frac: float):
     compact_src = torch.zeros(k + 1, dtype=torch.long, device=dev)
     compact_src[slot] = torch.arange(n, device=dev)
     compact_src = compact_src[:k]
+    if shard is not None:
+        # the global capacity left after the ranks before this one
+        count = torch.minimum(count, torch.clamp(k_all - rank_offset(count, shard), min=0))
     valid = torch.arange(k, device=dev) < count
     scatter_to = torch.where(valid, compact_src, torch.full_like(compact_src, n))
     return compact_src, scatter_to
 
 
-def _compacted_miss_lights(params, cfg, points, directions, human_poses, hit):
+def _compacted_miss_lights(params, cfg, points, directions, human_poses, hit, shard=None):
     """Outer (+human) light on MISS directions only, via static compaction.
     Misses pack (stable order) into K slots; the outer MLP (+ human light)
     runs on the [K] batch and scatters back over a zero base. Misses beyond
     capacity keep zero light. Returns (miss_light, human_contrib) [pn,sn,3]."""
     shape = hit.shape
     n = hit.numel()
-    compact_src, scatter_to = _compaction(~hit.reshape(-1), cfg.outer_compact_frac)
+    compact_src, scatter_to = _compaction(~hit.reshape(-1), cfg.outer_compact_frac, shard)
 
     take = lambda a: a.reshape(n, -1)[compact_src]
     pts_k = take(points)
@@ -433,7 +452,8 @@ def _compacted_miss_lights(params, cfg, points, directions, human_poses, hit):
     return miss_light.reshape(*shape, 3), human_part.reshape(*shape, 3)
 
 
-def _compacted_inner_lights(params, cfg, inters, directions, normals, hit, miss_light):
+def _compacted_inner_lights(params, cfg, inters, directions, normals, hit, miss_light,
+                            shard=None):
     """Inner-light MLP on hit directions only, via static-capacity
     compaction. Hits pack (stable order) into K slots; the MLP runs on the
     [K] batch and the results scatter back over the miss-branch lights. Hits
@@ -442,7 +462,7 @@ def _compacted_inner_lights(params, cfg, inters, directions, normals, hit, miss_
     around a [K]-batch MLP."""
     shape = hit.shape
     n = hit.numel()
-    compact_src, scatter_to = _compaction(hit.reshape(-1), cfg.inner_compact_frac)
+    compact_src, scatter_to = _compaction(hit.reshape(-1), cfg.inner_compact_frac, shard)
 
     take = lambda a: a.reshape(n, -1)[compact_src]
     inner_k = get_inner_lights(params, cfg, take(inters), -take(directions), take(normals))
@@ -457,15 +477,16 @@ def _compacted_inner_lights(params, cfg, inters, directions, normals, hit, miss_
 
 
 def shade_mixed(params, cfg: MCShadingConfig, samples, trace_fn, pts, normals, view_dirs,
-                reflections, metallic, roughness, albedo, human_poses, gen=None, rots=None):
+                reflections, metallic, roughness, albedo, human_poses, gen=None, rots=None,
+                shard: RayShard | None = None):
     F0 = 0.04 * (1 - metallic) + metallic * albedo
 
     if not cfg.random_azimuth:
         gen, rots = None, None
     rot_d, rot_s = rots if rots is not None else (None, None)
-    diffuse_dirs = sample_diffuse_directions(samples["diffuse"], normals, gen, rot_d)
+    diffuse_dirs = sample_diffuse_directions(samples["diffuse"], normals, gen, rot_d, shard)
     specular_dirs = sample_specular_directions(samples["specular"], reflections, roughness,
-                                               gen, rot_s)
+                                               gen, rot_s, shard)
     dn = diffuse_dirs.shape[1]
     sn_ = specular_dirs.shape[1]
     total = dn + sn_
@@ -496,7 +517,7 @@ def shade_mixed(params, cfg: MCShadingConfig, samples, trace_fn, pts, normals, v
     hp = (human_poses[:, None].expand(pts.shape[0], total, 3, 4)
           if human_poses is not None else None)
     pts_rep = pts[:, None].expand(pts.shape[0], total, 3)
-    lights, hl, _, _, _ = get_lights(params, cfg, trace_fn, pts_rep, directions, hp)
+    lights, hl, _, _, _ = get_lights(params, cfg, trace_fn, pts_rep, directions, hp, shard)
 
     specular_weights = dist * geom / (4 * NoV * probability + 1e-5)
     specular_lights = lights * specular_weights
@@ -526,11 +547,12 @@ def shade_mixed(params, cfg: MCShadingConfig, samples, trace_fn, pts, normals, v
 
 
 def mc_shading_apply(params, cfg: MCShadingConfig, samples, trace_fn, pts, view_dirs, normals,
-                     human_poses, gen=None, rots=None):
+                     human_poses, gen=None, rots=None, shard: RayShard | None = None):
     """Full Stage-II shading. `gen` draws the per-point azimuth rotations
     (training); `rots` = (diffuse, specular) uniform draws [pn,1,1] replaces
     the draw; both None = no rotation (validation). Hidden activations in the
-    storage dtype of `cfg` (nero_tpu/fields/mc_shading.py:583-591)."""
+    storage dtype of `cfg` (nero_tpu/fields/mc_shading.py:583-591). With
+    `shard` the points are this rank's rows of the global batch."""
     params = resolve_weight_norm(params)
     with hidden_dtype(cfg.hidden_act_dtype(pts.device)):
         view_dirs = view_dirs / _norm(view_dirs)
@@ -538,7 +560,8 @@ def mc_shading_apply(params, cfg: MCShadingConfig, samples, trace_fn, pts, view_
         reflections = torch.sum(view_dirs * normals, -1, keepdim=True) * normals * 2 - view_dirs
         metallic, roughness, albedo = predict_materials_mc(params, pts)
         return shade_mixed(params, cfg, samples, trace_fn, pts, normals, view_dirs,
-                           reflections, metallic, roughness, albedo, human_poses, gen, rots)
+                           reflections, metallic, roughness, albedo, human_poses, gen, rots,
+                           shard)
 
 
 # ---------------------------------------------------------------------------
@@ -547,9 +570,11 @@ def mc_shading_apply(params, cfg: MCShadingConfig, samples, trace_fn, pts, view_
 
 
 def material_regularization(params, cfg: MCShadingConfig, gen, pts, normals, metallic,
-                            roughness, albedo, step: int, draws=None):
+                            roughness, albedo, step: int, draws=None,
+                            shard: RayShard | None = None):
     """Material smoothness + early min/max clamping. `draws` = (uniform
-    [pn,1], normal [pn,1]) replaces the draws from `gen`."""
+    [pn,1], normal [pn,1]) replaces the draws from `gen`; the clamp sums over
+    the (global) batch."""
     reg = torch.zeros(pts.shape[0], dtype=pts.dtype, device=pts.device)
     if cfg.reg_change:
         n = normals / _norm(normals)
@@ -558,7 +583,8 @@ def material_regularization(params, cfg: MCShadingConfig, gen, pts, normals, met
         if draws is None:
             shape, kw = (pts.shape[0], 1), dict(generator=gen, device=pts.device,
                                                 dtype=pts.dtype)
-            draws = (torch.rand(shape, **kw), torch.randn(shape, **kw))
+            draws = (draw_rows(lambda s: torch.rand(s, **kw), shape, shard),
+                     draw_rows(lambda s: torch.randn(s, **kw), shape, shard))
         ang = draws[0] * TWO_PI
         if cfg.change_type == "constant":
             change = (torch.cos(ang) * x + torch.sin(ang) * y) * cfg.change_eps
@@ -573,8 +599,10 @@ def material_regularization(params, cfg: MCShadingConfig, gen, pts, normals, met
 
     if cfg.reg_min_max:
         relu = lambda v: torch.clamp(v, min=0.0)
-        clamp = (torch.sum(relu(roughness - 0.98 ** 2)) + torch.sum(relu(0.02 ** 2 - roughness))
-                 + torch.sum(relu(metallic - 0.98)) + torch.sum(relu(0.02 - metallic)))
+        clamp = sum_rows(torch.sum(relu(roughness - 0.98 ** 2))
+                         + torch.sum(relu(0.02 ** 2 - roughness))
+                         + torch.sum(relu(metallic - 0.98)) + torch.sum(relu(0.02 - metallic)),
+                         shard)
         reg = reg + clamp * float(step < 2000)
     return reg
 

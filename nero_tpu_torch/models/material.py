@@ -18,6 +18,12 @@ view, scattered back into the image.
     `geometry/bvh.py`). Where the distilled field's near-band RMS exceeds
     `tracer_rms_fallback`, the mesh is too hard for the neural tracer and
     the model switches to the grid tracer, and says so.
+
+With a ray group (`group`, parallel/mesh.py::make_data_group) the step is
+nero_tpu's step over a data mesh (models/material.py:322-360 with
+constrain_rays): every rank draws the global batch's indices, shades its
+rows with global draws, global compaction and global loss reductions, and
+all-reduces the gradients before the optimizer step.
 """
 from __future__ import annotations
 
@@ -33,9 +39,10 @@ from nero_tpu_torch.fields.mc_shading import (MCShadingConfig, env_light_image,
                                               mc_shading_apply, predict_materials_mc)
 from nero_tpu_torch.geometry.mesh_io import read_ply
 from nero_tpu_torch.models.shape import build_imgs_info
+from nero_tpu_torch.parallel.mesh import DataGroup, RayShard, all_reduce_grads, shard_of
 from nero_tpu_torch.render.rays import human_coordinate_poses
 from nero_tpu_torch.render.shape import compute_rgb_loss
-from nero_tpu_torch.train.losses import compute_losses, total_loss
+from nero_tpu_torch.train.losses import compute_losses, global_means, total_loss
 
 DEFAULT_MATERIAL_CFG = {
     "train_ray_num": 512,
@@ -88,9 +95,11 @@ _SHADE_KEYS = {"rgb_pr": 3, "specular_light": 3, "specular_color": 3, "diffuse_l
 
 
 class NeROMaterialModel:
-    def __init__(self, cfg: dict, training: bool = True, device=None):
+    def __init__(self, cfg: dict, training: bool = True, device=None,
+                 group: DataGroup | None = None):
         self.cfg = {**DEFAULT_MATERIAL_CFG, **cfg}
         self.device = resolve_device(device)
+        self.group = group
         shader_cfg = dict(self.cfg.get("shader_cfg") or {})
         shader_cfg["is_real"] = self.cfg["database_name"].startswith("real")
         # bf16_hidden as it resolves on this device
@@ -290,47 +299,56 @@ class NeROMaterialModel:
         return batch
 
     # -------------------------------------------------------------- training
-    def sample_batch(self, gen: torch.Generator) -> dict:
-        """A uniform random batch of the device-resident hit store."""
+    def sample_batch(self, gen: torch.Generator, shard: RayShard | None = None) -> dict:
+        """A uniform random batch of the device-resident hit store (with
+        `shard`, this rank's rows of it)."""
         n = self.train_data["rays_o"].shape[0]
         idx = torch.randint(0, n, (self.cfg["train_ray_num"],), generator=gen,
                             device=self.device)
+        if shard is not None:
+            idx = idx[shard.rows]
         return {k: v[idx] for k, v in self.train_data.items()}
 
-    def shade(self, params, batch: dict, gen: torch.Generator | None):
+    def shade(self, params, batch: dict, gen: torch.Generator | None,
+              shard: RayShard | None = None):
         """(colors [n,3], outputs) of the batch's surface points; `gen` draws
         the azimuth rotations (None: the fixed lattice)."""
         return mc_shading_apply(params, self.mcfg, self.samples, self.trace_fn,
                                 batch["inters"], -batch["rays_d"], batch["normals"],
-                                batch["human_poses"], gen=gen)
+                                batch["human_poses"], gen=gen, shard=shard)
 
-    def loss_fn(self, params, batch: dict, step: int, gen: torch.Generator):
-        """(total loss, log dict) of one shaded batch."""
+    def loss_fn(self, params, batch: dict, step: int, gen: torch.Generator,
+                shard: RayShard | None = None):
+        """(total loss, log dict) of one shaded batch; with `shard`, of this
+        rank's rows, the total over the global batch."""
         cfg = self.cfg
-        colors, outputs = self.shade(params, batch, gen)
+        colors, outputs = self.shade(params, batch, gen, shard)
         out = dict(outputs)
         out["loss_rgb"] = compute_rgb_loss(colors, batch["rgb"], cfg["rgb_loss"])
         if cfg["reg_mat"]:
             out["loss_mat_reg"] = material_regularization(
                 params, self.mcfg, gen, batch["inters"], batch["normals"], outputs["metallic"],
-                outputs["roughness"], outputs["albedo"], step)
+                outputs["roughness"], outputs["albedo"], step, shard=shard)
         if cfg["reg_diffuse_light"]:
             dl = outputs["diffuse_light"]
             out["loss_diffuse_light"] = (
                 torch.sum(torch.abs(dl - torch.mean(dl, dim=-1, keepdim=True)), -1)
                 * cfg["reg_diffuse_light_lambda"])
-        log = compute_losses(cfg["loss"], out, None, step, cfg)
-        return total_loss(log), log
+        log = compute_losses(cfg["loss"], out, None, step, cfg, shard)
+        return total_loss(log, shard), log
 
     def train_step(self, optimizer: torch.optim.Optimizer, step: int) -> dict:
         """Draw a batch, shade, back-propagate, update. Returns the log
         (device tensors; reading them synchronises)."""
-        batch = self.sample_batch(self.gen)
-        loss, log = self.loss_fn(self.params, batch, step, self.gen)
+        shard = shard_of(self.group, self.cfg["train_ray_num"])
+        batch = self.sample_batch(self.gen, shard)
+        loss, log = self.loss_fn(self.params, batch, step, self.gen, shard)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if self.group is not None:
+            all_reduce_grads(self.parameters(), self.group)
         optimizer.step()
-        log = {k: v.detach().mean() for k, v in log.items()}
+        log = global_means(log, shard)
         log["loss_total"] = loss.detach()
         return log
 
@@ -414,4 +432,5 @@ class NeROMaterialModel:
         return env_light_image(params, self.mcfg, h, w, gamma, device=self.device).cpu().numpy()
 
     def num_train_rays_per_step(self) -> int:
+        """The global batch: every rank's rows together."""
         return self.cfg["train_ray_num"]

@@ -9,7 +9,13 @@ human_coordinate_poses; `fixed_camera` keeps the camera centre's height),
 which the shader's human light reads. With `val_geometry`, the first
 validation view also carries a 128^3 mesh of the SDF; `predict_materials`
 gives Stage I's per-vertex materials of a mesh.
-Multi-device training (nero_tpu's mesh / constrain_rays) is a later slice.
+
+With a ray group (`group`, parallel/mesh.py::make_data_group) the step is
+nero_tpu's step over a data mesh (models/shape.py:100-128 with
+constrain_rays): every rank draws the global batch from its generator, which
+all ranks hold in the same state, renders its rows with global draws and
+global loss reductions, and all-reduces the gradients before the optimizer
+step, so every rank holds the same parameters and the same log.
 """
 from __future__ import annotations
 
@@ -25,11 +31,12 @@ from nero_tpu_torch.fields.sdf import sdf_apply, sdf_value
 from nero_tpu_torch.geometry.isosurface import extract_geometry
 from nero_tpu_torch.geometry.mesh_io import read_ply
 from nero_tpu_torch.ops.fg_lut import get_fg_lut
+from nero_tpu_torch.parallel.mesh import DataGroup, RayShard, all_reduce_grads, shard_of
 from nero_tpu_torch.render.rays import (human_coordinate_poses, rays_from_pixels,
                                         sample_ray_batch)
 from nero_tpu_torch.render.shape import (ShapeConfig, compute_rgb_loss, init_shape_params,
                                          render, shape_config_from_dict)
-from nero_tpu_torch.train.losses import compute_losses, total_loss
+from nero_tpu_torch.train.losses import compute_losses, global_means, total_loss
 from nero_tpu_torch.utils.image import downsample_gaussian_blur, resize_bilinear
 
 DEFAULT_SHAPE_CFG = {
@@ -68,9 +75,11 @@ def imgs_info_downsample(imgs_info: dict, ratio: float) -> dict:
 
 
 class NeROShapeModel:
-    def __init__(self, cfg: dict, training: bool = True, device=None):
+    def __init__(self, cfg: dict, training: bool = True, device=None,
+                 group: DataGroup | None = None):
         self.cfg = {**DEFAULT_SHAPE_CFG, **cfg}
         self.device = resolve_device(device)
+        self.group = group
         # sdf_grad_mode and bf16_hidden as they resolve on this device
         self.scfg: ShapeConfig = shape_config_from_dict(self.cfg).resolved(self.device)
         self.fg_lut = torch.as_tensor(get_fg_lut(), device=self.device)
@@ -100,27 +109,33 @@ class NeROShapeModel:
         return tree_leaves(self.params)
 
     # ------------------------------------------------------------ train step
-    def loss_fn(self, params, batch: dict, step: int, gen: torch.Generator | None):
-        """(total loss, log dict) of one rendered batch."""
+    def loss_fn(self, params, batch: dict, step: int, gen: torch.Generator | None,
+                shard: RayShard | None = None):
+        """(total loss, log dict) of one rendered batch; with `shard`, of
+        this rank's rows, the total over the global batch."""
         cfg = self.cfg
         out = render(params, self.scfg, self.fg_lut, batch["rays_o"], batch["rays_d"],
                      batch["near"], batch["far"], step, gen=gen, is_train=True,
-                     human_poses=batch.get("human_poses"))
+                     human_poses=batch.get("human_poses"), shard=shard)
         out["loss_rgb"] = compute_rgb_loss(out["ray_rgb"], batch["rgb"], cfg["rgb_loss"])
-        log = compute_losses(cfg["loss"], out, None, step, cfg)
-        return total_loss(log), log
+        log = compute_losses(cfg["loss"], out, None, step, cfg, shard)
+        return total_loss(log, shard), log
 
     def train_step(self, optimizer: torch.optim.Optimizer, step: int) -> dict:
         """Sample a batch, render, back-propagate, update. Returns the log
         (device tensors; reading them synchronises)."""
         d = self.train_data
+        shard = shard_of(self.group, self.cfg["train_ray_num"])
         batch = sample_ray_batch(self.gen, d["imgs_u8"], d["K_inv"], d["poses"],
-                                 self.cfg["train_ray_num"], d["human_poses"])
-        loss, log = self.loss_fn(self.params, batch, step, self.gen)
+                                 self.cfg["train_ray_num"], d["human_poses"],
+                                 rows=None if shard is None else shard.rows)
+        loss, log = self.loss_fn(self.params, batch, step, self.gen, shard)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if self.group is not None:
+            all_reduce_grads(self.parameters(), self.group)
         optimizer.step()
-        log = {k: v.detach().mean() for k, v in log.items()}
+        log = global_means(log, shard)
         log["loss_total"] = loss.detach()
         return log
 
@@ -208,4 +223,5 @@ class NeROShapeModel:
         return {k: np.concatenate(v, 0) for k, v in out.items()}
 
     def num_train_rays_per_step(self) -> int:
+        """The global batch: every rank's rows together."""
         return self.cfg["train_ray_num"]

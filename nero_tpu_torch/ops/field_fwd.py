@@ -26,6 +26,8 @@ from nero_tpu_torch.ops.sphere_march import (PE, buffer_elems, check_packed, eva
                                              field_eval_plain, field_lib, kernel_buffers, prep)
 
 launches = {"field_fwd": 0, "field_fwd_wide": 0}
+# FLOPs of every counted launch, by `flops(...)` at the launch's shapes (core/mfu.py)
+flop_tally = dict.fromkeys(launches, 0.0)
 
 
 @torch.no_grad()
@@ -48,6 +50,7 @@ def _launch(W, Fv, wide, pts):
                           out.data_ptr(), torch.cuda.current_stream(pts.device).cuda_stream)
     cuda_build.check(rc, "field_fwd")
     launches["field_fwd_wide" if wide else "field_fwd"] += 1
+    flop_tally["field_fwd_wide" if wide else "field_fwd"] += flops(n, "wide" if wide else "std")
     return out
 
 

@@ -36,6 +36,7 @@ X, H and GZ in device memory: 6.6 KB a row in mode 'both', 2.6 GB at
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -60,6 +61,19 @@ DI_PAD = {"inner_light": 128, "outer_light": 80, "outer_light_sphere": 144}
 
 # counted per mode: "both" under the plain names, "outer" with the suffix
 launches = {"lights_fwd": 0, "lights_bwd": 0, "lights_fwd_outer": 0, "lights_bwd_outer": 0}
+# FLOPs of every counted launch, by `flops(...)` at the launch's shapes (core/mfu.py)
+flop_tally = dict.fromkeys(launches, 0.0)
+
+
+class _Variant(NamedTuple):
+    ide_deg: int
+    outer_light_version: str
+
+
+def variant_cfg(sphere: bool) -> _Variant:
+    """What `head_dims` reads of a config, for a kernel variant (the kernel
+    takes IDE degree 5 alone, `supported`)."""
+    return _Variant(IDE_DEG, "sphere_direction" if sphere else "direction")
 
 
 def supported(cfg) -> bool:
@@ -244,6 +258,8 @@ def _fwd(geo, W, B, sphere: bool, both: bool) -> torch.Tensor:
                            out.data_ptr(), torch.cuda.current_stream(geo.device).cuda_stream)
     cuda_build.check(rc, "lights_fwd")
     launches["lights_fwd" if both else "lights_fwd_outer"] += 1
+    flop_tally["lights_fwd" if both else "lights_fwd_outer"] += flops(
+        n, variant_cfg(sphere), "both" if both else "outer")
     return out
 
 
@@ -276,6 +292,8 @@ def _bwd(geo, W, B, sphere: bool, both: bool, gout):
     cuda_build.check(rc, "lights_bwd")
     if n:
         launches["lights_bwd" if both else "lights_bwd_outer"] += 1
+        flop_tally["lights_bwd" if both else "lights_bwd_outer"] += flops(
+            n, variant_cfg(sphere), "both" if both else "outer", backward=True)
     return dgeo6, dW, dB
 
 

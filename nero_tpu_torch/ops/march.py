@@ -27,6 +27,8 @@ from nero_tpu_torch.ops.sphere_march import (PE, check_packed, eval_flops, field
                                              field_lib, kernel_buffers, prep)
 
 launches = {"march": 0, "march_wide": 0}
+# FLOPs of every counted launch, by `flops(...)` at the launch's shapes (core/mfu.py)
+flop_tally = dict.fromkeys(launches, 0.0)
 
 
 @torch.no_grad()
@@ -75,6 +77,8 @@ def _launch(W, Fv, wide, rays_o, rays_d, t_enter, t_exit, n_coarse, n_refine, t0
                       torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, "march")
     launches["march_wide" if wide else "march"] += 1
+    flop_tally["march_wide" if wide else "march"] += flops(r, n_coarse, n_refine,
+                                                           "wide" if wide else "std")
     return t_out, found
 
 

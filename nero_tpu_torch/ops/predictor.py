@@ -34,9 +34,15 @@ SHADER_SHAPES = ((259, 1), (259, 3), (72, 3), (144, 3), (123, 3), (90, 1), (24, 
 launches = {f"predictor_{d}_{di}x{do}": 0 for di, do in SHADER_SHAPES for d in ("fwd", "bwd")}
 
 
-def _count(direction: str, d_in: int, d_out: int) -> None:
+# FLOPs of every counted launch, by `flops(...)` at the launch's shapes (core/mfu.py)
+flop_tally = dict.fromkeys(launches, 0.0)
+
+
+def _count(direction: str, d_in: int, d_out: int, n: int, want_dx: bool = True) -> None:
     key = f"predictor_{direction}_{d_in}x{d_out}"
     launches[key] = launches.get(key, 0) + 1
+    flop_tally[key] = flop_tally.get(key, 0.0) + flops(n, d_in, d_out, direction == "bwd",
+                                                       want_dx)
 
 
 def predictor_plain(layers, x: torch.Tensor) -> torch.Tensor:
@@ -117,7 +123,7 @@ def _fwd(x, W, B, d_out: int) -> torch.Tensor:
                               torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(rc, "predictor_fwd")
     if n:  # the C entry launches nothing for no rows
-        _count("fwd", d_in, d_out)
+        _count("fwd", d_in, d_out, n)
     return out
 
 
@@ -148,7 +154,7 @@ def _bwd(x, W, B, gout, want_dx: bool = True):
                               torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, "predictor_bwd")
     if n:
-        _count("bwd", d_in, d_out)
+        _count("bwd", d_in, d_out, n, want_dx)
     return dx, dW, dB
 
 
@@ -206,11 +212,11 @@ def bwd_flops_per_row(d_in: int, d_out: int, want_dx: bool = True) -> float:
     return 2.0 * (recompute + dw + dx)
 
 
-def flops(n: int, d_in: int, d_out: int, backward: bool = False) -> float:
-    """The forward's products, or the backward's with dx
-    (`bwd_flops_per_row`)."""
+def flops(n: int, d_in: int, d_out: int, backward: bool = False,
+          want_dx: bool = True) -> float:
+    """The forward's products, or the backward's (`bwd_flops_per_row`)."""
     if backward:
-        return n * bwd_flops_per_row(d_in, d_out)
+        return n * bwd_flops_per_row(d_in, d_out, want_dx)
     return 2.0 * n * (d_in * HID + 2 * HID * HID + HID * d_out)
 
 

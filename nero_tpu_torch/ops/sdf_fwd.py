@@ -27,6 +27,8 @@ from nero_tpu_torch.ops.sdf_grad import N_PE, PACK_SHAPES, SKIP_W, pack_weights,
 TILE, SMALL_TILE = 128, 64  # points per block (csrc/sdf_fwd.cu Tile<2>, Tile<1>)
 
 launches = {"sdf_fwd": 0}
+# FLOPs of every counted launch, by `flops(...)` at the launch's shapes (core/mfu.py)
+flop_tally = dict.fromkeys(launches, 0.0)
 
 
 def tile(n: int, sms: int) -> int:
@@ -82,6 +84,7 @@ def sdf_fwd_packed(packed, x: torch.Tensor, cfg: SDFConfig = SDFConfig()) -> tor
                         torch.cuda.current_stream(pts.device).cuda_stream)
     cuda_build.check(rc, "sdf_fwd")
     launches["sdf_fwd"] += 1
+    flop_tally["sdf_fwd"] += flops(n)
     return out.reshape(*shape, 1)
 
 

@@ -47,6 +47,8 @@ PACK_SHAPES = ((PE_W, HID), (HID, HID), (HID, HID), (HID, HID), (HID, HID),
                (PE_W, HID), (HID, HID), (HID, HID), (HID, HID), (HID, OUT_W))
 
 launches = {"sdf_grad_fwd": 0, "sdf_grad_bwd": 0}
+# FLOPs of every counted launch, by `flops(...)` at the launch's shapes (core/mfu.py)
+flop_tally = dict.fromkeys(launches, 0.0)
 GRAD_MODES = ("rev", "fwd", "fused")
 
 
@@ -155,6 +157,7 @@ def _fwd(pts, W, bias, beta, scale):
                              torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, "sdf_grad_fwd")
     launches["sdf_grad_fwd"] += 1
+    flop_tally["sdf_grad_fwd"] += flops(n_pad)
     return sdf, grad, feats
 
 
@@ -179,6 +182,7 @@ def _bwd(pts, W, bias, beta, scale, g_sdf, g_grad, g_feats):
                           db.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, "sdf_grad_bwd")
     launches["sdf_grad_bwd"] += 1
+    flop_tally["sdf_grad_bwd"] += flops(n_pad, backward=True)
     return dW, db
 
 

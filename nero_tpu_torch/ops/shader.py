@@ -24,6 +24,7 @@ head (`bwd_buffers`).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -51,6 +52,22 @@ def _suffix(sphere, human) -> str:
 
 launches = {f"shader_{d}{_suffix(s, h)}": 0 for h in (0, 1) for s in (0, 1)
             for d in ("fwd", "bwd")}
+# FLOPs of every counted launch, by `flops(...)` at the launch's shapes (core/mfu.py)
+flop_tally = dict.fromkeys(launches, 0.0)
+
+
+class _Variant(NamedTuple):
+    feats_dim: int
+    ide_deg: int
+    light_pos_freq: int
+    sphere_direction: bool
+    human_light: bool
+
+
+def variant_cfg(sphere, human) -> _Variant:
+    """What `head_dims` reads of a shader config, for a kernel variant (the
+    kernel takes 256 feats, IDE degree 5 and light PE 8 alone, `supported`)."""
+    return _Variant(HID, 5, 8, bool(sphere), bool(human))
 
 
 def variant(cfg) -> str:
@@ -274,6 +291,7 @@ def _fwd(geo, feats, W, B, sphere: int, human: int) -> torch.Tensor:
                         torch.cuda.current_stream(geo.device).cuda_stream)
     cuda_build.check(rc, "shader_fwd")
     launches["shader_fwd" + _suffix(sphere, human)] += 1
+    flop_tally["shader_fwd" + _suffix(sphere, human)] += flops(n, variant_cfg(sphere, human))
     return out
 
 
@@ -306,6 +324,8 @@ def _bwd(geo, feats, W, B, sphere: int, human: int, gout):
                         dW.data_ptr(), dB.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, "shader_bwd")
     launches["shader_bwd" + _suffix(sphere, human)] += 1
+    flop_tally["shader_bwd" + _suffix(sphere, human)] += flops(n, variant_cfg(sphere, human),
+                                                               backward=True)
     return dgeo, dfeats, dW, dB
 
 

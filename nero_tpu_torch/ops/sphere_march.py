@@ -42,6 +42,8 @@ WIDE_PAD = 128
 TOPOLOGIES = ("std", "wide")
 
 launches = {"sphere_march": 0, "sphere_march_wide": 0}
+# FLOPs of every counted launch, by `flops(...)` at the launch's shapes (core/mfu.py)
+flop_tally = dict.fromkeys(launches, 0.0)
 
 
 def pack_field_params(params, pe: int = PE, topology: str = "std") -> dict:
@@ -273,6 +275,8 @@ def _launch(W, Fv, wide, rays_o, rays_d, t_enter, t_exit, n_sphere, n_refine, il
                              torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, "sphere_march")
     launches["sphere_march_wide" if wide else "sphere_march"] += 1
+    flop_tally["sphere_march_wide" if wide else "sphere_march"] += flops(
+        r, n_sphere, n_refine, "wide" if wide else "std")
     return t_out, found
 
 

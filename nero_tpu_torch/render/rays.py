@@ -3,7 +3,8 @@
 Counterpart of nero_tpu/render/rays.py: pixel centres at (x+0.5, y+0.5), w2c
 poses [R|t] with camera centre -R^T t, ray dir = normalize(R^T K^-1 [x,y,1]).
 The per-step batch is drawn with an explicit `torch.Generator` on the
-images' device (the JAX package threads PRNG keys instead).
+images' device (the JAX package threads PRNG keys instead); under ray data
+parallelism every rank draws the global batch and keeps its rows.
 """
 from __future__ import annotations
 
@@ -28,11 +29,14 @@ def rays_from_pixels(coords_xy: torch.Tensor, K_inv: torch.Tensor, poses: torch.
 
 def sample_ray_batch(gen: torch.Generator, imgs_u8: torch.Tensor, K_inv: torch.Tensor,
                      poses: torch.Tensor, batch: int,
-                     human_poses: torch.Tensor | None = None) -> dict:
+                     human_poses: torch.Tensor | None = None, rows: slice | None = None) -> dict:
     """Uniform random rays across all images. imgs_u8 [N,H,W,3] uint8. With
-    `human_poses` [N,3,4] (one per image) each ray also gets its image's."""
+    `human_poses` [N,3,4] (one per image) each ray also gets its image's.
+    With `rows`, the rays of those rows of the `batch` drawn."""
     n, h, w, _ = imgs_u8.shape
     idx = torch.randint(0, n * h * w, (batch,), generator=gen, device=imgs_u8.device)
+    if rows is not None:
+        idx = idx[rows]
     img_i = idx // (h * w)
     pix = idx % (h * w)
     py, px = pix // w, pix % w

@@ -27,6 +27,12 @@ with CUDA in the TPU's place, in one place (`ShapeConfig.hidden_act_dtype`,
 
 A value outside these raises ValueError. `use_fused_sdf` is dropped for an
 SDF that the value-only kernel does not take (`shape_config_from_dict`).
+
+Under ray data parallelism (`shard`, parallel/mesh.py) each rank renders its
+rows of the global batch: the random draws are of the global batch's shape
+(`draw_rows`), the occlusion loss sizes its per-ray candidates from the
+global ray count, and the masked means of the eikonal and occlusion terms
+sum their numerators and counts over the ranks (`sum_rows`).
 """
 from __future__ import annotations
 
@@ -49,6 +55,7 @@ from nero_tpu_torch.ops.sample_pdf import sample_pdf
 from nero_tpu_torch.ops.sdf_fwd import make_sdf_fwd_fn
 from nero_tpu_torch.ops.sdf_grad import GRAD_MODES, sdf_with_grad
 from nero_tpu_torch.ops.sdf_grad import supported as sdf_kernel_supported
+from nero_tpu_torch.parallel.mesh import RayShard, draw_rows, sum_rows
 from nero_tpu_torch.utils.color import linear_to_srgb
 
 
@@ -215,14 +222,15 @@ def _upsample_z(rays_o, rays_d, z_vals, sdf, n_new, inv_s):
 
 @torch.no_grad()
 def sample_z_vals(params, scfg: ShapeConfig, rays_o, rays_d, near, far,
-                  gen: torch.Generator | None = None, perturb: float = 1.0):
+                  gen: torch.Generator | None = None, perturb: float = 1.0,
+                  shard: RayShard | None = None):
     """Inner z values [R, n_inner] and background z values [R, n_bg]; the
     SDF values in the storage dtype (nero_tpu/render/shape.py:278)."""
     with hidden_dtype(scfg.hidden_act_dtype(rays_o.device)):
-        return _sample_z_vals(params, scfg, rays_o, rays_d, near, far, gen, perturb)
+        return _sample_z_vals(params, scfg, rays_o, rays_d, near, far, gen, perturb, shard)
 
 
-def _sample_z_vals(params, scfg: ShapeConfig, rays_o, rays_d, near, far, gen, perturb):
+def _sample_z_vals(params, scfg: ShapeConfig, rays_o, rays_d, near, far, gen, perturb, shard):
     r = rays_o.shape[0]
     sn = scfg.n_samples
     dev, dt = rays_o.device, rays_o.dtype
@@ -231,12 +239,13 @@ def _sample_z_vals(params, scfg: ShapeConfig, rays_o, rays_d, near, far, gen, pe
     z_out_lin = torch.linspace(1e-3, 1.0 - 1.0 / (scfg.n_bg_samples + 1.0),
                                scfg.n_bg_samples, dtype=dt, device=dev)
     if perturb > 0 and gen is not None:
-        t_rand = torch.rand((r, 1), generator=gen, device=dev, dtype=dt) - 0.5
+        rand = lambda shape: torch.rand(shape, generator=gen, device=dev, dtype=dt)
+        t_rand = draw_rows(rand, (r, 1), shard) - 0.5
         z_vals = z_vals + t_rand * 2.0 / sn
         mids = 0.5 * (z_out_lin[1:] + z_out_lin[:-1])
         upper = torch.cat([mids, z_out_lin[-1:]])
         lower = torch.cat([z_out_lin[:1], mids])
-        t2 = torch.rand((r, scfg.n_bg_samples), generator=gen, device=dev, dtype=dt)
+        t2 = draw_rows(rand, (r, scfg.n_bg_samples), shard)
         z_out = lower[None, :] + (upper - lower)[None, :] * t2
     else:
         z_out = z_out_lin[None, :].expand(r, scfg.n_bg_samples)
@@ -304,17 +313,19 @@ def _composite(alpha):
 
 
 def compute_occ_loss(params, scfg: ShapeConfig, gen, points, reflective, occ_prob, sdf,
-                     grads, dirs):
+                     grads, dirs, shard: RayShard | None = None):
     """Occlusion-probability supervision: per ray the top k' = max_pn // R of
-    the masked candidates by random score (nero_tpu/render/shape.py:379-415)."""
+    the masked candidates by random score (nero_tpu/render/shape.py:379-415);
+    R is the global batch's ray count."""
     r, s = points.shape[:2]
     with torch.no_grad():
         mask = ((torch.linalg.norm(points, dim=-1) < 0.999)
                 & (torch.abs(sdf) < scfg.occ_sdf_thresh)
                 & (torch.sum(grads * dirs, dim=-1) < 0.0))
-        rand = torch.rand((r, s), generator=gen, device=points.device, dtype=points.dtype)
+        rand = draw_rows(lambda shape: torch.rand(shape, generator=gen, device=points.device,
+                                                  dtype=points.dtype), (r, s), shard)
         score = torch.where(mask, rand, torch.full_like(rand, -1.0))
-        kpr = max(1, min(scfg.occ_loss_max_pn // r, s))
+        kpr = max(1, min(scfg.occ_loss_max_pn // (r if shard is None else shard.n), s))
         top_vals, top_idx = torch.topk(score, kpr, dim=-1)
         valid = (top_vals > 0.0).reshape(-1).to(points.dtype)
         idx3 = top_idx[..., None].expand(r, kpr, 3)
@@ -326,7 +337,8 @@ def compute_occ_loss(params, scfg: ShapeConfig, gen, points, reflective, occ_pro
         occ_gt = torch.sum(inter_prob, dim=-1)
     occ_k = torch.gather(occ_prob, 1, top_idx).reshape(r * kpr)
     l1 = torch.abs(occ_k - occ_gt)
-    return torch.sum(l1 * valid) / torch.clamp(torch.sum(valid), min=1.0)
+    return (sum_rows(torch.sum(l1 * valid), shard)
+            / torch.clamp(sum_rows(torch.sum(valid), shard), min=1.0))
 
 
 def top_k_lowest_index_first(x: torch.Tensor, k: int):
@@ -340,7 +352,8 @@ def top_k_lowest_index_first(x: torch.Tensor, k: int):
 
 def render_core(params, scfg: ShapeConfig, fg_lut, rays_o, rays_d, z_full, cos_anneal_ratio,
                 step: int, is_train: bool, gen: torch.Generator | None = None,
-                human_poses: torch.Tensor | None = None) -> dict:
+                human_poses: torch.Tensor | None = None,
+                shard: RayShard | None = None) -> dict:
     """z_full [R, n_total] (inner z then background z). `params` resolved.
     human_poses [R, 3, 4] per ray when the shader has the human light.
     The precision switches resolve here, on the rays' device (a model's
@@ -349,11 +362,11 @@ def render_core(params, scfg: ShapeConfig, fg_lut, rays_o, rays_d, z_full, cos_a
     scfg = scfg.resolved(rays_o.device)
     with hidden_dtype(scfg.hidden_act_dtype(rays_o.device)):
         return _render_core(params, scfg, fg_lut, rays_o, rays_d, z_full, cos_anneal_ratio,
-                            step, is_train, gen, human_poses)
+                            step, is_train, gen, human_poses, shard)
 
 
 def _render_core(params, scfg: ShapeConfig, fg_lut, rays_o, rays_d, z_full, cos_anneal_ratio,
-                 step: int, is_train: bool, gen, human_poses) -> dict:
+                 step: int, is_train: bool, gen, human_poses, shard) -> dict:
     r, s_total = z_full.shape
     s_inner = scfg.n_inner
     dists = z_full[..., 1:] - z_full[..., :-1]
@@ -425,10 +438,11 @@ def _render_core(params, scfg: ShapeConfig, fg_lut, rays_o, rays_d, z_full, cos_
         ray_rgb = rgb_bg_part + torch.sum(color_s * w_sdf[..., None], dim=1)
 
     grad_err = (torch.linalg.norm(grads, dim=-1) - 1.0) ** 2
-    n_inside = torch.clamp(torch.sum(inner_in), min=1.0)
+    n_inside = torch.clamp(sum_rows(torch.sum(inner_in), shard), min=1.0)
     outputs = {
         "ray_rgb": ray_rgb,
-        "gradient_error": (torch.sum(grad_err * inner_in) / n_inside).reshape(1),
+        "gradient_error": (sum_rows(torch.sum(grad_err * inner_in), shard)
+                           / n_inside).reshape(1),
         "std": torch.mean(1.0 / inv_s).reshape(1),
         "sdf_pts_norm": torch.linalg.norm(pts_in, dim=-1).reshape(-1),
         "sdf_vals": sdf.reshape(-1),
@@ -436,7 +450,8 @@ def _render_core(params, scfg: ShapeConfig, fg_lut, rays_o, rays_d, z_full, cos_
     if want_occ:
         if occ_phase:
             loss_occ = compute_occ_loss(params, scfg, gen, pts_s, occ_info["reflective"],
-                                        occ_info["occ_prob"][..., 0], sdf_s, grads_s, dirs_s)
+                                        occ_info["occ_prob"][..., 0], sdf_s, grads_s, dirs_s,
+                                        shard)
         else:
             loss_occ = ray_rgb.new_zeros(())
         outputs["loss_occ"] = loss_occ.reshape(1)
@@ -473,19 +488,20 @@ def compute_validation_info(params, scfg: ShapeConfig, fg_lut, z_vals, rays_o, r
 def render(params, scfg: ShapeConfig, fg_lut, rays_o, rays_d, near, far, step: int,
            gen: torch.Generator | None = None, is_train: bool = True,
            perturb_overwrite: float = -1.0, cos_anneal_ratio=None,
-           human_poses: torch.Tensor | None = None) -> dict:
+           human_poses: torch.Tensor | None = None, shard: RayShard | None = None) -> dict:
     """Full Stage-I render of a ray batch. Weight norm is resolved once here
     and autograd chains back to {v, g} through it. human_poses [R, 3, 4]
-    per ray when the shader has the human light."""
+    per ray when the shader has the human light. With `shard` the rays are
+    this rank's rows of the global batch."""
     params = resolve_weight_norm(params)
     perturb = scfg.perturb if perturb_overwrite < 0 else perturb_overwrite
     if cos_anneal_ratio is None:
         cos_anneal_ratio = 1.0 if scfg.anneal_end < 0 else min(1.0, step / scfg.anneal_end)
     z_inner, z_out = sample_z_vals(params, scfg, rays_o, rays_d, near, far,
-                                   gen=gen if perturb > 0 else None, perturb=perturb)
+                                   gen=gen if perturb > 0 else None, perturb=perturb, shard=shard)
     z_full = torch.cat([z_inner, z_out], dim=-1)
     return render_core(params, scfg, fg_lut, rays_o, rays_d, z_full, cos_anneal_ratio, step,
-                       is_train, gen=gen, human_poses=human_poses)
+                       is_train, gen=gen, human_poses=human_poses, shard=shard)
 
 
 def compute_rgb_loss(rgb_pr, rgb_gt, kind: str = "charbonier"):

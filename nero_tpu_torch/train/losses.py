@@ -1,21 +1,31 @@
 """Loss registry (counterpart of nero_tpu/train/losses.py). Every loss is
-`fn(data_pr, data_gt, step, cfg) -> dict`; the total is the sum of the means
-of every key starting with 'loss'. `step` is a Python int here."""
+`fn(data_pr, data_gt, step, cfg, shard=None) -> dict`; the total is the sum of the means
+of every key starting with 'loss'. `step` is a Python int here.
+
+Under ray data parallelism (`shard`, parallel/mesh.py) the means are over
+the global batch: a per-row key (`ROW_KEYS`) by `mean_rows`, and the
+regulariser's masked sums and counts by `sum_rows` before the thresholds
+and divisions that follow them. Every other key holds one value that is
+global already."""
 from __future__ import annotations
 
 import math
 
 import torch
 
+from nero_tpu_torch.parallel.mesh import RayShard, mean_rows, sum_rows
+
 _PASSTHROUGH_RGB_KEYS = ("loss_rgb", "loss_rgb_fine", "loss_global_rgb",
                          "loss_rgb_inner", "loss_rgb0", "loss_rgb1", "loss_masks")
+# keys that hold one value per row of the batch
+ROW_KEYS = _PASSTHROUGH_RGB_KEYS + ("loss_mat_reg", "loss_diffuse_light")
 
 
-def nerf_render_loss(data_pr, data_gt, step, cfg):
+def nerf_render_loss(data_pr, data_gt, step, cfg, shard=None):
     return {k: data_pr[k] for k in _PASSTHROUGH_RGB_KEYS if k in data_pr}
 
 
-def eikonal_loss(data_pr, data_gt, step, cfg):
+def eikonal_loss(data_pr, data_gt, step, cfg, shard=None):
     weight = cfg.get("eikonal_weight", 0.1)
     begin = cfg.get("eikonal_weight_anneal_begin", 0)
     end = cfg.get("eikonal_weight_anneal_end", 0)
@@ -26,7 +36,7 @@ def eikonal_loss(data_pr, data_gt, step, cfg):
     return {"loss_eikonal": data_pr["gradient_error"] * w}
 
 
-def std_recorder(data_pr, data_gt, step, cfg):
+def std_recorder(data_pr, data_gt, step, cfg, shard=None):
     out = {}
     if "std" in data_pr:
         out["std"] = data_pr["std"]
@@ -35,15 +45,15 @@ def std_recorder(data_pr, data_gt, step, cfg):
     return out
 
 
-def occ_loss(data_pr, data_gt, step, cfg):
+def occ_loss(data_pr, data_gt, step, cfg, shard=None):
     if "loss_occ" in data_pr:
         return {"loss_occ": data_pr["loss_occ"].mean().reshape(1)}
     return {}
 
 
-def init_sdf_reg_loss(data_pr, data_gt, step, cfg):
+def init_sdf_reg_loss(data_pr, data_gt, step, cfg, shard: RayShard | None = None):
     """Sphere prior on the early SDF, cosine-annealed to zero over the first
-    1000 steps (fixed-shape masked means)."""
+    1000 steps (fixed-shape masked means, over the global batch)."""
     if "sdf_vals" not in data_pr or "sdf_pts_norm" not in data_pr:
         return {}
     reg_step = 1000
@@ -51,19 +61,20 @@ def init_sdf_reg_loss(data_pr, data_gt, step, cfg):
     sdf = torch.as_tensor(data_pr["sdf_vals"])
     small_mask = (norm < 0.1).to(sdf.dtype)
     small_vec = torch.clamp(sdf - (norm - 0.1), min=0.0) * small_mask
-    small_mean = small_vec.sum() / torch.clamp(small_mask.sum(), min=1.0)
+    small_mean = (sum_rows(small_vec.sum(), shard)
+                  / torch.clamp(sum_rows(small_mask.sum(), shard), min=1.0))
     small_loss = small_mean / ((small_mean > 1e-5).to(sdf.dtype) + 1e-3)
     large_mask = (norm > 1.05).to(sdf.dtype)
     large_vec = torch.clamp((norm - 1.05) - sdf, min=0.0) * large_mask
-    active = (large_vec > 1e-5).to(sdf.dtype).sum()
-    large_loss = large_vec.sum() / (active + 1e-3)
+    active = sum_rows((large_vec > 1e-5).to(sdf.dtype).sum(), shard)
+    large_loss = sum_rows(large_vec.sum(), shard) / (active + 1e-3)
     anneal = (math.cos(min(max(step / reg_step, 0.0), 1.0) * math.pi) + 1.0) / 2.0
     gate = float(step < reg_step)
     return {"loss_sdf_large": (large_loss * anneal * gate).reshape(1),
             "loss_sdf_small": (small_loss * anneal * gate).reshape(1)}
 
 
-def mat_reg_loss(data_pr, data_gt, step, cfg):
+def mat_reg_loss(data_pr, data_gt, step, cfg, shard=None):
     return {k: data_pr[k] for k in ("loss_mat_reg", "loss_diffuse_light") if k in data_pr}
 
 
@@ -77,13 +88,25 @@ name2loss = {
 }
 
 
-def compute_losses(loss_names, data_pr, data_gt, step, cfg) -> dict:
+def compute_losses(loss_names, data_pr, data_gt, step, cfg,
+                   shard: RayShard | None = None) -> dict:
     log = {}
     for name in loss_names:
-        log.update(name2loss[name](data_pr, data_gt, step, cfg))
+        log.update(name2loss[name](data_pr, data_gt, step, cfg, shard))
     return log
 
 
-def total_loss(log: dict):
+def key_mean(key: str, v: torch.Tensor, shard: RayShard | None = None) -> torch.Tensor:
+    """The mean of a log entry over the global batch."""
+    return mean_rows(v, shard) if key in ROW_KEYS else v.mean()
+
+
+def global_means(log: dict, shard: RayShard | None = None) -> dict:
+    """Every entry's mean over the global batch, detached: the step's log."""
+    with torch.no_grad():
+        return {k: key_mean(k, v.detach(), shard) for k, v in log.items()}
+
+
+def total_loss(log: dict, shard: RayShard | None = None):
     """Sum of the means of every 'loss*' key."""
-    return sum(v.mean() for k, v in log.items() if k.startswith("loss"))
+    return sum(key_mean(k, v, shard) for k, v in log.items() if k.startswith("loss"))

@@ -12,8 +12,18 @@ bias correction, eps outside the square root in both). Checkpoints are
 nero_tpu's `.npz` (core/checkpoint.py): either package resumes the other's.
 With `profile_dir` set it writes a torch.profiler Chrome trace of steps
 [profile_start, profile_start + profile_steps) there, as nero_tpu writes its
-JAX trace. nero_tpu's MFU logging (core/mfu.py) reads XLA cost analysis and
-is not ported.
+JAX trace.
+
+MFU (core/mfu.py), as nero_tpu logs it: the first step taken is counted
+(`count_flops`: PyTorch's operators forward and backward plus the kernels'
+FLOP tallies) and left out of the rays/s meter's window; every
+`train_log_step` the log holds `mfu`, the step's FLOPs per second over the
+card's dense bf16 peak (per card: a rank counts its own step).
+
+With a ray group (`group`, parallel/mesh.py; run_training.py sets it up
+under torchrun) the model trains on it, `rays_per_sec` counts the global
+batch, and rank 0 alone writes logs, checkpoints and traces and runs
+validation while the other ranks wait at a barrier.
 
 `matmul_precision` (nero_tpu's names, default "default") sets the product
 mode of the plain MLP layers (ops/mlp.py::product_mode) inside the
@@ -33,12 +43,31 @@ import torch
 from nero_tpu_torch.core.checkpoint import load_checkpoint, save_checkpoint
 from nero_tpu_torch.core.device import resolve_device
 from nero_tpu_torch.core.logger import Logger, RaysPerSecMeter
+from nero_tpu_torch.core.mfu import count_flops, mfu
 from nero_tpu_torch.models import get_model
 from nero_tpu_torch.ops.mlp import product_mode, resolve_matmul_precision
+from nero_tpu_torch.parallel.mesh import DataGroup
 from nero_tpu_torch.train.losses import name2loss
 from nero_tpu_torch.train.lr import name2lr_schedule
 from nero_tpu_torch.train.metrics import name2metrics
 from nero_tpu_torch.train.valid import ValidationEvaluator
+
+
+def make_optimizer(params: list, optimizer_type: str, lr_schedule, device: torch.device):
+    """(optimizer, LambdaLR) stepping `params` with lr(step) of `lr_schedule`."""
+    if optimizer_type == "adam":
+        opt_cls = torch.optim.Adam
+    elif optimizer_type == "sgd":
+        opt_cls = torch.optim.SGD
+    else:
+        raise NotImplementedError(optimizer_type)
+    base = lr_schedule.base_lr
+    # on the card, one fused multi-tensor update instead of one launch
+    # group per parameter tensor (the same Adam arithmetic)
+    kw = {"fused": True} if opt_cls is torch.optim.Adam and device.type == "cuda" else {}
+    optimizer = opt_cls(params, lr=base, **kw)
+    return optimizer, torch.optim.lr_scheduler.LambdaLR(optimizer,
+                                                        lambda s: lr_schedule(s) / base)
 
 
 class Trainer:
@@ -63,9 +92,12 @@ class Trainer:
         "profile_steps": 5,
     }
 
-    def __init__(self, cfg: dict, device=None):
+    def __init__(self, cfg: dict, device=None, group: DataGroup | None = None):
         self.cfg = {**self.default_cfg, **cfg}
         self.device = resolve_device(device)
+        self.group = group
+        # rank 0 of the world writes and validates; every rank trains
+        self.is_main = group is None or torch.distributed.get_rank() == 0
         # an unknown name raises before anything is written
         self.product_mode = resolve_matmul_precision(self.cfg["matmul_precision"], self.device)
         random.seed(self.cfg["random_seed"])
@@ -80,26 +112,16 @@ class Trainer:
 
     def setup(self):
         """Build the model, optimizer and schedule (`run` calls it if needed)."""
-        self.model = get_model(self.cfg["network"])(self.cfg, training=True, device=self.device)
+        self.model = get_model(self.cfg["network"])(self.cfg, training=True, device=self.device,
+                                                    group=self.group)
         self.val_losses = [name2loss[n] for n in self.cfg["loss"]]
         self.val_metrics = [name2metrics[n] if n in name2metrics else name2loss[n]
                             for n in self.cfg["val_metric"]]
         lr_cfg = dict(self.cfg.get("lr_cfg") or {})
         lr_cfg.setdefault("end_iter", self.cfg["total_step"])
         self.lr_schedule = name2lr_schedule[self.cfg["lr_type"]](lr_cfg)
-        if self.cfg["optimizer_type"] == "adam":
-            opt_cls = torch.optim.Adam
-        elif self.cfg["optimizer_type"] == "sgd":
-            opt_cls = torch.optim.SGD
-        else:
-            raise NotImplementedError(self.cfg["optimizer_type"])
-        base = self.lr_schedule.base_lr
-        # on the card, one fused multi-tensor update instead of one launch
-        # group per parameter tensor (the same Adam arithmetic)
-        kw = {"fused": True} if opt_cls is torch.optim.Adam and self.device.type == "cuda" else {}
-        self.optimizer = opt_cls(self.model.parameters(), lr=base, **kw)
-        self.scheduler = torch.optim.lr_scheduler.LambdaLR(
-            self.optimizer, lambda s: self.lr_schedule(s) / base)
+        self.optimizer, self.scheduler = make_optimizer(
+            self.model.parameters(), self.cfg["optimizer_type"], self.lr_schedule, self.device)
         self.val_evaluator = ValidationEvaluator(self.cfg)
 
     def precision(self):
@@ -116,9 +138,15 @@ class Trainer:
 
     def save(self, path: str, step: int, best_para: float):
         """Checkpoint the parameters, the optimizer, the schedule's position
-        and the model's batch generator after `step` steps."""
-        save_checkpoint(path, step, best_para, self.model.params, self.optimizer,
-                        self.scheduler.last_epoch, getattr(self.model, "gen", None))
+        and the model's batch generator after `step` steps (rank 0 writes)."""
+        if self.is_main:
+            save_checkpoint(path, step, best_para, self.model.params, self.optimizer,
+                            self.scheduler.last_epoch, getattr(self.model, "gen", None))
+
+    def _barrier(self):
+        """Every rank waits here for rank 0's writes and validation."""
+        if self.group is not None:
+            torch.distributed.barrier()
 
     def resume(self) -> tuple[float, int]:
         """Load the checkpoint at `ckpt_fn` (the port's or nero_tpu's) into the
@@ -153,6 +181,29 @@ class Trainer:
         prof.export_chrome_trace(path)
         print(f"profiler trace of steps {first}-{last}: {path}")
 
+    def _validate(self, logger, params, step: int, best_para: float) -> float:
+        """Every validation set at `step`; the last one selects the best
+        model. Returns the best key metric so far."""
+        val_names = [vs.get("name", "val")
+                     for vs in self.cfg.get("val_set_list", [{"name": "val"}])]
+        all_results, val_para = {}, 0.0
+        for vn in val_names:
+            with self.precision():
+                val_results, val_para = self.val_evaluator(
+                    self.model, params, self.val_losses, self.val_metrics,
+                    list(range(len(self.model.test_ids))), step, self.model_name,
+                    val_set_name=vn, vis_dir=self.cfg["vis_dir"])
+            for k, v in val_results.items():
+                all_results[f"{vn}-{k}"] = v
+        if val_para > best_para:
+            print(f"New best model {self.cfg['key_metric_name']}: "
+                  f"{val_para:.5f} previous {best_para:.5f}")
+            best_para = val_para
+            self.save(self.best_ckpt_fn, step + 1, best_para)
+        self.val_results = {k: float(np.mean(v)) for k, v in all_results.items()}
+        logger.log(self.val_results, "val", step + 1)
+        return best_para
+
     def run(self):
         if self.model is None:
             self.setup()
@@ -162,14 +213,19 @@ class Trainer:
         rays_per_step = self.model.num_train_rays_per_step()
         total = self.cfg["total_step"]
         params = self.model.params
-        meter.sync(start_step, rays_per_step)
         prof = None
         prof_start = self.cfg["profile_start"]
         prof_last = min(prof_start + self.cfg["profile_steps"], total) - 1
         for step in range(start_step, total):
-            if self.cfg["profile_dir"] and step == prof_start <= prof_last:
+            if self.cfg["profile_dir"] and self.is_main and step == prof_start <= prof_last:
                 prof = self._start_profile()
-            log = self.train_step(step)
+            if step == start_step:
+                # the step's FLOPs, counted once; the counted step stays out
+                # of the meter's window
+                log, self.flops = count_flops(self.train_step, step)
+                meter.sync(step + 1, rays_per_step)
+            else:
+                log = self.train_step(step)
             if prof is not None and step == prof_last:
                 self._stop_profile(prof, prof_start, prof_last)
                 prof = None
@@ -180,32 +236,21 @@ class Trainer:
                 host_log["lr"] = self.lr_schedule(step)
                 host_log["rays_per_sec"] = meter.rays_per_sec
                 host_log["step_seconds"] = meter.step_seconds
-                logger.log(host_log, "train", step + 1)
+                host_log["mfu"] = mfu(self.flops["total"], meter.step_seconds, self.device)
+                if self.is_main:
+                    logger.log(host_log, "train", step + 1)
                 self.train_history.append({"step": step, **host_log})
 
             if (step + 1) % self.cfg["val_interval"] == 0 or (step + 1) == total:
-                val_names = [vs.get("name", "val")
-                             for vs in self.cfg.get("val_set_list", [{"name": "val"}])]
-                all_results, val_para = {}, 0.0
-                for vn in val_names:
-                    with self.precision():
-                        val_results, val_para = self.val_evaluator(
-                            self.model, params, self.val_losses, self.val_metrics,
-                            list(range(len(self.model.test_ids))), step, self.model_name,
-                            val_set_name=vn, vis_dir=self.cfg["vis_dir"])
-                    for k, v in val_results.items():
-                        all_results[f"{vn}-{k}"] = v
-                if val_para > best_para:
-                    print(f"New best model {self.cfg['key_metric_name']}: "
-                          f"{val_para:.5f} previous {best_para:.5f}")
-                    best_para = val_para
-                    self.save(self.best_ckpt_fn, step + 1, best_para)
-                self.val_results = {k: float(np.mean(v)) for k, v in all_results.items()}
-                logger.log(self.val_results, "val", step + 1)
+                if self.is_main:
+                    best_para = self._validate(logger, params, step, best_para)
+                self._barrier()
                 meter.reset()
 
             if (step + 1) % self.cfg["save_interval"] == 0:
                 self.save(self.ckpt_fn, step + 1, best_para)
+                self._barrier()
                 meter.reset()
         self.save(self.ckpt_fn, total, best_para)
+        self._barrier()
         return params
