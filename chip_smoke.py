@@ -238,50 +238,117 @@ def grad_err_normalised(ga, gb) -> float:
 # ---------------------------------------------------------------------------
 
 
-def check_sdf(n: int, dev) -> list:
-    from nero_tpu_torch.fields.sdf import SDFConfig, init_sdf
+def sdf_with_grad_f64(params, x, cfg):
+    """The plain version's function in f64: (sdf, feats, grad) of the
+    weight-norm SDF on points x, grad by double backprop (the port's plain
+    version multiplies in f32 whatever its inputs)."""
+    import torch.nn.functional as F
+
+    from nero_tpu_torch.utils.encodings import positional_encode
+
+    xg = x.detach().double().requires_grad_(True)
+    inputs = positional_encode(xg * cfg.scale, cfg.multires)
+    h = inputs
+    for l, layer in enumerate(params):
+        v = layer["v"]
+        w = layer["g"] * v / torch.clamp(torch.linalg.norm(v, dim=0, keepdim=True), min=1e-12)
+        if l == cfg.skip:
+            h = torch.cat([h, inputs], -1) / math.sqrt(2.0)
+        h = h @ w + layer["b"]
+        if l < len(params) - 1:
+            h = F.softplus(h, beta=cfg.beta)
+    (grad,) = torch.autograd.grad(h[..., 0].sum(), xg, create_graph=True)
+    return h[..., :1], h[..., 1:], grad
+
+
+def sdf_f64_error(params, cfg, pts, cot) -> dict:
+    """The plain version's own f32 error against its function in f64
+    (`sdf_with_grad_f64`, weights and points cast): sdf, grad and the
+    parameter gradients of check_sdf's loss, each as check_sdf measures the
+    kernel's."""
+    from nero_tpu_torch.core.convert import tree_map
+    from nero_tpu_torch.ops import sdf_grad as K
+
+    p64 = tree_map(lambda a: a.detach().double().requires_grad_(True), params)
+    out32, out64 = K.sdf_with_grad_plain(params, pts, cfg), sdf_with_grad_f64(p64, pts, cfg)
+
+    def loss(o):
+        sdf, feats, grad = o
+        eik = ((torch.linalg.norm(grad, dim=-1) - 1.0) ** 2).mean()
+        return (sdf ** 2).mean() + 0.1 * eik + (feats * cot.to(feats.dtype)).mean()
+
+    g32 = torch.autograd.grad(loss(out32), leaves(params))
+    g64 = torch.autograd.grad(loss(out64), leaves(p64))
+    return {"sdf": (out32[0].double() - out64[0]).abs().max().item(),
+            "grad": (out32[2].double() - out64[2]).abs().max().item(),
+            "param_grads": grad_err_normalised([g.double() for g in g64], g32)}
+
+
+def check_sdf(n: int, dev, multires: int = 6, full: bool = True) -> list:
+    """B1 against its plain version at `multires` (with live PE weights
+    where it is not the shipped 6). `full`: also n = 1,001 and 0 rows, the
+    backward's parts timed apart and the ptxas spill gate (the shipped
+    build's)."""
+    from nero_tpu_torch.fields.sdf import SDFConfig
     from nero_tpu_torch.ops import sdf_grad as K
     from nero_tpu_torch.ops.mlp import resolve_weight_norm
 
-    cfg = SDFConfig()
-    params = init_sdf(torch.Generator().manual_seed(3), cfg, device=dev)
+    from nero_tpu_torch.kernel_variants import sdf_params
+
+    cfg = SDFConfig(multires=multires)
+    params = sdf_params(cfg, dev)  # the PE's weights live away from multires 6
+    tag = K.counter("", multires)
     rng = np.random.default_rng(1)
     pts = torch.as_tensor(rng.uniform(-0.7, 0.7, (n, 3)).astype(np.float32), device=dev)
     cot = torch.as_tensor(rng.standard_normal((n, 256)).astype(np.float32) * 0.1, device=dev)
+    # the bars of row 1 (PERF.md section 6); at multires 20 the plain f32
+    # version itself is off its f64 self by the top octave's rounding (sin of
+    # 2^19 x), and the bars there are the larger of those and 2x that error
+    bars = {"sdf": 5e-3, "grad": 2e-2, "param_grads": 2e-2}
+    if multires > 10:
+        own = sdf_f64_error(params, cfg, pts[:8192], cot[:8192])
+        bars = {k: max(v, 2.0 * own[k]) for k, v in bars.items()}
+        print(f"sdf_grad{tag}  the plain version's own f32-vs-f64 error: max|d sdf| "
+              f"{own['sdf']:.3e}, max|d grad| {own['grad']:.3e}, param grads max|d|/max|g| "
+              f"{own['param_grads']:.3e}; bars here: sdf {bars['sdf']:.3e} + 1e-2 rel, grad "
+              f"{bars['grad']:.3e} + 5e-2 rel, param grads {bars['param_grads']:.3e}")
 
     with torch.no_grad():
         sdf_k, feats_k, grad_k = K.sdf_with_grad(params, pts, cfg)
         sdf_p, feats_p, grad_p = K.sdf_with_grad_plain(params, pts, cfg)
     e_sdf = (sdf_k - sdf_p).abs()
     e_grad = (grad_k - grad_p).abs()
-    check(bool((e_sdf <= 5e-3 + 1e-2 * sdf_p.abs()).all()), f"sdf: max err {e_sdf.max()}")
-    check(bool((e_grad <= 2e-2 + 5e-2 * grad_p.abs()).all()), f"grad: max err {e_grad.max()}")
+    check(bool((e_sdf <= bars["sdf"] + 1e-2 * sdf_p.abs()).all()),
+          f"sdf{tag}: max err {e_sdf.max()}")
+    check(bool((e_grad <= bars["grad"] + 5e-2 * grad_p.abs()).all()),
+          f"grad{tag}: max err {e_grad.max()}")
     feats_mean = (feats_k - feats_p).abs().mean().item()
-    check(feats_mean < 5e-3, f"feats: mean err {feats_mean}")
+    check(feats_mean < 5e-3, f"feats{tag}: mean err {feats_mean}")
     fwd_err = max(e_sdf.max().item(), e_grad.max().item())
-    print(f"sdf_grad_fwd  max|d sdf| {e_sdf.max().item():.3e} (atol 5e-3 rtol 1e-2)  "
-          f"max|d grad| {e_grad.max().item():.3e} (atol 2e-2 rtol 5e-2)  "
+    print(f"sdf_grad_fwd{tag}  max|d sdf| {e_sdf.max().item():.3e} (atol {bars['sdf']:.1e} rtol "
+          f"1e-2)  max|d grad| {e_grad.max().item():.3e} (atol {bars['grad']:.1e} rtol 5e-2)  "
           f"mean|d feats| {feats_mean:.3e} (< 5e-3)")
-    # a ragged size (the wrapper pads to the 32-point tile) at the same bars
-    odd = pts[:1001]
-    with torch.no_grad():
-        o_k, o_p = K.sdf_with_grad(params, odd, cfg), K.sdf_with_grad_plain(params, odd, cfg)
-    check(all(a.shape == b.shape for a, b in zip(o_k, o_p)), "sdf_grad: ragged shapes")
-    e_odd = [(a - b).abs() for a, b in zip(o_k, o_p)]
-    check(bool((e_odd[0] <= 5e-3 + 1e-2 * o_p[0].abs()).all())
-          and bool((e_odd[2] <= 2e-2 + 5e-2 * o_p[2].abs()).all())
-          and e_odd[1].mean().item() < 5e-3,
-          f"sdf_grad at n = 1001: max errs sdf {e_odd[0].max()}, grad {e_odd[2].max()}, "
-          f"mean feats {e_odd[1].mean()}")
-    # no points: empty outputs and parameter gradients that are exactly zero
-    z_out = K.sdf_with_grad(params, pts[:0], cfg)
-    check([tuple(o.shape) for o in z_out] == [(0, 1), (0, 256), (0, 3)],
-          f"sdf_grad zero rows: shapes {[tuple(o.shape) for o in z_out]}")
-    g_zero = torch.autograd.grad(sum(o.sum() for o in z_out), leaves(params))
-    check(all(not g.any() for g in g_zero), "sdf_grad zero rows: non-zero parameter gradients")
-    print(f"sdf_grad_fwd  n = 1001: max|d sdf| {e_odd[0].max().item():.3e}  max|d grad| "
-          f"{e_odd[2].max().item():.3e}  mean|d feats| {e_odd[1].mean().item():.3e}; "
-          f"n = 0: shapes (0,1) (0,256) (0,3), parameter gradients zero")
+    if full:
+        # a ragged size (the wrapper pads to the 32-point tile) at the same bars
+        odd = pts[:1001]
+        with torch.no_grad():
+            o_k, o_p = K.sdf_with_grad(params, odd, cfg), K.sdf_with_grad_plain(params, odd, cfg)
+        check(all(a.shape == b.shape for a, b in zip(o_k, o_p)), "sdf_grad: ragged shapes")
+        e_odd = [(a - b).abs() for a, b in zip(o_k, o_p)]
+        check(bool((e_odd[0] <= 5e-3 + 1e-2 * o_p[0].abs()).all())
+              and bool((e_odd[2] <= 2e-2 + 5e-2 * o_p[2].abs()).all())
+              and e_odd[1].mean().item() < 5e-3,
+              f"sdf_grad at n = 1001: max errs sdf {e_odd[0].max()}, grad {e_odd[2].max()}, "
+              f"mean feats {e_odd[1].mean()}")
+        # no points: empty outputs and parameter gradients that are exactly zero
+        z_out = K.sdf_with_grad(params, pts[:0], cfg)
+        check([tuple(o.shape) for o in z_out] == [(0, 1), (0, 256), (0, 3)],
+              f"sdf_grad zero rows: shapes {[tuple(o.shape) for o in z_out]}")
+        g_zero = torch.autograd.grad(sum(o.sum() for o in z_out), leaves(params))
+        check(all(not g.any() for g in g_zero), "sdf_grad zero rows: non-zero parameter gradients")
+        print(f"sdf_grad_fwd  n = 1001: max|d sdf| {e_odd[0].max().item():.3e}  max|d grad| "
+              f"{e_odd[2].max().item():.3e}  mean|d feats| {e_odd[1].mean().item():.3e}; "
+              f"n = 0: shapes (0,1) (0,256) (0,3), parameter gradients zero")
 
     def loss(fn):
         sdf, feats, grad = fn(params, pts, cfg)
@@ -292,8 +359,9 @@ def check_sdf(n: int, dev) -> list:
     g_k = torch.autograd.grad(loss(K.sdf_with_grad), p_leaves)
     g_p = torch.autograd.grad(loss(K.sdf_with_grad_plain), p_leaves)
     bwd_err = grad_err_normalised(g_p, g_k)
-    check(bwd_err <= 2e-2, f"sdf param grads: normalised max err {bwd_err}")
-    print(f"sdf_grad_bwd  param grads max|d|/max|g| {bwd_err:.3e} (atol 2e-2)")
+    check(bwd_err <= bars["param_grads"], f"sdf{tag} param grads: normalised max err {bwd_err}")
+    print(f"sdf_grad_bwd{tag}  param grads max|d|/max|g| {bwd_err:.3e} "
+          f"(atol {bars['param_grads']:.1e})")
 
     # times: the kernel launches alone (`ms`), the wrapper's whole call, and
     # the plain version's same work
@@ -302,8 +370,9 @@ def check_sdf(n: int, dev) -> list:
         W, bias = K.pack_weights([l["w"] for l in layers], [l["b"] for l in layers])
     beta, scale = float(cfg.beta), float(cfg.scale)
     g_sdf, g_grad = torch.ones(n, device=dev) / n, grad_k.contiguous() / n
-    ms_fwd = cuda_ms(lambda: K._fwd(pts, W, bias, beta, scale))
-    ms_bwd = cuda_ms(lambda: K._bwd(pts, W, bias, beta, scale, g_sdf, g_grad, cot), iters=5)
+    ms_fwd = cuda_ms(lambda: K._fwd(pts, W, bias, beta, scale, multires))
+    ms_bwd = cuda_ms(lambda: K._bwd(pts, W, bias, beta, scale, g_sdf, g_grad, cot, multires),
+                     iters=5)
     with torch.no_grad():
         wrap_fwd = cuda_ms(lambda: K.sdf_with_grad(params, pts, cfg))
         plain_fwd = cuda_ms(lambda: K.sdf_with_grad_plain(params, pts, cfg))
@@ -315,11 +384,20 @@ def check_sdf(n: int, dev) -> list:
     for name, err, ms, wms, pms, bwd, line in (
             ("sdf_grad_fwd", fwd_err, ms_fwd, wrap_fwd, plain_fwd, False, 363),
             ("sdf_grad_bwd", bwd_err, ms_bwd, wrap_bwd, plain_bwd, True, 387)):
-        b_ms, b_by = bound(K.flops(n, bwd), K.min_bytes(n, bwd))
-        out.append({"name": name, "route": "cuda", "source": "nero_tpu_torch/csrc/sdf_grad.cu",
+        b_ms, b_by = bound(K.flops(n, bwd, multires), K.min_bytes(n, bwd, multires))
+        out.append({"name": K.counter(name, multires), "route": "cuda",
+                    "source": "nero_tpu_torch/csrc/sdf_grad.cu",
                     "replaces": f"nero_tpu/ops/pallas/sdf_grad_kernel.py:{line}",
                     "max_abs_err": err, "ms": ms, "launch_ms": ms, "wrapper_ms": wms,
                     "plain_ms": pms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    if not full:  # the build's registers and spills, reported
+        from nero_tpu_torch.ops.cuda_build import ptxas_info
+        for row, kern in zip(out, ("sdf_grad_fwd_kernel", "sdf_bwd_sweep_kernel")):
+            row["ptxas"] = {kern: ptxas_info("sdf_grad", kern, K.defines(multires))}
+        print(f"sdf_grad{tag}  launch fwd {ms_fwd:.3f} bwd {ms_bwd:.3f} ms, bounds "
+              f"{out[0]['bound_ms']:.3f} / {out[1]['bound_ms']:.3f}; ptxas "
+              f"{out[0]['ptxas']} {out[1]['ptxas']}")
+        return out
     # the backward's two parts alone, on the wrapper's buffers: recompute +
     # reverse sweep, then the weight- and bias-gradient pass with its reduction
     from nero_tpu_torch.ops.cuda_build import check as check_rc, ptxas_info
@@ -355,15 +433,20 @@ def random_human_poses(rng, n: int) -> np.ndarray:
     return np.concatenate([q, rng.uniform(-0.5, 0.5, (n, 3, 1))], -1).astype(np.float32)
 
 
-def check_shader(n: int, dev, sphere: bool = False, human: bool = False) -> list:
-    """The whole-shader kernel of one variant, forward and backward, against
-    its plain version, with tests/test_shader_kernel.py's bars."""
+def check_shader(n: int, dev, sphere: bool = False, human: bool = False, enc=(5, 8),
+                 full: bool = True) -> list:
+    """The whole-shader kernel of one variant at the encodings enc =
+    (ide_deg, light_pos_freq), forward and backward, against its plain
+    version, with tests/test_shader_kernel.py's bars. `full`: also n = 1,001
+    and 0 rows, the same bits in two calls, the backward's parts timed apart
+    and the ptxas spill gate (the shipped build's)."""
     from nero_tpu_torch.fields.app_shading import (AppShadingConfig, init_app_shading,
                                                    shade_from_raw)
     from nero_tpu_torch.ops import shader as K
     from nero_tpu_torch.ops.fg_lut import get_fg_lut
 
-    cfg = AppShadingConfig(sphere_direction=sphere, human_light=human)
+    cfg = AppShadingConfig(sphere_direction=sphere, human_light=human, ide_deg=enc[0],
+                           light_pos_freq=enc[1])
     sfx = K.variant(cfg)
     params = init_app_shading(torch.Generator().manual_seed(0), cfg, device=dev)
     fg_lut = torch.as_tensor(get_fg_lut(), device=dev)
@@ -446,23 +529,24 @@ def check_shader(n: int, dev, sphere: bool = False, human: bool = False) -> list
     print(f"shader_bwd{sfx}    grads worst cosine {worst_cos:.5f} (> {min_cos})  worst mean|d|/max|g| "
           f"{noise_ker:.3e} (< 4 x bf16 {noise_bf16:.3e} + {slack})  worst max|d|/max|g| "
           f"{bwd_err:.3e} (bf16 plain: {grad_err_normalised(g_p, g_b):.3e})")
-    # a ragged size (both directions' tiles are 128 rows) at the same bars,
-    # and no rows: empty outputs, parameter gradients exactly 0
-    m = 1001
-    with torch.no_grad():
-        (c_k, o_k), (c_p, o_p) = shade(K.shader_raw, m), shade(K.shader_raw_plain, m)
-    e_odd = max((c_k - c_p).abs().max().item(), (o_k["occ_prob"] - o_p["occ_prob"]).abs().max().item())
-    cos_odd = worst_cosine(torch.autograd.grad(loss(K.shader_raw_plain, m=m), wrt),
-                           torch.autograd.grad(loss(K.shader_raw, m=m), wrt))
-    check(e_odd <= 2e-3 and cos_odd > min_cos,
-          f"shader{sfx} at n = {m}: max err {e_odd}, grads worst cosine {cos_odd}")
-    c_0, o_0 = shade(K.shader_raw, 0)
-    check(tuple(c_0.shape) == (0, 3) and tuple(o_0["occ_prob"].shape) == (0, 1),
-          f"shader{sfx} zero rows: shapes {tuple(c_0.shape)}, {tuple(o_0['occ_prob'].shape)}")
-    g_0 = torch.autograd.grad(loss(K.shader_raw, m=0), leaves(params))
-    check(all(not g.any() for g in g_0), f"shader{sfx} zero rows: non-zero parameter gradients")
-    print(f"shader_bwd{sfx}    n = {m}: max|d color, occ_prob| {e_odd:.3e}, grads worst cosine "
-          f"{cos_odd:.5f}; n = 0: shapes (0,3) (0,1), parameter gradients zero")
+    if full:
+        # a ragged size (both directions' tiles are 128 rows) at the same bars,
+        # and no rows: empty outputs, parameter gradients exactly 0
+        m = 1001
+        with torch.no_grad():
+            (c_k, o_k), (c_p, o_p) = shade(K.shader_raw, m), shade(K.shader_raw_plain, m)
+        e_odd = max((c_k - c_p).abs().max().item(), (o_k["occ_prob"] - o_p["occ_prob"]).abs().max().item())
+        cos_odd = worst_cosine(torch.autograd.grad(loss(K.shader_raw_plain, m=m), wrt),
+                               torch.autograd.grad(loss(K.shader_raw, m=m), wrt))
+        check(e_odd <= 2e-3 and cos_odd > min_cos,
+              f"shader{sfx} at n = {m}: max err {e_odd}, grads worst cosine {cos_odd}")
+        c_0, o_0 = shade(K.shader_raw, 0)
+        check(tuple(c_0.shape) == (0, 3) and tuple(o_0["occ_prob"].shape) == (0, 1),
+              f"shader{sfx} zero rows: shapes {tuple(c_0.shape)}, {tuple(o_0['occ_prob'].shape)}")
+        g_0 = torch.autograd.grad(loss(K.shader_raw, m=0), leaves(params))
+        check(all(not g.any() for g in g_0), f"shader{sfx} zero rows: non-zero parameter gradients")
+        print(f"shader_bwd{sfx}    n = {m}: max|d color, occ_prob| {e_odd:.3e}, grads worst cosine "
+              f"{cos_odd:.5f}; n = 0: shapes (0,3) (0,1), parameter gradients zero")
 
     # times: the wrapper's whole call (`ms`: weight norm, packing, launch, and
     # for the backward autograd and unpacking), the kernel launches alone on
@@ -474,8 +558,8 @@ def check_shader(n: int, dev, sphere: bool = False, human: bool = False) -> list
         geo, feats2d, spec, ws, bs = K.kernel_inputs(params, cfg, pts, normals, view, feats,
                                                      poses)
         W, B = K.pack_weights(ws, bs, spec[2])
-        launch_fwd = cuda_ms(lambda: K._fwd(geo, feats2d, W, B, *spec[:2]))
-        launch_bwd = cuda_ms(lambda: K._bwd(geo, feats2d, W, B, *spec[:2], gout))
+        launch_fwd = cuda_ms(lambda: K._fwd(geo, feats2d, W, B, *spec[:2], enc))
+        launch_bwd = cuda_ms(lambda: K._bwd(geo, feats2d, W, B, *spec[:2], gout, enc))
     ms_bwd = cuda_ms_split(lambda: raw(K.shader_raw),
                            lambda o: torch.autograd.grad(o, wrt, gout))
     plain_bwd = cuda_ms_split(lambda: raw(K.shader_raw_plain),
@@ -491,6 +575,16 @@ def check_shader(n: int, dev, sphere: bool = False, human: bool = False) -> list
                     "plain_ms": pms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
     out[1]["mean_rel_err"] = noise_ker
     del g_p, g_k, g_b
+    if not full:  # the build's registers and spills, reported
+        from nero_tpu_torch.ops.cuda_build import ptxas_info
+        inst = f"\\w*Lb{int(sphere)}ELb{int(human)}E"
+        for row, kern in zip(out, ("shader_fwd_kernel", "shader_bwd_sweep_kernel")):
+            row["ptxas"] = {kern: ptxas_info("shader", kern + inst, K.defines(enc))}
+        print(f"shader{sfx}    launch fwd {launch_fwd:.3f} bwd {launch_bwd:.3f} ms, wrapper "
+              f"{ms_fwd:.3f} / {ms_bwd:.3f}, bounds {out[0]['bound_ms']:.3f} / "
+              f"{out[1]['bound_ms']:.3f}; ptxas {out[0]['ptxas']} {out[1]['ptxas']}")
+        torch.cuda.empty_cache()
+        return out
     # the backward's parts alone, on the wrapper's buffers: recompute + reverse
     # sweep, then the weight- and bias-gradient pass with its reduction; the
     # same packed outputs and gradients to the bit in two calls; no rows, no
@@ -540,6 +634,47 @@ def check_shader(n: int, dev, sphere: bool = False, human: bool = False) -> list
               f"{k} {v.get('regs')} regs {v.get('spill_bytes')} spill bytes" for k, v in ptx.items()))
     torch.cuda.empty_cache()
     return out
+
+
+def check_sdf_fwd_at(n: int, multires: int, dev) -> list:
+    """B6 at another `multires` (live PE weights): against its plain version
+    at n points with check_sdf_fwd's bars, equal to the bit to B1's sdf at
+    the same multires there, timed at n (launch, wrapper, plain), its ptxas
+    reported."""
+    from nero_tpu_torch.fields.sdf import SDFConfig
+    from nero_tpu_torch.ops import sdf_fwd as K
+    from nero_tpu_torch.ops.cuda_build import ptxas_info
+    from nero_tpu_torch.ops.sdf_grad import sdf_with_grad
+
+    from nero_tpu_torch.kernel_variants import sdf_params
+
+    cfg = SDFConfig(multires=multires)
+    params = sdf_params(cfg, dev)
+    name = K.counter("sdf_fwd", multires)
+    rng = np.random.default_rng(1)
+    pts = torch.as_tensor(rng.uniform(-0.7, 0.7, (n, 3)).astype(np.float32), device=dev)
+    with torch.no_grad():
+        v_k, v_p = K.sdf_fwd(params, pts, cfg), K.sdf_fwd_plain(params, pts, cfg)
+        v_g = sdf_with_grad(params, pts, cfg)[0]
+    err = (v_k - v_p).abs()
+    check(err.max().item() <= 2e-2 and err.mean().item() < 3e-3,
+          f"{name}: max err {err.max()}, mean {err.mean()}")
+    check(torch.equal(v_k, v_g), f"{name} against sdf_grad's sdf: max |d| {(v_k - v_g).abs().max()}")
+    packed = K.pack_params(params, cfg)
+    ms = cuda_ms(lambda: K.sdf_fwd_packed(packed, pts, cfg))
+    b_ms, b_by = bound(K.flops(n, multires), K.min_bytes(n, multires))
+    entry = {"name": name, "route": "cuda", "source": "nero_tpu_torch/csrc/sdf_fwd.cu",
+             "replaces": "nero_tpu/ops/pallas/sdf_kernel.py:122", "max_abs_err": err.max().item(),
+             "ms": ms, "launch_ms": ms,
+             "wrapper_ms": cuda_ms(lambda: K.sdf_fwd(params, pts, cfg)),
+             "plain_ms": cuda_ms(lambda: K.sdf_fwd_plain(params, pts, cfg)),
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "n": n,
+             "ptxas": {"sdf_fwd_kernel<2>": ptxas_info("sdf_fwd", r"sdf_fwd_kernelILi2E",
+                                                       K.defines(multires))}}
+    print(f"{name}  max|d sdf| {err.max().item():.3e} (atol 2e-2), mean {err.mean().item():.3e} "
+          f"(< 3e-3) at N = {n}; equal to sdf_grad{K.counter('', multires)}'s sdf to the bit; "
+          f"launch {ms:.3f} ms, bound {b_ms:.3f}; ptxas {entry['ptxas']}")
+    return [entry]
 
 
 def check_sdf_fwd(n: int, n_small: int, dev) -> list:
@@ -624,7 +759,7 @@ def check_sdf_fwd(n: int, n_small: int, dev) -> list:
     return [entry]
 
 
-def check_predictor(n: int, dev) -> list:
+def check_predictor(n: int, dev, shapes=None, full: bool = True) -> list:
     """The predictor kernel, forward and backward, against its plain version
     for every head shape of the Stage-I shader (all its variants:
     `ops/predictor.py::SHADER_SHAPES`), with tests/test_predictor_kernel.py's bars:
@@ -632,7 +767,9 @@ def check_predictor(n: int, dev) -> list:
     two calls, 0 spill bytes); parameter gradients' worst mean error
     (normalised by each leaf's max) under 1.5x that of the plain version with
     bf16 products + 1e-4, every leaf within cosine 0.99; the input cotangent's
-    mean error under 0.02 of its max."""
+    mean error under 0.02 of its max. `shapes`: (d_in, d_out) pairs other
+    than those; not `full`: without the ragged and zero-row checks, the two
+    calls and the parts' times."""
     from nero_tpu_torch.ops import predictor as K
     from nero_tpu_torch.ops.mlp import init_predictor, resolve_weight_norm
 
@@ -641,7 +778,7 @@ def check_predictor(n: int, dev) -> list:
     mean_rel = lambda ga, gb: max(((a - b).abs().mean() / (a.abs().max() + 1e-8)).item()
                                   for a, b in zip(ga, gb))
     out = []
-    for d_in, d_out in K.SHADER_SHAPES:
+    for d_in, d_out in shapes or K.SHADER_SHAPES:
         layers = init_predictor(torch.Generator().manual_seed(d_in), d_in, d_out, device=dev)
         x = t(rng.standard_normal((n, d_in)) * 0.5).requires_grad_(True)
         cot = t(rng.standard_normal((n, d_out)))
@@ -659,10 +796,24 @@ def check_predictor(n: int, dev) -> list:
         g_p = torch.autograd.grad((K.predictor_plain(layers, x) * cot).sum(), wrt)
         g_k = torch.autograd.grad((K.predictor(layers, x) * cot).sum(), wrt)
         g_b = torch.autograd.grad((plain_bf16(layers, x) * cot).sum(), wrt)
-        noise_ker, noise_bf16 = mean_rel(g_p[:-1], g_k[:-1]), mean_rel(g_p[:-1], g_b[:-1])
+        # the mean-error bar: at the other encodings' shapes over the leaves
+        # of more than one entry (a one-output head's output gain is one sum
+        # that cancels over the rows: on the H100 its error scatters over
+        # 3e-4-4e-2 in the kernel, its rounding emulation and the bf16 plain
+        # version alike, PERF.md section 6), its error reported beside the
+        # bf16 one
+        bar = [i for i, a in enumerate(g_p[:-1]) if full or a.numel() > 1]
+        pick = lambda g: [g[i] for i in bar]
+        noise_ker, noise_bf16 = mean_rel(pick(g_p), pick(g_k)), mean_rel(pick(g_p), pick(g_b))
         worst_cos = min((a.flatten() @ b.flatten() / (a.norm() * b.norm() + 1e-12)).item()
                         for a, b in zip(g_p, g_k))
         dx_err = mean_rel(g_p[-1:], g_k[-1:])
+        one = [i for i in range(len(g_p) - 1) if i not in bar]
+        if one:
+            leaf = lambda g: [g[i] for i in one]
+            print(f"predictor{sfx}  one-entry leaves' mean|d|/max|g| "
+                  f"{mean_rel(leaf(g_p), leaf(g_k)):.3e}, bf16 plain "
+                  f"{mean_rel(leaf(g_p), leaf(g_b)):.3e}")
         check(noise_ker < 1.5 * noise_bf16 + 1e-4,
               f"predictor{sfx} grads: {noise_ker} vs bf16 {noise_bf16}")
         check(worst_cos > 0.99, f"predictor{sfx} grads: worst cosine {worst_cos}")
@@ -698,6 +849,11 @@ def check_predictor(n: int, dev) -> list:
                         "library_ms": None})
         out[-1]["mean_rel_err"] = noise_ker
         del g_p, g_k, g_b
+        if not full:
+            print(f"predictor{sfx}  launch fwd {launch_fwd:.3f} bwd {launch_bwd:.3f} ms, wrapper "
+                  f"{ms_fwd:.3f} / {ms_bwd:.3f}, bounds {out[-2]['bound_ms']:.3f} / "
+                  f"{out[-1]['bound_ms']:.3f}")
+            continue
         # a ragged size (tiles of 128 rows) at the same bars, and no rows: an
         # empty output, dx, dW and dB exactly 0, nothing counted
         m = 1001
@@ -1018,7 +1174,7 @@ def check_field_kernels(mesh: dict, n: int, dev) -> list:
     return out
 
 
-def check_lights(n: int, dev) -> list:
+def check_lights(n: int, dev, ide_deg: int = 5, full: bool = True) -> list:
     """The light kernel, forward and backward, against its plain version at
     the full lattice, with tests/test_light_kernel.py's bars: values after
     exp to 3e-3; the gradients' worst mean error (normalised by each leaf's
@@ -1029,7 +1185,8 @@ def check_lights(n: int, dev) -> list:
     (empty outputs, parameter gradients exactly 0), the forward's outputs and
     dW, dB and dgeo equal to the bit in two calls, the backward's sweep and
     parameter pass timed apart with their buffer bytes, and ptxas of the
-    forward kernel and the backward's three (0 spill bytes)."""
+    forward kernel and the backward's three (0 spill bytes); those last
+    checks where `full` (the shipped build), at the IDE degree `ide_deg`."""
     from nero_tpu_torch.fields.mc_shading import MCShadingConfig, init_mc_shading
     from nero_tpu_torch.ops import lights as K
     from nero_tpu_torch.ops.mlp import exp_activation, predictor_raw
@@ -1045,7 +1202,8 @@ def check_lights(n: int, dev) -> list:
     cos = lambda a, b: (a.flatten() @ b.flatten() / (a.norm() * b.norm() + 1e-12)).item()
     out = []
     for mode, version, sfx in (("both", "direction", ""), ("outer", "sphere_direction", "_outer")):
-        cfg = MCShadingConfig(human_lights=False, outer_light_version=version)
+        cfg = MCShadingConfig(human_lights=False, outer_light_version=version, ide_deg=ide_deg)
+        sfx = K.counter(sfx, ide_deg)
         params = init_mc_shading(torch.Generator().manual_seed(0), cfg, device=dev)
         heads = {k: params[k] for k in ("inner_light", "outer_light")[mode == "outer":]}
 
@@ -1108,9 +1266,9 @@ def check_lights(n: int, dev) -> list:
             # the launches alone, on packed weights
             geo, sphere, both, ws, bs = K.kernel_inputs(params, cfg, pts, dirs, inters, normals,
                                                         mode)
-            W, B = K.pack_buffers(ws, bs, sphere, both)
-            launch_fwd = cuda_ms(lambda: K._fwd(geo, W, B, sphere, both))
-            launch_bwd = cuda_ms(lambda: K._bwd(geo, W, B, sphere, both, gout))
+            W, B = K.pack_buffers(ws, bs, sphere, both, ide_deg)
+            launch_fwd = cuda_ms(lambda: K._fwd(geo, W, B, sphere, both, ide_deg))
+            launch_bwd = cuda_ms(lambda: K._bwd(geo, W, B, sphere, both, gout, ide_deg))
         ms_bwd = cuda_ms_split(lambda: call(K.lights_raw),
                                lambda o: torch.autograd.grad(o, wrt, gout))
         plain_bwd = cuda_ms_split(lambda: call(K.lights_raw_plain),
@@ -1127,6 +1285,16 @@ def check_lights(n: int, dev) -> list:
                         "library_ms": None})
         out[-1]["mean_rel_err"] = noise_ker
         del g_p, g_k, g_b
+        if not full:  # the build's registers and spills, reported
+            from nero_tpu_torch.ops.cuda_build import ptxas_info
+            inst = f"\\w*Lb{int(sphere)}ELb{int(both)}E"
+            for row, kern in zip(out[-2:], ("lights_fwd_kernel", "lights_bwd_sweep_kernel")):
+                row["ptxas"] = {kern: ptxas_info("lights", kern + inst, K.defines(ide_deg))}
+            print(f"lights{sfx}    launch fwd {launch_fwd:.3f} bwd {launch_bwd:.3f} ms, wrapper "
+                  f"{ms_fwd:.3f} / {ms_bwd:.3f}, bounds {out[-2]['bound_ms']:.3f} / "
+                  f"{out[-1]['bound_ms']:.3f}; ptxas {out[-2]['ptxas']} {out[-1]['ptxas']}")
+            torch.cuda.empty_cache()
+            continue
         # a ragged size (tiles of 128 rows) at the same bars, and no rows:
         # empty outputs, parameter gradients exactly 0
         m = 1001
@@ -1245,13 +1413,16 @@ def stage1_expect(scfg, steps: int, val_chunks: int = 0, occ_steps: int = 0) -> 
     value-only SDF kernel once per up-sample round and every occlusion march
     (one per occ step, one per validation chunk) twice."""
     from nero_tpu_torch.fields.app_shading import fused_shader_active
+    from nero_tpu_torch.ops import sdf_grad as KG
     from nero_tpu_torch.ops import shader as KS
 
     sh = scfg.shader
     fwd = (2 if scfg.remat_shader else 1) * steps + 2 * val_chunks
     e = {}
+    m = scfg.sdf_freq  # another multires than 6 counts under its own names
     if scfg.sdf_grad_mode == "fused":
-        e.update(sdf_grad_fwd=steps + 2 * val_chunks, sdf_grad_bwd=steps)
+        e[KG.counter("sdf_grad_fwd", m)] = steps + 2 * val_chunks
+        e[KG.counter("sdf_grad_bwd", m)] = steps
     if fused_shader_active(sh, torch.bfloat16 if scfg.bf16_hidden else torch.float32):
         e["shader_fwd" + KS.variant(sh)] = fwd
         e["shader_bwd" + KS.variant(sh)] = steps
@@ -1262,8 +1433,8 @@ def stage1_expect(scfg, steps: int, val_chunks: int = 0, occ_steps: int = 0) -> 
                 key = f"predictor_{d}_{d_in}x{d_out}"
                 e[key] = e.get(key, 0) + evals * count
     if scfg.use_fused_sdf:
-        e["sdf_fwd"] = (scfg.up_sample_steps * (steps + val_chunks)
-                        + 2 * (occ_steps + val_chunks))
+        e[KG.counter("sdf_fwd", m)] = (scfg.up_sample_steps * (steps + val_chunks)
+                                       + 2 * (occ_steps + val_chunks))
     return expect_launches(**e)
 
 
@@ -1288,10 +1459,12 @@ def material_val_chunks(model) -> int:
     return chunks
 
 
-def train(cfg_file: str, steps: int, dev, cfg: dict | None = None) -> dict:
+def train(cfg_file: str, steps: int, dev, cfg: dict | None = None,
+          keep_trainer: bool = False) -> dict:
     """Stage I through Trainer at full width: `steps` steps and one
     validation view, then one step at occ_loss_step. `cfg_file` names a
-    config of configs/shape/proc, or labels `cfg`, a config given whole."""
+    config of configs/shape/proc, or labels `cfg`, a config given whole.
+    `keep_trainer`: the result holds the Trainer too."""
     from nero_tpu_torch.render.rays import sample_ray_batch
     from nero_tpu_torch.train.trainer import Trainer
 
@@ -1353,9 +1526,9 @@ def train(cfg_file: str, steps: int, dev, cfg: dict | None = None) -> dict:
           f"{model.num_train_rays_per_step() / step_s:.1f} rays/s")
     print(f"{tag}: launches over the run {nonzero(launches)} = {steps} steps + {chunks} "
           f"validation chunk(s); occ step {nonzero(occ_launches)}")
-    total = {k: launches[k] + occ_launches[k] for k in launches}
+    total = {k: launches.get(k, 0) + occ_launches.get(k, 0) for k in {**launches, **occ_launches}}
     return {"launches": total, "held_out": after, "loss_rgb": rgb, "step_ms": step_s * 1e3,
-            "mfu": mfu_record(cfg_file, trainer)}
+            "mfu": mfu_record(cfg_file, trainer), **({"trainer": trainer} if keep_trainer else {})}
 
 
 def timed_steps(trainer, first: int, last: int, tag: str) -> tuple[list, list]:
@@ -1444,10 +1617,11 @@ def material_cfg(mesh: dict, root: str, cfg_file: str = "bowl.yaml", shader_over
     return cfg
 
 
-def train_material(mesh: dict, steps: int, dev, cfg_file: str, fused: bool) -> dict:
+def train_material(mesh: dict, steps: int, dev, cfg_file: str, fused: bool,
+                   keep_trainer: bool = False) -> dict:
     """Stage II on the bowl scene at the published width, through Trainer:
-    `steps` steps and one validation view. Returns the launches and the
-    run's MFU record."""
+    `steps` steps and one validation view. Returns the launches, the run's
+    MFU record, the step median and (`keep_trainer`) the Trainer."""
     from nero_tpu_torch.render.shape import compute_rgb_loss
     from nero_tpu_torch.train.trainer import Trainer
 
@@ -1493,8 +1667,11 @@ def train_material(mesh: dict, steps: int, dev, cfg_file: str, fused: bool) -> d
     # fused, one forward of the light kernel
     chunks = material_val_chunks(model)
     expect = expect_launches(sphere_march=steps + chunks)
-    if fused:
-        expect.update(lights_fwd=steps + chunks, lights_bwd=steps)
+    if fused:  # another IDE degree than 5 counts under its own names
+        from nero_tpu_torch.ops.lights import counter
+        deg = model.mcfg.ide_deg
+        expect.update({counter("lights_fwd", deg): steps + chunks,
+                       counter("lights_bwd", deg): steps})
     check(launches == expect, f"{tag} launches {nonzero(launches)}, expected {nonzero(expect)}")
 
     step_s = float(np.median([x["step_seconds"] for x in hist[2:]]))
@@ -1504,7 +1681,8 @@ def train_material(mesh: dict, steps: int, dev, cfg_file: str, fused: bool) -> d
     print(f"{tag}: step {step_s * 1e3:.2f} ms (median, host clock after synchronize), "
           f"{model.num_train_rays_per_step() / step_s:.1f} points/s; launches "
           f"{nonzero(launches)} = {steps} steps + {chunks} validation chunks")
-    return {"launches": launches, "mfu": mfu_record(cfg_file, trainer)}
+    return {"launches": launches, "mfu": mfu_record(cfg_file, trainer), "step_ms": step_s * 1e3,
+            **({"trainer": trainer} if keep_trainer else {})}
 
 
 def short_material_run(label: str, mesh: dict, steps: int, dev, expect: dict, regime=None,
@@ -1836,7 +2014,7 @@ class ToolProbe:
 
 
 def add_launches(*counts: dict) -> dict:
-    return {k: sum(c.get(k, 0) for c in counts) for k in counts[0]}
+    return {k: sum(c.get(k, 0) for c in counts) for c0 in counts for k in c0}
 
 
 def stage2_expect(model, steps: int, val_passes: int = 1) -> dict:
@@ -2675,15 +2853,152 @@ def scaleout(dev, card: str, bowl: dict, mfu_records: list) -> list:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# the TPU kernels' other encodings: their kernel cases (phase 2) and phase 11
+# ---------------------------------------------------------------------------
+
+ENC_MULTIRES = (4, 8, 10, 20)    # B1 at N_ROWS and B6 at N_OCC_MARCH
+ENC_IDE_DEGS = (1, 2, 3, 4)      # B2's default variant at light PE 8; B5 in both modes
+ENC_SHADER_DEG = 4               # B2's other variants at this degree and at
+ENC_LIGHT_PE = (4, 10, 16)       # these light PEs (16: the port's limit)
+ENC_STAGE1 = "sphere_enc.yaml"   # multires 8, ide_deg 4, light_pos_freq 10, use_fused_sdf
+ENC_STAGE2 = "bowl_enc.yaml"     # bowl_fused.yaml at ide_deg 4
+ENC_SHORT_SHADER = (3, 6)        # sphere_real.yaml's human light at these encodings
+ENC_SHORT_LIGHTS = 3             # the convex scene's outer head, sphere_direction
+ENC_SHORT_STEPS = 4
+# the new head shapes of the per-head path at ide_deg 4, light_pos_freq 10:
+# outer (38; 76 with sphere_direction), inner 63 + 38, inner weight 63 + 39
+ENC_PREDICTOR_SHAPES = ((38, 3), (76, 3), (101, 3), (102, 1))
+
+
+def enc_shader_cases() -> list:
+    """(sphere, human, (ide_deg, light_pos_freq)) of B2's cases."""
+    cases = [(False, False, (d, 8)) for d in ENC_IDE_DEGS] + [(False, False, (ENC_SHADER_DEG, 10))]
+    cases += [(sp, hu, (ENC_SHADER_DEG, p)) for p in ENC_LIGHT_PE
+              for sp, hu in ((True, False), (False, True), (True, True))]
+    # degree 5 with light PE 12-16: the inner head's input cotangent outgrows
+    # the tiles and the ring takes 64-row slabs (csrc/shader.cu)
+    return cases + [(False, True, ENC_SHORT_SHADER), (True, True, (5, max(ENC_LIGHT_PE)))]
+
+
+def enc_builds() -> list:
+    """The libraries (source, defines) of the other encodings that this
+    script runs: each multires of B1 and B6, each (ide_deg, light_pos_freq)
+    of B2, each degree of B5."""
+    from nero_tpu_torch.ops import lights as KL
+    from nero_tpu_torch.ops import sdf_grad as KG
+    from nero_tpu_torch.ops import shader as KS
+
+    jobs = [(name, KG.defines(m)) for m in ENC_MULTIRES for name in ("sdf_grad", "sdf_fwd")]
+    jobs += [("shader", KS.defines(e)) for e in dict.fromkeys(c[2] for c in enc_shader_cases())]
+    return jobs + [("lights", KL.defines(d)) for d in ENC_IDE_DEGS]
+
+
+def enc_path_rows() -> set:
+    """The kernel rows of the other encodings that phase 11's trainings
+    launch; the kernel phase's other rows are checked there alone."""
+    from nero_tpu_torch.ops import lights as KL
+    from nero_tpu_torch.ops import sdf_grad as KG
+    from nero_tpu_torch.ops import shader as KS
+
+    rows = {KG.counter(k, 8) for k in ("sdf_grad_fwd", "sdf_grad_bwd", "sdf_fwd")}
+    rows |= {f"shader_{d}{KS._suffix(False, False, (4, 10))}" for d in ("fwd", "bwd")}
+    rows |= {f"shader_{d}{KS._suffix(False, True, ENC_SHORT_SHADER)}" for d in ("fwd", "bwd")}
+    rows |= {KL.counter(k, 4) for k in ("lights_fwd", "lights_bwd")}
+    return rows | {KL.counter(k, ENC_SHORT_LIGHTS) for k in ("lights_fwd_outer", "lights_bwd_outer")}
+
+
+def check_encoding_kernels(dev) -> list:
+    """Every kernel at the encodings nero_tpu's kernels take beside the
+    shipped ones, against its plain version at the bars of its shipped row
+    (PERF.md section 6), with live PE weights in the SDF: B1 at each of
+    ENC_MULTIRES (multires 20: the bars from the plain version's own f32
+    error) and B6 there, equal to B1's sdf to the bit; B2 at ENC_IDE_DEGS
+    and at (4, 10) in the default variant, and in each of `sphere_direction`,
+    `human_light` and both at degree 4 and each of ENC_LIGHT_PE, the human
+    light at (3, 6) and both at (5, 16); B5 at ENC_IDE_DEGS in both modes;
+    B8 at the head shapes of ide_deg 4 and light_pos_freq 10."""
+    t0 = time.perf_counter()
+    rows = []
+    for m in ENC_MULTIRES:
+        rows += check_sdf(N_ROWS, dev, multires=m, full=False)
+        rows += check_sdf_fwd_at(N_OCC_MARCH, m, dev)
+    for sphere, human, enc in enc_shader_cases():
+        rows += check_shader(N_ROWS, dev, sphere, human, enc=enc, full=False)
+    for d in ENC_IDE_DEGS:
+        rows += check_lights(N_MARCH_RAYS, dev, ide_deg=d, full=False)
+    rows += check_predictor(N_ROWS, dev, shapes=ENC_PREDICTOR_SHAPES, full=False)
+    path = enc_path_rows()
+    for row in rows:
+        row["on_path"] = row["name"] in path
+    print(f"encodings: {len(rows)} kernel rows checked in {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def encodings(bowl: dict, dev, card: str) -> list:
+    """Phase 11: `sphere_enc.yaml` and `bowl_enc.yaml` trained for 30 steps
+    each as phases 4 and 5 train theirs (launches exact, held-out loss_rgb
+    falling, finite losses and PSNR), B1, B6, B2 and B5 launched at their
+    widths; then 4 steps of `sphere_real.yaml` at ide_deg 3 and
+    light_pos_freq 6 (B2 `human_light`) and 4 of the convex scene's fused
+    outer head at ide_deg 3 with `sphere_direction` (B5 `outer`); step
+    medians and busy ms a step beside the card line."""
+    from nero_tpu_torch.geometry.proc_mesh import proc_mesh
+    from nero_tpu_torch.ops import lights as KL
+    from nero_tpu_torch.ops import sdf_grad as KG
+    from nero_tpu_torch.ops import shader as KS
+    from nero_tpu_torch.profile_step import device_breakdown
+
+    t0 = time.perf_counter()
+    s1 = train(ENC_STAGE1, STAGE1_STEPS, dev, keep_trainer=True)
+    s2 = train_material(bowl, FUSED_STEPS, dev, ENC_STAGE2, fused=True, keep_trainer=True)
+    want = [KG.counter("sdf_grad_fwd", 8), KG.counter("sdf_grad_bwd", 8), KG.counter("sdf_fwd", 8),
+            "shader_fwd" + KS._suffix(False, False, (4, 10)),
+            "shader_bwd" + KS._suffix(False, False, (4, 10))]
+    check(all(s1["launches"].get(k, 0) > 0 for k in want), f"{ENC_STAGE1}: {nonzero(s1['launches'])}")
+    check(all(s2["launches"].get(KL.counter(k, 4), 0) > 0 for k in ("lights_fwd", "lights_bwd")),
+          f"{ENC_STAGE2}: {nonzero(s2['launches'])}")
+    busy = {}
+    for tag, run in ((ENC_STAGE1, s1), (ENC_STAGE2, s2)):
+        b = device_breakdown(run["trainer"], STAGE1_STEPS + 1, PROFILED_STEPS)
+        busy[tag] = b["busy_ms"]
+        del run["trainer"]
+    h = short_shape_run(f"human light at ide_deg {ENC_SHORT_SHADER[0]}, light_pos_freq "
+                        f"{ENC_SHORT_SHADER[1]}", ENC_SHORT_STEPS, dev, "sphere_real.yaml",
+                        shader_over={"ide_deg": ENC_SHORT_SHADER[0],
+                                     "light_pos_freq": ENC_SHORT_SHADER[1]})
+    key = "shader_fwd" + KS._suffix(False, True, ENC_SHORT_SHADER)
+    check(h["launches"].get(key, 0) == ENC_SHORT_STEPS, f"{key}: {nonzero(h['launches'])}")
+
+    def convex_regime(model):
+        check(model.mcfg.inner_compact_frac > 0.0 and model.mcfg.outer_compact_frac == 0.0
+              and model.mcfg.ide_deg == ENC_SHORT_LIGHTS, f"convex regime: {model.mcfg}")
+
+    n = ENC_SHORT_STEPS
+    outer = short_material_run(
+        f"convex, fused lights at ide_deg {ENC_SHORT_LIGHTS}: outer head only", proc_mesh("sphere"),
+        n, dev, {"sphere_march": n, KL.counter("lights_fwd_outer", ENC_SHORT_LIGHTS): n,
+                 KL.counter("lights_bwd_outer", ENC_SHORT_LIGHTS): n}, convex_regime,
+        shader_over={"human_lights": True, "outer_light_version": "sphere_direction",
+                     "fused_lights": True, "ide_deg": ENC_SHORT_LIGHTS},
+        database_name="proc/sphere/100_12", name="proc_sphere_material")
+    print(f"{card}: {ENC_STAGE1} step {s1['step_ms']:.2f} ms (median), busy "
+          f"{busy[ENC_STAGE1]:.2f} ms a step; {ENC_STAGE2} step {s2['step_ms']:.2f} ms, busy "
+          f"{busy[ENC_STAGE2]:.2f} ms; human light ({ENC_SHORT_SHADER}) {h['step_ms']:.2f} ms")
+    print(f"encodings: phase 11 in {time.perf_counter() - t0:.1f} s")
+    return [s1["launches"], s2["launches"], h["launches"], outer]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=["kernels", "capture", "precision", "scaleout"],
+    ap.add_argument("--only", choices=["kernels", "capture", "precision", "scaleout", "encodings"],
                     default=None,
                     help="kernels: stop after the kernel and tracer checks (no training, no "
                          "result line); capture: build, then phase 8 alone (no result line); "
                          "precision: build, then phase 9 alone (no result line); scaleout: "
                          "build, the five trainings of phases 4 and 5 whose FLOPs phase 10 "
-                         "reads, then phase 10 (no result line)")
+                         "reads, then phase 10 (no result line); encodings: build, the kernel "
+                         "cases of the other encodings, then phase 11 (no result line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2702,8 +3017,9 @@ def main(argv=None) -> int:
     print(f"device: {torch.cuda.get_device_name(0)}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    cuda_build.build_all()
-    print(f"build: {time.perf_counter() - t0:.1f} s")
+    builds = cuda_build.build_all(list(cuda_build.SOURCES) + enc_builds())
+    print(f"build: {time.perf_counter() - t0:.1f} s, {len(builds)} libraries at once; each from "
+          f"the start to its end: " + ", ".join(f"{k} {v:.1f} s" for k, v in builds.items()))
     for name in cuda_build.SOURCES:
         log = cuda_build.load(name)._name + ".log"
         if os.path.exists(log):
@@ -2719,6 +3035,13 @@ def main(argv=None) -> int:
         launches = add_launches(*precision(proc_mesh("bowl"), dev, card))
         print(f"precision: launches {nonzero(launches)}; {time.perf_counter() - start:.1f} s")
         return 0
+    if args.only == "encodings":
+        kernels = check_encoding_kernels(dev)
+        launches = add_launches(*encodings(proc_mesh("bowl"), dev, card))
+        print(f"encodings: launches {nonzero(launches)}; {time.perf_counter() - start:.1f} s")
+        print("kernels: " + ", ".join(k["name"] for k in kernels))
+        print(json.dumps({"kernels": kernels}))
+        return 0
     if args.only == "scaleout":
         bowl = proc_mesh("bowl")
         runs = [train(f, STAGE1_STEPS, dev) for f in MFU_CONFIGS[:3]]
@@ -2731,6 +3054,7 @@ def main(argv=None) -> int:
     bowl = proc_mesh("bowl")
     kernels += check_lights(N_MARCH_RAYS, dev)
     kernels += check_field_kernels(bowl, N_MARCH_RAYS, dev)
+    kernels += check_encoding_kernels(dev)
     if args.only == "kernels":
         print(json.dumps({"kernels": kernels}))
         return 0
@@ -2756,13 +3080,17 @@ def main(argv=None) -> int:
     runs += capture(dev)
     runs += precision(bowl, dev, card)
     runs += scaleout(dev, card, bowl, [r["mfu"] for r in list(stage1.values()) + stage2])
+    runs += encodings(bowl, dev, card)
     launches = {k: sum(r.get(k, 0) for r in runs) for r0 in runs for k in r0}
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = launches.get(k["name"], 0)
         # the one-evaluation kernel has no caller on a training path, here as
         # in the JAX package: it is launched and checked above only
         if k["name"].startswith("field_fwd"):
             k["note"] = "no training path calls it, here as in the JAX package"
+        elif not k.pop("on_path", True):
+            k["note"] = ("checked in the kernel phase at this encoding; no training run of this "
+                         "script takes it")
         else:
             check(k["launches"] > 0, f"{k['name']} was not launched by any training run")
     for k in kernels:

@@ -1,71 +1,89 @@
 // Per-row encodings and their hand-derived gradients, shared by the shader
-// and light kernels: the Ref-NeRF integrated directional encoding (IDE, degree
-// 5) by the de-Moivre recurrence of utils/encodings.py (polynomial, NaN-free),
-// the positional encoding, and vector normalisation.
+// and light kernels: the Ref-NeRF integrated directional encoding (IDE) by the
+// de-Moivre recurrence of utils/encodings.py (polynomial, NaN-free), the
+// positional encoding, and vector normalisation.
+//
+// The IDE's degree is the build's: -DNERO_IDE_DEG=1..5 (5 unless given;
+// ops/cuda_build.py builds one library per degree that a configuration
+// asks for). Its NML entries (2, 5, 10, 19, 36) are the (l, m) pairs of
+// l = 1, 2, 4, .., 2^(deg-1), m = 0..l, and its [Re | Im] row is NIDE = 2 NML
+// wide (4, 10, 20, 38, 72): Im starts at NML, so a lower degree's row is no
+// prefix of degree 5's. The table (utils/encodings.py::ide_kernel_table) is
+// the coefficient matrix [LMAX + 1][NML], then sigma [NML] and m [NML].
 #pragma once
 
 #include "common.cuh"
 
+#ifndef NERO_IDE_DEG
+#define NERO_IDE_DEG 5
+#endif
+
 namespace nero {
 
-constexpr int NML = 36;      // IDE entries (deg 5)
-constexpr int LMAX = 16;
+constexpr int IDE_DEG = NERO_IDE_DEG;
+constexpr int LMAX = 1 << (IDE_DEG - 1);
+constexpr int NML = IDE_DEG + 2 * LMAX - 1;  // IDE entries
 constexpr int NIDE = 2 * NML;
-// IDE table: coefficient matrix [(LMAX+1)][NML], sigma [NML], m [NML]
 constexpr int TAB = (LMAX + 1) * NML + 2 * NML;
+static_assert(IDE_DEG >= 1 && IDE_DEG <= 5, "the IDE takes degrees 1-5");
 
 __device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_as(bf16* p, float v) { *p = to_bf(v); }
 
-// (x + iy)^m for m = 0..LMAX, and z^k for k = 0..LMAX
+// (x + iy)^m for m = 0..LM, and z^k for k = 0..LM
+template <int LM>
 __device__ void ide_powers(float x, float y, float z, float* re, float* im, float* zp) {
   re[0] = 1.0f; im[0] = 0.0f; zp[0] = 1.0f;
-  for (int m = 1; m <= LMAX; ++m) {
+  for (int m = 1; m <= LM; ++m) {
     re[m] = re[m - 1] * x - im[m - 1] * y;
     im[m] = re[m - 1] * y + im[m - 1] * x;
     zp[m] = zp[m - 1] * z;
   }
 }
 
-// IDE of one direction: out[i] = Re, out[NML+i] = Im. `nlanes` threads can
-// share a row: lane `lane` computes the entries lane, lane + nlanes, ...
-template <typename T>
+// IDE of degree DEG of one direction, from that degree's table: out[i] = Re,
+// out[nml + i] = Im for its nml entries. `nlanes` threads can share a row:
+// lane `lane` computes the entries lane, lane + nlanes, ...
+template <int DEG = IDE_DEG, typename T>
 __device__ void ide_row(const float* tab, float x, float y, float z, float kappa, T* out,
                         int stride, int lane = 0, int nlanes = 1) {
-  float re[LMAX + 1], im[LMAX + 1], zp[LMAX + 1];
-  ide_powers(x, y, z, re, im, zp);
-  const float* sigma = tab + (LMAX + 1) * NML;
-  const float* mm = sigma + NML;
-  for (int i = lane; i < NML; i += nlanes) {
+  constexpr int lmax = 1 << (DEG - 1), nml = DEG + 2 * lmax - 1;
+  float re[lmax + 1], im[lmax + 1], zp[lmax + 1];
+  ide_powers<lmax>(x, y, z, re, im, zp);
+  const float* sigma = tab + (lmax + 1) * nml;
+  const float* mm = sigma + nml;
+  for (int i = lane; i < nml; i += nlanes) {
     float pz = 0.0f;
-    for (int k = 0; k <= LMAX; ++k) pz += zp[k] * tab[k * NML + i];
+    for (int k = 0; k <= lmax; ++k) pz += zp[k] * tab[k * nml + i];
     const int m = (int)mm[i];
     const float att = expf(-sigma[i] * kappa);
     store_as(out + i * stride, re[m] * pz * att);
-    store_as(out + (NML + i) * stride, im[m] * pz * att);
+    store_as(out + (nml + i) * stride, im[m] * pz * att);
   }
 }
 
-// backward of ide_row: g[0:72] cotangent -> d(x,y,z) (added) and d kappa. With
-// `nlanes` threads on a row each gets the partial sums of its entries, and
-// the caller adds the lanes.
+// backward of ide_row: g[0:2 nml] cotangent -> d(x,y,z) (added) and d kappa.
+// With `nlanes` threads on a row each gets the partial sums of its entries,
+// and the caller adds the lanes.
+template <int DEG = IDE_DEG>
 __device__ float ide_row_bwd(const float* tab, float x, float y, float z, float kappa,
                              const float* g, float* dxyz, int lane = 0, int nlanes = 1) {
-  float re[LMAX + 1], im[LMAX + 1], zp[LMAX + 1];
-  ide_powers(x, y, z, re, im, zp);
-  const float* sigma = tab + (LMAX + 1) * NML;
-  const float* mm = sigma + NML;
+  constexpr int lmax = 1 << (DEG - 1), nml = DEG + 2 * lmax - 1;
+  float re[lmax + 1], im[lmax + 1], zp[lmax + 1];
+  ide_powers<lmax>(x, y, z, re, im, zp);
+  const float* sigma = tab + (lmax + 1) * nml;
+  const float* mm = sigma + nml;
   float gx = 0.0f, gy = 0.0f, gz = 0.0f, gk = 0.0f;
-  for (int i = lane; i < NML; i += nlanes) {
+  for (int i = lane; i < nml; i += nlanes) {
     float pz = 0.0f, dpz = 0.0f;
-    for (int k = 0; k <= LMAX; ++k) {
-      const float c = tab[k * NML + i];
+    for (int k = 0; k <= lmax; ++k) {
+      const float c = tab[k * nml + i];
       pz += zp[k] * c;
       if (k > 0) dpz += k * zp[k - 1] * c;
     }
     const int m = (int)mm[i];
     const float att = expf(-sigma[i] * kappa);
-    const float gr = g[i] * att, gi = g[NML + i] * att;
+    const float gr = g[i] * att, gi = g[nml + i] * att;
     const float proj = gr * re[m] + gi * im[m];  // d out / d (pz * att) direction
     gz += proj * dpz;
     gk += -sigma[i] * proj * pz;

@@ -15,7 +15,12 @@
 //     IDE(reflection of the normalised -direction about the normalised hit
 //     normal, kappa = 0).
 // The exp activations, the hit select and the human light stay outside.
-// Heads are 4 layers, 256 wide, ReLU; weights bf16, sums f32.
+// Heads are 4 layers, 256 wide, ReLU; weights bf16, sums f32. The IDE's
+// degree is the build's (encode.cuh's NERO_IDE_DEG; ops/lights.py builds one
+// library per degree a configuration asks for): at degree 5 the inputs are
+// 80 (outer, 72 padded), 144 (outer with sphere_direction) and 128 (inner,
+// 51 + 72), in general each width padded to 16; the inner PE stays at 8
+// octaves, as in nero_tpu's kernel (light_kernel.py:334).
 //
 // Forward (lights_fwd_kernel): on the backward's engine (engine.cuh), one
 // block of 16 warps per tile of PB = 128 rows (warp w: rows 32(w/4) .. +31,
@@ -44,7 +49,7 @@
 //    head's three cotangent columns, GH = GZ W^T, the ReLU mask from the H
 //    the lane wrote, each GZ to the scratch; then dX = GZ1 W1^T only over the
 //    input columns that carry a gradient (the inner head's IDE, columns
-//    51:123 as the n8-tiles 48:128: PE8 of the traced hit point is detached;
+//    51:123 as the n8-tiles 48:128 at degree 5: PE8 of the traced hit point is detached;
 //    all of the outer head's), f32 in shared memory over the tile. dX goes
 //    back through the IDE (4 lanes a row, their partial sums added in a fixed
 //    order) and the row geometry to d points and d directions: the sphere
@@ -85,9 +90,10 @@ constexpr int GEO = 12;  // points, directions, traced hit points, hit normals
 constexpr int OUT = 6;   // inner_z 0:3, outer_z 3:6
 constexpr int DGEO = 6;  // d points, d directions
 constexpr int NPE8 = 51;
-constexpr int DI_INNER = 128;      // 51 + 72 = 123, padded
-constexpr int DI_OUTER = 80;       // 72, padded
-constexpr int DI_OUTER_SPH = 144;  // 2 x 72
+constexpr int DI_INNER = (NPE8 + NIDE + 15) / 16 * 16;  // [PE8, IDE], padded
+constexpr int DI_OUTER = (NIDE + 15) / 16 * 16;         // IDE, padded
+constexpr int DI_OUTER_SPH = (2 * NIDE + 15) / 16 * 16; // 2 x IDE, padded
+constexpr int DX0_INNER = NPE8 / 8 * 8;  // the inner head's IDE columns from this n8-tile on
 static_assert(HID == LAYER_W, "the engine's layer width");
 
 __host__ __device__ constexpr size_t head_welems(int di) {
@@ -185,14 +191,19 @@ struct LV {
   // first packed output column of the head's raw outputs
   __host__ __device__ static constexpr int col(int h) { return is_inner(h) ? 0 : 3; }
   // input columns dx0 .. dx0 + dxw - 1 get a cotangent: the inner head's IDE
-  // 51:123 as the n8-tiles 48:128, all of the outer head's
-  __host__ __device__ static constexpr int dx0(int h) { return is_inner(h) ? 48 : 0; }
-  __host__ __device__ static constexpr int dxw(int h) { return is_inner(h) ? 80 : di(h); }
+  // (51:123 as the n8-tiles 48:128 at degree 5), all of the outer head's
+  __host__ __device__ static constexpr int dx0(int h) { return is_inner(h) ? DX0_INNER : 0; }
+  __host__ __device__ static constexpr int dxw(int h) {
+    return is_inner(h) ? DI_INNER - DX0_INNER : di(h);
+  }
   // the recompute's and the sweep's order: outer, then inner
   __host__ __device__ static constexpr int ev(int i) { return i == 0 ? OUTER : 0; }
   __host__ __device__ static constexpr size_t x_off(int h) { return h == 0 ? 0 : di(0); }
   __host__ __device__ static constexpr size_t x_row() { return x_off(OUTER) + di(OUTER); }
-  static constexpr int DX_MAX = SPHERE ? DI_OUTER_SPH : DI_OUTER;  // the widest dxw
+  // the widest dxw (the inner head's is never wider at degrees 1-5)
+  static constexpr int DX_OUTER = SPHERE ? DI_OUTER_SPH : DI_OUTER;
+  static constexpr int DX_MAX =
+      BOTH && DI_INNER - DX0_INNER > DX_OUTER ? DI_INNER - DX0_INNER : DX_OUTER;
   // shared memory of the sweep: the tile (or the f32 dX over it), the ring,
   // row state, IDE table, then the slab table
   static constexpr size_t TILE_BYTES = (size_t)PB * LDA * 2 > (size_t)PB * DX_MAX * 4

@@ -1,7 +1,8 @@
 // SDF value without gradient, for Hopper (sm_90a).
 //
 // Replaces nero_tpu/ops/pallas/sdf_kernel.py::sdf_fwd_fused (:148, pallas_call
-// nero_sdf_fwd :122, body :91-109): the points scaled by cfg.scale, PE(6),
+// nero_sdf_fwd :122, body :91-109): the points scaled by cfg.scale,
+// PE(multires) (6 shipped; sdf_net.cuh builds any multires 1-20),
 // the nine weight-norm layers with softplus(100 x)/100 between them, the skip
 // layer as two products on [h3, PE] (both weight halves pre-scaled by
 // 1/sqrt(2), so the scale lands before the bias), and of the last layer the
@@ -11,7 +12,7 @@
 // It runs on the SDF-with-gradient kernel's forward engine (sdf_net.cuh)
 // with one row kind: a block of 16 warps, warp w on 16 MT points (MT
 // m16n8k16 row tiles) and 64 columns of a layer, so a tile is 64 MT points.
-// The PE goes into shared memory, padded from 39 to 48 channels, zero past
+// The PE goes into shared memory, padded (39 channels to 48 at multires 6), zero past
 // n (rows past n are never read and never written); the weights stream
 // through the engine's 2-stage cp.async ring on a slab table of this
 // kernel's own (w0, w1-w4a, w4b, w5-w7, then of w8 the sdf column's n8-tile

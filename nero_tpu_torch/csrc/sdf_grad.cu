@@ -3,11 +3,13 @@
 // Replaces nero_tpu/ops/pallas/sdf_grad_kernel.py::sdf_with_grad_fused
 // (pallas_call nero_sdf_grad_fwd :363 and nero_sdf_grad_bwd :387).
 //
-// A tile is P = 32 points. Its PE(6) and the PE's three tangents (d/dx,
-// d/dy, d/dz) make 4P = 128 rows that run through the 9 layers together: the
-// bias on primal rows only, the tangent rule u' = sigmoid(beta z) * (u @ W),
-// the 217-column mask at layer 3 and the skip layer as two products (w4a on
-// h3, w4b on the PE), bf16 operands with f32 sums.
+// A tile is P = 32 points. Its PE(multires) and the PE's three tangents
+// (d/dx, d/dy, d/dz) make 4P = 128 rows that run through the 9 layers
+// together: the bias on primal rows only, the tangent rule u' = sigmoid(beta
+// z) * (u @ W), the mask of layer 3 at its 256 - NPE columns (217 at the
+// shipped multires 6; sdf_net.cuh builds any multires 1-20) and the skip
+// layer as two products (w4a on h3, w4b on the PE), bf16 operands with f32
+// sums. The figures below (slabs, shared memory, times) are multires 6's.
 //
 // Forward (sdf_grad_fwd_kernel): one block of 16 warps per tile. Warp w
 // owns points 8(w/4) .. 8(w/4)+7 and output columns 64(w%4) .. +63, as two

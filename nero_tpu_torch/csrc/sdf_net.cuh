@@ -1,10 +1,20 @@
 // The SDF network's layout, leaf functions and forward engine, shared by the
 // SDF-with-gradient kernel (sdf_grad.cu, B1) and the value-only kernel
-// (sdf_fwd.cu, B6): PE(6) on the scaled point (39 channels, padded to 48),
-// nine weight-norm layers 256 wide (layer 3 is 217 wide and feeds the skip;
-// layer 4 reads [h3, PE] as two products, w4a and w4b, both pre-scaled by
-// 1/sqrt(2) when packed), 257 outputs (padded to 272), softplus(beta x)/beta
-// between the layers. ops/sdf_grad.py::pack_weights writes this layout.
+// (sdf_fwd.cu, B6): PE(multires) on the scaled point (NPE = 3 + 6 multires
+// channels, padded to PEW, a multiple of 16), nine weight-norm layers 256
+// wide (layer 3 is 256 - NPE wide and feeds the skip; layer 4 reads [h3, PE]
+// as two products, w4a and w4b, both pre-scaled by 1/sqrt(2) when packed),
+// 257 outputs (padded to 272), softplus(beta x)/beta between the layers.
+// ops/sdf_grad.py::pack_weights writes this layout.
+//
+// The PE's octaves are the build's: -DNERO_SDF_MULTIRES=1..20 (6 unless
+// given: 39 channels padded to 48, layer 3 217 wide), the range of
+// nero_tpu's kernels (3 + 6 multires <= PE_PAD 128). Up to PEW 64 (multires
+// 10) the block's shared memory holds the PE tile beside 128-row weight
+// slabs; above it the slabs are 64 rows (the ring then halves), since a
+// 128-wide PE tile and 128-row slabs exceed the 227 KB of a block. The slab
+// size changes neither the order of the sums (k from 0 up in steps of 16)
+// nor any bit.
 //
 // The engine (sdf_grad.cu's header comment gives its design and what the
 // card said of it): a block of 16 warps, warp w on row group w / NQ and
@@ -34,11 +44,17 @@
 namespace nero {
 namespace sdfnet {
 
+#ifndef NERO_SDF_MULTIRES
+#define NERO_SDF_MULTIRES 6
+#endif
+
 constexpr int HID = 256;
-constexpr int PEW = 48;      // 39 PE channels padded to a tile multiple
-constexpr int OUTW = 272;    // 257 outputs padded
-constexpr int NPE = 39;
-constexpr int MASK_W = 217;  // layer-3 width (256 - 39)
+constexpr int MULTIRES = NERO_SDF_MULTIRES;  // PE octaves
+constexpr int NPE = 3 + 6 * MULTIRES;        // PE channels
+constexpr int PEW = (NPE + 15) / 16 * 16;    // padded to a k step
+constexpr int OUTW = 272;                    // 257 outputs padded
+constexpr int MASK_W = HID - NPE;            // layer-3 width
+static_assert(MULTIRES >= 1 && PEW <= 128, "the kernels take multires 1-20");
 
 // packed bf16 weights, [in, out] row-major each, in this order
 constexpr size_t SZ_PE = (size_t)PEW * HID, SZ_H = (size_t)HID * HID;
@@ -75,7 +91,7 @@ constexpr int NQ = HID / (8 * WN);             // column groups: warps per row g
 constexpr int F_THREADS = 4 * NQ * 32;         // 4 row groups
 constexpr int LDP = PEW + 8;    // PE tile [rows][LDP] bf16 (bank skew)
 constexpr int LDH = HID + 8;    // activation tile [rows][LDH] bf16
-constexpr int SLAB_K = 128;     // weight rows (forward) or columns (sweep) per slab
+constexpr int SLAB_K = PEW > 64 ? 64 : 128;  // weight rows (forward) or columns (sweep) per slab
 constexpr int LDB = OUTW + 8;   // forward slab [SLAB_K][LDB] bf16
 constexpr int LDT = SLAB_K + 8; // sweep slab [HID][LDT] bf16
 constexpr int STAGES = 2;
@@ -220,12 +236,13 @@ __device__ __forceinline__ float div_beta(float x, float beta, float inv) {
   return fmaf(r, inv, q);
 }
 
-// The PE tile of 64 MT rows. KINDS = 4: PE(6) of the scaled points and its
+// The PE tile of 64 MT rows. KINDS = 4: PE(multires) of the scaled points and its
 // tangents w.r.t. the unscaled points, rows in the tile order (row 32g + 8s
 // + i: kind s of point 8g + i), and to PEg (device memory, in pieces) where
 // it is given; the tile's points all exist (B1's wrapper pads n), so n is
-// not read. KINDS = 1: row r is PE(6) of point p0 + r, zero (and the point
-// never read) past n.
+// not read. KINDS = 1: row r is PE(multires) of point p0 + r, zero (and the
+// point never read) past n. Octave i is sin / cos of 2^i x, 2^i exact in f32
+// as in nero_tpu's constant table (sdf_grad_kernel.py::_pe_consts).
 template <int KINDS, int MT>
 __device__ __forceinline__ void pe_tile(bf16* PEb, const float* __restrict__ pts, int p0, int n,
                                         float scale, bf16* PEg) {

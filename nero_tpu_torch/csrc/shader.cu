@@ -106,8 +106,22 @@
 // and the lane's scratch offset in 32 bits, no kernel spills. The per-row
 // phases (build_slot, enc_bwd) are calls of their own for the same reason:
 // inlined, the sphere variants' sweep spilled.
+//
+// Encoding widths: the IDE degree (ide_deg, encode.cuh's NERO_IDE_DEG) and
+// the octaves of the light points' PE (light_pos_freq, NERO_LIGHT_PE, 8
+// unless given) are the build's; ops/shader.py builds one library per pair
+// that a configuration asks for. At degree 5 and PE 8 the head inputs are
+// 80 (outer, 72 padded; 144 with SPHERE), 128 (inner, 51 + 72) and 96 (occ,
+// 51 + 39); in general each is its width padded to 16. Where the widest
+// light input cotangent exceeds 144 columns (degree 5 with PE 12-16) its f32
+// staging outgrows the activation and points tiles: the tile region grows
+// to hold it and the ring takes 64-row slabs to make room.
 #include "encode.cuh"
 #include "mma.cuh"
+
+#ifndef NERO_LIGHT_PE
+#define NERO_LIGHT_PE 8
+#endif
 
 using namespace nero;
 
@@ -118,7 +132,17 @@ constexpr int HID = 256;
 constexpr int DO = 16;       // head outputs padded
 constexpr int OUT = 24;      // packed raw outputs
 constexpr int DGEO = 9;     // d pts, d normal, d view
-constexpr int NPE8 = 51, NPE6 = 39;
+constexpr int LIGHT_PE = NERO_LIGHT_PE;  // PE octaves of the light points (light_pos_freq)
+constexpr int NPEL = 3 + 6 * LIGHT_PE;
+constexpr int NPE6 = 39;
+// the light heads' padded input widths, and the widest input cotangent of a
+// light head (f32)
+constexpr int DI_OUTER = (NIDE + 15) / 16 * 16;
+constexpr int DI_OUTER_SPH = (2 * NIDE + 15) / 16 * 16;
+constexpr int DI_INNER = (NPEL + NIDE + 15) / 16 * 16;
+constexpr int DI_OCC = (NPEL + NPE6 + 15) / 16 * 16;
+constexpr int DX_MAX = DI_OUTER_SPH > DI_INNER ? DI_OUTER_SPH : DI_INNER;
+static_assert(LIGHT_PE >= 0 && DI_INNER <= HID && DI_OCC <= HID, "light inputs within a tile");
 
 enum { H_MET = 0, H_ROUGH, H_ALB, H_OUTER, H_INNER, H_OCC, H_HUMAN };
 
@@ -130,11 +154,11 @@ struct Var {
   static constexpr int NEVAL = HUMAN ? 8 : 7;
   static constexpr int NSLOT = HUMAN ? 6 : 5;
   static constexpr int GEO = HUMAN ? 21 : 9;  // pts, normal, view [, R row-major, t]
-  // input width per head, padded to a tile multiple: [feats,pts] 259, IDE 72
-  // (twice with SPHERE), [PE8(pts), IDE] 123, [PE8(pts), PE6(refl)] 90, IPE 24
+  // input width per head, padded to a tile multiple: [feats,pts] 259, IDE
+  // (twice with SPHERE), [PE(pts), IDE], [PE(pts), PE6(refl)], IPE 24
   __host__ __device__ static constexpr int head_di(int h) {
-    return h <= H_ALB ? 272 : h == H_OUTER ? (SPHERE ? 144 : 80) : h == H_INNER ? 128
-         : h == H_OCC ? 96 : 32;
+    return h <= H_ALB ? 272 : h == H_OUTER ? (SPHERE ? DI_OUTER_SPH : DI_OUTER)
+         : h == H_INNER ? DI_INNER : h == H_OCC ? DI_OCC : 32;
   }
   __host__ __device__ static constexpr size_t head_elems(int h) {
     return (size_t)head_di(h) * HID + 2 * (size_t)HID * HID + (size_t)HID * DO;
@@ -157,7 +181,8 @@ struct Var {
   }
   __host__ __device__ static constexpr int ev_slot(int e) { return e <= 2 ? 0 : e - 2; }
   __host__ __device__ static constexpr int slot_di(int s) {
-    return s == 0 ? 272 : s <= 2 ? (SPHERE ? 144 : 80) : s == 3 ? 128 : s == 4 ? 96 : 32;
+    return s == 0 ? 272 : s <= 2 ? (SPHERE ? DI_OUTER_SPH : DI_OUTER) : s == 3 ? DI_INNER
+         : s == 4 ? DI_OCC : 32;
   }
   __host__ __device__ static constexpr size_t slot_off(int s) {  // per-row offset of slot s
     size_t off = 0;
@@ -266,19 +291,19 @@ constexpr int NQ = HID / (8 * WN);       // column groups
 constexpr int LDA = HID + 8;             // activation / cotangent tile [PB][LDA] bf16
 constexpr int PTW = 16;                  // the material input's columns 256-271: 3 points, padded
 constexpr int LDP = PTW + 8;             // points tile [PB][LDP] bf16
-constexpr int SLAB_K = 128;              // weight rows (recompute) or columns (sweep) per slab
+constexpr int SLAB_K = DX_MAX > 144 ? 64 : 128;  // weight rows (recompute) or columns (sweep) per slab
 constexpr int LDB = HID + 8;             // recompute slab [SLAB_K][LDB] bf16
 constexpr int LDT = SLAB_K + 8;          // sweep slab [HID][LDT] bf16
 constexpr int STAGES = 2;
 constexpr int STAGE_ELEMS = SLAB_K * LDB > HID * LDT ? SLAB_K * LDB : HID * LDT;
 constexpr int HS = HID / SLAB_K;         // slabs of a 256-row (recompute) or -column (sweep) layer
-constexpr int DX_MAX = 144;              // widest input cotangent of a light head (f32)
 constexpr int RSB = 28;                  // row state floats
+// the activation and points tiles, or (the sweep) a light head's f32 dX
+// over them: bf16 elements
+constexpr int TILE_ELEMS = PB * (LDA + LDP) > PB * DX_MAX * 2 ? PB * (LDA + LDP) : PB * DX_MAX * 2;
 // shared memory of both kernels: tiles, ring, row state, IDE table, then the slab table
-constexpr size_t B_SMEM0 = ((size_t)PB * LDA + (size_t)PB * LDP + (size_t)STAGES * STAGE_ELEMS) * 2 +
+constexpr size_t B_SMEM0 = ((size_t)TILE_ELEMS + (size_t)STAGES * STAGE_ELEMS) * 2 +
                            (size_t)PB * RSB * 4 + TAB * 4;
-static_assert((size_t)PB * DX_MAX * 4 <= ((size_t)PB * LDA + (size_t)PB * LDP) * 2,
-              "input cotangent staging over the activation and points tiles");
 static_assert(NTHREADS == 4 * PB, "the per-row phases run 4 lanes a row");
 
 // per-row state: geometry, then the backward's gradient accumulators (d pts,
@@ -593,15 +618,15 @@ __device__ __noinline__ void build_slot(int slot, bf16* A, bf16* Pt, float* rs, 
       if (q == 0) s[B_HIT] = h.hit;
     }
   } else if (slot == 4) {
-    for (int c = q; c < NPE8; c += 4) x[c] = to_bf(pe_val(s + B_PTS, c));
-    for (int c = q; c < NPE6; c += 4) x[NPE8 + c] = to_bf(pe_val(s + B_R, c));
+    for (int c = q; c < NPEL; c += 4) x[c] = to_bf(pe_val(s + B_PTS, c));
+    for (int c = q; c < NPE6; c += 4) x[NPEL + c] = to_bf(pe_val(s + B_R, c));
   } else {
     const bool normal = slot == 1;
     const float* d = s + (normal ? B_N : B_R);
     const float kappa = normal ? 1.0f : s[B_KAPPA];
     if (slot == 3)
-      for (int c = q; c < NPE8; c += 4) x[c] = to_bf(pe_val(s + B_PTS, c));
-    ide_row(tab, d[0], d[1], d[2], kappa, x + (slot == 3 ? NPE8 : 0), 1, q, 4);
+      for (int c = q; c < NPEL; c += 4) x[c] = to_bf(pe_val(s + B_PTS, c));
+    ide_row(tab, d[0], d[1], d[2], kappa, x + (slot == 3 ? NPEL : 0), 1, q, 4);
     if constexpr (L::sphere) if (slot <= 2) {
       SphereHit hh;
       sphere_hit(s + B_PTS, d, hh);
@@ -662,7 +687,7 @@ struct Tiles {
   __device__ explicit Tiles(unsigned char* base) {
     A = reinterpret_cast<bf16*>(base);
     Pt = A + PB * LDA;
-    ring = Pt + PB * LDP;
+    ring = A + TILE_ELEMS;
     rs = reinterpret_cast<float*>(ring + STAGES * STAGE_ELEMS);
     tab = rs + PB * RSB;
     recs = reinterpret_cast<SlabRec*>(tab + TAB);
@@ -783,8 +808,8 @@ __device__ __noinline__ void enc_bwd(int e, const float* D, int di, float* rs, c
       dk = human_bwd(pose, h, kappa, g, dp, dd, q);
     }
   } else if (e == 5) {  // inner: [PE8(pts), IDE(reflective, kappa)]
-    pe_bwd_lane(s + B_PTS, g, 8, dp, q);
-    dk = ide_row_bwd(tab, s[B_R], s[B_R + 1], s[B_R + 2], kappa, g + NPE8, dd, q, 4);
+    pe_bwd_lane(s + B_PTS, g, LIGHT_PE, dp, q);
+    dk = ide_row_bwd(tab, s[B_R], s[B_R + 1], s[B_R + 2], kappa, g + NPEL, dd, q, 4);
     row_sum3(dp);
     row_sum3(dd);
     dk = row_sum(dk);

@@ -80,7 +80,7 @@ class MCShadingConfig(NamedTuple):
     # run the light heads with their IDE / PE encodings through the fused
     # kernel (ops/lights.py, forward and backward) instead of separate tensor
     # ops. None = off; True opts in where outer compaction is off and the
-    # kernel takes the configuration (ops/lights.py::supported: ide_deg 5)
+    # kernel takes the configuration (ops/lights.py::supported: ide_deg <= 5)
     # (with inner compaction on, the kernel runs the outer head only). Head
     # weights and their cotangents are bf16 inside the kernel.
     fused_lights: bool | None = None

@@ -92,6 +92,13 @@ timed launches after 3 untimed ones at each size, in the given order and
 then in reverse. It prints per variant the registers and spill bytes of
 the 128- and 64-point instances, the launch times of both passes at each
 size, and whether its values equal the kernel's to the bit at every size.
+
+`--encodings` runs the variants at other encoding widths than the shipped
+ones, each library built with the -D macros of ops/cuda_build.py and the
+inputs shaped to match: `--encodings 8` the SDF kernels at multires 8 (with
+the PE's weights live), `--encodings 4,10` the shader at ide_deg 4 and
+light_pos_freq 10, `--encodings 4` the light kernel at ide_deg 4. A
+`--parent` takes the shipped widths only.
 """
 from __future__ import annotations
 
@@ -202,7 +209,7 @@ _PARAMS_LAUNCH_PER_TILE = """\
 def _shape(wn: int, stages: int, slab_k: int):
     return [("constexpr int WN = 8;", f"constexpr int WN = {wn};"),
             ("constexpr int STAGES = 2;", f"constexpr int STAGES = {stages};"),
-            ("constexpr int SLAB_K = 128;", f"constexpr int SLAB_K = {slab_k};")]
+            ("constexpr int SLAB_K = PEW > 64 ? 64 : 128;", f"constexpr int SLAB_K = {slab_k};")]
 
 
 VARIANTS = {
@@ -279,7 +286,8 @@ SHADER_VARIANTS = {
                                    "    if constexpr (L::human) {\n      float pose[12];"),
                      (_SH_ENC_BWD, "")],
     # the ring shape that lost: weight slabs of 64 rows (sweep: columns) through 3 stages
-    "slab64_stages3": [("constexpr int SLAB_K = 128; ", "constexpr int SLAB_K = 64; "),
+    "slab64_stages3": [("constexpr int SLAB_K = DX_MAX > 144 ? 64 : 128; ",
+                        "constexpr int SLAB_K = 64; "),
                        ("constexpr int STAGES = 2;", "constexpr int STAGES = 3;")],
     # a light head's f32 dX through device memory (behind the scratch), not
     # shared memory over the activation and points tiles
@@ -490,8 +498,9 @@ _LI_NO_SWEEP_EPILOGUE = """\
                 __floats2bfloat162_rn(acc[m][j][2 * hf] * 0.01f + hv.x,
                                       acc[m][j][2 * hf + 1] * 0.01f + hv.y);"""
 _LI_DX = """\
-  __host__ __device__ static constexpr int dx0(int h) { return is_inner(h) ? 48 : 0; }
-  __host__ __device__ static constexpr int dxw(int h) { return is_inner(h) ? 80 : di(h); }"""
+  __host__ __device__ static constexpr int dx0(int h) { return is_inner(h) ? DX0_INNER : 0; }
+  __host__ __device__ static constexpr int dxw(int h) {
+    return is_inner(h) ? DI_INNER - DX0_INNER : di(h);"""
 
 _LI_WEIGHTS_ONLY = [(_LI_INCLUDE, _LI_NO_MMA), (_LI_FWD_EPILOGUE, _LI_NO_FWD_EPILOGUE),
                     (_LI_SWEEP_EPILOGUE, _LI_NO_SWEEP_EPILOGUE)]
@@ -517,8 +526,9 @@ LIGHTS_VARIANTS = {
     "no_params": [("  if (rc) return rc;\n  return lights_bwd_params(", "  return rc;\n  (void)lights_bwd_params(")],
     # dX over all 128 input columns of the inner head (PE8's too), not the
     # 80 of its IDE
-    "full_dx_inner": [(_LI_DX, _LI_DX.replace("is_inner(h) ? 48 : 0", "0")
-                                      .replace("is_inner(h) ? 80 : di(h)", "di(h)"))],
+    "full_dx_inner": [(_LI_DX, _LI_DX.replace("is_inner(h) ? DX0_INNER : 0", "0")
+                                      .replace("is_inner(h) ? DI_INNER - DX0_INNER : di(h)",
+                                               "di(h)"))],
     # 8 warps over 64-row tiles, forward and backward: the weight stream
     # twice per 128 rows
     "warps8": [("constexpr int PB = 128; ", "constexpr int PB = 64; "),
@@ -604,6 +614,49 @@ N_RAYS = 393216  # Stage II: 512 points x (512 + 256) directions
 PREDICTOR_SHAPES = ((259, 3), (72, 3))
 
 
+KS_DEFAULT_ENC = (5, 8)  # the shader's shipped (ide_deg, light_pos_freq)
+
+
+def _encodings(kernel: str, text):
+    """`--encodings` for `kernel`: None (the shipped widths), the multires,
+    (ide_deg, light_pos_freq) or ide_deg; sets DEFINES to the build's macros."""
+    global DEFINES
+    if text is None:
+        return None
+    from nero_tpu_torch.ops import lights as KL
+    from nero_tpu_torch.ops import shader as KS
+
+    vals = tuple(int(v) for v in text.split(","))
+    if kernel == "shader":
+        DEFINES = KS.defines(vals)
+        return vals
+    if kernel in ("sdf_grad", "sdf_fwd"):
+        DEFINES = K.defines(vals[0])
+    elif kernel == "lights":
+        DEFINES = KL.defines(vals[0])
+    else:
+        raise SystemExit(f"kernel_variants: --encodings does not apply to {kernel}")
+    return vals[0]
+
+
+def sdf_params(cfg, dev):
+    """The SDF of seed 3; away from the shipped multires with the PE's
+    weights (layer 0's and the skip layer's PE rows, zero under the
+    geometric init) drawn at 0.01 / 2^i for octave i, so that every PE
+    channel reaches the outputs and each octave moves the spatial gradient
+    about as much as the first."""
+    params = init_sdf(torch.Generator().manual_seed(3), cfg, device=dev)
+    if cfg.multires != K.MULTIRES:
+        gen = torch.Generator().manual_seed(4)
+        rows = 6 * cfg.multires  # the octaves' rows: the last of each PE input
+        amp = 0.01 / 2.0 ** (torch.arange(rows) // 6).float()[:, None]
+        with torch.no_grad():
+            for l in (0, cfg.skip):
+                v = params[l]["v"]
+                v[-rows:] += (amp * torch.randn(rows, v.shape[1], generator=gen)).to(dev)
+    return params
+
+
 def variant_files(name: str, kernel: str = "sdf_grad") -> dict:
     """File name -> patched text: csrc/<kernel>.cu, and each header of
     _HEADERS[kernel] that a patch changed. Each (old, new) pair is made in the
@@ -669,12 +722,16 @@ _MARCH_ARGS = {"sphere_march": [_vp, _vp, _vp, _vp, _i, _vp, _vp, _i, _i, _i, _i
                "march": [_vp, _vp, _vp, _vp, _i, _vp, _vp, _i, _i, _i, _f, _vp, _vp, _vp]}
 
 
+# `--encodings`: the -D macros every library of the call is built with
+DEFINES: tuple = ()
+
+
 def build(sources: dict, kernel: str = "sdf_grad", instance: str = "") -> dict:
     """name -> source text, or (source text, directory searched for its
     headers before csrc/: an earlier commit's source with the headers of that
     commit); returns name -> (loaded library, whether it has the backward's
     parts, ptxas summary of the kernels whose names match `instance` after
-    theirs)."""
+    theirs). Each is built with DEFINES."""
     os.makedirs(OUT_DIR, exist_ok=True)
     jobs = {}
     for name, src in sources.items():
@@ -682,8 +739,8 @@ def build(sources: dict, kernel: str = "sdf_grad", instance: str = "") -> dict:
         cu, so = os.path.join(OUT_DIR, f"{name}.cu"), os.path.join(OUT_DIR, f"{name}.so")
         with open(cu, "w") as f:
             f.write(src)
-        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, *(["-I", own] if own else []),
-               "-I", cuda_build.CSRC, "-o", so, cu]
+        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, *cuda_build._flags(DEFINES),
+               *(["-I", own] if own else []), "-I", cuda_build.CSRC, "-o", so, cu]
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True), so)
     libs = {}
@@ -806,30 +863,36 @@ def main(argv=None) -> int:
                     help="sphere_march, march: the `wide` field")
     ap.add_argument("--outer", action="store_true",
                     help="lights: mode `outer` with `sphere_direction` (default: mode `both`)")
+    ap.add_argument("--encodings", default=None,
+                    help="other encoding widths: the SDF kernels' multires (8), the shader's "
+                         "ide_deg,light_pos_freq (4,10), the light kernel's ide_deg (4)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: needs a CUDA device")
+    enc = _encodings(args.kernel, args.encodings)
+    if enc is not None and args.parent:
+        raise SystemExit("kernel_variants: a --parent takes the shipped encodings only")
     names = args.names or list(_TABLES[args.kernel])
     sources = {n: _variant(n, args.kernel) for n in dict.fromkeys(["kernel", *names])}
     if args.parent:  # with the headers beside it, where it has them
         with open(args.parent) as f:
             sources["parent"] = (f.read(), os.path.dirname(os.path.abspath(args.parent)))
     if args.kernel == "shader":
-        return _main_shader(sources, int(args.sphere), int(args.human))
+        return _main_shader(sources, int(args.sphere), int(args.human), enc or KS_DEFAULT_ENC)
     if args.kernel in _MARCH_ARGS:
         return _main_march(sources, args.kernel, args.wide)
     if args.kernel == "lights":
-        return _main_lights(sources, args.outer)
+        return _main_lights(sources, args.outer, enc or 5)
     if args.kernel == "predictor":
         return _main_predictor(sources)
     if args.kernel == "sdf_fwd":
-        return _main_sdf_fwd(sources)
+        return _main_sdf_fwd(sources, enc or K.MULTIRES)
     libs = build(sources)
 
     dev = torch.device("cuda")
-    cfg = SDFConfig()
+    cfg = SDFConfig(multires=enc or K.MULTIRES)
     beta, scale = float(cfg.beta), float(cfg.scale)
-    layers = resolve_weight_norm(init_sdf(torch.Generator().manual_seed(3), cfg, device=dev))
+    layers = resolve_weight_norm(sdf_params(cfg, dev))
     with torch.no_grad():
         W, bias = K.pack_weights([l["w"] for l in layers], [l["b"] for l in layers])
     rng = np.random.default_rng(1)
@@ -905,14 +968,16 @@ def main(argv=None) -> int:
     return 0
 
 
-def _main_shader(sources: dict, sphere: int, human: int) -> int:
-    """The whole-shader kernel's variants, forward and backward."""
+def _main_shader(sources: dict, sphere: int, human: int, enc: tuple) -> int:
+    """The whole-shader kernel's variants, forward and backward, at the
+    encodings enc = (ide_deg, light_pos_freq)."""
     from nero_tpu_torch.fields.app_shading import AppShadingConfig, init_app_shading
     from nero_tpu_torch.ops import shader as KS
 
     libs = build(sources, "shader", f"\\w*Lb{sphere}ELb{human}E")
     dev = torch.device("cuda")
-    cfg = AppShadingConfig(sphere_direction=bool(sphere), human_light=bool(human))
+    cfg = AppShadingConfig(sphere_direction=bool(sphere), human_light=bool(human),
+                           ide_deg=enc[0], light_pos_freq=enc[1])
     params = init_app_shading(torch.Generator().manual_seed(0), cfg, device=dev)
     rng = np.random.default_rng(1)
     t = lambda a: torch.as_tensor(a.astype(np.float32), device=dev)
@@ -926,7 +991,7 @@ def _main_shader(sources: dict, sphere: int, human: int) -> int:
             t(rng.standard_normal((N, 3))), t(rng.standard_normal((N, 256)) * 0.3), poses)
         W, B = KS.pack_weights(ws, bs, spec[2])
     gout = t(rng.standard_normal((N, KS.OUT)))
-    tab = KS.ide_table_on(dev)
+    tab = KS.ide_table_on(dev, enc[0])
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptr = lambda x: x.data_ptr()
     head = lambda: (ptr(geo), ptr(feats), N, ptr(W), ptr(B), ptr(tab), sphere, human)
@@ -975,7 +1040,8 @@ def _main_shader(sources: dict, sphere: int, human: int) -> int:
     times = _passes(libs, run)
     del bufs
     print(_card())
-    print(f"shader variant sphere={sphere} human={human}, N = {N}")
+    print(f"shader variant sphere={sphere} human={human}, ide_deg {enc[0]}, light_pos_freq "
+          f"{enc[1]}, N = {N}")
     print("variant              regs/spills fwd sweep params   ms: fwd, bwd (sweep + params), "
           "first / second pass   max|d|/max of out dgeo dfeats dW dB")
     ref = outs["kernel"]
@@ -988,9 +1054,9 @@ def _main_shader(sources: dict, sphere: int, human: int) -> int:
     return 0
 
 
-def _main_lights(sources: dict, outer: bool) -> int:
+def _main_lights(sources: dict, outer: bool, ide_deg: int) -> int:
     """The light kernel's backward variants (and the forward beside them) at
-    N_RAYS rows, the Stage-II lattice."""
+    N_RAYS rows, the Stage-II lattice, at IDE degree `ide_deg`."""
     from nero_tpu_torch.fields.mc_shading import MCShadingConfig, init_mc_shading
     from nero_tpu_torch.ops import lights as KL
 
@@ -998,7 +1064,7 @@ def _main_lights(sources: dict, outer: bool) -> int:
     libs = build(sources, "lights", f"\\w*Lb{sphere}ELb{both}E")
     dev = torch.device("cuda")
     n = N_RAYS
-    cfg = MCShadingConfig(human_lights=False,
+    cfg = MCShadingConfig(human_lights=False, ide_deg=ide_deg,
                           outer_light_version="sphere_direction" if outer else "direction")
     mode = "outer" if outer else "both"
     params = init_mc_shading(torch.Generator().manual_seed(0), cfg, device=dev)
@@ -1010,9 +1076,9 @@ def _main_lights(sources: dict, outer: bool) -> int:
             params, cfg, t(rng.uniform(-0.6, 0.6, (n, 3))),
             t(dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)),
             t(rng.uniform(-0.6, 0.6, (n, 3))), t(rng.standard_normal((n, 3))), mode)
-        W, B = KL.pack_buffers(ws, bs, bool(sphere), bool(both))
+        W, B = KL.pack_buffers(ws, bs, bool(sphere), bool(both), ide_deg)
     gout = t(rng.standard_normal((n, KL.OUT)))
-    tab = KL.ide_table_on(dev)
+    tab = KL.ide_table_on(dev, ide_deg)
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptr = lambda x: x.data_ptr()
     head = lambda: (ptr(geo), n, ptr(W), ptr(B), ptr(tab), sphere, both)
@@ -1048,7 +1114,8 @@ def _main_lights(sources: dict, outer: bool) -> int:
                     "lights_bwd_params"))
 
     print(_card())
-    print(f"light kernel, mode {mode}{' with sphere_direction' if outer else ''}, N = {n}")
+    print(f"light kernel, mode {mode}{' with sphere_direction' if outer else ''}, ide_deg "
+          f"{ide_deg}, N = {n}")
     _bwd_table(libs, fwd, bwd, parts_of, ("sweep", "params"), "dgeo dW dB fwd")
     return 0
 
@@ -1112,15 +1179,15 @@ def _main_predictor(sources: dict) -> int:
     return 0
 
 
-def _main_sdf_fwd(sources: dict) -> int:
+def _main_sdf_fwd(sources: dict, multires: int) -> int:
     """The value-only SDF kernel's variants at SDF_FWD_SIZES points, on the
-    packed weights of a seeded network; each library's values held to the
-    kernel's to the bit at every size."""
+    packed weights of a seeded network at `multires`; each library's values
+    held to the kernel's to the bit at every size."""
     libs = build(sources, "sdf_fwd")
     dev = torch.device("cuda")
-    cfg = SDFConfig()
+    cfg = SDFConfig(multires=multires)
     beta, scale = float(cfg.beta), float(cfg.scale)
-    layers = resolve_weight_norm(init_sdf(torch.Generator().manual_seed(3), cfg, device=dev))
+    layers = resolve_weight_norm(sdf_params(cfg, dev))
     with torch.no_grad():
         W, bias = K.pack_weights([l["w"] for l in layers], [l["b"] for l in layers])
     rng = np.random.default_rng(1)
@@ -1146,7 +1213,8 @@ def _main_sdf_fwd(sources: dict) -> int:
 
     times = _passes(libs, run)
     print(_card())
-    print(f"value-only SDF kernel at {', '.join(map(str, SDF_FWD_SIZES))} points")
+    print(f"value-only SDF kernel at {', '.join(map(str, SDF_FWD_SIZES))} points, multires "
+          f"{multires}")
     print("variant              regs/spills 128 64   launch ms at each size, first / second pass"
           "   values as the kernel's to the bit")
     for name, (_, _, ptx) in libs.items():

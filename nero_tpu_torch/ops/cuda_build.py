@@ -3,9 +3,13 @@
 Each `csrc/<name>.cu` becomes `build/nero_tpu_torch/<name>-<hash>.so`, a
 shared library with a plain C interface, compiled for `sm_90a`. The hash
 covers the source and the shared headers, so an edited source rebuilds and an
-unchanged one is reused. Nothing is compiled when a module is imported: the
-first call that launches a kernel builds it (or `build_all` builds every
-source at once, one nvcc process each, in parallel).
+unchanged one is reused. A source whose widths follow a configuration (the
+SDF's PE octaves, the IDE degree, the light PE octaves) is built once per
+specialisation: `defines` are `-D` macros, written into the library's name
+(`<name>-<tag>-<hash>.so`) and its hash; no defines is the shipped
+configuration. Nothing is compiled when a module is imported: the first call
+that launches a kernel builds it (or `build_all` builds every source at
+once, one nvcc process each, in parallel).
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 
 from nero_tpu_torch.core.paths import repo_path
 
@@ -37,55 +42,84 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
 
 
-def _lib_path(name: str) -> str:
+def tag(defines=()) -> str:
+    """The specialisation's part of a library's name: `NERO_IDE_DEG=4` gives
+    `ide_deg4`."""
+    return "-".join(f"{k.removeprefix('NERO_').lower()}{v}" for k, v in defines)
+
+
+def label(name: str, defines=()) -> str:
+    return f"{name}[{tag(defines)}]" if defines else name
+
+
+def _lib_path(name: str, defines=()) -> str:
     h = hashlib.sha256()
     headers = sorted(fn for fn in os.listdir(CSRC) if fn.endswith(".cuh"))
     for fn in (f"{name}.cu", *headers):
         with open(os.path.join(CSRC, fn), "rb") as f:
             h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+    h.update(" ".join(NVCC_FLAGS + _flags(defines)).encode())
+    stem = f"{name}-{tag(defines)}" if defines else name
+    return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}.so")
 
 
-def _start(name: str):
-    """Start nvcc for one source; returns (path, process or None if built)."""
-    path = _lib_path(name)
+def _flags(defines) -> list:
+    return [f"-D{k}={v}" for k, v in defines]
+
+
+def _start(name: str, defines=()):
+    """Start nvcc for one source; returns (path, (process, log, start) or None
+    if built)."""
+    path = _lib_path(name, defines)
     if os.path.exists(path):
         return path, None
     os.makedirs(BUILD_DIR, exist_ok=True)
     log = open(path + ".log", "w")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", path + ".tmp", os.path.join(CSRC, f"{name}.cu")]
-    return path, (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), log)
+    cmd = [_nvcc(), *NVCC_FLAGS, *_flags(defines), "-o", path + ".tmp",
+           os.path.join(CSRC, f"{name}.cu")]
+    return path, (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), log,
+                  time.perf_counter())
 
 
-def _finish(name: str, path: str, job) -> None:
+def _finish(what: str, path: str, job) -> float:
+    """Wait for a build; its seconds from the start (0.0 when it was built)."""
     if job is None:
-        return
-    proc, log = job
+        return 0.0
+    proc, log, start = job
     rc = proc.wait()
+    seconds = time.perf_counter() - start
     log.close()
     if rc != 0:
         with open(path + ".log") as f:
-            raise RuntimeError(f"nvcc failed for {name}.cu (rc {rc}):\n{f.read()}")
+            raise RuntimeError(f"nvcc failed for {what} (rc {rc}):\n{f.read()}")
     os.replace(path + ".tmp", path)
+    return seconds
 
 
-def build_all(names=SOURCES) -> None:
-    """Compile every source that is not built yet, all nvcc runs at once."""
+def _key(job) -> tuple:
+    """A job of `build_all`: a source name, or (name, defines)."""
+    return (job, ()) if isinstance(job, str) else (job[0], tuple(job[1]))
+
+
+def build_all(jobs=SOURCES) -> dict:
+    """Compile every library of `jobs` that is not built yet, all nvcc runs
+    at once; returns each one's seconds from the start to its end (0.0 where
+    it was built before) by `label`."""
     with _lock:
-        jobs = {n: _start(n) for n in names}
-        for n, (path, job) in jobs.items():
-            _finish(n, path, job)
+        started = {_key(j): _start(*_key(j)) for j in jobs}
+        return {label(*k): _finish(label(*k), path, job) for k, (path, job) in started.items()}
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, building it on first use."""
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu with `defines` ((macro, value)
+    pairs), building it on first use."""
+    key = (name, tuple(defines))
     with _lock:
-        if name not in _libs:
-            path, job = _start(name)
-            _finish(name, path, job)
-            _libs[name] = ctypes.CDLL(path)
-        return _libs[name]
+        if key not in _libs:
+            path, job = _start(*key)
+            _finish(label(*key), path, job)
+            _libs[key] = ctypes.CDLL(path)
+        return _libs[key]
 
 
 def parse_ptxas(log: str, kernel: str) -> dict:
@@ -112,10 +146,10 @@ def parse_ptxas(log: str, kernel: str) -> dict:
     return info
 
 
-def ptxas_info(name: str, kernel: str) -> dict:
-    """`parse_ptxas` of csrc/<name>.cu's build log; empty without one (a
-    library built elsewhere)."""
-    log = _lib_path(name) + ".log"
+def ptxas_info(name: str, kernel: str, defines=()) -> dict:
+    """`parse_ptxas` of csrc/<name>.cu's build log (with `defines`); empty
+    without one (a library built elsewhere)."""
+    log = (_lib_path(name, defines) if defines else _lib_path(name)) + ".log"
     if not os.path.exists(log):
         return {}
     with open(log) as f:

@@ -21,6 +21,12 @@ forward is the same to 5e-7, the gradients to points and directions are not.
 Gradients flow to the heads' parameters, the points and the directions; the
 traced hit points and normals get none (they come from the tracer detached).
 
+The kernel takes every IDE degree nero_tpu's kernel takes (up to 5,
+`supported`); the degree is the library's (one build per degree,
+`defines`), and the launch counters of a degree other than the shipped 5
+carry the suffix `_d<ide_deg>`. The inner head's PE stays at 8 octaves on
+both sides.
+
 What bounds it on the card: tensor-core operations (`flops`): at 393,216
 rows and 989 TFLOP/s about 0.25 ms forward and 0.74 ms backward in mode
 'both'; the bytes it must move (48 in and 24 out per row) take 0.008 ms.
@@ -56,13 +62,41 @@ GEO = 12   # points, directions, traced hit points, hit normals
 OUT = 6    # inner_z 0:3, outer_z 3:6
 HEAD_ORDER = ("inner_light", "outer_light")
 INNER_POS_FREQ = 8
-IDE_DEG = 5                      # the kernel's IDE table
-DI_PAD = {"inner_light": 128, "outer_light": 80, "outer_light_sphere": 144}
+IDE_DEG = 5                      # the shipped degree: the library built without defines
+MAX_IDE_DEG = 5
 
-# counted per mode: "both" under the plain names, "outer" with the suffix
+
+def di_pad(ide_deg: int = IDE_DEG) -> dict:
+    """Padded input widths (csrc/lights.cu DI_INNER, DI_OUTER, DI_OUTER_SPH)."""
+    sph = ide_dim(ide_deg)
+    pad = lambda d: -(-d // 16) * 16
+    return {"inner_light": pad(positional_encode_dim(3, INNER_POS_FREQ) + sph),
+            "outer_light": pad(sph), "outer_light_sphere": pad(2 * sph)}
+
+
+DI_PAD = di_pad()
+
+
+def defines(ide_deg: int) -> tuple:
+    """The build's -D macros: none at the shipped degree."""
+    return () if ide_deg == IDE_DEG else (("NERO_IDE_DEG", ide_deg),)
+
+
+def counter(name: str, ide_deg: int) -> str:
+    return name if ide_deg == IDE_DEG else f"{name}_d{ide_deg}"
+
+
+# counted per mode: "both" under the plain names, "outer" with the suffix;
+# per degree: another degree's, `_d<ide_deg>` after them, added at its first launch
 launches = {"lights_fwd": 0, "lights_bwd": 0, "lights_fwd_outer": 0, "lights_bwd_outer": 0}
 # FLOPs of every counted launch, by `flops(...)` at the launch's shapes (core/mfu.py)
 flop_tally = dict.fromkeys(launches, 0.0)
+
+
+def _count(name: str, ide_deg: int, flop: float) -> None:
+    key = counter(name, ide_deg)
+    launches[key] = launches.get(key, 0) + 1
+    flop_tally[key] = flop_tally.get(key, 0.0) + flop
 
 
 class _Variant(NamedTuple):
@@ -70,15 +104,16 @@ class _Variant(NamedTuple):
     outer_light_version: str
 
 
-def variant_cfg(sphere: bool) -> _Variant:
-    """What `head_dims` reads of a config, for a kernel variant (the kernel
-    takes IDE degree 5 alone, `supported`)."""
-    return _Variant(IDE_DEG, "sphere_direction" if sphere else "direction")
+def variant_cfg(sphere: bool, ide_deg: int = IDE_DEG) -> _Variant:
+    """What `head_dims` reads of a config, for a kernel variant."""
+    return _Variant(ide_deg, "sphere_direction" if sphere else "direction")
 
 
 def supported(cfg) -> bool:
-    """Configurations the kernel takes (the plain version takes any)."""
-    return cfg.ide_deg == IDE_DEG
+    """Configurations the kernel takes, nero_tpu's rule (fields/
+    mc_shading.py:129: ide_deg <= 5; the outer compaction is the resolver's,
+    fields/mc_shading.py::fused_lights_active). The plain version takes any."""
+    return cfg.ide_deg <= MAX_IDE_DEG
 
 
 def head_dims(cfg, mode: str = "both") -> dict:
@@ -147,20 +182,20 @@ def lights_raw_plain(params, cfg, points, directions, inters, normals, mode: str
 # ---------------------------------------------------------------------------
 
 
-def _pad_of(name: str, sphere: bool) -> int:
-    return DI_PAD["outer_light_sphere" if name == "outer_light" and sphere else name]
+def _pad_of(name: str, sphere: bool, ide_deg: int = IDE_DEG) -> int:
+    return di_pad(ide_deg)["outer_light_sphere" if name == "outer_light" and sphere else name]
 
 
-def _head_shapes(name: str, sphere: bool):
-    return ((_pad_of(name, sphere), HID), (HID, HID), (HID, HID), (HID, DO))
+def _head_shapes(name: str, sphere: bool, ide_deg: int = IDE_DEG):
+    return ((_pad_of(name, sphere, ide_deg), HID), (HID, HID), (HID, HID), (HID, DO))
 
 
 def _heads(both: bool):
     return HEAD_ORDER if both else HEAD_ORDER[1:]
 
 
-def weight_elems(sphere: bool, both: bool) -> int:
-    return sum(r * c for n in _heads(both) for r, c in _head_shapes(n, sphere))
+def weight_elems(sphere: bool, both: bool, ide_deg: int = IDE_DEG) -> int:
+    return sum(r * c for n in _heads(both) for r, c in _head_shapes(n, sphere, ide_deg))
 
 
 def type_lib(lib) -> bool:
@@ -186,13 +221,13 @@ def type_lib(lib) -> bool:
     return parts
 
 
-def _lib():
-    lib = cuda_build.load("lights")
+def _lib(ide_deg: int = IDE_DEG):
+    lib = cuda_build.load("lights", defines(ide_deg))
     if not getattr(lib, "_nero_typed", False):
         if not type_lib(lib):
             raise RuntimeError("csrc/lights.cu has no lights_bwd_sweep / lights_bwd_params")
         if lib.lights_tile() != TILE or any(
-                lib.lights_weight_elems(int(s), int(b)) != weight_elems(s, b)
+                lib.lights_weight_elems(int(s), int(b)) != weight_elems(s, b, ide_deg)
                 for s in (False, True) for b in (False, True)):
             raise RuntimeError("csrc/lights.cu layout differs from ops/lights.py")
         lib._nero_typed = True
@@ -217,105 +252,106 @@ def pack_light_params(params, cfg, mode: str = "both"):
     return ws, bs
 
 
-def pack_buffers(ws, bs, sphere: bool, both: bool):
+def pack_buffers(ws, bs, sphere: bool, both: bool, ide_deg: int = IDE_DEG):
     """Resolved weights / biases -> (packed bf16 weights, bias f32
     [heads, 4, 256]) in the kernel layout (zero padding)."""
     names = _heads(both)
     parts = []
     bias = torch.zeros(len(names), 4, HID, dtype=torch.float32, device=ws[0].device)
     for h, name in enumerate(names):
-        for l, (r, c) in enumerate(_head_shapes(name, sphere)):
+        for l, (r, c) in enumerate(_head_shapes(name, sphere, ide_deg)):
             w, b = ws[4 * h + l], bs[4 * h + l]
             parts.append(F.pad(w, (0, c - w.shape[1], 0, r - w.shape[0])).reshape(-1))
             bias[h, l, :b.shape[0]] = b
     return torch.cat(parts).to(torch.bfloat16).contiguous(), bias
 
 
-def unpack_grads(dW: torch.Tensor, dB: torch.Tensor, shapes, sphere: bool, both: bool):
+def unpack_grads(dW: torch.Tensor, dB: torch.Tensor, shapes, sphere: bool, both: bool,
+                 ide_deg: int = IDE_DEG):
     """Packed gradients -> per-tensor gradients of the weights' `shapes` and
     of their biases."""
     names = _heads(both)
-    sizes = [r * c for n in names for r, c in _head_shapes(n, sphere)]
+    sizes = [r * c for n in names for r, c in _head_shapes(n, sphere, ide_deg)]
     chunks = torch.split(dW, sizes)
     dws, dbs = [], []
     for h, name in enumerate(names):
-        for l, (r, c) in enumerate(_head_shapes(name, sphere)):
+        for l, (r, c) in enumerate(_head_shapes(name, sphere, ide_deg)):
             rows, cols = shapes[4 * h + l]
             dws.append(chunks[4 * h + l].view(r, c)[:rows, :cols])
             dbs.append(dB[h, l, :cols])
     return dws, dbs
 
 
-def _fwd(geo, W, B, sphere: bool, both: bool) -> torch.Tensor:
+def _fwd(geo, W, B, sphere: bool, both: bool, ide_deg: int = IDE_DEG) -> torch.Tensor:
     """One forward launch on packed weights: geo [n, 12] -> raw [n, 6]. No
     rows: an empty output, no launch."""
     n = geo.shape[0]
     out = torch.empty(n, OUT, device=geo.device)
     if n == 0:
         return out
-    rc = _lib().lights_fwd(geo.data_ptr(), n, W.data_ptr(), B.data_ptr(),
-                           ide_table_on(geo.device).data_ptr(), int(sphere), int(both),
-                           out.data_ptr(), torch.cuda.current_stream(geo.device).cuda_stream)
+    rc = _lib(ide_deg).lights_fwd(geo.data_ptr(), n, W.data_ptr(), B.data_ptr(),
+                                  ide_table_on(geo.device, ide_deg).data_ptr(), int(sphere),
+                                  int(both), out.data_ptr(),
+                                  torch.cuda.current_stream(geo.device).cuda_stream)
     cuda_build.check(rc, "lights_fwd")
-    launches["lights_fwd" if both else "lights_fwd_outer"] += 1
-    flop_tally["lights_fwd" if both else "lights_fwd_outer"] += flops(
-        n, variant_cfg(sphere), "both" if both else "outer")
+    _count("lights_fwd" if both else "lights_fwd_outer", ide_deg,
+           flops(n, variant_cfg(sphere, ide_deg), "both" if both else "outer"))
     return out
 
 
-def bwd_buffers(n: int, sphere: bool, both: bool, dev):
+def bwd_buffers(n: int, sphere: bool, both: bool, dev, ide_deg: int = IDE_DEG):
     """The backward's scratch (bf16: X, H and GZ of every layer of every
     evaluated head, in 8 x 8 pieces) and its per-chunk partials (f32), one
     torch.empty each, sized by the library."""
-    lib = _lib()
+    lib = _lib(ide_deg)
     return (torch.empty(lib.lights_scratch_elems(n, int(sphere), int(both)),
                         dtype=torch.bfloat16, device=dev),
             torch.empty(lib.lights_part_elems(n, int(sphere), int(both)), device=dev))
 
 
-def _bwd(geo, W, B, sphere: bool, both: bool, gout):
+def _bwd(geo, W, B, sphere: bool, both: bool, gout, ide_deg: int = IDE_DEG):
     """One backward call (recompute and sweep, parameter pass, reduction):
     gout [n, 6] -> (d points and d directions [n, 6], dW packed f32, dB)."""
     n = geo.shape[0]
     dev = geo.device
-    lib = _lib()
-    scratch, part = bwd_buffers(n, sphere, both, dev)
+    lib = _lib(ide_deg)
+    scratch, part = bwd_buffers(n, sphere, both, dev, ide_deg)
     dgeo6 = torch.empty(n, 6, device=dev)
     # no rows, no launch: the kernels write every element of dW and dB otherwise
     new = torch.empty if n else torch.zeros
     dW = new(W.numel(), device=dev)
     dB = new(B.shape, device=dev)
     rc = lib.lights_bwd(geo.data_ptr(), n, W.data_ptr(), B.data_ptr(),
-                        ide_table_on(dev).data_ptr(), int(sphere), int(both), gout.data_ptr(),
-                        dgeo6.data_ptr(), scratch.data_ptr(), part.data_ptr(), dW.data_ptr(),
-                        dB.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+                        ide_table_on(dev, ide_deg).data_ptr(), int(sphere), int(both),
+                        gout.data_ptr(), dgeo6.data_ptr(), scratch.data_ptr(), part.data_ptr(),
+                        dW.data_ptr(), dB.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, "lights_bwd")
     if n:
-        launches["lights_bwd" if both else "lights_bwd_outer"] += 1
-        flop_tally["lights_bwd" if both else "lights_bwd_outer"] += flops(
-            n, variant_cfg(sphere), "both" if both else "outer", backward=True)
+        _count("lights_bwd" if both else "lights_bwd_outer", ide_deg,
+               flops(n, variant_cfg(sphere, ide_deg), "both" if both else "outer",
+                     backward=True))
     return dgeo6, dW, dB
 
 
 class _LightsFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, geo, sphere, both, *wb):
+    def forward(ctx, geo, sphere, both, ide_deg, *wb):
         k = len(wb) // 2
-        W, B = pack_buffers(wb[:k], wb[k:], sphere, both)
-        out = _fwd(geo, W, B, sphere, both)
+        W, B = pack_buffers(wb[:k], wb[k:], sphere, both, ide_deg)
+        out = _fwd(geo, W, B, sphere, both, ide_deg)
         ctx.save_for_backward(geo, W, B)
-        ctx.meta = (sphere, both, [tuple(w.shape) for w in wb[:k]])
+        ctx.meta = (sphere, both, ide_deg, [tuple(w.shape) for w in wb[:k]])
         return out
 
     @staticmethod
     def backward(ctx, gout):
         geo, W, B = ctx.saved_tensors
-        sphere, both, shapes = ctx.meta
-        dgeo6, dW, dB = _bwd(geo, W, B, sphere, both, gout.float().contiguous())
+        sphere, both, ide_deg, shapes = ctx.meta
+        dgeo6, dW, dB = _bwd(geo, W, B, sphere, both, gout.float().contiguous(), ide_deg)
         # the traced hit points and normals (columns 6:12) get no gradient
         dgeo = F.pad(dgeo6, (0, GEO - 6))
-        dws, dbs = unpack_grads(dW, dB, shapes, sphere, both)
-        return (dgeo, None, None, *dws, *dbs)
+        dws, dbs = unpack_grads(dW, dB, shapes, sphere, both, ide_deg)
+        return (dgeo, None, None, None, *dws, *dbs)
 
 
 def kernel_inputs(params, cfg, points, directions, inters, normals, mode: str = "both"):
@@ -340,12 +376,12 @@ def lights_raw(params, cfg, points, directions, inters, normals, mode: str = "bo
         return lights_raw_plain(params, cfg, points, directions, inters, normals, mode)
     _check_mode(mode)
     if not supported(cfg):
-        raise NotImplementedError(f"the light kernel takes ide_deg = {IDE_DEG}, got "
+        raise NotImplementedError(f"the light kernel takes ide_deg <= {MAX_IDE_DEG}, got "
                                   f"{cfg.ide_deg}")
     shape = points.shape[:-1]
     geo, sphere, both, ws, bs = kernel_inputs(params, cfg, points, directions, inters, normals,
                                               mode)
-    out = _LightsFn.apply(geo, sphere, both, *ws, *bs)
+    out = _LightsFn.apply(geo, sphere, both, cfg.ide_deg, *ws, *bs)
     return out[:, 0:3].reshape(*shape, 3), out[:, 3:6].reshape(*shape, 3)
 
 
@@ -387,7 +423,7 @@ def min_bytes(n: int, cfg, mode: str = "both", backward: bool = False) -> float:
     Backward: geometry and the cotangent in, d points and d directions out,
     weights in and f32 weight gradients out."""
     both = mode == "both"
-    w = weight_elems(cfg.outer_light_version == "sphere_direction", both)
+    w = weight_elems(cfg.outer_light_version == "sphere_direction", both, cfg.ide_deg)
     geo = 12 if both else 6
     if backward:
         return n * (geo + OUT + 6) * 4 + w * 2 + w * 4

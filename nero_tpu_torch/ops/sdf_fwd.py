@@ -8,8 +8,13 @@ launches the kernel for a CUDA tensor and runs `sdf_fwd_plain` (the f32
 `sdf_value`) for a CPU tensor, and only then. Weight norm is folded when the
 weights are packed; nothing here is differentiable.
 
+It takes the SDFs that nero_tpu's value-only kernel takes (8 layers of 256
+with the skip at 4, weight norm, multires 1-20: `supported`), on the same
+library specialisations as the SDF-with-gradient kernel (ops/sdf_grad.py::
+layout); of the last layer it reads the sdf column alone, so any d_out.
+
 What bounds it on the card: tensor-core operations (`flops`), 0.92 MFLOP a
-point against 16 bytes a point; the kernel uses bf16 operands with f32 sums,
+point at multires 6 against 16 bytes a point; the kernel uses bf16 operands with f32 sums,
 so its values carry ~1e-2 of noise against the f32 network (the JAX
 kernel's test bar is atol 2e-2).
 """
@@ -22,10 +27,12 @@ import torch
 from nero_tpu_torch.fields.sdf import SDFConfig, sdf_value
 from nero_tpu_torch.ops import cuda_build
 from nero_tpu_torch.ops.mlp import resolve_weight_norm
-from nero_tpu_torch.ops.sdf_grad import N_PE, PACK_SHAPES, SKIP_W, pack_weights, supported
+from nero_tpu_torch.ops.sdf_grad import (MULTIRES, PACK_SHAPES, counter, defines, layout,
+                                         pack_weights, topology_supported)
 
 TILE, SMALL_TILE = 128, 64  # points per block (csrc/sdf_fwd.cu Tile<2>, Tile<1>)
 
+# per multires: `sdf_fwd` at 6, `sdf_fwd_m<multires>` at another (added at its first launch)
 launches = {"sdf_fwd": 0}
 # FLOPs of every counted launch, by `flops(...)` at the launch's shapes (core/mfu.py)
 flop_tally = dict.fromkeys(launches, 0.0)
@@ -44,8 +51,12 @@ def sdf_fwd_plain(params, x: torch.Tensor, cfg: SDFConfig = SDFConfig()) -> torc
     return sdf_value(params, x.detach(), cfg)
 
 
-def _lib():
-    lib = cuda_build.load("sdf_fwd")
+def supported(cfg: SDFConfig) -> bool:
+    return topology_supported(cfg)
+
+
+def _lib(multires: int = MULTIRES):
+    lib = cuda_build.load("sdf_fwd", defines(multires))
     if not getattr(lib, "_nero_typed", False):
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.sdf_fwd_weight_elems.restype = ctypes.c_size_t
@@ -53,7 +64,7 @@ def _lib():
         lib.sdf_fwd.restype = i
         lib.sdf_fwd.argtypes = [vp, i, vp, vp, f, f, vp, vp]
         lib.sdf_fwd_tile.restype, lib.sdf_fwd_tile.argtypes = i, [i, i]
-        if lib.sdf_fwd_weight_elems() != sum(r * c for r, c in PACK_SHAPES):
+        if lib.sdf_fwd_weight_elems() != sum(r * c for r, c in layout(multires).pack_shapes):
             raise RuntimeError("csrc/sdf_fwd.cu layout differs from ops/sdf_grad.py")
         if any(lib.sdf_fwd_tile(n, 132) != tile(n, 132) for n in (1, 8448, 8449)):
             raise RuntimeError("csrc/sdf_fwd.cu's tile rule differs from ops/sdf_fwd.py")
@@ -64,27 +75,33 @@ def _lib():
 @torch.no_grad()
 def pack_params(params, cfg: SDFConfig = SDFConfig()):
     """{v,g,b} or resolved layers -> (packed bf16 weights, bias f32 [9, 272]):
-    the layout of the SDF-with-gradient kernel, weight norm folded."""
+    the layout of the SDF-with-gradient kernel, weight norm folded; of the
+    last layer the sdf column (the kernel reads no other)."""
     if not supported(cfg):
-        raise NotImplementedError(f"sdf_fwd kernel needs the default topology, got {cfg}")
+        raise NotImplementedError(f"the sdf_fwd kernel needs 8 x 256 layers with the skip at 4, "
+                                  f"weight norm and multires 1-20; got {cfg}")
     layers = resolve_weight_norm(params)
-    return pack_weights([l["w"].detach() for l in layers], [l["b"].detach() for l in layers])
+    ws = [l["w"].detach() for l in layers]
+    bs = [l["b"].detach() for l in layers]
+    return pack_weights(ws[:8] + [ws[8][:, :1]], bs[:8] + [bs[8][:1]])
 
 
 @torch.no_grad()
 def sdf_fwd_packed(packed, x: torch.Tensor, cfg: SDFConfig = SDFConfig()) -> torch.Tensor:
     """The kernel on packed weights: x [..., 3] (CUDA) -> [..., 1]."""
     W, bias = packed
+    m = cfg.multires
     shape = x.shape[:-1]
     pts = x.detach().reshape(-1, 3).float().contiguous()
     n = pts.shape[0]
     out = torch.empty(n, device=pts.device)
-    rc = _lib().sdf_fwd(pts.data_ptr(), n, W.data_ptr(), bias.data_ptr(), float(cfg.beta),
-                        float(cfg.scale), out.data_ptr(),
-                        torch.cuda.current_stream(pts.device).cuda_stream)
+    rc = _lib(m).sdf_fwd(pts.data_ptr(), n, W.data_ptr(), bias.data_ptr(), float(cfg.beta),
+                         float(cfg.scale), out.data_ptr(),
+                         torch.cuda.current_stream(pts.device).cuda_stream)
     cuda_build.check(rc, "sdf_fwd")
-    launches["sdf_fwd"] += 1
-    flop_tally["sdf_fwd"] += flops(n)
+    key = counter("sdf_fwd", m)
+    launches[key] = launches.get(key, 0) + 1
+    flop_tally[key] = flop_tally.get(key, 0.0) + flops(n, m)
     return out.reshape(*shape, 1)
 
 
@@ -114,16 +131,15 @@ def sdf_fwd(params, x: torch.Tensor, cfg: SDFConfig = SDFConfig()) -> torch.Tens
 # the least work the function needs (for the bound beside the kernel time)
 # ---------------------------------------------------------------------------
 
-# in x out of the nine products at their true widths (w4 as w4a on h3 and
-# w4b on the PE; of the last layer the sdf column alone)
-_KN = (N_PE * 256 + 2 * 256 * 256 + 256 * SKIP_W + SKIP_W * 256 + N_PE * 256
-       + 3 * 256 * 256 + 256)
+def flops(n: int, multires: int = MULTIRES) -> float:
+    """The nine products at their true widths (w4 as w4a on h3 and w4b on
+    the PE; of the last layer the sdf column alone)."""
+    n_pe, skip_w = layout(multires).n_pe, layout(multires).skip_w
+    kn = (n_pe * 256 + 2 * 256 * 256 + 256 * skip_w + skip_w * 256 + n_pe * 256
+          + 3 * 256 * 256 + 256)
+    return 2.0 * n * kn
 
 
-def flops(n: int) -> float:
-    return 2.0 * n * _KN
-
-
-def min_bytes(n: int) -> float:
+def min_bytes(n: int, multires: int = MULTIRES) -> float:
     """Points read once, one float a point written, bf16 weights read once."""
-    return n * 3 * 4 + n * 4 + sum(r * c for r, c in PACK_SHAPES) * 2
+    return n * 3 * 4 + n * 4 + sum(r * c for r, c in layout(multires).pack_shapes) * 2

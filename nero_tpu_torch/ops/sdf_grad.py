@@ -16,6 +16,13 @@ nero_tpu's three modes do:
 
 `rev` and `fwd` store and multiply as ops/mlp.py's contexts say.
 
+The kernel takes the SDF topology of nero_tpu's (8 layers of 256 with the
+skip at 4, 257 outputs, weight norm) at any `multires` from 1 to 20, the
+range of nero_tpu's kernel (3 + 6 multires <= its PE_PAD of 128): the
+packed layout, the library (one build per multires, csrc/sdf_net.cuh's
+NERO_SDF_MULTIRES), the launch counters and the FLOP counts follow
+`layout(multires)`; the module's constants are the shipped multires 6's.
+
 What bounds it on the card: tensor-core operations (`flops`), about
 0.25 ms forward and 0.75 ms backward at N = 65,536 and 989 TFLOP/s; the
 bytes it must move (points in, sdf/feats/grad out) are ~70 MB, 0.02 ms.
@@ -27,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -36,25 +44,72 @@ from nero_tpu_torch.ops import cuda_build
 from nero_tpu_torch.ops.mlp import resolve_weight_norm
 
 TILE = 32        # points per block (csrc/sdf_grad.cu P)
-PE_W = 48        # 39 PE channels padded
 HID = 256
 OUT_W = 272      # 257 outputs padded
-SKIP_W = 217     # 256 - 39
-N_PE = 39
-WIDTHS = (256, 256, 256, SKIP_W, 256, 256, 256, 256, 257)  # out width per layer
-# packed layout: (rows, cols) of w0 w1 w2 w3 w4a w4b w5 w6 w7 w8
-PACK_SHAPES = ((PE_W, HID), (HID, HID), (HID, HID), (HID, HID), (HID, HID),
-               (PE_W, HID), (HID, HID), (HID, HID), (HID, HID), (HID, OUT_W))
+MULTIRES = 6     # the shipped PE octaves: the library built without defines
+MAX_MULTIRES = 20  # 3 + 6 multires <= 128, nero_tpu's PE_PAD
 
+
+class Layout(NamedTuple):
+    """csrc/sdf_net.cuh's widths at one multires."""
+    multires: int
+    n_pe: int         # PE channels, 3 + 6 multires
+    pe_w: int         # padded to a multiple of 16 (PEW)
+    skip_w: int       # layer 3's width, 256 - n_pe (MASK_W)
+    widths: tuple     # out width per layer
+    pack_shapes: tuple  # (rows, cols) of w0 w1 w2 w3 w4a w4b w5 w6 w7 w8
+
+
+def layout(multires: int = MULTIRES) -> Layout:
+    n_pe = 3 + 6 * multires
+    pe_w = -(-n_pe // 16) * 16
+    skip_w = HID - n_pe
+    hh = (HID, HID)
+    return Layout(multires, n_pe, pe_w, skip_w, (HID, HID, HID, skip_w, HID, HID, HID, HID, 257),
+                  ((pe_w, HID), hh, hh, hh, hh, (pe_w, HID), hh, hh, hh, (HID, OUT_W)))
+
+
+def defines(multires: int) -> tuple:
+    """The build's -D macros: none at the shipped multires."""
+    return () if multires == MULTIRES else (("NERO_SDF_MULTIRES", multires),)
+
+
+def counter(name: str, multires: int) -> str:
+    """A launch counter's name: the plain name at the shipped multires,
+    `<name>_m<multires>` at another."""
+    return name if multires == MULTIRES else f"{name}_m{multires}"
+
+
+_DEFAULT = layout()
+PE_W, SKIP_W, N_PE = _DEFAULT.pe_w, _DEFAULT.skip_w, _DEFAULT.n_pe
+WIDTHS, PACK_SHAPES = _DEFAULT.widths, _DEFAULT.pack_shapes
+
+# per multires: the plain names at 6, `_m<multires>` at another (added at its first launch)
 launches = {"sdf_grad_fwd": 0, "sdf_grad_bwd": 0}
 # FLOPs of every counted launch, by `flops(...)` at the launch's shapes (core/mfu.py)
 flop_tally = dict.fromkeys(launches, 0.0)
 GRAD_MODES = ("rev", "fwd", "fused")
 
 
+def _count(name: str, multires: int, flop: float) -> None:
+    key = counter(name, multires)
+    launches[key] = launches.get(key, 0) + 1
+    flop_tally[key] = flop_tally.get(key, 0.0) + flop
+
+
+def topology_supported(cfg: SDFConfig) -> bool:
+    """nero_tpu's rule for its SDF kernels (render/shape.py::
+    _fused_sdf_supported), with the PE within its PE_PAD: 8 layers of 256
+    with the skip at 4, weight norm, multires 1-20. The value-only kernel
+    takes these (ops/sdf_fwd.py)."""
+    return (cfg.n_layers == 8 and cfg.skip == 4 and cfg.d_hidden == HID
+            and 1 <= cfg.multires <= MAX_MULTIRES and cfg.weight_norm)
+
+
 def supported(cfg: SDFConfig) -> bool:
-    return (cfg.n_layers == 8 and cfg.skip == 4 and cfg.d_hidden == 256
-            and cfg.d_out == 257 and cfg.multires == 6 and cfg.weight_norm)
+    """The SDF-with-gradient kernel also needs the 257 outputs (nero_tpu's
+    ShapeConfig.grad_mode)."""
+    return topology_supported(cfg) and cfg.d_out == 257
 
 
 # ---------------------------------------------------------------------------
@@ -88,8 +143,8 @@ def sdf_with_grad_fwd(params, x: torch.Tensor, cfg: SDFConfig = SDFConfig()):
 # ---------------------------------------------------------------------------
 
 
-def _lib():
-    lib = cuda_build.load("sdf_grad")
+def _lib(multires: int = MULTIRES):
+    lib = cuda_build.load("sdf_grad", defines(multires))
     if not getattr(lib, "_nero_typed", False):
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.sdf_grad_weight_elems.restype = ctypes.c_size_t
@@ -108,72 +163,79 @@ def _lib():
         lib.sdf_grad_bwd_sweep.argtypes = [vp, i, vp, vp, f, f, vp, vp, vp, vp, vp]
         lib.sdf_grad_bwd_params.restype = i
         lib.sdf_grad_bwd_params.argtypes = [i, vp, vp, vp, vp, vp]
-        if (lib.sdf_grad_tile() != TILE
-                or lib.sdf_grad_weight_elems() != sum(r * c for r, c in PACK_SHAPES)):
+        if (lib.sdf_grad_tile() != TILE or lib.sdf_grad_weight_elems()
+                != sum(r * c for r, c in layout(multires).pack_shapes)):
             raise RuntimeError("csrc/sdf_grad.cu layout differs from ops/sdf_grad.py")
         lib._nero_typed = True
     return lib
 
 
+def multires_of(ws) -> int:
+    """The multires of resolved weights: w0 is [3 + 6 multires, 256]."""
+    return (ws[0].shape[0] - 3) // 6
+
+
 def pack_weights(ws, bs):
     """Resolved weights [in,out] / biases -> (packed bf16 [W_TOTAL], bias f32
-    [9, OUT_W]) in the kernel layout; the skip layer is split into its h3
-    part (w4a) and its PE part (w4b), both scaled by 1/sqrt(2)."""
+    [9, OUT_W]) in the kernel layout of the weights' multires; the skip layer
+    is split into its h3 part (w4a) and its PE part (w4b), both scaled by
+    1/sqrt(2)."""
     inv_s2 = 1.0 / math.sqrt(2.0)
+    lay = layout(multires_of(ws))
 
     def pad(a, rows, cols):
         return F.pad(a, (0, cols - a.shape[1], 0, rows - a.shape[0]))
 
-    parts = [ws[0], ws[1], ws[2], ws[3], ws[4][:SKIP_W] * inv_s2,
-             ws[4][SKIP_W:] * inv_s2, ws[5], ws[6], ws[7], ws[8]]
+    parts = [ws[0], ws[1], ws[2], ws[3], ws[4][:lay.skip_w] * inv_s2,
+             ws[4][lay.skip_w:] * inv_s2, ws[5], ws[6], ws[7], ws[8]]
     packed = torch.cat([pad(p, r, c).reshape(-1)
-                        for p, (r, c) in zip(parts, PACK_SHAPES)])
+                        for p, (r, c) in zip(parts, lay.pack_shapes)])
     bias = torch.zeros(9, OUT_W, dtype=torch.float32, device=ws[0].device)
     for l, b in enumerate(bs):
         bias[l, :b.shape[0]] = b
     return packed.to(torch.bfloat16).contiguous(), bias
 
 
-def unpack_grads(dW: torch.Tensor, db: torch.Tensor):
+def unpack_grads(dW: torch.Tensor, db: torch.Tensor, multires: int = MULTIRES):
     """Kernel-layout gradients -> per-layer (dw [in,out], db [out])."""
     inv_s2 = 1.0 / math.sqrt(2.0)
-    sizes = [r * c for r, c in PACK_SHAPES]
-    g = [t.view(r, c) for t, (r, c) in zip(torch.split(dW, sizes), PACK_SHAPES)]
-    dws = [g[0][:N_PE], g[1], g[2], g[3][:, :SKIP_W],
-           torch.cat([g[4][:SKIP_W] * inv_s2, g[5][:N_PE] * inv_s2]),
+    lay = layout(multires)
+    sizes = [r * c for r, c in lay.pack_shapes]
+    g = [t.view(r, c) for t, (r, c) in zip(torch.split(dW, sizes), lay.pack_shapes)]
+    dws = [g[0][:lay.n_pe], g[1], g[2], g[3][:, :lay.skip_w],
+           torch.cat([g[4][:lay.skip_w] * inv_s2, g[5][:lay.n_pe] * inv_s2]),
            g[6], g[7], g[8], g[9][:, :257]]
-    dbs = [db[l, :w] for l, w in enumerate(WIDTHS)]
+    dbs = [db[l, :w] for l, w in enumerate(lay.widths)]
     return dws, dbs
 
 
-def _fwd(pts, W, bias, beta, scale):
+def _fwd(pts, W, bias, beta, scale, multires: int = MULTIRES):
     n_pad = pts.shape[0]
     dev = pts.device
     sdf = torch.empty(n_pad, device=dev)
     grad = torch.empty(n_pad, 3, device=dev)
     feats = torch.empty(n_pad, HID, device=dev)
-    rc = _lib().sdf_grad_fwd(pts.data_ptr(), n_pad, W.data_ptr(), bias.data_ptr(), beta,
-                             scale, sdf.data_ptr(), grad.data_ptr(), feats.data_ptr(),
-                             torch.cuda.current_stream(dev).cuda_stream)
+    rc = _lib(multires).sdf_grad_fwd(pts.data_ptr(), n_pad, W.data_ptr(), bias.data_ptr(), beta,
+                                     scale, sdf.data_ptr(), grad.data_ptr(), feats.data_ptr(),
+                                     torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, "sdf_grad_fwd")
-    launches["sdf_grad_fwd"] += 1
-    flop_tally["sdf_grad_fwd"] += flops(n_pad)
+    _count("sdf_grad_fwd", multires, flops(n_pad, multires=multires))
     return sdf, grad, feats
 
 
-def bwd_buffers(n_pad: int, dev):
+def bwd_buffers(n_pad: int, dev, multires: int = MULTIRES):
     """The backward's scratch (bf16: H, GZ, layer 8's cotangent rows, the PE)
     and its per-chunk partials (f32), one torch.empty each."""
-    lib = _lib()
+    lib = _lib(multires)
     return (torch.empty(lib.sdf_grad_scratch_elems(n_pad), dtype=torch.bfloat16, device=dev),
             torch.empty(lib.sdf_grad_part_elems(n_pad), device=dev))
 
 
-def _bwd(pts, W, bias, beta, scale, g_sdf, g_grad, g_feats):
+def _bwd(pts, W, bias, beta, scale, g_sdf, g_grad, g_feats, multires: int = MULTIRES):
     n_pad = pts.shape[0]
     dev = pts.device
-    lib = _lib()
-    scratch, part = bwd_buffers(n_pad, dev)
+    lib = _lib(multires)
+    scratch, part = bwd_buffers(n_pad, dev, multires)
     dW = torch.zeros(W.numel(), device=dev)  # zero rows: the kernel writes nothing
     db = torch.zeros(9, OUT_W, device=dev)
     rc = lib.sdf_grad_bwd(pts.data_ptr(), n_pad, W.data_ptr(), bias.data_ptr(), beta, scale,
@@ -181,8 +243,7 @@ def _bwd(pts, W, bias, beta, scale, g_sdf, g_grad, g_feats):
                           scratch.data_ptr(), part.data_ptr(), dW.data_ptr(),
                           db.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, "sdf_grad_bwd")
-    launches["sdf_grad_bwd"] += 1
-    flop_tally["sdf_grad_bwd"] += flops(n_pad, backward=True)
+    _count("sdf_grad_bwd", multires, flops(n_pad, backward=True, multires=multires))
     return dW, db
 
 
@@ -200,9 +261,10 @@ class _SdfGradFn(torch.autograd.Function):
         n_pad = -(-n // TILE) * TILE
         W, bias = pack_weights(wb[:9], wb[9:])
         pts_p = _pad_rows(pts, n_pad)
-        sdf, grad, feats = _fwd(pts_p, W, bias, beta, scale)
+        multires = multires_of(wb[:9])
+        sdf, grad, feats = _fwd(pts_p, W, bias, beta, scale, multires)
         ctx.save_for_backward(pts_p, W, bias)
-        ctx.n, ctx.beta, ctx.scale = n, beta, scale
+        ctx.n, ctx.beta, ctx.scale, ctx.multires = n, beta, scale, multires
         return sdf[:n, None], feats[:n], grad[:n]
 
     @staticmethod
@@ -216,8 +278,8 @@ class _SdfGradFn(torch.autograd.Function):
             return _pad_rows(g.reshape((n,) + shape), n_pad)
 
         dW, db = _bwd(pts_p, W, bias, ctx.beta, ctx.scale, cot(g_sdf, ()),
-                      cot(g_grad, (3,)), cot(g_feats, (HID,)))
-        dws, dbs = unpack_grads(dW, db)
+                      cot(g_grad, (3,)), cot(g_feats, (HID,)), ctx.multires)
+        dws, dbs = unpack_grads(dW, db, ctx.multires)
         return (None, None, None, *dws, *dbs)
 
 
@@ -232,7 +294,8 @@ def sdf_with_grad(params, x: torch.Tensor, cfg: SDFConfig = SDFConfig(), mode: s
     if mode == "rev" or x.device.type == "cpu":
         return sdf_with_grad_plain(params, x, cfg)
     if not supported(cfg):
-        raise NotImplementedError(f"sdf_grad kernel needs the default topology, got {cfg}")
+        raise NotImplementedError(f"the sdf_grad kernel needs 8 x 256 layers with the skip at "
+                                  f"4, 257 outputs, weight norm and multires 1-20; got {cfg}")
     layers = resolve_weight_norm(params)
     ws = [l["w"] for l in layers]
     bs = [l["b"] for l in layers]
@@ -246,31 +309,34 @@ def sdf_with_grad(params, x: torch.Tensor, cfg: SDFConfig = SDFConfig(), mode: s
 # the least work the function needs (for the bound beside the kernel time)
 # ---------------------------------------------------------------------------
 
-# in x out of the products of layers 0-7 (w4 as w4a on h3 and w4b on the
-# PE), at the true (unpadded) widths; all 4 stacked rows need them
-_KN_HID = (N_PE * 256 + 2 * 256 * 256 + 256 * SKIP_W + SKIP_W * 256 + N_PE * 256
+def _kn(multires: int) -> tuple:
+    """(the forward's, the cotangent sweep's) in x out products a point, at
+    the true (unpadded) widths of `multires`."""
+    n_pe, skip_w = layout(multires).n_pe, layout(multires).skip_w
+    # layers 0-7 (w4 as w4a on h3 and w4b on the PE); all 4 stacked rows need them
+    hid = (n_pe * 256 + 2 * 256 * 256 + 256 * skip_w + skip_w * 256 + n_pe * 256
            + 3 * 256 * 256)
-# layer 8 (256 x 257) for the primal row; a tangent row needs only the sdf
-# column (grad = d sdf / dx), 256 x 1
-_KN_LAST = 256 * 257 + 3 * 256
-# per point: the forward; and the cotangents GZ @ W^T of layers 8..1 (no PE
-# cotangent), whose layer 8 has the same primal/tangent split
-_KN_FWD = 4 * _KN_HID + _KN_LAST
-_KN_GH = 4 * (_KN_HID - 2 * N_PE * 256) + _KN_LAST
+    # layer 8 (256 x 257) for the primal row; a tangent row needs only the
+    # sdf column (grad = d sdf / dx), 256 x 1
+    last = 256 * 257 + 3 * 256
+    # the cotangents GZ @ W^T of layers 8..1 (no PE cotangent), whose layer 8
+    # has the same primal/tangent split
+    return 4 * hid + last, 4 * (hid - 2 * n_pe * 256) + last
 
 
-def flops(n: int, backward: bool = False) -> float:
+def flops(n: int, backward: bool = False, multires: int = MULTIRES) -> float:
     """Tensor-core operations per call: the backward recomputes the forward,
     then the cotangent products and the weight-gradient products H^T GZ
     (as many as the forward's)."""
-    kn = _KN_FWD + _KN_GH + _KN_FWD if backward else _KN_FWD
+    kn_fwd, kn_gh = _kn(multires)
+    kn = kn_fwd + kn_gh + kn_fwd if backward else kn_fwd
     return 2.0 * n * kn
 
 
-def min_bytes(n: int, backward: bool = False) -> float:
+def min_bytes(n: int, backward: bool = False, multires: int = MULTIRES) -> float:
     """Each input read once, each output written once (f32 points and
     cotangents, bf16 weights, f32 gradients)."""
-    w = sum(r * c for r, c in PACK_SHAPES)
+    w = sum(r * c for r, c in layout(multires).pack_shapes)
     if backward:
         return n * (3 + 1 + 3 + 256) * 4 + w * 2 + w * 4
     return n * 3 * 4 + w * 2 + n * (1 + 3 + 256) * 4

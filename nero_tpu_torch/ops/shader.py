@@ -12,6 +12,13 @@ torch, autograd) for CPU tensors, and only then. The activations, the human
 mixing, the FG-LUT lookup and sRGB stay outside the kernel
 (fields/app_shading.py), as on the TPU.
 
+The kernel takes every configuration of nero_tpu's kernel (256 feats, IDE
+degree up to 5) at light_pos_freq 0-16, the port's own limit (the inner
+heads' inputs then fit one 256-wide tile): the IDE degree and the light
+PE's octaves are the library's (one build per pair, `defines`), and the
+launch counters of a pair other than the shipped (5, 8) carry its suffix
+`_d<ide_deg>p<light_pos_freq>`.
+
 What bounds it on the card: tensor-core operations (`flops`), about 0.17 ms
 forward and 0.5 ms backward at N = 65,536 and 989 TFLOP/s; the bytes it
 must move (geometry and feats in, 24 raw channels out) are ~75 MB, 0.02 ms.
@@ -32,7 +39,7 @@ import torch.nn.functional as F
 
 from nero_tpu_torch.ops import cuda_build
 from nero_tpu_torch.ops.mlp import predictor_raw, resolve_weight_norm
-from nero_tpu_torch.utils.encodings import (ide_dim, ide_tables, integrated_dir_encode,
+from nero_tpu_torch.utils.encodings import (ide_dim, ide_kernel_table, integrated_dir_encode,
                                             integrated_pos_encode, positional_encode,
                                             positional_encode_dim)
 from nero_tpu_torch.utils.sphere import get_sphere_intersection, offset_points_to_sphere
@@ -45,15 +52,33 @@ HEAD_ORDER = ("metallic", "roughness", "albedo", "outer_light", "inner_light",
               "inner_weight")
 HUMAN_HEAD = "human_light"
 DO = 16
+DEFAULT_ENC = (5, 8)   # (ide_deg, light_pos_freq) of the library built without defines
+MAX_IDE_DEG = 5
+MAX_LIGHT_PE = 16      # the port's limit: nero_tpu's kernel has none
 
-def _suffix(sphere, human) -> str:
-    return ("_sphere" if sphere else "") + ("_human" if human else "")
+
+def _suffix(sphere, human, enc=DEFAULT_ENC) -> str:
+    return (("_sphere" if sphere else "") + ("_human" if human else "")
+            + ("" if tuple(enc) == DEFAULT_ENC else f"_d{enc[0]}p{enc[1]}"))
 
 
+def defines(enc) -> tuple:
+    """The build's -D macros for (ide_deg, light_pos_freq): none at (5, 8)."""
+    ide_deg, light_pe = enc
+    return ((() if ide_deg == DEFAULT_ENC[0] else (("NERO_IDE_DEG", ide_deg),))
+            + (() if light_pe == DEFAULT_ENC[1] else (("NERO_LIGHT_PE", light_pe),)))
+
+
+# the shipped encodings' counters; another pair's are added at its first launch
 launches = {f"shader_{d}{_suffix(s, h)}": 0 for h in (0, 1) for s in (0, 1)
             for d in ("fwd", "bwd")}
 # FLOPs of every counted launch, by `flops(...)` at the launch's shapes (core/mfu.py)
 flop_tally = dict.fromkeys(launches, 0.0)
+
+
+def _count(name: str, flop: float) -> None:
+    launches[name] = launches.get(name, 0) + 1
+    flop_tally[name] = flop_tally.get(name, 0.0) + flop
 
 
 class _Variant(NamedTuple):
@@ -64,19 +89,26 @@ class _Variant(NamedTuple):
     human_light: bool
 
 
-def variant_cfg(sphere, human) -> _Variant:
-    """What `head_dims` reads of a shader config, for a kernel variant (the
-    kernel takes 256 feats, IDE degree 5 and light PE 8 alone, `supported`)."""
-    return _Variant(HID, 5, 8, bool(sphere), bool(human))
+def variant_cfg(sphere, human, enc=DEFAULT_ENC) -> _Variant:
+    """What `head_dims` reads of a shader config, for a kernel variant at
+    the encodings enc = (ide_deg, light_pos_freq)."""
+    return _Variant(HID, enc[0], enc[1], bool(sphere), bool(human))
+
+
+def encodings(cfg) -> tuple:
+    return (cfg.ide_deg, cfg.light_pos_freq)
 
 
 def variant(cfg) -> str:
     """Suffix of the launch counters of cfg's kernel variant."""
-    return _suffix(cfg.sphere_direction, cfg.human_light)
+    return _suffix(cfg.sphere_direction, cfg.human_light, encodings(cfg))
 
 
 def supported(cfg) -> bool:
-    return cfg.feats_dim == HID and cfg.ide_deg == 5 and cfg.light_pos_freq == 8
+    """nero_tpu's rule (fields/app_shading.py::fused_shader_supported: 256
+    feats, ide_deg <= 5), and light_pos_freq 0-16."""
+    return (cfg.feats_dim == HID and cfg.ide_deg <= MAX_IDE_DEG
+            and 0 <= cfg.light_pos_freq <= MAX_LIGHT_PE)
 
 
 def head_order(cfg) -> tuple:
@@ -198,8 +230,8 @@ def shader_raw_plain(params, cfg, points, normals, view_dirs, feats,
 # ---------------------------------------------------------------------------
 
 
-def _lib():
-    lib = cuda_build.load("shader")
+def _lib(enc=DEFAULT_ENC):
+    lib = cuda_build.load("shader", defines(enc))
     if not getattr(lib, "_nero_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.shader_weight_elems.restype = ctypes.c_size_t
@@ -265,53 +297,51 @@ def unpack_grads(dW: torch.Tensor, dB: torch.Tensor, pads, dims):
 _IDE_TABLES: dict = {}
 
 
-def ide_table_on(device) -> torch.Tensor:
-    """IDE coefficient table (mat, sigma, m) on `device`, copied there once:
-    a host-to-device copy per call would stall the host on the stream."""
-    key = str(device)
+def ide_table_on(device, ide_deg: int = 5) -> torch.Tensor:
+    """The IDE table of degree `ide_deg` (utils/encodings.py::
+    ide_kernel_table) on `device`, copied there once: a host-to-device copy
+    per call would stall the host on the stream."""
+    key = (str(device), ide_deg)
     if key not in _IDE_TABLES:
-        m_arr, sigma, mat, _ = ide_tables(5)
-        tab = np.concatenate([mat.reshape(-1), sigma, m_arr.astype(np.float32)])
-        _IDE_TABLES[key] = torch.as_tensor(tab, dtype=torch.float32, device=device)
+        _IDE_TABLES[key] = torch.as_tensor(ide_kernel_table(ide_deg), device=device)
     return _IDE_TABLES[key]
 
 
-def _fwd(geo, feats, W, B, sphere: int, human: int) -> torch.Tensor:
+def _fwd(geo, feats, W, B, sphere: int, human: int, enc=DEFAULT_ENC) -> torch.Tensor:
     """One forward launch on packed weights: geo [n, 9 or 21], feats [n, 256]
     -> raw [n, 24]. No rows: an empty output, no launch."""
     n = geo.shape[0]
     if n == 0:
         return torch.empty(0, OUT, device=geo.device)
-    lib = _lib()
+    lib = _lib(enc)
     if lib.shader_weight_elems(sphere, human) != W.numel():
         raise RuntimeError("csrc/shader.cu layout differs from ops/shader.py")
     out = torch.empty(n, OUT, device=geo.device)
     rc = lib.shader_fwd(geo.data_ptr(), feats.data_ptr(), n, W.data_ptr(), B.data_ptr(),
-                        ide_table_on(geo.device).data_ptr(), sphere, human, out.data_ptr(),
-                        torch.cuda.current_stream(geo.device).cuda_stream)
+                        ide_table_on(geo.device, enc[0]).data_ptr(), sphere, human,
+                        out.data_ptr(), torch.cuda.current_stream(geo.device).cuda_stream)
     cuda_build.check(rc, "shader_fwd")
-    launches["shader_fwd" + _suffix(sphere, human)] += 1
-    flop_tally["shader_fwd" + _suffix(sphere, human)] += flops(n, variant_cfg(sphere, human))
+    _count("shader_fwd" + _suffix(sphere, human, enc), flops(n, variant_cfg(sphere, human, enc)))
     return out
 
 
-def bwd_buffers(n: int, sphere: int, human: int, dev):
+def bwd_buffers(n: int, sphere: int, human: int, dev, enc=DEFAULT_ENC):
     """The backward's scratch (bf16: X of every input slot, H and GZ of every
     layer of every head evaluation, in 8 x 8 pieces) and its per-chunk
     partials (f32), one torch.empty each, sized by the library."""
-    lib = _lib()
+    lib = _lib(enc)
     return (torch.empty(lib.shader_scratch_elems(n, sphere, human), dtype=torch.bfloat16,
                         device=dev),
             torch.empty(lib.shader_part_elems(n, sphere, human), device=dev))
 
 
-def _bwd(geo, feats, W, B, sphere: int, human: int, gout):
+def _bwd(geo, feats, W, B, sphere: int, human: int, gout, enc=DEFAULT_ENC):
     """One backward call (recompute and sweep, parameter pass, reduction):
     gout [n, 24] -> (dgeo [n, 9], dfeats [n, 256], dW packed f32, dB)."""
     n = geo.shape[0]
     dev = geo.device
-    lib = _lib()
-    scratch, part = bwd_buffers(n, sphere, human, dev)
+    lib = _lib(enc)
+    scratch, part = bwd_buffers(n, sphere, human, dev, enc)
     dgeo = torch.empty(n, DGEO, device=dev)
     dfeats = torch.empty(n, HID, device=dev)
     # no rows, no launch: the kernels write every element of dW and dB otherwise
@@ -319,25 +349,25 @@ def _bwd(geo, feats, W, B, sphere: int, human: int, gout):
     dW = new(W.numel(), device=dev)
     dB = new(B.shape, device=dev)
     rc = lib.shader_bwd(geo.data_ptr(), feats.data_ptr(), n, W.data_ptr(), B.data_ptr(),
-                        ide_table_on(dev).data_ptr(), sphere, human, gout.data_ptr(),
+                        ide_table_on(dev, enc[0]).data_ptr(), sphere, human, gout.data_ptr(),
                         dgeo.data_ptr(), dfeats.data_ptr(), scratch.data_ptr(), part.data_ptr(),
                         dW.data_ptr(), dB.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, "shader_bwd")
-    launches["shader_bwd" + _suffix(sphere, human)] += 1
-    flop_tally["shader_bwd" + _suffix(sphere, human)] += flops(n, variant_cfg(sphere, human),
-                                                               backward=True)
+    _count("shader_bwd" + _suffix(sphere, human, enc),
+           flops(n, variant_cfg(sphere, human, enc), backward=True))
     return dgeo, dfeats, dW, dB
 
 
 class _ShaderFn(torch.autograd.Function):
-    """spec = (sphere, human, padded widths, unpadded dims) of the variant."""
+    """spec = (sphere, human, padded widths, unpadded dims, (ide_deg,
+    light_pos_freq)) of the variant."""
 
     @staticmethod
     def forward(ctx, geo, feats, spec, *wb):
-        sphere, human, pads, _ = spec
+        sphere, human, pads, _, enc = spec
         nw = 4 * len(pads)
         W, B = pack_weights(wb[:nw], wb[nw:], pads)
-        out = _fwd(geo, feats, W, B, sphere, human)
+        out = _fwd(geo, feats, W, B, sphere, human, enc)
         ctx.save_for_backward(geo, feats, W, B)
         ctx.spec = spec
         return out
@@ -345,8 +375,9 @@ class _ShaderFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gout):
         geo, feats, W, B = ctx.saved_tensors
-        sphere, human, pads, dims = ctx.spec
-        dgeo, dfeats, dW, dB = _bwd(geo, feats, W, B, sphere, human, gout.float().contiguous())
+        sphere, human, pads, dims, enc = ctx.spec
+        dgeo, dfeats, dW, dB = _bwd(geo, feats, W, B, sphere, human, gout.float().contiguous(),
+                                    enc)
         dws, dbs = unpack_grads(dW, dB, pads, dims)
         if human:  # the poses are data: no gradient
             dgeo = torch.cat([dgeo, dgeo.new_zeros(geo.shape[0], geo.shape[1] - DGEO)], -1)
@@ -369,7 +400,7 @@ def kernel_inputs(params, cfg, points, normals, view_dirs, feats, human_poses=No
     bs = [l["b"] for name in heads for l in layers[name]]
     pads, dims = head_pad(cfg), head_dims(cfg)
     spec = (int(cfg.sphere_direction), int(cfg.human_light),
-            tuple(pads[h] for h in heads), tuple(dims[h] for h in heads))
+            tuple(pads[h] for h in heads), tuple(dims[h] for h in heads), encodings(cfg))
     return geo, feats.reshape(n, HID).float().contiguous(), spec, ws, bs
 
 
@@ -384,7 +415,7 @@ def shader_raw(params, cfg, points, normals, view_dirs, feats, human_poses=None)
         return shader_raw_plain(params, cfg, points, normals, view_dirs, feats, human_poses)
     if not supported(cfg):
         raise NotImplementedError(
-            f"the shader kernel needs 256 feats, IDE deg 5 and light PE 8; got {cfg}")
+            f"the shader kernel needs 256 feats, ide_deg <= 5 and light_pos_freq 0-16; got {cfg}")
     geo, feats2d, spec, ws, bs = kernel_inputs(params, cfg, points, normals, view_dirs, feats,
                                                human_poses)
     out = _ShaderFn.apply(geo, feats2d, spec, *ws, *bs)

@@ -53,6 +53,7 @@ from nero_tpu_torch.ops.mlp import (current_precision, hidden_dtype, precision_o
                                     resolve_weight_norm, storage_dtype)
 from nero_tpu_torch.ops.sample_pdf import sample_pdf
 from nero_tpu_torch.ops.sdf_fwd import make_sdf_fwd_fn
+from nero_tpu_torch.ops.sdf_fwd import supported as sdf_fwd_supported
 from nero_tpu_torch.ops.sdf_grad import GRAD_MODES, sdf_with_grad
 from nero_tpu_torch.ops.sdf_grad import supported as sdf_kernel_supported
 from nero_tpu_torch.parallel.mesh import RayShard, draw_rows, sum_rows
@@ -108,7 +109,8 @@ class ShapeConfig(NamedTuple):
 
     def grad_mode(self, device) -> str:
         """The resolved sdf_grad_mode on `device`. The kernel runs where the
-        device is CUDA and it takes the SDF; unset picks it only where the
+        device is CUDA and it takes the SDF (ops/sdf_grad.py::supported:
+        nero_tpu's rule, multires 1-20 included); unset picks it only where the
         storage is bf16 too, since the kernel stores its activations in bf16
         and an explicit bf16_hidden=false is not overridden (nero_tpu/render/
         shape.py:134-149)."""
@@ -148,16 +150,17 @@ class ShapeConfig(NamedTuple):
 def shape_config_from_dict(cfg: dict) -> ShapeConfig:
     """The ShapeConfig of a config dict; an unknown value of `sdf_grad_mode`
     or `bf16_hidden` raises ValueError. `use_fused_sdf` with an SDF that the
-    value-only kernel does not take (`ops/sdf_grad.py::supported`) is dropped
-    with a warning, as nero_tpu drops it (render/shape.py:179-180): a rule
-    about the configuration, never about the device."""
+    value-only kernel does not take (`ops/sdf_fwd.py::supported`: nero_tpu's
+    rule, 8 x 256 layers with the skip at 4, weight norm, multires 1-20) is
+    dropped with a warning, as nero_tpu drops it (render/shape.py:179-180): a
+    rule about the configuration, never about the device."""
     fields = {k: v for k, v in cfg.items() if k in ShapeConfig._fields}
     fields["shader"] = shading_config_from_dict(cfg.get("shader_config", {}))
     scfg = ShapeConfig(**fields)
     # an unknown value of a precision switch raises here
     _checked_grad_mode(scfg)
     storage_dtype(scfg.bf16_hidden, "cpu")
-    if scfg.use_fused_sdf and not sdf_kernel_supported(scfg.sdf_cfg):
+    if scfg.use_fused_sdf and not sdf_fwd_supported(scfg.sdf_cfg):
         warnings.warn("use_fused_sdf=True was requested but the value-only SDF kernel does not "
                       f"take this SDF ({_topology(scfg)}); taking sdf_value.",
                       RuntimeWarning, stacklevel=2)

@@ -78,6 +78,15 @@ def _ide_device_tables(deg_view: int, device: torch.device, dtype: torch.dtype):
             torch.as_tensor(sigma_np, dtype=dtype, device=device))
 
 
+@lru_cache(maxsize=None)
+def ide_kernel_table(deg_view: int) -> np.ndarray:
+    """The IDE table of degree `deg_view` as csrc/encode.cuh reads it, f32:
+    the coefficient matrix [l_max + 1, n_ml] row-major, then sigma [n_ml],
+    then m [n_ml]."""
+    m_arr, sigma, mat, _ = ide_tables(deg_view)
+    return np.concatenate([mat.reshape(-1), sigma, m_arr.astype(np.float32)]).astype(np.float32)
+
+
 def ide_dim(deg_view: int) -> int:
     return 2 * len(ide_tables(deg_view)[0])
 

@@ -271,7 +271,8 @@ def test_work_per_launch():
         (144 * 256 + 2 * 256 * 256) + 2 * (144 * 256 + 2 * 256 * 256 + 256 * 3))
     assert L.flops_per_row(cfg, "outer") < 0.5 * L.flops_per_row(cfg)
     assert L.min_bytes(393216, cfg) == 393216 * 18 * 4 + L.weight_elems(False, True) * 2
-    assert L.supported(cfg) and not L.supported(cfg._replace(ide_deg=4))
+    assert L.supported(cfg) and not L.supported(cfg._replace(ide_deg=6))
+    assert L.supported(cfg._replace(ide_deg=4))
 
 
 @pytest.mark.gpu
@@ -297,12 +298,13 @@ def test_cuda_kernel_matches_plain_version():
 @pytest.mark.parametrize("ide_deg", range(1, 7))
 def test_resolver_agrees_with_the_kernel(ide_deg):
     """`fused_lights=True` reaches the kernel exactly where ops/lights.py::
-    supported takes the configuration (ide_deg 5), and warns exactly where
-    it does not, taking the unfused path: the one rule of what the kernel
-    takes, so no configuration passes the resolver and raises on the card."""
+    supported takes the configuration (ide_deg <= 5, nero_tpu's rule), and
+    warns exactly where it does not, taking the unfused path: the one rule
+    of what the kernel takes, so no configuration passes the resolver and
+    raises on the card."""
     cfg = T.MCShadingConfig(fused_lights=True, ide_deg=ide_deg)
     takes = L.supported(cfg)
-    assert takes == (ide_deg == L.IDE_DEG)
+    assert takes == (ide_deg <= L.MAX_IDE_DEG)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         active = T.fused_lights_active(cfg)

@@ -273,13 +273,16 @@ def test_resolution_table(mode, bf16, device, grad, storage, kernel):
 
 
 def test_grad_mode_of_another_sdf_topology():
-    """The kernel takes the default SDF only: unset resolves to `rev` on
-    CUDA for another one, `fused` warns and takes `rev`."""
-    for over in ({"sdf_n_layers": 6}, {"sdf_freq": 4}, {"sdf_d_out": 129}):
+    """The kernel takes nero_tpu's SDF topology at multires 1-20: unset
+    resolves to `rev` on CUDA for another one (multires 21 is past nero_tpu's
+    PE_PAD of 128), `fused` warns and takes `rev`; multires 4 takes the
+    kernel."""
+    for over in ({"sdf_n_layers": 6}, {"sdf_freq": 21}, {"sdf_d_out": 129}):
         scfg = T.shape_config_from_dict(over)
         assert scfg.resolved("cuda").sdf_grad_mode == "rev"
         with pytest.warns(RuntimeWarning, match="taking 'rev'"):
             assert scfg._replace(sdf_grad_mode="fused").grad_mode("cuda") == "rev"
+    assert T.shape_config_from_dict({"sdf_freq": 4}).resolved("cuda").sdf_grad_mode == "fused"
 
 
 @pytest.mark.parametrize("key,value", [("sdf_grad_mode", "backward"), ("sdf_grad_mode", "FUSED"),

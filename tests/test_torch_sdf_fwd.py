@@ -7,7 +7,6 @@ weight stream, shared memory and tile rule against the constants of
 csrc/sdf_fwd.cu and csrc/sdf_net.cuh, and the sources' shape: B6 and B1 on
 the one engine of sdf_net.cuh."""
 import os
-import re
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +23,7 @@ from nero_tpu_torch.ops import sdf_fwd as K
 from nero_tpu_torch.ops.sdf_grad import sdf_with_grad
 from nero_tpu_torch.ops.mlp import resolve_weight_norm
 from nero_tpu_torch.render import shape as T
+from torch_csrc import source_constants
 
 torch.set_num_threads(1)
 
@@ -86,8 +86,14 @@ def test_make_nograd_sdf_fn(params_j, on):
 
 
 def test_unsupported_topology_raises_when_packing(params_j):
+    """multires 21 is past nero_tpu's PE_PAD of 128: packing raises; multires
+    4 packs to its own layout (27 PE channels padded to 32)."""
     with pytest.raises(NotImplementedError):
-        K.pack_params(from_numpy_tree(params_j), SDFConfig(multires=4))
+        K.pack_params(from_numpy_tree(params_j), SDFConfig(multires=21))
+    from nero_tpu_torch.fields.sdf import init_sdf
+    cfg4 = SDFConfig(multires=4)
+    W, bias = K.pack_params(init_sdf(torch.Generator().manual_seed(0), cfg4), cfg4)
+    assert W.numel() == sum(r * c for r, c in K.layout(4).pack_shapes) and bias.shape == (9, 272)
 
 
 def test_bound_inputs():
@@ -108,10 +114,11 @@ def _read(fn):
         return f.read()
 
 
-def _source_constants() -> dict:
-    src = _read("sdf_net.cuh")
-    return {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
-            for k in ("HID", "PEW", "OUTW", "NPE", "WN", "SLAB_K", "STAGES", "SDF_COLS")}
+def _source_constants(multires: int = 6) -> dict:
+    """sdf_net.cuh's constants at the build of `multires`."""
+    return source_constants(("sdf_net.cuh",), ("HID", "PEW", "OUTW", "NPE", "WN", "SLAB_K",
+                                               "STAGES", "SDF_COLS"),
+                            {"NERO_SDF_MULTIRES": multires})
 
 
 def value_stream(c: dict) -> list:

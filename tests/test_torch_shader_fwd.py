@@ -23,6 +23,7 @@ from nero_tpu_torch.fields.app_shading import AppShadingConfig, shade_from_raw
 from nero_tpu_torch.ops import cuda_build, shader
 from nero_tpu_torch.ops.fg_lut import get_fg_lut
 from nero_tpu_torch.ops.mlp import resolve_weight_norm
+from torch_csrc import source_constants
 from torch_shader_common import VARIANTS, _kernel_head, _setup
 
 torch.set_num_threads(1)
@@ -93,22 +94,18 @@ def test_forward_rounding_points_hold_the_bar(variant):
 # ---------------------------------------------------------------------------
 
 _NAMES = ("NTHREADS", "HID", "DO", "PB", "LDA", "PTW", "LDP", "SLAB_K", "LDB", "LDT", "STAGES",
-          "HS", "RSB", "NML", "LMAX", "TAB")
+          "HS", "RSB", "NML", "LMAX", "TAB", "TILE_ELEMS")
 SMEM_MAX = 232448  # a block's shared memory on the H100
 SLAB_REC = 12      # SlabRec: unsigned offset, four unsigned shorts
 
 
-def _source_constants() -> dict:
-    text = ""
-    for fn in ("encode.cuh", "shader.cu"):
-        with open(os.path.join(cuda_build.CSRC, fn)) as f:
-            text += f.read()
-    c = {}
-    for name in _NAMES:
-        expr = re.search(rf"constexpr int {name} = ([^;]+);", text).group(1)
-        c[name] = eval(expr.replace("/", "//"), {}, dict(c))
+def _source_constants(enc=(5, 8)) -> dict:
+    """csrc/shader.cu's constants at the build of (ide_deg, light_pos_freq)."""
+    c = source_constants(("encode.cuh", "shader.cu"), _NAMES,
+                         {"NERO_IDE_DEG": enc[0], "NERO_LIGHT_PE": enc[1]})
     c["STAGE_ELEMS"] = max(c["SLAB_K"] * c["LDB"], c["HID"] * c["LDT"])
-    c["B_HIT"] = int(re.search(r"B_HIT = (\d+)", text).group(1))
+    with open(os.path.join(cuda_build.CSRC, "shader.cu")) as f:
+        c["B_HIT"] = int(re.search(r"B_HIT = (\d+)", f.read()).group(1))
     return c
 
 
@@ -149,10 +146,12 @@ def slab_stream(cfg, c: dict) -> tuple:
 
 
 def smem_bytes(c: dict, n_slabs: int) -> int:
-    """Tiles (activations, points), the ring, the row state, the IDE table,
-    the slab table."""
+    """Tiles (activations, points; the sweep's f32 dX over them, which at
+    the shipped widths fills them exactly), the ring, the row state, the IDE
+    table, the slab table."""
     pb = c["PB"]
-    return ((pb * c["LDA"] + pb * c["LDP"] + c["STAGES"] * c["STAGE_ELEMS"]) * 2
+    assert c["TILE_ELEMS"] >= pb * (c["LDA"] + c["LDP"])
+    return ((c["TILE_ELEMS"] + c["STAGES"] * c["STAGE_ELEMS"]) * 2
             + pb * c["RSB"] * 4 + c["TAB"] * 4 + n_slabs * SLAB_REC)
 
 

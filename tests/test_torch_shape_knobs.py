@@ -298,14 +298,17 @@ def test_remat_shader_matches_jax_loss(setup):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("knob,value", [("ide_deg", 4), ("light_pos_freq", 6),
-                                        ("feats_dim", 128)])
-def test_shader_kernel_gate_routes_to_the_per_head_path(knob, value, monkeypatch):
+@pytest.mark.parametrize("knob,value,taken", [("ide_deg", 6, 4), ("light_pos_freq", 17, 6),
+                                              ("feats_dim", 128, None)])
+def test_shader_kernel_gate_routes_to_the_per_head_path(knob, value, taken, monkeypatch):
     """A shader the whole-shader kernel does not take (ops/shader.py::
-    supported) resolves to the per-head path, as nero_tpu's does
-    (fields/app_shading.py:227-237): silently when `fused_shader` is unset,
-    with a warning when it was asked for; app_shading_apply then never calls
-    the kernel's wrapper."""
+    supported: nero_tpu's rule, 256 feats and ide_deg <= 5, and the port's
+    own light_pos_freq <= 16) resolves to the per-head path, as nero_tpu's
+    does (fields/app_shading.py:227-237): silently when `fused_shader` is
+    unset, with a warning when it was asked for; app_shading_apply then
+    never calls the kernel's wrapper. The other encodings (ide_deg 4,
+    light_pos_freq 6) take the kernel, unset or asked for, without a word.
+    ide_deg 6 has no IDE in either package: its shader cannot be built."""
     from nero_tpu_torch.fields import app_shading as A
     from nero_tpu_torch.ops import shader as S
 
@@ -317,8 +320,16 @@ def test_shader_kernel_gate_routes_to_the_per_head_path(knob, value, monkeypatch
         assert A.fused_shader_active(A.AppShadingConfig())
         assert A.fused_shader_active(A.AppShadingConfig(fused_shader=True))
         assert not A.fused_shader_active(cfg._replace(fused_shader=False))
+        if taken is not None:
+            other = A.AppShadingConfig(**{knob: taken})
+            assert S.supported(other) and A.fused_shader_active(other)
+            assert A.fused_shader_active(other._replace(fused_shader=True))
     with pytest.warns(RuntimeWarning, match=f"{knob}={value}.*per-head path"):
         assert not A.fused_shader_active(cfg._replace(fused_shader=True))
+    if knob == "ide_deg":
+        with pytest.raises(ValueError, match="deg_view > 5"):
+            A.init_app_shading(torch.Generator().manual_seed(0), cfg)
+        return
     params = A.init_app_shading(torch.Generator().manual_seed(0), cfg)
     rng = np.random.default_rng(0)
     x = lambda w: torch.from_numpy(rng.standard_normal((5, w)).astype(np.float32))
@@ -339,14 +350,19 @@ def test_fused_sdf_gate_drops_the_switch():
         warnings.simplefilter("error")
         assert T.shape_config_from_dict({"use_fused_sdf": True}).use_fused_sdf
         assert not T.shape_config_from_dict({"sdf_freq": 4}).use_fused_sdf
+        # another multires (1-20) and d_out keep the switch: the value-only
+        # kernel takes them, as nero_tpu's does
+        assert T.shape_config_from_dict({"use_fused_sdf": True, "sdf_freq": 4}).use_fused_sdf
+        assert T.shape_config_from_dict({"use_fused_sdf": True, "sdf_d_out": 129}).use_fused_sdf
 
 
-@pytest.mark.parametrize("over", [{"sdf_n_layers": 6}, {"sdf_freq": 4}, {"sdf_d_out": 129}])
+@pytest.mark.parametrize("over", [{"sdf_n_layers": 6}, {"sdf_freq": 21}, {"sdf_d_out": 129}])
 def test_sdf_topology_gate(over):
     """An SDF that the SDF-with-gradient kernel does not take resolves to the
     plain `rev` gradient on CUDA too, as nero_tpu resolves it on its TPU
-    (render/shape.py:142-149); `fused` asked for it warns, naming the
-    topology, and takes `rev`; the default SDF takes the kernel on CUDA."""
+    (render/shape.py:142-149; multires 21 is past its PE_PAD of 128); `fused`
+    asked for it warns, naming the topology, and takes `rev`; the default SDF
+    and another multires within 1-20 (4) take the kernel on CUDA."""
     scfg = T.shape_config_from_dict(over)
     key, value = next(iter(over.items()))
     assert scfg.resolved("cuda").sdf_grad_mode == "rev"
@@ -354,6 +370,11 @@ def test_sdf_topology_gate(over):
     with pytest.warns(RuntimeWarning, match=f"{key}={value}.*taking 'rev'"):
         assert scfg._replace(sdf_grad_mode="fused").resolved("cuda").sdf_grad_mode == "rev"
     assert T.shape_config_from_dict({}).resolved("cuda").sdf_grad_mode == "fused"
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        m4 = T.shape_config_from_dict({"sdf_freq": 4})
+        assert m4.resolved("cuda").sdf_grad_mode == "fused"
+        assert m4._replace(sdf_grad_mode="fused").resolved("cuda").sdf_grad_mode == "fused"
 
 
 @pytest.mark.parametrize("value,honoured", [(None, True), ("highest", True),

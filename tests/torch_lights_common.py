@@ -7,19 +7,16 @@ exit point and the reflection are evaluated with the kernel's own fused
 multiply-adds, since the degree-5 IDE's rounding noise moves with the last
 bit of its input. Imported by its own name, as torch_shader_common is: the
 card's machine has another top-level `tests` package."""
-import os
-import re
-
 import jax
 import numpy as np
 import torch
 
 from nero_tpu.fields import mc_shading as J
 from nero_tpu_torch.fields import mc_shading as T
-from nero_tpu_torch.ops import cuda_build
 from nero_tpu_torch.ops import lights as L
 from nero_tpu_torch.ops.mlp import resolve_weight_norm
 from nero_tpu_torch.utils.encodings import ide_tables, positional_encode
+from torch_csrc import source_constants
 from torch_shader_common import _kernel_head
 
 CASES = [("both", "direction"), ("outer", "sphere_direction"), ("both", "sphere_direction"),
@@ -177,15 +174,10 @@ _NAMES = {"encode.cuh": ("NML", "LMAX", "TAB"),
                         "DI_OUTER_SPH")}
 
 
-def _source_constants() -> dict:
+def _source_constants(ide_deg: int = 5) -> dict:
     """The constants of csrc/lights.cu and the headers it runs on, as the
-    sources hold them (expressions evaluated in order)."""
-    c = {}
-    for fn, names in _NAMES.items():
-        with open(os.path.join(cuda_build.CSRC, fn)) as f:
-            text = f.read()
-        for name in names:
-            expr = re.search(rf"constexpr int {name} = ([^;]+);", text).group(1)
-            c[name] = eval(expr.replace("/", "//"), {}, dict(c))
+    sources hold them, at the build of IDE degree `ide_deg`."""
+    c = source_constants(tuple(_NAMES), [n for names in _NAMES.values() for n in names],
+                         {"NERO_IDE_DEG": ide_deg})
     c["STAGE_ELEMS"] = max(c["SLAB_K"] * c["LDB"], c["LAYER_W"] * c["LDT"])
     return c
