@@ -9,7 +9,8 @@ capture path: a scene written as a COLMAP custom object, read through the
 crop and raw caches by both stages and both pipeline tools, trains both
 stages under each setting of the precision switches, resuming one run from
 a checkpoint in nero_tpu's layout, and takes both stages through the ray
-data-parallel path, two scenes through the multi-scene model and its tool,
+data-parallel path, two scenes in the multi-scene model's one step (B1
+and B2 launched once a step for all scenes) and its tool,
 and every training configuration's FLOPs to an MFU.
 
     python3 chip_smoke.py
@@ -38,7 +39,13 @@ result line):
      its forward's outputs and its backward's dW / dB to the bit in two
      calls, the backward's two parts timed apart, its four kernels' ptxas
      (0 spill bytes); kernel and plain times
-     from CUDA events;
+     from CUDA events; then B1 and B2 (`default`, `human_light`) with the
+     scene axis, one launch each way for S = 2 and 4 scenes of 65,536 rows
+     (`check_scene_kernels`): each scene's outputs and dW / db equal to its
+     one-scene launch to the bit, the batched wrapper's outputs and
+     parameter gradients equal to the one-scene wrapper's, each scene within
+     the one-scene rows' bars of the plain version, the launches timed
+     beside S one-scene launches in turn, the bound S x one scene's;
   3. the mesh of the bowl scene from its analytic SDF (host iso-surfacer); a
      `std` and a `wide` field distilled from it on the card; for each, the
      sphere-march and uniform-march kernels against their plain versions on
@@ -128,10 +135,15 @@ result line):
      patch (the all-reduce dropped, draws of the rank's own rows, kpr from
      the rank's own rows), every number printed; the step's median on the
      ranks and in one process; (c) two scenes of `sphere.yaml` for 20 steps
-     through MultiSceneShapeModel, each equal to the bit to the scene
-     trained alone with seed 6033 + s, launches the sum of both; then
-     `train_multi_scene` for 4 steps unbroken and resumed at 2, equal to the
-     bit, its exports loaded into NeROShapeModel; (d) the FLOPs of the first
+     through MultiSceneShapeModel's one step, each equal to the bit to the
+     scene trained alone with seed 6033 + s, B1 and B2 launched once a step
+     for both scenes (their `_scenes` counters at one scene's counts, the
+     one-scene counters at 0); the step's host ms and device busy ms at 1, 2
+     and 4 scenes; two scenes of `sphere_real.yaml` for 4 steps, launches
+     exact; the background NeRF's weight-gradient product by torch.bmm
+     against torch.mm scene by scene (reported: the step keeps the latter);
+     then `train_multi_scene` for 4 steps unbroken and resumed at 2, equal
+     to the bit, its exports loaded into NeROShapeModel; (d) the FLOPs of the first
      step of phases 4 and 5's five trainings (library, kernels, total),
      each kernel's tally equal to its launches x flops(...) at the main
      path's shapes, `expect_kernels` on each configuration's kernels, the
@@ -636,6 +648,284 @@ def check_shader(n: int, dev, sphere: bool = False, human: bool = False, enc=(5,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 2, the scene axis: B1 and B2 launched once for S scenes
+# ---------------------------------------------------------------------------
+
+SCENE_COUNTS = (2, 4)   # scenes of one launch, each at N_ROWS rows
+
+
+def scenes_row(name: str, counter: str, n_scenes: int, source: str, replaces: str, err: float,
+               launch_ms: float, wrapper_ms: float, turn_ms: float, plain_ms: float,
+               flops: float, nbytes: float, ms: float) -> dict:
+    """A kernel row of a launch for S scenes: `one_scene_launches_ms` is S
+    one-scene launches in turn, the bound S x one scene's."""
+    b_ms, b_by = bound(n_scenes * flops, n_scenes * nbytes)
+    return {"name": name, "counter": counter, "scenes": n_scenes, "route": "cuda",
+            "source": source, "replaces": replaces, "max_abs_err": err, "ms": ms,
+            "launch_ms": launch_ms, "wrapper_ms": wrapper_ms, "one_scene_launches_ms": turn_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def check_sdf_scenes(n: int, n_scenes: int, dev) -> list:
+    """B1 with the scene axis: S scenes' SDFs (seeds 3 + s) in one launch
+    each way. Each scene's sdf, grad and feats and its dW and db equal its
+    one-scene launch to the bit, and the wrapper's outputs and parameter
+    gradients equal the one-scene wrapper's; against the plain version scene
+    by scene, the bars of check_sdf; the launches, the wrapper and S
+    one-scene launches in turn timed."""
+    from nero_tpu_torch.fields.sdf import SDFConfig, init_sdf
+    from nero_tpu_torch.ops import sdf_grad as K
+    from nero_tpu_torch.ops.mlp import resolve_weight_norm
+    from nero_tpu_torch.parallel.scenes import stack_trees
+
+    S, cfg = n_scenes, SDFConfig()
+    scenes = [init_sdf(torch.Generator().manual_seed(3 + s), cfg, device=dev) for s in range(S)]
+    stacked = stack_trees(scenes)
+    rng = np.random.default_rng(10 + S)
+    pts = torch.as_tensor(rng.uniform(-0.7, 0.7, (S, n, 3)).astype(np.float32), device=dev)
+    cot = torch.as_tensor(rng.standard_normal((S, n, 256)).astype(np.float32) * 0.1, device=dev)
+    beta, scale = float(cfg.beta), float(cfg.scale)
+    tag = f"sdf_grad_scenes S = {S}"
+
+    # the launches on packed weights: each scene's outputs and dW, db to the bit
+    with torch.no_grad():
+        layers = resolve_weight_norm(stacked)
+        W, bias = K.pack_scenes([l["w"] for l in layers], [l["b"] for l in layers])
+        fwd_b = K._fwd(pts, W, bias, beta, scale)
+        g_sdf, g_grad = torch.ones(S, n, device=dev) / n, fwd_b[1] / n
+        bwd_b = K._bwd(pts, W, bias, beta, scale, g_sdf, g_grad, cot)
+        for s in range(S):
+            one = K._fwd(pts[s], W[s], bias[s], beta, scale)
+            check(all(torch.equal(a[s], b) for a, b in zip(fwd_b, one)),
+                  f"{tag}: scene {s}'s forward differs from its one-scene launch")
+            one = K._bwd(pts[s], W[s], bias[s], beta, scale, g_sdf[s], g_grad[s], cot[s])
+            check(all(torch.equal(a[s], b) for a, b in zip(bwd_b, one)),
+                  f"{tag}: scene {s}'s dW / db differ from its one-scene launch")
+        del fwd_b, bwd_b, one
+
+    def scene_loss(sdf, feats, grad, c):
+        eik = ((torch.linalg.norm(grad, dim=-1) - 1.0) ** 2).mean()
+        return (sdf ** 2).mean() + 0.1 * eik + (feats * c).mean()
+
+    def loss_b():
+        out = K.sdf_with_grad_scenes(stacked, pts, cfg)
+        return sum(scene_loss(*(o[s] for o in out), cot[s]) for s in range(S))
+
+    # the wrapper: outputs and parameter gradients those of the one-scene wrapper
+    with torch.no_grad():
+        out_b = K.sdf_with_grad_scenes(stacked, pts, cfg)
+    g_b = torch.autograd.grad(loss_b(), leaves(stacked))
+    fwd_err = bwd_err = feats_mean = 0.0
+    for s in range(S):
+        with torch.no_grad():
+            one = K.sdf_with_grad(scenes[s], pts[s], cfg)
+            plain = K.sdf_with_grad_plain(scenes[s], pts[s], cfg)
+        check(all(torch.equal(a[s], b) for a, b in zip(out_b, one)),
+              f"{tag}: scene {s}'s wrapper outputs differ from the one-scene wrapper's")
+        g_one = torch.autograd.grad(scene_loss(*K.sdf_with_grad(scenes[s], pts[s], cfg), cot[s]),
+                                    leaves(scenes[s]))
+        check(all(torch.equal(a[s], b) for a, b in zip(g_b, g_one)),
+              f"{tag}: scene {s}'s parameter gradients differ from the one-scene wrapper's")
+        e_sdf, e_grad = (out_b[0][s] - plain[0]).abs(), (out_b[2][s] - plain[2]).abs()
+        check(bool((e_sdf <= 5e-3 + 1e-2 * plain[0].abs()).all())
+              and bool((e_grad <= 2e-2 + 5e-2 * plain[2].abs()).all()),
+              f"{tag}: scene {s} against the plain version: sdf {e_sdf.max()}, grad {e_grad.max()}")
+        feats_mean = max(feats_mean, (out_b[1][s] - plain[1]).abs().mean().item())
+        fwd_err = max(fwd_err, e_sdf.max().item(), e_grad.max().item())
+        g_plain = torch.autograd.grad(scene_loss(*K.sdf_with_grad_plain(scenes[s], pts[s], cfg),
+                                                 cot[s]), leaves(scenes[s]))
+        bwd_err = max(bwd_err, grad_err_normalised(g_plain, [g[s] for g in g_b]))
+    check(feats_mean < 5e-3 and bwd_err <= 2e-2,
+          f"{tag}: mean|d feats| {feats_mean}, param grads {bwd_err}")
+    del out_b, g_b
+
+    def plain_loss():
+        return sum(scene_loss(*K.sdf_with_grad_plain(scenes[s], pts[s], cfg), cot[s])
+                   for s in range(S))
+
+    launch_fwd = cuda_ms(lambda: K._fwd(pts, W, bias, beta, scale))
+    launch_bwd = cuda_ms(lambda: K._bwd(pts, W, bias, beta, scale, g_sdf, g_grad, cot),
+                         iters=5)
+    turn_fwd = cuda_ms(lambda: [K._fwd(pts[s], W[s], bias[s], beta, scale) for s in range(S)])
+    turn_bwd = cuda_ms(lambda: [K._bwd(pts[s], W[s], bias[s], beta, scale, g_sdf[s], g_grad[s],
+                                       cot[s]) for s in range(S)], iters=5)
+    with torch.no_grad():
+        wrap_fwd = cuda_ms(lambda: K.sdf_with_grad_scenes(stacked, pts, cfg))
+        plain_fwd = cuda_ms(lambda: [K.sdf_with_grad_plain(scenes[s], pts[s], cfg)
+                                     for s in range(S)], iters=3)
+    wrap_bwd = cuda_ms_split(loss_b, lambda l: torch.autograd.grad(l, leaves(stacked)))
+    plain_bwd = cuda_ms_split(plain_loss, lambda l: torch.autograd.grad(
+        l, [x for p in scenes for x in leaves(p)]), iters=3)
+    src, rep = "nero_tpu_torch/csrc/sdf_grad.cu", "nero_tpu/ops/pallas/sdf_grad_kernel.py:"
+    rows = [scenes_row(f"sdf_grad_fwd_scenes_s{S}", "sdf_grad_fwd_scenes", S, src, rep + "363",
+                       fwd_err, launch_fwd, wrap_fwd, turn_fwd, plain_fwd, K.flops(n),
+                       K.min_bytes(n), launch_fwd),
+            scenes_row(f"sdf_grad_bwd_scenes_s{S}", "sdf_grad_bwd_scenes", S, src, rep + "387",
+                       bwd_err, launch_bwd, wrap_bwd, turn_bwd, plain_bwd, K.flops(n, True),
+                       K.min_bytes(n, True), launch_bwd)]
+    print(f"{tag} x {n} rows: each scene's outputs, dW and db equal to its one-scene launch, "
+          f"and the wrapper's outputs and parameter gradients to the one-scene wrapper's, to "
+          f"the bit; against the plain version max|d sdf, grad| {fwd_err:.3e}, mean|d feats| "
+          f"{feats_mean:.3e}, param grads {bwd_err:.3e}; launch fwd {launch_fwd:.3f} ms (S "
+          f"one-scene launches {turn_fwd:.3f}), bwd {launch_bwd:.3f} ms ({turn_bwd:.3f}); "
+          f"wrapper {wrap_fwd:.3f} / {wrap_bwd:.3f} ms; bounds {rows[0]['bound_ms']:.3f} / "
+          f"{rows[1]['bound_ms']:.3f} ms")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_shader_scenes(n: int, n_scenes: int, dev, human: bool = False) -> list:
+    """B2 with the scene axis (`default` or `human_light`): S scenes' shaders
+    (seeds s) in one launch each way. Each scene's packed outputs, dgeo,
+    dfeats, dW and dB equal its one-scene launch to the bit, and the
+    wrapper's outputs and parameter gradients the one-scene wrapper's;
+    against the plain version scene by scene, the bars of check_shader; the
+    launches, the wrapper and S one-scene launches in turn timed."""
+    from nero_tpu_torch.fields.app_shading import (AppShadingConfig, init_app_shading,
+                                                   shade_from_raw)
+    from nero_tpu_torch.ops import shader as K
+    from nero_tpu_torch.ops.fg_lut import get_fg_lut
+    from nero_tpu_torch.parallel.scenes import stack_trees
+
+    S = n_scenes
+    cfg = AppShadingConfig(human_light=human)
+    sfx = K.variant(cfg)
+    tag = f"shader_scenes{sfx} S = {S}"
+    scenes = [init_app_shading(torch.Generator().manual_seed(s), cfg, device=dev)
+              for s in range(S)]
+    stacked = stack_trees(scenes)
+    fg_lut = torch.as_tensor(get_fg_lut(), device=dev)
+    rng = np.random.default_rng(20 + S)
+    t = lambda a: torch.as_tensor(a.astype(np.float32), device=dev)
+    pts = t(rng.uniform(-0.6, 0.6, (S * n, 3)))
+    normals = t(rng.standard_normal((S * n, 3)))
+    view = t(rng.standard_normal((S * n, 3)))
+    feats = t(rng.standard_normal((S * n, 256)) * 0.3)
+    poses = torch.as_tensor(random_human_poses(rng, S * n), device=dev) if human else None
+    cot = t(rng.standard_normal((S * n, 3)))
+    cot2 = t(rng.standard_normal((S * n, 1)))
+    gout = t(rng.standard_normal((S, n, K.OUT)))
+    rows_of = lambda s: slice(s * n, (s + 1) * n)
+    args = lambda s: (pts[rows_of(s)], normals[rows_of(s)], view[rows_of(s)],
+                      feats[rows_of(s)], poses[rows_of(s)] if human else None)
+
+    # the launches on packed weights: each scene's outputs and gradients to the bit
+    with torch.no_grad():
+        geo, feats2d, spec, ws, bs = K.kernel_inputs(stacked, cfg, pts, normals, view, feats,
+                                                     poses)
+        W, B = K.pack_scenes(ws, bs, spec[2])
+        geo3, feats3 = geo.view(S, n, -1), feats2d.view(S, n, K.HID)
+        sp, hu = spec[:2]
+        fwd_b = K._fwd(geo3, feats3, W, B, sp, hu)
+        bwd_b = K._bwd(geo3, feats3, W, B, sp, hu, gout)
+        for s in range(S):
+            check(torch.equal(fwd_b[s], K._fwd(geo3[s], feats3[s], W[s], B[s], sp, hu)),
+                  f"{tag}: scene {s}'s forward differs from its one-scene launch")
+            one = K._bwd(geo3[s], feats3[s], W[s], B[s], sp, hu, gout[s])
+            check(all(torch.equal(a[s], b) for a, b in zip(bwd_b, one)),
+                  f"{tag}: scene {s}'s dgeo, dfeats, dW or dB differ from its one-scene launch")
+        del fwd_b, bwd_b, one
+
+    def scene_loss(raw, s):
+        c, o = shade_from_raw(raw, cfg, fg_lut)
+        return (c * cot[rows_of(s)]).sum() + (o["occ_prob"] * cot2[rows_of(s)]).sum()
+
+    def loss_b():
+        raw = K.shader_raw_scenes(stacked, cfg, S, pts, normals, view, feats, poses)
+        return sum(scene_loss(raw[rows_of(s)], s) for s in range(S))
+
+    with torch.no_grad():
+        raw_b = K.shader_raw_scenes(stacked, cfg, S, pts, normals, view, feats, poses)
+    g_b = torch.autograd.grad(loss_b(), leaves(stacked))
+    e_fwd, worst_cos, worst_rel, bwd_err = 0.0, 1.0, 0.0, 0.0
+
+    def cosine(a, b):
+        return (a.flatten() @ b.flatten() / (a.norm() * b.norm() + 1e-12)).item()
+
+    for s in range(S):
+        with torch.no_grad():
+            raw_1 = K.shader_raw(scenes[s], cfg, *args(s))
+            c_b, o_b = shade_from_raw(raw_b[rows_of(s)], cfg, fg_lut)
+            c_p, o_p = shade_from_raw(K.shader_raw_plain(scenes[s], cfg, *args(s)), cfg, fg_lut)
+        check(torch.equal(raw_b[rows_of(s)], raw_1),
+              f"{tag}: scene {s}'s wrapper outputs differ from the one-scene wrapper's")
+        g_1 = torch.autograd.grad(scene_loss(K.shader_raw(scenes[s], cfg, *args(s)), s),
+                                  leaves(scenes[s]))
+        check(all(torch.equal(a[s], b) for a, b in zip(g_b, g_1)),
+              f"{tag}: scene {s}'s parameter gradients differ from the one-scene wrapper's")
+        e_fwd = max(e_fwd, (c_b - c_p).abs().max().item(),
+                    (o_b["occ_prob"] - o_p["occ_prob"]).abs().max().item())
+        g_p = torch.autograd.grad(scene_loss(K.shader_raw_plain(scenes[s], cfg, *args(s)), s),
+                                  leaves(scenes[s]))
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            loss_bf16 = scene_loss(K.shader_raw_plain(scenes[s], cfg, *args(s)), s)
+        g_bf = torch.autograd.grad(loss_bf16.float(), leaves(scenes[s]))
+        kb = [g[s] for g in g_b]
+        worst_cos = min(worst_cos, min(cosine(a, b) for a, b in zip(g_p, kb)))
+        rel = lambda ga, gb: max(((a - b).abs().mean() / (a.abs().max() + 1e-8)).item()
+                                 for a, b in zip(ga, gb))
+        noise, noise_bf16 = rel(g_p, kb), rel(g_p, g_bf)
+        min_cos, slack = (0.98, 2e-3) if human else (0.99, 1e-3)
+        check(noise < 4.0 * noise_bf16 + slack,
+              f"{tag}: scene {s} grads {noise} vs bf16 {noise_bf16}")
+        worst_rel = max(worst_rel, noise)
+        bwd_err = max(bwd_err, grad_err_normalised(g_p, kb))
+    check(e_fwd <= 2e-3 and worst_cos > min_cos,
+          f"{tag}: against the plain version max err {e_fwd}, grads worst cosine {worst_cos}")
+    del raw_b, g_b
+
+    def plain_raw():
+        return [K.shader_raw_plain(scenes[s], cfg, *args(s)) for s in range(S)]
+
+    gout2 = gout.reshape(S * n, K.OUT)
+    launch_fwd = cuda_ms(lambda: K._fwd(geo3, feats3, W, B, sp, hu))
+    launch_bwd = cuda_ms(lambda: K._bwd(geo3, feats3, W, B, sp, hu, gout), iters=5)
+    turn_fwd = cuda_ms(lambda: [K._fwd(geo3[s], feats3[s], W[s], B[s], sp, hu)
+                                for s in range(S)])
+    turn_bwd = cuda_ms(lambda: [K._bwd(geo3[s], feats3[s], W[s], B[s], sp, hu, gout[s])
+                                for s in range(S)], iters=5)
+    with torch.no_grad():
+        wrap_fwd = cuda_ms(lambda: K.shader_raw_scenes(stacked, cfg, S, pts, normals, view,
+                                                       feats, poses))
+        plain_fwd = cuda_ms(plain_raw, iters=3)
+    wrap_bwd = cuda_ms_split(
+        lambda: K.shader_raw_scenes(stacked, cfg, S, pts, normals, view, feats, poses),
+        lambda o: torch.autograd.grad(o, leaves(stacked), gout2))
+    plain_bwd = cuda_ms_split(
+        lambda: torch.cat(plain_raw()),
+        lambda o: torch.autograd.grad(o, [x for p in scenes for x in leaves(p)], gout2,
+                                      allow_unused=True), iters=3)
+    src, rep = "nero_tpu_torch/csrc/shader.cu", "nero_tpu/ops/pallas/shader_kernel.py:"
+    rows = [scenes_row(f"shader_fwd_scenes{sfx}_s{S}", f"shader_fwd_scenes{sfx}", S, src,
+                       rep + "467", e_fwd, launch_fwd, wrap_fwd, turn_fwd, plain_fwd,
+                       K.flops(n, cfg), K.min_bytes(n, cfg), wrap_fwd),
+            scenes_row(f"shader_bwd_scenes{sfx}_s{S}", f"shader_bwd_scenes{sfx}", S, src,
+                       rep + "494", bwd_err, launch_bwd, wrap_bwd, turn_bwd, plain_bwd,
+                       K.flops(n, cfg, True), K.min_bytes(n, cfg, True), wrap_bwd)]
+    rows[1]["mean_rel_err"] = worst_rel
+    print(f"{tag} x {n} rows: each scene's outputs, dgeo, dfeats, dW and dB equal to its "
+          f"one-scene launch, and the wrapper's outputs and parameter gradients to the "
+          f"one-scene wrapper's, to the bit; against the plain version max|d color, occ| "
+          f"{e_fwd:.3e}, grads worst cosine {worst_cos:.5f}, worst mean|d|/max|g| "
+          f"{worst_rel:.3e}, worst max|d|/max|g| {bwd_err:.3e}; launch fwd {launch_fwd:.3f} ms (S one-scene launches "
+          f"{turn_fwd:.3f}), bwd {launch_bwd:.3f} ms ({turn_bwd:.3f}); wrapper {wrap_fwd:.3f} / "
+          f"{wrap_bwd:.3f} ms; bounds {rows[0]['bound_ms']:.3f} / {rows[1]['bound_ms']:.3f} ms")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_scene_kernels(dev) -> list:
+    """B1 and B2 (`default`, `human_light`) with the scene axis at each of
+    SCENE_COUNTS."""
+    rows = []
+    for s in SCENE_COUNTS:
+        rows += check_sdf_scenes(N_ROWS, s, dev)
+        rows += check_shader_scenes(N_ROWS, s, dev)
+        rows += check_shader_scenes(N_ROWS, s, dev, human=True)
+    return rows
+
+
 def check_sdf_fwd_at(n: int, multires: int, dev) -> list:
     """B6 at another `multires` (live PE weights): against its plain version
     at n points with check_sdf_fwd's bars, equal to the bit to B1's sdf at
@@ -941,7 +1231,7 @@ def check_stage1_kernels(dev) -> list:
         kernels += check_shader(N_ROWS, dev, sphere, human)
     kernels += check_sdf_fwd(N_OCC_MARCH, N_SAMPLER, dev)
     kernels += check_predictor(N_ROWS, dev)
-    return kernels
+    return kernels + check_scene_kernels(dev)
 
 
 def field_tracer(mesh: dict, topology: str, dev):
@@ -2495,6 +2785,9 @@ def precision(bowl: dict, dev, card: str) -> list:
 SCALEOUT_STEPS1 = 30    # sphere.yaml, one NCCL rank against no group
 SCALEOUT_STEPS2 = 10    # bowl.yaml, the same
 MULTI_STEPS = 20        # two scenes of sphere.yaml through MultiSceneShapeModel
+MULTI_SCENE_COUNTS = (1, 2, 4)  # the multi-scene step's host and busy ms at these S
+MULTI_WARMUP, MULTI_TIMED = 3, 10
+MULTI_REAL_STEPS = 4    # two scenes of sphere_real.yaml (B2's human_light variant)
 TOOL_STEPS = 4          # train_multi_scene, unbroken and resumed at half
 GLOO_RANKS = 2          # on the one card, over gloo
 # the two-rank step against one process: the ranks render the same rows with
@@ -2757,11 +3050,96 @@ def gloo_check(dev, card: str):
                                          f"bars = {inside}")
 
 
+def scenes_expect(scfg, steps: int, n_scenes: int) -> dict:
+    """Launches of `steps` steps of the multi-scene step over `n_scenes`
+    scenes: B1 and B2 once a step for all scenes under their `_scenes`
+    counters (one scene's counts), every other kernel once a scene."""
+    one = stage1_expect(scfg, steps)
+    e = {}
+    for k, v in one.items():
+        if not v:
+            continue
+        base = next((b for d in ("fwd", "bwd") for b in (f"sdf_grad_{d}", f"shader_{d}")
+                     if k.startswith(b)), None)
+        if base is None:
+            e[k] = n_scenes * v
+        else:
+            e[base + "_scenes" + k[len(base):]] = v
+    return expect_launches(**e)
+
+
+class SceneTrainer:
+    """A multi-scene model and its optimizer as profile_step.py's
+    `device_breakdown` drives a Trainer."""
+
+    def __init__(self, model, schedule, dev):
+        from nero_tpu_torch.train.trainer import make_optimizer
+        self.model = model
+        self.opt, self.sched = make_optimizer(model.parameters(), "adam", schedule, dev)
+
+    def train_step(self, step: int) -> dict:
+        log = self.model.train_step(self.opt, step)
+        self.sched.step()
+        return log
+
+
+def scene_step_times(cfgs: list, schedule, dev, card: str) -> dict:
+    """Host ms (median of MULTI_TIMED synchronised steps after MULTI_WARMUP)
+    and device busy ms a step (profile_step.py's counting) of the
+    multi-scene step at each of MULTI_SCENE_COUNTS scenes."""
+    from nero_tpu_torch.models.multi_scene import MultiSceneShapeModel
+    from nero_tpu_torch.profile_step import device_breakdown
+
+    out = {}
+    for n in MULTI_SCENE_COUNTS:
+        tr = SceneTrainer(MultiSceneShapeModel(cfgs[:n], device=dev), schedule, dev)
+        times = []
+        for step in range(MULTI_WARMUP + MULTI_TIMED):
+            t0 = synced()
+            tr.train_step(step)
+            times.append(synced() - t0)
+        host = float(np.median(times[MULTI_WARMUP:])) * 1e3
+        busy = device_breakdown(tr, MULTI_WARMUP + MULTI_TIMED, PROFILED_STEPS)["busy_ms"]
+        out[n] = {"host_ms": host, "busy_ms": busy}
+        print(f"multi-scene step at S = {n}: host {host:.2f} ms (median of {MULTI_TIMED}), "
+              f"device busy {busy:.2f} ms a step, idle share {max(0.0, 1 - busy / host):.3f}; "
+              f"{host / n:.2f} ms a scene [{card}]")
+        del tr
+        torch.cuda.empty_cache()
+    return out
+
+
+def library_product_rounding(dev, card: str) -> dict:
+    """The background NeRF's 256 x 256 product at one scene's 16,384 rows
+    (512 rays x 32 outer samples), bf16 operands with an f32 result, forward
+    and weight gradient, for two scenes: one batched product (torch.bmm)
+    against each scene's torch.mm, which the multi-scene step runs. Reported:
+    whether they are the same bits, and the largest difference."""
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(rng.standard_normal((2, 16384, 256)), dtype=torch.bfloat16, device=dev)
+    w = torch.as_tensor(rng.standard_normal((2, 256, 256)) / 16, dtype=torch.bfloat16,
+                        device=dev)
+    gy = torch.as_tensor(rng.standard_normal((2, 16384, 256)), dtype=torch.bfloat16, device=dev)
+    f32 = torch.float32
+    out = {}
+    for what, a, b in (("forward", x, w), ("weight gradient", x.transpose(1, 2), gy)):
+        batched = torch.bmm(a, b, out_dtype=f32)
+        each = torch.stack([torch.mm(a[s], b[s], out_dtype=f32) for s in range(2)])
+        out[what] = float((batched - each).abs().max())
+        print(f"library products: the background NeRF's {what} product [2 x 16384, 256] by "
+              f"torch.bmm against torch.mm scene by scene: "
+              f"{'the same bits' if torch.equal(batched, each) else 'not the same bits'}, "
+              f"max|d| {out[what]:.3e} [{card}]")
+    return out
+
+
 def multi_scene_check(dev, card: str) -> dict:
-    """Two scenes of sphere.yaml through MultiSceneShapeModel against each
-    scene alone (seed random_seed + s), then train_multi_scene unbroken and
-    resumed at half, its exports loaded into NeROShapeModel. Returns the
-    multi-scene run's launches."""
+    """Two scenes of sphere.yaml through MultiSceneShapeModel's one step
+    against each scene alone (seed random_seed + s), B1 and B2 once a step
+    for both; the step's host and busy ms at 1, 2 and 4 scenes; two scenes
+    of sphere_real.yaml; the library product that stays per scene; then
+    train_multi_scene unbroken and resumed at half, its exports loaded into
+    NeROShapeModel. Returns the multi-scene runs' launches."""
     from nero_tpu_torch import train_multi_scene
     from nero_tpu_torch.core.checkpoint import load_checkpoint
     from nero_tpu_torch.models.multi_scene import MultiSceneShapeModel
@@ -2772,7 +3150,7 @@ def multi_scene_check(dev, card: str) -> dict:
     root = tempfile.mkdtemp(prefix="nero_smoke_multi_")
     # the schedule's end fixed, so a run of fewer steps takes the same lr
     cfgs = [shape_cfg("sphere.yaml", root, name=f"scene{s}", lr_cfg={"end_iter": 300000})
-            for s in range(2)]
+            for s in range(max(MULTI_SCENE_COUNTS))]
     schedule = warm_up_cos_schedule(cfgs[0]["lr_cfg"])
 
     def train(model, params, steps):
@@ -2784,7 +3162,7 @@ def multi_scene_check(dev, card: str) -> dict:
             sched.step()
         return read_launches(), (synced() - t0) / steps * 1e3
 
-    ms = MultiSceneShapeModel(cfgs, device=dev)
+    ms = MultiSceneShapeModel(cfgs[:2], device=dev)
     multi, multi_ms = train(ms, ms.parameters(), MULTI_STEPS)
     alone = []
     for s in range(2):
@@ -2794,14 +3172,31 @@ def multi_scene_check(dev, card: str) -> dict:
         check(params_equal(ms.scene_params(s), m.params),
               f"multi-scene: scene {s} differs from the scene alone")
         alone.append(launches)
-    want = add_launches(*alone)
-    check(multi == want and multi == stage1_expect(ms.models[0].scfg, 2 * MULTI_STEPS),
-          f"multi-scene launches {nonzero(multi)}, the scenes alone {nonzero(want)}")
+    check(add_launches(*alone) == stage1_expect(ms.scfg, 2 * MULTI_STEPS),
+          f"the scenes alone: launches {nonzero(add_launches(*alone))}")
+    want = scenes_expect(ms.scfg, MULTI_STEPS, 2)
+    check(multi == want, f"multi-scene launches {nonzero(multi)}, expected {nonzero(want)}")
     print(f"multi-scene: 2 scenes x {MULTI_STEPS} steps equal to the bit to each scene alone "
-          f"(seeds 6033, 6034); launches {nonzero(multi)} = the sum of both; {multi_ms:.1f} ms a "
-          f"step for both scenes, {ms_alone:.1f} ms for one alone [{card}]")
+          f"(seeds 6033, 6034); launches {nonzero(multi)}: B1 and B2 once a step for both "
+          f"scenes, no one-scene launch; {multi_ms:.1f} ms a step for both scenes, "
+          f"{ms_alone:.1f} ms for one alone [{card}]")
+    del ms
+    torch.cuda.empty_cache()
+    scene_step_times(cfgs, schedule, dev, card)
 
-    paths = [write_cfg(c, os.path.join(root, f"{c['name']}.yaml")) for c in cfgs]
+    real = [shape_cfg("sphere_real.yaml", root, name=f"real{s}", lr_cfg={"end_iter": 300000})
+            for s in range(2)]
+    ms_real = MultiSceneShapeModel(real, device=dev)
+    real_launches, real_ms = train(ms_real, ms_real.parameters(), MULTI_REAL_STEPS)
+    want = scenes_expect(ms_real.scfg, MULTI_REAL_STEPS, 2)
+    check(real_launches == want,
+          f"multi-scene sphere_real.yaml launches {nonzero(real_launches)}, expected {nonzero(want)}")
+    print(f"multi-scene sphere_real.yaml: 2 scenes x {MULTI_REAL_STEPS} steps, launches "
+          f"{nonzero(real_launches)}; {real_ms:.1f} ms a step [{card}]")
+    del ms_real
+    library_product_rounding(dev, card)
+
+    paths = [write_cfg(c, os.path.join(root, f"{c['name']}.yaml")) for c in cfgs[:2]]
     argv = lambda r, n: ["--cfgs", *paths, "--total_step", str(n), "--model_root", r,
                          "--log_step", "1", "--save_interval", str(TOOL_STEPS // 2),
                          "--device", str(dev)]
@@ -2821,7 +3216,7 @@ def multi_scene_check(dev, card: str) -> dict:
     print(f"train_multi_scene: {TOOL_STEPS} steps unbroken and resumed at {TOOL_STEPS // 2} "
           f"equal to the bit; {full['checkpoint']} in the stacked layout; both exports load "
           f"into NeROShapeModel")
-    return multi
+    return add_launches(multi, real_launches)
 
 
 def scaleout(dev, card: str, bowl: dict, mfu_records: list) -> list:
@@ -3083,7 +3478,7 @@ def main(argv=None) -> int:
     runs += encodings(bowl, dev, card)
     launches = {k: sum(r.get(k, 0) for r in runs) for r0 in runs for k in r0}
     for k in kernels:
-        k["launches"] = launches.get(k["name"], 0)
+        k["launches"] = launches.get(k.get("counter", k["name"]), 0)
         # the one-evaluation kernel has no caller on a training path, here as
         # in the JAX package: it is launched and checked above only
         if k["name"].startswith("field_fwd"):

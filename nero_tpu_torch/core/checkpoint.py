@@ -84,17 +84,21 @@ def save_checkpoint(path: str, step: int, best_para: float, params,
     _write(path, step, best_para, blob)
 
 
-def save_stacked(path: str, step: int, best_para: float, scene_params: list,
+def save_stacked(path: str, step: int, best_para: float, params,
                  optimizer: torch.optim.Optimizer | None = None,
                  schedule_count: int | None = None, generators: list | None = None):
-    """The multi-scene checkpoint: scene s's leaves, optimizer state and
-    generator at index s of every leaf."""
-    count = step if schedule_count is None else schedule_count
-    blobs = [_tree_blob(p, optimizer, count) for p in scene_params]
+    """The multi-scene checkpoint of parameters stacked on a leading scene
+    axis (models/multi_scene.py): every leaf and its Adam moments as they
+    are, the counts one per scene, and generator s's state at index s of
+    `R|gen`."""
+    blob = _tree_blob(params, optimizer, step if schedule_count is None else schedule_count)
+    n = next(iter(blob.values())).shape[0]
+    for k in ("O|0|count", "O|1|count"):
+        if k in blob:
+            blob[k] = np.full(n, blob[k], np.int32)
     if generators is not None:
-        for b, g in zip(blobs, generators):
-            b["R|gen"] = g.get_state().numpy()
-    _write(path, step, best_para, {k: np.stack([b[k] for b in blobs]) for k in blobs[0]})
+        blob["R|gen"] = np.stack([g.get_state().numpy() for g in generators])
+    _write(path, step, best_para, blob)
 
 
 def _load_adam(data, params, optimizer: torch.optim.Adam):
@@ -115,14 +119,16 @@ def _load_adam(data, params, optimizer: torch.optim.Adam):
         }
 
 
-class _Scene:
-    """Scene s of a stacked checkpoint, read as one tree's."""
+class _SceneCounts:
+    """A stacked checkpoint read as one tree's: the leaves and moments whole,
+    the counts (one per scene, equal) as one."""
 
-    def __init__(self, data, s: int):
-        self.data, self.s = data, s
+    def __init__(self, data):
+        self.data = data
 
     def __getitem__(self, key):
-        return self.data[key][self.s]
+        v = self.data[key]
+        return v[0] if key in ("O|0|count", "O|1|count") else v
 
 
 def _load_tree(data, files: set, step: int, params, optimizer, scheduler, generator) -> bool:
@@ -160,16 +166,17 @@ def load_checkpoint(path: str, params, optimizer: torch.optim.Optimizer | None =
     return step, best_para
 
 
-def load_stacked(path: str, scene_params: list, optimizer: torch.optim.Optimizer | None = None,
+def load_stacked(path: str, params, optimizer: torch.optim.Optimizer | None = None,
                  scheduler=None, generators: list | None = None):
-    """Load a multi-scene checkpoint (the port's or nero_tpu's) into each
-    scene's parameters, the optimizer, the scheduler and the generators.
-    Returns (step, best_para)."""
+    """Load a multi-scene checkpoint (the port's or nero_tpu's) into the
+    stacked parameters, the optimizer, the scheduler and each scene's
+    generator. Returns (step, best_para)."""
     with np.load(path, allow_pickle=False) as data:
         step, best_para = int(data["__step__"]), float(data["__best_para__"])
         files = set(data.files)
-        for s, params in enumerate(scene_params):
-            _load_tree(_Scene(data, s), files, step, params, optimizer,
-                       scheduler if s == 0 else None,
-                       None if generators is None else generators[s])
+        _load_tree(_SceneCounts(data), files - {"R|gen"}, step, params, optimizer, scheduler,
+                   None)
+        if generators is not None and "R|gen" in files:
+            for g, state in zip(generators, data["R|gen"]):
+                g.set_state(torch.from_numpy(np.asarray(state)))
     return step, best_para

@@ -127,7 +127,11 @@ sdf_grad_fwd_kernel(const float* __restrict__ pts, const bf16* __restrict__ W,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int grp = warp / NQ, cq = warp % NQ;  // point group, column group
   const int g = lane >> 2, t = lane & 3;      // accumulator row and column pair
-  const int p0 = blockIdx.x * P;
+  // blockIdx.y is the scene: its weights and biases; its rows follow the
+  // rows of the scenes before it, gridDim.x tiles a scene
+  const int p0 = (blockIdx.y * gridDim.x + blockIdx.x) * P;
+  W += blockIdx.y * (size_t)W_TOTAL;
+  bias += blockIdx.y * 9 * OUTW;
 
   Ring<FWD_STREAM> ring{PEb + ROWS * LDP, W, 0};
   for (int s = 0; s < STAGES - 1; ++s) ring.load(s);
@@ -204,7 +208,7 @@ struct Scratch {
     GZ8 = GZ + 8 * M * HID;
     PE = GZ8 + M * OUTW;
   }
-  static size_t elems(size_t M) { return 16 * M * HID + M * (OUTW + PEW); }
+  __host__ __device__ static size_t elems(size_t M) { return 16 * M * HID + M * (OUTW + PEW); }
 };
 
 __global__ void __launch_bounds__(F_THREADS, 1)
@@ -219,9 +223,11 @@ sdf_bwd_sweep_kernel(const float* __restrict__ pts, const bf16* __restrict__ W,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int grp = warp / NQ, cq = warp % NQ;
   const int g = lane >> 2, t = lane & 3;
-  const int p0 = blockIdx.x * P;
+  const int p0 = (blockIdx.y * gridDim.x + blockIdx.x) * P;  // the scene's rows, as forward
   const size_t M = 4 * (size_t)n_pad, row0 = (size_t)blockIdx.x * ROWS, LS = M * HID;
-  const Scratch S(scratch, M);
+  W += blockIdx.y * (size_t)W_TOTAL;
+  bias += blockIdx.y * 9 * OUTW;
+  const Scratch S(scratch + blockIdx.y * Scratch::elems(M), M);  // a scratch per scene
 
   Ring<BWD_STREAM> ring{PEb + ROWS * LDP, W, 0};
   for (int s = 0; s < STAGES - 1; ++s) ring.load(s);
@@ -355,7 +361,8 @@ sdf_bwd_params_kernel(bf16* __restrict__ scratch, int n_pad, int rows_per_chunk,
   const int ig = warp / 4, og = warp % 4;  // the warp's 32 input rows and 64 output columns
   const int g = lane >> 2, t = lane & 3;
   const size_t M = 4 * (size_t)n_pad;
-  const PwTile T = pw_tile(blockIdx.x, Scratch(scratch, M), M);
+  // blockIdx.z is the scene: its scratch and its chunks' partials
+  const PwTile T = pw_tile(blockIdx.x, Scratch(scratch + blockIdx.z * Scratch::elems(M), M), M);
   const int m0 = blockIdx.y * rows_per_chunk;
   const int n_st = max(0, min((int)M - m0, rows_per_chunk)) / PW_RS;
   constexpr int GROUPS = PW_RS / 32;
@@ -433,7 +440,7 @@ sdf_bwd_params_kernel(bf16* __restrict__ scratch, int n_pad, int rows_per_chunk,
     }
   }
 
-  float* out = part + (size_t)blockIdx.y * PART_ROW;
+  float* out = part + ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * PART_ROW;
   if (rows_here) {
 #pragma unroll
     for (int m = 0; m < 2; ++m)
@@ -451,11 +458,14 @@ sdf_bwd_params_kernel(bf16* __restrict__ scratch, int n_pad, int rows_per_chunk,
     out[W_TOTAL + T.db * OUTW + T.db_col0 + tid] = tid < T.gn * 8 ? dbs : 0.0f;
 }
 
-// dW, db = the chunks' partials added in chunk order
+// dW, db = the chunks' partials added in chunk order; blockIdx.y is the scene
 __global__ void sdf_bwd_reduce_kernel(const float* __restrict__ part, int n_chunks,
                                       float* __restrict__ dW, float* __restrict__ db) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= PART_ROW) return;
+  part += (size_t)blockIdx.y * n_chunks * PART_ROW;
+  dW += blockIdx.y * (size_t)W_TOTAL;
+  db += blockIdx.y * 9 * OUTW;
   float s = 0.0f;
   for (int c = 0; c < n_chunks; ++c) s += part[(size_t)c * PART_ROW + i];
   if (i < W_TOTAL) dW[i] = s;
@@ -474,6 +484,61 @@ int pw_chunk_rows(int n_pad) {
   return ((M + c - 1) / c + PW_RS - 1) / PW_RS * PW_RS;
 }
 
+// The launches at S scenes: scene s's rows are rows s n_pad .. (s + 1) n_pad - 1
+// of pts and of every row array, its weights W + s W_TOTAL, its biases
+// bias + s 9 OUTW, its scratch and partials the s-th of S equal parts, its
+// dW and db the s-th rows of [S, W_TOTAL] and [S, 9, OUTW]. Each scene's
+// blocks run the one-scene code on its own pointers, so a scene's outputs
+// and gradients are those of its one-scene launch to the bit.
+int fwd_scenes(const float* pts, int n_pad, int n_scenes, const bf16* W, const float* bias,
+               float beta, float scale, float* sdf, float* grad, float* feats,
+               cudaStream_t stream) {
+  if (n_pad <= 0 || n_scenes <= 0) return 0;
+  const cudaError_t err = cudaFuncSetAttribute(
+      sdf_grad_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  sdf_grad_fwd_kernel<<<dim3(n_pad / P, n_scenes), F_THREADS, F_SMEM, stream>>>(
+      pts, W, bias, beta, scale, sdf, grad, feats);
+  return (int)cudaGetLastError();
+}
+
+int sweep_scenes(const float* pts, int n_pad, int n_scenes, const bf16* W, const float* bias,
+                 float beta, float scale, const float* d_sdf, const float* d_grad,
+                 const float* d_feats, bf16* scratch, cudaStream_t stream) {
+  if (n_pad <= 0 || n_scenes <= 0) return 0;
+  const cudaError_t err = cudaFuncSetAttribute(
+      sdf_bwd_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  sdf_bwd_sweep_kernel<<<dim3(n_pad / P, n_scenes), F_THREADS, F_SMEM, stream>>>(
+      pts, W, bias, beta, scale, n_pad, d_sdf, d_grad, d_feats, scratch);
+  return (int)cudaGetLastError();
+}
+
+int params_scenes(int n_pad, int n_scenes, bf16* scratch, float* part, float* dW, float* db,
+                  cudaStream_t stream) {
+  if (n_pad <= 0 || n_scenes <= 0) return 0;
+  const cudaError_t err = cudaFuncSetAttribute(
+      sdf_bwd_params_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)PW_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int n_chunks = pw_chunks(n_pad);
+  sdf_bwd_params_kernel<<<dim3(PW_TILES, n_chunks, n_scenes), PW_THREADS, PW_SMEM, stream>>>(
+      scratch, n_pad, pw_chunk_rows(n_pad), part);
+  sdf_bwd_reduce_kernel<<<dim3((unsigned)((PART_ROW + 255) / 256), n_scenes), 256, 0, stream>>>(
+      part, n_chunks, dW, db);
+  return (int)cudaGetLastError();
+}
+
+int bwd_scenes(const float* pts, int n_pad, int n_scenes, const bf16* W, const float* bias,
+               float beta, float scale, const float* d_sdf, const float* d_grad,
+               const float* d_feats, bf16* scratch, float* part, float* dW, float* db,
+               cudaStream_t stream) {
+  if (n_pad <= 0 || n_scenes <= 0) return 0;  // dW and db stay as the caller zeroed them
+  const int rc = sweep_scenes(pts, n_pad, n_scenes, W, bias, beta, scale, d_sdf, d_grad,
+                              d_feats, scratch, stream);
+  if (rc) return rc;
+  return params_scenes(n_pad, n_scenes, scratch, part, dW, db, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -486,13 +551,7 @@ size_t sdf_grad_part_elems(int n_pad) { return (size_t)pw_chunks(n_pad) * PART_R
 // pts [n_pad,3] f32 (n_pad % 32 == 0); W packed bf16; bias [9,272] f32.
 int sdf_grad_fwd(const float* pts, int n_pad, const bf16* W, const float* bias, float beta,
                  float scale, float* sdf, float* grad, float* feats, cudaStream_t stream) {
-  if (n_pad <= 0) return 0;
-  const cudaError_t err = cudaFuncSetAttribute(
-      sdf_grad_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  sdf_grad_fwd_kernel<<<n_pad / P, F_THREADS, F_SMEM, stream>>>(pts, W, bias, beta, scale, sdf,
-                                                                 grad, feats);
-  return (int)cudaGetLastError();
+  return fwd_scenes(pts, n_pad, 1, W, bias, beta, scale, sdf, grad, feats, stream);
 }
 
 // The backward's first part: recompute and reverse sweep into the scratch
@@ -500,28 +559,14 @@ int sdf_grad_fwd(const float* pts, int n_pad, const bf16* W, const float* bias, 
 int sdf_grad_bwd_sweep(const float* pts, int n_pad, const bf16* W, const float* bias,
                        float beta, float scale, const float* d_sdf, const float* d_grad,
                        const float* d_feats, bf16* scratch, cudaStream_t stream) {
-  if (n_pad <= 0) return 0;
-  const cudaError_t err = cudaFuncSetAttribute(
-      sdf_bwd_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  sdf_bwd_sweep_kernel<<<n_pad / P, F_THREADS, F_SMEM, stream>>>(
-      pts, W, bias, beta, scale, n_pad, d_sdf, d_grad, d_feats, scratch);
-  return (int)cudaGetLastError();
+  return sweep_scenes(pts, n_pad, 1, W, bias, beta, scale, d_sdf, d_grad, d_feats, scratch,
+                      stream);
 }
 
 // The second: dW and db from the scratch; part holds sdf_grad_part_elems(n_pad) floats.
 int sdf_grad_bwd_params(int n_pad, bf16* scratch, float* part, float* dW, float* db,
                         cudaStream_t stream) {
-  if (n_pad <= 0) return 0;
-  const cudaError_t err = cudaFuncSetAttribute(
-      sdf_bwd_params_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)PW_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const int n_chunks = pw_chunks(n_pad);
-  sdf_bwd_params_kernel<<<dim3(PW_TILES, n_chunks), PW_THREADS, PW_SMEM, stream>>>(
-      scratch, n_pad, pw_chunk_rows(n_pad), part);
-  sdf_bwd_reduce_kernel<<<(unsigned)((PART_ROW + 255) / 256), 256, 0, stream>>>(part, n_chunks,
-                                                                               dW, db);
-  return (int)cudaGetLastError();
+  return params_scenes(n_pad, 1, scratch, part, dW, db, stream);
 }
 
 // Gradients w.r.t. the packed weights (dW, same layout, f32) and biases
@@ -529,11 +574,26 @@ int sdf_grad_bwd_params(int n_pad, bf16* scratch, float* part, float* dW, float*
 int sdf_grad_bwd(const float* pts, int n_pad, const bf16* W, const float* bias, float beta,
                  float scale, const float* d_sdf, const float* d_grad, const float* d_feats,
                  bf16* scratch, float* part, float* dW, float* db, cudaStream_t stream) {
-  if (n_pad <= 0) return 0;  // dW and db stay as the caller zeroed them
-  const int rc = sdf_grad_bwd_sweep(pts, n_pad, W, bias, beta, scale, d_sdf, d_grad, d_feats,
-                                    scratch, stream);
-  if (rc) return rc;
-  return sdf_grad_bwd_params(n_pad, scratch, part, dW, db, stream);
+  return bwd_scenes(pts, n_pad, 1, W, bias, beta, scale, d_sdf, d_grad, d_feats, scratch, part,
+                    dW, db, stream);
+}
+
+// S scenes in one launch each (fwd_scenes): pts [S, n_pad, 3]; W [S, W_TOTAL]
+// bf16; bias [S, 9, 272]; sdf [S, n_pad], grad [S, n_pad, 3], feats
+// [S, n_pad, 256]. The backward's scratch and partials are S times one
+// scene's; dW [S, W_TOTAL], db [S, 9, 272].
+int sdf_grad_fwd_scenes(const float* pts, int n_pad, int n_scenes, const bf16* W,
+                        const float* bias, float beta, float scale, float* sdf, float* grad,
+                        float* feats, cudaStream_t stream) {
+  return fwd_scenes(pts, n_pad, n_scenes, W, bias, beta, scale, sdf, grad, feats, stream);
+}
+
+int sdf_grad_bwd_scenes(const float* pts, int n_pad, int n_scenes, const bf16* W,
+                        const float* bias, float beta, float scale, const float* d_sdf,
+                        const float* d_grad, const float* d_feats, bf16* scratch, float* part,
+                        float* dW, float* db, cudaStream_t stream) {
+  return bwd_scenes(pts, n_pad, n_scenes, W, bias, beta, scale, d_sdf, d_grad, d_feats, scratch,
+                    part, dW, db, stream);
 }
 
 }  // extern "C"

@@ -700,6 +700,19 @@ struct Tiles {
 // warps of columns 0-63, whose n8-tile 0 holds the padded outputs: z4 + b4 to
 // out [n, 24], and after the roughness head kappa = sigmoid(z) into the row
 // state. The backward's recompute runs the same loop with the scratch stores.
+// The scene of a block is blockIdx.y: its row arrays (geometry, feats and
+// `rows`, [n, 24] each) start n rows a scene further on, its weights and
+// biases a weight set further on.
+#define SCENE_OFFSETS(rows)                              \
+  do {                                                   \
+    const size_t sc_ = blockIdx.y;                       \
+    geo += sc_ * n * L::GEO;                             \
+    feats += sc_ * n * HID;                              \
+    rows += sc_ * n * OUT;                               \
+    W += sc_ * L::w_total();                             \
+    B += sc_ * L::NHEADS * 4 * HID;                      \
+  } while (0)
+
 template <class L>
 __global__ void __launch_bounds__(NTHREADS, 1)
 shader_fwd_kernel(const float* __restrict__ geo, const float* __restrict__ feats, int n,
@@ -715,6 +728,7 @@ shader_fwd_kernel(const float* __restrict__ geo, const float* __restrict__ feats
   const int grp = warp / NQ, cq = warp % NQ;  // row group, column group
   const int g = lane >> 2, t = lane & 3;      // accumulator row and column pair
   const int p0 = blockIdx.x * PB;
+  SCENE_OFFSETS(out);
   tile_setup<L>(NS, T.recs, T.tab, ide_tab, rs, geo, p0, n);
   Ring<NS> ring{T.ring, W, T.recs, 0};
   for (int st = 0; st < STAGES - 1; ++st) ring.load(st);
@@ -861,7 +875,10 @@ shader_bwd_sweep_kernel(const float* __restrict__ geo, const float* __restrict__
   const int g = lane >> 2, t = lane & 3;      // accumulator row and column pair
   const int p0 = blockIdx.x * PB;
   const size_t row0 = (size_t)p0;
-  const BwdScratch<L> S(scratch, (size_t)m_rows);
+  SCENE_OFFSETS(gout);
+  dgeo += blockIdx.y * (size_t)n * DGEO;
+  dfeats += blockIdx.y * (size_t)n * HID;
+  const BwdScratch<L> S(scratch + blockIdx.y * BwdScratch<L>::elems(m_rows), (size_t)m_rows);
 
   tile_setup<L>(NS, T.recs, T.tab, ide_tab, rs, geo, p0, n);
   Ring<NS> ring{T.ring, W, T.recs, 0};
@@ -1137,7 +1154,9 @@ shader_bwd_params_kernel(bf16* __restrict__ scratch, int m_rows, int rows_per_ch
   const int ig = warp / 4, og = warp % 4;  // the warp's 32 input rows and 64 output columns
   const int g = lane >> 2, t = lane & 3;
   const size_t M = (size_t)m_rows;
-  const PwTile T = pw_tile<L>(blockIdx.x, BwdScratch<L>(scratch, M));
+  // blockIdx.z is the scene: its scratch and its chunks' partials
+  const PwTile T =
+      pw_tile<L>(blockIdx.x, BwdScratch<L>(scratch + blockIdx.z * BwdScratch<L>::elems(M), M));
   const int m0 = blockIdx.y * rows_per_chunk;
   const int n_st = max(0, min((int)M - m0, rows_per_chunk)) / PW_RS;  // stages per evaluation
   const int n_all = T.X2 ? 2 * n_st : n_st;
@@ -1217,7 +1236,7 @@ shader_bwd_params_kernel(bf16* __restrict__ scratch, int m_rows, int rows_per_ch
     }
   }
 
-  float* out = part + (size_t)blockIdx.y * part_row<L>();
+  float* out = part + ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * part_row<L>();
   if (rows_here) {
 #pragma unroll
     for (int m = 0; m < 2; ++m)
@@ -1234,12 +1253,15 @@ shader_bwd_params_kernel(bf16* __restrict__ scratch, int m_rows, int rows_per_ch
   if (T.db >= 0 && tid < HID) out[L::w_total() + T.db * HID + tid] = tid < T.gn * 8 ? dbs : 0.0f;
 }
 
-// dW, dB = the chunks' partials added in chunk order
+// dW, dB = the chunks' partials added in chunk order; blockIdx.y is the scene
 template <class L>
 __global__ void shader_bwd_reduce_kernel(const float* __restrict__ part, int n_chunks,
                                          float* __restrict__ dW, float* __restrict__ dB) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= part_row<L>()) return;
+  part += (size_t)blockIdx.y * n_chunks * part_row<L>();
+  dW += blockIdx.y * L::w_total();
+  dB += blockIdx.y * (size_t)L::NHEADS * 4 * HID;
   float s = 0.0f;
   for (int c = 0; c < n_chunks; ++c) s += part[(size_t)c * part_row<L>() + i];
   if (i < L::w_total()) dW[i] = s;
@@ -1261,45 +1283,54 @@ inline int pw_chunk_rows(int m_rows) {
   return ((m_rows + c - 1) / c + PW_RS - 1) / PW_RS * PW_RS;
 }
 
+// The launches take S scenes (grid dimension y; z for the parameter pass):
+// scene s's rows are rows s n .. (s + 1) n - 1 of every row array, its
+// weights W + s w_total, its biases B + s NHEADS 4 256, its scratch and
+// partials the s-th of S equal parts, its dW and dB the s-th rows. Each
+// scene's blocks run the one-scene code on its own pointers (scene_offsets),
+// so a scene's outputs and gradients are those of its one-scene launch to
+// the bit.
 template <class L>
-int launch_fwd(const float* geo, const float* feats, int n, const bf16* W, const float* B,
-               const float* tab, float* out, cudaStream_t stream) {
+int launch_fwd(const float* geo, const float* feats, int n, int n_scenes, const bf16* W,
+               const float* B, const float* tab, float* out, cudaStream_t stream) {
   constexpr size_t smem = b_smem(n_fwd_slabs<L>());
   static_assert(smem <= 232448, "forward shared memory");
   const cudaError_t err = cudaFuncSetAttribute(
       shader_fwd_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  shader_fwd_kernel<L><<<(n + PB - 1) / PB, NTHREADS, smem, stream>>>(geo, feats, n, W, B, tab,
-                                                                      out);
+  shader_fwd_kernel<L><<<dim3((n + PB - 1) / PB, n_scenes), NTHREADS, smem, stream>>>(
+      geo, feats, n, W, B, tab, out);
   return (int)cudaGetLastError();
 }
 
 template <class L>
-int launch_bwd_sweep(const float* geo, const float* feats, int n, const bf16* W, const float* B,
-                     const float* tab, const float* gout, float* dgeo, float* dfeats,
-                     bf16* scratch, cudaStream_t stream) {
+int launch_bwd_sweep(const float* geo, const float* feats, int n, int n_scenes, const bf16* W,
+                     const float* B, const float* tab, const float* gout, float* dgeo,
+                     float* dfeats, bf16* scratch, cudaStream_t stream) {
   constexpr size_t smem = b_smem(n_slabs<L>());
   static_assert(smem <= 232448, "sweep shared memory");
   const cudaError_t err = cudaFuncSetAttribute(
       shader_bwd_sweep_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int m = bwd_rows(n);
-  shader_bwd_sweep_kernel<L><<<m / PB, NTHREADS, smem, stream>>>(
+  shader_bwd_sweep_kernel<L><<<dim3(m / PB, n_scenes), NTHREADS, smem, stream>>>(
       geo, feats, n, W, B, tab, gout, dgeo, dfeats, scratch, m);
   return (int)cudaGetLastError();
 }
 
 template <class L>
-int launch_bwd_params(int n, bf16* scratch, float* part, float* dW, float* dB,
+int launch_bwd_params(int n, int n_scenes, bf16* scratch, float* part, float* dW, float* dB,
                       cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
       shader_bwd_params_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)PW_SMEM);
   if (err != cudaSuccess) return (int)err;
   const int m = bwd_rows(n), n_chunks = pw_chunks(m);
-  shader_bwd_params_kernel<L><<<dim3(n_items<L>(), n_chunks), PW_THREADS, PW_SMEM, stream>>>(
-      scratch, m, pw_chunk_rows(m), part);
-  shader_bwd_reduce_kernel<L><<<(unsigned)((part_row<L>() + 255) / 256), 256, 0, stream>>>(
-      part, n_chunks, dW, dB);
+  shader_bwd_params_kernel<L>
+      <<<dim3(n_items<L>(), n_chunks, n_scenes), PW_THREADS, PW_SMEM, stream>>>(
+          scratch, m, pw_chunk_rows(m), part);
+  shader_bwd_reduce_kernel<L>
+      <<<dim3((unsigned)((part_row<L>() + 255) / 256), n_scenes), 256, 0, stream>>>(
+          part, n_chunks, dW, dB);
   return (int)cudaGetLastError();
 }
 
@@ -1327,6 +1358,7 @@ size_t shader_weight_elems(int sphere, int human) {
 }
 int shader_tile() { return PB; }  // rows per block, both directions
 // bf16 elements of the backward's scratch, floats of its partials, for n rows
+// of one scene (S scenes take S times as many)
 size_t shader_scratch_elems(int n, int sphere, int human) {
   return SHADER_DISPATCH(scratch_elems_of, sphere, human, n);
 }
@@ -1334,45 +1366,76 @@ size_t shader_part_elems(int n, int sphere, int human) {
   return SHADER_DISPATCH(part_elems_of, sphere, human, n);
 }
 
-// geo [n,9] (pts, normal, view) or, with human, [n,21] (+ R row-major, t);
-// feats [n,256]; W packed bf16 heads; B [6 or 7,4,256] f32; tab = IDE table;
-// out [n,24].
-int shader_fwd(const float* geo, const float* feats, int n, const bf16* W, const float* B,
-               const float* tab, int sphere, int human, float* out, cudaStream_t stream) {
-  if (n <= 0) return 0;
-  return SHADER_DISPATCH(launch_fwd, sphere, human, geo, feats, n, W, B, tab, out, stream);
+// S scenes of n rows each (S = 1: one weight set). geo [S,n,9] (pts,
+// normal, view) or, with human, [S,n,21] (+ R row-major, t); feats
+// [S,n,256]; W [S, w_total] packed bf16 heads; B [S,6 or 7,4,256] f32; tab =
+// the IDE table, shared; out [S,n,24].
+int shader_fwd_scenes(const float* geo, const float* feats, int n, int n_scenes, const bf16* W,
+                      const float* B, const float* tab, int sphere, int human, float* out,
+                      cudaStream_t stream) {
+  if (n <= 0 || n_scenes <= 0) return 0;
+  return SHADER_DISPATCH(launch_fwd, sphere, human, geo, feats, n, n_scenes, W, B, tab, out,
+                         stream);
 }
 
-// The backward's first part: recompute and reverse sweep, gout [n,24] ->
-// dgeo [n,9], dfeats [n,256], and the scratch (shader_scratch_elems bf16)
-// for the second.
-int shader_bwd_sweep(const float* geo, const float* feats, int n, const bf16* W, const float* B,
-                     const float* tab, int sphere, int human, const float* gout, float* dgeo,
-                     float* dfeats, bf16* scratch, cudaStream_t stream) {
-  if (n <= 0) return 0;
-  return SHADER_DISPATCH(launch_bwd_sweep, sphere, human, geo, feats, n, W, B, tab, gout, dgeo,
-                         dfeats, scratch, stream);
+// The backward's first part: recompute and reverse sweep, gout [S,n,24] ->
+// dgeo [S,n,9], dfeats [S,n,256], and the scratch (S shader_scratch_elems
+// bf16) for the second.
+int shader_bwd_sweep_scenes(const float* geo, const float* feats, int n, int n_scenes,
+                            const bf16* W, const float* B, const float* tab, int sphere,
+                            int human, const float* gout, float* dgeo, float* dfeats,
+                            bf16* scratch, cudaStream_t stream) {
+  if (n <= 0 || n_scenes <= 0) return 0;
+  return SHADER_DISPATCH(launch_bwd_sweep, sphere, human, geo, feats, n, n_scenes, W, B, tab,
+                         gout, dgeo, dfeats, scratch, stream);
 }
 
-// The second: dW (packed layout, f32) and dB [6 or 7,4,256] from the
-// scratch; part holds shader_part_elems floats.
-int shader_bwd_params(int n, int sphere, int human, bf16* scratch, float* part, float* dW,
-                      float* dB, cudaStream_t stream) {
-  if (n <= 0) return 0;
-  return SHADER_DISPATCH(launch_bwd_params, sphere, human, n, scratch, part, dW, dB, stream);
+// The second: dW [S, w_total] (packed layout, f32) and dB [S,6 or 7,4,256]
+// from the scratch; part holds S shader_part_elems floats.
+int shader_bwd_params_scenes(int n, int n_scenes, int sphere, int human, bf16* scratch,
+                             float* part, float* dW, float* dB, cudaStream_t stream) {
+  if (n <= 0 || n_scenes <= 0) return 0;
+  return SHADER_DISPATCH(launch_bwd_params, sphere, human, n, n_scenes, scratch, part, dW, dB,
+                         stream);
 }
 
 // Both parts, three launches. With no rows nothing is launched: dW and dB
 // stay as the caller made them.
+int shader_bwd_scenes(const float* geo, const float* feats, int n, int n_scenes, const bf16* W,
+                      const float* B, const float* tab, int sphere, int human, const float* gout,
+                      float* dgeo, float* dfeats, bf16* scratch, float* part, float* dW,
+                      float* dB, cudaStream_t stream) {
+  if (n <= 0 || n_scenes <= 0) return 0;
+  const int rc = shader_bwd_sweep_scenes(geo, feats, n, n_scenes, W, B, tab, sphere, human,
+                                         gout, dgeo, dfeats, scratch, stream);
+  if (rc) return rc;
+  return shader_bwd_params_scenes(n, n_scenes, sphere, human, scratch, part, dW, dB, stream);
+}
+
+// One scene: the entries above at S = 1.
+int shader_fwd(const float* geo, const float* feats, int n, const bf16* W, const float* B,
+               const float* tab, int sphere, int human, float* out, cudaStream_t stream) {
+  return shader_fwd_scenes(geo, feats, n, 1, W, B, tab, sphere, human, out, stream);
+}
+
+int shader_bwd_sweep(const float* geo, const float* feats, int n, const bf16* W, const float* B,
+                     const float* tab, int sphere, int human, const float* gout, float* dgeo,
+                     float* dfeats, bf16* scratch, cudaStream_t stream) {
+  return shader_bwd_sweep_scenes(geo, feats, n, 1, W, B, tab, sphere, human, gout, dgeo, dfeats,
+                                 scratch, stream);
+}
+
+int shader_bwd_params(int n, int sphere, int human, bf16* scratch, float* part, float* dW,
+                      float* dB, cudaStream_t stream) {
+  return shader_bwd_params_scenes(n, 1, sphere, human, scratch, part, dW, dB, stream);
+}
+
 int shader_bwd(const float* geo, const float* feats, int n, const bf16* W, const float* B,
                const float* tab, int sphere, int human, const float* gout, float* dgeo,
                float* dfeats, bf16* scratch, float* part, float* dW, float* dB,
                cudaStream_t stream) {
-  if (n <= 0) return 0;
-  const int rc = shader_bwd_sweep(geo, feats, n, W, B, tab, sphere, human, gout, dgeo, dfeats,
-                                  scratch, stream);
-  if (rc) return rc;
-  return shader_bwd_params(n, sphere, human, scratch, part, dW, dB, stream);
+  return shader_bwd_scenes(geo, feats, n, 1, W, B, tab, sphere, human, gout, dgeo, dfeats,
+                           scratch, part, dW, dB, stream);
 }
 
 }  // extern "C"

@@ -20,6 +20,11 @@ function:
 
 Both handle `sphere_direction` and `human_light` (the camera-plane light of
 the real captures), which needs the per-ray `human_poses`.
+
+With `n_scenes` (the multi-scene step, parallel/scenes.py) the parameters are
+stacked on a leading scene axis and the rows are scene-major: the whole
+shader launches once for all scenes (`ops/shader.py::shader_raw_scenes`), the
+per-head path runs each scene's heads on its rows.
 """
 from __future__ import annotations
 
@@ -32,7 +37,8 @@ import torch
 from nero_tpu_torch.ops.fg_lut import fg_lookup
 from nero_tpu_torch.ops.mlp import (apply_predictor, current_hidden_dtype, exp_activation,
                                     init_predictor)
-from nero_tpu_torch.ops.shader import shader_raw, shader_raw_plain, unpack_raw
+from nero_tpu_torch.ops.shader import (scene_heads, shader_raw, shader_raw_plain,
+                                       shader_raw_scenes, unpack_raw)
 from nero_tpu_torch.ops.shader import supported as shader_supported
 from nero_tpu_torch.utils.color import linear_to_srgb
 from nero_tpu_torch.utils.encodings import ide_dim, positional_encode_dim
@@ -111,27 +117,33 @@ def init_app_shading(gen: torch.Generator, cfg: AppShadingConfig = AppShadingCon
 
 
 def app_shading_apply(params, cfg: AppShadingConfig, fg_lut, points, normals, view_dirs,
-                      feature_vectors, human_poses=None, inter_results: bool = False):
+                      feature_vectors, human_poses=None, inter_results: bool = False,
+                      n_scenes: int | None = None):
     """Shade surface samples; returns (color_srgb, occ_info[, intermediates]).
-    human_poses [..., 3, 4] per sample when cfg.human_light."""
+    human_poses [..., 3, 4] per sample when cfg.human_light. With n_scenes,
+    params stacked on a leading scene axis and the rows scene-major."""
     if cfg.human_light and human_poses is None:
         raise ValueError("human_light shading needs human_poses")
-    if fused_shader_active(cfg, current_hidden_dtype()):
-        packed = shader_raw(params, cfg, points, normals, view_dirs, feature_vectors,
-                            human_poses)
+    rows = (points, normals, view_dirs, feature_vectors, human_poses)
+    if not fused_shader_active(cfg, current_hidden_dtype()):
+        packed = heads_raw(params, cfg, *rows, n_scenes=n_scenes)
+    elif n_scenes is None:
+        packed = shader_raw(params, cfg, *rows)
     else:
-        packed = heads_raw(params, cfg, points, normals, view_dirs, feature_vectors,
-                           human_poses)
+        packed = shader_raw_scenes(params, cfg, n_scenes, *rows)
     return shade_from_raw(packed, cfg, fg_lut, inter_results)
 
 
 def heads_raw(params, cfg: AppShadingConfig, points, normals, view_dirs, feature_vectors,
-              human_poses=None) -> torch.Tensor:
+              human_poses=None, n_scenes: int | None = None) -> torch.Tensor:
     """The per-head path (nero_tpu/fields/app_shading.py:106-186, 329-343):
     the packed raw outputs [..., 24] of `ops/shader.py::shader_raw`, with the
-    encodings as tensor ops and every head through `apply_predictor`."""
+    encodings as tensor ops and every head through `apply_predictor`; with
+    n_scenes, each scene's heads on its rows."""
     head = lambda layers, x: apply_predictor(layers, x, activation="none",
                                              fused=cfg.fused_heads)
+    if n_scenes is not None:
+        head = scene_heads(n_scenes, head)
     return shader_raw_plain(params, cfg, points, normals, view_dirs, feature_vectors,
                             human_poses, head=head)
 

@@ -198,11 +198,11 @@ _H_FROM_Z = _STAGE + """\
 """
 _SWEEP_RECOMPUTE = "  hidden_layers<4, 2>(H, PEb, ring, bias, beta, S.H + row0 * HID, LS);\n"
 _PARAMS_LAUNCH = """\
-  sdf_bwd_params_kernel<<<dim3(PW_TILES, n_chunks), PW_THREADS, PW_SMEM, stream>>>(
+  sdf_bwd_params_kernel<<<dim3(PW_TILES, n_chunks, n_scenes), PW_THREADS, PW_SMEM, stream>>>(
       scratch, n_pad, pw_chunk_rows(n_pad), part);"""
 _PARAMS_LAUNCH_PER_TILE = """\
   for (int t = 0; t < PW_TILES; ++t)
-    sdf_bwd_params_kernel<<<dim3(1, n_chunks), PW_THREADS, PW_SMEM, stream>>>(
+    sdf_bwd_params_kernel<<<dim3(1, n_chunks, n_scenes), PW_THREADS, PW_SMEM, stream>>>(
         scratch, n_pad, t, pw_chunk_rows(n_pad), part);"""
 
 

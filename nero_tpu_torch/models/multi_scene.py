@@ -1,18 +1,24 @@
-"""Several Stage-I scenes trained together: the counterpart of
+"""Several Stage-I scenes trained together in one step: the counterpart of
 nero_tpu/models/multi_scene.py.
 
-nero_tpu vmaps scene 0's raw step over a leading scene axis of parameters,
-optimizer state and data, so the scenes must share the step's configuration
-and their data must stack. Here the scenes are S `NeROShapeModel`s stepped
-one after another on the process's device (a kernel takes one weight set a
-launch), with one Adam over every scene's leaves: Adam is per element and
-each scene's step updates only the leaves that carry gradients, so it is S
-Adams, as `jax.vmap(opt.init)` is. Scene s is initialised and draws its
-batches with seed random_seed + s, so it trains as the scene alone with that
-seed does.
+nero_tpu stacks every parameter leaf, the optimizer state and the data on a
+leading scene axis and vmaps scene 0's raw step over it, so that each
+pallas_call of the step runs once for all scenes. Here the parameters are
+stacked the same way (each leaf [S, ...], `jnp.stack`'s layout, which
+core/checkpoint.py::save_stacked writes) and one step renders every scene
+(parallel/scenes.py): each scene draws its rays [R] from its own generator,
+the renderer runs once over the scene-major batch [S R] (the SDF-with-
+gradient and the whole-shader kernels launch once each way for all scenes),
+each scene's losses are its own, and the step's loss is the sum of the
+scenes' totals, so each scene's leaves take that scene's gradient alone.
+One Adam runs over the stacked leaves: Adam is per element, so it is S
+Adams, as `jax.vmap(opt.init)` is. Scene s is initialised and draws with
+seed random_seed + s, and its numbers are those of the scene trained alone
+with that seed. The scenes must share the step's configuration and their
+images must stack.
 
-With `make_scene_groups` (the ('scene', 'data') layout) a process trains
-only its scene, on that scene's ray group.
+With `make_scene_groups` (the ('scene', 'data') layout) a process holds its
+one scene (S = 1) and renders that scene's rows of its ray group.
 """
 from __future__ import annotations
 
@@ -21,7 +27,11 @@ import torch
 from nero_tpu_torch.core.convert import tree_leaves
 from nero_tpu_torch.core.device import resolve_device
 from nero_tpu_torch.models.shape import NeROShapeModel
-from nero_tpu_torch.parallel.mesh import SceneGroups
+from nero_tpu_torch.parallel.mesh import SceneGroups, all_reduce_grads, shard_of
+from nero_tpu_torch.parallel.scenes import scene_slice, stack_trees
+from nero_tpu_torch.render.rays import sample_ray_batch
+from nero_tpu_torch.render.shape import compute_rgb_loss, render
+from nero_tpu_torch.train.losses import compute_losses, global_means, total_loss
 
 # what may differ between the scenes of one step (at any depth of the config)
 PER_SCENE_KEYS = ("name", "database_name", "random_seed")
@@ -36,7 +46,7 @@ def _shared(cfg):
 
 
 class MultiSceneShapeModel:
-    """Train several Stage-I scenes together; scene s uses seed
+    """Train several Stage-I scenes in one step; scene s uses seed
     random_seed + s."""
 
     def __init__(self, cfgs: list[dict], groups: SceneGroups | None = None,
@@ -53,31 +63,78 @@ class MultiSceneShapeModel:
         self.n_scenes = len(cfgs)
         self.names = [c["name"] for c in cfgs]
         self.scenes = list(range(self.n_scenes)) if groups is None else [groups.scene]
-        group = None if groups is None else groups.group
+        self.group = None if groups is None else groups.group
         self.models = {}
         for s in self.scenes:
             cfg = {**cfgs[s], "random_seed": cfgs[s].get("random_seed", 6033) + s}
             self.models[s] = NeROShapeModel(cfg, training=training, device=self.device,
-                                            group=group)
+                                            group=self.group)
         if training and groups is None:
             # nero_tpu stacks the scenes' images: equal count and resolution
             shapes = {s: tuple(m.train_data["imgs_u8"].shape) for s, m in self.models.items()}
             if len(set(shapes.values())) > 1:
                 raise ValueError(f"the scenes' training images differ in count or size: {shapes}")
+        # the scenes held here, stacked on a leading axis (index i: self.scenes[i])
+        self.params = stack_trees([self.models[s].params for s in self.scenes])
+        first = self.models[self.scenes[0]]
+        self.cfg, self.scfg, self.fg_lut = first.cfg, first.scfg, first.fg_lut
+        for s in self.scenes:
+            # each scene model reads its scene of the stacked leaves
+            self.models[s].params = self.scene_params(s)
 
     def parameters(self) -> list:
-        """Every leaf of every scene held here, scene by scene."""
-        return [p for s in self.scenes for p in tree_leaves(self.models[s].params)]
+        """The stacked leaves."""
+        return tree_leaves(self.params)
+
+    def generators(self) -> list:
+        """Each scene's batch generator, in the order of the stack."""
+        return [self.models[s].gen for s in self.scenes]
+
+    def loss_fn(self, params, batch: dict, step: int, gens, shard=None):
+        """(the sum of the scenes' totals, [each scene's total], [each scene's
+        log]) of one batch of all scenes' rays, scene-major (`batch` as
+        `sample_ray_batch` gives one scene's, the scenes' concatenated)."""
+        n = len(self.scenes)
+        out = render(params, self.scfg, self.fg_lut, batch["rays_o"], batch["rays_d"],
+                     batch["near"], batch["far"], step, gen=gens, is_train=True,
+                     human_poses=batch.get("human_poses"), shard=shard)
+        rgb = batch["rgb"].chunk(n, 0)
+        parts = {k: v.chunk(n, 0) for k, v in out.items()}  # per-row keys and [S] values
+        totals, logs = [], []
+        for i in range(n):
+            o = {k: c[i] for k, c in parts.items()}
+            o["loss_rgb"] = compute_rgb_loss(o["ray_rgb"], rgb[i], self.cfg["rgb_loss"])
+            log = compute_losses(self.cfg["loss"], o, None, step, self.cfg, shard)
+            totals.append(total_loss(log, shard))
+            logs.append(log)
+        return sum(totals), totals, logs
 
     def train_step(self, optimizer: torch.optim.Optimizer, step: int) -> dict:
-        """One step of every scene held here, in turn: {scene: its log}."""
-        return {s: self.models[s].train_step(optimizer, step) for s in self.scenes}
+        """One step of every scene held here: {scene: its log}."""
+        shard = shard_of(self.group, self.cfg["train_ray_num"])
+        batches = []
+        for s in self.scenes:
+            m, d = self.models[s], self.models[s].train_data
+            batches.append(sample_ray_batch(m.gen, d["imgs_u8"], d["K_inv"], d["poses"],
+                                            self.cfg["train_ray_num"], d["human_poses"],
+                                            rows=None if shard is None else shard.rows))
+        batch = {k: torch.cat([b[k] for b in batches]) for k in batches[0]}
+        loss, totals, logs = self.loss_fn(self.params, batch, step, self.generators(), shard)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        if self.group is not None:
+            all_reduce_grads(self.parameters(), self.group)
+        optimizer.step()
+        return {s: {**global_means(log, shard), "loss_total": total.detach()}
+                for s, total, log in zip(self.scenes, totals, logs)}
 
+    @torch.no_grad()
     def scene_params(self, s: int):
-        return self.models[s].params
+        """Scene s's parameters: views of the stacked leaves, no gradient."""
+        return scene_slice(self.params, self.scenes.index(s))
 
     def test_step(self, scene: int, index: int, step: int) -> dict:
-        return self.models[scene].test_step(self.models[scene].params, index, step)
+        return self.models[scene].test_step(self.scene_params(scene), index, step)
 
     def num_train_rays_per_step(self) -> int:
         """Rays of one step over the scenes held here."""

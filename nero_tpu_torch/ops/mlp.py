@@ -227,11 +227,21 @@ def init_dense(gen: torch.Generator, d_in: int, d_out: int, *, weight_norm: bool
 
 
 def resolve_dense(layer: dict) -> dict:
+    """{v, g, b} -> {w = g v / |v|, b}; a layer stacked on a leading scene
+    axis (v [S, in, out], parallel/scenes.py) is resolved scene by scene, as
+    one scene's is."""
     if "v" in layer:
-        v = layer["v"]
-        norm = torch.linalg.norm(v, dim=0, keepdim=True)
-        return {"w": layer["g"] * v / torch.clamp(norm, min=1e-12), "b": layer["b"]}
+        v, g = layer["v"], layer["g"]
+        if v.dim() == 3:
+            return {"w": torch.stack([_resolve_w(v[s], g[s]) for s in range(v.shape[0])]),
+                    "b": layer["b"]}
+        return {"w": _resolve_w(v, g), "b": layer["b"]}
     return layer
+
+
+def _resolve_w(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    norm = torch.linalg.norm(v, dim=0, keepdim=True)
+    return g * v / torch.clamp(norm, min=1e-12)
 
 
 def resolve_weight_norm(params):

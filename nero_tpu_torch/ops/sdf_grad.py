@@ -29,6 +29,13 @@ bytes it must move (points in, sdf/feats/grad out) are ~70 MB, 0.02 ms.
 
 Gradients flow to the resolved weights (and through weight norm to v, g);
 none flows to the points: z values are detached upstream, as on the TPU.
+
+`sdf_with_grad_scenes` is the same function over S scenes' weights stacked on
+a leading axis (parallel/scenes.py), as nero_tpu's `jax.vmap` of the multi-
+scene step batches its pallas_calls: one launch each way for all scenes, on
+a grid with a scene dimension, each scene's rows padded to the tile alone;
+each scene's outputs and gradients are its one-scene launch's to the bit.
+Off the kernel it runs the one-scene function scene by scene.
 """
 from __future__ import annotations
 
@@ -42,6 +49,7 @@ import torch.nn.functional as F
 from nero_tpu_torch.fields.sdf import SDFConfig, sdf_apply, sdf_apply_fwd
 from nero_tpu_torch.ops import cuda_build
 from nero_tpu_torch.ops.mlp import resolve_weight_norm
+from nero_tpu_torch.parallel.scenes import scene_slice
 
 TILE = 32        # points per block (csrc/sdf_grad.cu P)
 HID = 256
@@ -85,7 +93,9 @@ PE_W, SKIP_W, N_PE = _DEFAULT.pe_w, _DEFAULT.skip_w, _DEFAULT.n_pe
 WIDTHS, PACK_SHAPES = _DEFAULT.widths, _DEFAULT.pack_shapes
 
 # per multires: the plain names at 6, `_m<multires>` at another (added at its first launch)
-launches = {"sdf_grad_fwd": 0, "sdf_grad_bwd": 0}
+# (`_scenes`: one launch for all scenes of the multi-scene step)
+launches = {"sdf_grad_fwd": 0, "sdf_grad_bwd": 0, "sdf_grad_fwd_scenes": 0,
+            "sdf_grad_bwd_scenes": 0}
 # FLOPs of every counted launch, by `flops(...)` at the launch's shapes (core/mfu.py)
 flop_tally = dict.fromkeys(launches, 0.0)
 GRAD_MODES = ("rev", "fwd", "fused")
@@ -163,6 +173,12 @@ def _lib(multires: int = MULTIRES):
         lib.sdf_grad_bwd_sweep.argtypes = [vp, i, vp, vp, f, f, vp, vp, vp, vp, vp]
         lib.sdf_grad_bwd_params.restype = i
         lib.sdf_grad_bwd_params.argtypes = [i, vp, vp, vp, vp, vp]
+        # S scenes in one launch (S = 1: one scene): n_pad, then S
+        lib.sdf_grad_fwd_scenes.restype = i
+        lib.sdf_grad_fwd_scenes.argtypes = [vp, i, i, vp, vp, f, f, vp, vp, vp, vp]
+        lib.sdf_grad_bwd_scenes.restype = i
+        lib.sdf_grad_bwd_scenes.argtypes = [vp, i, i, vp, vp, f, f, vp, vp, vp, vp, vp, vp,
+                                            vp, vp]
         if (lib.sdf_grad_tile() != TILE or lib.sdf_grad_weight_elems()
                 != sum(r * c for r, c in layout(multires).pack_shapes)):
             raise RuntimeError("csrc/sdf_grad.cu layout differs from ops/sdf_grad.py")
@@ -210,48 +226,61 @@ def unpack_grads(dW: torch.Tensor, db: torch.Tensor, multires: int = MULTIRES):
 
 
 def _fwd(pts, W, bias, beta, scale, multires: int = MULTIRES):
-    n_pad = pts.shape[0]
+    """One forward launch on packed weights, for one scene (pts [n_pad, 3],
+    W [W_TOTAL], bias [9, OUT_W]) or for S (a leading scene axis on each):
+    -> sdf [..., n_pad], grad [..., n_pad, 3], feats [..., n_pad, 256]. A
+    launch for scenes counts under `sdf_grad_fwd_scenes`."""
+    lead, n_pad = pts.shape[:-2], pts.shape[-2]
     dev = pts.device
-    sdf = torch.empty(n_pad, device=dev)
-    grad = torch.empty(n_pad, 3, device=dev)
-    feats = torch.empty(n_pad, HID, device=dev)
-    rc = _lib(multires).sdf_grad_fwd(pts.data_ptr(), n_pad, W.data_ptr(), bias.data_ptr(), beta,
-                                     scale, sdf.data_ptr(), grad.data_ptr(), feats.data_ptr(),
-                                     torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check(rc, "sdf_grad_fwd")
-    _count("sdf_grad_fwd", multires, flops(n_pad, multires=multires))
+    sdf = torch.empty(lead + (n_pad,), device=dev)
+    grad = torch.empty(lead + (n_pad, 3), device=dev)
+    feats = torch.empty(lead + (n_pad, HID), device=dev)
+    name = "sdf_grad_fwd" + ("_scenes" if lead else "")
+    rc = _lib(multires).sdf_grad_fwd_scenes(
+        pts.data_ptr(), n_pad, math.prod(lead), W.data_ptr(), bias.data_ptr(), beta, scale,
+        sdf.data_ptr(), grad.data_ptr(), feats.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(rc, name)
+    _count(name, multires, flops(math.prod(lead) * n_pad, multires=multires))
     return sdf, grad, feats
 
 
-def bwd_buffers(n_pad: int, dev, multires: int = MULTIRES):
+def bwd_buffers(n_pad: int, dev, multires: int = MULTIRES, n_scenes: int = 1):
     """The backward's scratch (bf16: H, GZ, layer 8's cotangent rows, the PE)
-    and its per-chunk partials (f32), one torch.empty each."""
+    and its per-chunk partials (f32), one torch.empty each; S scenes of
+    n_pad rows take S times one scene's."""
     lib = _lib(multires)
-    return (torch.empty(lib.sdf_grad_scratch_elems(n_pad), dtype=torch.bfloat16, device=dev),
-            torch.empty(lib.sdf_grad_part_elems(n_pad), device=dev))
+    return (torch.empty(n_scenes * lib.sdf_grad_scratch_elems(n_pad), dtype=torch.bfloat16,
+                        device=dev),
+            torch.empty(n_scenes * lib.sdf_grad_part_elems(n_pad), device=dev))
 
 
 def _bwd(pts, W, bias, beta, scale, g_sdf, g_grad, g_feats, multires: int = MULTIRES):
-    n_pad = pts.shape[0]
+    """One backward call (three launches), for one scene or S as `_fwd`:
+    -> dW [..., W_TOTAL], db [..., 9, OUT_W]."""
+    lead, n_pad = pts.shape[:-2], pts.shape[-2]
     dev = pts.device
-    lib = _lib(multires)
-    scratch, part = bwd_buffers(n_pad, dev, multires)
-    dW = torch.zeros(W.numel(), device=dev)  # zero rows: the kernel writes nothing
-    db = torch.zeros(9, OUT_W, device=dev)
-    rc = lib.sdf_grad_bwd(pts.data_ptr(), n_pad, W.data_ptr(), bias.data_ptr(), beta, scale,
-                          g_sdf.data_ptr(), g_grad.data_ptr(), g_feats.data_ptr(),
-                          scratch.data_ptr(), part.data_ptr(), dW.data_ptr(),
-                          db.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check(rc, "sdf_grad_bwd")
-    _count("sdf_grad_bwd", multires, flops(n_pad, backward=True, multires=multires))
+    scratch, part = bwd_buffers(n_pad, dev, multires, math.prod(lead))
+    dW = torch.zeros(W.shape, device=dev)  # zero rows: the kernel writes nothing
+    db = torch.zeros(lead + (9, OUT_W), device=dev)
+    name = "sdf_grad_bwd" + ("_scenes" if lead else "")
+    rc = _lib(multires).sdf_grad_bwd_scenes(
+        pts.data_ptr(), n_pad, math.prod(lead), W.data_ptr(), bias.data_ptr(), beta, scale,
+        g_sdf.data_ptr(), g_grad.data_ptr(), g_feats.data_ptr(), scratch.data_ptr(),
+        part.data_ptr(), dW.data_ptr(), db.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(rc, name)
+    _count(name, multires, flops(math.prod(lead) * n_pad, backward=True, multires=multires))
     return dW, db
 
 
-def _pad_rows(t: torch.Tensor, n_pad: int) -> torch.Tensor:
-    t = t.float().contiguous()
-    if t.shape[0] == n_pad:
-        return t
-    return torch.cat([t, t.new_zeros((n_pad - t.shape[0],) + t.shape[1:])]).contiguous()
+def _pad_rows(t: torch.Tensor, n_pad: int, dim: int = 0) -> torch.Tensor:
+    """t as f32 with its rows (axis `dim`) padded with zeros to n_pad."""
+    t = t.float()
+    if t.shape[dim] != n_pad:
+        shape = list(t.shape)
+        shape[dim] = n_pad - t.shape[dim]
+        t = torch.cat([t, t.new_zeros(shape)], dim)
+    return t.contiguous()
 
 
 class _SdfGradFn(torch.autograd.Function):
@@ -281,6 +310,72 @@ class _SdfGradFn(torch.autograd.Function):
                       cot(g_grad, (3,)), cot(g_feats, (HID,)), ctx.multires)
         dws, dbs = unpack_grads(dW, db, ctx.multires)
         return (None, None, None, *dws, *dbs)
+
+
+def pack_scenes(ws, bs):
+    """Stacked resolved weights [S, in, out] / biases [S, out] -> (packed
+    bf16 [S, W_TOTAL], bias f32 [S, 9, OUT_W]), each scene packed as one
+    scene's is."""
+    packs = [pack_weights([w[s] for w in ws], [b[s] for b in bs]) for s in range(ws[0].shape[0])]
+    return (torch.stack([p[0] for p in packs]).contiguous(),
+            torch.stack([p[1] for p in packs]).contiguous())
+
+
+class _SdfGradScenesFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, pts, beta, scale, *wb):
+        n = pts.shape[1]
+        n_pad = -(-n // TILE) * TILE
+        W, bias = pack_scenes(wb[:9], wb[9:])
+        pts_p = _pad_rows(pts, n_pad, 1)
+        multires = multires_of([w[0] for w in wb[:9]])
+        sdf, grad, feats = _fwd(pts_p, W, bias, beta, scale, multires)
+        ctx.save_for_backward(pts_p, W, bias)
+        ctx.n, ctx.beta, ctx.scale, ctx.multires = n, beta, scale, multires
+        return sdf[:, :n, None], feats[:, :n], grad[:, :n]
+
+    @staticmethod
+    def backward(ctx, g_sdf, g_feats, g_grad):
+        pts_p, W, bias = ctx.saved_tensors
+        n_scenes, n_pad = pts_p.shape[:2]
+        n = ctx.n
+
+        def cot(g, shape):
+            if g is None:
+                return torch.zeros((n_scenes, n_pad) + shape, device=pts_p.device)
+            return _pad_rows(g.reshape((n_scenes, n) + shape), n_pad, 1)
+
+        dW, db = _bwd(pts_p, W, bias, ctx.beta, ctx.scale, cot(g_sdf, ()),
+                             cot(g_grad, (3,)), cot(g_feats, (HID,)), ctx.multires)
+        per_scene = [unpack_grads(dW[s], db[s], ctx.multires) for s in range(n_scenes)]
+        dws = [torch.stack(g) for g in zip(*[p[0] for p in per_scene])]
+        dbs = [torch.stack(g) for g in zip(*[p[1] for p in per_scene])]
+        return (None, None, None, *dws, *dbs)
+
+
+def sdf_with_grad_scenes(params, x: torch.Tensor, cfg: SDFConfig = SDFConfig(),
+                         mode: str = "fused"):
+    """`sdf_with_grad` of S scenes: params stacked on a leading scene axis
+    ({v,g,b} or resolved {w,b} layers, [S, ...] each), x [S, ..., 3] ->
+    (sdf [S, ..., 1], feats [S, ..., d_out-1], grad [S, ..., 3]). `fused` on
+    a CUDA tensor: one kernel launch each way for all scenes, no fallback;
+    otherwise the one-scene function scene by scene."""
+    if mode not in GRAD_MODES:
+        raise ValueError(f"sdf_grad_mode must be one of {GRAD_MODES}, got {mode!r}")
+    n_scenes = x.shape[0]
+    if mode != "fused" or x.device.type == "cpu":
+        outs = [sdf_with_grad(scene_slice(params, s), x[s], cfg, mode) for s in range(n_scenes)]
+        return tuple(torch.stack(o) for o in zip(*outs))
+    if not supported(cfg):
+        raise NotImplementedError(f"the sdf_grad kernel needs 8 x 256 layers with the skip at "
+                                  f"4, 257 outputs, weight norm and multires 1-20; got {cfg}")
+    layers = resolve_weight_norm(params)
+    ws = [l["w"] for l in layers]
+    bs = [l["b"] for l in layers]
+    shape = x.shape[:-1]
+    sdf, feats, grad = _SdfGradScenesFn.apply(x.reshape(n_scenes, -1, 3).detach(),
+                                              float(cfg.beta), float(cfg.scale), *ws, *bs)
+    return (sdf.reshape(*shape, 1), feats.reshape(*shape, HID), grad.reshape(*shape, 3))
 
 
 def sdf_with_grad(params, x: torch.Tensor, cfg: SDFConfig = SDFConfig(), mode: str = "fused"):

@@ -27,10 +27,19 @@ backward's recompute. The backward is three launches (recompute and reverse swee
 and bias-gradient pass, the reduction of its partials) through a scratch of
 X, H and GZ in device memory: 1.5 GB at N = 65,536, 1.7 GB with the human
 head (`bwd_buffers`).
+
+`shader_raw_scenes` is the same function over S scenes' weights stacked on a
+leading axis (parallel/scenes.py), as nero_tpu's `jax.vmap` of the multi-
+scene step batches its pallas_calls: one launch each way for all scenes, on
+a grid with a scene dimension; each scene's outputs and gradients are its
+one-scene launch's to the bit. Its launch counters are `shader_fwd_scenes`
+and `shader_bwd_scenes` with the variant's suffix. Off the kernel it runs
+the plain version with each scene's heads on its rows (`scene_heads`).
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -39,6 +48,7 @@ import torch.nn.functional as F
 
 from nero_tpu_torch.ops import cuda_build
 from nero_tpu_torch.ops.mlp import predictor_raw, resolve_weight_norm
+from nero_tpu_torch.parallel.scenes import scene_map
 from nero_tpu_torch.utils.encodings import (ide_dim, ide_kernel_table, integrated_dir_encode,
                                             integrated_pos_encode, positional_encode,
                                             positional_encode_dim)
@@ -70,8 +80,9 @@ def defines(enc) -> tuple:
 
 
 # the shipped encodings' counters; another pair's are added at its first launch
-launches = {f"shader_{d}{_suffix(s, h)}": 0 for h in (0, 1) for s in (0, 1)
-            for d in ("fwd", "bwd")}
+# (`_scenes`: one launch for all scenes of the multi-scene step)
+launches = {f"shader_{d}{b}{_suffix(s, h)}": 0 for b in ("", "_scenes") for h in (0, 1)
+            for s in (0, 1) for d in ("fwd", "bwd")}
 # FLOPs of every counted launch, by `flops(...)` at the launch's shapes (core/mfu.py)
 flop_tally = dict.fromkeys(launches, 0.0)
 
@@ -249,6 +260,12 @@ def _lib(enc=DEFAULT_ENC):
         lib.shader_bwd_sweep.argtypes = [vp, vp, i, vp, vp, vp, i, i, vp, vp, vp, vp, vp]
         lib.shader_bwd_params.restype = i
         lib.shader_bwd_params.argtypes = [i, i, i, vp, vp, vp, vp, vp]
+        # S scenes in one launch (S = 1: one scene): n, then S
+        lib.shader_fwd_scenes.restype = i
+        lib.shader_fwd_scenes.argtypes = [vp, vp, i, i, vp, vp, vp, i, i, vp, vp]
+        lib.shader_bwd_scenes.restype = i
+        lib.shader_bwd_scenes.argtypes = [vp, vp, i, i, vp, vp, vp, i, i, vp, vp, vp, vp, vp,
+                                          vp, vp, vp]
         if lib.shader_tile() != TILE:
             raise RuntimeError("csrc/shader.cu tile differs from ops/shader.py")
         lib._nero_typed = True
@@ -308,53 +325,62 @@ def ide_table_on(device, ide_deg: int = 5) -> torch.Tensor:
 
 
 def _fwd(geo, feats, W, B, sphere: int, human: int, enc=DEFAULT_ENC) -> torch.Tensor:
-    """One forward launch on packed weights: geo [n, 9 or 21], feats [n, 256]
-    -> raw [n, 24]. No rows: an empty output, no launch."""
-    n = geo.shape[0]
+    """One forward launch on packed weights, for one scene (geo [n, 9 or 21],
+    feats [n, 256], W [w_total], B [heads, 4, 256]) or for S (a leading
+    scene axis on each) -> raw [..., n, 24]. No rows: an empty output, no
+    launch. A launch for scenes counts under `shader_fwd_scenes<variant>`."""
+    lead, n = geo.shape[:-2], geo.shape[-2]
     if n == 0:
-        return torch.empty(0, OUT, device=geo.device)
+        return torch.empty(lead + (0, OUT), device=geo.device)
     lib = _lib(enc)
-    if lib.shader_weight_elems(sphere, human) != W.numel():
+    if lib.shader_weight_elems(sphere, human) != W.shape[-1]:
         raise RuntimeError("csrc/shader.cu layout differs from ops/shader.py")
-    out = torch.empty(n, OUT, device=geo.device)
-    rc = lib.shader_fwd(geo.data_ptr(), feats.data_ptr(), n, W.data_ptr(), B.data_ptr(),
-                        ide_table_on(geo.device, enc[0]).data_ptr(), sphere, human,
-                        out.data_ptr(), torch.cuda.current_stream(geo.device).cuda_stream)
-    cuda_build.check(rc, "shader_fwd")
-    _count("shader_fwd" + _suffix(sphere, human, enc), flops(n, variant_cfg(sphere, human, enc)))
+    out = torch.empty(lead + (n, OUT), device=geo.device)
+    name = "shader_fwd" + ("_scenes" if lead else "")
+    rc = lib.shader_fwd_scenes(geo.data_ptr(), feats.data_ptr(), n, math.prod(lead),
+                               W.data_ptr(), B.data_ptr(),
+                               ide_table_on(geo.device, enc[0]).data_ptr(), sphere, human,
+                               out.data_ptr(), torch.cuda.current_stream(geo.device).cuda_stream)
+    cuda_build.check(rc, name)
+    _count(name + _suffix(sphere, human, enc),
+           flops(math.prod(lead) * n, variant_cfg(sphere, human, enc)))
     return out
 
 
-def bwd_buffers(n: int, sphere: int, human: int, dev, enc=DEFAULT_ENC):
+def bwd_buffers(n: int, sphere: int, human: int, dev, enc=DEFAULT_ENC, n_scenes: int = 1):
     """The backward's scratch (bf16: X of every input slot, H and GZ of every
     layer of every head evaluation, in 8 x 8 pieces) and its per-chunk
-    partials (f32), one torch.empty each, sized by the library."""
+    partials (f32), one torch.empty each, sized by the library; S scenes of
+    n rows take S times one scene's."""
     lib = _lib(enc)
-    return (torch.empty(lib.shader_scratch_elems(n, sphere, human), dtype=torch.bfloat16,
-                        device=dev),
-            torch.empty(lib.shader_part_elems(n, sphere, human), device=dev))
+    return (torch.empty(n_scenes * lib.shader_scratch_elems(n, sphere, human),
+                        dtype=torch.bfloat16, device=dev),
+            torch.empty(n_scenes * lib.shader_part_elems(n, sphere, human), device=dev))
 
 
 def _bwd(geo, feats, W, B, sphere: int, human: int, gout, enc=DEFAULT_ENC):
-    """One backward call (recompute and sweep, parameter pass, reduction):
-    gout [n, 24] -> (dgeo [n, 9], dfeats [n, 256], dW packed f32, dB)."""
-    n = geo.shape[0]
+    """One backward call (recompute and sweep, parameter pass, reduction),
+    for one scene or S as `_fwd`: gout [..., n, 24] -> (dgeo [..., n, 9],
+    dfeats [..., n, 256], dW packed f32, dB)."""
+    lead, n = geo.shape[:-2], geo.shape[-2]
     dev = geo.device
     lib = _lib(enc)
-    scratch, part = bwd_buffers(n, sphere, human, dev, enc)
-    dgeo = torch.empty(n, DGEO, device=dev)
-    dfeats = torch.empty(n, HID, device=dev)
+    scratch, part = bwd_buffers(n, sphere, human, dev, enc, math.prod(lead))
+    dgeo = torch.empty(lead + (n, DGEO), device=dev)
+    dfeats = torch.empty(lead + (n, HID), device=dev)
     # no rows, no launch: the kernels write every element of dW and dB otherwise
     new = torch.empty if n else torch.zeros
-    dW = new(W.numel(), device=dev)
+    dW = new(W.shape, device=dev)
     dB = new(B.shape, device=dev)
-    rc = lib.shader_bwd(geo.data_ptr(), feats.data_ptr(), n, W.data_ptr(), B.data_ptr(),
-                        ide_table_on(dev, enc[0]).data_ptr(), sphere, human, gout.data_ptr(),
-                        dgeo.data_ptr(), dfeats.data_ptr(), scratch.data_ptr(), part.data_ptr(),
-                        dW.data_ptr(), dB.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check(rc, "shader_bwd")
-    _count("shader_bwd" + _suffix(sphere, human, enc),
-           flops(n, variant_cfg(sphere, human, enc), backward=True))
+    name = "shader_bwd" + ("_scenes" if lead else "")
+    rc = lib.shader_bwd_scenes(geo.data_ptr(), feats.data_ptr(), n, math.prod(lead),
+                               W.data_ptr(), B.data_ptr(), ide_table_on(dev, enc[0]).data_ptr(),
+                               sphere, human, gout.data_ptr(), dgeo.data_ptr(), dfeats.data_ptr(),
+                               scratch.data_ptr(), part.data_ptr(), dW.data_ptr(), dB.data_ptr(),
+                               torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(rc, name)
+    _count(name + _suffix(sphere, human, enc),
+           flops(math.prod(lead) * n, variant_cfg(sphere, human, enc), backward=True))
     return dgeo, dfeats, dW, dB
 
 
@@ -382,6 +408,74 @@ class _ShaderFn(torch.autograd.Function):
         if human:  # the poses are data: no gradient
             dgeo = torch.cat([dgeo, dgeo.new_zeros(geo.shape[0], geo.shape[1] - DGEO)], -1)
         return (dgeo, dfeats, None, *dws, *dbs)
+
+
+def pack_scenes(ws, bs, pads):
+    """Stacked resolved weights / biases ([S, ...] each, 4 per head, in head
+    order) -> (packed bf16 [S, w_total], bias f32 [S, heads, 4, 256]), each
+    scene packed as one scene's is."""
+    packs = [pack_weights([w[s] for w in ws], [b[s] for b in bs], pads)
+             for s in range(ws[0].shape[0])]
+    return (torch.stack([p[0] for p in packs]).contiguous(),
+            torch.stack([p[1] for p in packs]).contiguous())
+
+
+class _ShaderScenesFn(torch.autograd.Function):
+    """_ShaderFn over S scenes: geo [S, n, ...], feats [S, n, 256], the
+    weights and biases stacked [S, ...]."""
+
+    @staticmethod
+    def forward(ctx, geo, feats, spec, *wb):
+        sphere, human, pads, _, enc = spec
+        nw = 4 * len(pads)
+        W, B = pack_scenes(wb[:nw], wb[nw:], pads)
+        out = _fwd(geo, feats, W, B, sphere, human, enc)
+        ctx.save_for_backward(geo, feats, W, B)
+        ctx.spec = spec
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        geo, feats, W, B = ctx.saved_tensors
+        sphere, human, pads, dims, enc = ctx.spec
+        dgeo, dfeats, dW, dB = _bwd(geo, feats, W, B, sphere, human,
+                                           gout.float().contiguous(), enc)
+        per_scene = [unpack_grads(dW[s], dB[s], pads, dims) for s in range(W.shape[0])]
+        dws = [torch.stack(g) for g in zip(*[p[0] for p in per_scene])]
+        dbs = [torch.stack(g) for g in zip(*[p[1] for p in per_scene])]
+        if human:  # the poses are data: no gradient
+            dgeo = torch.cat([dgeo, dgeo.new_zeros(geo.shape[:2] + (geo.shape[2] - DGEO,))], -1)
+        return (dgeo, dfeats, None, *dws, *dbs)
+
+
+def scene_heads(n_scenes: int, head=predictor_raw):
+    """A `head` for `shader_raw_plain` over S scenes' scene-major rows with
+    the heads' layers stacked on a leading scene axis: scene s's head on its
+    part of the rows."""
+    return lambda layers, x: scene_map(head, n_scenes, layers, x)
+
+
+def shader_raw_scenes(params, cfg, n_scenes: int, points, normals, view_dirs, feats,
+                      human_poses=None) -> torch.Tensor:
+    """`shader_raw` of S scenes: params stacked on a leading scene axis, the
+    rows of every argument scene-major (scene s's the s-th of S equal parts
+    of the leading axis) -> packed raw outputs [..., 24]. On CUDA tensors one
+    kernel launch each way for all scenes, no fallback; on CPU tensors the
+    plain version with each scene's heads on its rows."""
+    if cfg.human_light and human_poses is None:
+        raise ValueError("human_light shading needs human_poses")
+    if points.device.type == "cpu":
+        return shader_raw_plain(params, cfg, points, normals, view_dirs, feats, human_poses,
+                                head=scene_heads(n_scenes))
+    if not supported(cfg):
+        raise NotImplementedError(
+            f"the shader kernel needs 256 feats, ide_deg <= 5 and light_pos_freq 0-16; got {cfg}")
+    geo, feats2d, spec, ws, bs = kernel_inputs(params, cfg, points, normals, view_dirs, feats,
+                                               human_poses)
+    n = geo.shape[0] // n_scenes
+    out = _ShaderScenesFn.apply(geo.view(n_scenes, n, -1), feats2d.view(n_scenes, n, HID),
+                                spec, *ws, *bs)
+    return out.reshape(*points.shape[:-1], OUT)
 
 
 def kernel_inputs(params, cfg, points, normals, view_dirs, feats, human_poses=None):

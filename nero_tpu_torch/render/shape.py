@@ -33,6 +33,16 @@ rows of the global batch: the random draws are of the global batch's shape
 (`draw_rows`), the occlusion loss sizes its per-ray candidates from the
 global ray count, and the masked means of the eikonal and occlusion terms
 sum their numerators and counts over the ranks (`sum_rows`).
+
+With parameters stacked on a leading scene axis (parallel/scenes.py, the
+multi-scene step of models/multi_scene.py) `render` renders S scenes' rays
+in one pass, as nero_tpu's `jax.vmap` of one scene's step does: the rays
+are scene-major, the SDF-with-gradient and the whole shader launch once for
+all scenes (`sdf_with_grad_scenes`, `shader_raw_scenes`), the library
+products (background NeRF, the no-gradient SDF values) and the per-head
+shader run scene by scene, the draws come from each scene's generator, the
+occlusion loss sizes its candidates from one scene's ray count, and every
+reduction over rows is per scene; the scalar outputs are then [S].
 """
 from __future__ import annotations
 
@@ -54,9 +64,11 @@ from nero_tpu_torch.ops.mlp import (current_precision, hidden_dtype, precision_o
 from nero_tpu_torch.ops.sample_pdf import sample_pdf
 from nero_tpu_torch.ops.sdf_fwd import make_sdf_fwd_fn
 from nero_tpu_torch.ops.sdf_fwd import supported as sdf_fwd_supported
-from nero_tpu_torch.ops.sdf_grad import GRAD_MODES, sdf_with_grad
+from nero_tpu_torch.ops.sdf_grad import GRAD_MODES, sdf_with_grad, sdf_with_grad_scenes
 from nero_tpu_torch.ops.sdf_grad import supported as sdf_kernel_supported
 from nero_tpu_torch.parallel.mesh import RayShard, draw_rows, sum_rows
+from nero_tpu_torch.parallel.scenes import (n_scenes, per_row, row_values, scene_map,
+                                            scene_rand, scene_slice, scene_sum)
 from nero_tpu_torch.utils.color import linear_to_srgb
 
 
@@ -182,10 +194,19 @@ def _topology(scfg: ShapeConfig) -> str:
 
 def make_nograd_sdf_fn(params, scfg: ShapeConfig):
     """SDF value function of the no-gradient paths: the value-only kernel
-    when `use_fused_sdf` (its plain version on CPU tensors), else `sdf_value`."""
+    when `use_fused_sdf` (its plain version on CPU tensors), else `sdf_value`.
+    With S scenes, each scene's function on its part of the rows."""
+    S = n_scenes(params)
+    if S is None:
+        return _nograd_sdf_fn(params["sdf"], scfg)
+    fns = [_nograd_sdf_fn(scene_slice(params["sdf"], s), scfg) for s in range(S)]
+    return lambda x: torch.cat([f(c) for f, c in zip(fns, x.chunk(S, 0))])
+
+
+def _nograd_sdf_fn(sdf_params, scfg: ShapeConfig):
     if scfg.use_fused_sdf:
-        return make_sdf_fwd_fn(params["sdf"], scfg.sdf_cfg)
-    return lambda x: sdf_value(params["sdf"], x, scfg.sdf_cfg)
+        return make_sdf_fwd_fn(sdf_params, scfg.sdf_cfg)
+    return lambda x: sdf_value(sdf_params, x, scfg.sdf_cfg)
 
 
 def init_shape_params(gen: torch.Generator, scfg: ShapeConfig, device="cpu"):
@@ -242,7 +263,7 @@ def _sample_z_vals(params, scfg: ShapeConfig, rays_o, rays_d, near, far, gen, pe
     z_out_lin = torch.linspace(1e-3, 1.0 - 1.0 / (scfg.n_bg_samples + 1.0),
                                scfg.n_bg_samples, dtype=dt, device=dev)
     if perturb > 0 and gen is not None:
-        rand = lambda shape: torch.rand(shape, generator=gen, device=dev, dtype=dt)
+        rand = scene_rand(gen, dev, dt)
         t_rand = draw_rows(rand, (r, 1), shard) - 0.5
         z_vals = z_vals + t_rand * 2.0 / sn
         mids = 0.5 * (z_out_lin[1:] + z_out_lin[:-1])
@@ -263,7 +284,7 @@ def _sample_z_vals(params, scfg: ShapeConfig, rays_o, rays_d, near, far, gen, pe
             inv_s_i = torch.clamp(base_inv_s, max=64.0 * 2 ** i)
         else:
             inv_s_i = torch.tensor(64.0 * 2 ** i, dtype=dt, device=dev)
-        new_z = _upsample_z(rays_o, rays_d, z_vals, sdf, n_new, inv_s_i)
+        new_z = _upsample_z(rays_o, rays_d, z_vals, sdf, n_new, row_values(inv_s_i, z_vals))
         z_cat = torch.cat([z_vals, new_z], dim=-1)
         if i + 1 < scfg.up_sample_steps:
             new_sdf = sdf_fn(rays_o[:, None, :] + rays_d[:, None, :] * new_z[..., None])[..., 0]
@@ -282,8 +303,16 @@ def _sample_z_vals(params, scfg: ShapeConfig, rays_o, rays_d, near, far, gen, pe
 
 def compute_sdf_alpha(params, scfg: ShapeConfig, points, dists, dirs, cos_anneal_ratio,
                       step: int):
-    """NeuS alpha on the inner lattice. points [R,S,3] -> alpha, grads, feats, inv_s, sdf."""
-    sdf, feats, grads = sdf_with_grad(params["sdf"], points, scfg.sdf_cfg, scfg.sdf_grad_mode)
+    """NeuS alpha on the inner lattice. points [R,S,3] -> alpha, grads, feats, inv_s, sdf
+    (with scenes, inv_s [S])."""
+    S = n_scenes(params)
+    if S is None:
+        sdf, feats, grads = sdf_with_grad(params["sdf"], points, scfg.sdf_cfg,
+                                          scfg.sdf_grad_mode)
+    else:
+        sdf, feats, grads = (t.flatten(0, 1) for t in sdf_with_grad_scenes(
+            params["sdf"], points.reshape((S, -1) + points.shape[1:]), scfg.sdf_cfg,
+            scfg.sdf_grad_mode))
     sdf = sdf[..., 0]
     inv_s = torch.clamp(variance_inv_s(params["variance"], scfg.std_act), 1e-6, 1e6)
     if scfg.freeze_inv_s_step is not None and step < scfg.freeze_inv_s_step:
@@ -293,8 +322,8 @@ def compute_sdf_alpha(params, scfg: ShapeConfig, points, dists, dirs, cos_anneal
                  + torch.relu(-true_cos) * cos_anneal_ratio)
     est_next = sdf + iter_cos * dists * 0.5
     est_prev = sdf - iter_cos * dists * 0.5
-    prev_cdf = torch.sigmoid(est_prev * inv_s)
-    next_cdf = torch.sigmoid(est_next * inv_s)
+    prev_cdf = torch.sigmoid(est_prev * per_row(inv_s, est_prev))
+    next_cdf = torch.sigmoid(est_next * per_row(inv_s, est_next))
     alpha = torch.clamp((prev_cdf - next_cdf + 1e-5) / (prev_cdf + 1e-5), 0.0, 1.0)
     return alpha, grads, feats, inv_s, sdf
 
@@ -303,7 +332,11 @@ def compute_density_alpha(params, points, dists, dirs):
     """Background NeRF++ alpha/color on arbitrary points."""
     norm = torch.clamp(torch.linalg.norm(points, dim=-1, keepdim=True), min=1e-3)
     pts4 = torch.cat([points / norm, 1.0 / norm], dim=-1)
-    density, color = bg_nerf_apply(params["bg"], pts4, dirs)
+    S = n_scenes(params)
+    if S is None:
+        density, color = bg_nerf_apply(params["bg"], pts4, dirs)
+    else:
+        density, color = scene_map(bg_nerf_apply, S, params["bg"], pts4, dirs)
     alpha = 1.0 - torch.exp(-torch.nn.functional.softplus(density[..., 0]) * dists)
     color = linear_to_srgb(torch.exp(torch.clamp(color, max=5.0)))
     return alpha, color
@@ -319,29 +352,30 @@ def compute_occ_loss(params, scfg: ShapeConfig, gen, points, reflective, occ_pro
                      grads, dirs, shard: RayShard | None = None):
     """Occlusion-probability supervision: per ray the top k' = max_pn // R of
     the masked candidates by random score (nero_tpu/render/shape.py:379-415);
-    R is the global batch's ray count."""
+    R is the global batch's ray count, of one scene. With scenes, [S]."""
     r, s = points.shape[:2]
+    S = n_scenes(params)
     with torch.no_grad():
         mask = ((torch.linalg.norm(points, dim=-1) < 0.999)
                 & (torch.abs(sdf) < scfg.occ_sdf_thresh)
                 & (torch.sum(grads * dirs, dim=-1) < 0.0))
-        rand = draw_rows(lambda shape: torch.rand(shape, generator=gen, device=points.device,
-                                                  dtype=points.dtype), (r, s), shard)
+        rand = draw_rows(scene_rand(gen, points.device, points.dtype), (r, s), shard)
         score = torch.where(mask, rand, torch.full_like(rand, -1.0))
-        kpr = max(1, min(scfg.occ_loss_max_pn // (r if shard is None else shard.n), s))
+        rays = shard.n if shard is not None else r if S is None else r // S
+        kpr = max(1, min(scfg.occ_loss_max_pn // rays, s))
         top_vals, top_idx = torch.topk(score, kpr, dim=-1)
         valid = (top_vals > 0.0).reshape(-1).to(points.dtype)
         idx3 = top_idx[..., None].expand(r, kpr, 3)
         pts_k = torch.gather(points, 1, idx3).reshape(r * kpr, 3)
         refl_k = torch.gather(reflective.detach(), 1, idx3).reshape(r * kpr, 3)
-        inv_s = variance_inv_s(params["variance"], scfg.std_act)
+        inv_s = row_values(variance_inv_s(params["variance"], scfg.std_act), pts_k)
         sdf_fun = make_nograd_sdf_fn(params, scfg)
         _, inter_prob, _ = get_intersection(sdf_fun, inv_s, pts_k, refl_k, sn0=64, sn1=16)
         occ_gt = torch.sum(inter_prob, dim=-1)
     occ_k = torch.gather(occ_prob, 1, top_idx).reshape(r * kpr)
     l1 = torch.abs(occ_k - occ_gt)
-    return (sum_rows(torch.sum(l1 * valid), shard)
-            / torch.clamp(sum_rows(torch.sum(valid), shard), min=1.0))
+    return (sum_rows(scene_sum(l1 * valid, S), shard)
+            / torch.clamp(sum_rows(scene_sum(valid, S), shard), min=1.0))
 
 
 def top_k_lowest_index_first(x: torch.Tensor, k: int):
@@ -372,6 +406,7 @@ def _render_core(params, scfg: ShapeConfig, fg_lut, rays_o, rays_d, z_full, cos_
                  step: int, is_train: bool, gen, human_poses, shard) -> dict:
     r, s_total = z_full.shape
     s_inner = scfg.n_inner
+    S = n_scenes(params)
     dists = z_full[..., 1:] - z_full[..., :-1]
     dists = torch.cat([dists, dists[..., -1:]], dim=-1)
     mid_z = z_full + dists * 0.5
@@ -412,7 +447,7 @@ def _render_core(params, scfg: ShapeConfig, fg_lut, rays_o, rays_d, z_full, cos_
         # remat_shader runs in the backward pass, on CUDA on autograd's
         # device thread, where neither context is seen
         with precision_of(state):
-            return app_shading_apply(params["shader"], scfg.shader, fg_lut, *a)
+            return app_shading_apply(params["shader"], scfg.shader, fg_lut, *a, n_scenes=S)
 
     def shade(pts, nrm, view, ft, hp):
         args = [pts, nrm, view, ft] + ([] if hp is None else [hp])
@@ -441,12 +476,13 @@ def _render_core(params, scfg: ShapeConfig, fg_lut, rays_o, rays_d, z_full, cos_
         ray_rgb = rgb_bg_part + torch.sum(color_s * w_sdf[..., None], dim=1)
 
     grad_err = (torch.linalg.norm(grads, dim=-1) - 1.0) ** 2
-    n_inside = torch.clamp(sum_rows(torch.sum(inner_in), shard), min=1.0)
+    n_inside = torch.clamp(sum_rows(scene_sum(inner_in, S), shard), min=1.0)
     outputs = {
         "ray_rgb": ray_rgb,
-        "gradient_error": (sum_rows(torch.sum(grad_err * inner_in), shard)
-                           / n_inside).reshape(1),
-        "std": torch.mean(1.0 / inv_s).reshape(1),
+        "gradient_error": (sum_rows(scene_sum(grad_err * inner_in, S), shard)
+                           / n_inside).reshape(-1),
+        # a scene's mean of its one value is that value
+        "std": torch.mean(1.0 / inv_s).reshape(1) if S is None else 1.0 / inv_s,
         "sdf_pts_norm": torch.linalg.norm(pts_in, dim=-1).reshape(-1),
         "sdf_vals": sdf.reshape(-1),
     }
@@ -456,8 +492,8 @@ def _render_core(params, scfg: ShapeConfig, fg_lut, rays_o, rays_d, z_full, cos_
                                         occ_info["occ_prob"][..., 0], sdf_s, grads_s, dirs_s,
                                         shard)
         else:
-            loss_occ = ray_rgb.new_zeros(())
-        outputs["loss_occ"] = loss_occ.reshape(1)
+            loss_occ = ray_rgb.new_zeros(() if S is None else (S,))
+        outputs["loss_occ"] = loss_occ.reshape(-1)
     if not is_train:
         outputs.update(compute_validation_info(params, scfg, fg_lut, z_full, rays_o, rays_d,
                                                weights, human_poses))

@@ -4,8 +4,11 @@ tools/train_multi_scene.py.
     python -m nero_tpu_torch.train_multi_scene --cfgs configs/shape/syn/*.yaml \\
         [--total_step N] [--model_root data/model] [--log_step 100] [--save_interval 1000]
 
-The scenes (models/multi_scene.py) step one after another on the card, with
-scene 0's learning-rate schedule. The checkpoint is
+All scenes advance in one step (models/multi_scene.py): their parameters
+stacked on a leading scene axis, one render of every scene's rays with the
+SDF-with-gradient and whole-shader kernels launched once each way for all
+scenes, one Adam over the stacked leaves, scene 0's learning-rate schedule.
+The checkpoint is
 `<model_root>/multi_<first three names>[_plusN]/model.npz` in nero_tpu's
 stacked layout (core/checkpoint.py::save_stacked); a run resumes from it,
 whichever package wrote it. At the end each scene is exported to
@@ -53,13 +56,12 @@ def main(argv=None) -> dict:
     lr_cfg.setdefault("end_iter", total)
     schedule = name2lr_schedule[cfgs[0].get("lr_type", "warm_up_cos")](lr_cfg)
     optimizer, scheduler = make_optimizer(ms.parameters(), "adam", schedule, device)
-    scene_params = [ms.scene_params(s) for s in ms.scenes]
-    generators = [ms.models[s].gen for s in ms.scenes]
+    generators = ms.generators()
 
     ckpt_fn = checkpoint_path(flags.model_root, names)
     start_step = 0
     if os.path.exists(ckpt_fn):
-        start_step, _ = load_stacked(ckpt_fn, scene_params, optimizer, scheduler, generators)
+        start_step, _ = load_stacked(ckpt_fn, ms.params, optimizer, scheduler, generators)
         # the learning rate as LambdaLR sets it at that position
         for group, base, fn in zip(optimizer.param_groups, scheduler.base_lrs,
                                    scheduler.lr_lambdas):
@@ -86,7 +88,7 @@ def main(argv=None) -> dict:
             print(f"step {step + 1}: mean loss {losses.mean():.4f} "
                   f"({meter.rays_per_sec:.0f} rays/s aggregate)")
         if (step + 1) % flags.save_interval == 0 or (step + 1) == total:
-            save_stacked(ckpt_fn, step + 1, 0.0, scene_params, optimizer,
+            save_stacked(ckpt_fn, step + 1, 0.0, ms.params, optimizer,
                          scheduler.last_epoch, generators)
 
     print(f"done in {time.time() - t0:.0f}s; checkpoint at {ckpt_fn}")

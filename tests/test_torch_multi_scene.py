@@ -165,12 +165,13 @@ def test_stacked_checkpoint_port_to_nero_tpu(tmp_path):
     nu = dict(tree_items(jax.tree_util.tree_map(np.asarray, adam.nu)))
     assert np.array_equal(np.asarray(adam.count), [3, 3])
     assert np.array_equal(np.asarray(sched.count), [3, 3])
-    for s in range(2):
-        for k, leaf in tree_items(ms.scene_params(s)):
-            st = out["optimizer"].state[leaf]
-            assert np.array_equal(got[k][s], leaf.detach().numpy()), k
-            assert np.array_equal(mu[k][s], st["exp_avg"].numpy()), k
-            assert np.array_equal(nu[k][s], st["exp_avg_sq"].numpy()), k
+    # the stacked leaves and their Adam state, scene s at index s
+    for k, leaf in tree_items(ms.params):
+        st = out["optimizer"].state[leaf]
+        for s in range(2):
+            assert np.array_equal(got[k][s], leaf[s].detach().numpy()), k
+            assert np.array_equal(mu[k][s], st["exp_avg"][s].numpy()), k
+            assert np.array_equal(nu[k][s], st["exp_avg_sq"][s].numpy()), k
 
 
 def test_stacked_checkpoint_nero_tpu_to_port(tmp_path):
@@ -193,8 +194,8 @@ def test_stacked_checkpoint_nero_tpu_to_port(tmp_path):
     want = dict(tree_items(jax.tree_util.tree_map(np.asarray, params)))
     mu = dict(tree_items(jax.tree_util.tree_map(np.asarray, opt_state[0].mu)))
     opt = out["optimizer"]
-    for s in range(2):
-        for k, leaf in tree_items(out["model"].scene_params(s)):
-            assert np.array_equal(leaf.detach().numpy(), want[k][s]), k
-            assert np.array_equal(opt.state[leaf]["exp_avg"].numpy(), mu[k][s]), k
-            assert float(opt.state[leaf]["step"]) == 5.0
+    for k, leaf in tree_items(out["model"].params):
+        assert float(opt.state[leaf]["step"]) == 5.0
+        for s in range(2):
+            assert np.array_equal(leaf[s].detach().numpy(), want[k][s]), k
+            assert np.array_equal(opt.state[leaf]["exp_avg"][s].numpy(), mu[k][s]), k
