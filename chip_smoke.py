@@ -9,8 +9,8 @@ capture path: a scene written as a COLMAP custom object, read through the
 crop and raw caches by both stages and both pipeline tools, trains both
 stages under each setting of the precision switches, resuming one run from
 a checkpoint in nero_tpu's layout, and takes both stages through the ray
-data-parallel path, two scenes in the multi-scene model's one step (B1
-and B2 launched once a step for all scenes) and its tool,
+data-parallel path, two scenes in the multi-scene model's one step (B1,
+B2, B6 and B8 launched once a step for all scenes) and its tool,
 and every training configuration's FLOPs to an MFU.
 
     python3 chip_smoke.py
@@ -40,8 +40,11 @@ result line):
      calls, the backward's two parts timed apart, its four kernels' ptxas
      (0 spill bytes); kernel and plain times
      from CUDA events; then B1 and B2 (`default`, `human_light`) with the
-     scene axis, one launch each way for S = 2 and 4 scenes of 65,536 rows
-     (`check_scene_kernels`): each scene's outputs and dW / db equal to its
+     scene axis, one launch each way for S = 2 and 4 scenes of 65,536 rows,
+     B6 for S scenes of 131,072, 32,768 and 8,192 points and B8 for S
+     scenes of 65,536 rows at each of the seven head shapes
+     (`check_scene_kernels`): each scene's outputs and dW / db (B8: dx, dW,
+     dB) equal to its
      one-scene launch to the bit, the batched wrapper's outputs and
      parameter gradients equal to the one-scene wrapper's, each scene within
      the one-scene rows' bars of the plain version, the launches timed
@@ -140,7 +143,10 @@ result line):
      for both scenes (their `_scenes` counters at one scene's counts, the
      one-scene counters at 0); the step's host ms and device busy ms at 1, 2
      and 4 scenes; two scenes of `sphere_real.yaml` for 4 steps, launches
-     exact; the background NeRF's weight-gradient product by torch.bmm
+     exact; two scenes of `sphere_heads.yaml` for 8 steps with
+     occ_loss_step at 5, each equal to the bit to the scene alone, B1, B6
+     and B8 under their `_scenes` counters only (one scene's counts), and
+     that step's host and busy ms at 1, 2 and 4 scenes; the background NeRF's weight-gradient product by torch.bmm
      against torch.mm scene by scene (reported: the step keeps the latter);
      then `train_multi_scene` for 4 steps unbroken and resumed at 2, equal
      to the bit, its exports loaded into NeROShapeModel; (d) the FLOPs of the first
@@ -915,14 +921,220 @@ def check_shader_scenes(n: int, n_scenes: int, dev, human: bool = False) -> list
     return rows
 
 
+def check_sdf_fwd_scenes(sizes, n_scenes: int, dev) -> list:
+    """B6 with the scene axis: S scenes' SDFs (seeds 3 + s) in one launch at
+    each of `sizes` points a scene. Each scene's sdf equals its one-scene
+    launch to the bit, and the wrapper's (`sdf_fwd_scenes`) the one-scene
+    wrapper's; against the plain version scene by scene, check_sdf_fwd's
+    bars; the launch, the wrapper and S one-scene launches in turn timed."""
+    from nero_tpu_torch.fields.sdf import SDFConfig, init_sdf
+    from nero_tpu_torch.ops import sdf_fwd as K
+    from nero_tpu_torch.parallel.scenes import stack_trees
+
+    S, cfg = n_scenes, SDFConfig()
+    scenes = [init_sdf(torch.Generator().manual_seed(3 + s), cfg, device=dev) for s in range(S)]
+    stacked = stack_trees(scenes)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rng = np.random.default_rng(30 + S)
+    rows, said = [], []
+    for n in sizes:
+        tag = f"sdf_fwd_scenes S = {S} x {n}"
+        pts = torch.as_tensor(rng.uniform(-0.7, 0.7, (S, n, 3)).astype(np.float32), device=dev)
+        with torch.no_grad():
+            W, bias = K.pack_scenes(stacked, cfg)
+            packed = [K.pack_params(scenes[s], cfg) for s in range(S)]
+            out_b = K._launch(W, bias, pts, cfg)
+            wrap_b = K.sdf_fwd_scenes(stacked, pts, cfg)
+            err = 0.0
+            for s in range(S):
+                check(torch.equal(W[s], packed[s][0]) and torch.equal(bias[s], packed[s][1]),
+                      f"{tag}: scene {s}'s packed weights differ from its one-scene pack")
+                check(torch.equal(out_b[s], K._launch(W[s], bias[s], pts[s], cfg)),
+                      f"{tag}: scene {s} differs from its one-scene launch")
+                check(torch.equal(wrap_b[s], K.sdf_fwd(scenes[s], pts[s], cfg)),
+                      f"{tag}: scene {s}'s wrapper output differs from the one-scene wrapper's")
+                e = (wrap_b[s] - K.sdf_fwd_plain(scenes[s], pts[s], cfg)).abs()
+                check(e.max().item() <= 2e-2 and e.mean().item() < 3e-3,
+                      f"{tag}: scene {s} against the plain version: max {e.max()}, mean {e.mean()}")
+                err = max(err, e.max().item())
+            del out_b, wrap_b
+            launch = cuda_ms(lambda: K._launch(W, bias, pts, cfg))
+            turn = cuda_ms(lambda: [K._launch(*packed[s], pts[s], cfg) for s in range(S)])
+            wrapper = cuda_ms(lambda: K.sdf_fwd_scenes(stacked, pts, cfg))
+            plain = cuda_ms(lambda: [K.sdf_fwd_plain(scenes[s], pts[s], cfg) for s in range(S)],
+                            iters=3)
+        row = scenes_row(f"sdf_fwd_scenes_s{S}_n{n}", "sdf_fwd_scenes", S,
+                         "nero_tpu_torch/csrc/sdf_fwd.cu", "nero_tpu/ops/pallas/sdf_kernel.py:122",
+                         err, launch, wrapper, turn, plain, K.flops(n), K.min_bytes(n), launch)
+        row.update(n=n, tile=K.tile(S * n, sms), one_scene_tile=K.tile(n, sms))
+        rows.append(row)
+        said.append(f"{n}: launch {launch:.4f} ms on {row['tile']}-point tiles (S one-scene "
+                    f"launches {turn:.4f} on {row['one_scene_tile']}-point tiles), wrapper "
+                    f"{wrapper:.4f}, bound {row['bound_ms']:.4f}, max|d sdf| {err:.3e}")
+    print(f"sdf_fwd_scenes S = {S}: each scene equal to its one-scene launch, and the wrapper's "
+          f"output to the one-scene wrapper's, to the bit, at " + "; ".join(said))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_predictor_scenes(n: int, n_scenes: int, dev, shapes=None) -> list:
+    """B8 with the scene axis: S scenes' heads (seeds d_in + s) in one launch
+    each way for each head shape of the Stage-I shader. Each scene's output,
+    dx, dW and dB equal its one-scene launch to the bit, and the wrapper's
+    (`predictor_scenes`) outputs and x- and parameter gradients the one-scene
+    wrapper's; against the plain version scene by scene, check_predictor's
+    bars (its mean-error bar, as at the other encodings, over the leaves of
+    more than one entry); the launches, the wrapper and S one-scene launches
+    in turn timed."""
+    from nero_tpu_torch.fields.app_shading import AppShadingConfig
+    from nero_tpu_torch.ops import predictor as K
+    from nero_tpu_torch.ops.mlp import init_predictor, resolve_weight_norm
+    from nero_tpu_torch.ops.shader import head_dims
+    from nero_tpu_torch.parallel.scenes import stack_trees
+
+    S = n_scenes
+    # the head shapes of phase 10's multi-scene sphere_heads.yaml (the default variant)
+    trained = set(head_dims(AppShadingConfig(fused_shader=False, fused_heads=True)).values())
+    rng = np.random.default_rng(40 + S)
+    t = lambda a: torch.as_tensor(a.astype(np.float32), device=dev)
+    mean_rel = lambda ga, gb: max(((a - b).abs().mean() / (a.abs().max() + 1e-8)).item()
+                                  for a, b in zip(ga, gb))
+    rows, said, said_one = [], [], []
+    for d_in, d_out in shapes or K.SHADER_SHAPES:
+        sfx = f"_{d_in}x{d_out}"
+        tag = f"predictor_scenes{sfx} S = {S}"
+        scenes = [init_predictor(torch.Generator().manual_seed(d_in + s), d_in, d_out,
+                                 device=dev) for s in range(S)]
+        stacked = stack_trees(scenes)
+        x = t(rng.standard_normal((S, n, d_in)) * 0.5)
+        gout = t(rng.standard_normal((S, n, d_out)))
+
+        # the launches on packed weights: each scene's outputs and gradients to the bit
+        with torch.no_grad():
+            res = resolve_weight_norm(stacked)
+            W, B = K.pack_scenes([l["w"] for l in res], [l["b"] for l in res])
+            fwd_b = K._fwd(x, W, B, d_out)
+            bwd_b = K._bwd(x, W, B, gout)
+            packed = []
+            for s in range(S):
+                one_res = resolve_weight_norm(scenes[s])
+                packed.append(K.pack_weights([l["w"] for l in one_res],
+                                             [l["b"] for l in one_res]))
+                check(torch.equal(W[s], packed[s][0]) and torch.equal(B[s], packed[s][1]),
+                      f"{tag}: scene {s}'s packed weights differ from its one-scene pack")
+                check(torch.equal(fwd_b[s], K._fwd(x[s], W[s], B[s], d_out)),
+                      f"{tag}: scene {s}'s forward differs from its one-scene launch")
+                one = K._bwd(x[s], W[s], B[s], gout[s])
+                check(all(torch.equal(a[s], b) for a, b in zip(bwd_b, one)),
+                      f"{tag}: scene {s}'s dx, dW or dB differ from its one-scene launch")
+            del fwd_b, bwd_b, one
+
+        # the wrapper: outputs and gradients those of the one-scene wrapper
+        xf = x.reshape(S * n, d_in).clone().requires_grad_(True)
+        y_b = K.predictor_scenes(stacked, xf, S)
+        g_b = torch.autograd.grad(y_b, leaves(stacked) + [xf], gout.reshape(S * n, d_out))
+        y_b = y_b.detach().reshape(S, n, d_out)
+        g_x = g_b[-1].reshape(S, n, d_in)
+        err = noise = dx_err = bwd_err = 0.0
+        worst_cos = 1.0
+        for s in range(S):
+            xs = x[s].clone().requires_grad_(True)
+            wrt = leaves(scenes[s]) + [xs]
+            y_1 = K.predictor(scenes[s], xs)
+            g_1 = torch.autograd.grad(y_1, wrt, gout[s])
+            check(torch.equal(y_b[s], y_1.detach()),
+                  f"{tag}: scene {s}'s wrapper output differs from the one-scene wrapper's")
+            check(all(torch.equal(a[s], b) for a, b in zip(g_b[:-1], g_1[:-1]))
+                  and torch.equal(g_x[s], g_1[-1]),
+                  f"{tag}: scene {s}'s gradients differ from the one-scene wrapper's")
+            y_p = K.predictor_plain(scenes[s], xs)
+            g_p = torch.autograd.grad(y_p, wrt, gout[s])
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                y_bf = K.predictor_plain(scenes[s], xs).float()
+            g_bf = torch.autograd.grad(y_bf, wrt, gout[s])
+            e = (y_b[s] - y_p.detach()).abs()
+            check(bool((e <= 2e-3 + 1e-2 * y_p.detach().abs()).all()),
+                  f"{tag}: scene {s} against the plain version: max err {e.max()}")
+            kb = [g[s] for g in g_b[:-1]] + [g_x[s]]
+            # the mean-error bar over the leaves of more than one entry, as
+            # check_predictor's at the other encodings: a one-output head's
+            # output gain is one sum that cancels over the rows, its error
+            # reported beside the bf16 plain version's
+            many = [i for i, a in enumerate(g_p[:-1]) if a.numel() > 1]
+            one_entry = [i for i in range(len(g_p) - 1) if i not in many]
+            pick = lambda g, idx: [g[i] for i in idx]
+            n_k = mean_rel(pick(g_p, many), pick(kb, many))
+            n_bf = mean_rel(pick(g_p, many), pick(g_bf, many))
+            if one_entry:
+                one_k = mean_rel(pick(g_p, one_entry), pick(kb, one_entry))
+                one_bf = mean_rel(pick(g_p, one_entry), pick(g_bf, one_entry))
+                said_one.append(f"{d_in}->{d_out} scene {s} {one_k:.2e} (bf16 {one_bf:.2e})")
+            cos = min((a.flatten() @ b.flatten() / (a.norm() * b.norm() + 1e-12)).item()
+                      for a, b in zip(g_p, kb))
+            d_x = mean_rel(g_p[-1:], kb[-1:])
+            check(n_k < 1.5 * n_bf + 1e-4 and cos > 0.99 and d_x < 0.02,
+                  f"{tag}: scene {s} grads {n_k} vs bf16 {n_bf}, worst cosine {cos}, d x {d_x}")
+            err, noise, dx_err = max(err, e.max().item()), max(noise, n_k), max(dx_err, d_x)
+            worst_cos = min(worst_cos, cos)
+            bwd_err = max(bwd_err, grad_err_normalised(g_p, kb))
+        del g_b, g_x, y_b
+
+        def plain_fwd():
+            return [K.predictor_plain(scenes[s], x[s]) for s in range(S)]
+
+        with torch.no_grad():
+            launch_fwd = cuda_ms(lambda: K._fwd(x, W, B, d_out))
+            turn_fwd = cuda_ms(lambda: [K._fwd(x[s], *packed[s], d_out) for s in range(S)])
+            launch_bwd = cuda_ms(lambda: K._bwd(x, W, B, gout), iters=5)
+            turn_bwd = cuda_ms(lambda: [K._bwd(x[s], *packed[s], gout[s]) for s in range(S)],
+                               iters=5)
+            wrap_fwd = cuda_ms(lambda: K.predictor_scenes(stacked, xf, S))
+            p_fwd = cuda_ms(plain_fwd, iters=3)
+        gflat = gout.reshape(S * n, d_out)
+        wrap_bwd = cuda_ms_split(lambda: K.predictor_scenes(stacked, xf, S),
+                                 lambda o: torch.autograd.grad(o, leaves(stacked) + [xf], gflat))
+        xs_all = [x[s].clone().requires_grad_(True) for s in range(S)]
+        p_bwd = cuda_ms_split(
+            lambda: torch.cat([K.predictor_plain(scenes[s], xs_all[s]) for s in range(S)]),
+            lambda o: torch.autograd.grad(o, [v for p in scenes for v in leaves(p)] + xs_all,
+                                          gflat), iters=3)
+        src, rep = "nero_tpu_torch/csrc/predictor.cu", "nero_tpu/ops/pallas/predictor_kernel.py:"
+        rows += [scenes_row(f"predictor_fwd_scenes{sfx}_s{S}", f"predictor_fwd_scenes{sfx}", S,
+                            src, rep + "151", err, launch_fwd, wrap_fwd, turn_fwd, p_fwd,
+                            K.flops(n, d_in, d_out), K.min_bytes(n, d_in, d_out), wrap_fwd),
+                 scenes_row(f"predictor_bwd_scenes{sfx}_s{S}", f"predictor_bwd_scenes{sfx}", S,
+                            src, rep + "171", bwd_err, launch_bwd, wrap_bwd, turn_bwd, p_bwd,
+                            K.flops(n, d_in, d_out, True), K.min_bytes(n, d_in, d_out, True),
+                            wrap_bwd)]
+        rows[-1]["mean_rel_err"] = noise
+        if (d_in, d_out) not in trained:
+            for r in rows[-2:]:
+                r.update(on_path=False, note="checked in the kernel phase; no multi-scene "
+                                             "training run of this script takes this head")
+        said.append(f"{d_in}->{d_out}: launch fwd {launch_fwd:.3f} ({turn_fwd:.3f}), bwd "
+                    f"{launch_bwd:.3f} ({turn_bwd:.3f}), wrapper {wrap_fwd:.3f} / {wrap_bwd:.3f}, "
+                    f"bounds {rows[-2]['bound_ms']:.3f} / {rows[-1]['bound_ms']:.3f}; max|d| "
+                    f"{err:.2e}, worst cosine {worst_cos:.5f}, mean|d|/max|g| {noise:.2e}, "
+                    f"d x {dx_err:.2e}")
+        torch.cuda.empty_cache()
+    print(f"predictor_scenes S = {S} x {n} rows: each scene's output, dx, dW and dB equal to its "
+          f"one-scene launch, and the wrapper's output and gradients to the one-scene "
+          f"wrapper's, to the bit; ms (S one-scene launches in brackets): " + "; ".join(said))
+    print(f"predictor_scenes S = {S}: one-entry leaves' mean|d|/max|g| " + ", ".join(said_one))
+    return rows
+
+
 def check_scene_kernels(dev) -> list:
-    """B1 and B2 (`default`, `human_light`) with the scene axis at each of
-    SCENE_COUNTS."""
+    """B1, B2 (`default`, `human_light`), B6 (at the occlusion march's, the
+    sampler's and its up-samples' sizes) and B8 (the Stage-I shader's head
+    shapes) with the scene axis at each of SCENE_COUNTS."""
     rows = []
     for s in SCENE_COUNTS:
         rows += check_sdf_scenes(N_ROWS, s, dev)
         rows += check_shader_scenes(N_ROWS, s, dev)
         rows += check_shader_scenes(N_ROWS, s, dev, human=True)
+        rows += check_sdf_fwd_scenes((N_OCC_MARCH, N_SAMPLER, N_UPSAMPLE), s, dev)
+        rows += check_predictor_scenes(N_ROWS, s, dev)
     return rows
 
 
@@ -2788,6 +3000,8 @@ MULTI_STEPS = 20        # two scenes of sphere.yaml through MultiSceneShapeModel
 MULTI_SCENE_COUNTS = (1, 2, 4)  # the multi-scene step's host and busy ms at these S
 MULTI_WARMUP, MULTI_TIMED = 3, 10
 MULTI_REAL_STEPS = 4    # two scenes of sphere_real.yaml (B2's human_light variant)
+MULTI_HEADS_STEPS = 8   # two scenes of sphere_heads.yaml (B8 and B6) ...
+MULTI_HEADS_OCC = 5     # ... past occ_loss_step, set here: the occlusion march's B6 too
 TOOL_STEPS = 4          # train_multi_scene, unbroken and resumed at half
 GLOO_RANKS = 2          # on the one card, over gloo
 # the two-rank step against one process: the ranks render the same rows with
@@ -3050,17 +3264,22 @@ def gloo_check(dev, card: str):
                                          f"bars = {inside}")
 
 
-def scenes_expect(scfg, steps: int, n_scenes: int) -> dict:
+# the counters' stems of the kernels launched once for all scenes (B1, B2, B6, B8)
+SCENE_KERNELS = ("sdf_grad_fwd", "sdf_grad_bwd", "shader_fwd", "shader_bwd", "sdf_fwd",
+                 "predictor_fwd", "predictor_bwd")
+
+
+def scenes_expect(scfg, steps: int, n_scenes: int, occ_steps: int = 0) -> dict:
     """Launches of `steps` steps of the multi-scene step over `n_scenes`
-    scenes: B1 and B2 once a step for all scenes under their `_scenes`
-    counters (one scene's counts), every other kernel once a scene."""
-    one = stage1_expect(scfg, steps)
+    scenes (`occ_steps` of them at or past occ_loss_step): B1, B2, B6 and B8
+    once for all scenes under their `_scenes` counters (one scene's counts),
+    any other kernel once a scene."""
+    one = stage1_expect(scfg, steps, occ_steps=occ_steps)
     e = {}
     for k, v in one.items():
         if not v:
             continue
-        base = next((b for d in ("fwd", "bwd") for b in (f"sdf_grad_{d}", f"shader_{d}")
-                     if k.startswith(b)), None)
+        base = next((b for b in SCENE_KERNELS if k.startswith(b)), None)
         if base is None:
             e[k] = n_scenes * v
         else:
@@ -3086,7 +3305,7 @@ class SceneTrainer:
 def scene_step_times(cfgs: list, schedule, dev, card: str) -> dict:
     """Host ms (median of MULTI_TIMED synchronised steps after MULTI_WARMUP)
     and device busy ms a step (profile_step.py's counting) of the
-    multi-scene step at each of MULTI_SCENE_COUNTS scenes."""
+    multi-scene step of `cfgs` at each of MULTI_SCENE_COUNTS scenes."""
     from nero_tpu_torch.models.multi_scene import MultiSceneShapeModel
     from nero_tpu_torch.profile_step import device_breakdown
 
@@ -3101,7 +3320,8 @@ def scene_step_times(cfgs: list, schedule, dev, card: str) -> dict:
         host = float(np.median(times[MULTI_WARMUP:])) * 1e3
         busy = device_breakdown(tr, MULTI_WARMUP + MULTI_TIMED, PROFILED_STEPS)["busy_ms"]
         out[n] = {"host_ms": host, "busy_ms": busy}
-        print(f"multi-scene step at S = {n}: host {host:.2f} ms (median of {MULTI_TIMED}), "
+        print(f"multi-scene step ({cfgs[0]['name'].rstrip('0123456789')}) at S = {n}: host "
+              f"{host:.2f} ms (median of {MULTI_TIMED}), "
               f"device busy {busy:.2f} ms a step, idle share {max(0.0, 1 - busy / host):.3f}; "
               f"{host / n:.2f} ms a scene [{card}]")
         del tr
@@ -3194,6 +3414,7 @@ def multi_scene_check(dev, card: str) -> dict:
     print(f"multi-scene sphere_real.yaml: 2 scenes x {MULTI_REAL_STEPS} steps, launches "
           f"{nonzero(real_launches)}; {real_ms:.1f} ms a step [{card}]")
     del ms_real
+    heads_launches = multi_scene_heads(root, schedule, dev, card)
     library_product_rounding(dev, card)
 
     paths = [write_cfg(c, os.path.join(root, f"{c['name']}.yaml")) for c in cfgs[:2]]
@@ -3216,7 +3437,61 @@ def multi_scene_check(dev, card: str) -> dict:
     print(f"train_multi_scene: {TOOL_STEPS} steps unbroken and resumed at {TOOL_STEPS // 2} "
           f"equal to the bit; {full['checkpoint']} in the stacked layout; both exports load "
           f"into NeROShapeModel")
-    return add_launches(multi, real_launches)
+    return add_launches(multi, real_launches, heads_launches)
+
+
+def multi_scene_heads(root: str, schedule, dev, card: str) -> dict:
+    """Two scenes of sphere_heads.yaml (the per-head shader on B8, the
+    sampler and the occlusion march on B6) through MultiSceneShapeModel's
+    one step for MULTI_HEADS_STEPS steps, past occ_loss_step (set to
+    MULTI_HEADS_OCC), each equal to the bit to the scene trained alone (seed
+    6033 + s); every kernel once a step for both scenes under its `_scenes`
+    counters, no one-scene launch; the step's host and busy ms at 1, 2 and 4
+    scenes. Returns the two-scene run's launches."""
+    from nero_tpu_torch.models.multi_scene import MultiSceneShapeModel
+    from nero_tpu_torch.models.shape import NeROShapeModel
+    from nero_tpu_torch.train.trainer import make_optimizer
+
+    cfgs = [shape_cfg("sphere_heads.yaml", root, name=f"heads{s}", lr_cfg={"end_iter": 300000},
+                      occ_loss_step=MULTI_HEADS_OCC) for s in range(max(MULTI_SCENE_COUNTS))]
+
+    def train(model, steps):
+        opt, sched = make_optimizer(model.parameters(), "adam", schedule, dev)
+        reset_launches()
+        t0 = synced()
+        for step in range(steps):
+            log = model.train_step(opt, step)
+            sched.step()
+        return read_launches(), (synced() - t0) / steps * 1e3, log
+
+    ms = MultiSceneShapeModel(cfgs[:2], device=dev)
+    multi, multi_ms, log = train(ms, MULTI_HEADS_STEPS)
+    check(all(float(log[s]["loss_occ"]) > 0.0 for s in range(2)),
+          f"multi-scene sphere_heads.yaml: no occlusion loss at step {MULTI_HEADS_STEPS - 1}")
+    alone = []
+    for s in range(2):
+        m = NeROShapeModel({**cfgs[s], "random_seed": cfgs[s].get("random_seed", 6033) + s},
+                           device=dev)
+        launches, ms_alone, _ = train(m, MULTI_HEADS_STEPS)
+        check(params_equal(ms.scene_params(s), m.params),
+              f"multi-scene sphere_heads.yaml: scene {s} differs from the scene alone")
+        alone.append(launches)
+        del m
+    occ = MULTI_HEADS_STEPS - MULTI_HEADS_OCC
+    check(add_launches(*alone) == stage1_expect(ms.scfg, 2 * MULTI_HEADS_STEPS, occ_steps=2 * occ),
+          f"sphere_heads.yaml scenes alone: launches {nonzero(add_launches(*alone))}")
+    want = scenes_expect(ms.scfg, MULTI_HEADS_STEPS, 2, occ_steps=occ)
+    check(multi == want and all("_scenes" in k for k in nonzero(multi)),
+          f"multi-scene sphere_heads.yaml launches {nonzero(multi)}, expected {nonzero(want)}")
+    print(f"multi-scene sphere_heads.yaml: 2 scenes x {MULTI_HEADS_STEPS} steps ({occ} past "
+          f"occ_loss_step {MULTI_HEADS_OCC}) equal to the bit to each scene alone (seeds 6033, "
+          f"6034); launches {nonzero(multi)}: B1, B6 and B8 once for both scenes, no one-scene "
+          f"launch; {multi_ms:.1f} ms a step for both scenes, {ms_alone:.1f} ms for one alone "
+          f"[{card}]")
+    del ms
+    torch.cuda.empty_cache()
+    scene_step_times(cfgs, schedule, dev, card)
+    return multi
 
 
 def scaleout(dev, card: str, bowl: dict, mfu_records: list) -> list:
@@ -3484,8 +3759,8 @@ def main(argv=None) -> int:
         if k["name"].startswith("field_fwd"):
             k["note"] = "no training path calls it, here as in the JAX package"
         elif not k.pop("on_path", True):
-            k["note"] = ("checked in the kernel phase at this encoding; no training run of this "
-                         "script takes it")
+            k["note"] = k.get("note") or ("checked in the kernel phase at this encoding; no "
+                                          "training run of this script takes it")
         else:
             check(k["launches"] > 0, f"{k['name']} was not launched by any training run")
     for k in kernels:

@@ -10,7 +10,10 @@ plus each Pallas kernel's closed-form count:
   * `kernels`: what the port's hand-written kernels compute, which no
     operator of PyTorch sees: each kernel wrapper adds its module's
     `flops(...)` at the launch's shapes to its `flop_tally` where it counts
-    the launch (the counterpart of `pallas_flops_of_text`).
+    the launch (the counterpart of `pallas_flops_of_text`). A launch for S
+    scenes of the multi-scene step counts once, under its `_scenes`
+    counter, with the FLOPs of all S scenes' rows, as nero_tpu's vmapped
+    pallas_call is one call.
 
 `mfu` divides by the step time and the card's published dense bf16 peak. A
 rank of a ray group counts its own step, as nero_tpu's `compiled_flops`

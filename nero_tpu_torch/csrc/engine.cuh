@@ -200,21 +200,25 @@ inline int pw_chunk_rows(int m_rows) {
 }
 
 // The parameter pass of block (blockIdx.x = tile of the table, blockIdx.y =
-// row chunk). tab: PwTile tile(int t, bf16* scratch, size_t M), w_total()
-// (floats of dW) and part_row() (floats of one chunk's partials: dW, then dB
-// [heads][4][256]); a table whose widths are fixed when it is compiled
-// (lights.cu) is a stateless object, one whose input width comes at run time
-// (predictor.cu) carries it.
+// row chunk, blockIdx.z = scene). tab: PwTile tile(int t, bf16* scratch,
+// size_t M), w_total() (floats of dW) and part_row() (floats of one chunk's
+// partials: dW, then dB [heads][4][256]); a table whose widths are fixed when
+// it is compiled (lights.cu) is a stateless object, one whose input width
+// comes at run time (predictor.cu) carries it. Scene z reads the z-th
+// scratch of scene_scratch elements and writes the z-th gridDim.y chunks'
+// partials: m_rows and rows_per_chunk are one scene's, so a scene's sums run
+// in its one-scene launch's order (one scene: z = 0, no offset).
 template <class Tab>
 __device__ __forceinline__ void param_pass(const Tab& tab, bf16* __restrict__ scratch, int m_rows,
-                                           int rows_per_chunk, float* __restrict__ part) {
+                                           int rows_per_chunk, float* __restrict__ part,
+                                           size_t scene_scratch = 0) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* stages = reinterpret_cast<bf16*>(smem_raw);  // per stage X then G, each in pieces
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int ig = warp / 4, og = warp % 4;  // the warp's 32 input rows and 64 output columns
   const int g = lane >> 2, t = lane & 3;
   const size_t M = (size_t)m_rows;
-  const PwTile T = tab.tile(blockIdx.x, scratch, M);
+  const PwTile T = tab.tile(blockIdx.x, scratch + blockIdx.z * scene_scratch, M);
   const int m0 = blockIdx.y * rows_per_chunk;
   const int n_st = max(0, min((int)M - m0, rows_per_chunk)) / PW_RS;
   constexpr int GROUPS = PW_RS / 32;
@@ -292,7 +296,7 @@ __device__ __forceinline__ void param_pass(const Tab& tab, bf16* __restrict__ sc
     }
   }
 
-  float* out = part + (size_t)blockIdx.y * tab.part_row();
+  float* out = part + ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * tab.part_row();
   if (rows_here) {
 #pragma unroll
     for (int m = 0; m < 2; ++m)
@@ -310,7 +314,8 @@ __device__ __forceinline__ void param_pass(const Tab& tab, bf16* __restrict__ sc
     out[tab.w_total() + T.db * LAYER_W + tid] = tid < T.gn * 8 ? dbs : 0.0f;
 }
 
-// dW, dB = the chunks' partials added in chunk order
+// dW, dB = the chunks' partials added in chunk order; blockIdx.y is the
+// scene: its n_chunks partials, its dW (w_total floats) and dB
 template <class Tab>
 __device__ __forceinline__ void reduce_chunks(const Tab& tab, const float* __restrict__ part,
                                               int n_chunks, float* __restrict__ dW,
@@ -318,6 +323,9 @@ __device__ __forceinline__ void reduce_chunks(const Tab& tab, const float* __res
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const size_t row = tab.part_row(), w = tab.w_total();
   if (i >= row) return;
+  part += (size_t)blockIdx.y * n_chunks * row;
+  dW += blockIdx.y * w;
+  dB += blockIdx.y * (row - w);
   float s = 0.0f;
   for (int c = 0; c < n_chunks; ++c) s += part[(size_t)c * row + i];
   if (i < w) dW[i] = s;

@@ -51,6 +51,15 @@
 //    atomics): dW and dB are the same to the bit in every call.
 // Rows past n carry zero cotangents: they add nothing.
 //
+// The scene axis (predictor_fwd_scenes, predictor_bwd_scenes): the multi-
+// scene step of nero_tpu vmaps the head over S scenes' stacked weights, so
+// its pallas_calls run once for all scenes. Here one launch each way takes
+// S scenes of n rows: blockIdx.y is the scene in the forward, the sweep and
+// the reduction, blockIdx.z in the parameter pass; each scene's blocks run
+// the one-scene code on its rows, weights, biases, scratch and partials,
+// with the row chunks of one scene's n, so each scene's out, dx, dW and dB
+// equal its one-scene launch's to the bit. The one-scene entries are S = 1.
+//
 // Bound: tensor-core operations, 2 * (d_in*256 + 2*256*256 + 256*d_out) per
 // row forward and 3x that backward (0.026 and 0.079 ms at N = 65,536, d_in
 // 259), against 4 * (d_in + d_out) bytes per row in and out. What keeps both
@@ -97,6 +106,11 @@ inline bool dims_ok(int d_in, int di, int d_out) {
   return d_in >= 1 && di >= d_in && di_ok(di) && d_out >= 1 && d_out <= DO;
 }
 
+// bf16 elements of one head's packed weights: w1 [di, 256], w2, w3, w4 [256, 16]
+__host__ __device__ inline size_t weight_elems(int di) {
+  return (size_t)di * HID + 2 * (size_t)HID * HID + (size_t)HID * DO;
+}
+
 // The tile's input: x rounded to bf16, zeros past d_in and past n, a float at
 // a time (a row of an odd d_in starts at an odd float). Not inlined: the
 // per-row phases keep their registers out of the products'.
@@ -127,11 +141,17 @@ __device__ Slab fwd_slab_at(int s, int di) {
 }
 
 // x [n, d_in] f32; W packed bf16 (w1 [di,256], w2, w3, w4 [256,16]); B [4][256]
-// f32 -> out [n, d_out].
+// f32 -> out [n, d_out]. blockIdx.y is the scene: n rows a scene, its rows
+// after the rows of the scenes before it, its weights and biases the y-th
+// set (one scene: y = 0, no offset).
 __global__ void __launch_bounds__(BTHREADS, 1)
 predictor_fwd_kernel(const float* __restrict__ x, int n, int d_in, int di, int d_out,
                      const bf16* __restrict__ W, const float* __restrict__ B,
                      float* __restrict__ out) {
+  x += blockIdx.y * (size_t)n * d_in;
+  out += blockIdx.y * (size_t)n * d_out;
+  W += blockIdx.y * weight_elems(di);
+  B += blockIdx.y * 4 * HID;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* A = reinterpret_cast<bf16*>(smem_raw);  // input, then activations [PB][LDA]
   bf16* ring_base = reinterpret_cast<bf16*>(smem_raw + TILE_BYTES);
@@ -250,12 +270,19 @@ __device__ Slab slab_at(int s, int di, bool dx) {
 }
 
 // x [n, d_in], gout [n, d_out] f32 -> dx [n, d_in] (want_dx) and the scratch
-// (m_rows rows) that the parameter pass reads.
+// (m_rows rows) that the parameter pass reads. blockIdx.y is the scene, as
+// in the forward; its scratch the y-th of m_rows rows.
 __global__ void __launch_bounds__(BTHREADS, 1)
 predictor_bwd_sweep_kernel(const float* __restrict__ x, int n, int d_in, int di, int d_out,
                            const bf16* __restrict__ W, const float* __restrict__ B,
                            const float* __restrict__ gout, float* __restrict__ dx, int want_dx,
                            bf16* __restrict__ scratch, int m_rows) {
+  x += blockIdx.y * (size_t)n * d_in;
+  gout += blockIdx.y * (size_t)n * d_out;
+  if (want_dx) dx += blockIdx.y * (size_t)n * d_in;
+  W += blockIdx.y * weight_elems(di);
+  B += blockIdx.y * 4 * HID;
+  scratch += blockIdx.y * Scratch::elems((size_t)m_rows, di);
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* A = reinterpret_cast<bf16*>(smem_raw);  // input, activations, cotangents [PB][LDA]
   bf16* ring_base = reinterpret_cast<bf16*>(smem_raw + TILE_BYTES);
@@ -396,7 +423,7 @@ struct PwTab {
 __global__ void __launch_bounds__(PW_THREADS, 1)
 predictor_bwd_params_kernel(PwTab tab, bf16* __restrict__ scratch, int m_rows,
                             int rows_per_chunk, float* __restrict__ part) {
-  param_pass(tab, scratch, m_rows, rows_per_chunk, part);
+  param_pass(tab, scratch, m_rows, rows_per_chunk, part, Scratch::elems((size_t)m_rows, tab.di));
 }
 
 __global__ void predictor_bwd_reduce_kernel(PwTab tab, const float* __restrict__ part,
@@ -408,6 +435,75 @@ __global__ void predictor_bwd_reduce_kernel(PwTab tab, const float* __restrict__
 // rows of the backward's scratch: n rounded up to the parameter pass's stage
 inline int bwd_rows(int n) { return (n + PW_RS - 1) / PW_RS * PW_RS; }
 
+// The launches at S scenes of n rows each: scene s's rows are rows s n .. (s
+// + 1) n - 1 of x, gout, dx and out, its weights W + s weight_elems(di), its
+// biases B + s 4 256, its scratch and partials the s-th of S equal parts,
+// its dW and dB the s-th rows of [S, weight_elems(di)] and [S, 4, 256]. Each
+// scene's blocks run the one-scene code on its own pointers, with the
+// chunks of one scene's rows, so a scene's outputs and gradients are those
+// of its one-scene launch to the bit.
+int fwd_scenes(const float* x, int n, int n_scenes, int d_in, int di, int d_out, const bf16* W,
+               const float* B, float* out, cudaStream_t stream) {
+  if (!dims_ok(d_in, di, d_out)) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || n_scenes <= 0) return 0;
+  const cudaError_t err = cudaFuncSetAttribute(
+      predictor_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  predictor_fwd_kernel<<<dim3((n + PB - 1) / PB, n_scenes), BTHREADS, F_SMEM, stream>>>(
+      x, n, d_in, di, d_out, W, B, out);
+  return (int)cudaGetLastError();
+}
+
+int sweep_scenes(const float* x, int n, int n_scenes, int d_in, int di, int d_out,
+                 const bf16* W, const float* B, const float* gout, float* dx, int want_dx,
+                 bf16* scratch, cudaStream_t stream) {
+  if (!dims_ok(d_in, di, d_out)) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || n_scenes <= 0) return 0;
+  const cudaError_t err = cudaFuncSetAttribute(
+      predictor_bwd_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)B_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int m = bwd_rows(n);
+  predictor_bwd_sweep_kernel<<<dim3(m / PB, n_scenes), BTHREADS, B_SMEM, stream>>>(
+      x, n, d_in, di, d_out, W, B, gout, dx, want_dx, scratch, m);
+  return (int)cudaGetLastError();
+}
+
+int params_scenes(int n, int n_scenes, int di, bf16* scratch, float* part, cudaStream_t stream) {
+  if (!di_ok(di)) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || n_scenes <= 0) return 0;
+  const cudaError_t err = cudaFuncSetAttribute(
+      predictor_bwd_params_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)PW_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int m = bwd_rows(n);
+  const PwTab tab{di};
+  predictor_bwd_params_kernel<<<dim3(tab.n_items(), pw_chunks(m), n_scenes), PW_THREADS, PW_SMEM,
+                                stream>>>(tab, scratch, m, pw_chunk_rows(m), part);
+  return (int)cudaGetLastError();
+}
+
+int reduce_scenes(int n, int n_scenes, int di, const float* part, float* dW, float* dB,
+                  cudaStream_t stream) {
+  if (!di_ok(di)) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || n_scenes <= 0) return 0;
+  const PwTab tab{di};
+  predictor_bwd_reduce_kernel<<<dim3((unsigned)((tab.part_row() + 255) / 256), n_scenes), 256, 0,
+                                stream>>>(tab, part, pw_chunks(bwd_rows(n)), dW, dB);
+  return (int)cudaGetLastError();
+}
+
+// All three, three launches. With no rows nothing is launched: dW and dB stay
+// as the caller made them.
+int bwd_scenes(const float* x, int n, int n_scenes, int d_in, int di, int d_out, const bf16* W,
+               const float* B, const float* gout, float* dx, int want_dx, bf16* scratch,
+               float* part, float* dW, float* dB, cudaStream_t stream) {
+  int rc = sweep_scenes(x, n, n_scenes, d_in, di, d_out, W, B, gout, dx, want_dx, scratch,
+                        stream);
+  if (rc) return rc;
+  rc = params_scenes(n, n_scenes, di, scratch, part, stream);
+  if (rc) return rc;
+  return reduce_scenes(n, n_scenes, di, part, dW, dB, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -415,11 +511,9 @@ extern "C" {
 int predictor_tile() { return PB; }
 int predictor_max_d_in() { return MAX_DI; }
 int predictor_max_d_out() { return DO; }
-size_t predictor_weight_elems(int di) {
-  return (size_t)di * HID + 2 * (size_t)HID * HID + (size_t)HID * DO;
-}
+size_t predictor_weight_elems(int di) { return weight_elems(di); }
 // bf16 elements of the backward's scratch, floats of its partials, for n rows
-// of a head whose input is padded to di
+// of a head whose input is padded to di (one scene's: S scenes take S times)
 size_t predictor_scratch_elems(int n, int di) { return Scratch::elems((size_t)bwd_rows(n), di); }
 size_t predictor_part_elems(int n, int di) {
   return (size_t)pw_chunks(bwd_rows(n)) * PwTab{di}.part_row();
@@ -427,14 +521,7 @@ size_t predictor_part_elems(int n, int di) {
 
 int predictor_fwd(const float* x, int n, int d_in, int di, int d_out, const bf16* W,
                   const float* B, float* out, cudaStream_t stream) {
-  if (!dims_ok(d_in, di, d_out)) return (int)cudaErrorInvalidValue;
-  if (n <= 0) return 0;
-  const cudaError_t err = cudaFuncSetAttribute(
-      predictor_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  predictor_fwd_kernel<<<(n + PB - 1) / PB, BTHREADS, F_SMEM, stream>>>(x, n, d_in, di, d_out, W,
-                                                                        B, out);
-  return (int)cudaGetLastError();
+  return fwd_scenes(x, n, 1, d_in, di, d_out, W, B, out, stream);
 }
 
 // The backward's first part: recompute and reverse sweep, gout [n, d_out] ->
@@ -443,41 +530,19 @@ int predictor_fwd(const float* x, int n, int d_in, int di, int d_out, const bf16
 int predictor_bwd_sweep(const float* x, int n, int d_in, int di, int d_out, const bf16* W,
                         const float* B, const float* gout, float* dx, int want_dx,
                         bf16* scratch, cudaStream_t stream) {
-  if (!dims_ok(d_in, di, d_out)) return (int)cudaErrorInvalidValue;
-  if (n <= 0) return 0;
-  const cudaError_t err = cudaFuncSetAttribute(
-      predictor_bwd_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)B_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const int m = bwd_rows(n);
-  predictor_bwd_sweep_kernel<<<m / PB, BTHREADS, B_SMEM, stream>>>(
-      x, n, d_in, di, d_out, W, B, gout, dx, want_dx, scratch, m);
-  return (int)cudaGetLastError();
+  return sweep_scenes(x, n, 1, d_in, di, d_out, W, B, gout, dx, want_dx, scratch, stream);
 }
 
 // The second: the parameter pass, the scratch -> part (predictor_part_elems
 // floats).
 int predictor_bwd_params(int n, int di, bf16* scratch, float* part, cudaStream_t stream) {
-  if (!di_ok(di)) return (int)cudaErrorInvalidValue;
-  if (n <= 0) return 0;
-  const cudaError_t err = cudaFuncSetAttribute(
-      predictor_bwd_params_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)PW_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const int m = bwd_rows(n);
-  const PwTab tab{di};
-  predictor_bwd_params_kernel<<<dim3(tab.n_items(), pw_chunks(m)), PW_THREADS, PW_SMEM, stream>>>(
-      tab, scratch, m, pw_chunk_rows(m), part);
-  return (int)cudaGetLastError();
+  return params_scenes(n, 1, di, scratch, part, stream);
 }
 
 // The third: dW (packed layout, f32) and dB [4][256], every element.
 int predictor_bwd_reduce(int n, int di, const float* part, float* dW, float* dB,
                          cudaStream_t stream) {
-  if (!di_ok(di)) return (int)cudaErrorInvalidValue;
-  if (n <= 0) return 0;
-  const PwTab tab{di};
-  predictor_bwd_reduce_kernel<<<(unsigned)((tab.part_row() + 255) / 256), 256, 0, stream>>>(
-      tab, part, pw_chunks(bwd_rows(n)), dW, dB);
-  return (int)cudaGetLastError();
+  return reduce_scenes(n, 1, di, part, dW, dB, stream);
 }
 
 // All three, three launches. With no rows nothing is launched: dW and dB stay
@@ -485,11 +550,25 @@ int predictor_bwd_reduce(int n, int di, const float* part, float* dW, float* dB,
 int predictor_bwd(const float* x, int n, int d_in, int di, int d_out, const bf16* W,
                   const float* B, const float* gout, float* dx, int want_dx, bf16* scratch,
                   float* part, float* dW, float* dB, cudaStream_t stream) {
-  int rc = predictor_bwd_sweep(x, n, d_in, di, d_out, W, B, gout, dx, want_dx, scratch, stream);
-  if (rc) return rc;
-  rc = predictor_bwd_params(n, di, scratch, part, stream);
-  if (rc) return rc;
-  return predictor_bwd_reduce(n, di, part, dW, dB, stream);
+  return bwd_scenes(x, n, 1, d_in, di, d_out, W, B, gout, dx, want_dx, scratch, part, dW, dB,
+                    stream);
+}
+
+// S scenes of n rows in one launch each way (fwd_scenes, bwd_scenes): x [S,
+// n, d_in]; W [S, predictor_weight_elems(di)] bf16; B [S, 4, 256]; out [S, n,
+// d_out]; gout [S, n, d_out], dx [S, n, d_in]; the scratch and the partials
+// S times one scene's; dW [S, predictor_weight_elems(di)], dB [S, 4, 256].
+int predictor_fwd_scenes(const float* x, int n, int n_scenes, int d_in, int di, int d_out,
+                         const bf16* W, const float* B, float* out, cudaStream_t stream) {
+  return fwd_scenes(x, n, n_scenes, d_in, di, d_out, W, B, out, stream);
+}
+
+int predictor_bwd_scenes(const float* x, int n, int n_scenes, int d_in, int di, int d_out,
+                         const bf16* W, const float* B, const float* gout, float* dx,
+                         int want_dx, bf16* scratch, float* part, float* dW, float* dB,
+                         cudaStream_t stream) {
+  return bwd_scenes(x, n, n_scenes, d_in, di, d_out, W, B, gout, dx, want_dx, scratch, part, dW,
+                    dB, stream);
 }
 
 }  // extern "C"

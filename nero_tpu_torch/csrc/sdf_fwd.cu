@@ -33,6 +33,15 @@
 // it saves a wave: from 64 x SMs points on, 128 points a tile needs no more
 // waves than 64 would.
 //
+// The scene axis (sdf_fwd_scenes): nero_tpu's multi-scene step vmaps the
+// sampler and the marches over S scenes' stacked weights, so the pallas_call
+// runs once for all scenes. Here one launch takes S scenes of n points:
+// blockIdx.y is the scene, its points rows s n .. (s + 1) n - 1 of pts and
+// out, its weights and biases the s-th set (as sdf_grad.cu's). The tile
+// follows the rule above at the launch's S n points: the sdf is the same at
+// either tile size, so each scene's values are its one-scene launch's to the
+// bit. The one-scene entry `sdf_fwd` is S = 1.
+//
 // Bound: tensor-core operations, 2 * 459,008 per point (ops/sdf_fwd.py::
 // flops) against 16 bytes per point. What keeps it from the bound: the
 // softplus (expf and log1pf) of every element of every hidden layer, which
@@ -58,12 +67,18 @@ struct Tile {
 static_assert(Tile<2>::SMEM <= 232448, "shared memory");
 
 // pts [n,3] f32; W packed bf16 (sdf_net.cuh); bias [9,272] f32 -> out [n] f32.
+// blockIdx.y is the scene: n points a scene, its rows after the rows of the
+// scenes before it, its weights and biases the y-th set (one scene: y = 0).
 template <int MT>
 __global__ void __launch_bounds__(F_THREADS, 1)
 sdf_fwd_kernel(const float* __restrict__ pts, int n, const bf16* __restrict__ W,
                const float* __restrict__ bias, float beta, float scale,
                float* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char smem[];
+  pts += blockIdx.y * (size_t)n * 3;
+  out += blockIdx.y * (size_t)n;
+  W += blockIdx.y * (size_t)W_TOTAL;
+  bias += blockIdx.y * 9 * OUTW;
   constexpr int P = Tile<MT>::P;
   bf16* H = reinterpret_cast<bf16*>(smem);  // activations [P][LDH]
   bf16* PEb = H + P * LDH;                  // PE [P][LDP]
@@ -108,13 +123,13 @@ sdf_fwd_kernel(const float* __restrict__ pts, int n, const bf16* __restrict__ W,
 }
 
 template <int MT>
-int launch(const float* pts, int n, const bf16* W, const float* bias, float beta, float scale,
-           float* out, cudaStream_t stream) {
+int launch(const float* pts, int n, int n_scenes, const bf16* W, const float* bias, float beta,
+           float scale, float* out, cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
       sdf_fwd_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Tile<MT>::SMEM);
   if (err != cudaSuccess) return (int)err;
   constexpr int P = Tile<MT>::P;
-  sdf_fwd_kernel<MT><<<(n + P - 1) / P, F_THREADS, Tile<MT>::SMEM, stream>>>(
+  sdf_fwd_kernel<MT><<<dim3((n + P - 1) / P, n_scenes), F_THREADS, Tile<MT>::SMEM, stream>>>(
       pts, n, W, bias, beta, scale, out);
   return (int)cudaGetLastError();
 }
@@ -129,16 +144,25 @@ size_t sdf_fwd_weight_elems() { return W_TOTAL; }
 // one wave of 64-point tiles, else 128.
 int sdf_fwd_tile(int n, int sms) { return (n + 63) / 64 <= sms ? 64 : 128; }
 
-// pts [n,3] f32; W packed bf16 (sdf_net.cuh); bias [9,272] f32; out [n] f32.
-int sdf_fwd(const float* pts, int n, const bf16* W, const float* bias, float beta, float scale,
-            float* out, cudaStream_t stream) {
-  if (n <= 0) return 0;
+// S scenes of n points in one launch: pts [S, n, 3] f32; W [S, W_TOTAL] packed
+// bf16 (sdf_net.cuh); bias [S, 9, 272] f32; out [S, n] f32. The tile by the
+// rule at S n points.
+int sdf_fwd_scenes(const float* pts, int n, int n_scenes, const bf16* W, const float* bias,
+                   float beta, float scale, float* out, cudaStream_t stream) {
+  if (n <= 0 || n_scenes <= 0) return 0;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  if (sdf_fwd_tile(n, sms) == 64) return launch<1>(pts, n, W, bias, beta, scale, out, stream);
-  return launch<2>(pts, n, W, bias, beta, scale, out, stream);
+  if (sdf_fwd_tile(n * n_scenes, sms) == 64)
+    return launch<1>(pts, n, n_scenes, W, bias, beta, scale, out, stream);
+  return launch<2>(pts, n, n_scenes, W, bias, beta, scale, out, stream);
+}
+
+// pts [n,3] f32; W packed bf16 (sdf_net.cuh); bias [9,272] f32; out [n] f32.
+int sdf_fwd(const float* pts, int n, const bf16* W, const float* bias, float beta, float scale,
+            float* out, cudaStream_t stream) {
+  return sdf_fwd_scenes(pts, n, 1, W, bias, beta, scale, out, stream);
 }
 
 }  // extern "C"

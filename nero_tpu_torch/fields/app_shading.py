@@ -139,11 +139,14 @@ def heads_raw(params, cfg: AppShadingConfig, points, normals, view_dirs, feature
     """The per-head path (nero_tpu/fields/app_shading.py:106-186, 329-343):
     the packed raw outputs [..., 24] of `ops/shader.py::shader_raw`, with the
     encodings as tensor ops and every head through `apply_predictor`; with
-    n_scenes, each scene's heads on its rows."""
+    n_scenes, each scene's heads on its rows: with `fused_heads` one launch
+    of the predictor kernel for all scenes a head and direction, else each
+    scene's library products on its rows (torch.mm keeps one scene's bits
+    only on one scene's shapes)."""
     head = lambda layers, x: apply_predictor(layers, x, activation="none",
                                              fused=cfg.fused_heads)
     if n_scenes is not None:
-        head = scene_heads(n_scenes, head)
+        head = scene_heads(n_scenes, head, fused=cfg.fused_heads)
     return shader_raw_plain(params, cfg, points, normals, view_dirs, feature_vectors,
                             human_poses, head=head)
 

@@ -14,6 +14,8 @@ predictor kernel or of the value-only SDF kernel on the card.
         [NAME ...]
     python -m nero_tpu_torch.kernel_variants --kernel sdf_fwd [--parent OLD/sdf_fwd.cu]
         [NAME ...]
+    python -m nero_tpu_torch.kernel_variants --kernel sdf_fwd_scenes
+    python -m nero_tpu_torch.kernel_variants --kernel predictor_scenes
 
 Each variant is `csrc/sdf_grad.cu` (VARIANTS: the forward engine's, which the
 backward's recompute and reverse sweep share and which lives in
@@ -92,6 +94,15 @@ timed launches after 3 untimed ones at each size, in the given order and
 then in reverse. It prints per variant the registers and spill bytes of
 the 128- and 64-point instances, the launch times of both passes at each
 size, and whether its values equal the kernel's to the bit at every size.
+
+`--kernel sdf_fwd_scenes` and `--kernel predictor_scenes` time the scene
+axis of the value-only SDF kernel and of the predictor kernel (the library
+as built, no variants): one launch for S scenes (SCENE_COUNTS) against S
+one-scene launches, in turns (batched, one by one, one by one, batched), 20
+timed forward and 10 timed backward calls after 3 untimed ones, B6 at
+SDF_FWD_SIZES points a scene, B8 at N rows a scene for each head shape of
+the Stage-I shader; each scene's values (B8: and dx, dW, dB) held to its
+one-scene launch's to the bit.
 
 `--encodings` runs the variants at other encoding widths than the shipped
 ones, each library built with the -D macros of ops/cuda_build.py and the
@@ -557,8 +568,8 @@ PREDICTOR_VARIANTS = {
                      (_PR_SWEEP_EPILOGUE, _PR_NO_SWEEP_EPILOGUE)],
     # the sweep alone: the C entry runs neither the parameter pass nor the
     # reduction (dW, dB are left as they were)
-    "no_params": [("  if (rc) return rc;\n  rc = predictor_bwd_params(",
-                   "  return rc;\n  rc = predictor_bwd_params(")],
+    "no_params": [("  if (rc) return rc;\n  rc = params_scenes(",
+                   "  return rc;\n  rc = params_scenes(")],
     # 8 warps over 64-row tiles: the weight stream twice per 128 rows
     "p64_tiles": [("constexpr int PB = 128; ", "constexpr int PB = 64; "),
                   ("constexpr int BTHREADS = 512; ", "constexpr int BTHREADS = 256; ")],
@@ -851,10 +862,97 @@ def _bwd_table(libs, fwd, bwd, parts_of, parts, outputs: str) -> None:
         print(f"{name:20s} {ptx:32s} {'  '.join(ms)}   {' '.join(d)}")
 
 
+SCENE_COUNTS = (2, 4)  # scenes of one launch in the scene-axis timings
+
+
+def _turns(batched, one_by_one, iters: int) -> tuple:
+    """(batched ms, one-by-one ms), each the mean of its two passes, taken
+    in turns: batched, one by one, one by one, batched."""
+    b1, o1, o2, b2 = (_time(fn, iters) for fn in (batched, one_by_one, one_by_one, batched))
+    return (b1 + b2) / 2, (o1 + o2) / 2
+
+
+def _main_sdf_fwd_scenes() -> int:
+    """B6's scene axis: a launch for S scenes against S one-scene launches."""
+    from nero_tpu_torch.ops import sdf_fwd as KF
+    from nero_tpu_torch.parallel.scenes import stack_trees
+
+    dev = torch.device("cuda")
+    cfg = SDFConfig()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(_card())
+    print("value-only SDF kernel, scene axis: ms of one launch for S scenes / S one-scene "
+          "launches (tiles), ratio, each scene's sdf its one-scene launch's to the bit")
+    for S in SCENE_COUNTS:
+        params = stack_trees([init_sdf(torch.Generator().manual_seed(3 + s), cfg, device=dev)
+                              for s in range(S)])
+        with torch.no_grad():
+            W, bias = KF.pack_scenes(params, cfg)
+        rng = np.random.default_rng(S)
+        for n in SDF_FWD_SIZES:
+            pts = torch.as_tensor(rng.uniform(-0.7, 0.7, (S, n, 3)).astype(np.float32),
+                                  device=dev)
+            batched = lambda: KF._launch(W, bias, pts, cfg)
+            each = lambda: [KF._launch(W[s], bias[s], pts[s], cfg) for s in range(S)]
+            bits = all(torch.equal(a, b) for a, b in zip(batched(), each()))
+            b_ms, o_ms = _turns(batched, each, 20)
+            print(f"S = {S} x {n}: {b_ms:.4f} ({KF.tile(S * n, sms)}-point tiles) / {o_ms:.4f} "
+                  f"({KF.tile(n, sms)}-point tiles), {b_ms / o_ms:.3f}; to the bit: "
+                  f"{'yes' if bits else 'no'}")
+    return 0
+
+
+def _main_predictor_scenes() -> int:
+    """B8's scene axis: a launch each way for S scenes against S one-scene
+    launches, at N rows a scene for each head shape of the Stage-I shader."""
+    from nero_tpu_torch.ops import predictor as KP
+    from nero_tpu_torch.ops.mlp import init_predictor
+
+    dev = torch.device("cuda")
+    print(_card())
+    print(f"predictor kernel, scene axis, N = {N} rows a scene: ms of one launch for S scenes "
+          f"/ S one-scene launches, ratio, forward and backward; each scene's output, dx, dW "
+          f"and dB its one-scene launch's to the bit")
+    for S in SCENE_COUNTS:
+        for d_in, d_out in KP.SHADER_SHAPES:
+            res = [resolve_weight_norm(init_predictor(torch.Generator().manual_seed(d_in + s),
+                                                      d_in, d_out, device=dev))
+                   for s in range(S)]
+            with torch.no_grad():
+                W, B = KP.pack_scenes([torch.stack([r[l]["w"] for r in res]) for l in range(4)],
+                                      [torch.stack([r[l]["b"] for r in res]) for l in range(4)])
+            rng = np.random.default_rng(d_in)
+            x = torch.as_tensor((rng.standard_normal((S, N, d_in)) * 0.5).astype(np.float32),
+                                device=dev)
+            gout = torch.as_tensor(rng.standard_normal((S, N, d_out)).astype(np.float32),
+                                   device=dev)
+            fwd_b = lambda: KP._fwd(x, W, B, d_out)
+            fwd_1 = lambda: [KP._fwd(x[s], W[s], B[s], d_out) for s in range(S)]
+            bwd_b = lambda: KP._bwd(x, W, B, gout)
+            bwd_1 = lambda: [KP._bwd(x[s], W[s], B[s], gout[s]) for s in range(S)]
+            with torch.no_grad():
+                bits = all(torch.equal(a, b) for a, b in zip(fwd_b(), fwd_1()))
+                gb, g1 = bwd_b(), bwd_1()
+                bits = bits and all(torch.equal(a[s], g1[s][k]) for k, a in enumerate(gb)
+                                    for s in range(S))
+                del gb, g1
+                f = _turns(fwd_b, fwd_1, 20)
+                b = _turns(bwd_b, bwd_1, 10)
+            print(f"S = {S}, {d_in} -> {d_out}: fwd {f[0]:.4f} / {f[1]:.4f}, {f[0] / f[1]:.3f}; "
+                  f"bwd {b[0]:.4f} / {b[1]:.4f}, {b[0] / b[1]:.3f}; to the bit: "
+                  f"{'yes' if bits else 'no'}")
+            torch.cuda.empty_cache()
+    return 0
+
+
+_SCENE_MODES = {"sdf_fwd_scenes": _main_sdf_fwd_scenes,
+                "predictor_scenes": _main_predictor_scenes}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("names", nargs="*", help="variants (all of the kernel's table)")
-    ap.add_argument("--kernel", choices=list(_TABLES), default="sdf_grad")
+    ap.add_argument("--kernel", choices=list(_TABLES) + list(_SCENE_MODES), default="sdf_grad")
     ap.add_argument("--parent", help="another sdf_grad.cu, shader.cu, sphere_march.cu, "
                                      "march.cu, lights.cu or predictor.cu to build as it is")
     ap.add_argument("--sphere", action="store_true", help="shader: the sphere_direction variant")
@@ -869,6 +967,11 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: needs a CUDA device")
+    if args.kernel in _SCENE_MODES:
+        if args.parent or args.names or args.encodings:
+            raise SystemExit(f"kernel_variants: --kernel {args.kernel} takes no variant, "
+                             f"--parent or --encodings")
+        return _SCENE_MODES[args.kernel]()
     enc = _encodings(args.kernel, args.encodings)
     if enc is not None and args.parent:
         raise SystemExit("kernel_variants: a --parent takes the shipped encodings only")

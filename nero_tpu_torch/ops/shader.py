@@ -48,6 +48,7 @@ import torch.nn.functional as F
 
 from nero_tpu_torch.ops import cuda_build
 from nero_tpu_torch.ops.mlp import predictor_raw, resolve_weight_norm
+from nero_tpu_torch.ops.predictor import predictor_scenes
 from nero_tpu_torch.parallel.scenes import scene_map
 from nero_tpu_torch.utils.encodings import (ide_dim, ide_kernel_table, integrated_dir_encode,
                                             integrated_pos_encode, positional_encode,
@@ -448,10 +449,14 @@ class _ShaderScenesFn(torch.autograd.Function):
         return (dgeo, dfeats, None, *dws, *dbs)
 
 
-def scene_heads(n_scenes: int, head=predictor_raw):
+def scene_heads(n_scenes: int, head=predictor_raw, fused: bool = False):
     """A `head` for `shader_raw_plain` over S scenes' scene-major rows with
     the heads' layers stacked on a leading scene axis: scene s's head on its
-    part of the rows."""
+    part of the rows. `fused` (the per-head shader's `fused_heads`): one
+    launch of the predictor kernel each way for all scenes
+    (`ops/predictor.py::predictor_scenes`, scene by scene on CPU tensors)."""
+    if fused:
+        return lambda layers, x: predictor_scenes(layers, x, n_scenes)
     return lambda layers, x: scene_map(head, n_scenes, layers, x)
 
 

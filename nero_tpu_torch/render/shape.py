@@ -62,7 +62,7 @@ from nero_tpu_torch.fields.variance import init_variance, inv_s as variance_inv_
 from nero_tpu_torch.ops.mlp import (current_precision, hidden_dtype, precision_of,
                                     resolve_weight_norm, storage_dtype)
 from nero_tpu_torch.ops.sample_pdf import sample_pdf
-from nero_tpu_torch.ops.sdf_fwd import make_sdf_fwd_fn
+from nero_tpu_torch.ops.sdf_fwd import make_sdf_fwd_fn, make_sdf_fwd_scenes_fn
 from nero_tpu_torch.ops.sdf_fwd import supported as sdf_fwd_supported
 from nero_tpu_torch.ops.sdf_grad import GRAD_MODES, sdf_with_grad, sdf_with_grad_scenes
 from nero_tpu_torch.ops.sdf_grad import supported as sdf_kernel_supported
@@ -195,10 +195,15 @@ def _topology(scfg: ShapeConfig) -> str:
 def make_nograd_sdf_fn(params, scfg: ShapeConfig):
     """SDF value function of the no-gradient paths: the value-only kernel
     when `use_fused_sdf` (its plain version on CPU tensors), else `sdf_value`.
-    With S scenes, each scene's function on its part of the rows."""
+    With S scenes (equal parts of the rows, scene-major) and `use_fused_sdf`,
+    one launch of the kernel for all scenes; `sdf_value`, whose library
+    products keep one scene's bits only on one scene's shapes, each scene's
+    function on its part of the rows."""
     S = n_scenes(params)
     if S is None:
         return _nograd_sdf_fn(params["sdf"], scfg)
+    if scfg.use_fused_sdf:
+        return make_sdf_fwd_scenes_fn(params["sdf"], S, scfg.sdf_cfg)
     fns = [_nograd_sdf_fn(scene_slice(params["sdf"], s), scfg) for s in range(S)]
     return lambda x: torch.cat([f(c) for f, c in zip(fns, x.chunk(S, 0))])
 
