@@ -153,7 +153,15 @@ result line):
      step of phases 4 and 5's five trainings (library, kernels, total),
      each kernel's tally equal to its launches x flops(...) at the main
      path's shapes, `expect_kernels` on each configuration's kernels, the
-     step median and the logged mfu in (0, 1), with the card line.
+     step median and the logged mfu in (0, 1), with the card line;
+ 11. the other encodings that nero_tpu's kernels take (`encodings`; their
+     kernel rows in phase 2, `check_encoding_kernels`): B1, B6 at other
+     multires, B2 at other (ide_deg, light_pos_freq) up to (5, 64) (past one
+     256-wide tile of light input from light_pos_freq 31 on: 0 spill bytes,
+     `human_light`, both, and the scene axis at (5, 32)), B5 at other
+     degrees, B3, B4 and B7 at pe 0, 3 and 7 with the NeuralTracer at pe 7
+     against the exact BVH; `sphere_enc.yaml`, `bowl_enc.yaml`,
+     `sphere_lpf32.yaml` trained with exact launches and their FLOPs.
 The line before the result is a JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Of a kernel's times, `ms` is
 the wrapper's whole call for the kernels behind an autograd function (shader,
@@ -781,9 +789,9 @@ def check_sdf_scenes(n: int, n_scenes: int, dev) -> list:
     return rows
 
 
-def check_shader_scenes(n: int, n_scenes: int, dev, human: bool = False) -> list:
-    """B2 with the scene axis (`default` or `human_light`): S scenes' shaders
-    (seeds s) in one launch each way. Each scene's packed outputs, dgeo,
+def check_shader_scenes(n: int, n_scenes: int, dev, human: bool = False, enc=(5, 8)) -> list:
+    """B2 with the scene axis (`default` or `human_light`, at the encodings
+    enc): S scenes' shaders (seeds s) in one launch each way. Each scene's packed outputs, dgeo,
     dfeats, dW and dB equal its one-scene launch to the bit, and the
     wrapper's outputs and parameter gradients the one-scene wrapper's;
     against the plain version scene by scene, the bars of check_shader; the
@@ -795,7 +803,7 @@ def check_shader_scenes(n: int, n_scenes: int, dev, human: bool = False) -> list
     from nero_tpu_torch.parallel.scenes import stack_trees
 
     S = n_scenes
-    cfg = AppShadingConfig(human_light=human)
+    cfg = AppShadingConfig(human_light=human, ide_deg=enc[0], light_pos_freq=enc[1])
     sfx = K.variant(cfg)
     tag = f"shader_scenes{sfx} S = {S}"
     scenes = [init_app_shading(torch.Generator().manual_seed(s), cfg, device=dev)
@@ -823,12 +831,12 @@ def check_shader_scenes(n: int, n_scenes: int, dev, human: bool = False) -> list
         W, B = K.pack_scenes(ws, bs, spec[2])
         geo3, feats3 = geo.view(S, n, -1), feats2d.view(S, n, K.HID)
         sp, hu = spec[:2]
-        fwd_b = K._fwd(geo3, feats3, W, B, sp, hu)
-        bwd_b = K._bwd(geo3, feats3, W, B, sp, hu, gout)
+        fwd_b = K._fwd(geo3, feats3, W, B, sp, hu, enc)
+        bwd_b = K._bwd(geo3, feats3, W, B, sp, hu, gout, enc)
         for s in range(S):
-            check(torch.equal(fwd_b[s], K._fwd(geo3[s], feats3[s], W[s], B[s], sp, hu)),
+            check(torch.equal(fwd_b[s], K._fwd(geo3[s], feats3[s], W[s], B[s], sp, hu, enc)),
                   f"{tag}: scene {s}'s forward differs from its one-scene launch")
-            one = K._bwd(geo3[s], feats3[s], W[s], B[s], sp, hu, gout[s])
+            one = K._bwd(geo3[s], feats3[s], W[s], B[s], sp, hu, gout[s], enc)
             check(all(torch.equal(a[s], b) for a, b in zip(bwd_b, one)),
                   f"{tag}: scene {s}'s dgeo, dfeats, dW or dB differ from its one-scene launch")
         del fwd_b, bwd_b, one
@@ -885,11 +893,11 @@ def check_shader_scenes(n: int, n_scenes: int, dev, human: bool = False) -> list
         return [K.shader_raw_plain(scenes[s], cfg, *args(s)) for s in range(S)]
 
     gout2 = gout.reshape(S * n, K.OUT)
-    launch_fwd = cuda_ms(lambda: K._fwd(geo3, feats3, W, B, sp, hu))
-    launch_bwd = cuda_ms(lambda: K._bwd(geo3, feats3, W, B, sp, hu, gout), iters=5)
-    turn_fwd = cuda_ms(lambda: [K._fwd(geo3[s], feats3[s], W[s], B[s], sp, hu)
+    launch_fwd = cuda_ms(lambda: K._fwd(geo3, feats3, W, B, sp, hu, enc))
+    launch_bwd = cuda_ms(lambda: K._bwd(geo3, feats3, W, B, sp, hu, gout, enc), iters=5)
+    turn_fwd = cuda_ms(lambda: [K._fwd(geo3[s], feats3[s], W[s], B[s], sp, hu, enc)
                                 for s in range(S)])
-    turn_bwd = cuda_ms(lambda: [K._bwd(geo3[s], feats3[s], W[s], B[s], sp, hu, gout[s])
+    turn_bwd = cuda_ms(lambda: [K._bwd(geo3[s], feats3[s], W[s], B[s], sp, hu, gout[s], enc)
                                 for s in range(S)], iters=5)
     with torch.no_grad():
         wrap_fwd = cuda_ms(lambda: K.shader_raw_scenes(stacked, cfg, S, pts, normals, view,
@@ -1501,6 +1509,13 @@ def tracer_vs_bvh(name: str, tracer, o_np, d_np, o, d, min_agree: float, max_dep
           f"{name}: depth error {depth_err}, normal cosine {cos}")
 
 
+def field_instance(wide: bool, any_pe: bool = False) -> str:
+    """The mangled template arguments of a field kernel's instance
+    (csrc/field.cuh FIELD_DISPATCH): `std` at pe 6 (PE = 6) or at any pe
+    (PE = -1), `wide` (PE = -1)."""
+    return "Lb1ELin1E" if wide else ("Lb0ELin1E" if any_pe else "Lb0ELi6E")
+
+
 def check_field_kernels(mesh: dict, n: int, dev) -> list:
     """The three kernels of the distilled field (sphere march, uniform march,
     one evaluation) in both topologies against their plain versions, on
@@ -1566,7 +1581,7 @@ def check_field_kernels(mesh: dict, n: int, dev) -> list:
                                                         refine="illinois", **kw),
                            iters=3, warmup=1)
         b_ms, b_by = bound(K.flops(n, tracer.n_sphere, 2, topology), K.min_bytes(n, topology))
-        ptx = ptxas_info("sphere_march", rf"sphere_march_kernel\w*Lb{int(wide)}E")
+        ptx = ptxas_info("sphere_march", rf"sphere_march_kernel\w*{field_instance(wide)}")
         check(ptx.get("spill_bytes") == 0, f"sphere_march_kernel{sfx} spills: {ptx}")
         print(f"sphere_march{sfx}: launch {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
               f"{b_ms:.3f} ms; ptxas {ptx}")
@@ -1598,7 +1613,7 @@ def check_field_kernels(mesh: dict, n: int, dev) -> list:
         plain_ms = cuda_ms(lambda: KM.march_plain(packed, *rays, n_coarse=nc, n_refine=nr),
                            iters=2, warmup=1)
         b_ms, b_by = bound(KM.flops(n, nc, nr, topology), K.min_bytes(n, topology))
-        ptx = ptxas_info("march", rf"march_kernel\w*Lb{int(wide)}E")
+        ptx = ptxas_info("march", rf"march_kernel\w*{field_instance(wide)}")
         check(ptx.get("spill_bytes") == 0, f"march_kernel{sfx} spills: {ptx}")
         print(f"march{sfx}: launch {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms; "
               f"ptxas {ptx}")
@@ -1636,7 +1651,7 @@ def check_field_kernels(mesh: dict, n: int, dev) -> list:
         ms = cuda_ms(lambda: KF._launch(W, Fv, wide, pts), iters=10)
         plain_ms = cuda_ms(lambda: KF.field_fwd_plain(packed, pts), iters=5)
         b_ms, b_by = bound(KF.flops(n, topology), KF.min_bytes(n, topology))
-        ptx = ptxas_info("field_fwd", rf"field_fwd_kernel\w*Lb{int(wide)}E")
+        ptx = ptxas_info("field_fwd", rf"field_fwd_kernel\w*{field_instance(wide)}")
         check(ptx.get("spill_bytes") == 0, f"field_fwd_kernel{sfx} spills: {ptx}")
         print(f"field_fwd{sfx}: launch {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} "
               f"ms; ptxas {ptx}")
@@ -3530,7 +3545,7 @@ def scaleout(dev, card: str, bowl: dict, mfu_records: list) -> list:
 ENC_MULTIRES = (4, 8, 10, 20)    # B1 at N_ROWS and B6 at N_OCC_MARCH
 ENC_IDE_DEGS = (1, 2, 3, 4)      # B2's default variant at light PE 8; B5 in both modes
 ENC_SHADER_DEG = 4               # B2's other variants at this degree and at
-ENC_LIGHT_PE = (4, 10, 16)       # these light PEs (16: the port's limit)
+ENC_LIGHT_PE = (4, 10, 16)       # these light PEs
 ENC_STAGE1 = "sphere_enc.yaml"   # multires 8, ide_deg 4, light_pos_freq 10, use_fused_sdf
 ENC_STAGE2 = "bowl_enc.yaml"     # bowl_fused.yaml at ide_deg 4
 ENC_SHORT_SHADER = (3, 6)        # sphere_real.yaml's human light at these encodings
@@ -3539,6 +3554,13 @@ ENC_SHORT_STEPS = 4
 # the new head shapes of the per-head path at ide_deg 4, light_pos_freq 10:
 # outer (38; 76 with sphere_direction), inner 63 + 38, inner weight 63 + 39
 ENC_PREDICTOR_SHAPES = ((38, 3), (76, 3), (101, 3), (102, 1))
+# B2 at degree 5 past light PE 16: 20 within one 256-wide tile of light input,
+# 32 and 64 past it (the inner head's 267 and 459 columns, in windows)
+ENC_WIDE_PE = (20, 32, 64)
+ENC_WIDE = (5, 32)               # also `human_light`, both, and the scene axis at S = 2
+ENC_LPF32 = "sphere_lpf32.yaml"  # sphere.yaml at light_pos_freq 32
+FIELD_PES = (0, 3, 7)            # B3, B4, B7 on `std` fields of these PE octaves
+FIELD_PE_DISTILL = (600, 300_000)  # steps, samples of the pe 0 and 3 fields (kernel checks)
 
 
 def enc_shader_cases() -> list:
@@ -3546,9 +3568,12 @@ def enc_shader_cases() -> list:
     cases = [(False, False, (d, 8)) for d in ENC_IDE_DEGS] + [(False, False, (ENC_SHADER_DEG, 10))]
     cases += [(sp, hu, (ENC_SHADER_DEG, p)) for p in ENC_LIGHT_PE
               for sp, hu in ((True, False), (False, True), (True, True))]
-    # degree 5 with light PE 12-16: the inner head's input cotangent outgrows
-    # the tiles and the ring takes 64-row slabs (csrc/shader.cu)
-    return cases + [(False, True, ENC_SHORT_SHADER), (True, True, (5, max(ENC_LIGHT_PE)))]
+    # degree 5 with light PE 12-30: the inner head's input cotangent outgrows
+    # the tiles and the ring takes 64-row slabs; from 31 on the light inputs
+    # outgrow the activation tile: windows and dX pieces (csrc/shader.cu)
+    cases += [(False, True, ENC_SHORT_SHADER), (True, True, (5, max(ENC_LIGHT_PE)))]
+    cases += [(False, False, (5, p)) for p in ENC_WIDE_PE]
+    return cases + [(False, True, ENC_WIDE), (True, True, ENC_WIDE)]
 
 
 def enc_builds() -> list:
@@ -3574,11 +3599,27 @@ def enc_path_rows() -> set:
     rows = {KG.counter(k, 8) for k in ("sdf_grad_fwd", "sdf_grad_bwd", "sdf_fwd")}
     rows |= {f"shader_{d}{KS._suffix(False, False, (4, 10))}" for d in ("fwd", "bwd")}
     rows |= {f"shader_{d}{KS._suffix(False, True, ENC_SHORT_SHADER)}" for d in ("fwd", "bwd")}
+    rows |= {f"shader_{d}{KS._suffix(False, False, ENC_WIDE)}" for d in ("fwd", "bwd")}
     rows |= {KL.counter(k, 4) for k in ("lights_fwd", "lights_bwd")}
     return rows | {KL.counter(k, ENC_SHORT_LIGHTS) for k in ("lights_fwd_outer", "lights_bwd_outer")}
 
 
-def check_encoding_kernels(dev) -> list:
+def check_shader_spills(enc):
+    """The four kernels of B2's library at `enc` in its four variants: 0
+    spill bytes in ptxas."""
+    from nero_tpu_torch.ops import shader as K
+    from nero_tpu_torch.ops.cuda_build import ptxas_info
+
+    info = {f"{kern}<{sp},{hu}>": ptxas_info("shader", f"{kern}\\w*Lb{sp}ELb{hu}E", K.defines(enc))
+            for kern in ("shader_fwd_kernel", "shader_bwd_sweep_kernel",
+                         "shader_bwd_params_kernel", "shader_bwd_reduce_kernel")
+            for sp in (0, 1) for hu in (0, 1)}
+    check(all(v.get("spill_bytes") == 0 for v in info.values()), f"shader {enc} spills: {info}")
+    print(f"shader {enc}: 0 spill bytes in its 16 kernels; registers "
+          + ", ".join(f"{k} {v.get('regs')}" for k, v in info.items()))
+
+
+def check_encoding_kernels(dev, bowl: dict) -> list:
     """Every kernel at the encodings nero_tpu's kernels take beside the
     shipped ones, against its plain version at the bars of its shipped row
     (PERF.md section 6), with live PE weights in the SDF: B1 at each of
@@ -3586,15 +3627,30 @@ def check_encoding_kernels(dev) -> list:
     error) and B6 there, equal to B1's sdf to the bit; B2 at ENC_IDE_DEGS
     and at (4, 10) in the default variant, and in each of `sphere_direction`,
     `human_light` and both at degree 4 and each of ENC_LIGHT_PE, the human
-    light at (3, 6) and both at (5, 16); B5 at ENC_IDE_DEGS in both modes;
-    B8 at the head shapes of ide_deg 4 and light_pos_freq 10."""
+    light at (3, 6) and both at (5, 16), the default variant at degree 5 and
+    each of ENC_WIDE_PE (0 spill bytes), `human_light` and both at ENC_WIDE
+    and the scene axis there (S = 2); B5 at ENC_IDE_DEGS in both modes; B8
+    at the head shapes of ide_deg 4 and light_pos_freq 10; B3, B4 and B7 on
+    the bowl's fields at FIELD_PES (`check_field_pe`)."""
     t0 = time.perf_counter()
     rows = []
     for m in ENC_MULTIRES:
         rows += check_sdf(N_ROWS, dev, multires=m, full=False)
         rows += check_sdf_fwd_at(N_OCC_MARCH, m, dev)
+    t_wide = 0.0
     for sphere, human, enc in enc_shader_cases():
+        t1 = time.perf_counter()
+        if enc[1] in ENC_WIDE_PE and not (sphere or human):
+            check_shader_spills(enc)
         rows += check_shader(N_ROWS, dev, sphere, human, enc=enc, full=False)
+        if enc[1] > max(ENC_LIGHT_PE):
+            t_wide += time.perf_counter() - t1
+    t1 = time.perf_counter()
+    rows += check_shader_scenes(N_ROWS, 2, dev, enc=ENC_WIDE)
+    print(f"encodings: B2 past light PE 16 in {t_wide + time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    rows += check_field_pe(bowl, N_MARCH_RAYS, dev)
+    print(f"encodings: B3, B4, B7 at pe {FIELD_PES} in {time.perf_counter() - t1:.1f} s")
     for d in ENC_IDE_DEGS:
         rows += check_lights(N_MARCH_RAYS, dev, ide_deg=d, full=False)
     rows += check_predictor(N_ROWS, dev, shapes=ENC_PREDICTOR_SHAPES, full=False)
@@ -3605,6 +3661,114 @@ def check_encoding_kernels(dev) -> list:
     return rows
 
 
+def check_field_pe(mesh: dict, n: int, dev) -> list:
+    """B3, B4 and B7 at the `std` field's pe of FIELD_PES: a field of the
+    bowl mesh distilled at each (FIELD_PE_DISTILL's steps and samples at pe
+    0 and 3, the tracer's 3000 steps on 1.5 M at 7), the sphere march in both refine modes and the
+    uniform march on n surface rays and on 1,001, and the one evaluation on
+    n points, against their plain versions at check_field_kernels' bars;
+    then the NeuralTracer at pe 7 against the exact host BVH (clearing-ray
+    hit agreement >= 0.98). Kernel rows with times, at each pe."""
+    from nero_tpu_torch.geometry.neural_tracer import NeuralTracer, sphere_segment
+    from nero_tpu_torch.geometry.proc_mesh import surface_rays
+    from nero_tpu_torch.models.material import DEFAULT_MATERIAL_CFG
+    from nero_tpu_torch.ops import field_fwd as KF
+    from nero_tpu_torch.ops import march as KM
+    from nero_tpu_torch.ops import sphere_march as K
+
+    from nero_tpu_torch.ops.cuda_build import ptxas_info
+
+    # the kernels' instances at any pe (the shipped pe 6 has its own, checked
+    # in check_field_kernels)
+    ptx = {k: ptxas_info(k, rf"{k}_kernel\w*{field_instance(False, any_pe=True)}")
+           for k in ("sphere_march", "march", "field_fwd")}
+    check(all(v.get("spill_bytes") == 0 for v in ptx.values()), f"field kernels at any pe: {ptx}")
+    print(f"field kernels' instances at any pe: ptxas {ptx}")
+    o_np, d_np = surface_rays(mesh, n)
+    o, d = torch.as_tensor(o_np, device=dev), torch.as_tensor(d_np, device=dev)
+    out = []
+    for pe in FIELD_PES:
+        t0 = time.perf_counter()
+        steps, samples = (3000, 1_500_000) if pe == max(FIELD_PES) else FIELD_PE_DISTILL
+        tracer = NeuralTracer(mesh["vertices"], mesh["triangles"], verbose=False, device=dev,
+                              seed=DEFAULT_MATERIAL_CFG["random_seed"], pe=pe,
+                              distill_steps=steps, distill_samples=samples)
+        torch.cuda.synchronize()
+        print(f"distill (std, pe {pe}): {steps} steps on {samples} samples in "
+              f"{time.perf_counter() - t0:.1f} s, near-band RMS {tracer.distill_rms:.5f}")
+        packed, sfx = tracer.packed, f"_pe{pe}"
+        t_enter, t_exit, _ = sphere_segment(o, d, tracer.bound)
+        rays = (o, d, t_enter, t_exit)
+        W, Fv = K.kernel_buffers(packed)
+        kw = dict(n_sphere=tracer.n_sphere, margin=tracer.margin,
+                  dt_frac=1.0 / (tracer.n_coarse - 1), pe=pe)
+        worst = {"agree": 1.0, "median": 0.0, "max": 0.0}
+        for m in (n, 1001):
+            for refine, n_refine in (("illinois", 2), ("bisect", 8)):
+                part = tuple(x[:m] for x in rays)
+                _, st = march_agreement(
+                    f"sphere_march{sfx}  {refine}-{n_refine}, R = {m}",
+                    lambda: K.sphere_march(packed, *part, n_refine=n_refine, refine=refine, **kw),
+                    lambda: K.sphere_march_plain(packed, *part, n_refine=n_refine,
+                                                 refine=refine, **kw))
+                worst = {"agree": min(worst["agree"], st["agree"]),
+                         "median": max(worst["median"], st["median"]),
+                         "max": max(worst["max"], st["max"])}
+        args = (*rays, tracer.n_sphere, 2, True, 0.012 + 1e-6, tracer.margin, 0.9,
+                kw["dt_frac"], 0.25, pe)
+        ms = cuda_ms(lambda: K._launch(W, Fv, False, *args), iters=10)
+        plain_ms = cuda_ms(lambda: K.sphere_march_plain(packed, *rays, n_refine=2,
+                                                        refine="illinois", **kw),
+                           iters=3, warmup=1)
+        b_ms, b_by = bound(K.flops(n, tracer.n_sphere, 2, "std", pe), K.min_bytes(n))
+        out.append({"name": f"sphere_march{sfx}", "route": "cuda",
+                    "source": "nero_tpu_torch/csrc/sphere_march.cu",
+                    "replaces": "nero_tpu/ops/pallas/march_kernel.py:338",
+                    "max_abs_err": worst["max"], "median_abs_err": worst["median"],
+                    "found_agreement": worst["agree"], "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        nc, nr = tracer.n_coarse, 8
+        worst = {"agree": 1.0, "median": 0.0, "max": 0.0}
+        for m in (n, 1001):
+            part = tuple(x[:m] for x in rays)
+            _, st = march_agreement(
+                f"march{sfx}  c{nc}-r{nr}, R = {m}",
+                lambda: KM.march(packed, *part, n_coarse=nc, n_refine=nr, pe=pe),
+                lambda: KM.march_plain(packed, *part, n_coarse=nc, n_refine=nr, pe=pe))
+            worst = {"agree": min(worst["agree"], st["agree"]),
+                     "median": max(worst["median"], st["median"]), "max": max(worst["max"], st["max"])}
+        ms = cuda_ms(lambda: KM._launch(W, Fv, False, *rays, nc, nr, 0.012 + 1e-6, pe), iters=10)
+        plain_ms = cuda_ms(lambda: KM.march_plain(packed, *rays, n_coarse=nc, n_refine=nr,
+                                                  pe=pe), iters=2, warmup=1)
+        b_ms, b_by = bound(KM.flops(n, nc, nr, "std", pe), K.min_bytes(n))
+        out.append({"name": f"march{sfx}", "route": "cuda",
+                    "source": "nero_tpu_torch/csrc/march.cu",
+                    "replaces": "nero_tpu/ops/pallas/march_kernel.py:190",
+                    "max_abs_err": worst["max"], "median_abs_err": worst["median"],
+                    "found_agreement": worst["agree"], "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        pts = (o + d * 0.02).contiguous()
+        v_k = KF.field_fwd(packed, pts, pe)
+        v_p = KF.field_fwd_plain(packed, pts, pe)
+        torch.cuda.synchronize()
+        e_plain = (v_k - v_p).abs().max().item()
+        check(e_plain <= 1e-3, f"field_fwd{sfx}: max |d| to the plain version {e_plain}")
+        ms = cuda_ms(lambda: KF._launch(W, Fv, False, pts, pe), iters=10)
+        plain_ms = cuda_ms(lambda: KF.field_fwd_plain(packed, pts, pe), iters=5)
+        b_ms, b_by = bound(KF.flops(n, "std", pe), KF.min_bytes(n))
+        print(f"field_fwd{sfx}: max|d| to plain {e_plain:.3e} (atol 1e-3); launch ms: "
+              f"sphere_march {out[-2]['ms']:.3f}, march {out[-1]['ms']:.3f}, field_fwd {ms:.4f}")
+        out.append({"name": f"field_fwd{sfx}", "route": "cuda",
+                    "source": "nero_tpu_torch/csrc/field_fwd.cu",
+                    "replaces": "nero_tpu/ops/pallas/field_kernel.py:90", "max_abs_err": e_plain,
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": None})
+        if pe == max(FIELD_PES):
+            tracer_vs_bvh(f"neural tracer (std, pe {pe}, sphere march)", tracer, o_np, d_np, o, d,
+                          0.98, 0.01, 0.95)
+    return out
+
+
 def encodings(bowl: dict, dev, card: str) -> list:
     """Phase 11: `sphere_enc.yaml` and `bowl_enc.yaml` trained for 30 steps
     each as phases 4 and 5 train theirs (launches exact, held-out loss_rgb
@@ -3612,7 +3776,10 @@ def encodings(bowl: dict, dev, card: str) -> list:
     widths; then 4 steps of `sphere_real.yaml` at ide_deg 3 and
     light_pos_freq 6 (B2 `human_light`) and 4 of the convex scene's fused
     outer head at ide_deg 3 with `sphere_direction` (B5 `outer`); step
-    medians and busy ms a step beside the card line."""
+    medians and busy ms a step beside the card line. Then `sphere_lpf32.yaml`
+    for 30 steps as phase 4 trains its configs (B2 at (5, 32) under its
+    `_d5p32` counters, launches exact, held-out loss_rgb falling) and its
+    first step's FLOP tallies and MFU as phase 10 holds them."""
     from nero_tpu_torch.geometry.proc_mesh import proc_mesh
     from nero_tpu_torch.ops import lights as KL
     from nero_tpu_torch.ops import sdf_grad as KG
@@ -3652,11 +3819,20 @@ def encodings(bowl: dict, dev, card: str) -> list:
         shader_over={"human_lights": True, "outer_light_version": "sphere_direction",
                      "fused_lights": True, "ide_deg": ENC_SHORT_LIGHTS},
         database_name="proc/sphere/100_12", name="proc_sphere_material")
+    t1 = time.perf_counter()
+    wide = train(ENC_LPF32, STAGE1_STEPS, dev)
+    want = ["shader_fwd" + KS._suffix(False, False, ENC_WIDE),
+            "shader_bwd" + KS._suffix(False, False, ENC_WIDE)]
+    check(all(wide["launches"].get(k, 0) > 0 for k in want),
+          f"{ENC_LPF32}: {nonzero(wide['launches'])}")
+    check_mfu([wide["mfu"]], card)
     print(f"{card}: {ENC_STAGE1} step {s1['step_ms']:.2f} ms (median), busy "
           f"{busy[ENC_STAGE1]:.2f} ms a step; {ENC_STAGE2} step {s2['step_ms']:.2f} ms, busy "
-          f"{busy[ENC_STAGE2]:.2f} ms; human light ({ENC_SHORT_SHADER}) {h['step_ms']:.2f} ms")
+          f"{busy[ENC_STAGE2]:.2f} ms; human light ({ENC_SHORT_SHADER}) {h['step_ms']:.2f} ms; "
+          f"{ENC_LPF32} step {wide['step_ms']:.2f} ms ({time.perf_counter() - t1:.1f} s with its "
+          f"checks)")
     print(f"encodings: phase 11 in {time.perf_counter() - t0:.1f} s")
-    return [s1["launches"], s2["launches"], h["launches"], outer]
+    return [s1["launches"], s2["launches"], h["launches"], outer, wide["launches"]]
 
 
 def main(argv=None) -> int:
@@ -3706,8 +3882,9 @@ def main(argv=None) -> int:
         print(f"precision: launches {nonzero(launches)}; {time.perf_counter() - start:.1f} s")
         return 0
     if args.only == "encodings":
-        kernels = check_encoding_kernels(dev)
-        launches = add_launches(*encodings(proc_mesh("bowl"), dev, card))
+        bowl = proc_mesh("bowl")
+        kernels = check_encoding_kernels(dev, bowl)
+        launches = add_launches(*encodings(bowl, dev, card))
         print(f"encodings: launches {nonzero(launches)}; {time.perf_counter() - start:.1f} s")
         print("kernels: " + ", ".join(k["name"] for k in kernels))
         print(json.dumps({"kernels": kernels}))
@@ -3724,7 +3901,7 @@ def main(argv=None) -> int:
     bowl = proc_mesh("bowl")
     kernels += check_lights(N_MARCH_RAYS, dev)
     kernels += check_field_kernels(bowl, N_MARCH_RAYS, dev)
-    kernels += check_encoding_kernels(dev)
+    kernels += check_encoding_kernels(dev, bowl)
     if args.only == "kernels":
         print(json.dumps({"kernels": kernels}))
         return 0

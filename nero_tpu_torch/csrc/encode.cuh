@@ -30,6 +30,33 @@ static_assert(IDE_DEG >= 1 && IDE_DEG <= 5, "the IDE takes degrees 1-5");
 __device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_as(bf16* p, float v) { *p = to_bf(v); }
 
+// 2^i as an exact f32 for i = 0..127, from the exponent bits: an int shift
+// overflows at octave 31 (to -2^31) and is undefined from octave 32 on
+__device__ __forceinline__ float pow2f(int i) { return __int_as_float((127 + i) << 23); }
+
+// A window of `w` columns of a bf16 row, x its first: a pointer that
+// ide_row can write through. Window{x, c, w} stands for the window's column c
+// (+ k: column c + k); columns outside 0 .. w - 1 are dropped.
+struct Window {
+  bf16* x;
+  int c, w;
+  __device__ __forceinline__ Window operator+(int k) const { return {x, c + k, w}; }
+};
+__device__ __forceinline__ void store_as(Window p, float v) {
+  if (p.c >= 0 && p.c < p.w) p.x[p.c] = to_bf(v);
+}
+
+// The f32 cotangent of a window of `w` columns, d its first, for
+// ide_row_bwd: WindowIn{d, c, w}[k] is the window's column c + k, and 0
+// outside it.
+struct WindowIn {
+  const float* d;
+  int c, w;
+  __device__ __forceinline__ float operator[](int k) const {
+    return c + k >= 0 && c + k < w ? d[c + k] : 0.0f;
+  }
+};
+
 // (x + iy)^m for m = 0..LM, and z^k for k = 0..LM
 template <int LM>
 __device__ void ide_powers(float x, float y, float z, float* re, float* im, float* zp) {
@@ -43,9 +70,10 @@ __device__ void ide_powers(float x, float y, float z, float* re, float* im, floa
 
 // IDE of degree DEG of one direction, from that degree's table: out[i] = Re,
 // out[nml + i] = Im for its nml entries. `nlanes` threads can share a row:
-// lane `lane` computes the entries lane, lane + nlanes, ...
-template <int DEG = IDE_DEG, typename T>
-__device__ void ide_row(const float* tab, float x, float y, float z, float kappa, T* out,
+// lane `lane` computes the entries lane, lane + nlanes, ... `out` is a float
+// or bf16 pointer, or a Window of a row.
+template <int DEG = IDE_DEG, typename P>
+__device__ void ide_row(const float* tab, float x, float y, float z, float kappa, P out,
                         int stride, int lane = 0, int nlanes = 1) {
   constexpr int lmax = 1 << (DEG - 1), nml = DEG + 2 * lmax - 1;
   float re[lmax + 1], im[lmax + 1], zp[lmax + 1];
@@ -64,10 +92,10 @@ __device__ void ide_row(const float* tab, float x, float y, float z, float kappa
 
 // backward of ide_row: g[0:2 nml] cotangent -> d(x,y,z) (added) and d kappa.
 // With `nlanes` threads on a row each gets the partial sums of its entries,
-// and the caller adds the lanes.
-template <int DEG = IDE_DEG>
+// and the caller adds the lanes. `g` is a float pointer or a WindowIn.
+template <int DEG = IDE_DEG, typename G>
 __device__ float ide_row_bwd(const float* tab, float x, float y, float z, float kappa,
-                             const float* g, float* dxyz, int lane = 0, int nlanes = 1) {
+                             G g, float* dxyz, int lane = 0, int nlanes = 1) {
   constexpr int lmax = 1 << (DEG - 1), nml = DEG + 2 * lmax - 1;
   float re[lmax + 1], im[lmax + 1], zp[lmax + 1];
   ide_powers<lmax>(x, y, z, re, im, zp);
@@ -101,7 +129,7 @@ __device__ float ide_row_bwd(const float* tab, float x, float y, float z, float 
 __device__ __forceinline__ float pe_val(const float* x, int c) {
   if (c < 3) return x[c];
   const int i = (c - 3) / 6, q = (c - 3) % 6, k = q % 3;
-  const float a = x[k] * (float)(1 << i);
+  const float a = x[k] * pow2f(i);
   return q >= 3 ? cosf(a) : sinf(a);
 }
 
@@ -110,7 +138,7 @@ __device__ void pe_bwd(const float* x, const float* g, int stride, int nfreq, fl
   for (int k = 0; k < 3; ++k) dx[k] += g[k * stride];
   for (int i = 0; i < nfreq; ++i)
     for (int k = 0; k < 3; ++k) {
-      const float f = (float)(1 << i), a = x[k] * f;
+      const float f = pow2f(i), a = x[k] * f;
       dx[k] += f * (g[(3 + 6 * i + k) * stride] * cosf(a) - g[(6 + 6 * i + k) * stride] * sinf(a));
     }
 }

@@ -3,7 +3,8 @@
 //
 // Two topologies (nero_tpu/ops/pallas/march_kernel.py::_field_eval_t :60 and
 // ::_field_eval_t_wide :103):
-//   std   PE6 (39 channels, padded to 48) -> 128 -> 128 -> 128 -> 1
+//   std   PE of pe = 0-7 octaves (3 + 6 pe channels, 39 at the shipped pe 6,
+//         padded to 48) -> 128 -> 128 -> 128 -> 1; pe is a kernel argument
 //   wide  four double-angle chains of five octaves at bases 1, 2^.25, 2^.5,
 //         2^.75 (123 channels, padded to 128) -> 128 -> 128 -> 1
 // All products take bf16-rounded operands and sum in f32 on the tensor cores
@@ -44,12 +45,21 @@ namespace nero {
 constexpr int FD_W = 128;         // field width
 constexpr int FD_LDW = FD_W + 8;  // bf16 row stride of the weights and the staging tile
 constexpr int FD_TILE = 16;       // rows per warp tile
+constexpr int FD_MAX_PE = 7;      // `std` octaves: 3 + 6 pe channels within the padded 48
+// A kernel's PE template argument: the shipped `std` pe 6 as a constant (the
+// code the kernels had before pe was an argument: as an argument it cost the
+// marches 2-4%), or any pe 0-7 as the kernel's argument. `wide` ignores pe.
+constexpr int FD_PE6 = 6, FD_ANY_PE = -1;
+#define FIELD_DISPATCH(fn, wide, pe, ...)                                        \
+  ((wide) ? fn<true, nero::FD_ANY_PE>(__VA_ARGS__)                               \
+          : (pe) == nero::FD_PE6 ? fn<false, nero::FD_PE6>(__VA_ARGS__)          \
+                                 : fn<false, nero::FD_ANY_PE>(__VA_ARGS__))
 constexpr unsigned FULL = 0xffffffffu;
 
 template <bool WIDE>
 struct FieldDims {
   static constexpr int PE = WIDE ? 128 : 48;   // encoding channels, padded
-  static constexpr int NPE = WIDE ? 123 : 39;  // encoding channels
+  static constexpr int NPE = WIDE ? 123 : 3 + 6 * FD_MAX_PE;  // encoding channels, at most
   static constexpr int KT0 = PE / 16;          // k-tiles of the first layer
   static constexpr int HIDDEN = WIDE ? 1 : 2;  // 128 x 128 layers after the first
   static constexpr int WROWS = PE + HIDDEN * FD_W;       // stacked weight rows
@@ -126,12 +136,15 @@ __device__ __forceinline__ unsigned pack_bf2(float lo, float hi) {
 // holds rows g and g + 8. Channel order of ops/sphere_march.py's pe_rows
 // (std: xyz, then sin(xyz), cos(xyz) per octave, six octaves) and
 // pe_rows_wide (xyz, then four chains of five octaves at bases 2^(k/4));
-// the padding channels were zeroed once and stay 0. The quad splits the
-// work: `std`, lane q takes the (row, coordinate) pairs q and, for q < 2,
+// `std` writes its pe octaves (0-7: PE, or the argument pe where PE is
+// FD_ANY_PE), `wide` ignores pe. The channels past them and the padding
+// channels were zeroed once and stay 0. The quad splits
+// the work: `std`, lane q takes the (row, coordinate) pairs q and, for q < 2,
 // q + 4; `wide`, lane q takes chain q of both rows (lane 0 also the raw xyz).
 // Each runs the double-angle recurrence of its own values.
-template <bool WIDE>
-__device__ __forceinline__ void encode(const float (&p)[2][3], int lane, bf16* Es) {
+template <bool WIDE, int PE>
+__device__ __forceinline__ void encode(const float (&p)[2][3], int pe, int lane, bf16* Es) {
+  const int n_oct = PE >= 0 ? PE : pe;
   const int g = lane >> 2, q = lane & 3;
   __syncwarp();  // the previous evaluation's fragments are loaded
   if (WIDE) {
@@ -184,10 +197,11 @@ __device__ __forceinline__ void encode(const float (&p)[2][3], int lane, bf16* E
         float s, c;
         sincosf(x, &s, &c);
 #pragma unroll
-        for (int o = 0; o < 6; ++o) {
+        for (int o = 0; o < FD_MAX_PE; ++o) {
+          if (o >= n_oct) break;
           dst[3 + 6 * o] = to_bf(s);
           dst[6 + 6 * o] = to_bf(c);
-          if (o + 1 < 6) {
+          if (o + 1 < n_oct) {
             const float s2 = 2.0f * s * c;
             c = 1.0f - 2.0f * s * s;
             s = s2;
@@ -244,14 +258,14 @@ __device__ __forceinline__ void bias_relu(const float (&acc)[16][4], const float
 }
 
 // The field at the tile's 16 points: v[r] of row g + 8r, the same bits in
-// every lane of the quad. Ws, Fs: the block's weights and floats; Es: the
-// warp's staging tile.
-template <bool WIDE>
-__device__ __forceinline__ void field16(const float (&p)[2][3], const bf16* Ws, const float* Fs,
-                                        bf16* Es, int lane, float (&v)[2]) {
+// every lane of the quad. PE, pe: the `std` encoding's octaves (encode); Ws,
+// Fs: the block's weights and floats; Es: the warp's staging tile.
+template <bool WIDE, int PE>
+__device__ __forceinline__ void field16(const float (&p)[2][3], int pe, const bf16* Ws,
+                                        const float* Fs, bf16* Es, int lane, float (&v)[2]) {
   using D = FieldDims<WIDE>;
   unsigned a0[D::KT0][4];
-  encode<WIDE>(p, lane, Es);
+  encode<WIDE, PE>(p, pe, lane, Es);
   load_a(Es, lane, a0);
   float acc[16][4];
   product(a0, Ws, lane, acc);

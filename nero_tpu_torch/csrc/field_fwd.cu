@@ -7,7 +7,7 @@
 // also takes `wide`, since both come from csrc/field.cuh.
 //
 // What bounds it: tensor-core operations, one field evaluation per point
-// (2*(39*128 + 2*128*128 + 128) operations, `std`) against 16 bytes per
+// (2*((3+6pe)*128 + 2*128*128 + 128) operations, `std`) against 16 bytes per
 // point of device-memory traffic.
 //
 // Design: csrc/field.cuh's warp-tile engine, one field16 call per 16-point
@@ -24,10 +24,10 @@ constexpr int FF_VALS = 3;    // the point, per row of the warp's table
 template <bool WIDE>
 using FfBlock = FieldBlock<WIDE, FF_WARPS, FF_VALS>;
 
-template <bool WIDE>
+template <bool WIDE, int PE>
 __global__ void __launch_bounds__(FF_WARPS * 32, 1) field_fwd_kernel(
     const float* __restrict__ pts, int N, const bf16* __restrict__ W,
-    const float* __restrict__ F, float* __restrict__ out) {
+    const float* __restrict__ F, int pe, float* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char ff_smem[];
   const WarpField f = field_prologue<WIDE, FF_WARPS, FF_VALS>(ff_smem, W, F);
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
@@ -47,7 +47,7 @@ __global__ void __launch_bounds__(FF_WARPS * 32, 1) field_fwd_kernel(
     for (int r = 0; r < 2; ++r)
 #pragma unroll
       for (int k = 0; k < 3; ++k) p[r][k] = f.Rs[k * FD_TILE + g + 8 * r];
-    field16<WIDE>(p, f.Ws, f.Fs, f.Es, lane, v);
+    field16<WIDE, PE>(p, pe, f.Ws, f.Fs, f.Es, lane, v);
     if (q < 2 && id < N) out[id] = q == 0 ? v[0] : v[1];
   }
 }
@@ -56,18 +56,18 @@ __global__ void __launch_bounds__(FF_WARPS * 32, 1) field_fwd_kernel(
 
 namespace {
 
-template <bool WIDE>
-int launch_field_fwd(const void* pts, int N, const void* W, const void* F, void* out,
+template <bool WIDE, int PE>
+int launch_field_fwd(const void* pts, int N, const void* W, const void* F, int pe, void* out,
                      void* stream) {
   using namespace nero;
   constexpr size_t smem = FfBlock<WIDE>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(field_fwd_kernel<WIDE>,
+  cudaError_t err = cudaFuncSetAttribute(field_fwd_kernel<WIDE, PE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = field_grid(N, FF_WARPS, &err);
   if (err != cudaSuccess) return (int)err;
-  field_fwd_kernel<WIDE><<<grid, FfBlock<WIDE>::THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)pts, N, (const bf16*)W, (const float*)F, (float*)out);
+  field_fwd_kernel<WIDE, PE><<<grid, FfBlock<WIDE>::THREADS, smem, (cudaStream_t)stream>>>(
+      (const float*)pts, N, (const bf16*)W, (const float*)F, pe, (float*)out);
   return (int)cudaGetLastError();
 }
 
@@ -83,12 +83,11 @@ size_t field_fwd_float_elems(int wide) {
   return wide ? nero::FieldDims<true>::FELEMS : nero::FieldDims<false>::FELEMS;
 }
 
-// pts [N,3] f32; W, F as csrc/sphere_march.cu takes them; out [N] f32.
-int field_fwd(const void* pts, int N, const void* W, const void* F, int wide, void* out,
+// pts [N,3] f32; W, F and pe as csrc/sphere_march.cu takes them; out [N] f32.
+int field_fwd(const void* pts, int N, const void* W, const void* F, int wide, int pe, void* out,
               void* stream) {
   if (N <= 0) return 0;
-  return wide ? launch_field_fwd<true>(pts, N, W, F, out, stream)
-              : launch_field_fwd<false>(pts, N, W, F, out, stream);
+  return FIELD_DISPATCH(launch_field_fwd, wide, pe, pts, N, W, F, pe, out, stream);
 }
 
 }  // extern "C"

@@ -99,12 +99,13 @@ __device__ __forceinline__ void march_values(float* Rs, int row, int id, bool li
   Rs[MV_T_EXIT * FD_TILE + row] = live ? t_exit_g[id] : 1e-3f;
 }
 
-template <bool WIDE>
+template <bool WIDE, int PE>
 __global__ void __launch_bounds__(MR_WARPS * 32, 1) march_kernel(
     const float* __restrict__ rays_o, const float* __restrict__ rays_d,
     const float* __restrict__ t_enter_g, const float* __restrict__ t_exit_g, int R,
-    const bf16* __restrict__ W, const float* __restrict__ F, int n_coarse, int n_refine,
-    float t0_eps, float* __restrict__ t_out, unsigned char* __restrict__ found_out) {
+    const bf16* __restrict__ W, const float* __restrict__ F, int pe, int n_coarse,
+    int n_refine, float t0_eps, float* __restrict__ t_out,
+    unsigned char* __restrict__ found_out) {
   extern __shared__ __align__(128) unsigned char mr_smem[];
   const WarpField f = field_prologue<WIDE, MR_WARPS, MARCH_VALS>(mr_smem, W, F);
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
@@ -129,7 +130,7 @@ __global__ void __launch_bounds__(MR_WARPS * 32, 1) march_kernel(
 #pragma unroll
         for (int k = 0; k < 3; ++k) p[r][k] = ray[r].val(MV_O + k) + ray[r].val(MV_D + k) * te[r];
       }
-      field16<WIDE>(p, f.Ws, f.Fs, f.Es, lane, v);
+      field16<WIDE, PE>(p, pe, f.Ws, f.Fs, f.Es, lane, v);
 #pragma unroll
       for (int r = 0; r < 2; ++r) ray[r].update(it, te[r], v[r], n_coarse, t0_eps);
     }
@@ -149,20 +150,20 @@ __global__ void __launch_bounds__(MR_WARPS * 32, 1) march_kernel(
 
 namespace {
 
-template <bool WIDE>
+template <bool WIDE, int PE>
 int launch_march(const void* rays_o, const void* rays_d, const void* t_enter,
-                 const void* t_exit, int R, const void* W, const void* F, int n_coarse,
+                 const void* t_exit, int R, const void* W, const void* F, int pe, int n_coarse,
                  int n_refine, float t0_eps, void* t_out, void* found_out, void* stream) {
   using namespace nero;
   constexpr size_t smem = MrBlock<WIDE>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(march_kernel<WIDE>,
+  cudaError_t err = cudaFuncSetAttribute(march_kernel<WIDE, PE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = field_grid(R, MR_WARPS, &err);
   if (err != cudaSuccess) return (int)err;
-  march_kernel<WIDE><<<grid, MrBlock<WIDE>::THREADS, smem, (cudaStream_t)stream>>>(
+  march_kernel<WIDE, PE><<<grid, MrBlock<WIDE>::THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)rays_o, (const float*)rays_d, (const float*)t_enter, (const float*)t_exit,
-      R, (const bf16*)W, (const float*)F, n_coarse, n_refine, t0_eps, (float*)t_out,
+      R, (const bf16*)W, (const float*)F, pe, n_coarse, n_refine, t0_eps, (float*)t_out,
       (unsigned char*)found_out);
   return (int)cudaGetLastError();
 }
@@ -180,15 +181,13 @@ size_t march_float_elems(int wide) {
 }
 
 // rays_o, rays_d [R,3] f32; t_enter, t_exit [R] f32; W, F as csrc/sphere_march.cu
-// takes them; n_coarse >= 2; t_out [R] f32; found_out [R] bytes (0/1).
+// takes them (pe too); n_coarse >= 2; t_out [R] f32; found_out [R] bytes (0/1).
 int march(const void* rays_o, const void* rays_d, const void* t_enter, const void* t_exit,
-          int R, const void* W, const void* F, int wide, int n_coarse, int n_refine,
+          int R, const void* W, const void* F, int wide, int pe, int n_coarse, int n_refine,
           float t0_eps, void* t_out, void* found_out, void* stream) {
   if (R <= 0) return 0;
-  return wide ? launch_march<true>(rays_o, rays_d, t_enter, t_exit, R, W, F, n_coarse,
-                                   n_refine, t0_eps, t_out, found_out, stream)
-              : launch_march<false>(rays_o, rays_d, t_enter, t_exit, R, W, F, n_coarse,
-                                    n_refine, t0_eps, t_out, found_out, stream);
+  return FIELD_DISPATCH(launch_march, wide, pe, rays_o, rays_d, t_enter, t_exit, R, W, F, pe,
+                        n_coarse, n_refine, t0_eps, t_out, found_out, stream);
 }
 
 }  // extern "C"

@@ -109,13 +109,24 @@
 //
 // Encoding widths: the IDE degree (ide_deg, encode.cuh's NERO_IDE_DEG) and
 // the octaves of the light points' PE (light_pos_freq, NERO_LIGHT_PE, 8
-// unless given) are the build's; ops/shader.py builds one library per pair
-// that a configuration asks for. At degree 5 and PE 8 the head inputs are
-// 80 (outer, 72 padded; 144 with SPHERE), 128 (inner, 51 + 72) and 96 (occ,
-// 51 + 39); in general each is its width padded to 16. Where the widest
-// light input cotangent exceeds 144 columns (degree 5 with PE 12-16) its f32
-// staging outgrows the activation and points tiles: the tile region grows
-// to hold it and the ring takes 64-row slabs to make room.
+// unless given; 0-128, octave i's frequency an exact f32 2^i) are the
+// build's; ops/shader.py builds one library per pair that a configuration
+// asks for. At degree 5 and PE 8 the head inputs are 80 (outer, 72 padded;
+// 144 with SPHERE), 128 (inner, 51 + 72) and 96 (occ, 51 + 39); in general
+// each is its width padded to 16. Where the widest light input cotangent
+// exceeds 144 columns (degree 5 with PE 12-30) its f32 staging outgrows the
+// activation and points tiles: the tile region grows to hold it and the ring
+// takes 64-row slabs to make room. Where a light head's input outgrows the
+// 256-column activation tile (WIDE: degree 5 from PE 31 on, 464 columns at
+// PE 64), every encoding column being a function of its own row, the inner
+// and occ heads' inputs are built in 256-column windows of the tile, each
+// window against its W1 slabs as the ring brings them (build_window; the
+// recompute stores each window to the scratch), and the inner head's dX
+// comes DXP = 128 columns at a time: a piece of W1^T from the ring, its f32
+// staging over the tiles, the PE and IDE backward of its columns added into
+// the row state in piece order (enc_bwd_piece), GZ1 reloaded from the
+// scratch for the next piece. Shared memory is then what it is at PE 8:
+// 128-row slabs, the tile region of the activation and points tiles.
 #include "encode.cuh"
 #include "mma.cuh"
 
@@ -142,7 +153,16 @@ constexpr int DI_OUTER_SPH = (2 * NIDE + 15) / 16 * 16;
 constexpr int DI_INNER = (NPEL + NIDE + 15) / 16 * 16;
 constexpr int DI_OCC = (NPEL + NPE6 + 15) / 16 * 16;
 constexpr int DX_MAX = DI_OUTER_SPH > DI_INNER ? DI_OUTER_SPH : DI_INNER;
-static_assert(LIGHT_PE >= 0 && DI_INNER <= HID && DI_OCC <= HID, "light inputs within a tile");
+// WIDE: a light head's input outgrows the activation tile; the inner head's
+// input cotangent is then staged DXP columns at a time
+constexpr int DI_LIGHT = DI_INNER > DI_OCC ? DI_INNER : DI_OCC;
+constexpr bool WIDE = DI_LIGHT > HID;
+constexpr int DXP = 128;
+constexpr int DX_WIDE = DI_OUTER_SPH > DXP ? DI_OUTER_SPH : DXP;
+// the f32 input cotangent staged at once (a light head's, or a DXP piece)
+constexpr int DX_STAGE = DI_LIGHT > HID ? DX_WIDE : DX_MAX;
+// past octave 127 the frequency 2^i is no finite f32
+static_assert(LIGHT_PE >= 0 && LIGHT_PE <= 128, "light PE octaves 0-128");
 
 enum { H_MET = 0, H_ROUGH, H_ALB, H_OUTER, H_INNER, H_OCC, H_HUMAN };
 
@@ -272,7 +292,7 @@ __device__ void human_row(const float* pose, const float* p, const float* r, flo
 template <typename T>
 __device__ void human_ipe(const HumanRow& h, T* enc, int lane, int nlanes) {
   for (int i = lane; i < 6; i += nlanes) {
-    const float s = (float)(1 << i);
+    const float s = pow2f(i);
     const float att = expf(-0.5f * h.var * s * s);
     for (int k = 0; k < 2; ++k) {
       store_as(enc + 2 * i + k, att * sinf(h.mean[k] * s));
@@ -291,7 +311,7 @@ constexpr int NQ = HID / (8 * WN);       // column groups
 constexpr int LDA = HID + 8;             // activation / cotangent tile [PB][LDA] bf16
 constexpr int PTW = 16;                  // the material input's columns 256-271: 3 points, padded
 constexpr int LDP = PTW + 8;             // points tile [PB][LDP] bf16
-constexpr int SLAB_K = DX_MAX > 144 ? 64 : 128;  // weight rows (recompute) or columns (sweep) per slab
+constexpr int SLAB_K = DX_STAGE > 144 ? 64 : 128;  // weight rows (recompute) or columns (sweep) per slab
 constexpr int LDB = HID + 8;             // recompute slab [SLAB_K][LDB] bf16
 constexpr int LDT = SLAB_K + 8;          // sweep slab [HID][LDT] bf16
 constexpr int STAGES = 2;
@@ -300,7 +320,7 @@ constexpr int HS = HID / SLAB_K;         // slabs of a 256-row (recompute) or -c
 constexpr int RSB = 28;                  // row state floats
 // the activation and points tiles, or (the sweep) a light head's f32 dX
 // over them: bf16 elements
-constexpr int TILE_ELEMS = PB * (LDA + LDP) > PB * DX_MAX * 2 ? PB * (LDA + LDP) : PB * DX_MAX * 2;
+constexpr int TILE_ELEMS = PB * (LDA + LDP) > PB * DX_STAGE * 2 ? PB * (LDA + LDP) : PB * DX_STAGE * 2;
 // shared memory of both kernels: tiles, ring, row state, IDE table, then the slab table
 constexpr size_t B_SMEM0 = ((size_t)TILE_ELEMS + (size_t)STAGES * STAGE_ELEMS) * 2 +
                            (size_t)PB * RSB * 4 + TAB * 4;
@@ -362,12 +382,20 @@ struct Slab {
   int rows, cols, ldg, lds;
 };
 
+// The groups of HS slabs of the sweep's W1^T of evaluation e: none (occ),
+// one (its input rows, at most 256) or, WIDE, the inner head's in pieces of
+// DXP input rows.
+template <class L>
+__host__ __device__ constexpr int dx_pieces(int e) {
+  return e == 6 ? 0 : WIDE && e == 5 ? (L::head_di(H_INNER) + DXP - 1) / DXP : 1;
+}
+
 // Slab s of the stream: the recompute's W1 W2 W3 W4 of every evaluation in
 // order, in slabs of SLAB_K rows (W1: 272 as 256 in SLAB_K-row slabs + 16,
 // the last on the points tile); then the sweep's W4^T, W3^T, W2^T and, where dX is wanted,
 // W1^T of each evaluation in the sweep's order, in slabs of SLAB_K of their
-// output columns (W4: its 16) with all input rows (W1: at most 256). rows = 0
-// past the end.
+// output columns (W4: its 16) with all input rows (W1: at most 256, or
+// dx_pieces of them). rows = 0 past the end.
 template <class L>
 __device__ __forceinline__ Slab slab_at(int s) {
 #pragma unroll
@@ -388,8 +416,13 @@ __device__ __forceinline__ Slab slab_at(int s) {
     const int e = bwd_eval<L>(i), h = L::ev_head(e), di = L::head_di(h);
     const size_t w = L::head_off(h), w2 = w + (size_t)di * HID;
     if (s == 0) return {w2 + 2 * (size_t)HID * HID, HID, DO, DO, LDT};
-    const int cnt = 1 + (e == 6 ? 2 : 3) * HS;
+    const int cnt = 1 + (2 + dx_pieces<L>(e)) * HS;
     if (s < cnt) {
+      if (WIDE && e == 5 && s > 2 * HS) {  // W1^T, piece p: input rows p DXP ..
+        const int p = (s - 1 - 2 * HS) / HS, j = (s - 1 - 2 * HS) % HS;
+        return {w + (size_t)p * DXP * HID + (size_t)j * SLAB_K, min(DXP, di - p * DXP), SLAB_K,
+                HID, LDT};
+      }
       const int l = 2 - (s - 1) / HS, j = (s - 1) % HS;  // W3, W2, W1
       return {(l == 0 ? w : w2 + (size_t)(l - 1) * HID * HID) + (size_t)j * SLAB_K,
               l == 0 ? min(di, HID) : HID, SLAB_K, HID, LDT};
@@ -420,7 +453,7 @@ __host__ __device__ constexpr int n_fwd_slabs() {
 template <class L>
 __host__ __device__ constexpr int n_slabs() {
   int c = n_fwd_slabs<L>();
-  for (int e = 0; e < L::NEVAL; ++e) c += 1 + (e == 6 ? 2 : 3) * HS;
+  for (int e = 0; e < L::NEVAL; ++e) c += 1 + (2 + dx_pieces<L>(e)) * HS;
   return c;
 }
 
@@ -527,7 +560,7 @@ __device__ void pe_bwd_lane(const float* x, const float* g, int nfreq, float* dx
     for (int k = 0; k < 3; ++k) dx[k] += g[k];
   for (int i = lane; i < nfreq; i += 4)
     for (int k = 0; k < 3; ++k) {
-      const float f = (float)(1 << i), a = x[k] * f;
+      const float f = pow2f(i), a = x[k] * f;
       dx[k] += f * (g[3 + 6 * i + k] * cosf(a) - g[6 + 6 * i + k] * sinf(a));
     }
 }
@@ -539,7 +572,7 @@ __device__ float human_bwd(const float* pose, const HumanRow& h, float rough, co
                            float* dp, float* dr, int lane) {
   float dmean[2] = {0.0f, 0.0f}, dvar = 0.0f;
   for (int i = lane; i < 6; i += 4) {
-    const float s = (float)(1 << i);
+    const float s = pow2f(i);
     const float att = expf(-0.5f * h.var * s * s);
     for (int k = 0; k < 2; ++k) {
       const float a = h.mean[k] * s;
@@ -579,6 +612,29 @@ __device__ __forceinline__ void load_pose(const float* geo, int row, int n, int 
   for (int k = 0; k < 12; ++k) pose[k] = row < n ? geo[(size_t)row * geo_w + 9 + k] : 0.0f;
 }
 
+// WIDE: columns c0 .. c0 + 255 (at most) of light input slot 3 (inner:
+// [PE(pts), IDE(reflective, kappa)]) or 4 (occ: [PE(pts), PE6(reflective)])
+// into the activation tile, 4 lanes a row; every column is a function of its
+// own row. Not inlined, as build_slot.
+template <class L>
+__device__ __noinline__ void build_window(int slot, int c0, bf16* A, float* rs, const float* tab) {
+  const int tid = threadIdx.x, r = tid >> 2, q = tid & 3;
+  const int w = min(HID, L::slot_di(slot) - c0);
+  for (int v = tid; v < PB * (w / 8); v += NTHREADS)
+    *reinterpret_cast<uint4*>(A + (v / (w / 8)) * LDA + (v % (w / 8)) * 8) = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+  const float* s = rs + r * RSB;
+  bf16* x = A + r * LDA;
+  for (int c = c0 + q; c < min(NPEL, c0 + w); c += 4) x[c - c0] = to_bf(pe_val(s + B_PTS, c));
+  if (slot == 4) {
+    for (int c = q; c < NPE6; c += 4)
+      if (NPEL + c >= c0 && NPEL + c < c0 + w) x[NPEL + c - c0] = to_bf(pe_val(s + B_R, c));
+  } else if (NPEL < c0 + w && NPEL + NIDE > c0) {
+    ide_row(tab, s[B_R], s[B_R + 1], s[B_R + 2], s[B_KAPPA], Window{x, NPEL - c0, w}, 1, q, 4);
+  }
+  __syncthreads();
+}
+
 // Head input slot `slot` of the tile into the activation tile A (slot 0:
 // feats there, the points in the points tile Pt), 4 lanes a row; the human
 // slot also keeps the row's hit mask in the row state. Not
@@ -600,6 +656,10 @@ __device__ __noinline__ void build_slot(int slot, bf16* A, bf16* Pt, float* rs, 
     }
     for (int c = q; c < PTW; c += 4) Pt[r * LDP + c] = to_bf(c < 3 ? rs[r * RSB + B_PTS + c] : 0.0f);
     __syncthreads();
+    return;
+  }
+  if (WIDE && (slot == 3 || slot == 4)) {  // its first window
+    build_window<L>(slot, 0, A, rs, tab);
     return;
   }
   const int di = L::slot_di(slot);
@@ -645,6 +705,28 @@ __device__ void store_slot(const bf16* A, const bf16* Pt, bf16* Xg, int di, size
     const bf16* src = c < HID ? A + r * LDA + c : Pt + r * LDP + (c - HID);
     *reinterpret_cast<uint4*>(Xg + piece_off(row0 + r, c, di)) =
         *reinterpret_cast<const uint4*>(src);
+  }
+}
+
+// WIDE: window columns c0 .. c0 + w - 1 of a light input slot (width di),
+// from the activation tile to the scratch. Not inlined, as build_slot.
+__device__ __noinline__ void store_window(const bf16* A, bf16* Xg, int di, int c0, int w,
+                                          size_t row0) {
+  const int cb = w / 8;
+  for (int v = threadIdx.x; v < PB * cb; v += NTHREADS) {
+    const int r = v / cb, c = (v % cb) * 8;
+    *reinterpret_cast<uint4*>(Xg + piece_off(row0 + r, c0 + c, di)) =
+        *reinterpret_cast<const uint4*>(A + r * LDA + c);
+  }
+}
+
+// WIDE: a 256-wide scratch array's rows of the tile (GZ1) back into the
+// activation tile. Not inlined, as build_slot.
+__device__ __noinline__ void load_tile(bf16* A, const bf16* Xg, size_t row0) {
+  for (int v = threadIdx.x; v < PB * (HID / 8); v += NTHREADS) {
+    const int r = v / (HID / 8), c = (v % (HID / 8)) * 8;
+    *reinterpret_cast<uint4*>(A + r * LDA + c) =
+        *reinterpret_cast<const uint4*>(Xg + piece_off(row0 + r, c, HID));
   }
 }
 
@@ -744,7 +826,16 @@ shader_fwd_kernel(const float* __restrict__ geo, const float* __restrict__ feats
     const float* bh = B + h * 4 * HID;
     for (int l = 0; l < 4; ++l) {
       zero(acc);
-      if (l == 0) {
+      if (WIDE && l == 0 && (slot == 3 || slot == 4)) {
+        // the light input in 256-column windows, each against its W1 slabs
+        for (int c0 = 0; c0 < di; c0 += HID) {
+          if (c0 > 0) {
+            __syncthreads();  // every warp is done reading the previous window
+            build_window<L>(slot, c0, A, rs, T.tab);
+          }
+          product<false>(acc, ring, a_x, LDA, min(HID, di - c0), col0, HID - col0);
+        }
+      } else if (l == 0) {
         product<false>(acc, ring, a_x, LDA, min(di, HID), col0, HID - col0);
         if (di > HID) product<false>(acc, ring, p_x, LDP, di - HID, col0, HID - col0);
       } else {
@@ -855,6 +946,43 @@ __device__ __noinline__ void enc_bwd(int e, const float* D, int di, float* rs, c
   }
 }
 
+// WIDE: the backward of the inner head's encodings [PE(pts), IDE(reflective,
+// kappa)] for its input columns c0 .. c0 + w - 1, from their cotangent D
+// [PB][DXP] (f32), 4 lanes a row, added into the row's gradient accumulators
+// by its lane 0; the pieces come in column order.
+template <class L>
+__device__ __noinline__ void enc_bwd_piece(const float* D, int c0, int w, float* rs,
+                                           const float* tab) {
+  const int r = threadIdx.x >> 2, q = threadIdx.x & 3;
+  float* s = rs + r * RSB;
+  const float* g = D + r * DXP;
+  float dp[3] = {0.0f, 0.0f, 0.0f}, dd[3] = {0.0f, 0.0f, 0.0f}, dk = 0.0f;
+  if (c0 == 0 && q == 0)
+    for (int k = 0; k < 3; ++k) dp[k] += g[k];
+  // the octaves whose columns 3 + 6i .. 8 + 6i meet the piece
+  const int i0 = c0 < 9 ? 0 : (c0 - 9) / 6 + 1, i1 = min(LIGHT_PE, (c0 + w + 2) / 6);
+  for (int i = i0 + q; i < i1; i += 4)
+    for (int k = 0; k < 3; ++k) {
+      const int cs = 3 + 6 * i + k - c0, cc = cs + 3;
+      const float gs = cs >= 0 && cs < w ? g[cs] : 0.0f, gc = cc >= 0 && cc < w ? g[cc] : 0.0f;
+      const float f = pow2f(i), a = s[B_PTS + k] * f;
+      dp[k] += f * (gs * cosf(a) - gc * sinf(a));
+    }
+  if (NPEL < c0 + w && NPEL + NIDE > c0)
+    dk = ide_row_bwd(tab, s[B_R], s[B_R + 1], s[B_R + 2], s[B_KAPPA], WindowIn{g, NPEL - c0, w},
+                     dd, q, 4);
+  row_sum3(dp);
+  row_sum3(dd);
+  dk = row_sum(dk);
+  if (q == 0) {
+    for (int k = 0; k < 3; ++k) {
+      s[B_GPTS + k] += dp[k];
+      s[B_GR + k] += dd[k];
+    }
+    s[B_GKAPPA] += dk;
+  }
+}
+
 template <class L>
 __global__ void __launch_bounds__(NTHREADS, 1)
 shader_bwd_sweep_kernel(const float* __restrict__ geo, const float* __restrict__ feats, int n,
@@ -897,11 +1025,23 @@ shader_bwd_sweep_kernel(const float* __restrict__ geo, const float* __restrict__
   for (int e = 0; e < L::NEVAL; ++e) {
     const int h = L::ev_head(e), slot = L::ev_slot(e), di = L::head_di(h);
     build_slot<L>(slot, A, Pt, rs, tab, feats, geo, p0, n);
-    if (e == 0 || e >= 3) store_slot(A, Pt, S.x(slot), di, row0);
+    if (WIDE && (slot == 3 || slot == 4)) store_window(A, S.x(slot), di, 0, min(di, HID), row0);
+    else if (e == 0 || e >= 3) store_slot(A, Pt, S.x(slot), di, row0);
     const float* bh = B + h * 4 * HID;
     for (int l = 0; l < 4; ++l) {
       zero(acc);
-      if (l == 0) {
+      if (WIDE && l == 0 && (slot == 3 || slot == 4)) {
+        // the light input in 256-column windows, each to the scratch and
+        // against its W1 slabs
+        for (int c0 = 0; c0 < di; c0 += HID) {
+          if (c0 > 0) {
+            __syncthreads();  // every warp is done reading the previous window
+            build_window<L>(slot, c0, A, rs, tab);
+            store_window(A, S.x(slot), di, c0, min(HID, di - c0), row0);
+          }
+          product<false>(acc, ring, a_x, LDA, min(HID, di - c0), col0, HID - col0);
+        }
+      } else if (l == 0) {
         product<false>(acc, ring, a_x, LDA, min(di, HID), col0, HID - col0);
         if (di > HID) product<false>(acc, ring, p_x, LDP, di - HID, col0, HID - col0);
       } else {
@@ -986,7 +1126,37 @@ shader_bwd_sweep_kernel(const float* __restrict__ geo, const float* __restrict__
               *reinterpret_cast<__nv_bfloat162*>(arow + (16 * m + 8 * hf) * LDA + j * 8) = v;
           }
     }
-    if (want_dx) {
+    if (WIDE && e == 5) {
+      // dX = GZ1 @ W1^T in pieces of DXP columns: each staged in f32 over the
+      // tiles, its encodings' backward added into the row state, then GZ1
+      // back from the scratch for the next piece (its width and evaluation
+      // as constants, and the loop kept rolled: the sphere and human
+      // variant's sweep spills otherwise)
+      constexpr int di_in = L::head_di(H_INNER);
+#pragma unroll 1
+      for (int c0 = 0; c0 < di_in; c0 += DXP) {
+        const int w = min(DXP, di_in - c0);
+        // the ring's next barrier comes before any warp reads it
+        if (c0 > 0) load_tile(A, S.gz(5, 0), row0);
+        zero(acc);
+        product<true>(acc, ring, a_x, LDA, HID, col0, w - col0);
+        __syncthreads();  // every warp is done reading GZ1: the tile becomes D
+#pragma unroll
+        for (int j = 0; j < WN; ++j) {
+          const int c = col0 + j * 8 + 2 * t;
+          if (c >= w) break;
+#pragma unroll
+          for (int m = 0; m < 2; ++m)
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf)
+              *reinterpret_cast<float2*>(D + (grp * 32 + 16 * m + 8 * hf + g) * DXP + c) =
+                  make_float2(acc[m][j][2 * hf], acc[m][j][2 * hf + 1]);
+        }
+        __syncthreads();
+        enc_bwd_piece<L>(D, c0, w, rs, tab);
+        __syncthreads();  // D is read before GZ1 comes back over it
+      }
+    } else if (want_dx) {
       // dX = GZ1 @ W1^T, at most 256 columns
       const int dxw = min(di, HID);
       zero(acc);

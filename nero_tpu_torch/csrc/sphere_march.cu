@@ -9,7 +9,7 @@
 // or bisection evaluations. Outputs are the refined t and the `found` flag;
 // bounding-sphere validity is the caller's. The kernel has no gradient.
 //
-// What bounds it: tensor-core operations. One evaluation is 2*(39*128 +
+// What bounds it: tensor-core operations. One evaluation is 2*((3+6pe)*128 +
 // 2*128*128 + 128) operations per ray (`wide`: 2*(123*128 + 128*128 + 128))
 // and a ray takes n_sphere + n_refine of them, against 40 bytes per ray of
 // device-memory traffic.
@@ -38,7 +38,7 @@ template <bool WIDE>
 using SmBlock = FieldBlock<WIDE, SM_WARPS, RAY_VALS>;
 
 struct MarchArgs {
-  int n_sphere, n_refine, illinois;
+  int pe, n_sphere, n_refine, illinois;
   float t0_eps, margin, lip, dt_frac, cap_frac;
 };
 
@@ -135,7 +135,7 @@ __device__ __forceinline__ void ray_values(float* Rs, int row, int id, bool live
   Rs[RV_CAP * FD_TILE + row] = chord * a.cap_frac;
 }
 
-template <bool WIDE>
+template <bool WIDE, int PE>
 __global__ void __launch_bounds__(SM_WARPS * 32, 1) sphere_march_kernel(
     const float* __restrict__ rays_o, const float* __restrict__ rays_d,
     const float* __restrict__ t_enter_g, const float* __restrict__ t_exit_g, int R,
@@ -165,7 +165,7 @@ __global__ void __launch_bounds__(SM_WARPS * 32, 1) sphere_march_kernel(
 #pragma unroll
         for (int k = 0; k < 3; ++k) p[r][k] = ray[r].val(RV_O + k) + ray[r].val(RV_D + k) * te[r];
       }
-      field16<WIDE>(p, f.Ws, f.Fs, f.Es, lane, v);
+      field16<WIDE, PE>(p, a.pe, f.Ws, f.Fs, f.Es, lane, v);
 #pragma unroll
       for (int r = 0; r < 2; ++r) ray[r].update(it, te[r], v[r], a);
     }
@@ -184,18 +184,18 @@ __global__ void __launch_bounds__(SM_WARPS * 32, 1) sphere_march_kernel(
 
 namespace {
 
-template <bool WIDE>
+template <bool WIDE, int PE>
 int launch_sphere_march(const void* rays_o, const void* rays_d, const void* t_enter,
                         const void* t_exit, int R, const void* W, const void* F,
                         nero::MarchArgs a, void* t_out, void* found_out, void* stream) {
   using namespace nero;
   constexpr size_t smem = SmBlock<WIDE>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(sphere_march_kernel<WIDE>,
+  cudaError_t err = cudaFuncSetAttribute(sphere_march_kernel<WIDE, PE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = field_grid(R, SM_WARPS, &err);
   if (err != cudaSuccess) return (int)err;
-  sphere_march_kernel<WIDE><<<grid, SmBlock<WIDE>::THREADS, smem, (cudaStream_t)stream>>>(
+  sphere_march_kernel<WIDE, PE><<<grid, SmBlock<WIDE>::THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)rays_o, (const float*)rays_d, (const float*)t_enter, (const float*)t_exit,
       R, (const bf16*)W, (const float*)F, a, (float*)t_out, (unsigned char*)found_out);
   return (int)cudaGetLastError();
@@ -216,18 +216,17 @@ size_t sphere_march_float_elems(int wide) {
 // rays_o, rays_d [R,3] f32; t_enter, t_exit [R] f32; W bf16, the 128-column
 // weights stacked row-major [in,out] (std: w0 [48,128], w1, w2 [128,128];
 // wide: w0 [128,128], w1 [128,128]); F f32 (the biases of those layers, the
-// output weights, the output bias); t_out [R] f32; found_out [R] bytes (0/1).
+// output weights, the output bias); pe: the `std` field's PE octaves, 0-7
+// (wide: ignored); t_out [R] f32; found_out [R] bytes (0/1).
 int sphere_march(const void* rays_o, const void* rays_d, const void* t_enter,
-                 const void* t_exit, int R, const void* W, const void* F, int wide,
+                 const void* t_exit, int R, const void* W, const void* F, int wide, int pe,
                  int n_sphere, int n_refine, int illinois, float t0_eps, float margin,
                  float lip, float dt_frac, float cap_frac, void* t_out, void* found_out,
                  void* stream) {
   if (R <= 0) return 0;
-  nero::MarchArgs a{n_sphere, n_refine, illinois, t0_eps, margin, lip, dt_frac, cap_frac};
-  return wide ? launch_sphere_march<true>(rays_o, rays_d, t_enter, t_exit, R, W, F, a, t_out,
-                                          found_out, stream)
-              : launch_sphere_march<false>(rays_o, rays_d, t_enter, t_exit, R, W, F, a, t_out,
-                                           found_out, stream);
+  nero::MarchArgs a{pe, n_sphere, n_refine, illinois, t0_eps, margin, lip, dt_frac, cap_frac};
+  return FIELD_DISPATCH(launch_sphere_march, wide, pe, rays_o, rays_d, t_enter, t_exit, R, W, F,
+                        a, t_out, found_out, stream);
 }
 
 }  // extern "C"

@@ -72,8 +72,9 @@ def fused_shader_active(cfg: AppShadingConfig, storage=None) -> bool:
     explicit false is never overridden by it (nero_tpu/fields/
     app_shading.py:212-240); otherwise the whole-shader kernel where it
     takes the configuration (ops/shader.py::supported: nero_tpu's rule, 256
-    feats and IDE degree <= 5, and light_pos_freq <= 16), else the per-head
-    path (`heads_raw`), with a
+    feats and IDE degree <= 5, and light_pos_freq <= 128, where the light
+    PE's top frequency is still a finite f32), else the per-head path
+    (`heads_raw`), with a
     warning (once, by the warnings module's default filter) when True was
     asked for, as nero_tpu does (fields/app_shading.py:227-237). A rule about
     the configuration, never about the device."""

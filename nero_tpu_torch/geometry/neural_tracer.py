@@ -8,7 +8,8 @@ Counterpart of nero_tpu/geometry/neural_tracer.py. Stage-II shading traces
      closest point + parity sign) are sampled and distilled into a compact
      MLP with Adam on the device: `std` is PE6 -> 4 x 128, `wide` a
      quarter-octave encoding of 123 channels -> 3 dense layers;
-  2. per query, `ops/sphere_march.py::sphere_march` (march mode `sphere`) or
+  2. per query, at the field's own `pe` (0-7 for the kernels, 6 unless
+     given), `ops/sphere_march.py::sphere_march` (march mode `sphere`) or
      `ops/march.py::march` (`uniform`: a fixed scan of n_coarse samples, then
      bisection) brackets the first crossing of the field along each ray and
      refines it (the CUDA kernel for CUDA tensors, its plain version for CPU
@@ -21,6 +22,8 @@ package's non-fused CPU path is a third, all-f32 uniform scan; the port's
 default of 2 was tuned for the Illinois refinement of the sphere march. The
 distilled fields are cached in the port's own directory: the cache key does
 not name the framework, and the two packages draw different random numbers.
+The JAX package's tracer distils and packs at its `pe` but marches and takes
+the normal at pe 6 whatever it is; this one keeps its pe for both.
 """
 from __future__ import annotations
 
@@ -173,11 +176,11 @@ def sphere_segment(rays_o, rays_d, bound: float, t0: float = 0.012):
 def neural_trace(params, packed, rays_o, rays_d, bound: float, far=10.0, n_coarse: int = 32,
                  n_refine: int = 8, t0: float = 0.012, march_mode: str = "sphere",
                  n_sphere: int = 16, margin: float = 0.003, topology: str = "std",
-                 refine: str = "bisect"):
+                 refine: str = "bisect", pe: int = 6):
     """March the field to the first +->- crossing (`sphere`: sphere trace,
     `uniform`: n_coarse-sample scan), refine, and take the normal from the
-    field's gradient. Returns (t [R], normal [R,3] inward (-grad), hit [R]),
-    all detached."""
+    field's gradient, all at the field's `pe` octaves (`std`). Returns (t [R],
+    normal [R,3] inward (-grad), hit [R]), all detached."""
     with torch.no_grad():
         rays_o, rays_d = rays_o.detach(), rays_d.detach()
         t_enter, t_exit, valid = sphere_segment(rays_o, rays_d, bound, t0)
@@ -185,10 +188,10 @@ def neural_trace(params, packed, rays_o, rays_d, bound: float, far=10.0, n_coars
             t_mid, found = sphere_march(packed, rays_o, rays_d, t_enter, t_exit,
                                         n_sphere=n_sphere, n_refine=n_refine, t0=t0,
                                         margin=margin, dt_frac=1.0 / (n_coarse - 1),
-                                        refine=refine, topology=topology)
+                                        refine=refine, topology=topology, pe=pe)
         elif march_mode == "uniform":
             t_mid, found = march(packed, rays_o, rays_d, t_enter, t_exit, n_coarse=n_coarse,
-                                 n_refine=n_refine, t0=t0, topology=topology)
+                                 n_refine=n_refine, t0=t0, topology=topology, pe=pe)
         else:
             raise NotImplementedError(f"march mode {march_mode!r}")
         hit = found & valid
@@ -196,7 +199,7 @@ def neural_trace(params, packed, rays_o, rays_d, bound: float, far=10.0, n_coars
         hit_pts = rays_o + rays_d * t_hit[:, None]
     with torch.enable_grad():
         p = hit_pts.requires_grad_(True)
-        (grad,) = torch.autograd.grad(field_apply(params, p, topology=topology).sum(), p)
+        (grad,) = torch.autograd.grad(field_apply(params, p, pe, topology=topology).sum(), p)
     gn = torch.linalg.norm(grad, dim=-1, keepdim=True)
     normal = torch.where(hit[:, None], -grad / torch.clamp(gn, min=1e-9),
                          torch.zeros_like(grad))
@@ -223,6 +226,7 @@ class NeuralTracer:
             raise NotImplementedError(f"field topology {field_topology!r}, march mode "
                                       f"{march_mode!r}")
         self.far = far
+        self.pe = pe
         self.march_mode = march_mode
         self.field_topology = field_topology
         self.n_coarse = n_coarse
@@ -299,7 +303,7 @@ class NeuralTracer:
                                           self.bound, self.far, self.n_coarse, self.n_refine,
                                           march_mode=self.march_mode, n_sphere=self.n_sphere,
                                           margin=self.margin, topology=self.field_topology,
-                                          refine=self.refine_mode)
+                                          refine=self.refine_mode, pe=self.pe)
             inters = rays_o + rays_d * t[:, None]
             return inters, normal, t[:, None], hit
         return fn

@@ -43,8 +43,9 @@ change the backward too. The variants that only reorganise the work must give
 0 or, where they sum in another order, about 1e-6.
 
 The sphere march (SPHERE_VARIANTS, `csrc/sphere_march.cu`; `--parent` an
-earlier source with the same C entry `sphere_march`) and the uniform march
-(MARCH_VARIANTS, `csrc/march.cu`; `--parent` with the C entry `march`) run
+earlier source with the C entry `sphere_march`, with or without the field's
+`pe` argument) and the uniform march (MARCH_VARIANTS, `csrc/march.cu`;
+`--parent` with the C entry `march`, the same) run
 on the field distilled from the bowl mesh (`std`, or `wide` with `--wide`;
 cached in `data/cache/neural_tracer_torch/`) over N_RAYS = 393,216 surface
 rays. Both run on csrc/field.cuh's engine: a patch that the kernel's source
@@ -297,7 +298,7 @@ SHADER_VARIANTS = {
                                    "    if constexpr (L::human) {\n      float pose[12];"),
                      (_SH_ENC_BWD, "")],
     # the ring shape that lost: weight slabs of 64 rows (sweep: columns) through 3 stages
-    "slab64_stages3": [("constexpr int SLAB_K = DX_MAX > 144 ? 64 : 128; ",
+    "slab64_stages3": [("constexpr int SLAB_K = DX_STAGE > 144 ? 64 : 128; ",
                         "constexpr int SLAB_K = 64; "),
                        ("constexpr int STAGES = 2;", "constexpr int STAGES = 3;")],
     # a light head's f32 dX through device memory (behind the scratch), not
@@ -322,7 +323,7 @@ SHADER_VARIANTS = {
 # ---- the sphere march (csrc/sphere_march.cu, on csrc/field.cuh's engine) ----
 # The engine's choices (encoding, products, output) live in field.cuh: a
 # patch that csrc/sphere_march.cu does not hold is made there (_HEADERS).
-_SM_ENCODE = "  encode<WIDE>(p, lane, Es);\n"
+_SM_ENCODE = "  encode<WIDE, PE>(p, pe, lane, Es);\n"
 # the raw coordinates alone in the staging tile (the other channels stay 0)
 _SM_RAW = """\
   if ((lane & 3) == 0)
@@ -727,10 +728,16 @@ def _type_shader(lib):
 
 
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# the C entries of the two marches
-_MARCH_ARGS = {"sphere_march": [_vp, _vp, _vp, _vp, _i, _vp, _vp, _i, _i, _i, _i, _f, _f, _f, _f,
-                                _f, _vp, _vp, _vp],
-               "march": [_vp, _vp, _vp, _vp, _i, _vp, _vp, _i, _i, _i, _f, _vp, _vp, _vp]}
+# the C entries of the two marches: (rays, R, W, F, wide), pe, then the
+# march's own arguments; an earlier source takes no pe (its field is pe 6)
+_MARCH_ARGS = {"sphere_march": [_i, _i, _i, _f, _f, _f, _f, _f, _vp, _vp, _vp],
+               "march": [_i, _i, _f, _vp, _vp, _vp]}
+_MARCH_HEAD = [_vp, _vp, _vp, _vp, _i, _vp, _vp, _i]
+
+
+def _takes_pe(src) -> bool:
+    """Whether a march source's C entry takes the field's pe."""
+    return "int wide, int pe" in (src if isinstance(src, str) else src[0])
 
 
 # `--encodings`: the -D macros every library of the call is built with
@@ -787,8 +794,10 @@ def build(sources: dict, kernel: str = "sdf_grad", instance: str = "") -> dict:
             continue
         if kernel in _MARCH_ARGS:
             entry = getattr(lib, kernel)
-            entry.restype, entry.argtypes = ctypes.c_int, _MARCH_ARGS[kernel]
-            libs[name] = (lib, None, " ".join(regs))
+            pe = _takes_pe(sources[name])
+            entry.restype = ctypes.c_int
+            entry.argtypes = _MARCH_HEAD + [_i] * pe + _MARCH_ARGS[kernel]
+            libs[name] = (lib, pe, " ".join(regs))
             continue
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.sdf_grad_fwd.restype = i
@@ -1340,7 +1349,9 @@ def _main_march(sources: dict, kernel: str, wide: bool) -> int:
     from nero_tpu_torch.ops import march as KU
     from nero_tpu_torch.ops import sphere_march as KM
 
-    libs = build(sources, kernel, rf"\w*Lb{int(wide)}E")
+    # the shipped instance: `std` at pe 6, or `wide` (an earlier source has
+    # no PE argument)
+    libs = build(sources, kernel, rf"\w*Lb{int(wide)}E(?:{'Lin1E' if wide else 'Li6E'})?E")
     dev = torch.device("cuda")
     topology = "wide" if wide else "std"
     mesh = proc_mesh("bowl")
@@ -1357,13 +1368,19 @@ def _main_march(sources: dict, kernel: str, wide: bool) -> int:
     found = torch.empty(N_RAYS, dtype=torch.bool, device=dev)
     head = (*(x.data_ptr() for x in rays), N_RAYS, W.data_ptr(), Fv.data_ptr(), int(wide))
     tail = (t_out.data_ptr(), found.data_ptr(), stream)
+    takes_pe = {id(lib): pe for lib, pe, _ in libs.values()}
+
+    def field(lib):  # the entry's first arguments: rays, field and its pe
+        return (*head, tracer.pe) if takes_pe[id(lib)] else head
+
     if kernel == "sphere_march":
         modes = {"illinois-2": (2, "illinois"), "bisect-8": (8, "bisect")}
 
         def launch(lib, mode):
             n_refine, refine = modes[mode]
-            return lib.sphere_march(*head, tracer.n_sphere, n_refine, int(refine == "illinois"),
-                                    0.012 + 1e-6, tracer.margin, 0.9, dt_frac, 0.25, *tail)
+            return lib.sphere_march(*field(lib), tracer.n_sphere, n_refine,
+                                    int(refine == "illinois"), 0.012 + 1e-6, tracer.margin, 0.9,
+                                    dt_frac, 0.25, *tail)
 
         def plain(mode):
             n_refine, refine = modes[mode]
@@ -1374,7 +1391,7 @@ def _main_march(sources: dict, kernel: str, wide: bool) -> int:
         modes = {f"c{tracer.n_coarse}-r8": (tracer.n_coarse, 8)}
 
         def launch(lib, mode):
-            return lib.march(*head, *modes[mode], 0.012 + 1e-6, *tail)
+            return lib.march(*field(lib), *modes[mode], 0.012 + 1e-6, *tail)
 
         def plain(mode):
             n_coarse, n_refine = modes[mode]

@@ -38,19 +38,20 @@ def field_fwd_plain(packed, pts: torch.Tensor, pe: int = PE) -> torch.Tensor:
 
 def _lib():
     vp, i = ctypes.c_void_p, ctypes.c_int
-    return field_lib("field_fwd", [vp, i, vp, vp, i, vp, vp])
+    return field_lib("field_fwd", [vp, i, vp, vp, i, i, vp, vp])
 
 
-def _launch(W, Fv, wide, pts):
+def _launch(W, Fv, wide, pts, pe: int = PE):
     n = pts.shape[0]
     out = torch.empty(n, device=pts.device)
     if n == 0:  # nothing to launch, nothing counted
         return out
-    rc = _lib().field_fwd(pts.data_ptr(), n, W.data_ptr(), Fv.data_ptr(), int(wide),
+    rc = _lib().field_fwd(pts.data_ptr(), n, W.data_ptr(), Fv.data_ptr(), int(wide), pe,
                           out.data_ptr(), torch.cuda.current_stream(pts.device).cuda_stream)
     cuda_build.check(rc, "field_fwd")
     launches["field_fwd_wide" if wide else "field_fwd"] += 1
-    flop_tally["field_fwd_wide" if wide else "field_fwd"] += flops(n, "wide" if wide else "std")
+    flop_tally["field_fwd_wide" if wide else "field_fwd"] += flops(n, "wide" if wide else "std",
+                                                                   pe)
     return out
 
 
@@ -62,11 +63,12 @@ def field_fwd(packed, pts: torch.Tensor, pe: int = PE, topology: str = "std") ->
     if pts.device.type == "cpu":
         return field_fwd_plain(packed, pts, pe)
     W, Fv = kernel_buffers(packed)
-    return _launch(W, Fv, topology == "wide", prep(pts.reshape(-1, 3))).reshape(pts.shape[:-1])
+    return _launch(W, Fv, topology == "wide", prep(pts.reshape(-1, 3)),
+                   pe).reshape(pts.shape[:-1])
 
 
-def flops(n: int, topology: str = "std") -> float:
-    return float(n) * eval_flops(topology)
+def flops(n: int, topology: str = "std", pe: int = PE) -> float:
+    return float(n) * eval_flops(topology, pe)
 
 
 def min_bytes(n: int, topology: str = "std") -> float:

@@ -61,10 +61,11 @@ def march_plain(packed, rays_o, rays_d, t_enter, t_exit, *, pe: int = PE, n_coar
 
 def _lib():
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    return field_lib("march", [vp, vp, vp, vp, i, vp, vp, i, i, i, f, vp, vp, vp])
+    return field_lib("march", [vp, vp, vp, vp, i, vp, vp, i, i, i, i, f, vp, vp, vp])
 
 
-def _launch(W, Fv, wide, rays_o, rays_d, t_enter, t_exit, n_coarse, n_refine, t0_eps):
+def _launch(W, Fv, wide, rays_o, rays_d, t_enter, t_exit, n_coarse, n_refine, t0_eps,
+            pe: int = PE):
     r = rays_o.shape[0]
     dev = rays_o.device
     t_out = torch.empty(r, device=dev)
@@ -72,13 +73,13 @@ def _launch(W, Fv, wide, rays_o, rays_d, t_enter, t_exit, n_coarse, n_refine, t0
     if r == 0:  # nothing to launch, nothing counted
         return t_out, found
     rc = _lib().march(rays_o.data_ptr(), rays_d.data_ptr(), t_enter.data_ptr(),
-                      t_exit.data_ptr(), r, W.data_ptr(), Fv.data_ptr(), int(wide), n_coarse,
-                      n_refine, t0_eps, t_out.data_ptr(), found.data_ptr(),
+                      t_exit.data_ptr(), r, W.data_ptr(), Fv.data_ptr(), int(wide), pe,
+                      n_coarse, n_refine, t0_eps, t_out.data_ptr(), found.data_ptr(),
                       torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, "march")
     launches["march_wide" if wide else "march"] += 1
     flop_tally["march_wide" if wide else "march"] += flops(r, n_coarse, n_refine,
-                                                           "wide" if wide else "std")
+                                                           "wide" if wide else "std", pe)
     return t_out, found
 
 
@@ -96,10 +97,10 @@ def march(packed, rays_o, rays_d, t_enter, t_exit, *, pe: int = PE, n_coarse: in
                            n_refine=n_refine, t0=t0)
     W, Fv = kernel_buffers(packed)
     return _launch(W, Fv, topology == "wide", prep(rays_o), prep(rays_d), prep(t_enter),
-                   prep(t_exit), n_coarse, n_refine, float(t0 + 1e-6))
+                   prep(t_exit), n_coarse, n_refine, float(t0 + 1e-6), pe)
 
 
-def flops(r: int, n_coarse: int, n_refine: int, topology: str = "std") -> float:
+def flops(r: int, n_coarse: int, n_refine: int, topology: str = "std", pe: int = PE) -> float:
     """Every ray runs every trip: r x (n_coarse + n_refine) evaluations."""
-    return float(r) * (n_coarse + n_refine) * eval_flops(topology)
+    return float(r) * (n_coarse + n_refine) * eval_flops(topology, pe)
 

@@ -13,11 +13,14 @@ mixing, the FG-LUT lookup and sRGB stay outside the kernel
 (fields/app_shading.py), as on the TPU.
 
 The kernel takes every configuration of nero_tpu's kernel (256 feats, IDE
-degree up to 5) at light_pos_freq 0-16, the port's own limit (the inner
-heads' inputs then fit one 256-wide tile): the IDE degree and the light
-PE's octaves are the library's (one build per pair, `defines`), and the
-launch counters of a pair other than the shipped (5, 8) carry its suffix
-`_d<ide_deg>p<light_pos_freq>`.
+degree up to 5) at light_pos_freq 0-128 (MAX_LIGHT_PE: past octave 127 the
+frequency 2^i is no finite f32, in either package): the IDE degree and the
+light PE's octaves are the library's (one build per pair, `defines`), and
+the launch counters of a pair other than the shipped (5, 8) carry its suffix
+`_d<ide_deg>p<light_pos_freq>` (`shader_fwd_d5p32`, ...). Where a light
+head's input outgrows one 256-wide tile (degree 5 from light_pos_freq 31
+on), the kernel builds it in 256-column windows and takes its input
+cotangent in 128-column pieces (csrc/shader.cu's header).
 
 What bounds it on the card: tensor-core operations (`flops`), about 0.17 ms
 forward and 0.5 ms backward at N = 65,536 and 989 TFLOP/s; the bytes it
@@ -65,7 +68,7 @@ HUMAN_HEAD = "human_light"
 DO = 16
 DEFAULT_ENC = (5, 8)   # (ide_deg, light_pos_freq) of the library built without defines
 MAX_IDE_DEG = 5
-MAX_LIGHT_PE = 16      # the port's limit: nero_tpu's kernel has none
+MAX_LIGHT_PE = 128     # octaves 0-127: 2^i stays a finite f32 (nero_tpu's kernel states no limit)
 
 
 def _suffix(sphere, human, enc=DEFAULT_ENC) -> str:
@@ -118,7 +121,7 @@ def variant(cfg) -> str:
 
 def supported(cfg) -> bool:
     """nero_tpu's rule (fields/app_shading.py::fused_shader_supported: 256
-    feats, ide_deg <= 5), and light_pos_freq 0-16."""
+    feats, ide_deg <= 5), and light_pos_freq 0-MAX_LIGHT_PE."""
     return (cfg.feats_dim == HID and cfg.ide_deg <= MAX_IDE_DEG
             and 0 <= cfg.light_pos_freq <= MAX_LIGHT_PE)
 
@@ -474,7 +477,8 @@ def shader_raw_scenes(params, cfg, n_scenes: int, points, normals, view_dirs, fe
                                 head=scene_heads(n_scenes))
     if not supported(cfg):
         raise NotImplementedError(
-            f"the shader kernel needs 256 feats, ide_deg <= 5 and light_pos_freq 0-16; got {cfg}")
+            f"the shader kernel needs 256 feats, ide_deg <= 5 and light_pos_freq "
+            f"0-{MAX_LIGHT_PE}; got {cfg}")
     geo, feats2d, spec, ws, bs = kernel_inputs(params, cfg, points, normals, view_dirs, feats,
                                                human_poses)
     n = geo.shape[0] // n_scenes
@@ -514,7 +518,8 @@ def shader_raw(params, cfg, points, normals, view_dirs, feats, human_poses=None)
         return shader_raw_plain(params, cfg, points, normals, view_dirs, feats, human_poses)
     if not supported(cfg):
         raise NotImplementedError(
-            f"the shader kernel needs 256 feats, ide_deg <= 5 and light_pos_freq 0-16; got {cfg}")
+            f"the shader kernel needs 256 feats, ide_deg <= 5 and light_pos_freq "
+            f"0-{MAX_LIGHT_PE}; got {cfg}")
     geo, feats2d, spec, ws, bs = kernel_inputs(params, cfg, points, normals, view_dirs, feats,
                                                human_poses)
     out = _ShaderFn.apply(geo, feats2d, spec, *ws, *bs)

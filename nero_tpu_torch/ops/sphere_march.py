@@ -11,7 +11,9 @@ rays on mma.sync with the weights resident in shared memory and the
 activations in registers; the two files' header comments give the design. `sphere_march` launches the kernel for CUDA
 tensors and runs `sphere_march_plain` for CPU tensors, and only then. Both
 compute, per ray, `n_sphere` sphere-trace evaluations of the field (`std`:
-PE6 -> 3 x 128 ReLU -> 1; `wide`: a quarter-octave PE of 123 channels ->
+a PE of `pe` octaves, 0-7 (6 unless given), -> 3 x 128 ReLU -> 1, as
+nero_tpu's kernels take pe as a static argument and pad its 3 + 6 pe channels
+to 48; `wide`: a quarter-octave PE of 123 channels ->
 2 x 128 ReLU -> 1) that bracket the first crossing, then `n_refine` Illinois
 (or bisection) evaluations; operands of the products are rounded to bf16 and
 summed in f32, so the two differ in summation order only. `found` does not
@@ -33,6 +35,7 @@ from nero_tpu_torch.ops import cuda_build
 FIELD_W = 128
 FEAT_PAD = 48    # 3 + 6*pe channels padded (pe = 6 -> 39 -> 48)
 PE = 6
+MAX_PE = 7       # the most octaves whose channels fit FEAT_PAD (csrc/field.cuh FD_MAX_PE)
 TILE = 16        # rows per warp tile of the three field kernels (csrc/field.cuh FD_TILE)
 # the `wide` topology's encoding: (base frequency, octaves) per double-angle
 # chain, quarter-octave spacing up to 2^4.75
@@ -66,6 +69,8 @@ def pack_field_params(params, pe: int = PE, topology: str = "std") -> dict:
     if width != FIELD_W or len(layers) != 4:
         raise NotImplementedError("the march kernel takes the 4-layer, 128-wide field")
     in_dim = 3 + 6 * pe
+    if in_dim > FEAT_PAD:  # nero_tpu's padding to 48 channels fails there too
+        raise ValueError(f"pe = {pe}: {in_dim} channels do not fit the kernels' {FEAT_PAD}")
     w0 = F.pad(layers[0]["w"], (0, 0, 0, FEAT_PAD - in_dim))
     w3t = F.pad(layers[3]["w"][:, :1], (0, 7))
     b3 = F.pad(layers[3]["b"][None, :1], (0, 7))
@@ -227,7 +232,7 @@ def field_lib(name: str, fn_argtypes: list):
 
 def _lib():
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    return field_lib("sphere_march", [vp, vp, vp, vp, i, vp, vp, i, i, i, i, f, f, f, f, f,
+    return field_lib("sphere_march", [vp, vp, vp, vp, i, vp, vp, i, i, i, i, i, f, f, f, f, f,
                                       vp, vp, vp])
 
 
@@ -249,11 +254,12 @@ def kernel_buffers(packed: dict):
 
 def check_packed(packed: dict, topology: str, pe: int, kernel: bool) -> None:
     """Raise where `topology` is not the packed field's, or (for a kernel
-    launch) on an encoding that the kernels do not take."""
+    launch) on an encoding that the kernels do not take: `std` at pe 0-7, as
+    nero_tpu's pack_field_params pads no more than 48 channels."""
     if topology not in TOPOLOGIES or topology_of(packed) != topology:
         raise ValueError(f"topology {topology!r} with a {topology_of(packed)!r} packed field")
-    if kernel and topology == "std" and pe != PE:
-        raise NotImplementedError(f"the field kernels take pe = {PE}, got {pe}")
+    if kernel and topology == "std" and not 0 <= pe <= MAX_PE:
+        raise NotImplementedError(f"the field kernels take pe 0-{MAX_PE}, got {pe}")
 
 
 def prep(a: torch.Tensor) -> torch.Tensor:
@@ -261,7 +267,7 @@ def prep(a: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(W, Fv, wide, rays_o, rays_d, t_enter, t_exit, n_sphere, n_refine, illinois,
-            t0_eps, margin, lip, dt_frac, cap_frac):
+            t0_eps, margin, lip, dt_frac, cap_frac, pe: int = PE):
     r = rays_o.shape[0]
     dev = rays_o.device
     t_out = torch.empty(r, device=dev)
@@ -269,14 +275,14 @@ def _launch(W, Fv, wide, rays_o, rays_d, t_enter, t_exit, n_sphere, n_refine, il
     if r == 0:  # nothing to launch, nothing counted
         return t_out, found
     rc = _lib().sphere_march(rays_o.data_ptr(), rays_d.data_ptr(), t_enter.data_ptr(),
-                             t_exit.data_ptr(), r, W.data_ptr(), Fv.data_ptr(), int(wide),
+                             t_exit.data_ptr(), r, W.data_ptr(), Fv.data_ptr(), int(wide), pe,
                              n_sphere, n_refine, int(illinois), t0_eps, margin, lip, dt_frac, cap_frac,
                              t_out.data_ptr(), found.data_ptr(),
                              torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, "sphere_march")
     launches["sphere_march_wide" if wide else "sphere_march"] += 1
     flop_tally["sphere_march_wide" if wide else "sphere_march"] += flops(
-        r, n_sphere, n_refine, "wide" if wide else "std")
+        r, n_sphere, n_refine, "wide" if wide else "std", pe)
     return t_out, found
 
 
@@ -298,26 +304,28 @@ def sphere_march(packed, rays_o, rays_d, t_enter, t_exit, *, pe: int = PE, n_sph
     W, Fv = kernel_buffers(packed)
     return _launch(W, Fv, topology == "wide", prep(rays_o), prep(rays_d), prep(t_enter),
                    prep(t_exit), n_sphere, n_refine, refine == "illinois", float(t0 + 1e-6),
-                   float(margin), float(lip), float(dt_frac), float(cap_frac))
+                   float(margin), float(lip), float(dt_frac), float(cap_frac), pe)
 
 
 # ---------------------------------------------------------------------------
 # the least work the function needs (for the bound beside the kernel time)
 # ---------------------------------------------------------------------------
 
-# per evaluation, at the true widths: std 39 x 128, two 128 x 128 and 128 x 1;
-# wide 123 x 128, one 128 x 128 and 128 x 1
+# per evaluation, at the true widths: std (3 + 6 pe) x 128, two 128 x 128 and
+# 128 x 1; wide 123 x 128, one 128 x 128 and 128 x 1
 EVAL_FLOPS = 2 * ((3 + 6 * PE) * FIELD_W + 2 * FIELD_W * FIELD_W + FIELD_W)
 EVAL_FLOPS_WIDE = 2 * (WIDE_DIM * FIELD_W + FIELD_W * FIELD_W + FIELD_W)
 
 
-def eval_flops(topology: str) -> int:
-    return EVAL_FLOPS_WIDE if topology == "wide" else EVAL_FLOPS
+def eval_flops(topology: str, pe: int = PE) -> int:
+    if topology == "wide":
+        return EVAL_FLOPS_WIDE
+    return 2 * ((3 + 6 * pe) * FIELD_W + 2 * FIELD_W * FIELD_W + FIELD_W)
 
 
-def flops(r: int, n_sphere: int, n_refine: int, topology: str = "std") -> float:
+def flops(r: int, n_sphere: int, n_refine: int, topology: str = "std", pe: int = PE) -> float:
     """Every ray runs every trip: r x (n_sphere + n_refine) evaluations."""
-    return float(r) * (n_sphere + n_refine) * eval_flops(topology)
+    return float(r) * (n_sphere + n_refine) * eval_flops(topology, pe)
 
 
 def min_bytes(r: int, topology: str = "std") -> float:

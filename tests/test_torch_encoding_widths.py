@@ -389,8 +389,8 @@ def test_sdf_gates_agree_with_nero_tpu():
 def test_shader_and_light_gates_agree_with_nero_tpu():
     """ide_deg 0-6 x feats_dim {128, 256} x light_pos_freq {0, 1, 4, 8, 10,
     16, 17, 24}: the shader kernel takes a configuration exactly where
-    nero_tpu's fused_shader_supported does and light_pos_freq <= 16 (the
-    port's own limit, which nero_tpu has not); the light kernel (with
+    nero_tpu's fused_shader_supported does and light_pos_freq <= MAX_LIGHT_PE
+    (128, the port's stated limit, which nero_tpu has not); the light kernel (with
     fused_lights) exactly where nero_tpu's resolver takes its kernel
     (outer_compact_frac 0 and ide_deg <= 5), for outer_compact_frac 0 and
     0.75. Degree 0 and 6 make no IDE in either package: the rules are held

@@ -293,7 +293,7 @@ def test_field_kernels_run_on_the_warp_engine():
     for fn in ("sphere_march.cu", "march.cu", "field_fwd.cu"):
         src = _read(fn)
         assert "block_mm" not in src and "__syncthreads()" not in src, fn
-        assert "field_prologue<WIDE," in src and src.count("field16<WIDE>(") == 1, fn
+        assert "field_prologue<WIDE," in src and src.count("field16<WIDE, PE>(") == 1, fn
     engine = _read("field.cuh")
     prologue = engine[engine.index("WarpField field_prologue("):]
     prologue = prologue[:prologue.index("\n}\n")]

@@ -133,13 +133,15 @@ def test_packed_layout(setup):
 
 def test_variants_raise_on_the_card_path():
     """Both variants are kernel variants now (tests/test_torch_shader_variants.py),
-    and so are the other encodings (ide_deg 1-5, light_pos_freq 0-16); what
+    and so are the other encodings (ide_deg 1-5, light_pos_freq 0-128); what
     still raises is a topology the kernel does not have, and a human light
     without its poses."""
     cfg = AppShadingConfig(sphere_direction=True)
     assert shader.supported(cfg) and shader.supported(AppShadingConfig(human_light=True))
     assert not shader.supported(AppShadingConfig(ide_deg=6))
-    assert not shader.supported(AppShadingConfig(light_pos_freq=17))
+    assert shader.supported(AppShadingConfig(light_pos_freq=17))
+    assert shader.supported(AppShadingConfig(light_pos_freq=shader.MAX_LIGHT_PE))
+    assert not shader.supported(AppShadingConfig(light_pos_freq=shader.MAX_LIGHT_PE + 1))
     assert shader.supported(AppShadingConfig(ide_deg=4))
     assert shader.supported(AppShadingConfig(light_pos_freq=6))
     with pytest.raises(ValueError):

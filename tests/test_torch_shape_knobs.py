@@ -298,16 +298,18 @@ def test_remat_shader_matches_jax_loss(setup):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("knob,value,taken", [("ide_deg", 6, 4), ("light_pos_freq", 17, 6),
+@pytest.mark.parametrize("knob,value,taken", [("ide_deg", 6, 4), ("light_pos_freq", 129, 6),
                                               ("feats_dim", 128, None)])
 def test_shader_kernel_gate_routes_to_the_per_head_path(knob, value, taken, monkeypatch):
     """A shader the whole-shader kernel does not take (ops/shader.py::
     supported: nero_tpu's rule, 256 feats and ide_deg <= 5, and the port's
-    own light_pos_freq <= 16) resolves to the per-head path, as nero_tpu's
+    own light_pos_freq <= 128) resolves to the per-head path, as nero_tpu's
     does (fields/app_shading.py:227-237): silently when `fused_shader` is
     unset, with a warning when it was asked for; app_shading_apply then
     never calls the kernel's wrapper. The other encodings (ide_deg 4,
     light_pos_freq 6) take the kernel, unset or asked for, without a word.
+    light_pos_freq 129 is past the limit (its top octave's frequency is no
+    finite f32), so its colour is NaN on either path.
     ide_deg 6 has no IDE in either package: its shader cannot be built."""
     from nero_tpu_torch.fields import app_shading as A
     from nero_tpu_torch.ops import shader as S
@@ -336,7 +338,13 @@ def test_shader_kernel_gate_routes_to_the_per_head_path(knob, value, taken, monk
     monkeypatch.setattr(A, "shader_raw", None)  # a call would raise
     color, _ = A.app_shading_apply(params, cfg, torch.from_numpy(get_fg_lut()), x(3), x(3),
                                    x(3), x(cfg.feats_dim))
-    assert color.shape == (5, 3) and torch.isfinite(color).all()
+    assert color.shape == (5, 3)
+    if knob == "light_pos_freq":
+        # past octave 127 the PE's frequency 2^i is inf in f32, in nero_tpu
+        # too: the light heads' input and so the colour are NaN
+        assert torch.isnan(color).all()
+    else:
+        assert torch.isfinite(color).all()
 
 
 def test_fused_sdf_gate_drops_the_switch():

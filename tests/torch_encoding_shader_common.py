@@ -24,14 +24,32 @@ R, S = 2, 24
 ENCODINGS = [(d, p) for d in (1, 2, 3, 4) for p in (4, 10)]
 
 
-def setup(variant, deg, lpf):
+def scale_pe_rows(params_j, lpf, rng):
+    """The first-layer rows of the light points' PE octave i (its sin and
+    cos rows) in the inner light and inner weight heads drawn at 0.01 / 2^i,
+    as kernel_variants.py::sdf_params draws the SDF's: past about octave 20
+    sin of the f32 argument x 2^i carries no signal in either package (the
+    last bits of x decide it), and flat weights would compare that noise."""
+    rows = 6 * lpf
+    amp = (0.01 / 2.0 ** (np.arange(rows) // 6))[:, None].astype(np.float32)
+    for head in ("inner_light", "inner_weight"):
+        v = params_j[head][0]["v"].copy()
+        v[3:3 + rows] = amp * rng.standard_normal((rows, v.shape[1])).astype(np.float32)
+        params_j[head][0]["v"] = v
+    return params_j
+
+
+def setup(variant, deg, lpf, scaled_pe=False):
     """(kw, numpy params, inputs, cotangents) of one variant at (deg, lpf):
     random camera frames (hit and miss rows of the human light), a few
-    points outside radius 0.999."""
+    points outside radius 0.999; `scaled_pe`: the light points' PE rows by
+    `scale_pe_rows`."""
     kw = dict(VARIANTS[variant], ide_deg=deg, light_pos_freq=lpf)
     params_j = jax.tree_util.tree_map(
         np.asarray, init_app_shading(jax.random.PRNGKey(10 * deg + lpf), JCfg(**kw)))
     rng = np.random.default_rng(deg * 100 + lpf)
+    if scaled_pe:
+        params_j = scale_pe_rows(params_j, lpf, np.random.default_rng(lpf))
     f = lambda *shape: rng.standard_normal(shape).astype(np.float32)
     q, _ = np.linalg.qr(rng.standard_normal((R, S, 3, 3)))
     hp = np.concatenate([q, rng.uniform(-0.5, 0.5, (R, S, 3, 1))], -1).astype(np.float32)
@@ -41,7 +59,7 @@ def setup(variant, deg, lpf):
     return kw, params_j, inputs, (f(R, S, 3), f(R, S, 1))
 
 
-def check_forward(variant, deg, lpf):
+def check_forward(variant, deg, lpf, scaled_pe=False):
     """The packed raw [.., 24] of the plain twin (the wrapper on the CPU) and
     of the emulated kernel (every head through `_kernel_head`: bf16
     operands, f32 sums) against `shader_fused_raw` in interpret mode, column
@@ -50,7 +68,7 @@ def check_forward(variant, deg, lpf):
     >= 0.9999 of the rows; colour and occ_prob of the emulated raw within
     2e-3 of the plain one's (PERF.md section 6's bar); the packed weights
     at the encodings' pads unpack to every head's shape."""
-    kw, params_j, inputs, _ = setup(variant, deg, lpf)
+    kw, params_j, inputs, _ = setup(variant, deg, lpf, scaled_pe)
     cfg = AppShadingConfig(**kw)
     human = cfg.human_light
     args = [jnp.asarray(inputs[k]) for k in ("pts", "normals", "view", "feats")]
@@ -92,13 +110,13 @@ def check_forward(variant, deg, lpf):
         assert torch.equal(d, b)
 
 
-def check_grads(variant, deg, lpf):
+def check_grads(variant, deg, lpf, scaled_pe=False):
     """tests/test_torch_shader_variants.py's bar for the TPU kernel's
     gradients, at (deg, lpf), with the port's plain version as the f32
     reference: the kernel's (interpret mode) worst mean error under 4x the
     bf16-XLA path's + 2e-3, every leaf that carries a gradient within cosine
     0.98 (the light heads' below degree 5, as ROADMAP's tolerances ask)."""
-    kw, params_j, inputs, cots = setup(variant, deg, lpf)
+    kw, params_j, inputs, cots = setup(variant, deg, lpf, scaled_pe)
     lut_j = jnp.asarray(jax_fg_lut())
     names = ("pts", "normals", "view", "feats")
 
