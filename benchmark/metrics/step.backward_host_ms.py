@@ -1,0 +1,14 @@
+"""Host milliseconds a step in `loss.backward()` (`nero.step.backward`, the
+kernels' backward wrappers on autograd's device thread inside it), by the
+program's spans in the traced steps."""
+from benchmark.harness.spans import host_ms
+
+LAYER = "model step"
+UNIT = "ms"
+BETTER = "lower"
+SOURCE = "program_span"
+MOVES = "train_rays_per_s"
+
+
+def read(record):
+    return host_ms(lambda name: name == "nero.step.backward")

@@ -26,6 +26,7 @@ import torch
 
 from nero_tpu_torch.core.convert import tree_leaves
 from nero_tpu_torch.core.device import resolve_device
+from nero_tpu_torch.core.trace import span
 from nero_tpu_torch.models.shape import NeROShapeModel
 from nero_tpu_torch.parallel.mesh import SceneGroups, all_reduce_grads, shard_of
 from nero_tpu_torch.parallel.scenes import scene_slice, stack_trees
@@ -98,35 +99,44 @@ class MultiSceneShapeModel:
         out = render(params, self.scfg, self.fg_lut, batch["rays_o"], batch["rays_d"],
                      batch["near"], batch["far"], step, gen=gens, is_train=True,
                      human_poses=batch.get("human_poses"), shard=shard)
-        rgb = batch["rgb"].chunk(n, 0)
-        parts = {k: v.chunk(n, 0) for k, v in out.items()}  # per-row keys and [S] values
-        totals, logs = [], []
-        for i in range(n):
-            o = {k: c[i] for k, c in parts.items()}
-            o["loss_rgb"] = compute_rgb_loss(o["ray_rgb"], rgb[i], self.cfg["rgb_loss"])
-            log = compute_losses(self.cfg["loss"], o, None, step, self.cfg, shard)
-            totals.append(total_loss(log, shard))
-            logs.append(log)
-        return sum(totals), totals, logs
+        with span("nero.step.losses"):
+            rgb = batch["rgb"].chunk(n, 0)
+            parts = {k: v.chunk(n, 0) for k, v in out.items()}  # per-row keys and [S] values
+            totals, logs = [], []
+            for i in range(n):
+                o = {k: c[i] for k, c in parts.items()}
+                o["loss_rgb"] = compute_rgb_loss(o["ray_rgb"], rgb[i], self.cfg["rgb_loss"])
+                log = compute_losses(self.cfg["loss"], o, None, step, self.cfg, shard)
+                totals.append(total_loss(log, shard))
+                logs.append(log)
+            return sum(totals), totals, logs
 
     def train_step(self, optimizer: torch.optim.Optimizer, step: int) -> dict:
         """One step of every scene held here: {scene: its log}."""
-        shard = shard_of(self.group, self.cfg["train_ray_num"])
-        batches = []
-        for s in self.scenes:
-            m, d = self.models[s], self.models[s].train_data
-            batches.append(sample_ray_batch(m.gen, d["imgs_u8"], d["K_inv"], d["poses"],
-                                            self.cfg["train_ray_num"], d["human_poses"],
-                                            rows=None if shard is None else shard.rows))
-        batch = {k: torch.cat([b[k] for b in batches]) for k in batches[0]}
-        loss, totals, logs = self.loss_fn(self.params, batch, step, self.generators(), shard)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if self.group is not None:
-            all_reduce_grads(self.parameters(), self.group)
-        optimizer.step()
-        return {s: {**global_means(log, shard), "loss_total": total.detach()}
-                for s, total, log in zip(self.scenes, totals, logs)}
+        with span("nero.step"):
+            shard = shard_of(self.group, self.cfg["train_ray_num"])
+            with span("nero.step.sample_rays"):
+                batches = []
+                for s in self.scenes:
+                    m, d = self.models[s], self.models[s].train_data
+                    batches.append(sample_ray_batch(m.gen, d["imgs_u8"], d["K_inv"], d["poses"],
+                                                    self.cfg["train_ray_num"], d["human_poses"],
+                                                    rows=None if shard is None else shard.rows))
+                batch = {k: torch.cat([b[k] for b in batches]) for k in batches[0]}
+            with span("nero.step.forward"):
+                loss, totals, logs = self.loss_fn(self.params, batch, step, self.generators(),
+                                                  shard)
+            with span("nero.step.optimizer"):
+                optimizer.zero_grad(set_to_none=True)
+            with span("nero.step.backward"):
+                loss.backward()
+                if self.group is not None:
+                    all_reduce_grads(self.parameters(), self.group)
+            with span("nero.step.optimizer"):
+                optimizer.step()
+            with span("nero.step.log"):
+                return {s: {**global_means(log, shard), "loss_total": total.detach()}
+                        for s, total, log in zip(self.scenes, totals, logs)}
 
     @torch.no_grad()
     def scene_params(self, s: int):

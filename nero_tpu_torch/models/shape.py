@@ -24,6 +24,7 @@ import torch
 
 from nero_tpu_torch.core.convert import tree_leaves
 from nero_tpu_torch.core.device import resolve_device
+from nero_tpu_torch.core.trace import span
 from nero_tpu_torch.dataset.database import (BaseDatabase, get_database_split,
                                              parse_database_name)
 from nero_tpu_torch.fields.app_shading import predict_materials as shader_materials
@@ -117,27 +118,35 @@ class NeROShapeModel:
         out = render(params, self.scfg, self.fg_lut, batch["rays_o"], batch["rays_d"],
                      batch["near"], batch["far"], step, gen=gen, is_train=True,
                      human_poses=batch.get("human_poses"), shard=shard)
-        out["loss_rgb"] = compute_rgb_loss(out["ray_rgb"], batch["rgb"], cfg["rgb_loss"])
-        log = compute_losses(cfg["loss"], out, None, step, cfg, shard)
-        return total_loss(log, shard), log
+        with span("nero.step.losses"):
+            out["loss_rgb"] = compute_rgb_loss(out["ray_rgb"], batch["rgb"], cfg["rgb_loss"])
+            log = compute_losses(cfg["loss"], out, None, step, cfg, shard)
+            return total_loss(log, shard), log
 
     def train_step(self, optimizer: torch.optim.Optimizer, step: int) -> dict:
         """Sample a batch, render, back-propagate, update. Returns the log
         (device tensors; reading them synchronises)."""
-        d = self.train_data
-        shard = shard_of(self.group, self.cfg["train_ray_num"])
-        batch = sample_ray_batch(self.gen, d["imgs_u8"], d["K_inv"], d["poses"],
-                                 self.cfg["train_ray_num"], d["human_poses"],
-                                 rows=None if shard is None else shard.rows)
-        loss, log = self.loss_fn(self.params, batch, step, self.gen, shard)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if self.group is not None:
-            all_reduce_grads(self.parameters(), self.group)
-        optimizer.step()
-        log = global_means(log, shard)
-        log["loss_total"] = loss.detach()
-        return log
+        with span("nero.step"):
+            d = self.train_data
+            shard = shard_of(self.group, self.cfg["train_ray_num"])
+            with span("nero.step.sample_rays"):
+                batch = sample_ray_batch(self.gen, d["imgs_u8"], d["K_inv"], d["poses"],
+                                         self.cfg["train_ray_num"], d["human_poses"],
+                                         rows=None if shard is None else shard.rows)
+            with span("nero.step.forward"):
+                loss, log = self.loss_fn(self.params, batch, step, self.gen, shard)
+            with span("nero.step.optimizer"):
+                optimizer.zero_grad(set_to_none=True)
+            with span("nero.step.backward"):
+                loss.backward()
+                if self.group is not None:
+                    all_reduce_grads(self.parameters(), self.group)
+            with span("nero.step.optimizer"):
+                optimizer.step()
+            with span("nero.step.log"):
+                log = global_means(log, shard)
+                log["loss_total"] = loss.detach()
+            return log
 
     # ------------------------------------------------------------- test step
     @torch.no_grad()

@@ -21,6 +21,7 @@ import ctypes
 
 import torch
 
+from nero_tpu_torch.core.trace import span
 from nero_tpu_torch.ops import cuda_build
 from nero_tpu_torch.ops.sphere_march import (PE, buffer_elems, check_packed, eval_flops,
                                              field_eval_plain, field_lib, kernel_buffers, prep)
@@ -62,9 +63,10 @@ def field_fwd(packed, pts: torch.Tensor, pe: int = PE, topology: str = "std") ->
     check_packed(packed, topology, pe, kernel=pts.device.type != "cpu")
     if pts.device.type == "cpu":
         return field_fwd_plain(packed, pts, pe)
-    W, Fv = kernel_buffers(packed)
-    return _launch(W, Fv, topology == "wide", prep(pts.reshape(-1, 3)),
-                   pe).reshape(pts.shape[:-1])
+    with span("nero.kernel.field_fwd.fwd"):
+        W, Fv = kernel_buffers(packed)
+        return _launch(W, Fv, topology == "wide", prep(pts.reshape(-1, 3)),
+                       pe).reshape(pts.shape[:-1])
 
 
 def flops(n: int, topology: str = "std", pe: int = PE) -> float:

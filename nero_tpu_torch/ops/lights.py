@@ -48,6 +48,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from nero_tpu_torch.core.trace import traced
 from nero_tpu_torch.ops import cuda_build
 from nero_tpu_torch.ops.mlp import predictor_raw, resolve_weight_norm
 from nero_tpu_torch.ops.shader import ide_table_on
@@ -335,6 +336,7 @@ def _bwd(geo, W, B, sphere: bool, both: bool, gout, ide_deg: int = IDE_DEG):
 
 class _LightsFn(torch.autograd.Function):
     @staticmethod
+    @traced("nero.kernel.lights.fwd")
     def forward(ctx, geo, sphere, both, ide_deg, *wb):
         k = len(wb) // 2
         W, B = pack_buffers(wb[:k], wb[k:], sphere, both, ide_deg)
@@ -344,6 +346,7 @@ class _LightsFn(torch.autograd.Function):
         return out
 
     @staticmethod
+    @traced("nero.kernel.lights.bwd")
     def backward(ctx, gout):
         geo, W, B = ctx.saved_tensors
         sphere, both, ide_deg, shapes = ctx.meta

@@ -22,6 +22,7 @@ import ctypes
 
 import torch
 
+from nero_tpu_torch.core.trace import span
 from nero_tpu_torch.ops import cuda_build
 from nero_tpu_torch.ops.sphere_march import (PE, check_packed, eval_flops, field_eval_plain,
                                              field_lib, kernel_buffers, prep)
@@ -95,9 +96,10 @@ def march(packed, rays_o, rays_d, t_enter, t_exit, *, pe: int = PE, n_coarse: in
     if rays_o.device.type == "cpu":
         return march_plain(packed, rays_o, rays_d, t_enter, t_exit, pe=pe, n_coarse=n_coarse,
                            n_refine=n_refine, t0=t0)
-    W, Fv = kernel_buffers(packed)
-    return _launch(W, Fv, topology == "wide", prep(rays_o), prep(rays_d), prep(t_enter),
-                   prep(t_exit), n_coarse, n_refine, float(t0 + 1e-6), pe)
+    with span("nero.kernel.march.fwd"):
+        W, Fv = kernel_buffers(packed)
+        return _launch(W, Fv, topology == "wide", prep(rays_o), prep(rays_d), prep(t_enter),
+                       prep(t_exit), n_coarse, n_refine, float(t0 + 1e-6), pe)
 
 
 def flops(r: int, n_coarse: int, n_refine: int, topology: str = "std", pe: int = PE) -> float:

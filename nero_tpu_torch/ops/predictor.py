@@ -28,6 +28,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from nero_tpu_torch.core.trace import traced
 from nero_tpu_torch.ops import cuda_build
 from nero_tpu_torch.ops.mlp import predictor_raw, resolve_weight_norm
 from nero_tpu_torch.parallel.scenes import scene_map
@@ -189,6 +190,7 @@ def _bwd(x, W, B, gout, want_dx: bool = True):
 
 class _PredictorFn(torch.autograd.Function):
     @staticmethod
+    @traced("nero.kernel.predictor.fwd")
     def forward(ctx, x, *wb):
         W, B = pack_weights(wb[:4], wb[4:])
         ctx.save_for_backward(x, W, B)
@@ -196,6 +198,7 @@ class _PredictorFn(torch.autograd.Function):
         return _fwd(x, W, B, ctx.d_out)
 
     @staticmethod
+    @traced("nero.kernel.predictor.bwd")
     def backward(ctx, gout):
         x, W, B = ctx.saved_tensors
         d_in, d_out = x.shape[1], ctx.d_out
@@ -224,6 +227,7 @@ class _PredictorScenesFn(torch.autograd.Function):
     stacked [S, ...] -> [S, n, d_out]."""
 
     @staticmethod
+    @traced("nero.kernel.predictor.fwd")
     def forward(ctx, x, *wb):
         W, B = pack_scenes(wb[:4], wb[4:])
         ctx.save_for_backward(x, W, B)
@@ -231,6 +235,7 @@ class _PredictorScenesFn(torch.autograd.Function):
         return _fwd(x, W, B, ctx.d_out)
 
     @staticmethod
+    @traced("nero.kernel.predictor.bwd")
     def backward(ctx, gout):
         x, W, B = ctx.saved_tensors
         d_in, d_out = x.shape[-1], ctx.d_out

@@ -32,6 +32,7 @@ import math
 
 import torch
 
+from nero_tpu_torch.core.trace import span
 from nero_tpu_torch.fields.sdf import SDFConfig, sdf_value
 from nero_tpu_torch.ops import cuda_build
 from nero_tpu_torch.ops.mlp import resolve_weight_norm
@@ -159,9 +160,10 @@ def make_sdf_fwd_fn(params, cfg: SDFConfig = SDFConfig()):
     def fn(x: torch.Tensor) -> torch.Tensor:
         if x.device.type == "cpu":
             return sdf_fwd_plain(params, x, cfg)
-        if not packed:
-            packed.append(pack_params(params, cfg))
-        return sdf_fwd_packed(packed[0], x, cfg)
+        with span("nero.kernel.sdf_fwd.fwd"):
+            if not packed:
+                packed.append(pack_params(params, cfg))
+            return sdf_fwd_packed(packed[0], x, cfg)
 
     return fn
 
@@ -183,9 +185,10 @@ def make_sdf_fwd_scenes_fn(params, n_scenes: int, cfg: SDFConfig = SDFConfig()):
         if x.device.type == "cpu":
             return torch.cat([sdf_fwd_plain(scene_slice(params, s), c, cfg)
                               for s, c in enumerate(x.chunk(n_scenes, 0))])
-        if not packed:
-            packed.append(pack_scenes(params, cfg))
-        return sdf_fwd_scenes_packed(packed[0], x, n_scenes, cfg)
+        with span("nero.kernel.sdf_fwd.fwd"):
+            if not packed:
+                packed.append(pack_scenes(params, cfg))
+            return sdf_fwd_scenes_packed(packed[0], x, n_scenes, cfg)
 
     return fn
 

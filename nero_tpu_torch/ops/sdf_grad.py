@@ -46,6 +46,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from nero_tpu_torch.core.trace import traced
 from nero_tpu_torch.fields.sdf import SDFConfig, sdf_apply, sdf_apply_fwd
 from nero_tpu_torch.ops import cuda_build
 from nero_tpu_torch.ops.mlp import resolve_weight_norm
@@ -285,6 +286,7 @@ def _pad_rows(t: torch.Tensor, n_pad: int, dim: int = 0) -> torch.Tensor:
 
 class _SdfGradFn(torch.autograd.Function):
     @staticmethod
+    @traced("nero.kernel.sdf_grad.fwd")
     def forward(ctx, pts, beta, scale, *wb):
         n = pts.shape[0]
         n_pad = -(-n // TILE) * TILE
@@ -297,6 +299,7 @@ class _SdfGradFn(torch.autograd.Function):
         return sdf[:n, None], feats[:n], grad[:n]
 
     @staticmethod
+    @traced("nero.kernel.sdf_grad.bwd")
     def backward(ctx, g_sdf, g_feats, g_grad):
         pts_p, W, bias = ctx.saved_tensors
         n, n_pad = ctx.n, pts_p.shape[0]
@@ -323,6 +326,7 @@ def pack_scenes(ws, bs):
 
 class _SdfGradScenesFn(torch.autograd.Function):
     @staticmethod
+    @traced("nero.kernel.sdf_grad.fwd")
     def forward(ctx, pts, beta, scale, *wb):
         n = pts.shape[1]
         n_pad = -(-n // TILE) * TILE
@@ -335,6 +339,7 @@ class _SdfGradScenesFn(torch.autograd.Function):
         return sdf[:, :n, None], feats[:, :n], grad[:, :n]
 
     @staticmethod
+    @traced("nero.kernel.sdf_grad.bwd")
     def backward(ctx, g_sdf, g_feats, g_grad):
         pts_p, W, bias = ctx.saved_tensors
         n_scenes, n_pad = pts_p.shape[:2]

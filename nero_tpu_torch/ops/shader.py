@@ -49,6 +49,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from nero_tpu_torch.core.trace import traced
 from nero_tpu_torch.ops import cuda_build
 from nero_tpu_torch.ops.mlp import predictor_raw, resolve_weight_norm
 from nero_tpu_torch.ops.predictor import predictor_scenes
@@ -393,6 +394,7 @@ class _ShaderFn(torch.autograd.Function):
     light_pos_freq)) of the variant."""
 
     @staticmethod
+    @traced("nero.kernel.shader.fwd")
     def forward(ctx, geo, feats, spec, *wb):
         sphere, human, pads, _, enc = spec
         nw = 4 * len(pads)
@@ -403,6 +405,7 @@ class _ShaderFn(torch.autograd.Function):
         return out
 
     @staticmethod
+    @traced("nero.kernel.shader.bwd")
     def backward(ctx, gout):
         geo, feats, W, B = ctx.saved_tensors
         sphere, human, pads, dims, enc = ctx.spec
@@ -429,6 +432,7 @@ class _ShaderScenesFn(torch.autograd.Function):
     weights and biases stacked [S, ...]."""
 
     @staticmethod
+    @traced("nero.kernel.shader.fwd")
     def forward(ctx, geo, feats, spec, *wb):
         sphere, human, pads, _, enc = spec
         nw = 4 * len(pads)
@@ -439,6 +443,7 @@ class _ShaderScenesFn(torch.autograd.Function):
         return out
 
     @staticmethod
+    @traced("nero.kernel.shader.bwd")
     def backward(ctx, gout):
         geo, feats, W, B = ctx.saved_tensors
         sphere, human, pads, dims, enc = ctx.spec

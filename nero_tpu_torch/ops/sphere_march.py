@@ -30,6 +30,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from nero_tpu_torch.core.trace import span
 from nero_tpu_torch.ops import cuda_build
 
 FIELD_W = 128
@@ -301,10 +302,11 @@ def sphere_march(packed, rays_o, rays_d, t_enter, t_exit, *, pe: int = PE, n_sph
                                   lip=lip, dt_frac=dt_frac, cap_frac=cap_frac, refine=refine)
     if refine not in ("illinois", "bisect") or n_sphere < 1:
         raise NotImplementedError(f"sphere_march kernel: refine={refine!r} n_sphere={n_sphere}")
-    W, Fv = kernel_buffers(packed)
-    return _launch(W, Fv, topology == "wide", prep(rays_o), prep(rays_d), prep(t_enter),
-                   prep(t_exit), n_sphere, n_refine, refine == "illinois", float(t0 + 1e-6),
-                   float(margin), float(lip), float(dt_frac), float(cap_frac), pe)
+    with span("nero.kernel.sphere_march.fwd"):
+        W, Fv = kernel_buffers(packed)
+        return _launch(W, Fv, topology == "wide", prep(rays_o), prep(rays_d), prep(t_enter),
+                       prep(t_exit), n_sphere, n_refine, refine == "illinois", float(t0 + 1e-6),
+                       float(margin), float(lip), float(dt_frac), float(cap_frac), pe)
 
 
 # ---------------------------------------------------------------------------

@@ -16,8 +16,10 @@ activities). Prints the device time per step of the port's kernels and of
 the largest other device kernels, the host step time (clock around
 synchronised steps), the device busy time per step (kernels and memory
 copies; user annotations such as `Optimizer.step#...` span other kernels
-and are left out) and the device's idle share, then one JSON line with
-those numbers. For a material config it also times, with CUDA events, the
+and are left out) and the device's idle share, the span table of the
+profiled steps (core/trace.py::profile_table: each span's host ms, aten
+operators and device idle ms a step), then one JSON line with those
+numbers. For a material config it also times, with CUDA events, the
 forward passes of the step's parts (tracer = march kernel + gradient normal,
 inner / outer / human light MLPs with their encodings, or the fused light
 kernel's wrapper); what is left of the busy time is the backward pass, the
@@ -27,7 +29,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import re
 import shutil
 import subprocess
 import tempfile
@@ -36,17 +37,10 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from nero_tpu_torch.core import trace
 from nero_tpu_torch.core.config import load_cfg
 from nero_tpu_torch.train.trainer import Trainer
 
-PORT_KERNELS = ("sdf_grad_fwd_kernel", "sdf_bwd_sweep_kernel", "sdf_bwd_params_kernel",
-                "sdf_bwd_reduce_kernel", "shader_fwd_kernel", "shader_bwd_sweep_kernel",
-                "shader_bwd_params_kernel", "shader_bwd_reduce_kernel",
-                "lights_fwd_kernel", "lights_bwd_sweep_kernel", "lights_bwd_params_kernel",
-                "lights_bwd_reduce_kernel", "predictor_fwd_kernel",
-                "predictor_bwd_sweep_kernel", "predictor_bwd_params_kernel",
-                "predictor_bwd_reduce_kernel", "sdf_fwd_kernel", "sphere_march_kernel",
-                "field_fwd_kernel", "march_kernel")
 GEMM_MARKS = ("gemm", "cutlass", "nvjet", "cublas", "gemv")
 
 
@@ -94,43 +88,42 @@ def material_forward_parts(trainer, step: int, steps: int) -> dict:
     return {k: v / steps for k, v in timer.ms().items()}
 
 
-def is_device_work(evt) -> bool:
-    """A kernel or memory copy on the card, not a user annotation (whose
-    span would count the kernels inside it a second time)."""
-    return (evt.device_type == torch.autograd.DeviceType.CUDA and evt.self_device_time_total > 0
-            and not getattr(evt, "is_user_annotation", False) and "#" not in evt.key)
-
-
 def device_breakdown(trainer, step: int, steps: int) -> dict:
     """Profile `steps` training steps from `step` (CPU + CUDA activities) and
-    count the device time per step: `kernels` {name: ms} (the port's under
-    their short names, listed in `port_names`), `busy_ms` their sum,
-    `library_gemm_ms` the library matrix products among the others."""
+    count the device time per step (core/trace.py's counting): `kernels`
+    {name: ms} (the port's under their short names, listed in `port_names`),
+    `busy_ms` their sum, `library_gemm_ms` the library matrix products among
+    the others, `spans` the span table of the same events."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for i in range(steps):
             trainer.train_step(step + i)
         torch.cuda.synchronize()
+    events = prof.events()
     kernels, port_names = {}, set()
-    for evt in prof.key_averages():
-        if not is_device_work(evt):
+    for evt in events:
+        if not trace.is_device_work(evt):
             continue
-        name = evt.key
-        for short in PORT_KERNELS:
-            # the port's kernels live in namespace nero or in a source's
-            # anonymous namespace (PyTorch has anonymous-namespace kernels
-            # of its own, under at::)
-            if "nero::" + short in name or ("(anonymous namespace)::" + short in name
-                                            and "at::" not in name):
-                # the first template argument tells backward from forward
-                m = re.search(re.escape(short) + r"<(true|false)", evt.key)
-                name = short + (f"<{m.group(1)}>" if m else "")
-                port_names.add(name)
-                break
-        kernels[name] = kernels.get(name, 0.0) + evt.self_device_time_total / 1e3 / steps
+        port = trace.port_kernel(evt.name)
+        name = evt.name if port is None else port[1]
+        if port is not None:
+            port_names.add(name)
+        kernels[name] = kernels.get(name, 0.0) + evt.time_range.elapsed_us() / 1e3 / steps
     gemm = sum(v for k, v in kernels.items()
                if k not in port_names and any(m in k.lower() for m in GEMM_MARKS))
     return {"kernels": kernels, "port_names": port_names, "busy_ms": sum(kernels.values()),
-            "library_gemm_ms": gemm}
+            "library_gemm_ms": gemm, "spans": trace.profile_table(events)}
+
+
+def span_lines(table: dict) -> list:
+    """The lines of a span table (core/trace.py::profile_table), its spans by name."""
+    lines = [f"spans over {table['steps']} steps, a step: window {table['window_ms']:.3f} ms, "
+             f"device busy {table['busy_ms']:.3f} ms, idle {table['idle_ms']:.3f} ms "
+             f"({table['outside_idle_ms']:.3f} outside every span)",
+             f"  {'calls':>6} {'incl ms':>9} {'self ms':>9} {'aten ops':>8} {'idle ms':>8}  span"]
+    for name, r in sorted(table["spans"].items()):
+        lines.append(f"  {r['calls']:6.1f} {r['inclusive_ms']:9.3f} {r['self_ms']:9.3f} "
+                     f"{r['aten_ops']:8.1f} {r['idle_ms']:8.3f}  {name}")
+    return lines
 
 
 def main(argv=None):
@@ -186,10 +179,11 @@ def main(argv=None):
           f"{GEMM_MARKS})")
     for k, v in parts.items():
         print(f"  {v:8.3f} ms  forward of {k} (CUDA events)")
+    print("\n".join(span_lines(breakdown["spans"])))
     print(json.dumps({"card": card, "cfg": args.cfg, "host_step_ms": host_ms,
                       "device_busy_ms": busy, "idle_share": max(0.0, 1.0 - busy / host_ms),
                       "port_kernels_ms": port, "library_gemm_ms": gemm,
-                      "forward_parts_ms": parts}))
+                      "forward_parts_ms": parts, "spans": breakdown["spans"]}))
 
 
 if __name__ == "__main__":

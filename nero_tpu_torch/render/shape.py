@@ -53,6 +53,7 @@ from typing import NamedTuple
 import torch
 import torch.utils.checkpoint
 
+from nero_tpu_torch.core.trace import span, traced
 from nero_tpu_torch.fields.app_shading import (AppShadingConfig, app_shading_apply,
                                                init_app_shading, shading_config_from_dict)
 from nero_tpu_torch.fields.bg_nerf import BgNeRFConfig, bg_nerf_apply, init_bg_nerf
@@ -255,7 +256,7 @@ def sample_z_vals(params, scfg: ShapeConfig, rays_o, rays_d, near, far,
                   shard: RayShard | None = None):
     """Inner z values [R, n_inner] and background z values [R, n_bg]; the
     SDF values in the storage dtype (nero_tpu/render/shape.py:278)."""
-    with hidden_dtype(scfg.hidden_act_dtype(rays_o.device)):
+    with span("nero.render.sampler"), hidden_dtype(scfg.hidden_act_dtype(rays_o.device)):
         return _sample_z_vals(params, scfg, rays_o, rays_d, near, far, gen, perturb, shard)
 
 
@@ -306,6 +307,7 @@ def _sample_z_vals(params, scfg: ShapeConfig, rays_o, rays_d, near, far, gen, pe
 # ---------------------------------------------------------------------------
 
 
+@traced("nero.render.sdf")
 def compute_sdf_alpha(params, scfg: ShapeConfig, points, dists, dirs, cos_anneal_ratio,
                       step: int):
     """NeuS alpha on the inner lattice. points [R,S,3] -> alpha, grads, feats, inv_s, sdf
@@ -333,6 +335,7 @@ def compute_sdf_alpha(params, scfg: ShapeConfig, points, dists, dirs, cos_anneal
     return alpha, grads, feats, inv_s, sdf
 
 
+@traced("nero.render.background")
 def compute_density_alpha(params, points, dists, dirs):
     """Background NeRF++ alpha/color on arbitrary points."""
     norm = torch.clamp(torch.linalg.norm(points, dim=-1, keepdim=True), min=1e-3)
@@ -353,6 +356,7 @@ def _composite(alpha):
     return alpha * trans
 
 
+@traced("nero.render.occ")
 def compute_occ_loss(params, scfg: ShapeConfig, gen, points, reflective, occ_prob, sdf,
                      grads, dirs, shard: RayShard | None = None):
     """Occlusion-probability supervision: per ray the top k' = max_pn // R of
@@ -451,7 +455,7 @@ def _render_core(params, scfg: ShapeConfig, fg_lut, rays_o, rays_d, z_full, cos_
         # the storage and product contexts again: the recompute of
         # remat_shader runs in the backward pass, on CUDA on autograd's
         # device thread, where neither context is seen
-        with precision_of(state):
+        with span("nero.render.shader"), precision_of(state):
             return app_shading_apply(params["shader"], scfg.shader, fg_lut, *a, n_scenes=S)
 
     def shade(pts, nrm, view, ft, hp):

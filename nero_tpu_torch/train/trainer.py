@@ -12,13 +12,16 @@ bias correction, eps outside the square root in both). Checkpoints are
 nero_tpu's `.npz` (core/checkpoint.py): either package resumes the other's.
 With `profile_dir` set it writes a torch.profiler Chrome trace of steps
 [profile_start, profile_start + profile_steps) there, as nero_tpu writes its
-JAX trace.
+JAX trace, and beside it `<name>_steps<a>-<b>.spans.json`: the host time,
+aten operators and device idle time of each span of the step
+(core/trace.py), read from the same events.
 
 MFU (core/mfu.py), as nero_tpu logs it: the first step taken is counted
 (`count_flops`: PyTorch's operators forward and backward plus the kernels'
-FLOP tallies) and left out of the rays/s meter's window; every
-`train_log_step` the log holds `mfu`, the step's FLOPs per second over the
-card's dense bf16 peak (per card: a rank counts its own step).
+FLOP tallies), and again the occlusion phase's first step when the run
+starts before it; a counted step is left out of the rays/s meter's window.
+Every `train_log_step` the log holds `mfu`, the step's FLOPs per second over
+the card's dense bf16 peak (per card: a rank counts its own step).
 
 With a ray group (`group`, parallel/mesh.py; run_training.py sets it up
 under torchrun) the model trains on it, `rays_per_sec` counts the global
@@ -33,6 +36,7 @@ distillation and extraction stay f32.
 """
 from __future__ import annotations
 
+import json
 import os
 import random
 from pathlib import Path
@@ -40,6 +44,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from nero_tpu_torch.core import trace
 from nero_tpu_torch.core.checkpoint import load_checkpoint, save_checkpoint
 from nero_tpu_torch.core.device import resolve_device
 from nero_tpu_torch.core.logger import Logger, RaysPerSecMeter
@@ -162,6 +167,7 @@ class Trainer:
         return best_para, step
 
     def _start_profile(self):
+        trace.clear()
         activities = [torch.profiler.ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -171,15 +177,18 @@ class Trainer:
 
     def _stop_profile(self, prof, first: int, last: int) -> None:
         """Close the window once the device has finished its steps, as
-        nero_tpu blocks on the loss, and write the Chrome trace."""
+        nero_tpu blocks on the loss, and write the Chrome trace and, beside
+        it, the span table of the same events (core/trace.py::profile_table)."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         prof.stop()
         Path(self.cfg["profile_dir"]).mkdir(exist_ok=True, parents=True)
-        path = os.path.join(self.cfg["profile_dir"],
-                            f"{self.model_name}_steps{first}-{last}.trace.json")
-        prof.export_chrome_trace(path)
-        print(f"profiler trace of steps {first}-{last}: {path}")
+        stem = os.path.join(self.cfg["profile_dir"], f"{self.model_name}_steps{first}-{last}")
+        prof.export_chrome_trace(stem + ".trace.json")
+        with open(stem + ".spans.json", "w") as f:
+            json.dump(trace.profile_table(prof.events()), f, indent=1)
+        print(f"profiler trace of steps {first}-{last}: {stem}.trace.json, spans by layer: "
+              f"{stem}.spans.json")
 
     def _validate(self, logger, params, step: int, best_para: float) -> float:
         """Every validation set at `step`; the last one selects the best
@@ -216,12 +225,16 @@ class Trainer:
         prof = None
         prof_start = self.cfg["profile_start"]
         prof_last = min(prof_start + self.cfg["profile_steps"], total) - 1
+        # the occlusion phase's steps compute more: counted again at its first
+        scfg = getattr(self.model, "scfg", None)
+        recount = scfg.occ_loss_step if scfg is not None and scfg.apply_occ_loss else None
         for step in range(start_step, total):
             if self.cfg["profile_dir"] and self.is_main and step == prof_start <= prof_last:
                 prof = self._start_profile()
-            if step == start_step:
-                # the step's FLOPs, counted once; the counted step stays out
-                # of the meter's window
+            if step == start_step or step == recount:
+                # the step's FLOPs, counted at the first step of each phase the
+                # run takes; a counted step stays out of the meter's window
+                meter.reset()
                 log, self.flops = count_flops(self.train_step, step)
                 meter.sync(step + 1, rays_per_step)
             else:

@@ -30,6 +30,7 @@ from nero_tpu_torch.fields.mc_shading import MCShadingConfig
 from nero_tpu_torch.models.shape import NeROShapeModel
 from nero_tpu_torch.ops import (field_fwd as F, lights as L, march as M, predictor as P,
                                 sdf_fwd as S, sdf_grad as G, shader as Sh, sphere_march as SM)
+from nero_tpu_torch.train import trainer as trainer_module
 from nero_tpu_torch.train.trainer import Trainer
 from test_torch_shape_e2e import TINY_CFG
 
@@ -236,3 +237,31 @@ def test_trainer_logs_mfu(tmp_path):
         assert h["mfu"] > 0
     text = (tmp_path / "test_tiny" / "train.txt").read_text()
     assert text.count(" mfu ") == 2
+
+
+def test_trainer_counts_the_occlusion_phase_again(tmp_path, monkeypatch):
+    """A run that starts before occ_loss_step counts the step again at it: the
+    logs before and from it carry the FLOPs of their own phase."""
+    cfg = {**TINY_CFG, "val_metric": ["shape_render"], "total_step": 8, "train_log_step": 2,
+           "val_interval": 100, "save_interval": 100, "model_root": str(tmp_path),
+           "vis_dir": str(tmp_path), "lr_cfg": {"end_warm": 1, "lr": 1e-3}}
+    assert cfg["occ_loss_step"] == 5
+    trainer = Trainer(cfg, device="cpu")
+    counted = []
+    real = mfu.count_flops
+
+    def count(fn, step):
+        out = real(fn, step)
+        counted.append((step, out[1]["total"]))
+        return out
+
+    monkeypatch.setattr(trainer_module, "count_flops", count)
+    trainer.run()
+    assert [s for s, _ in counted] == [0, 5]
+    early, occ = counted[0][1], counted[1][1]
+    assert occ > early > 0   # the occlusion march's products
+    by_step = {h["step"]: h["mfu"] * h["step_seconds"] * 1e12 for h in trainer.train_history}
+    assert sorted(by_step) == [1, 3, 5, 7]
+    assert by_step[1] == pytest.approx(early) and by_step[3] == pytest.approx(early)
+    assert by_step[5] == pytest.approx(occ) and by_step[7] == pytest.approx(occ)
+

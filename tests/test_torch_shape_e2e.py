@@ -94,8 +94,9 @@ def test_trainer_runs_validates_and_resumes(tmp_path):
 
 def test_trainer_writes_the_profile_trace(tmp_path):
     """`profile_dir` (nero_tpu's key and defaults): a torch.profiler Chrome
-    trace of steps [profile_start, profile_start + profile_steps); a run
-    without the key writes none."""
+    trace of steps [profile_start, profile_start + profile_steps) and the span
+    table of the same events beside it; a run without the key writes
+    neither."""
     cfg = {**TINY_CFG, "val_metric": ["shape_render"], "total_step": 4, "train_log_step": 10,
            "val_interval": 10, "save_interval": 10, "lr_cfg": {"end_warm": 1, "lr": 1e-3}}
     assert Trainer(dict(cfg, model_root=str(tmp_path / "plain")), device="cpu").cfg[
@@ -104,10 +105,16 @@ def test_trainer_writes_the_profile_trace(tmp_path):
     Trainer({**cfg, "model_root": str(tmp_path / "model"), "vis_dir": str(tmp_path / "vis"),
              "profile_dir": str(traced), "profile_start": 1, "profile_steps": 2},
             device="cpu").run()
-    assert [p.name for p in traced.iterdir()] == ["test_tiny_steps1-2.trace.json"]
+    assert sorted(p.name for p in traced.iterdir()) == ["test_tiny_steps1-2.spans.json",
+                                                        "test_tiny_steps1-2.trace.json"]
     with open(traced / "test_tiny_steps1-2.trace.json") as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name", "").startswith("aten::") for e in events)
+    assert any(e.get("name") == "nero.step.forward" for e in events)
+    with open(traced / "test_tiny_steps1-2.spans.json") as f:
+        spans = json.load(f)
+    assert spans["steps"] == 2 and spans["spans"]["nero.step"]["calls"] == 1.0
+    assert spans["spans"]["nero.step.backward"]["aten_ops"] > 0
     Trainer({**cfg, "model_root": str(tmp_path / "plain"), "vis_dir": str(tmp_path / "vis2")},
             device="cpu").run()
     assert not list(tmp_path.glob("plain/**/*.json")) and not list(tmp_path.glob("*.json"))
