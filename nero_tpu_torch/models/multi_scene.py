@@ -19,6 +19,10 @@ images must stack.
 
 With `make_scene_groups` (the ('scene', 'data') layout) a process holds its
 one scene (S = 1) and renders that scene's rows of its ray group.
+
+On the card without a ray group the step's work before the update is
+replayed from a CUDA graph as one scene's is (core/step_graph.py), with
+every scene's generator registered with it.
 """
 from __future__ import annotations
 
@@ -26,8 +30,9 @@ import torch
 
 from nero_tpu_torch.core.convert import tree_leaves
 from nero_tpu_torch.core.device import resolve_device
+from nero_tpu_torch.core.step_graph import StepGraph, ineligible_reason
 from nero_tpu_torch.core.trace import span
-from nero_tpu_torch.models.shape import NeROShapeModel
+from nero_tpu_torch.models.shape import NeROShapeModel, step_key, step_scalars
 from nero_tpu_torch.parallel.mesh import SceneGroups, all_reduce_grads, shard_of
 from nero_tpu_torch.parallel.scenes import scene_slice, stack_trees
 from nero_tpu_torch.render.rays import sample_ray_batch
@@ -82,6 +87,9 @@ class MultiSceneShapeModel:
         for s in self.scenes:
             # each scene model reads its scene of the stacked leaves
             self.models[s].params = self.scene_params(s)
+        self.step_graph = StepGraph(self.device,
+                                    ineligible_reason(self.device, self.group, self.scfg),
+                                    self.generators())
 
     def parameters(self) -> list:
         """The stacked leaves."""
@@ -91,13 +99,17 @@ class MultiSceneShapeModel:
         """Each scene's batch generator, in the order of the stack."""
         return [self.models[s].gen for s in self.scenes]
 
-    def loss_fn(self, params, batch: dict, step: int, gens, shard=None):
+    def loss_fn(self, params, batch: dict, step: int, gens, shard=None,
+                scalars: dict | None = None):
         """(the sum of the scenes' totals, [each scene's total], [each scene's
         log]) of one batch of all scenes' rays, scene-major (`batch` as
-        `sample_ray_batch` gives one scene's, the scenes' concatenated)."""
+        `sample_ray_batch` gives one scene's, the scenes' concatenated).
+        `scalars` as `NeROShapeModel.loss_fn`'s."""
         n = len(self.scenes)
+        scalars = step_scalars(step, self.cfg, self.scfg) if scalars is None else scalars
         out = render(params, self.scfg, self.fg_lut, batch["rays_o"], batch["rays_d"],
                      batch["near"], batch["far"], step, gen=gens, is_train=True,
+                     cos_anneal=(scalars["cos_anneal"], scalars["cos_anneal_rest"]),
                      human_poses=batch.get("human_poses"), shard=shard)
         with span("nero.step.losses"):
             rgb = batch["rgb"].chunk(n, 0)
@@ -106,7 +118,7 @@ class MultiSceneShapeModel:
             for i in range(n):
                 o = {k: c[i] for k, c in parts.items()}
                 o["loss_rgb"] = compute_rgb_loss(o["ray_rgb"], rgb[i], self.cfg["rgb_loss"])
-                log = compute_losses(self.cfg["loss"], o, None, step, self.cfg, shard)
+                log = compute_losses(self.cfg["loss"], o, None, step, self.cfg, shard, scalars)
                 totals.append(total_loss(log, shard))
                 logs.append(log)
             return sum(totals), totals, logs
@@ -114,29 +126,32 @@ class MultiSceneShapeModel:
     def train_step(self, optimizer: torch.optim.Optimizer, step: int) -> dict:
         """One step of every scene held here: {scene: its log}."""
         with span("nero.step"):
-            shard = shard_of(self.group, self.cfg["train_ray_num"])
-            with span("nero.step.sample_rays"):
-                batches = []
-                for s in self.scenes:
-                    m, d = self.models[s], self.models[s].train_data
-                    batches.append(sample_ray_batch(m.gen, d["imgs_u8"], d["K_inv"], d["poses"],
-                                                    self.cfg["train_ray_num"], d["human_poses"],
-                                                    rows=None if shard is None else shard.rows))
-                batch = {k: torch.cat([b[k] for b in batches]) for k in batches[0]}
-            with span("nero.step.forward"):
-                loss, totals, logs = self.loss_fn(self.params, batch, step, self.generators(),
-                                                  shard)
-            with span("nero.step.optimizer"):
-                optimizer.zero_grad(set_to_none=True)
-            with span("nero.step.backward"):
-                loss.backward()
-                if self.group is not None:
-                    all_reduce_grads(self.parameters(), self.group)
-            with span("nero.step.optimizer"):
-                optimizer.step()
-            with span("nero.step.log"):
-                return {s: {**global_means(log, shard), "loss_total": total.detach()}
-                        for s, total, log in zip(self.scenes, totals, logs)}
+            return self.step_graph.step(optimizer, step, self._step_work,
+                                        step_key(step, self.cfg, self.scfg),
+                                        step_scalars(step, self.cfg, self.scfg))
+
+    def _step_work(self, step: int, scalars: dict) -> dict:
+        """The step's work before the update: every scene's batch, one render,
+        back-propagation; returns {scene: its log}."""
+        shard = shard_of(self.group, self.cfg["train_ray_num"])
+        with span("nero.step.sample_rays"):
+            batches = []
+            for s in self.scenes:
+                m, d = self.models[s], self.models[s].train_data
+                batches.append(sample_ray_batch(m.gen, d["imgs_u8"], d["K_inv"], d["poses"],
+                                                self.cfg["train_ray_num"], d["human_poses"],
+                                                rows=None if shard is None else shard.rows))
+            batch = {k: torch.cat([b[k] for b in batches]) for k in batches[0]}
+        with span("nero.step.forward"):
+            loss, totals, logs = self.loss_fn(self.params, batch, step, self.generators(), shard,
+                                              scalars)
+        with span("nero.step.backward"):
+            loss.backward()
+            if self.group is not None:
+                all_reduce_grads(self.parameters(), self.group)
+        with span("nero.step.log"):
+            return {s: {**global_means(log, shard), "loss_total": total.detach()}
+                    for s, total, log in zip(self.scenes, totals, logs)}
 
     @torch.no_grad()
     def scene_params(self, s: int):

@@ -16,6 +16,10 @@ constrain_rays): every rank draws the global batch from its generator, which
 all ranks hold in the same state, renders its rows with global draws and
 global loss reductions, and all-reduces the gradients before the optimizer
 step, so every rank holds the same parameters and the same log.
+
+On the card without a ray group the step's work before the update is
+replayed from a CUDA graph (core/step_graph.py): one graph a `step_key`, the
+per-step numbers (`step_scalars`) read from device scalars.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import torch
 
 from nero_tpu_torch.core.convert import tree_leaves
 from nero_tpu_torch.core.device import resolve_device
+from nero_tpu_torch.core.step_graph import StepGraph, ineligible_reason
 from nero_tpu_torch.core.trace import span
 from nero_tpu_torch.dataset.database import (BaseDatabase, get_database_split,
                                              parse_database_name)
@@ -35,9 +40,10 @@ from nero_tpu_torch.ops.fg_lut import get_fg_lut
 from nero_tpu_torch.parallel.mesh import DataGroup, RayShard, all_reduce_grads, shard_of
 from nero_tpu_torch.render.rays import (human_coordinate_poses, rays_from_pixels,
                                         sample_ray_batch)
-from nero_tpu_torch.render.shape import (ShapeConfig, compute_rgb_loss, init_shape_params,
-                                         render, shape_config_from_dict)
-from nero_tpu_torch.train.losses import compute_losses, global_means, total_loss
+from nero_tpu_torch.render.shape import (ShapeConfig, compute_rgb_loss, cos_anneal_pair,
+                                         init_shape_params, render, shape_config_from_dict)
+from nero_tpu_torch.train.losses import (INIT_SDF_REG_STEP, compute_losses, global_means,
+                                         loss_numbers, total_loss)
 from nero_tpu_torch.utils.image import downsample_gaussian_blur, resize_bilinear
 
 DEFAULT_SHAPE_CFG = {
@@ -75,6 +81,24 @@ def imgs_info_downsample(imgs_info: dict, ratio: float) -> dict:
     return {"imgs": np.stack(out_imgs), "Ks": np.stack(out_Ks), "poses": imgs_info["poses"]}
 
 
+def step_key(step: int, cfg: dict, scfg: ShapeConfig) -> tuple:
+    """What at `step` chooses the training step's program (one CUDA graph
+    each): the occlusion phase (the occlusion loss, and `shade_top_k`
+    engaging), inv_s frozen, the init-SDF regulariser on."""
+    return (step >= scfg.occ_loss_step,
+            scfg.freeze_inv_s_step is not None and step < scfg.freeze_inv_s_step,
+            "init_sdf_reg" in cfg["loss"] and step < INIT_SDF_REG_STEP)
+
+
+def step_scalars(step: int, cfg: dict, scfg: ShapeConfig) -> dict:
+    """The training step's numbers that change from step to step within one
+    `step_key`, as Python numbers: the cosine-anneal ratio and 1 less it
+    (`cos_anneal_pair`), the eikonal weight and the init-SDF anneal
+    (`loss_numbers`). The step hands them to `loss_fn` as 0-d f32 tensors."""
+    r, rest = cos_anneal_pair(scfg, step)
+    return {"cos_anneal": r, "cos_anneal_rest": rest, **loss_numbers(step, cfg)}
+
+
 class NeROShapeModel:
     def __init__(self, cfg: dict, training: bool = True, device=None,
                  group: DataGroup | None = None):
@@ -88,6 +112,8 @@ class NeROShapeModel:
         self.params = init_shape_params(torch.Generator().manual_seed(seed), self.scfg,
                                         device=self.device)
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.step_graph = StepGraph(self.device, ineligible_reason(self.device, group, self.scfg),
+                                    [self.gen])
         self.database = None
         if training:
             self._init_dataset()
@@ -111,42 +137,49 @@ class NeROShapeModel:
 
     # ------------------------------------------------------------ train step
     def loss_fn(self, params, batch: dict, step: int, gen: torch.Generator | None,
-                shard: RayShard | None = None):
+                shard: RayShard | None = None, scalars: dict | None = None):
         """(total loss, log dict) of one rendered batch; with `shard`, of
-        this rank's rows, the total over the global batch."""
+        this rank's rows, the total over the global batch. `scalars`: the
+        step's numbers by `step_scalars`' names (0-d f32 tensors in a
+        training step), else `step_scalars(step, ...)`."""
         cfg = self.cfg
+        scalars = step_scalars(step, cfg, self.scfg) if scalars is None else scalars
         out = render(params, self.scfg, self.fg_lut, batch["rays_o"], batch["rays_d"],
                      batch["near"], batch["far"], step, gen=gen, is_train=True,
+                     cos_anneal=(scalars["cos_anneal"], scalars["cos_anneal_rest"]),
                      human_poses=batch.get("human_poses"), shard=shard)
         with span("nero.step.losses"):
             out["loss_rgb"] = compute_rgb_loss(out["ray_rgb"], batch["rgb"], cfg["rgb_loss"])
-            log = compute_losses(cfg["loss"], out, None, step, cfg, shard)
+            log = compute_losses(cfg["loss"], out, None, step, cfg, shard, scalars)
             return total_loss(log, shard), log
 
     def train_step(self, optimizer: torch.optim.Optimizer, step: int) -> dict:
         """Sample a batch, render, back-propagate, update. Returns the log
         (device tensors; reading them synchronises)."""
         with span("nero.step"):
-            d = self.train_data
-            shard = shard_of(self.group, self.cfg["train_ray_num"])
-            with span("nero.step.sample_rays"):
-                batch = sample_ray_batch(self.gen, d["imgs_u8"], d["K_inv"], d["poses"],
-                                         self.cfg["train_ray_num"], d["human_poses"],
-                                         rows=None if shard is None else shard.rows)
-            with span("nero.step.forward"):
-                loss, log = self.loss_fn(self.params, batch, step, self.gen, shard)
-            with span("nero.step.optimizer"):
-                optimizer.zero_grad(set_to_none=True)
-            with span("nero.step.backward"):
-                loss.backward()
-                if self.group is not None:
-                    all_reduce_grads(self.parameters(), self.group)
-            with span("nero.step.optimizer"):
-                optimizer.step()
-            with span("nero.step.log"):
-                log = global_means(log, shard)
-                log["loss_total"] = loss.detach()
-            return log
+            return self.step_graph.step(optimizer, step, self._step_work,
+                                        step_key(step, self.cfg, self.scfg),
+                                        step_scalars(step, self.cfg, self.scfg))
+
+    def _step_work(self, step: int, scalars: dict) -> dict:
+        """The step's work before the update: sample, render, back-propagate;
+        returns the log."""
+        d = self.train_data
+        shard = shard_of(self.group, self.cfg["train_ray_num"])
+        with span("nero.step.sample_rays"):
+            batch = sample_ray_batch(self.gen, d["imgs_u8"], d["K_inv"], d["poses"],
+                                     self.cfg["train_ray_num"], d["human_poses"],
+                                     rows=None if shard is None else shard.rows)
+        with span("nero.step.forward"):
+            loss, log = self.loss_fn(self.params, batch, step, self.gen, shard, scalars)
+        with span("nero.step.backward"):
+            loss.backward()
+            if self.group is not None:
+                all_reduce_grads(self.parameters(), self.group)
+        with span("nero.step.log"):
+            log = global_means(log, shard)
+            log["loss_total"] = loss.detach()
+        return log
 
     # ------------------------------------------------------------- test step
     @torch.no_grad()

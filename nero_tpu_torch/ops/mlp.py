@@ -152,6 +152,16 @@ def precision_of(state: tuple):
         yield
 
 
+def scaled(t: torch.Tensor, s) -> torch.Tensor:
+    """t * s for s a Python number or a 0-d f32 tensor (a training step's
+    per-step number, core/step_graph.py), with the same bits either way:
+    PyTorch multiplies a bfloat16 or half tensor by a Python number in f32,
+    and by a 0-d tensor of another dtype in t's dtype."""
+    if isinstance(s, torch.Tensor) and s.dtype != t.dtype:
+        return (t.to(s.dtype) * s).to(t.dtype)
+    return t * s
+
+
 def _mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """[m,k] @ [k,n] on bf16 operands with f32 accumulation and an f32
     result. On the CPU the operands are rounded to bf16 and multiplied in

@@ -61,7 +61,7 @@ from nero_tpu_torch.fields.intersection import get_intersection
 from nero_tpu_torch.fields.sdf import SDFConfig, init_sdf, sdf_value
 from nero_tpu_torch.fields.variance import init_variance, inv_s as variance_inv_s
 from nero_tpu_torch.ops.mlp import (current_precision, hidden_dtype, precision_of,
-                                    resolve_weight_norm, storage_dtype)
+                                    resolve_weight_norm, scaled, storage_dtype)
 from nero_tpu_torch.ops.sample_pdf import sample_pdf
 from nero_tpu_torch.ops.sdf_fwd import make_sdf_fwd_fn, make_sdf_fwd_scenes_fn
 from nero_tpu_torch.ops.sdf_fwd import supported as sdf_fwd_supported
@@ -289,7 +289,7 @@ def _sample_z_vals(params, scfg: ShapeConfig, rays_o, rays_d, near, far, gen, pe
         if scfg.clip_sample_variance:
             inv_s_i = torch.clamp(base_inv_s, max=64.0 * 2 ** i)
         else:
-            inv_s_i = torch.tensor(64.0 * 2 ** i, dtype=dt, device=dev)
+            inv_s_i = torch.full((), 64.0 * 2 ** i, dtype=dt, device=dev)
         new_z = _upsample_z(rays_o, rays_d, z_vals, sdf, n_new, row_values(inv_s_i, z_vals))
         z_cat = torch.cat([z_vals, new_z], dim=-1)
         if i + 1 < scfg.up_sample_steps:
@@ -308,10 +308,10 @@ def _sample_z_vals(params, scfg: ShapeConfig, rays_o, rays_d, near, far, gen, pe
 
 
 @traced("nero.render.sdf")
-def compute_sdf_alpha(params, scfg: ShapeConfig, points, dists, dirs, cos_anneal_ratio,
+def compute_sdf_alpha(params, scfg: ShapeConfig, points, dists, dirs, cos_anneal,
                       step: int):
     """NeuS alpha on the inner lattice. points [R,S,3] -> alpha, grads, feats, inv_s, sdf
-    (with scenes, inv_s [S])."""
+    (with scenes, inv_s [S]). `cos_anneal`: (r, 1 - r), as `cos_anneal_pair`."""
     S = n_scenes(params)
     if S is None:
         sdf, feats, grads = sdf_with_grad(params["sdf"], points, scfg.sdf_cfg,
@@ -324,9 +324,10 @@ def compute_sdf_alpha(params, scfg: ShapeConfig, points, dists, dirs, cos_anneal
     inv_s = torch.clamp(variance_inv_s(params["variance"], scfg.std_act), 1e-6, 1e6)
     if scfg.freeze_inv_s_step is not None and step < scfg.freeze_inv_s_step:
         inv_s = inv_s.detach()
+    ratio, rest = cos_anneal
     true_cos = torch.sum(dirs * grads, dim=-1)
-    iter_cos = -(torch.relu(-true_cos * 0.5 + 0.5) * (1.0 - cos_anneal_ratio)
-                 + torch.relu(-true_cos) * cos_anneal_ratio)
+    iter_cos = -(scaled(torch.relu(-true_cos * 0.5 + 0.5), rest)
+                 + scaled(torch.relu(-true_cos), ratio))
     est_next = sdf + iter_cos * dists * 0.5
     est_prev = sdf - iter_cos * dists * 0.5
     prev_cdf = torch.sigmoid(est_prev * per_row(inv_s, est_prev))
@@ -350,9 +351,29 @@ def compute_density_alpha(params, points, dists, dirs):
     return alpha, color
 
 
+class _CumprodOfNonzero(torch.autograd.Function):
+    """torch.cumprod along the last axis of a tensor that holds no zero. The
+    backward is PyTorch's for that case, to the bit (the reversed cumulative
+    sum of output x gradient, over the input), without PyTorch's test for a
+    zero, which reads a flag back to the host and so cannot be captured in a
+    CUDA graph (core/step_graph.py)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        return (out * grad).flip(-1).cumsum(-1).flip(-1).div(x)
+
+
 def _composite(alpha):
-    trans = torch.cumprod(torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-7],
-                                    dim=-1), dim=-1)[..., :-1]
+    # alpha <= 1, so each factor is at least 1e-7
+    trans = _CumprodOfNonzero.apply(torch.cat([torch.ones_like(alpha[..., :1]),
+                                               1.0 - alpha + 1e-7], dim=-1))[..., :-1]
     return alpha * trans
 
 
@@ -396,22 +417,23 @@ def top_k_lowest_index_first(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def render_core(params, scfg: ShapeConfig, fg_lut, rays_o, rays_d, z_full, cos_anneal_ratio,
+def render_core(params, scfg: ShapeConfig, fg_lut, rays_o, rays_d, z_full, cos_anneal,
                 step: int, is_train: bool, gen: torch.Generator | None = None,
                 human_poses: torch.Tensor | None = None,
                 shard: RayShard | None = None) -> dict:
     """z_full [R, n_total] (inner z then background z). `params` resolved.
     human_poses [R, 3, 4] per ray when the shader has the human light.
-    The precision switches resolve here, on the rays' device (a model's
-    config is resolved already); hidden activations in the storage dtype
+    `cos_anneal`: (r, 1 - r), as `cos_anneal_pair`. The precision switches
+    resolve here, on the rays' device (a model's config is resolved
+    already); hidden activations in the storage dtype
     (nero_tpu/render/shape.py:421)."""
     scfg = scfg.resolved(rays_o.device)
     with hidden_dtype(scfg.hidden_act_dtype(rays_o.device)):
-        return _render_core(params, scfg, fg_lut, rays_o, rays_d, z_full, cos_anneal_ratio,
+        return _render_core(params, scfg, fg_lut, rays_o, rays_d, z_full, cos_anneal,
                             step, is_train, gen, human_poses, shard)
 
 
-def _render_core(params, scfg: ShapeConfig, fg_lut, rays_o, rays_d, z_full, cos_anneal_ratio,
+def _render_core(params, scfg: ShapeConfig, fg_lut, rays_o, rays_d, z_full, cos_anneal,
                  step: int, is_train: bool, gen, human_poses, shard) -> dict:
     r, s_total = z_full.shape
     s_inner = scfg.n_inner
@@ -438,7 +460,7 @@ def _render_core(params, scfg: ShapeConfig, fg_lut, rays_o, rays_d, z_full, cos_
     dists_in = dists[:, :s_inner]
     dirs_in = dirs[:, :s_inner]
     alpha_sdf, grads, feats, inv_s, sdf = compute_sdf_alpha(
-        params, scfg, pts_in, dists_in, dirs_in, cos_anneal_ratio, step)
+        params, scfg, pts_in, dists_in, dirs_in, cos_anneal, step)
     hp_in = None if human_poses is None else human_poses[:, None].expand(r, s_inner, 3, 4)
     inner_in = inner_mask[:, :s_inner]
     alpha = torch.cat([torch.where(inner_in, alpha_sdf, alpha_bg[:, :s_inner]),
@@ -533,22 +555,33 @@ def compute_validation_info(params, scfg: ShapeConfig, fg_lut, z_vals, rays_o, r
     return outputs
 
 
+def cos_anneal_pair(scfg: ShapeConfig, step: int) -> tuple:
+    """(r, 1 - r): NeuS's cosine-anneal ratio at `step`, r = min(1, step /
+    anneal_end) (1 without an anneal), and 1 less it. A training step hands
+    both on as 0-d f32 tensors (models/shape.py::step_scalars): each is
+    rounded from its Python number, as a product with the number rounds
+    it, so 1 - r is not computed from the rounded r."""
+    r = 1.0 if scfg.anneal_end < 0 else min(1.0, step / scfg.anneal_end)
+    return r, 1.0 - r
+
+
 def render(params, scfg: ShapeConfig, fg_lut, rays_o, rays_d, near, far, step: int,
            gen: torch.Generator | None = None, is_train: bool = True,
-           perturb_overwrite: float = -1.0, cos_anneal_ratio=None,
+           perturb_overwrite: float = -1.0, cos_anneal: tuple | None = None,
            human_poses: torch.Tensor | None = None, shard: RayShard | None = None) -> dict:
     """Full Stage-I render of a ray batch. Weight norm is resolved once here
     and autograd chains back to {v, g} through it. human_poses [R, 3, 4]
     per ray when the shader has the human light. With `shard` the rays are
-    this rank's rows of the global batch."""
+    this rank's rows of the global batch. `cos_anneal`: (r, 1 - r), by
+    default `cos_anneal_pair(scfg, step)`."""
     params = resolve_weight_norm(params)
     perturb = scfg.perturb if perturb_overwrite < 0 else perturb_overwrite
-    if cos_anneal_ratio is None:
-        cos_anneal_ratio = 1.0 if scfg.anneal_end < 0 else min(1.0, step / scfg.anneal_end)
+    if cos_anneal is None:
+        cos_anneal = cos_anneal_pair(scfg, step)
     z_inner, z_out = sample_z_vals(params, scfg, rays_o, rays_d, near, far,
                                    gen=gen if perturb > 0 else None, perturb=perturb, shard=shard)
     z_full = torch.cat([z_inner, z_out], dim=-1)
-    return render_core(params, scfg, fg_lut, rays_o, rays_d, z_full, cos_anneal_ratio, step,
+    return render_core(params, scfg, fg_lut, rays_o, rays_d, z_full, cos_anneal, step,
                        is_train, gen=gen, human_poses=human_poses, shard=shard)
 
 

@@ -14,7 +14,10 @@ With `profile_dir` set it writes a torch.profiler Chrome trace of steps
 [profile_start, profile_start + profile_steps) there, as nero_tpu writes its
 JAX trace, and beside it `<name>_steps<a>-<b>.spans.json`: the host time,
 aten operators and device idle time of each span of the step
-(core/trace.py), read from the same events.
+(core/trace.py), read from the same events, and the model's step-graph
+counts (core/step_graph.py: captures, replays, eager steps by reason). Each
+`train_log_step` logs `graph_replayed_share`, the share of the steps so far
+replayed from a CUDA graph (0 where the step cannot be captured).
 
 MFU (core/mfu.py), as nero_tpu logs it: the first step taken is counted
 (`count_flops`: PyTorch's operators forward and backward plus the kernels'
@@ -185,8 +188,12 @@ class Trainer:
         Path(self.cfg["profile_dir"]).mkdir(exist_ok=True, parents=True)
         stem = os.path.join(self.cfg["profile_dir"], f"{self.model_name}_steps{first}-{last}")
         prof.export_chrome_trace(stem + ".trace.json")
+        table = trace.profile_table(prof.events())
+        graph = getattr(self.model, "step_graph", None)
+        if graph is not None:
+            table["step_graph"] = {**graph.counts, "replayed_share": graph.replayed_share()}
         with open(stem + ".spans.json", "w") as f:
-            json.dump(trace.profile_table(prof.events()), f, indent=1)
+            json.dump(table, f, indent=1)
         print(f"profiler trace of steps {first}-{last}: {stem}.trace.json, spans by layer: "
               f"{stem}.spans.json")
 
@@ -250,6 +257,9 @@ class Trainer:
                 host_log["rays_per_sec"] = meter.rays_per_sec
                 host_log["step_seconds"] = meter.step_seconds
                 host_log["mfu"] = mfu(self.flops["total"], meter.step_seconds, self.device)
+                graph = getattr(self.model, "step_graph", None)
+                if graph is not None:
+                    host_log["graph_replayed_share"] = graph.replayed_share()
                 if self.is_main:
                     logger.log(host_log, "train", step + 1)
                 self.train_history.append({"step": step, **host_log})

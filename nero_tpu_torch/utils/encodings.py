@@ -120,11 +120,18 @@ def expected_sin(mean: torch.Tensor, var: torch.Tensor) -> torch.Tensor:
     return torch.exp(-0.5 * var) * torch.sin(mean)
 
 
+@lru_cache(maxsize=None)
+def _ipe_scales(min_deg: int, max_deg: int, device: torch.device, dtype: torch.dtype):
+    """2^min_deg ... 2^(max_deg-1) on `device`: made once, so that no call
+    copies from the host (a copy that a CUDA graph's capture refuses)."""
+    return torch.tensor([2.0 ** i for i in range(min_deg, max_deg)], dtype=dtype,
+                        device=device)
+
+
 def integrated_pos_encode(mean: torch.Tensor, var: torch.Tensor, min_deg: int,
                           max_deg: int) -> torch.Tensor:
     """mip-NeRF IPE over a diagonal Gaussian; output dim = 2*d*(max_deg-min_deg)."""
-    scales = torch.tensor([2.0 ** i for i in range(min_deg, max_deg)], dtype=mean.dtype,
-                          device=mean.device)
+    scales = _ipe_scales(min_deg, max_deg, mean.device, mean.dtype)
     shape = mean.shape[:-1] + (len(scales) * mean.shape[-1],)  # also with no rows
     scaled_mean = (mean[..., None, :] * scales[:, None]).reshape(shape)
     scaled_var = (var[..., None, :] * scales[:, None] ** 2).reshape(shape)

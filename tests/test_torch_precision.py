@@ -354,7 +354,7 @@ def test_render_core_bf16_hidden_matches():
         _close_scaled(zi_t.numpy(), np.asarray(zi), 1e-2, "inner z")
         # the core on the same z values
         out_t = T.render_core(pt, scfg_t, _t(get_fg_lut()), _t(o), _t(d),
-                              _t(np.concatenate([zi, zo], -1)), 0.5, 2, is_train=is_train,
+                              _t(np.concatenate([zi, zo], -1)), (0.5, 0.5), 2, is_train=is_train,
                               gen=torch.Generator().manual_seed(0))
     assert set(out_t) == set(out_j)
     for k in out_j:

@@ -89,7 +89,7 @@ def test_render_core(setup):
     with torch.no_grad():
         out_t = T.render_core(resolve_weight_norm(from_numpy_tree(params_j)), scfg_t,
                               _t(get_fg_lut()), _t(rays["rays_o"]), _t(rays["rays_d"]),
-                              _t(z_full), 0.5, 2, is_train=True)
+                              _t(z_full), (0.5, 0.5), 2, is_train=True)
     assert set(out_t) == set(out_j)
     for k in out_j:
         np.testing.assert_allclose(out_t[k].numpy(), np.asarray(out_j[k]), atol=1e-5,

@@ -87,7 +87,7 @@ def _render_core_both(setup, over: dict, step: int, is_train: bool = True, param
     with torch.no_grad():
         out_t = T.render_core(resolve_weight_norm(from_numpy_tree(params_j)), scfg_t,
                               _t(get_fg_lut()), _t(rays["rays_o"]), _t(rays["rays_d"]),
-                              _t(z_full), 0.5, step, is_train=is_train,
+                              _t(z_full), (0.5, 0.5), step, is_train=is_train,
                               gen=torch.Generator().manual_seed(0),
                               human_poses=None if human_poses is None else _t(human_poses))
     return out_j, out_t

@@ -221,9 +221,11 @@ def test_port_kernels_by_family():
 def test_kernel_launches_lie_in_their_spans_on_the_card(tmp_path):
     """A trainer's profiled steps in the occlusion phase on the card: each
     port kernel's launch (its runtime call, by correlation) inside a
-    `nero.kernel.<family>.*` span of the launching thread, and the
-    `.spans.json` attributing the window's device idle time (from the
-    Chrome trace's own kernels and copies) to spans within 1%."""
+    `nero.kernel.<family>.*` span of the launching thread, or, for a step
+    replayed from its CUDA graph (core/step_graph.py), the graph's launch
+    inside `nero.step.graph`; and the `.spans.json` attributing the window's
+    device idle time (from the Chrome trace's own kernels and copies) to
+    spans within 1%."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the port's kernels have no CPU mode")
     from nero_tpu_torch.core.config import load_cfg
@@ -249,7 +251,9 @@ def test_kernel_launches_lie_in_their_spans_on_the_card(tmp_path):
         if port is None:
             continue
         call = runtime[k["args"]["correlation"]]
-        assert any(s["name"].startswith(f"nero.kernel.{port[0]}.")
+        within = (f"nero.kernel.{port[0]}." if not call["name"].startswith("cudaGraphLaunch")
+                  else "nero.step.graph")
+        assert any(s["name"].startswith(within)
                    and (s["pid"], s["tid"]) == (call["pid"], call["tid"])
                    and s["ts"] <= call["ts"] and call["ts"] + call["dur"] <= s["ts"] + s["dur"]
                    for s in spans), (k["name"], call)
@@ -265,4 +269,11 @@ def test_kernel_launches_lie_in_their_spans_on_the_card(tmp_path):
     assert n == 3 and table["spans"]["nero.step"]["calls"] == 1.0
     assert attributed * n == pytest.approx(idle / 1e3, rel=0.01), (
         table["window_ms"] * n, table["busy_ms"] * n, (hi - lo) / 1e3, (hi - lo - idle) / 1e3)
-    assert table["spans"]["nero.kernel.sdf_grad.bwd"]["calls"] == 1.0
+    # steps 0-2 and 3-8 are two keys: steps 0 and 3 warm up, 1 and 4 capture
+    # and replay, every other step replays, so each profiled step (5-7)
+    # replays once and runs B1's backward from the graph, never its wrapper
+    rows = table["spans"]
+    assert rows["nero.step.graph"]["calls"] == 1.0
+    assert "nero.kernel.sdf_grad.bwd" not in rows, rows["nero.kernel.sdf_grad.bwd"]
+    assert table["step_graph"] == {"captures": 2, "replays": 6, "eager": {"warmup": 2},
+                                   "replayed_share": 0.75}
